@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged ``/generate`` path on one NVIDIA card.
+"""Drive the PyTorch port's serving paths on one NVIDIA card: the paged
+``/generate`` path of the TransformerLM and the ``/predict`` path of the
+char-RNN MultiLayerNetwork.
 
 Run from the repository root, with no arguments:
 
@@ -9,16 +11,21 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds both kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the three kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per source, started together) and prints each
    function's ptxas register and spill line;
 3. holds each kernel against its plain PyTorch version on the card at the
-   slice's shapes — flash prefill (K4): causal bf16, N=1, H=32, hd=64,
+   paths' shapes — flash prefill (K4): causal bf16, N=1, H=32, hd=64,
    T in {192, 512, 1024}, max abs error <= 2e-2 on O and <= 1e-3 on lse;
    paged decode (K6): 64 lanes, bt=16, m=64, H=32, hd=64, bf16 arena,
    positions inside block 0, across blocks and at the full window, max abs
    error <= 1e-3, and a trash block poisoned with 1e6 in K and -1e6 in V
-   moves no active lane's output by a single bit;
+   moves no active lane's output by a single bit; LSTM scan (K1), f32,
+   with and without the cell sequence, at (N, T, H) = (64, 100, 200) (the
+   char-RNN at full width with a full batch), the three shape classes of
+   ``benchmarks/pallas_lstm_bench.py`` (32, 128, 128), (64, 256, 256),
+   (128, 512, 512), and (1, 8, 200): max abs error <= 1e-4 on hs, h_T,
+   c_T and cs;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -28,17 +35,32 @@ What it does, in order (any failure raises and exits non-zero):
    every answer, stream == non-stream, solo == co-scheduled, and that both
    kernels' launch counters rose from 0 during the burst and checks while
    both plain versions' counters stayed at 0;
-5. times each kernel, its plain version and (K4) PyTorch's
-   ``scaled_dot_product_attention`` with CUDA events beside the bound
-   (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s, H100 SXM data
-   sheet), and the main path: prefill ms per width, decode-tick ms at 64
-   lanes, generated tokens/s, peak device memory;
-6. prints one ``{"kernels": [...]}`` line, the card line again, and last
+5. serves the full-width char-RNN (``char_rnn_conf(80, lstm_size=200,
+   num_layers=2)``, the shape ``bench.py:206`` benchmarks; random weights
+   from ``--seed`` through the port's own init) through ``ServingEngine``:
+   warms the bucket ladder, sends 64 HTTP ``POST /predict`` requests of
+   1-4 one-hot rows of T=100 from 8 client threads, checks every answer
+   (HTTP 200, finite probabilities that sum to 1, within 1e-5 of
+   ``net.output`` on the same rows alone), that K1's launch counter rose
+   during the burst while its plain version's stayed at 0, and samples
+   200 characters with ``CharRnn.sample`` through ``rnn_time_step``;
+6. times each kernel, its plain version and PyTorch's library call where
+   one computes the same function (K4: ``scaled_dot_product_attention``)
+   with CUDA events beside the bound (max of bytes / 3.35 TB/s and flops /
+   peak, H100 SXM data sheet: 989 TFLOP/s dense bf16 for K4 and K6,
+   67 TFLOP/s f32 for K1, which runs strict f32 with TF32 off), and the
+   main paths: prefill ms per width, decode-tick ms at 64 lanes,
+   generated tokens/s, ``output()`` ms at batch 64, ``/predict`` rows/s,
+   peak device memory. For K1 it also prints the sequential floor (T
+   steps, each at the per-step time of a one-row launch on the same grid)
+   and, as a reference line only, cuDNN's ``torch.nn.LSTM`` at the same
+   shape (no peepholes: not the same function);
+7. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Phase 5 also breaks a decode tick and a width-1024 prefill down by kernel
-with ``torch.profiler``. ``--out PATH`` also writes the whole report as
-JSON.
+Phase 6 also breaks a decode tick, a width-1024 prefill and a batch-64
+``output()`` down by kernel with ``torch.profiler``. ``--out PATH`` also
+writes the whole report as JSON.
 """
 
 from __future__ import annotations
@@ -58,16 +80,27 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from deeplearning4j_tpu_torch.models.char_rnn import (  # noqa: E402
+    CharRnn,
+    char_rnn_conf,
+)
 from deeplearning4j_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     TransformerLM,
     prefill_cache,
+)
+from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
+    MultiLayerNetwork,
 )
 from deeplearning4j_tpu_torch.ops import build  # noqa: E402
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
 from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+)
+from deeplearning4j_tpu_torch.ops.lstm_scan import (  # noqa: E402
+    lstm_scan,
+    lstm_scan_plain,
 )
 from deeplearning4j_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention,
@@ -81,14 +114,23 @@ from deeplearning4j_tpu_torch.serving.paged import (  # noqa: E402
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 TOL_FLASH_O = 2e-2           # bf16 in, f32 math, O rounded to bf16
 TOL_FLASH_LSE = 1e-3         # f32 lse from bf16 inputs
 TOL_PAGED = 1e-3             # f32 output from a bf16 arena
+TOL_LSTM = 1e-4              # f32 in and out, sums in another order
+TOL_PREDICT = 1e-5           # batched answer vs the same rows alone
 FLASH_WIDTHS = (192, 512, 1024)
 H, HD, BT, M_TABLE, LANES = 32, 64, 16, 64, 64
 N_REQUESTS, N_CLIENTS = 16, 8  # plus one streamed request
 KERNELS = (flash_attention, flash_attention_plain, paged_attention,
            paged_attention_plain)
+# K1: the char-RNN at full width (N=64 rows, T=100, H=200), then the
+# shape classes of benchmarks/pallas_lstm_bench.py
+LSTM_SHAPES = ((64, 100, 200), (32, 128, 128), (64, 256, 256),
+               (128, 512, 512))
+VOCAB, SEQ, LSTM_H = 80, 100, 200  # bench.py:206
+N_PREDICT, MAX_ROWS = 64, 4        # /predict requests, rows per request
 
 
 def check(cond: bool, msg: str) -> None:
@@ -120,9 +162,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -139,7 +181,8 @@ def short_name(mangled: str) -> str:
 
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
-    for res in build.build(["flash_attention", "paged_attention"]):
+    for res in build.build(["flash_attention", "paged_attention",
+                            "lstm_scan"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -215,14 +258,42 @@ def phase_kernels(seed: int, dev):
           "a poisoned trash block moved an active lane's output")
     print("paged_attention: trash block poisoned (K=1e6, V=-1e6): "
           "outputs bit-equal")
+    err_l = 0.0
+    for n, t, h in LSTM_SHAPES + ((1, 8, LSTM_H),):
+        args = lstm_inputs(n, t, h, seed, dev)
+        for emit_cs in (False, True):
+            out = lstm_scan(*args, emit_cs=emit_cs)
+            ref = lstm_scan_plain(*args, emit_cs=emit_cs)
+            torch.cuda.synchronize()
+            errs = [(a - b).abs().max().item() for a, b in zip(out, ref)
+                    if b is not None]
+            names = "hs h_T c_T cs".split()[:len(errs)]
+            print(f"lstm_scan N={n} T={t} H={h} emit_cs={emit_cs}: " + ", ".join(
+                f"max|d{k}| {e:.3e}" for k, e in zip(names, errs))
+                + f" (tol {TOL_LSTM})")
+            check(max(errs) <= TOL_LSTM and (out[3] is None) != emit_cs,
+                  f"lstm_scan disagrees with its plain version at "
+                  f"N={n} T={t} H={h} emit_cs={emit_cs}")
+            err_l = max(err_l, *errs)
     return {"flash_attention": {"max_abs_err": err_o,
                                 "max_abs_err_lse": err_lse},
-            "paged_attention": {"max_abs_err": err_p}}
+            "paged_attention": {"max_abs_err": err_p},
+            "lstm_scan": {"max_abs_err": err_l}}
 
 
-def _post(url: str, payload: dict, timeout: float = 600.0):
+def lstm_inputs(n: int, t: int, h: int, seed: int, dev):
+    """xproj, U, p, h0, c0 in f32 at the scale a trained layer sees:
+    gate pre-activations of order 1."""
+    g = torch.Generator(device=dev).manual_seed(seed + n + t + h)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    return (r(n, t, 4 * h), r(h, 4 * h) / h ** 0.5, 0.1 * r(3, h),
+            0.1 * r(n, h), 0.1 * r(n, h))
+
+
+def _post(url: str, payload: dict, timeout: float = 600.0,
+          path: str = "/generate"):
     req = urllib.request.Request(
-        url + "/generate", data=json.dumps(payload).encode(),
+        url + path, data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, r.read().decode()
@@ -324,6 +395,84 @@ def phase_serve(cfg: TransformerConfig, seed: int, dev):
                                 "tick_wall_ms": tick_ms,
                                 "admissions": adm,
                                 "admit_wall_ms": adm_ms}
+
+
+def phase_predict(seed: int, dev):
+    print("== serving: ServingEngine /predict (char-RNN) ==")
+    conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed)
+    net = MultiLayerNetwork(conf, device=dev).init(input_shape=(1, VOCAB))
+    print(f"char-RNN: vocab {VOCAB}, 2 GravesLSTM x {LSTM_H}, "
+          f"{net.num_params()} parameters")
+    rng = np.random.default_rng(seed + 1)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    reqs = [eye[rng.integers(0, VOCAB, (int(rng.integers(1, MAX_ROWS + 1)),
+                                        SEQ))] for _ in range(N_PREDICT)]
+    eng = ServingEngine(model=net, device=dev).start()
+    try:
+        t0 = time.perf_counter()
+        warm = eng.registry.warmup(max_batch=eng.max_batch,
+                                   sample_row=np.zeros((SEQ, VOCAB),
+                                                       np.float32))
+        print(f"warm-up over buckets {warm['buckets']}: "
+              f"{time.perf_counter() - t0:.3f} s")
+        for fn in (lstm_scan, lstm_scan_plain):  # counts from the burst on
+            fn.launches = 0
+        s0 = eng.stats.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_CLIENTS) as ex:
+            answers = list(ex.map(lambda x: _post(
+                eng.url, {"batch": x.tolist()}, path="/predict"), reqs))
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches
+                  for fn in (lstm_scan, lstm_scan_plain)}
+        s1 = eng.stats.snapshot()
+        rows = sum(x.shape[0] for x in reqs)
+        batches = s1["batches"] - s0["batches"]
+        pad = s1["padded_rows"] - s0["padded_rows"]
+        print(f"{len(answers)} requests, {rows} rows of T={SEQ} in "
+              f"{wall:.3f} s: {rows / wall:.1f} rows/s, {batches} batches "
+              f"({rows / max(batches, 1):.2f} real rows each, {pad} pad "
+              f"rows), latency {s1['latency_ms']}")
+        print(f"launches during the burst: {counts}")
+        check(counts["lstm_scan"] > 0,
+              "K1 was not launched while serving /predict")
+        check(counts["lstm_scan_plain"] == 0,
+              "the plain LSTM scan ran while serving on the card")
+        err = 0.0
+        for x, (status, body) in zip(reqs, answers):
+            check(status == 200, f"HTTP {status}: {body[:200]}")
+            got = np.asarray(json.loads(body)["outputs"], np.float32)
+            check(got.shape == (x.shape[0], SEQ, VOCAB)
+                  and np.isfinite(got).all()
+                  and np.abs(got.sum(-1) - 1).max() < 1e-4,
+                  f"/predict answer of shape {got.shape} is not a row of "
+                  "probabilities per step")
+            alone = net.output(x).cpu().numpy()
+            err = max(err, float(np.abs(got - alone).max()))
+        print(f"every answer HTTP 200, finite, sums to 1; max |answer - "
+              f"output(rows alone)| {err:.3e} (tol {TOL_PREDICT})")
+        check(err <= TOL_PREDICT,
+              "a batched /predict answer disagrees with direct output()")
+        chars = [chr(32 + i) for i in range(VOCAB)]
+        prime = "".join(c for c in "The " if c in chars)
+        t0 = time.perf_counter()
+        text = CharRnn(chars=chars, net=net).sample(
+            prime, length=200, temperature=0.8, seed=seed)
+        sample_s = time.perf_counter() - t0
+        check(len(text) == len(prime) + 200 and text.startswith(prime)
+              and set(text) <= set(chars),
+              "CharRnn.sample gave a malformed string")
+        print(f"CharRnn.sample: 200 characters through rnn_time_step in "
+              f"{sample_s:.3f} s ({200 / sample_s:.1f} chars/s)")
+    finally:
+        eng.stop()
+    return net, counts, {"requests": len(answers), "rows": rows,
+                         "wall_s": wall, "rows_per_s": rows / wall,
+                         "batches": batches, "pad_rows": pad,
+                         "latency_ms": s1["latency_ms"],
+                         "max_abs_err_vs_direct": err,
+                         "sample_chars_per_s": 200 / sample_s}
 
 
 def profile_ms(fn, n: int = 5):
@@ -432,6 +581,60 @@ def phase_times(lm: TransformerLM, widths, seed: int, dev):
     return res
 
 
+def lstm_bound(n: int, t: int, h: int, emit_cs: bool = False):
+    """Each input read once, each output written once, f32; 2*N*T*H*4H
+    flops of h @ U at the f32 rate."""
+    nbytes = 4.0 * (n * t * 4 * h + n * t * h + 4 * h * h + 3 * h
+                    + 4 * n * h + (n * t * h if emit_cs else 0))
+    return bound(nbytes, 2.0 * n * t * h * 4 * h, PEAK_F32_FLOPS)
+
+
+def phase_times_predict(net: MultiLayerNetwork, seed: int, dev):
+    print("== times: K1 and the /predict path (CUDA events) ==")
+    res = {"lstm_scan": {}, "main_path": {}}
+    for n, t, h in LSTM_SHAPES:
+        args = lstm_inputs(n, t, h, seed, dev)
+        ms = time_ms(lambda: lstm_scan(*args), iters=10)
+        plain = time_ms(lambda: lstm_scan_plain(*args), iters=2, warmup=1)
+        b_ms, b_by = lstm_bound(n, t, h)
+        # the sequential floor: the per-step time of a one-row launch on
+        # the same grid (slope between T=8 and T=8+t), times T
+        one = [lstm_inputs(1, tt, h, seed, dev) for tt in (8, 8 + t)]
+        short, long_ = (time_ms(lambda a=a: lstm_scan(*a), iters=10)
+                        for a in one)
+        step_us = (long_ - short) / t * 1e3
+        lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev)
+        xin = args[0][..., :h].contiguous()
+        with torch.inference_mode():
+            cudnn = time_ms(lambda: lstm(xin), iters=10)
+        res["lstm_scan"][f"{n}x{t}x{h}"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            step_floor_us=step_us, floor_ms=step_us * t / 1e3,
+            cudnn_lstm_ms=cudnn)
+        print(f"lstm_scan N={n} T={t} H={h}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sequential "
+              f"floor {step_us * t / 1e3:.4f} ms ({step_us:.2f} us/step "
+              f"at N=1); reference only (no peepholes): cuDNN nn.LSTM "
+              f"{cudnn:.4f} ms")
+    rng = np.random.default_rng(seed + 2)
+    x = np.eye(VOCAB, dtype=np.float32)[rng.integers(0, VOCAB, (64, SEQ))]
+    xt = torch.from_numpy(x).to(dev)
+    o_ms = time_ms(lambda: net.output(xt), iters=10)
+    res["main_path"]["output_ms_batch64"] = o_ms
+    print(f"char-RNN output(), batch 64, T={SEQ}: {o_ms:.3f} ms")
+    with torch.inference_mode():
+        busy, rows = profile_ms(lambda: net.output(xt))
+    res["main_path"]["output_profile"] = dict(
+        device_busy_ms=busy,
+        kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                 for r in rows[:8]])
+    print(f"output() profile: {busy:.3f} ms of kernels per call "
+          f"({busy / o_ms:.1%} of the {o_ms:.3f} ms call)")
+    for ms_, calls, name in rows[:8]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -460,11 +663,15 @@ def main(argv=None) -> int:
     lm, widths, launches, serve = phase_serve(cfg, args.seed, dev)
     with torch.inference_mode():
         times = phase_times(lm, widths, args.seed, dev)
+    net, k1_launches, predict = phase_predict(args.seed, dev)
+    times.update(phase_times_predict(net, args.seed, dev))
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB; "
           f"whole run {time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
+    n1, t1, h1 = LSTM_SHAPES[0]
+    k1 = times["lstm_scan"][f"{n1}x{t1}x{h1}"]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
@@ -488,10 +695,21 @@ def main(argv=None) -> int:
          "library_ms": None,
          "shape": f"S={LANES} bt={BT} m={M_TABLE} H={H} hd={HD} bf16, "
                   f"mean context {p6['mean_context']:.1f}"},
+        {"name": "lstm_scan", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:230",
+         "launches": k1_launches["lstm_scan"],
+         "max_abs_err": errs["lstm_scan"]["max_abs_err"],
+         "tolerance": TOL_LSTM,
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None,
+         "floor_ms": k1["floor_ms"],
+         "shape": f"N={n1} T={t1} H={h1} f32"},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
-                  "serving": serve, "times": times,
+                  "serving": serve, "predict": predict, "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

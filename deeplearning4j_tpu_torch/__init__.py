@@ -1,17 +1,25 @@
 """PyTorch + CUDA port of ``deeplearning4j_tpu`` for one NVIDIA H100.
 
 The JAX package beside this one is the reference; this package mirrors
-its module paths (``ops/``, ``models/``, ``serving/``, ``utils/``) so a
-reader finds each counterpart by name. It imports ``torch``, numpy and the
-standard library only — never ``jax`` and nothing of
-``deeplearning4j_tpu``.
+its module paths (``ops/``, ``nn/``, ``models/``, ``serving/``,
+``utils/``) so a reader finds each counterpart by name. It imports
+``torch``, numpy and the standard library only — never ``jax`` and nothing
+of ``deeplearning4j_tpu``.
 
-What is ported so far is the paged-KV ``/generate`` serving path of the
-TransformerLM: ``models.transformer.TransformerLM`` ->
-``serving.paged.PagedDecoder`` -> ``serving.engine.ServingEngine``. Its
-two TPU kernels are hand-written CUDA C++ for sm_90a under ``csrc/``:
-flash prefill (``ops/flash_attention.py``) and paged decode attention
-(``ops/paged_attention.py``), built with ``nvcc`` at first use
+Ported so far, two serving paths:
+
+* paged-KV ``/generate`` of the TransformerLM:
+  ``models.transformer.TransformerLM`` -> ``serving.paged.PagedDecoder``
+  -> ``serving.engine.ServingEngine``;
+* ``/predict`` of a MultiLayerNetwork (the char-RNN first):
+  ``nn.conf`` -> ``nn.multilayer.MultiLayerNetwork`` ->
+  ``serving.batcher.DynamicBatcher`` / ``serving.registry.ModelRegistry``
+  -> ``serving.engine.ServingEngine``.
+
+Their three TPU kernels are hand-written CUDA C++ for sm_90a under
+``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode
+attention (``ops/paged_attention.py``) and the fused peephole-LSTM scan
+(``ops/lstm_scan.py``), built with ``nvcc`` at first use
 (``ops/build.py``).
 
 Every entry point runs on ``cuda`` unless the caller passes

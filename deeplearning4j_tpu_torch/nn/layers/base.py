@@ -1,0 +1,48 @@
+"""Layer protocol and the dense parameter init (counterpart:
+``deeplearning4j_tpu/nn/layers/base.py``).
+
+Inference only: a layer is an object built from its resolved conf, with
+``initialize(gen, input_shape) -> (params, state, output_shape)`` and
+``apply(params, state, x, mask=None) -> (y, new_state)`` over plain dicts
+of tensors. Dropout acts only in training, which waits for the training
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.ops.activations import activation
+
+Params = Dict[str, torch.Tensor]
+State = Dict[str, torch.Tensor]
+
+
+class BaseLayerImpl:
+    """Base for the runtime layers. Subclasses set params in
+    ``initialize`` and define ``apply``; stateless layers return their
+    ``state`` ({}) unchanged."""
+
+    def __init__(self, conf):
+        self.conf = conf
+        self.act = activation(conf.activation) if conf.activation else None
+
+    def initialize(self, gen: torch.Generator, input_shape
+                   ) -> Tuple[Params, State, Tuple[int, ...]]:
+        raise NotImplementedError
+
+    def apply(self, params: Params, state: State, x: torch.Tensor, *,
+              mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, State]:
+        raise NotImplementedError
+
+    def _init_dense_params(self, gen: torch.Generator, n_in: int,
+                           n_out: int) -> Params:
+        W = init_weights(gen, (n_in, n_out), self.conf.weight_init,
+                         fan_in=n_in, fan_out=n_out, dist=self.conf.dist)
+        b = torch.full((n_out,), float(self.conf.bias_init or 0.0),
+                       dtype=torch.float32, device=W.device)
+        return {"W": W, "b": b}

@@ -1,0 +1,123 @@
+"""GravesLSTM, inference side (counterpart:
+``deeplearning4j_tpu/nn/layers/recurrent.py`` — ``_init_lstm_params``,
+``_lstm_step``, ``_scan_lstm`` and ``GravesLSTMImpl``).
+
+Gate math (Graves 2013 with peepholes; gates [i, f, o, g] along the 4H
+axis of W, U and b; peepholes p[0], p[1] on c_prev and p[2] on c):
+    i = sigmoid(xW_i + hU_i + p0 * c_prev + b_i)
+    f = sigmoid(xW_f + hU_f + p1 * c_prev + b_f)
+    g = act(xW_g + hU_g + b_g)
+    c = f * c_prev + i * g
+    o = sigmoid(xW_o + hU_o + p2 * c + b_o)
+    h = o * act(c)
+
+The input projection x @ W + b for all timesteps is one matmul outside
+the recurrence. Routing, as in the JAX package (``recurrent.py:97``): a
+tanh layer with no mask and T >= 8 runs the whole recurrence through the
+K1 wrapper (``ops/lstm_scan.py``: the hand-written kernel on the card, its
+plain version on the CPU); everything else runs the per-step loop below,
+the counterpart of ``lax.scan``. The TPU gates of the JAX routing (the
+measured-win table, the VMEM fit, ``DL4J_TPU_PALLAS``) do not carry over:
+on the card every routed shape goes through K1, or raises. The
+bidirectional LSTM and the GRU wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerImpl
+from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.ops.lstm_scan import lstm_scan
+
+KERNEL_MIN_T = 8  # shorter sequences (rnn_time_step streams) loop per step
+
+
+def _init_lstm_params(conf, gen, n_in, n_out):
+    W = init_weights(gen, (n_in, 4 * n_out), conf.weight_init, n_in, n_out,
+                     conf.dist)
+    U = init_weights(gen, (n_out, 4 * n_out), conf.weight_init, n_out,
+                     n_out, conf.dist)
+    p = torch.zeros((3, n_out), dtype=torch.float32, device=W.device)
+    b = torch.zeros((4 * n_out,), dtype=torch.float32, device=W.device)
+    b[n_out:2 * n_out] = conf.forget_gate_bias_init
+    return {"W": W, "U": U, "p": p, "b": b}
+
+
+def _lstm_step(act, params, h_prev, c_prev, xproj_t, mask_t):
+    """One step from the precomputed xproj_t = x_t @ W + b. mask_t: [N, 1]
+    bool or None; masked rows keep their h and c."""
+    z = xproj_t + h_prev @ params["U"]
+    zi, zf, zo, zg = z.chunk(4, dim=-1)
+    p = params["p"]
+    i = torch.sigmoid(zi + p[0] * c_prev)
+    f = torch.sigmoid(zf + p[1] * c_prev)
+    g = act(zg)
+    c = f * c_prev + i * g
+    o = torch.sigmoid(zo + p[2] * c)
+    h = o * act(c)
+    if mask_t is not None:
+        h = torch.where(mask_t, h, h_prev)
+        c = torch.where(mask_t, c, c_prev)
+    return h, c
+
+
+def _scan_lstm(act, params, x, h0, c0, mask, is_tanh=False):
+    """x [N, T, F] -> (outputs [N, T, H], h_T, c_T)."""
+    n, t, _ = x.shape
+    n_out = h0.shape[-1]
+    xproj = (x.reshape(n * t, -1) @ params["W"] + params["b"]).reshape(
+        n, t, 4 * n_out)
+    if is_tanh and mask is None and t >= KERNEL_MIN_T:
+        hs, h_f, c_f, _ = lstm_scan(xproj, params["U"], params["p"], h0, c0)
+        # the kernel computes in f32; keep the caller's dtype
+        return hs.to(x.dtype), h_f.to(x.dtype), c_f.to(x.dtype)
+    keep = None if mask is None else (mask != 0)[..., None]  # [N, T, 1]
+    h, c = h0, c0
+    hs = []
+    for step in range(t):
+        h, c = _lstm_step(act, params, h, c, xproj[:, step],
+                          None if keep is None else keep[:, step])
+        hs.append(h)
+    return torch.stack(hs, dim=1), h, c
+
+
+class GravesLSTMImpl(BaseLayerImpl):
+    def initialize(self, gen, input_shape):
+        t, f = input_shape
+        n_in = self.conf.n_in or f
+        n_out = self.conf.n_out
+        params = _init_lstm_params(self.conf, gen, n_in, n_out)
+        dev = params["W"].device
+        state = {  # streaming state, sized lazily by rnn_time_step
+            "h": torch.zeros((0, n_out), dtype=torch.float32, device=dev),
+            "c": torch.zeros((0, n_out), dtype=torch.float32, device=dev),
+        }
+        return params, state, (t, n_out)
+
+    def apply(self, params, state, x, *, mask=None):
+        n = x.shape[0]
+        zeros = torch.zeros((n, self.conf.n_out), dtype=x.dtype,
+                            device=x.device)
+        ys, h_f, c_f = _scan_lstm(
+            self.act, params, x, zeros, zeros, mask,
+            is_tanh=(self.conf.activation or "tanh") == "tanh")
+        if mask is not None:
+            ys = ys * mask.to(ys.dtype)[..., None]
+        return ys, {"h": h_f, "c": c_f}
+
+    def step(self, params, state, x_t):
+        """One timestep of stateful inference (rnn_time_step). x_t: [N, F]."""
+        n = x_t.shape[0]
+        n_out = self.conf.n_out
+
+        def carried(v):
+            if v.shape[0] == n:
+                return v
+            return torch.zeros((n, n_out), dtype=x_t.dtype,
+                               device=x_t.device)
+
+        xproj = x_t @ params["W"] + params["b"]
+        h, c = _lstm_step(self.act, params, carried(state["h"]),
+                          carried(state["c"]), xproj, None)
+        return h, {"h": h, "c": c}

@@ -1,7 +1,8 @@
-"""Env knobs the port reads — its own copy of the serving entries of the
-JAX package's table (``deeplearning4j_tpu/ops/env.py``), same names and
-same defaults. Only the knobs the paged ``/generate`` path reads are
-here; the rest of the table waits for the slices that read them.
+"""Env knobs the port reads — its own copy of the entries of the JAX
+package's table (``deeplearning4j_tpu/ops/env.py``) that the ported paths
+read, same names, kinds and defaults: the paged ``/generate`` path, the
+``/predict`` batcher and inference bucketing. The rest of the table waits
+for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
@@ -22,7 +23,7 @@ class KnobError(KeyError):
 class Knob:
     name: str
     default: str  # raw default, as the env string
-    kind: str     # int | float
+    kind: str     # int | float | bool | enum
     doc: str
 
 
@@ -33,10 +34,20 @@ def _register(name: str, default: str, kind: str, doc: str) -> None:
     KNOBS[name] = Knob(name, default, kind, doc)
 
 
+_register("DL4J_TPU_BUCKET_BATCHES", "", "enum",
+          "shape bucketing for ragged batches: '' auto (output pads to a "
+          "bucket), 1 always, 0 off")
+_register("DL4J_TPU_SERVE_MAX_BATCH", "64", "int",
+          "dynamic-batcher max rows per dispatched batch")
+_register("DL4J_TPU_SERVE_MAX_WAIT_MS", "10", "float",
+          "dynamic-batcher admission window (ms)")
+_register("DL4J_TPU_SERVE_BATCH", "", "bool",
+          "0 = naive locked per-request /predict instead of dynamic "
+          "batching")
 _register("DL4J_TPU_SERVE_QUEUE_CAP", "512", "int",
-          "request queue cap; past it /generate answers 429")
+          "request queue cap; past it /generate and /predict answer 429")
 _register("DL4J_TPU_SERVE_TIMEOUT_S", "60", "float",
-          "per-request deadline; past it /generate answers 504")
+          "per-request deadline; past it /generate and /predict answer 504")
 _register("DL4J_TPU_SERVE_SLOTS", "4", "int",
           "lane floor of the paged decode pool")
 _register("DL4J_TPU_SERVE_KV_BLOCK", "16", "int",

@@ -1,2 +1,3 @@
-"""The port's ``/generate`` serving path: ``paged.PagedDecoder`` behind
-``engine.ServingEngine``."""
+"""The port's serving paths: ``/generate`` (``paged.PagedDecoder``) and
+``/predict`` (``batcher.DynamicBatcher`` over ``registry.ModelRegistry``),
+both behind ``engine.ServingEngine``."""

@@ -1,10 +1,14 @@
-"""ServingEngine: the HTTP front door over the paged decoder (counterpart:
-``deeplearning4j_tpu/serving/engine.py``).
+"""ServingEngine: the HTTP front door over the paged decoder and the
+``/predict`` batcher (counterpart: ``deeplearning4j_tpu/serving/engine.py``).
 
-Routes (stdlib HTTP, JSON — the ``/generate`` contract of the JAX engine,
-``engine.py:1067-1102``):
+It takes ``model=`` (a TransformerLM or a MultiLayerNetwork) or
+``model_path=`` (a checkpoint zip the JAX package wrote, restored by its
+model class) like the JAX engine (``engine.py:224-232``).
 
-  POST /generate  {"tokens": [[ids]] | [ids], "n_new": K, "temperature"?,
+Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
+
+  POST /generate  (a TransformerLM; ``engine.py:1067-1102``)
+                  {"tokens": [[ids]] | [ids], "n_new": K, "temperature"?,
                   "seed"?, "slo"?} -> {"tokens": [[ids]]}. With
                   "stream": true (one prompt) the response is chunked
                   application/x-ndjson: one {"token": t} line per token as
@@ -14,22 +18,34 @@ Routes (stdlib HTTP, JSON — the ``/generate`` contract of the JAX engine,
                   429 when the decode queue is full, 503 when the decode
                   worker is dead or the engine is draining, 504 past the
                   request's deadline, 400 for a malformed request.
+  POST /predict   (a MultiLayerNetwork; ``engine.py:995-1020``)
+                  {"record": [...]} -> {"output": [...]},
+                  {"batch": [[...], ...]} -> {"outputs": [[...], ...]},
+                  optional "model", "version", "timeout_s". Rows go
+                  through the dynamic batcher, or one locked ``output``
+                  call per request under ``DL4J_TPU_SERVE_BATCH=0``.
+                  "record_base64" answers 400: not ported yet. 429 when
+                  the batcher queue is full, 504 past the deadline, 503
+                  when draining, 400 for malformed rows.
   GET  /health    {"ok", "draining", "model", "device"}; 503 when the
                   engine cannot take traffic.
-  GET  /metrics   {"serving": <ServingStats>, "decode": <pool shape and
-                  ticks>, "kernels": <launch counts of each kernel and of
-                  its plain version>}
+  GET  /metrics   {"serving": <ServingStats incl. batch fill>, "models":
+                  <registry listing>, "decode": <pool shape and ticks>
+                  (a TransformerLM engine), "kernels": <launch counts of
+                  each kernel of the served paths and of its plain
+                  version>}
 
 Constructor arguments take precedence; unset ones read the JAX engine's
 env knobs through the port's copy of the table (``ops/env.py``):
 ``DL4J_TPU_SERVE_QUEUE_CAP``, ``DL4J_TPU_SERVE_TIMEOUT_S``,
-``DL4J_TPU_SERVE_SLOTS``, ``DL4J_TPU_SERVE_KV_BLOCK``,
-``DL4J_TPU_SERVE_KV_BLOCKS``.
+``DL4J_TPU_SERVE_MAX_BATCH``, ``DL4J_TPU_SERVE_MAX_WAIT_MS``,
+``DL4J_TPU_SERVE_BATCH``, ``DL4J_TPU_SERVE_SLOTS``,
+``DL4J_TPU_SERVE_KV_BLOCK``, ``DL4J_TPU_SERVE_KV_BLOCKS``.
 
-Not ported yet: /predict, /embed, /search, the /models lifecycle and
-registry, shadow traffic, /prefill and /prime, the serving mesh, the
-circuit breaker, the fixed-slot pool (``DL4J_TPU_SERVE_KV_BLOCK=0``),
-top-k / top-p sampling and Prometheus exposition.
+Not ported yet: /embed, /search, the POST /models lifecycle, shadow
+traffic, /prefill and /prime, the serving mesh, the circuit breaker and
+the watchdog, the fixed-slot pool (``DL4J_TPU_SERVE_KV_BLOCK=0``),
+record_base64, top-k / top-p sampling and Prometheus exposition.
 """
 
 from __future__ import annotations
@@ -44,21 +60,25 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
 )
+from deeplearning4j_tpu_torch.ops.lstm_scan import lstm_scan, lstm_scan_plain
 from deeplearning4j_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_plain,
 )
 from deeplearning4j_tpu_torch.serving.batcher import (
+    DynamicBatcher,
     QueueFullError,
     RequestTimeoutError,
 )
 from deeplearning4j_tpu_torch.serving.paged import PagedDecoder
+from deeplearning4j_tpu_torch.serving.registry import ModelRegistry, restore
 from deeplearning4j_tpu_torch.serving.resilience import (
     ClientRequestError,
     DrainingError,
@@ -67,22 +87,29 @@ from deeplearning4j_tpu_torch.serving.resilience import (
 from deeplearning4j_tpu_torch.serving.slo import SLOClass, parse_slo_classes
 from deeplearning4j_tpu_torch.serving.telemetry import ServingStats
 
+# the kernels of each served path: (wrapper, plain version)
+GENERATE_KERNELS = {"flash_attention": (flash_attention,
+                                        flash_attention_plain),
+                    "paged_attention": (paged_attention,
+                                        paged_attention_plain)}
+PREDICT_KERNELS = {"lstm_scan": (lstm_scan, lstm_scan_plain)}
 
-def kernel_counts() -> Dict[str, Dict[str, int]]:
+
+def kernel_counts(kernels) -> Dict[str, Dict[str, int]]:
     """Launch counts of each kernel wrapper and of its plain version."""
-    return {
-        "flash_attention": {"launches": flash_attention.launches,
-                            "plain_launches": flash_attention_plain.launches},
-        "paged_attention": {"launches": paged_attention.launches,
-                            "plain_launches": paged_attention_plain.launches},
-    }
+    return {name: {"launches": fn.launches, "plain_launches": plain.launches}
+            for name, (fn, plain) in kernels.items()}
 
 
 class ServingEngine:
-    """``/generate`` over one TransformerLM on ``device`` (the card unless
-    the caller passes ``device="cpu"``; it must be the model's)."""
+    """``/generate`` over a TransformerLM, or ``/predict`` over the
+    registry's MultiLayerNetworks, on ``device`` (the card unless the
+    caller passes ``device="cpu"``; it must be the model's)."""
 
-    def __init__(self, model: TransformerLM, *, port: int = 0,
+    def __init__(self, model=None, *, model_path: Optional[str] = None,
+                 port: int = 0, input_shape=None,
+                 max_batch: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
                  queue_capacity: Optional[int] = None,
                  request_timeout_s: Optional[float] = None,
                  slots: Optional[int] = None,
@@ -91,9 +118,14 @@ class ServingEngine:
                  slo_classes: Union[str, List[SLOClass], None] = None,
                  device=None) -> None:
         self.device = resolve_device(device)
-        if not isinstance(model, TransformerLM):
-            raise TypeError("the port's engine serves a TransformerLM; "
-                            f"got {type(model).__name__}")
+        if model is None and model_path is not None:
+            model = restore(model_path, device=self.device)
+        if not isinstance(model, (TransformerLM, MultiLayerNetwork)):
+            raise TypeError("the port's engine serves a TransformerLM or a "
+                            f"MultiLayerNetwork; got {type(model).__name__}")
+        if model.device != self.device:
+            raise ValueError(f"the model lives on {model.device}, the "
+                             f"engine on {self.device}")
         self.model = model
         self.queue_capacity = int(
             queue_capacity if queue_capacity is not None
@@ -101,25 +133,45 @@ class ServingEngine:
         self.request_timeout_s = float(
             request_timeout_s if request_timeout_s is not None
             else envknob.get_float("DL4J_TPU_SERVE_TIMEOUT_S"))
-        self.slots = int(slots if slots is not None
-                         else envknob.get_int("DL4J_TPU_SERVE_SLOTS"))
-        self.kv_block = int(kv_block if kv_block is not None
-                            else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCK"))
-        self.kv_blocks = int(kv_blocks if kv_blocks is not None
-                             else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
-        if self.kv_block <= 0:
-            raise ValueError("kv_block must be > 0: the fixed-slot pool "
-                             "(DL4J_TPU_SERVE_KV_BLOCK=0) is not ported")
-        if isinstance(slo_classes, str):
-            slo_classes = parse_slo_classes(slo_classes)
+        self.max_batch = int(max_batch if max_batch is not None
+                             else envknob.get_int("DL4J_TPU_SERVE_MAX_BATCH"))
+        self.max_wait_ms = float(
+            max_wait_ms if max_wait_ms is not None
+            else envknob.get_float("DL4J_TPU_SERVE_MAX_WAIT_MS"))
+        self.batching_enabled = (
+            envknob.raw("DL4J_TPU_SERVE_BATCH").strip().lower()
+            not in ("0", "off", "false", "no"))
         self.stats = ServingStats()
-        self.decoder = PagedDecoder(
-            model, block_tokens=self.kv_block,
-            n_blocks=self.kv_blocks or None, min_lanes=self.slots,
-            stats=self.stats,
-            default_timeout_s=max(self.request_timeout_s, 300.0),
-            slo_classes=slo_classes or None,
-            queue_cap=self.queue_capacity, device=self.device)
+        self.registry = ModelRegistry(device=self.device)
+        self._batchers: Dict[str, DynamicBatcher] = {}
+        self._lock = threading.Lock()         # the direct /predict path
+        self._engine_lock = threading.Lock()  # batcher creation
+        self.decoder: Optional[PagedDecoder] = None
+        if isinstance(model, TransformerLM):
+            self.slots = int(slots if slots is not None
+                             else envknob.get_int("DL4J_TPU_SERVE_SLOTS"))
+            self.kv_block = int(
+                kv_block if kv_block is not None
+                else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCK"))
+            self.kv_blocks = int(
+                kv_blocks if kv_blocks is not None
+                else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
+            if self.kv_block <= 0:
+                raise ValueError("kv_block must be > 0: the fixed-slot pool "
+                                 "(DL4J_TPU_SERVE_KV_BLOCK=0) is not ported")
+            if isinstance(slo_classes, str):
+                slo_classes = parse_slo_classes(slo_classes)
+            self.decoder = PagedDecoder(
+                model, block_tokens=self.kv_block,
+                n_blocks=self.kv_blocks or None, min_lanes=self.slots,
+                stats=self.stats,
+                default_timeout_s=max(self.request_timeout_s, 300.0),
+                slo_classes=slo_classes or None,
+                queue_cap=self.queue_capacity, device=self.device)
+        else:
+            rec = self.registry.load("default", model=model,
+                                     input_shape=input_shape)
+            self.registry.serve(rec.name, rec.version)
         self._draining = False
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           self._make_handler())
@@ -130,6 +182,10 @@ class ServingEngine:
     def _admit(self, top_k=None, top_p=None) -> None:
         if self._draining:
             raise DrainingError("engine is draining; admission closed")
+        if self.decoder is None:
+            raise ClientRequestError(
+                "POST /generate needs a TransformerLM; this engine serves "
+                f"a {type(self.model).__name__}")
         if top_k is not None or top_p is not None:
             raise ClientRequestError("top_k/top_p sampling is not ported "
                                      "yet; send plain temperature sampling")
@@ -182,21 +238,87 @@ class ServingEngine:
 
         return stream()
 
+    def predict(self, x, timeout_s: Optional[float] = None) -> np.ndarray:
+        """Rows through the default model (dynamic batcher when enabled,
+        the locked direct path otherwise)."""
+        return self.predict_for(None, None, x, timeout_s=timeout_s)
+
+    def predict_for(self, name, version, x,
+                    timeout_s: Optional[float] = None) -> np.ndarray:
+        """[k, ...] rows -> [k, ...] outputs of the (name, version) record
+        (the default record when both are None)."""
+        if self._draining:
+            raise DrainingError("engine is draining; admission closed")
+        rec = self.registry.get(name, version)
+        x = self._check_rows(rec, np.asarray(x, np.float32))
+        if not self.batching_enabled:
+            return self._direct_output(rec, x)
+        return self._batcher_for(rec).predict(x, timeout_s=timeout_s)
+
+    @staticmethod
+    def _check_rows(rec, x: np.ndarray) -> np.ndarray:
+        """Reshape to the record's input_shape, when it has one, and hold
+        the rows to the model's input rank and feature width (a sequence
+        row may have any length): a malformed request is the client's
+        error (400), refused before it can share a batch."""
+        try:
+            if rec.input_shape is not None:
+                x = x.reshape((x.shape[0],) + rec.input_shape)
+        except ValueError as e:
+            raise ClientRequestError(f"bad rows for {rec.key}: {e}") from e
+        want = rec.model._input_shape
+        if want is not None and (x.ndim != len(want) + 1 or x.shape[0] < 1
+                                 or x.shape[-1] != want[-1]):
+            raise ClientRequestError(
+                f"bad rows for {rec.key}: got {list(x.shape)}, each row "
+                f"must have rank {len(want)} and {want[-1]} features")
+        return x
+
+    def _direct_output(self, rec, x: np.ndarray) -> np.ndarray:
+        """The naive per-request path the batcher replaces: one locked
+        ``output`` call per request."""
+        with self._lock:
+            return rec.model.output(x).float().cpu().numpy()
+
+    def _batcher_for(self, rec) -> DynamicBatcher:
+        with self._engine_lock:
+            batcher = self._batchers.get(rec.key)
+            if batcher is None:
+                model = rec.model
+                batcher = DynamicBatcher(
+                    lambda batch: model.output(batch).float().cpu().numpy(),
+                    max_batch=self.max_batch, max_wait_ms=self.max_wait_ms,
+                    queue_capacity=self.queue_capacity,
+                    default_timeout_s=self.request_timeout_s,
+                    stats=self.stats)
+                self._batchers[rec.key] = batcher
+            return batcher
+
     def metrics(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"serving": self.stats.snapshot(),
+                               "models": self.registry.describe()}
+        kernels: Dict[str, Any] = {}
         d = self.decoder
-        return {"serving": self.stats.snapshot(),
-                "decode": {"lanes": d.lanes, "n_blocks": d.n_blocks,
-                           "block_tokens": d.block_tokens,
-                           "decode_ticks": d.decode_ticks,
-                           "tick_seconds": d.tick_seconds,
-                           "admissions": d.admissions,
-                           "admit_seconds": d.admit_seconds,
-                           "peak_active": d.peak_active},
-                "kernels": kernel_counts()}
+        if d is not None:
+            out["decode"] = {"lanes": d.lanes, "n_blocks": d.n_blocks,
+                             "block_tokens": d.block_tokens,
+                             "decode_ticks": d.decode_ticks,
+                             "tick_seconds": d.tick_seconds,
+                             "admissions": d.admissions,
+                             "admit_seconds": d.admit_seconds,
+                             "peak_active": d.peak_active}
+            kernels.update(GENERATE_KERNELS)
+        if self.registry.default() is not None:
+            kernels.update(PREDICT_KERNELS)
+        out["kernels"] = kernel_counts(kernels)
+        return out
 
     def health(self):
-        """(http_code, body): 503 when draining or the decode worker died."""
-        ok = not self._draining and self.decoder._dead is None
+        """(http_code, body): 503 when draining or a worker (the decode
+        loop, a batcher) died."""
+        dead = ((self.decoder is not None and self.decoder._dead is not None)
+                or any(b._dead is not None for b in self._batchers.values()))
+        ok = not self._draining and not dead
         body = {"ok": ok, "draining": self._draining,
                 "model": type(self.model).__name__,
                 "device": str(self.device)}
@@ -237,6 +359,8 @@ class ServingEngine:
                 try:
                     if self.path == "/generate":
                         self._do_generate()
+                    elif self.path == "/predict":
+                        self._do_predict()
                     else:
                         self._send(404, {"error": "not found"})
                 except QueueFullError as e:
@@ -252,6 +376,30 @@ class ServingEngine:
                 except Exception as e:  # noqa: BLE001 — serving boundary
                     engine.stats.record_error()
                     self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+            def _do_predict(self):
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n))
+                if "record_base64" in payload:
+                    raise ClientRequestError(
+                        "record_base64 is not ported yet; send record or "
+                        "batch")
+                if "record" in payload:
+                    x = np.asarray(payload["record"], np.float32)[None]
+                elif "batch" in payload:
+                    x = np.asarray(payload["batch"], np.float32)
+                else:
+                    raise ClientRequestError("need record|batch")
+                timeout = payload.get("timeout_s")
+                out = engine.predict_for(
+                    payload.get("model"), payload.get("version"), x,
+                    # an explicit 0 means no wait, not the default
+                    timeout_s=(float(timeout) if timeout is not None
+                               else None))
+                if "batch" in payload:
+                    self._send(200, {"outputs": out.tolist()})
+                else:
+                    self._send(200, {"output": out[0].tolist()})
 
             def _do_generate(self):
                 n = int(self.headers.get("Content-Length", 0))
@@ -315,15 +463,21 @@ class ServingEngine:
         return self
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:
-        """Close admission (503) and wait for every admitted request."""
+        """Close admission (503) and wait for every admitted request (the
+        decode queue and every batcher's queue and in-flight batch)."""
         self._draining = True
-        return self.decoder.drain(self.request_timeout_s
-                                  if timeout_s is None else timeout_s)
+        budget = self.request_timeout_s if timeout_s is None else timeout_s
+        with self._engine_lock:
+            batchers = list(self._batchers.values())
+        ok = all([b.drain(budget) for b in batchers])
+        if self.decoder is not None:
+            ok = self.decoder.drain(budget) and ok
+        return ok
 
     def stop(self, drain: bool = True,
              drain_timeout_s: Optional[float] = None) -> None:
         """Shutdown: by default answer everything already admitted, then
-        stop the HTTP server and the decode worker."""
+        stop the HTTP server, the batchers and the decode worker."""
         if drain:
             self.drain(drain_timeout_s)
         self._draining = True
@@ -332,7 +486,13 @@ class ServingEngine:
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
-        self.decoder.stop()
+        with self._engine_lock:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+        for b in batchers:
+            b.stop()
+        if self.decoder is not None:
+            self.decoder.stop()
 
     @property
     def url(self) -> str:

@@ -1,11 +1,13 @@
 """Serving counters (counterpart: ``deeplearning4j_tpu/serving/telemetry.py``
 ``ServingStats``).
 
-The fields the paged ``/generate`` path records: requests, answers,
-rejections, timeouts, tokens, worker deaths, arena occupancy, prefix-cache
-hits, preemptions, per-class sheds, queue depth and a latency ring. The
-batcher, breaker and speculative-decode counters come with the slices
-that port those planes; Prometheus exposition is not ported.
+The fields the ported paths record: requests, answers, rejections,
+timeouts, tokens, worker deaths, arena occupancy, prefix-cache hits,
+preemptions, per-class sheds, queue depths, a latency ring, and the
+``/predict`` batcher's batch fill (``record_batch``: dispatched batches,
+real rows and pad rows). The breaker and speculative-decode counters come
+with the slices that port those planes; Prometheus exposition is not
+ported.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ class ServingStats:
         self.errors = 0            # model/payload errors
         self.rejected = 0          # backpressure (HTTP 429)
         self.timeouts = 0          # per-request deadline expired (504)
+        self.batches = 0           # /predict batches dispatched
+        self.batched_rows = 0      # real rows in them
+        self.padded_rows = 0       # bucket pad rows added to them
         self.generated_tokens = 0  # decode output tokens
         self.worker_deaths = 0     # decode worker dead from uncaught error
         self.slot_crashes = 0      # lanes evicted by a crashed admission
@@ -59,6 +64,12 @@ class ServingStats:
     def record_timeout(self) -> None:
         with self._lock:
             self.timeouts += 1
+
+    def record_batch(self, real_rows: int, padded_to: int) -> None:
+        with self._lock:
+            self.batches += 1
+            self.batched_rows += int(real_rows)
+            self.padded_rows += int(padded_to) - int(real_rows)
 
     def record_tokens(self, n: int) -> None:
         with self._lock:
@@ -108,6 +119,15 @@ class ServingStats:
             "count": int(lat.size),
         }
 
+    def batch_fill_ratio(self) -> Optional[float]:
+        """Real rows over dispatched rows (real + pad), None before the
+        first batch."""
+        with self._lock:
+            total = self.batched_rows + self.padded_rows
+            if total == 0:
+                return None
+            return round(self.batched_rows / total, 4)
+
     def snapshot(self) -> Dict[str, Any]:
         lat = self.latency_ms()
         with self._lock:
@@ -117,6 +137,9 @@ class ServingStats:
                 "errors": self.errors,
                 "rejected_429": self.rejected,
                 "timeouts": self.timeouts,
+                "batches": self.batches,
+                "batched_rows": self.batched_rows,
+                "padded_rows": self.padded_rows,
                 "generated_tokens": self.generated_tokens,
                 "worker_deaths": self.worker_deaths,
                 "slot_crashes": self.slot_crashes,
@@ -130,4 +153,5 @@ class ServingStats:
                 "queue_depths": dict(self.queue_depths),
             }
         out["latency_ms"] = lat
+        out["batch_fill_ratio"] = self.batch_fill_ratio()
         return out

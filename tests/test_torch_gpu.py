@@ -11,7 +11,8 @@ no JAX, so on the machine with the card it runs as
 machine does not have; the files that compare against JAX skip there).
 Tolerances: f32 inputs 1e-4 abs, bf16 inputs 2e-2 abs on flash O (f32
 math, O rounded to bf16), 1e-3 abs on lse and on paged attention's f32
-output.
+output, 1e-4 abs on every output of the LSTM scan (f32 math, sums in
+another order than the plain version's matmul).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as port_flash
+from deeplearning4j_tpu_torch.ops import lstm_scan as port_lstm
 from deeplearning4j_tpu_torch.ops import paged_attention as port_paged
 
 
@@ -119,7 +121,8 @@ def test_kernels_build_with_nvcc():
     _need_card()
     from deeplearning4j_tpu_torch.ops import build
 
-    for res in build.build(["flash_attention", "paged_attention"]):
+    for res in build.build(["flash_attention", "paged_attention",
+                            "lstm_scan"]):
         assert res.path.exists()
         assert "registers" in res.log
 
@@ -155,5 +158,99 @@ def test_serving_on_the_card_goes_through_both_kernels():
         assert port_paged.paged_attention.launches > 0
         assert port_flash.flash_attention_plain.launches == 0
         assert port_paged.paged_attention_plain.launches == 0
+    finally:
+        eng.stop()
+
+
+def _lstm_args(seed, n, t, h, dev, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(0, 0.5, (n, t, 4 * h)), rng.normal(0, 0.3, (h, 4 * h))
+            / np.sqrt(h / 8), rng.normal(0, 0.1, (3, h)),
+            rng.normal(0, 0.2, (n, h)), rng.normal(0, 0.2, (n, h)))
+    return [_port(a.astype(np.float32), dev, dtype) for a in arrs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_cs", [False, True])
+@pytest.mark.parametrize("n,t,h", [(1, 8, 200), (3, 13, 16), (64, 100, 200),
+                                   (70, 9, 300), (5, 20, 1000)])
+def test_lstm_scan_kernel_matches_plain_on_card(n, t, h, emit_cs):
+    dev = _need_card()
+    args = _lstm_args(n + t + h, n, t, h, dev)
+    before = port_lstm.lstm_scan.launches
+    out = port_lstm.lstm_scan(*args, emit_cs=emit_cs)
+    torch.cuda.synchronize()
+    assert port_lstm.lstm_scan.launches == before + 1
+    ref = port_lstm.lstm_scan_plain(*args, emit_cs=emit_cs)
+    assert (out[3] is None) == (not emit_cs)
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32
+            assert (a - b).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_lstm_scan_takes_bf16_and_strided_xproj():
+    """bf16 inputs (the performance policy) are computed in f32; an xproj
+    view with a non-unit row stride is read through its strides."""
+    dev = _need_card()
+    x, u, p, h0, c0 = _lstm_args(1, 4, 12, 64, dev)
+    wide = torch.zeros((4, 12, 512), device=dev)
+    wide[..., :256] = x
+    view = wide[..., :256]
+    assert view.stride(1) == 512
+    ref = port_lstm.lstm_scan_plain(x, u, p, h0, c0)
+    out = port_lstm.lstm_scan(view, u, p, h0, c0)
+    assert (out[0] - ref[0]).abs().max().item() < 1e-4
+    bf = [a.to(torch.bfloat16) for a in (x, u, p, h0, c0)]
+    ref_bf = port_lstm.lstm_scan_plain(*(a.float() for a in bf))
+    out_bf = port_lstm.lstm_scan(*bf)
+    assert out_bf[0].dtype == torch.float32
+    assert (out_bf[0] - ref_bf[0]).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_lstm_scan_refuses_what_the_kernel_does_not_take():
+    dev = _need_card()
+    x, u, p, h0, c0 = _lstm_args(2, 2, 8, 16, dev)
+    with pytest.raises(ValueError, match="expected"):
+        port_lstm.lstm_scan(x, u[:, :32], p, h0, c0)
+    with pytest.raises(ValueError, match="units per CTA"):
+        big = 8 * torch.cuda.get_device_properties(dev) \
+            .multi_processor_count + 8
+        port_lstm.lstm_scan(*_lstm_args(3, 1, 8, big, dev))
+
+
+@pytest.mark.gpu
+def test_multilayer_network_on_the_card_goes_through_k1():
+    """A char-RNN on the card: output routes every LSTM layer through the
+    kernel (T >= 8), agrees with the same net on the CPU, and /predict
+    answers through the batcher; the plain version never runs on the
+    card."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+
+    conf = char_rnn_conf(12, lstm_size=32, num_layers=2)
+    net = MultiLayerNetwork(conf, device=dev).init(input_shape=(1, 12))
+    cpu = MultiLayerNetwork(conf, device="cpu")
+    cpu.init(input_shape=(1, 12))
+    cpu.params = [{k: v.cpu() for k, v in p.items()} for p in net.params]
+    x = np.eye(12, dtype=np.float32)[
+        np.random.default_rng(0).integers(0, 12, (5, 16))]
+    ref = cpu.output(x)  # the plain scan, on the CPU
+    port_lstm.lstm_scan.launches = port_lstm.lstm_scan_plain.launches = 0
+    out = net.output(x)
+    assert out.device.type == "cuda"
+    assert port_lstm.lstm_scan.launches == 2
+    assert port_lstm.lstm_scan_plain.launches == 0
+    assert (out.cpu() - ref).abs().max().item() < 1e-5
+    eng = ServingEngine(model=net, device=dev)
+    try:
+        got = eng.predict(x[:2])
+        assert np.abs(got - out[:2].cpu().numpy()).max() < 1e-5
+        assert port_lstm.lstm_scan.launches > 2
+        assert port_lstm.lstm_scan_plain.launches == 0
     finally:
         eng.stop()

@@ -1,4 +1,4 @@
-"""The port's two kernels against the JAX package (CPU) and against their
+"""The port's three kernels against the JAX package (CPU) and against their
 plain versions (card).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
@@ -14,6 +14,12 @@ against the JAX function the TPU kernel implements:
     lanes inside block 0, across blocks and at the full window; a trash
     block poisoned with 1e6 in K and -1e6 in V moves no active lane's
     output by a single bit. Tolerance 1e-5 abs (f32).
+  * K1 LSTM scan — the port's plain scan against JAX
+    ``_lstm_scan_reference`` and ``lstm_pallas_scan(..., interpret=True)``
+    on hs, h_T and c_T, and its cell sequence against
+    ``_lstm_pallas_fwd_raw(..., interpret=True, emit_cs=True)``, at
+    T in {1, 8, 13}. Tolerance 1e-5 abs in f32; the f64 scan against the
+    f64 reference at 1e-12.
 
 The same kernels on the card, against their plain versions, are in
 ``tests/test_torch_gpu.py``.
@@ -26,6 +32,7 @@ import torch
 jnp = pytest.importorskip("jax.numpy")  # the JAX reference side
 
 from deeplearning4j_tpu_torch.ops import flash_attention as port_flash  # noqa: E402
+from deeplearning4j_tpu_torch.ops import lstm_scan as port_lstm  # noqa: E402
 from deeplearning4j_tpu_torch.ops import paged_attention as port_paged  # noqa: E402
 
 TOL = 1e-5
@@ -178,3 +185,70 @@ class TestPagedPlainAgainstJax:
         ref = _jax_gather(q, ckb.float().numpy(), cvb.float().numpy(),
                           tables, pos)
         assert np.abs(out.numpy() - ref).max() < TOL
+
+
+# ---------------------------------------------------------------------------
+# K1 — fused LSTM forward scan
+# ---------------------------------------------------------------------------
+
+
+def _lstm_case(seed, n=3, t=8, h=16, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.5, (n, t, 4 * h)).astype(dtype),
+            rng.normal(0, 0.3, (h, 4 * h)).astype(dtype),
+            rng.normal(0, 0.1, (3, h)).astype(dtype),
+            rng.normal(0, 0.2, (n, h)).astype(dtype),
+            rng.normal(0, 0.2, (n, h)).astype(dtype))
+
+
+class TestLstmScanPlainAgainstJax:
+    @pytest.mark.parametrize("t", [1, 8, 13])
+    def test_matches_reference_and_pallas_kernel_interpret(self, t):
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+
+        args = _lstm_case(t, t=t)
+        jargs = [jnp.asarray(a) for a in args]
+        ref = pk._lstm_scan_reference(*jargs)
+        kern = pk.lstm_pallas_scan(*jargs, True)
+        hs_raw, cs_raw, _, _ = pk._lstm_pallas_fwd_raw(
+            *jargs, interpret=True, emit_cs=True)
+        hs, h_t, c_t, cs = port_lstm.lstm_scan(
+            *(_port(a) for a in args), emit_cs=True)
+        assert hs.shape == (3, t, 16) and cs.shape == (t, 3, 16)
+        for ours, r, k in zip((hs, h_t, c_t), ref, kern):
+            assert np.abs(ours.numpy() - np.asarray(r)).max() < TOL
+            assert np.abs(ours.numpy() - np.asarray(k)).max() < TOL
+        assert np.abs(hs.numpy() - np.asarray(hs_raw)).max() < TOL
+        assert np.abs(cs.numpy() - np.asarray(cs_raw)).max() < TOL
+
+    @pytest.mark.parametrize("t", [1, 8, 13])
+    def test_f64_matches_f64_reference(self, t):
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+
+        args = _lstm_case(100 + t, t=t, dtype=np.float64)
+        ref = pk._lstm_scan_reference(*(jnp.asarray(a) for a in args))
+        assert ref[0].dtype == jnp.float64
+        hs, h_t, c_t, cs = port_lstm.lstm_scan(
+            *(torch.from_numpy(a) for a in args))
+        assert cs is None and hs.dtype == torch.float64
+        for ours, r in zip((hs, h_t, c_t), ref):
+            assert np.abs(ours.numpy() - np.asarray(r)).max() < 1e-12
+
+    def test_cpu_wrapper_counts_plain_calls_only(self):
+        args = [_port(a) for a in _lstm_case(0)]
+        kern, plain = (port_lstm.lstm_scan.launches,
+                       port_lstm.lstm_scan_plain.launches)
+        port_lstm.lstm_scan(*args)
+        assert port_lstm.lstm_scan.launches == kern
+        assert port_lstm.lstm_scan_plain.launches == plain + 1
+
+    @pytest.mark.parametrize("h,sms,upb", [(200, 132, 2), (128, 132, 1),
+                                           (256, 132, 2), (512, 132, 4),
+                                           (16, 132, 1), (1056, 132, 8)])
+    def test_units_per_cta_fits_the_grid_on_the_sms(self, h, sms, upb):
+        assert port_lstm.units_per_cta(h, sms) == upb
+        assert -(-h // upb) <= sms
+
+    def test_units_per_cta_refuses_what_no_grid_holds(self):
+        with pytest.raises(ValueError, match="units per CTA"):
+            port_lstm.units_per_cta(1057, 132)

@@ -5,8 +5,9 @@
     ``sys.modules`` afterwards, and no ``import`` statement in the
     package or in ``chip_smoke.py`` names either.
   * Its entry points (``TransformerLM``, ``PagedDecoder``,
-    ``ServingEngine``) run on the card unless given ``device="cpu"``;
-    with no card they raise instead of moving to the CPU.
+    ``MultiLayerNetwork`` and its ``load``, ``ServingEngine``) run on the
+    card unless given ``device="cpu"``; with no card they raise instead of
+    moving to the CPU.
   * Its knob table is a copy of the JAX table's serving entries (same
     names, same defaults), and it builds its kernels from ``csrc/``.
 """
@@ -115,6 +116,34 @@ class TestEntryPointsNeedACardOrCpu:
             eng.stop()
 
 
+    def test_multilayer_network_and_its_engine(self, no_card, tmp_path):
+        from deeplearning4j_tpu.models.char_rnn import (
+            char_rnn_conf as jax_conf,
+        )
+        from deeplearning4j_tpu.nn.multilayer import (
+            MultiLayerNetwork as JaxNet,
+        )
+        from deeplearning4j_tpu.utils.serialization import ModelSerializer
+
+        from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+
+        conf = char_rnn_conf(6, lstm_size=4, num_layers=1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiLayerNetwork(conf)
+        jnet = JaxNet(jax_conf(6, lstm_size=4, num_layers=1)).init()
+        path = str(tmp_path / "net.zip")
+        ModelSerializer.write_model(jnet, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiLayerNetwork.load(path)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(model_path=path)
+        net = MultiLayerNetwork.load(path, device="cpu")
+        assert net.params[0]["W"].device == torch.device("cpu")
+        ServingEngine(model=net, device="cpu").stop()
+
+
 def test_knob_table_copies_the_jax_entries(monkeypatch):
     from deeplearning4j_tpu.ops import env as jenv
 
@@ -123,7 +152,9 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
     assert set(penv.KNOBS) == {
         "DL4J_TPU_SERVE_KV_BLOCK", "DL4J_TPU_SERVE_KV_BLOCKS",
         "DL4J_TPU_SERVE_SLOTS", "DL4J_TPU_SERVE_QUEUE_CAP",
-        "DL4J_TPU_SERVE_TIMEOUT_S"}
+        "DL4J_TPU_SERVE_TIMEOUT_S", "DL4J_TPU_SERVE_MAX_BATCH",
+        "DL4J_TPU_SERVE_MAX_WAIT_MS", "DL4J_TPU_SERVE_BATCH",
+        "DL4J_TPU_BUCKET_BATCHES"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -162,7 +193,7 @@ def test_engine_reads_the_knobs(monkeypatch):
 def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "lstm_scan"):
         src = build.CSRC / f"{name}.cu"
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
