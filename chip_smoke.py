@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA card: the paged
-``/generate`` path of the TransformerLM and the ``/predict`` path of the
-char-RNN MultiLayerNetwork.
+"""Drive the PyTorch port's paths on one NVIDIA card: the paged
+``/generate`` path of the TransformerLM, the ``/predict`` path of the
+char-RNN MultiLayerNetwork, and the char-RNN's training with truncated
+BPTT and RMSProp.
 
 Run from the repository root, with no arguments:
 
@@ -11,7 +12,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds the three kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the four kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per source, started together) and prints each
    function's ptxas register and spill line;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -25,7 +26,11 @@ What it does, in order (any failure raises and exits non-zero):
    char-RNN at full width with a full batch), the three shape classes of
    ``benchmarks/pallas_lstm_bench.py`` (32, 128, 128), (64, 256, 256),
    (128, 512, 512), and (1, 8, 200): max abs error <= 1e-4 on hs, h_T,
-   c_T and cs;
+   c_T and cs; LSTM scan backward (K2), f32, at (N, T, H) = (32, 50, 200)
+   (the char-RNN's training window), (64, 100, 200), the three shape
+   classes and (1, 8, 200): max error <= 1e-4 on dxproj, dh0 and dc0
+   (abs) and on dU and dp (relative to the largest entry: they sum N*T
+   products), and two launches give the same bits;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -44,23 +49,40 @@ What it does, in order (any failure raises and exits non-zero):
    ``net.output`` on the same rows alone), that K1's launch counter rose
    during the burst while its plain version's stayed at 0, and samples
    200 characters with ``CharRnn.sample`` through ``rnn_time_step``;
-6. times each kernel, its plain version and PyTorch's library call where
+6. trains the full-width char-RNN (``char_rnn_conf(80, lstm_size=200,
+   num_layers=2, tbptt_length=50)``, RMSProp: the shape ``bench.py:206``
+   benchmarks and DL4J's ``GravesLSTMCharModellingExample``, at lr 0.003
+   where those train at 0.1, see ``TRAIN_LR``; random weights from
+   ``--seed``)
+   through ``CharRnn.fit_text`` on a synthetic text drawn from a fixed
+   random Markov chain over the 80 characters: 30 ``fit`` calls of batch
+   32 x T=100 (two TBPTT windows each). It checks that every window's loss
+   is finite and the mean of the last 5 fits' losses is below the first,
+   that K1 and K2 each launched exactly 4 times per fit (2 windows x 2
+   layers) while both plain versions stayed at 0, that one window's
+   gradients through the kernels are within 1e-4 (relative to each
+   gradient's largest entry) of autograd through the plain forward on
+   the same weights, and that ``write_model`` then
+   ``MultiLayerNetwork.load`` gives the trained net's ``output``;
+7. times each kernel, its plain version and PyTorch's library call where
    one computes the same function (K4: ``scaled_dot_product_attention``)
    with CUDA events beside the bound (max of bytes / 3.35 TB/s and flops /
    peak, H100 SXM data sheet: 989 TFLOP/s dense bf16 for K4 and K6,
    67 TFLOP/s f32 for K1, which runs strict f32 with TF32 off), and the
    main paths: prefill ms per width, decode-tick ms at 64 lanes,
    generated tokens/s, ``output()`` ms at batch 64, ``/predict`` rows/s,
-   peak device memory. For K1 it also prints the sequential floor (T
-   steps, each at the per-step time of a one-row launch on the same grid)
-   and, as a reference line only, cuDNN's ``torch.nn.LSTM`` at the same
-   shape (no peepholes: not the same function);
-7. prints one ``{"kernels": [...]}`` line, the card line again, and last
+   ``fit`` ms and training characters/s, peak device memory. For K1 and
+   K2 it also prints the sequential floor (T steps, each at the per-step
+   time of a one-row launch on the same grid) and, for K1, as a reference
+   line only, cuDNN's ``torch.nn.LSTM`` at the same shape (no peepholes:
+   not the same function); K1 is also timed with the cell sequence at
+   the training window;
+8. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
-Phase 6 also breaks a decode tick, a width-1024 prefill and a batch-64
-``output()`` down by kernel with ``torch.profiler``. ``--out PATH`` also
-writes the whole report as JSON.
+Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
+``output()`` and one ``fit`` down by kernel with ``torch.profiler``.
+``--out PATH`` also writes the whole report as JSON.
 """
 
 from __future__ import annotations
@@ -70,6 +92,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -98,9 +121,15 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
 )
+from deeplearning4j_tpu_torch.nn.layers import recurrent  # noqa: E402
 from deeplearning4j_tpu_torch.ops.lstm_scan import (  # noqa: E402
     lstm_scan,
+    lstm_scan_bwd,
+    lstm_scan_bwd_plain,
     lstm_scan_plain,
+)
+from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: E402
+    CollectScoresIterationListener,
 )
 from deeplearning4j_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention,
@@ -111,6 +140,9 @@ from deeplearning4j_tpu_torch.serving.engine import ServingEngine  # noqa: E402
 from deeplearning4j_tpu_torch.serving.paged import (  # noqa: E402
     paged_decode_step,
 )
+from deeplearning4j_tpu_torch.utils.serialization import (  # noqa: E402
+    write_model,
+)
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
@@ -119,6 +151,9 @@ TOL_FLASH_O = 2e-2           # bf16 in, f32 math, O rounded to bf16
 TOL_FLASH_LSE = 1e-3         # f32 lse from bf16 inputs
 TOL_PAGED = 1e-3             # f32 output from a bf16 arena
 TOL_LSTM = 1e-4              # f32 in and out, sums in another order
+TOL_LSTM_BWD = 1e-4          # abs on dxproj, dh0, dc0; of the largest
+                             # entry on dU and dp (sums of N*T products)
+TOL_GRAD = 1e-4              # of each gradient leaf's largest entry
 TOL_PREDICT = 1e-5           # batched answer vs the same rows alone
 FLASH_WIDTHS = (192, 512, 1024)
 H, HD, BT, M_TABLE, LANES = 32, 64, 16, 64, 64
@@ -131,6 +166,16 @@ LSTM_SHAPES = ((64, 100, 200), (32, 128, 128), (64, 256, 256),
                (128, 512, 512))
 VOCAB, SEQ, LSTM_H = 80, 100, 200  # bench.py:206
 N_PREDICT, MAX_ROWS = 64, 4        # /predict requests, rows per request
+# K2: the char-RNN's training window (N=32, TBPTT 50), a full-batch
+# /predict shape, then the shape classes of benchmarks/pallas_lstm_bench.py
+BWD_SHAPES = ((32, 50, 200), (64, 100, 200), (32, 128, 128),
+              (64, 256, 256), (128, 512, 512))
+TRAIN_BATCH, TBPTT, N_FITS = 32, 50, 30  # bench.py:206-222
+# bench.py trains at char_rnn_conf's lr 0.1, where RMSProp's first step
+# moves every weight by lr / sqrt(1 - 0.95) = 0.447 and the loss of this
+# net blows up for tens of fits (the JAX package's trajectory too); 0.003
+# learns the chain within 30 fits. The kernels' work is the same.
+TRAIN_LR = 0.003
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,7 +227,7 @@ def short_name(mangled: str) -> str:
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan"]):
+                            "lstm_scan", "lstm_scan_bwd"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -275,10 +320,33 @@ def phase_kernels(seed: int, dev):
                   f"lstm_scan disagrees with its plain version at "
                   f"N={n} T={t} H={h} emit_cs={emit_cs}")
             err_l = max(err_l, *errs)
+    err_b = abs_b = 0.0
+    for n, t, h in BWD_SHAPES + ((1, 8, LSTM_H),):
+        args = lstm_bwd_inputs(n, t, h, seed, dev)
+        out = lstm_scan_bwd(*args)
+        again = lstm_scan_bwd(*args)
+        ref = lstm_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = bwd_errors(out, ref)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        print(f"lstm_scan_bwd N={n} T={t} H={h}: " + ", ".join(
+            f"{k} {e:.3e}" for k, e in zip(
+                ("max|ddxproj|", "max|ddU|/max|dU|", "max|ddp|/max|dp|",
+                 "max|ddh0|", "max|ddc0|"), errs))
+            + f" (tol {TOL_LSTM_BWD}); two launches bit-equal: {same}")
+        check(max(errs) <= TOL_LSTM_BWD,
+              f"lstm_scan_bwd disagrees with its plain version at "
+              f"N={n} T={t} H={h}")
+        check(same, f"two lstm_scan_bwd launches differ at N={n} T={t} "
+              f"H={h}")
+        err_b = max(err_b, *errs)
+        abs_b = max(abs_b, *((a - b).abs().max().item()
+                             for a, b in zip(out, ref)))
     return {"flash_attention": {"max_abs_err": err_o,
                                 "max_abs_err_lse": err_lse},
             "paged_attention": {"max_abs_err": err_p},
-            "lstm_scan": {"max_abs_err": err_l}}
+            "lstm_scan": {"max_abs_err": err_l},
+            "lstm_scan_bwd": {"max_err": err_b, "max_abs_err": abs_b}}
 
 
 def lstm_inputs(n: int, t: int, h: int, seed: int, dev):
@@ -288,6 +356,27 @@ def lstm_inputs(n: int, t: int, h: int, seed: int, dev):
     r = lambda *shape: torch.randn(shape, generator=g, device=dev)
     return (r(n, t, 4 * h), r(h, 4 * h) / h ** 0.5, 0.1 * r(3, h),
             0.1 * r(n, h), 0.1 * r(n, h))
+
+
+def lstm_bwd_inputs(n: int, t: int, h: int, seed: int, dev):
+    """K2's inputs: K1's, the forward's cs and hs, and unit-scale
+    cotangents of hs, h_T and c_T."""
+    x, u, p, h0, c0 = lstm_inputs(n, t, h, seed, dev)
+    hs, _, _, cs = lstm_scan(x, u, p, h0, c0, emit_cs=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 7 * n + t + h)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    return x, u, p, h0, c0, cs, hs, r(n, t, h), r(n, h), r(n, h)
+
+
+def bwd_errors(out, ref):
+    """Max abs error on dxproj, dh0, dc0; max error over the largest
+    entry on dU and dp (sums of N*T products)."""
+    errs = []
+    for i, (a, b) in enumerate(zip(out, ref)):
+        e = (a - b).abs().max().item()
+        errs.append(e / max(b.abs().max().item(), 1e-30) if i in (1, 2)
+                    else e)
+    return errs
 
 
 def _post(url: str, payload: dict, timeout: float = 600.0,
@@ -635,6 +724,205 @@ def phase_times_predict(net: MultiLayerNetwork, seed: int, dev):
     return res
 
 
+def markov_text(seed: int, length: int, chars) -> str:
+    """Text from a fixed random Markov chain over ``chars``: each character
+    is followed by one of 4 successors with probabilities 0.55, 0.25,
+    0.15 and 0.05 (1.11 nats of entropy per character, against ln 80 =
+    4.38 for a model that has learnt nothing)."""
+    rng = np.random.default_rng(seed)
+    v = len(chars)
+    succ = np.stack([rng.choice(v, 4, replace=False) for _ in range(v)])
+    pick = np.searchsorted(np.cumsum([0.55, 0.25, 0.15, 0.05]),
+                           rng.random(length) * 0.999999)
+    out, c = [], 0
+    for k in pick:
+        c = succ[c, k]
+        out.append(chars[c])
+    return "".join(out)
+
+
+def window_grads(net: MultiLayerNetwork, x, y):
+    """The parameter gradients of one TBPTT window from zero state, as a
+    train step computes them."""
+    net._reset_rnn_states(x.shape[0])
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in net.params]
+    loss, _ = net._loss(leaves, net.states, x, y, train=True,
+                        step=net.iteration, carry_state=True)
+    flat = [v for p in leaves for v in p.values()]
+    names = [f"{i}.{k}" for i, p in enumerate(leaves) for k in p]
+    return names, torch.autograd.grad(loss, flat)
+
+
+class _PlainScan:
+    """Stands in for LstmScanFn: autograd through K1's plain version."""
+
+    @staticmethod
+    def apply(*args):
+        return lstm_scan_plain(*args)[:3]
+
+
+def phase_train(seed: int, dev):
+    print("== training: the char-RNN with TBPTT and RMSProp ==")
+    conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed,
+                         tbptt_length=TBPTT, learning_rate=TRAIN_LR)
+    net = MultiLayerNetwork(conf, device=dev).init(input_shape=(1, VOCAB))
+    print(f"char-RNN: vocab {VOCAB}, 2 GravesLSTM x {LSTM_H}, TBPTT {TBPTT}, "
+          f"RMSProp lr {TRAIN_LR}, {net.num_params()} parameters")
+    chars = [chr(32 + i) for i in range(VOCAB)]
+    text = markov_text(seed, TRAIN_BATCH * SEQ * N_FITS + 1, chars)
+    cr = CharRnn(chars=chars, net=net)
+    col = CollectScoresIterationListener()
+    net.set_listeners(col)
+    kernels = (lstm_scan, lstm_scan_plain, lstm_scan_bwd,
+               lstm_scan_bwd_plain)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    t0 = time.perf_counter()
+    losses = cr.fit_text(text, batch=TRAIN_BATCH, seq_len=SEQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    net.set_listeners()
+    windows = [s for _, s in col.scores]
+    print(f"{len(losses)} fits of {TRAIN_BATCH}x{SEQ} one-hot characters "
+          f"({len(windows)} TBPTT windows of {TBPTT}) in {wall:.3f} s: "
+          f"{wall / len(losses) * 1e3:.2f} ms per fit, "
+          f"{TRAIN_BATCH * SEQ * len(losses) / wall:.0f} characters/s "
+          f"(first calls included); device memory at its peak "
+          f"{peak / 2**20:.1f} MiB above what the earlier phases hold")
+    print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses))
+    print(f"launches over the {len(losses)} fits: {counts}")
+    check(len(losses) == N_FITS and len(windows) == 2 * N_FITS,
+          f"{len(losses)} fits and {len(windows)} windows")
+    check(all(np.isfinite(windows)), "a training loss is not finite")
+    check(np.mean(losses[-5:]) < losses[0],
+          "the loss did not fall over the fits")
+    check(counts["lstm_scan"] == counts["lstm_scan_bwd"] == 4 * N_FITS,
+          "K1 and K2 did not launch 4 times per fit (2 windows x 2 layers)")
+    check(counts["lstm_scan_plain"] == 0
+          and counts["lstm_scan_bwd_plain"] == 0,
+          "a plain LSTM scan ran while training on the card")
+
+    x, y = (torch.from_numpy(a[:, :TBPTT]).to(dev)
+            for a in next(cr.batches(text, TRAIN_BATCH, SEQ)))
+    names, got = window_grads(net, x, y)
+    saved, recurrent.LstmScanFn = recurrent.LstmScanFn, _PlainScan
+    try:
+        _, want = window_grads(net, x, y)
+    finally:
+        recurrent.LstmScanFn = saved
+    grad_err = {n: ((a - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30)).item()
+                for n, a, b in zip(names, got, want)}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"one window's gradients, kernels vs autograd through the plain "
+          f"scan: max error {grad_err[worst]:.3e} of the largest entry "
+          f"(leaf {worst}; tol {TOL_GRAD})")
+    check(grad_err[worst] <= TOL_GRAD,
+          "the kernels' gradients disagree with the plain scan's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "char_rnn.zip")
+        write_model(net, path)
+        loaded = MultiLayerNetwork.load(path, device=dev)
+    xs = torch.from_numpy(np.eye(VOCAB, dtype=np.float32)[
+        np.random.default_rng(seed + 3).integers(0, VOCAB, (8, SEQ))]).to(dev)
+    same = torch.equal(net.output(xs), loaded.output(xs))
+    print(f"write_model -> MultiLayerNetwork.load: iteration "
+          f"{loaded.iteration}, output bit-equal: {same}")
+    check(same and loaded.iteration == net.iteration,
+          "the saved and loaded net differs from the trained one")
+    return net, {"fits": len(losses), "wall_s": wall,
+                    "loss_per_fit": losses, "window_losses": windows,
+                    "launches": counts, "grad_max_err": grad_err[worst],
+                    "fits_memory_bytes": peak}
+
+
+def phase_times_train(net: MultiLayerNetwork, seed: int, dev):
+    print("== times: K2, K1 with cs, and fit (CUDA events) ==")
+    res = {"lstm_scan_bwd": {}, "main_path": {}}
+    for n, t, h in BWD_SHAPES:
+        args = lstm_bwd_inputs(n, t, h, seed, dev)
+        ms = time_ms(lambda: lstm_scan_bwd(*args), iters=10)
+        plain = time_ms(lambda: lstm_scan_bwd_plain(*args), iters=2,
+                        warmup=1)
+        b_ms, b_by = lstm_bwd_bound(n, t, h)
+        one = [lstm_bwd_inputs(1, tt, h, seed, dev) for tt in (8, 8 + t)]
+        short, long_ = (time_ms(lambda a=a: lstm_scan_bwd(*a), iters=10)
+                        for a in one)
+        step_us = (long_ - short) / t * 1e3
+        res["lstm_scan_bwd"][f"{n}x{t}x{h}"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+            step_floor_us=step_us, floor_ms=step_us * t / 1e3)
+        print(f"lstm_scan_bwd N={n} T={t} H={h}: {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sequential "
+              f"floor {step_us * t / 1e3:.4f} ms ({step_us:.2f} us/step at "
+              "N=1)")
+    n, t, h = BWD_SHAPES[0]
+    args = lstm_inputs(n, t, h, seed, dev)
+    ms = time_ms(lambda: lstm_scan(*args, emit_cs=True), iters=10)
+    b_ms, b_by = lstm_bound(n, t, h, emit_cs=True)
+    res["lstm_scan_cs"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                               shape=f"{n}x{t}x{h}")
+    print(f"lstm_scan N={n} T={t} H={h} emit_cs=True: {ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    rng = np.random.default_rng(seed + 4)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    ids = rng.integers(0, VOCAB, (TRAIN_BATCH, SEQ + 1))
+    x, y = (torch.from_numpy(eye[ids[:, sl]]).to(dev)
+            for sl in (slice(0, SEQ), slice(1, SEQ + 1)))
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) / 10 * 1e3
+    res["main_path"]["fit_ms"] = fit_ms
+    res["main_path"]["train_chars_per_s"] = TRAIN_BATCH * SEQ / fit_ms * 1e3
+    print(f"fit (batch {TRAIN_BATCH}, T={SEQ}, 2 windows): {fit_ms:.3f} ms "
+          f"per call, {TRAIN_BATCH * SEQ / fit_ms * 1e3:.0f} training "
+          "characters/s")
+    busy, rows = profile_ms(lambda: net.fit(x, y))
+    groups = {"K1 lstm_scan_kernel": 0.0, "K2 lstm_scan_bwd_kernel": 0.0,
+              "GEMMs": 0.0, "updater (foreach)": 0.0, "other kernels": 0.0}
+    for ms_, _, name in rows:
+        low = name.lower()
+        key = ("K2 lstm_scan_bwd_kernel" if "lstm_scan_bwd_kernel" in name
+               else "K1 lstm_scan_kernel" if "lstm_scan_kernel" in name
+               else "GEMMs" if "gemm" in low or "sm90_xmma" in low
+               else "updater (foreach)" if "foreach" in low
+               or "multi_tensor" in low
+               else "other kernels")
+        groups[key] += ms_
+    groups["host gaps (wall - kernels)"] = fit_ms - busy
+    res["main_path"]["fit_profile"] = dict(
+        device_busy_ms=busy, groups=groups,
+        kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                 for r in rows[:12]])
+    print(f"fit profile: {busy:.3f} ms of kernels per call ({busy / fit_ms:.1%}"
+          f" of the {fit_ms:.3f} ms call): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:12]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return res
+
+
+def lstm_bwd_bound(n: int, t: int, h: int):
+    """Each input (xproj, U, p, h0, c0, cs, hs, dhs, dh_T, dc_T) read
+    once, each output (dxproj, dU, dp, dh0, dc0) written once, f32;
+    3 * 2*N*T*H*4H flops (the gate recompute, dz U^T and dU) at the f32
+    rate."""
+    nbytes = 4.0 * (2 * n * t * 4 * h + 3 * n * t * h + 2 * 4 * h * h
+                    + 6 * h + 6 * n * h)
+    return bound(nbytes, 3 * 2.0 * n * t * h * 4 * h, PEAK_F32_FLOPS)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -665,13 +953,22 @@ def main(argv=None) -> int:
         times = phase_times(lm, widths, args.seed, dev)
     net, k1_launches, predict = phase_predict(args.seed, dev)
     times.update(phase_times_predict(net, args.seed, dev))
-    peak = torch.cuda.max_memory_allocated()
-    print(f"peak device memory allocated: {peak / 2**30:.3f} GiB; "
-          f"whole run {time.perf_counter() - t_start:.1f} s")
+    peak_serve = torch.cuda.max_memory_allocated()
+    tnet, train = phase_train(args.seed, dev)
+    times.update(phase_times_train(tnet, args.seed, dev))
+    peak_train = torch.cuda.max_memory_allocated()
+    peak = max(peak_serve, peak_train)
+    print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
+          f"phases {peak_serve / 2**30:.3f} GiB, training phase "
+          f"{peak_train / 2**30:.3f} GiB; the 30 fits took "
+          f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more); whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
     n1, t1, h1 = LSTM_SHAPES[0]
     k1 = times["lstm_scan"][f"{n1}x{t1}x{h1}"]
+    n2, t2, h2 = BWD_SHAPES[0]
+    k2 = times["lstm_scan_bwd"][f"{n2}x{t2}x{h2}"]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
@@ -699,6 +996,7 @@ def main(argv=None) -> int:
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:230",
          "launches": k1_launches["lstm_scan"],
+         "launches_train": train["launches"]["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -706,11 +1004,23 @@ def main(argv=None) -> int:
          "library_ms": None,
          "floor_ms": k1["floor_ms"],
          "shape": f"N={n1} T={t1} H={h1} f32"},
+        {"name": "lstm_scan_bwd", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:396",
+         "launches": train["launches"]["lstm_scan_bwd"],
+         "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
+         "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
+         "tolerance": TOL_LSTM_BWD,
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None,
+         "floor_ms": k2["floor_ms"],
+         "shape": f"N={n2} T={t2} H={h2} f32"},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
-                  "serving": serve, "predict": predict, "times": times,
-                  "peak_memory_bytes": peak}
+                  "serving": serve, "predict": predict, "train": train,
+                  "times": times, "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,12 +1,12 @@
 """PyTorch + CUDA port of ``deeplearning4j_tpu`` for one NVIDIA H100.
 
 The JAX package beside this one is the reference; this package mirrors
-its module paths (``ops/``, ``nn/``, ``models/``, ``serving/``,
-``utils/``) so a reader finds each counterpart by name. It imports
-``torch``, numpy and the standard library only — never ``jax`` and nothing
-of ``deeplearning4j_tpu``.
+its module paths (``ops/``, ``nn/``, ``optimize/``, ``datasets/``,
+``models/``, ``serving/``, ``utils/``) so a reader finds each counterpart
+by name. It imports ``torch``, numpy and the standard library only —
+never ``jax`` and nothing of ``deeplearning4j_tpu``.
 
-Ported so far, two serving paths:
+Ported so far, two serving paths and one training path:
 
 * paged-KV ``/generate`` of the TransformerLM:
   ``models.transformer.TransformerLM`` -> ``serving.paged.PagedDecoder``
@@ -14,13 +14,17 @@ Ported so far, two serving paths:
 * ``/predict`` of a MultiLayerNetwork (the char-RNN first):
   ``nn.conf`` -> ``nn.multilayer.MultiLayerNetwork`` ->
   ``serving.batcher.DynamicBatcher`` / ``serving.registry.ModelRegistry``
-  -> ``serving.engine.ServingEngine``.
+  -> ``serving.engine.ServingEngine``;
+* training of a MultiLayerNetwork (the char-RNN with truncated BPTT
+  first): ``nn.multilayer.MultiLayerNetwork.fit`` / ``fit_iterator`` with
+  ``nn.losses`` and ``optimize.updaters``, checkpoints through
+  ``utils.serialization.write_model`` and ``MultiLayerNetwork.load``.
 
-Their three TPU kernels are hand-written CUDA C++ for sm_90a under
+Their four TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode
 attention (``ops/paged_attention.py``) and the fused peephole-LSTM scan
-(``ops/lstm_scan.py``), built with ``nvcc`` at first use
-(``ops/build.py``).
+with its reverse-time backward (``ops/lstm_scan.py``), built with
+``nvcc`` at first use (``ops/build.py``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU device it raises

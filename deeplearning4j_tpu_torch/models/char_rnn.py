@@ -1,13 +1,15 @@
-"""Character-level LSTM language model, inference side (counterpart:
+"""Character-level LSTM language model (counterpart:
 ``deeplearning4j_tpu/models/char_rnn.py``).
 
 ``char_rnn_conf`` builds the same configuration as the JAX package
 (stacked GravesLSTM layers + an RnnOutputLayer softmax over the
-characters; its JSON is identical), and ``CharRnn`` encodes text and
-samples through ``rnn_time_step``, drawing from
-``np.random.default_rng(seed)`` exactly as the JAX package does. Training
-(``batches``, ``fit_text``) waits for the training slice; a trained
-network comes in through ``net=`` (e.g. ``MultiLayerNetwork.load``).
+characters, truncated BPTT; its JSON is identical). ``CharRnn`` encodes
+text, cuts it into one-hot minibatches with next-character labels
+(``batches``), trains on them (``fit_text``: one ``fit`` per minibatch,
+one train step per TBPTT window) and samples through ``rnn_time_step``,
+drawing from ``np.random.default_rng(seed)`` exactly as the JAX package
+does. A trained network can also come in through ``net=`` (e.g.
+``MultiLayerNetwork.load``).
 """
 
 from __future__ import annotations
@@ -85,6 +87,29 @@ class CharRnn:
     def encode(self, text: str) -> np.ndarray:
         return np.array([self.char_to_ix[c] for c in text
                          if c in self.char_to_ix], np.int32)
+
+    def batches(self, text: str, batch: int, seq_len: int):
+        """Contiguous [B, T, V] one-hot minibatches with next-character
+        labels, as numpy arrays."""
+        ids = self.encode(text)
+        usable = (len(ids) - 1) // (batch * seq_len) * (batch * seq_len)
+        if usable <= 0:
+            raise ValueError("text too short for requested batch/seq_len")
+        xs = ids[:usable].reshape(batch, -1)
+        ys = ids[1:usable + 1].reshape(batch, -1)
+        eye = np.eye(self.vocab_size, dtype=np.float32)
+        for s in range(xs.shape[1] // seq_len):
+            sl = slice(s * seq_len, (s + 1) * seq_len)
+            yield eye[xs[:, sl]], eye[ys[:, sl]]
+
+    def fit_text(self, text: str, epochs: int = 1, batch: int = 32,
+                 seq_len: int = 100) -> List[float]:
+        """Train on ``text``; the loss of each minibatch's last window."""
+        losses = []
+        for _ in range(epochs):
+            for x, y in self.batches(text, batch, seq_len):
+                losses.append(float(self.net.fit(x, y)))
+        return losses
 
     def _probs(self, ci: int, eye: np.ndarray) -> np.ndarray:
         y = self.net.rnn_time_step(eye[ci][None, None, :])

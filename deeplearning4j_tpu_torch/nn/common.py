@@ -1,13 +1,14 @@
 """The per-layer application policy of the containers (counterpart:
-``deeplearning4j_tpu/nn/common.py`` — ``compute_dtype_of``,
-``cast_for_compute`` and ``apply_layer``, :20-100).
+``deeplearning4j_tpu/nn/common.py`` — ``tbptt_backprop_window``,
+``compute_dtype_of``, ``cast_for_compute``, ``apply_layer``,
+``cast_loss_input`` and ``decay_lr_scale_entry``).
 
-Only the dtype policy is ported: under ``dtype_policy="performance"`` a
-layer's f32 params and input are cast to bf16 for its computation, output
-layers are never downcast (a bf16 input is upcast to f32 for them), and a
-cast layer's returned recurrent state is cast back to f32 so stored
-states keep one dtype. Remat is training and waits for the training
-slice.
+Under ``dtype_policy="performance"`` a layer's f32 params and input are
+cast to bf16 for its computation, output layers are never downcast (a
+bf16 input is upcast to f32 for them), and a cast layer's returned
+recurrent state is cast back to f32 so stored states keep one dtype.
+Remat (``conf.gradient_checkpointing`` or a ``DL4J_TPU_REMAT`` policy
+other than ``none``) is not ported yet: training with it raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,16 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayerImpl
+from deeplearning4j_tpu_torch.ops import env as envknob
+
+
+def tbptt_backprop_window(conf) -> Optional[int]:
+    """The in-window TBPTT backward length, or None when it is not shorter
+    than the forward length."""
+    back = conf.tbptt_back_length
+    if back and back < conf.tbptt_fwd_length:
+        return back
+    return None
 
 
 def compute_dtype_of(conf) -> Optional[torch.dtype]:
@@ -33,7 +44,20 @@ def cast_for_compute(params, x, dtype):
     return {k: cast(v) for k, v in params.items()}, cast(x)
 
 
-def apply_layer(layer, conf, params, state, x, mask):
+def _check_no_remat(conf) -> None:
+    policy = envknob.raw("DL4J_TPU_REMAT").strip().lower() or "none"
+    if conf.gradient_checkpointing or policy != "none":
+        raise NotImplementedError(
+            "activation remat (conf.gradient_checkpointing or "
+            f"DL4J_TPU_REMAT={policy!r}) is not ported yet; train with "
+            "gradient_checkpointing off and DL4J_TPU_REMAT unset or 'none'")
+
+
+def apply_layer(layer, conf, params, state, x, gen, mask, kwargs=None, *,
+                train: bool = False):
+    """One layer under the container's policy: the dtype cast, then
+    ``layer.apply`` with the dropout generator ``gen``, the mask and the
+    layer's extra ``kwargs`` (carry_state, backprop_window)."""
     compute_dtype = compute_dtype_of(conf)
     cast_active = (compute_dtype is not None
                    and not isinstance(layer, OutputLayerImpl))
@@ -41,8 +65,27 @@ def apply_layer(layer, conf, params, state, x, mask):
         params, x = cast_for_compute(params, x, compute_dtype)
     elif compute_dtype is not None and x.dtype == compute_dtype:
         x = x.to(torch.float32)
-    y, new_state = layer.apply(params, state, x, mask=mask)
+    if train:
+        _check_no_remat(conf)
+    y, new_state = layer.apply(params, state, x, train=train, gen=gen,
+                               mask=mask, **(kwargs or {}))
     if cast_active and new_state:
         new_state = {k: v.to(torch.float32) if v.dtype == compute_dtype
                      else v for k, v in new_state.items()}
     return y, new_state
+
+
+def cast_loss_input(x: torch.Tensor) -> torch.Tensor:
+    """Loss math stays at f32 or wider: bf16 and f16 are upcast."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.to(torch.float32)
+    return x
+
+
+def decay_lr_scale_entry(state, rate: float):
+    """One layer's updater state with its ``lr_scale`` (the ``score`` LR
+    policy's cumulative decay) multiplied by ``rate``; a state without it
+    passes through."""
+    if isinstance(state, dict) and "lr_scale" in state:
+        return {**state, "lr_scale": state["lr_scale"] * rate}
+    return state

@@ -1,14 +1,14 @@
-"""Feedforward layers, inference side (counterpart:
+"""Feedforward layers (counterpart:
 ``deeplearning4j_tpu/nn/layers/feedforward.py`` — ``DenseLayerImpl``,
-``OutputLayerImpl`` and ``RnnOutputLayerImpl``, :27-67).
+``OutputLayerImpl`` with its ``loss`` and ``RnnOutputLayerImpl``, :27-67).
 
-``OutputLayerImpl.loss`` is training and waits for the training slice;
-the embedding, activation, autoencoder and RBM layers wait for the slices
-that serve them.
+The embedding, activation, autoencoder and RBM layers wait for the slices
+that use them.
 """
 
 from __future__ import annotations
 
+from deeplearning4j_tpu_torch.nn import losses
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerImpl
 
 
@@ -21,12 +21,22 @@ class DenseLayerImpl(BaseLayerImpl):
     def preout(self, params, x):
         return x @ params["W"] + params["b"]
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
+        x = self._dropout_in(x, train, gen)
         return self.act(self.preout(params, x)), state
 
 
 class OutputLayerImpl(DenseLayerImpl):
-    """Dense + loss function; ``apply`` gives the activated output."""
+    """Dense + loss function; ``apply`` gives the activated output, and the
+    container computes the loss from ``preout`` (softmax with mcxent or
+    NLL fused through log-softmax)."""
+
+    def loss(self, params, x, labels, mask=None):
+        z = self.preout(params, x)
+        name = self.conf.loss_function
+        if losses.fused_with_softmax(name) and self.conf.activation == "softmax":
+            return losses.mcxent_from_logits(labels, z, mask)
+        return losses.loss_fn(name)(labels, self.act(z), mask)
 
 
 class RnnOutputLayerImpl(OutputLayerImpl):

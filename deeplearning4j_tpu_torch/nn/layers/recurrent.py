@@ -1,6 +1,6 @@
-"""GravesLSTM, inference side (counterpart:
-``deeplearning4j_tpu/nn/layers/recurrent.py`` — ``_init_lstm_params``,
-``_lstm_step``, ``_scan_lstm`` and ``GravesLSTMImpl``).
+"""GravesLSTM (counterpart: ``deeplearning4j_tpu/nn/layers/recurrent.py`` —
+``_init_lstm_params``, ``_lstm_step``, ``_scan_lstm`` and
+``GravesLSTMImpl``).
 
 Gate math (Graves 2013 with peepholes; gates [i, f, o, g] along the 4H
 axis of W, U and b; peepholes p[0], p[1] on c_prev and p[2] on c):
@@ -12,14 +12,18 @@ axis of W, U and b; peepholes p[0], p[1] on c_prev and p[2] on c):
     h = o * act(c)
 
 The input projection x @ W + b for all timesteps is one matmul outside
-the recurrence. Routing, as in the JAX package (``recurrent.py:97``): a
-tanh layer with no mask and T >= 8 runs the whole recurrence through the
-K1 wrapper (``ops/lstm_scan.py``: the hand-written kernel on the card, its
-plain version on the CPU); everything else runs the per-step loop below,
-the counterpart of ``lax.scan``. The TPU gates of the JAX routing (the
-measured-win table, the VMEM fit, ``DL4J_TPU_PALLAS``) do not carry over:
-on the card every routed shape goes through K1, or raises. The
-bidirectional LSTM and the GRU wait for a later slice.
+the recurrence (its gradient, dW, db and dx, comes from autograd through
+that matmul, as XLA's does in the JAX package). Routing, as in the JAX
+package (``recurrent.py:97``): a tanh layer with no mask and T >= 8 runs
+the whole recurrence through the fused scan (``ops/lstm_scan.py``: the
+hand-written kernels K1 and, for the gradient, K2 on the card; their plain
+versions on the CPU) — through ``LstmScanFn`` when an input needs a
+gradient, through the forward alone otherwise; everything else runs the
+per-step loop below under autograd, the counterpart of ``lax.scan``. The
+TPU gates of the JAX routing (the measured-win table, the VMEM fit,
+``DL4J_TPU_PALLAS``) do not carry over: on the card every routed shape
+goes through the kernels, or raises. The bidirectional LSTM and the GRU
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import BaseLayerImpl
 from deeplearning4j_tpu_torch.nn.weights import init_weights
-from deeplearning4j_tpu_torch.ops.lstm_scan import lstm_scan
+from deeplearning4j_tpu_torch.ops.lstm_scan import LstmScanFn, lstm_scan
 
 KERNEL_MIN_T = 8  # shorter sequences (rnn_time_step streams) loop per step
 
@@ -62,15 +66,34 @@ def _lstm_step(act, params, h_prev, c_prev, xproj_t, mask_t):
     return h, c
 
 
-def _scan_lstm(act, params, x, h0, c0, mask, is_tanh=False):
-    """x [N, T, F] -> (outputs [N, T, H], h_T, c_T)."""
+def _scan_lstm(act, params, x, h0, c0, mask, is_tanh=False,
+               backprop_window=None):
+    """x [N, T, F] -> (outputs [N, T, H], h_T, c_T).
+
+    backprop_window=B < T is the distinct TBPTT back length: the first
+    T-B steps run with no gradient (values flow, gradients do not) and
+    the last B with it."""
     n, t, _ = x.shape
+    if backprop_window is not None and 0 < backprop_window < t:
+        cut = t - backprop_window
+        m_e = mask[:, :cut] if mask is not None else None
+        m_l = mask[:, cut:] if mask is not None else None
+        with torch.no_grad():
+            ys_e, h_m, c_m = _scan_lstm(act, params, x[:, :cut], h0, c0,
+                                        m_e, is_tanh=is_tanh)
+        ys_l, h_f, c_f = _scan_lstm(act, params, x[:, cut:], h_m, c_m, m_l,
+                                    is_tanh=is_tanh)
+        return torch.cat([ys_e, ys_l], dim=1), h_f, c_f
     n_out = h0.shape[-1]
     xproj = (x.reshape(n * t, -1) @ params["W"] + params["b"]).reshape(
         n, t, 4 * n_out)
     if is_tanh and mask is None and t >= KERNEL_MIN_T:
-        hs, h_f, c_f, _ = lstm_scan(xproj, params["U"], params["p"], h0, c0)
-        # the kernel computes in f32; keep the caller's dtype
+        args = (xproj, params["U"], params["p"], h0, c0)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            hs, h_f, c_f = LstmScanFn.apply(*args)
+        else:
+            hs, h_f, c_f, _ = lstm_scan(*args)
+        # the kernels compute in f32; keep the caller's dtype
         return hs.to(x.dtype), h_f.to(x.dtype), c_f.to(x.dtype)
     keep = None if mask is None else (mask != 0)[..., None]  # [N, T, 1]
     h, c = h0, c0
@@ -95,13 +118,24 @@ class GravesLSTMImpl(BaseLayerImpl):
         }
         return params, state, (t, n_out)
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None,
+              carry_state=False, backprop_window=None):
+        """carry_state=True resumes from state['h'] and state['c'] when
+        they match the batch (TBPTT window chaining); the carried state
+        enters as data, with no gradient across the window boundary.
+        backprop_window truncates the in-window backward pass."""
+        x = self._dropout_in(x, train, gen)
         n = x.shape[0]
-        zeros = torch.zeros((n, self.conf.n_out), dtype=x.dtype,
-                            device=x.device)
+        if carry_state and state["h"].shape[0] == n:
+            h0 = state["h"].detach().to(x.dtype)
+            c0 = state["c"].detach().to(x.dtype)
+        else:
+            h0 = c0 = torch.zeros((n, self.conf.n_out), dtype=x.dtype,
+                                  device=x.device)
         ys, h_f, c_f = _scan_lstm(
-            self.act, params, x, zeros, zeros, mask,
-            is_tanh=(self.conf.activation or "tanh") == "tanh")
+            self.act, params, x, h0, c0, mask,
+            is_tanh=(self.conf.activation or "tanh") == "tanh",
+            backprop_window=backprop_window)
         if mask is not None:
             ys = ys * mask.to(ys.dtype)[..., None]
         return ys, {"h": h_f, "c": c_f}

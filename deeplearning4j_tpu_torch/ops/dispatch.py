@@ -1,25 +1,40 @@
 """Shape bucketing (counterpart: ``deeplearning4j_tpu/ops/dispatch.py``
-``bucket_size`` :360, the "off" test of ``bucketing_mode``, ``pad_axis0``
-:378 and ``inference_bucket`` :387).
+``bucketing_mode`` :338, ``bucket_size`` :360, ``pad_axis0`` :378,
+``inference_bucket`` :387, ``pad_rows`` :403 and ``row_validity_mask``
+:422).
 
-Admission prefill pads a prompt to a bucket width, and
-``MultiLayerNetwork.output`` pads a ragged batch to a bucket row count, so
-a stream of arbitrary sizes meets a small set of shapes (the batcher's
-warm-up covers every bucket). Inference padding is safe: every op of the
-ported layers is row-independent. Donation, jit caches and dispatch
-stats have no counterpart here: PyTorch runs eagerly and the port updates
-its single-owner buffers in place.
+Admission prefill pads a prompt to a bucket width,
+``MultiLayerNetwork.output`` pads a ragged batch to a bucket row count,
+and ``fit`` pads a ragged training batch to its bucket with the pad rows
+masked out of the loss, so a stream of arbitrary sizes meets a small set
+of shapes. Inference padding is safe: every op of the ported layers is
+row-independent. Donation, jit caches and dispatch stats have no
+counterpart here: PyTorch runs eagerly and the port updates its
+single-owner buffers in place.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import env as envknob
 
 _OFF = ("0", "off", "false", "no")
+_ON = ("1", "on", "true", "yes", "force")
+
+
+def bucketing_mode() -> str:
+    """``DL4J_TPU_BUCKET_BATCHES``, read at call time: "off" (never pad),
+    "always" (every fit pads) or "auto", the default: pad inside
+    ``fit_iterator`` and in inference, and leave a direct ``fit`` exact."""
+    v = envknob.raw("DL4J_TPU_BUCKET_BATCHES").strip().lower()
+    if v in _OFF:
+        return "off"
+    if v in _ON:
+        return "always"
+    return "auto"
 
 
 def bucket_size(n: int) -> int:
@@ -34,16 +49,10 @@ def bucket_size(n: int) -> int:
     return mid if (p >= 4 and n <= mid) else p
 
 
-def bucketing_off() -> bool:
-    """``DL4J_TPU_BUCKET_BATCHES`` set to 0/off/false/no. Its other values
-    (the JAX package's "auto" and "always") both pad at inference."""
-    return envknob.raw("DL4J_TPU_BUCKET_BATCHES").strip().lower() in _OFF
-
-
 def inference_bucket(n: int) -> Optional[int]:
     """The padded row count for an inference batch of ``n`` rows, or None
     when no padding applies (bucketing off, or n already a bucket)."""
-    if bucketing_off():
+    if bucketing_mode() == "off":
         return None
     target = bucket_size(n)
     return None if target == n else target
@@ -55,3 +64,22 @@ def pad_axis0(x: torch.Tensor, target: int) -> torch.Tensor:
         return x
     pad = x.new_zeros((target - x.shape[0],) + tuple(x.shape[1:]))
     return torch.cat([x, pad], dim=0)
+
+
+def pad_rows(target: int, arrays: Sequence[Optional[torch.Tensor]]
+             ) -> List[Optional[torch.Tensor]]:
+    """Each tensor padded along axis 0 to ``target`` (None passes)."""
+    return [None if a is None else pad_axis0(a, target) for a in arrays]
+
+
+def row_validity_mask(n_real: int, n_padded: int,
+                      time_steps: Optional[int] = None, *,
+                      device=None) -> torch.Tensor:
+    """1.0 for real rows, 0.0 for pad rows, [n_padded] or
+    [n_padded, time_steps]: fed as the label mask, so the masked-mean loss
+    divides by the real example count (and equals the plain mean on an
+    unpadded batch)."""
+    m = (torch.arange(n_padded, device=device) < n_real).to(torch.float32)
+    if time_steps is not None:
+        m = m[:, None].expand(n_padded, time_steps)
+    return m

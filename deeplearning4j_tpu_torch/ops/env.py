@@ -1,8 +1,9 @@
 """Env knobs the port reads — its own copy of the entries of the JAX
 package's table (``deeplearning4j_tpu/ops/env.py``) that the ported paths
 read, same names, kinds and defaults: the paged ``/generate`` path, the
-``/predict`` batcher and inference bucketing. The rest of the table waits
-for the slices that read them.
+``/predict`` batcher, shape bucketing and the remat policy (which training
+refuses when set, remat not being ported yet). The rest of the table
+waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
@@ -35,8 +36,11 @@ def _register(name: str, default: str, kind: str, doc: str) -> None:
 
 
 _register("DL4J_TPU_BUCKET_BATCHES", "", "enum",
-          "shape bucketing for ragged batches: '' auto (output pads to a "
-          "bucket), 1 always, 0 off")
+          "shape bucketing for ragged batches: '' auto (fit_iterator/"
+          "output only), 1 every fit, 0 off")
+_register("DL4J_TPU_REMAT", "", "enum",
+          "activation-remat policy ladder for block scans and per-layer "
+          "remat: none (default) / dots / block")
 _register("DL4J_TPU_SERVE_MAX_BATCH", "64", "int",
           "dynamic-batcher max rows per dispatched batch")
 _register("DL4J_TPU_SERVE_MAX_WAIT_MS", "10", "float",

@@ -257,7 +257,7 @@ class DynamicBatcher:
                      else np.concatenate([r.rows for r in taken], axis=0))
             n = batch.shape[0]
             # the pad rows the model's own bucketing adds (output())
-            padded_to = (n if dispatch.bucketing_off()
+            padded_to = (n if dispatch.bucketing_mode() == "off"
                          else max(dispatch.bucket_size(n), n))
             self.stats.record_batch(n, padded_to)
             try:

@@ -1,7 +1,8 @@
-"""Checkpoint reading (counterpart:
-``deeplearning4j_tpu/utils/serialization.py`` — ``read_flagship_zip``
-:197, the zip half of ``restore_multi_layer_network`` :300 and the npz
-half of ``_npz_bytes_into_tree``).
+"""Checkpoints (counterpart: ``deeplearning4j_tpu/utils/serialization.py``
+— ``write_model_parts`` :60 and ``_tree_to_npz_bytes`` :149 for
+MultiLayerNetwork zips, ``read_flagship_zip`` :197, the zip half of
+``restore_multi_layer_network`` :300 and the npz half of
+``_npz_bytes_into_tree``).
 
 The JAX package writes a ModelSerializer-layout zip: ``configuration.json``,
 ``coefficients.npz``, ``metadata.json`` and, as the model has them,
@@ -10,8 +11,12 @@ as ``jax.tree_util.keystr`` prints it: dict keys as ``['name']`` and list
 indices as ``[0]``, e.g. ``['blocks']['Wq']`` for the TransformerLM and
 ``[0]['W']`` for layer 0 of a MultiLayerNetwork. This module reads those
 keys back into nested dicts of numpy arrays without JAX (a list index
-becomes an int key). The writers and the ComputationGraph zip wait for
-later slices.
+becomes an int key), and :func:`write_model` writes a MultiLayerNetwork
+zip with the same keys, which the JAX package's
+``ModelSerializer.restore_multi_layer_network`` reads: the configuration,
+``coefficients.npz``, ``state.npz``, ``updater.npz`` (the updater state
+in the JAX layout) and ``training_state.json`` with the iteration. The
+flagship writers and the ComputationGraph zip wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
+FORMAT_VERSION = 1
+TRAINING_STATE_ENTRY = "training_state.json"
 _KEY_PART = re.compile(r"\[(\d+)\]|\['((?:[^'\\]|\\.)*)'\]")
 
 
@@ -45,23 +52,77 @@ def read_flagship_zip(path: str, expected_class: str
     return cfg, coeff, upd, meta
 
 
-def read_multi_layer_zip(path: str) -> Tuple[str, bytes, Optional[bytes],
-                                              Dict[str, Any]]:
-    """(configuration_json, coefficients_bytes, state_bytes_or_None,
-    metadata) of a MultiLayerNetwork zip. A checkpoint of another model
-    class is refused loudly (a zip with no recorded class is taken as a
+def read_multi_layer_zip(path: str) -> Dict[str, Any]:
+    """The sections of a MultiLayerNetwork zip: ``conf`` (the JSON
+    string), ``coefficients``, ``state`` and ``updater`` (npz bytes, the
+    last two None when absent), ``meta`` and ``training_state`` (dicts,
+    the last empty when absent). A checkpoint of another model class is
+    refused loudly (a zip with no recorded class is taken as a
     MultiLayerNetwork, as the JAX package's restore does)."""
     with zipfile.ZipFile(path, "r") as z:
+        names = set(z.namelist())
         meta = json.loads(z.read("metadata.json").decode())
         got = meta.get("model_class")
         if got not in (None, "MultiLayerNetwork"):
             raise ValueError(
                 f"checkpoint holds {got!r}, not MultiLayerNetwork")
-        conf = z.read("configuration.json").decode()
-        coeff = z.read("coefficients.npz")
-        state = (z.read("state.npz")
-                 if "state.npz" in z.namelist() else None)
-    return conf, coeff, state, meta
+        opt = lambda name: z.read(name) if name in names else None
+        ts = opt(TRAINING_STATE_ENTRY)
+        return {"conf": z.read("configuration.json").decode(),
+                "coefficients": z.read("coefficients.npz"),
+                "state": opt("state.npz"), "updater": opt("updater.npz"),
+                "meta": meta,
+                "training_state": json.loads(ts.decode()) if ts else {}}
+
+
+def _keystr(path: Tuple[Union[int, str], ...]) -> str:
+    """``(0, 'cache', 'W')`` -> ``"[0]['cache']['W']"``, the key
+    ``jax.tree_util.keystr`` prints for that leaf."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]"
+                   for p in path)
+
+
+def tree_to_npz_bytes(tree) -> bytes:
+    """An npz of every tensor leaf of a nest of lists and dicts, keyed by
+    its path as the JAX package keys it; lists and dicts with no leaves
+    write nothing, as a pytree with no leaves does."""
+    arrays: Dict[str, np.ndarray] = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, path + (i,))
+        else:
+            arrays[_keystr(path)] = node.detach().cpu().numpy()
+
+    visit(tree, ())
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def write_model(net, path: str, save_updater: bool = True) -> None:
+    """Write ``net`` (a MultiLayerNetwork of the port) as a zip that the
+    JAX package's ``ModelSerializer.restore_multi_layer_network`` and
+    :meth:`MultiLayerNetwork.load` read back, updater state and iteration
+    included."""
+    meta = {"format_version": FORMAT_VERSION,
+            "model_class": "MultiLayerNetwork",
+            "iteration": int(net.iteration),
+            "input_shape": (list(net._input_shape) if net._input_shape
+                            else None)}
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("configuration.json", net.conf.to_json())
+        z.writestr("coefficients.npz", tree_to_npz_bytes(net.params))
+        z.writestr("state.npz", tree_to_npz_bytes(net.states))
+        if save_updater:
+            z.writestr("updater.npz", tree_to_npz_bytes(net.updater_state))
+        z.writestr(TRAINING_STATE_ENTRY,
+                   json.dumps(net.training_state()))
+        z.writestr("metadata.json", json.dumps(meta))
 
 
 def keystr_path(key: str) -> Tuple[Union[int, str], ...]:

@@ -12,7 +12,10 @@ machine does not have; the files that compare against JAX skip there).
 Tolerances: f32 inputs 1e-4 abs, bf16 inputs 2e-2 abs on flash O (f32
 math, O rounded to bf16), 1e-3 abs on lse and on paged attention's f32
 output, 1e-4 abs on every output of the LSTM scan (f32 math, sums in
-another order than the plain version's matmul).
+another order than the plain version's matmul). The LSTM backward: 1e-4
+abs on dxproj, dh0 and dc0, and 1e-4 of the largest entry on dU and dp,
+which sum N*T products. A full-width char-RNN fit on the card against
+the same fit on the CPU: see that test.
 """
 
 import numpy as np
@@ -122,7 +125,7 @@ def test_kernels_build_with_nvcc():
     from deeplearning4j_tpu_torch.ops import build
 
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan"]):
+                            "lstm_scan", "lstm_scan_bwd"]):
         assert res.path.exists()
         assert "registers" in res.log
 
@@ -254,3 +257,114 @@ def test_multilayer_network_on_the_card_goes_through_k1():
         assert port_lstm.lstm_scan_plain.launches == 0
     finally:
         eng.stop()
+
+
+def _bwd_args(seed, n, t, h, dev):
+    x, u, p, h0, c0 = _lstm_args(seed, n, t, h, dev)
+    hs, _, _, cs = port_lstm.lstm_scan(x, u, p, h0, c0, emit_cs=True)
+    rng = np.random.default_rng(seed + 1)
+    cot = [_port(rng.standard_normal(s).astype(np.float32), dev)
+           for s in ((n, t, h), (n, h), (n, h))]
+    return (x, u, p, h0, c0, cs, hs, *cot)
+
+
+def _bwd_errors(out, ref):
+    """abs error on dxproj, dh0, dc0; error relative to the largest entry
+    on dU and dp."""
+    errs = []
+    for i, (a, b) in enumerate(zip(out, ref)):
+        e = (a - b).abs().max().item()
+        if i in (1, 2):
+            e /= max(b.abs().max().item(), 1e-30)
+        errs.append(e)
+    return errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,h", [(1, 8, 200), (32, 50, 200), (3, 13, 16),
+                                   (70, 9, 300), (64, 100, 200),
+                                   (32, 128, 128), (5, 12, 270)])
+def test_lstm_scan_bwd_kernel_matches_plain_on_card(n, t, h):
+    """(5, 12, 270): 4 units per CTA, the last CTA holds 2 (H % 4 != 0);
+    (70, 9, 300): two rounds of batch rows, the second partial."""
+    dev = _need_card()
+    args = _bwd_args(n + t + h, n, t, h, dev)
+    before = port_lstm.lstm_scan_bwd.launches
+    out = port_lstm.lstm_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert port_lstm.lstm_scan_bwd.launches == before + 1
+    ref = port_lstm.lstm_scan_bwd_plain(*args)
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+    assert max(_bwd_errors(out, ref)) < 1e-4
+    again = port_lstm.lstm_scan_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.gpu
+def test_lstm_scan_fn_gradients_match_autograd_through_plain_on_card():
+    dev = _need_card()
+    args = [a.requires_grad_() for a in _lstm_args(7, 4, 20, 64, dev)]
+    w = [torch.randn(s, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(i)) for i, s in enumerate(
+        ((4, 20, 64), (4, 64), (4, 64)))]
+    fwd, bwd = port_lstm.lstm_scan.launches, port_lstm.lstm_scan_bwd.launches
+    got = torch.autograd.grad(sum((o * ww).sum() for o, ww in zip(
+        port_lstm.LstmScanFn.apply(*args), w)), args)
+    assert (port_lstm.lstm_scan.launches, port_lstm.lstm_scan_bwd.launches) \
+        == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(sum((o * ww).sum() for o, ww in zip(
+        port_lstm.lstm_scan_plain(*args)[:3], w)), args)
+    assert max(_bwd_errors(got, want)) < 1e-4
+
+
+@pytest.mark.gpu
+def test_lstm_scan_bwd_refuses_what_the_kernel_does_not_take():
+    dev = _need_card()
+    args = list(_bwd_args(4, 2, 8, 16, dev))
+    args[5] = args[5][:4]  # cs cut short
+    with pytest.raises(ValueError, match="cs"):
+        port_lstm.lstm_scan_bwd(*args)
+
+
+@pytest.mark.gpu
+def test_full_width_fit_on_the_card_matches_the_cpu():
+    """One fit of the char-RNN at full width (vocab 80, 2 x 200, TBPTT
+    50, batch 32, T=100) on the card and on the CPU from the same
+    weights: K1 and K2 launch 4 times (2 windows x 2 layers), the plain
+    versions never, and the two window losses agree within 1e-4 and the
+    params within 1e-3 (RMSProp's first steps divide a gradient by
+    sqrt(cache + eps), so an entry near zero moves by lr * dg / 1e-4)."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+
+    conf = char_rnn_conf(80, lstm_size=200, num_layers=2, tbptt_length=50)
+    card = MultiLayerNetwork(conf, device=dev).init(input_shape=(1, 80))
+    cpu = MultiLayerNetwork(conf, device="cpu").init(input_shape=(1, 80))
+    cpu.params = [{k: v.cpu() for k, v in p.items()} for p in card.params]
+    cpu.updater_state = cpu.updater.init(cpu.params)
+    ids = np.random.default_rng(0).integers(0, 80, (32, 101))
+    eye = np.eye(80, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    cols = []
+    for net in (card, cpu):
+        cols.append(CollectScoresIterationListener())
+        net.set_listeners(cols[-1])
+    for fn in (port_lstm.lstm_scan, port_lstm.lstm_scan_plain,
+               port_lstm.lstm_scan_bwd, port_lstm.lstm_scan_bwd_plain):
+        fn.launches = 0
+    card.fit(x, y)
+    torch.cuda.synchronize()
+    assert (port_lstm.lstm_scan.launches, port_lstm.lstm_scan_bwd.launches,
+            port_lstm.lstm_scan_plain.launches,
+            port_lstm.lstm_scan_bwd_plain.launches) == (4, 4, 0, 0)
+    cpu.fit(x, y)
+    for (_, a), (_, b) in zip(*(c.scores for c in cols)):
+        assert abs(a - b) < 1e-4
+    for pa, pb in zip(card.params, cpu.params):
+        for k in pa:
+            assert (pa[k].cpu() - pb[k]).abs().max().item() < 1e-3, k

@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package (CPU) and against their
+"""The port's four kernels against the JAX package (CPU) and against their
 plain versions (card).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
@@ -20,6 +20,16 @@ against the JAX function the TPU kernel implements:
     ``_lstm_pallas_fwd_raw(..., interpret=True, emit_cs=True)``, at
     T in {1, 8, 13}. Tolerance 1e-5 abs in f32; the f64 scan against the
     f64 reference at 1e-12.
+  * K2 LSTM scan backward — the port's plain reverse-time loop, fed the
+    cell sequence of ``_lstm_pallas_fwd_raw(..., interpret=True,
+    emit_cs=True)``, against ``_lstm_pallas_bwd_raw(..., interpret=True)``
+    and ``jax.vjp`` of ``_lstm_scan_reference`` at (N, T, H) in
+    {(4, 6, 8), (3, 64, 8) (several reverse time blocks), (2, 1, 8)}:
+    f32 at 1e-5 abs (1e-4 abs on dU and dp, sums of N*T terms in another
+    order), f64 against the f64 vjp at 1e-12. ``LstmScanFn`` passes
+    ``torch.autograd.gradcheck`` in f64 and its gradients equal autograd
+    through the plain forward at 1e-10 (f64), with and without cotangents
+    on h_T and c_T.
 
 The same kernels on the card, against their plain versions, are in
 ``tests/test_torch_gpu.py``.
@@ -252,3 +262,122 @@ class TestLstmScanPlainAgainstJax:
     def test_units_per_cta_refuses_what_no_grid_holds(self):
         with pytest.raises(ValueError, match="units per CTA"):
             port_lstm.units_per_cta(1057, 132)
+
+
+# ---------------------------------------------------------------------------
+# K2 — fused LSTM backward scan
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(seed, n, t, h, dtype=np.float32):
+    args = _lstm_case(seed, n=n, t=t, h=h, dtype=dtype)
+    rng = np.random.default_rng(seed + 1000)
+    cot = (rng.normal(0, 1, (n, t, h)).astype(dtype),
+           rng.normal(0, 1, (n, h)).astype(dtype),
+           rng.normal(0, 1, (n, h)).astype(dtype))
+    return args, cot
+
+
+BWD_SHAPES = [(4, 6, 8), (3, 64, 8), (2, 1, 8)]
+BWD_NAMES = ("dxproj", "dU", "dp", "dh0", "dc0")
+# dU and dp sum N*T products, in another order than XLA's
+BWD_TOL_F32 = (1e-5, 1e-4, 1e-4, 1e-5, 1e-5)
+
+
+class TestLstmScanBwdPlainAgainstJax:
+    @pytest.mark.parametrize("n,t,h", BWD_SHAPES)
+    def test_f32_matches_pallas_bwd_interpret_and_vjp(self, n, t, h):
+        import jax
+
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+
+        args, cot = _bwd_case(n + t, n, t, h)
+        jargs = [jnp.asarray(a) for a in args]
+        jcot = tuple(jnp.asarray(c) for c in cot)
+        hs_raw, cs_raw, _, _ = pk._lstm_pallas_fwd_raw(
+            *jargs, interpret=True, emit_cs=True)
+        kern = pk._lstm_pallas_bwd_raw(*jargs, cs_raw, hs_raw, *jcot,
+                                       interpret=True)
+        _, vjp = jax.vjp(pk._lstm_scan_reference, *jargs)
+        ref = vjp(jcot)
+        ours = port_lstm.lstm_scan_bwd(
+            *(_port(a) for a in args), _port(np.array(cs_raw)),
+            _port(np.array(hs_raw)), *(_port(c) for c in cot))
+        for name, tol, o, k, r in zip(BWD_NAMES, BWD_TOL_F32, ours, kern,
+                                      ref):
+            assert o.shape == k.shape == r.shape, name
+            assert np.abs(o.numpy() - np.asarray(k)).max() < tol, name
+            assert np.abs(o.numpy() - np.asarray(r)).max() < tol, name
+
+    @pytest.mark.parametrize("n,t,h", BWD_SHAPES)
+    def test_f64_matches_f64_vjp(self, n, t, h):
+        import jax
+
+        from deeplearning4j_tpu.ops import pallas_kernels as pk
+
+        args, cot = _bwd_case(200 + n + t, n, t, h, dtype=np.float64)
+        jargs = [jnp.asarray(a) for a in args]
+        _, vjp = jax.vjp(pk._lstm_scan_reference, *jargs)
+        ref = vjp(tuple(jnp.asarray(c) for c in cot))
+        assert ref[0].dtype == jnp.float64
+        targs = [torch.from_numpy(a) for a in args]
+        hs, _, _, cs = port_lstm.lstm_scan(*targs, emit_cs=True)
+        ours = port_lstm.lstm_scan_bwd(*targs, cs, hs,
+                                       *(torch.from_numpy(c) for c in cot))
+        for name, o, r in zip(BWD_NAMES, ours, ref):
+            assert o.dtype == torch.float64, name
+            assert np.abs(o.numpy() - np.asarray(r)).max() < 1e-12, name
+
+    def test_cpu_wrapper_counts_plain_calls_only(self):
+        args, cot = _bwd_case(0, 3, 8, 16)
+        targs = [_port(a) for a in args]
+        hs, _, _, cs = port_lstm.lstm_scan(*targs, emit_cs=True)
+        kern, plain = (port_lstm.lstm_scan_bwd.launches,
+                       port_lstm.lstm_scan_bwd_plain.launches)
+        port_lstm.lstm_scan_bwd(*targs, cs, hs, *(_port(c) for c in cot))
+        assert port_lstm.lstm_scan_bwd.launches == kern
+        assert port_lstm.lstm_scan_bwd_plain.launches == plain + 1
+
+
+def _grad_inputs(seed, n=3, t=9, h=5):
+    return [torch.from_numpy(a).requires_grad_()
+            for a in _lstm_case(seed, n=n, t=t, h=h, dtype=np.float64)]
+
+
+class TestLstmScanFn:
+    def test_gradcheck_f64(self):
+        assert torch.autograd.gradcheck(port_lstm.LstmScanFn.apply,
+                                        _grad_inputs(0, n=2, t=4, h=3))
+
+    @pytest.mark.parametrize("outputs", ["all", "hs_only", "final_only"])
+    def test_gradients_equal_autograd_through_the_plain_scan(self, outputs):
+        """Weighted sums of the outputs the case uses; an unused output
+        reaches the backward as zeros."""
+        args = _grad_inputs(11)
+        rng = np.random.default_rng(5)
+        use = {"all": (0, 1, 2), "hs_only": (0,), "final_only": (1, 2)}[
+            outputs]
+
+        def loss(outs):
+            return sum((outs[i] * torch.from_numpy(
+                rng.standard_normal(tuple(outs[i].shape)))).sum()
+                for i in use)
+
+        got = torch.autograd.grad(loss(port_lstm.LstmScanFn.apply(*args)),
+                                  args)
+        rng = np.random.default_rng(5)
+        want = torch.autograd.grad(
+            loss(port_lstm.lstm_scan_plain(*args)[:3]), args)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float64
+            assert (g - w).abs().max().item() < 1e-10
+
+    def test_forward_emits_cs_and_backward_runs_k2(self):
+        args = _grad_inputs(3)
+        fwd, bwd = (port_lstm.lstm_scan_plain.launches,
+                    port_lstm.lstm_scan_bwd_plain.launches)
+        hs, h_t, c_t = port_lstm.LstmScanFn.apply(*args)
+        assert port_lstm.lstm_scan_plain.launches == fwd + 1
+        (hs.sum() + c_t.sum()).backward()
+        assert port_lstm.lstm_scan_bwd_plain.launches == bwd + 1
+        assert all(a.grad is not None for a in args)

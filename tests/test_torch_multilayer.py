@@ -283,8 +283,10 @@ class TestCheckpointAgainstJax:
         assert len(acts) == len(ref) == 4
         for a, r in zip(acts, ref):
             assert np.abs(a.numpy() - np.asarray(r)).max() < TOL
-        with pytest.raises(ValueError, match="not ported"):
-            pnet.feed_forward(x, train=True)
+        # training mode: no dropout in this net, so the same activations
+        ref = jnet.feed_forward(x, train=True)
+        for a, r in zip(pnet.feed_forward(x, train=True), ref):
+            assert np.abs(a.numpy() - np.asarray(r)).max() < TOL
 
     def test_rnn_time_step_stepwise_and_sequence(self, pair):
         jnet, pnet = pair

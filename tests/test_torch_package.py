@@ -5,9 +5,11 @@
     ``sys.modules`` afterwards, and no ``import`` statement in the
     package or in ``chip_smoke.py`` names either.
   * Its entry points (``TransformerLM``, ``PagedDecoder``,
-    ``MultiLayerNetwork`` and its ``load``, ``ServingEngine``) run on the
-    card unless given ``device="cpu"``; with no card they raise instead of
-    moving to the CPU.
+    ``MultiLayerNetwork`` and its ``load``, ``ServingEngine``, and the
+    training ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
+    ``load`` with the updater section) run on the card unless given
+    ``device="cpu"``; with no card they raise instead of moving to the
+    CPU.
   * Its knob table is a copy of the JAX table's serving entries (same
     names, same defaults), and it builds its kernels from ``csrc/``.
 """
@@ -143,6 +145,41 @@ class TestEntryPointsNeedACardOrCpu:
         assert net.params[0]["W"].device == torch.device("cpu")
         ServingEngine(model=net, device="cpu").stop()
 
+    def test_training_entry_points(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu.models.char_rnn import CharRnn as JaxCharRnn
+        from deeplearning4j_tpu.utils.serialization import ModelSerializer
+
+        from deeplearning4j_tpu_torch.datasets.iterator import (
+            ListDataSetIterator,
+        )
+        from deeplearning4j_tpu_torch.models.char_rnn import CharRnn
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        text = "abcab" * 20
+        kw = dict(lstm_size=4, num_layers=1, tbptt_length=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CharRnn(text, **kw)
+        cr = CharRnn(text, device="cpu", **kw)
+        assert len(cr.fit_text(text, batch=2, seq_len=8)) == 6
+        x, y = next(cr.batches(text, 2, 8))
+        assert float(cr.net.fit(x, y)) > 0
+        cr.net.fit_iterator(ListDataSetIterator(x, y, batch=1))
+        cache = cr.net.updater_state[0]["cache"]["W"]
+        assert cache.device == torch.device("cpu")
+        assert float(cache.abs().max()) > 0
+        jc = JaxCharRnn(text, **kw)
+        jc.fit_text(text, batch=2, seq_len=8)
+        path = str(tmp_path / "trained.zip")
+        ModelSerializer.write_model(jc.net, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiLayerNetwork.load(path)
+        net = MultiLayerNetwork.load(path, device="cpu")
+        np.testing.assert_array_equal(
+            net.updater_state[0]["cache"]["W"].numpy(),
+            np.asarray(jc.net.updater_state[0]["cache"]["W"]))
+
 
 def test_knob_table_copies_the_jax_entries(monkeypatch):
     from deeplearning4j_tpu.ops import env as jenv
@@ -154,7 +191,7 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_SERVE_SLOTS", "DL4J_TPU_SERVE_QUEUE_CAP",
         "DL4J_TPU_SERVE_TIMEOUT_S", "DL4J_TPU_SERVE_MAX_BATCH",
         "DL4J_TPU_SERVE_MAX_WAIT_MS", "DL4J_TPU_SERVE_BATCH",
-        "DL4J_TPU_BUCKET_BATCHES"}
+        "DL4J_TPU_BUCKET_BATCHES", "DL4J_TPU_REMAT"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -193,7 +230,8 @@ def test_engine_reads_the_knobs(monkeypatch):
 def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
-    for name in ("flash_attention", "paged_attention", "lstm_scan"):
+    for name in ("flash_attention", "paged_attention", "lstm_scan",
+                 "lstm_scan_bwd"):
         src = build.CSRC / f"{name}.cu"
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
