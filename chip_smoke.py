@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: the paged
 ``/generate`` path of the TransformerLM, the ``/predict`` path of the
-char-RNN MultiLayerNetwork, and the char-RNN's training with truncated
-BPTT and RMSProp.
+char-RNN MultiLayerNetwork, the char-RNN's training with truncated BPTT
+and RMSProp, and Word2Vec skip-gram training with hierarchical softmax
+and negative sampling.
 
 Run from the repository root, with no arguments:
 
@@ -12,7 +13,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds the four kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the five kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per source, started together) and prints each
    function's ptxas register and spill line;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -30,7 +31,15 @@ What it does, in order (any failure raises and exits non-zero):
    (the char-RNN's training window), (64, 100, 200), the three shape
    classes and (1, 8, 200): max error <= 1e-4 on dxproj, dh0 and dc0
    (abs) and on dU and dp (relative to the largest entry: they sum N*T
-   products), and two launches give the same bits;
+   products), and two launches give the same bits; the SGNS step (K3),
+   f32, at (V, D, B, K+1) = (71290, 128, 2048, 6) (the smoke's word2vec),
+   (100000, 100, 1024, 6) (the hot class of ``bench.py:764``), (64, 128,
+   2048, 6) (~190 hits per row), with dots pushed past +-MAX_EXP and with
+   dead negatives and pairs, against the plain step run in f64 on the
+   same inputs (its f32 run on the card adds with atomics onto the
+   tables and drifts past the bar itself): max error <= 1e-5 of the
+   largest entry of each table's update, two launches within the same
+   bar (float atomics), and every row no live pair touches bit-equal;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -77,7 +86,28 @@ What it does, in order (any failure raises and exits non-zero):
    line only, cuDNN's ``torch.nn.LSTM`` at the same shape (no peepholes:
    not the same function); K1 is also timed with the cell sequence at
    the training window;
-8. prints one ``{"kernels": [...]}`` line, the card line again, and last
+8. trains word2vec (``Word2Vec(layer_size=128, window=5, negative=5,
+   batch_size=2048, epochs=1, min_word_frequency=5)``, the model of
+   ``bench.py:3433``) with ``fit_tokens`` on a seeded synthetic corpus of
+   1.0 M tokens over 71,290 words planted in 100 topics (``topic_corpus``;
+   every word occurs at least 5 times, so the vocabulary is exactly the
+   71,290 words of text8 at min count 5). It checks that the tables are
+   finite, that K3 launched once per negative-sampling batch and its
+   plain version never, that the topic agreement of the 10 nearest
+   neighbours of the 1,000 most frequent words is at least 10x chance and
+   no more than 0.05 below the CPU rehearsal's (``W2V_AGREEMENT_CPU``),
+   that the negative-sampling margin (``ns_margin``: how far syn1neg,
+   which only K3 writes, scores the pairs above the negatives) is at
+   least half the rehearsal's (``W2V_NS_MARGIN_CPU``), that ``save_word2vec`` then ``load_word2vec`` gives bit-equal tables,
+   and that 16 batches through K3 agree with the same batches through the
+   plain step (same draws; f64, rounded once per batch; the HS ops
+   deterministic in both runs) within 1e-5 of the largest update. It times
+   the host's vocabulary, Huffman and pair assembly, the device loop
+   (skip-gram pairs/s, ``bench.py:3445``'s metric), K3 at both shapes and
+   at B=1 (its floor) beside its plain version and bound, breaks 16
+   batches down with ``torch.profiler`` (K3, the draws, the HS and glue
+   ops, the host gaps) and reports the phase's peak device memory;
+9. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -95,6 +125,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -111,6 +142,15 @@ from deeplearning4j_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     TransformerLM,
     prefill_cache,
+)
+from deeplearning4j_tpu_torch.nlp.serializer import (  # noqa: E402
+    load_word2vec,
+    save_word2vec,
+)
+from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: E402
+    Word2Vec,
+    skipgram_batches,
+    unigram_draw,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
@@ -134,6 +174,10 @@ from deeplearning4j_tpu_torch.optimize.listeners import (  # noqa: E402
 from deeplearning4j_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
+)
+from deeplearning4j_tpu_torch.ops.sgns import (  # noqa: E402
+    sgns_step,
+    sgns_step_plain,
 )
 from deeplearning4j_tpu_torch.serving.decode import _sample_step  # noqa: E402
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine  # noqa: E402
@@ -176,6 +220,28 @@ TRAIN_BATCH, TBPTT, N_FITS = 32, 50, 30  # bench.py:206-222
 # net blows up for tens of fits (the JAX package's trajectory too); 0.003
 # learns the chain within 30 fits. The kernels' work is the same.
 TRAIN_LR = 0.003
+# K3: the smoke's word2vec (V, D, B, K+1), then the hot class of
+# bench.py:764 (its shape only)
+SGNS_SHAPES = ((71290, 128, 2048, 6), (100_000, 100, 1024, 6))
+TOL_SGNS = 1e-5  # of the largest entry of each table's update (atomics)
+# word2vec: bench.py:3433's model (layer 128, window 5, 5 negatives, batch
+# 2048, 1 epoch) at min count 5, the cut that gives text8's 71,290 words
+W2V_VOCAB, W2V_TOPICS, W2V_SENT, W2V_SENTENCES = 71290, 100, 100, 10_000
+W2V_MIN_COUNT, W2V_NOISE = 5, 0.1
+W2V_D, W2V_WINDOW, W2V_NEG, W2V_BATCH = 128, 5, 5, 2048
+W2V_QUERY_WORDS, W2V_TOP_N = 1000, 10
+# topic agreement of the 10 nearest neighbours of the 1,000 most frequent
+# words after the same fit on the CPU (device="cpu", seed 0: the smoke's
+# corpus and configuration, the plain SGNS step, the CPU generator's
+# negatives), from chip_smoke.w2v_rehearsal: 5,857,208 pairs in 2,860
+# batches, agreement 0.9368
+W2V_AGREEMENT_CPU = 0.9368
+# the agreement comes from syn0, which HS trains too; the negative-sampling
+# margin (ns_margin) reads syn1neg, which only K3 writes: 0 if K3 wrote
+# nothing. Its value after the same CPU fit, from chip_smoke.w2v_rehearsal
+# (the chunk's draws from the CPU generator); over three chunks of other
+# pairs and draws it gave 0.0411-0.0419
+W2V_NS_MARGIN_CPU = 0.04186078906059265
 
 
 def check(cond: bool, msg: str) -> None:
@@ -227,7 +293,7 @@ def short_name(mangled: str) -> str:
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -923,6 +989,434 @@ def lstm_bwd_bound(n: int, t: int, h: int):
     return bound(nbytes, 3 * 2.0 * n * t * h * 4 * h, PEAK_F32_FLOPS)
 
 
+def sgns_inputs(v: int, d: int, b: int, k1: int, seed: int, dev,
+                scale: float = 0.1, dead: bool = False):
+    """f32 tables of N(0, scale^2) entries and a batch of uniform rows:
+    label 1 in column 0; with ``dead``, 30 % dead negatives and every
+    7th pair fully dead."""
+    g = torch.Generator(device=dev).manual_seed(seed + v + d + b)
+    syn0 = torch.randn((v, d), generator=g, device=dev) * scale
+    syn1neg = torch.randn((v, d), generator=g, device=dev) * scale
+    cx = torch.randint(0, v, (b,), generator=g, device=dev)
+    tgt = torch.randint(0, v, (b, k1), generator=g, device=dev)
+    labels = torch.zeros((b, k1), device=dev)
+    labels[:, 0] = 1.0
+    live = torch.ones((b, k1), device=dev)
+    if dead:
+        live = (torch.rand((b, k1), generator=g, device=dev) > 0.3).float()
+        live[::7] = 0.0
+    return syn0, syn1neg, cx, tgt, labels, live
+
+
+def plain_step_f64(syn0, syn1neg, cx, tgt, labels, live, alpha):
+    """The plain SGNS step on f64 copies of the same inputs, rounded into
+    the tables once: the reference K3 is held to. The plain step in f32
+    on the card adds with atomics straight onto the tables
+    (``index_add_``): each add rounds at the size of the row's entries,
+    which at ~190 hits per row drifts by more than TOL_SGNS of the
+    update."""
+    p0, p1 = syn0.double(), syn1neg.double()
+    sgns_step_plain(p0, p1, cx, tgt, labels.double(), live.double(), alpha)
+    syn0.copy_(p0)
+    syn1neg.copy_(p1)
+    return p0, p1
+
+
+def sgns_errors(syn0, syn1neg, cx, tgt, labels, live, alpha=0.025):
+    """K3 on copies of the tables against the plain step in f64 on the
+    same inputs: per table, max |kernel - plain| over the largest entry
+    of the plain update, and whether every row no live pair touches kept
+    its bits under K3."""
+    k0, k1 = syn0.clone(), syn1neg.clone()
+    sgns_step(k0, k1, cx, tgt, labels, live, alpha)
+    p0, p1 = plain_step_f64(syn0.clone(), syn1neg.clone(), cx, tgt, labels,
+                            live, alpha)
+    torch.cuda.synchronize()
+    touched = (torch.zeros(len(syn0), dtype=torch.bool, device=syn0.device)
+               .index_fill_(0, cx[live.sum(1) > 0], True),
+               torch.zeros(len(syn1neg), dtype=torch.bool,
+                           device=syn0.device)
+               .index_fill_(0, tgt[live > 0], True))
+    errs, kept = [], True
+    for got, want, old, hit in ((k0, p0, syn0, touched[0]),
+                                (k1, p1, syn1neg, touched[1])):
+        upd = (want - old.double()).abs().max().item()
+        errs.append((got.double() - want).abs().max().item()
+                    / max(upd, 1e-30))
+        kept &= torch.equal(got[~hit], old[~hit])
+    return errs, kept, (k0, k1)
+
+
+def sgns_bound(syn0, syn1neg, cx, tgt, labels, live):
+    """The bound of one SGNS step on these inputs: each distinct row that a
+    live pair touches read once and written once (f32), the indices, labels
+    and liveness read once; 6*D flops (dot, neu1e, the syn1neg update) per
+    live (pair, k) entry at the f32 rate. Also the per-entry count (a read
+    and a write for every (pair, k) entry, collisions counted each time)
+    and the distinct rows of each table."""
+    d = syn0.shape[1]
+    b, k1 = tgt.shape
+    n0 = torch.unique(cx[live.sum(1) > 0]).numel()
+    n1 = torch.unique(tgt[live > 0]).numel()
+    flops = 6.0 * d * live.count_nonzero().item()
+    inputs = 8.0 * (b + b * k1) + 4.0 * 2 * b * k1
+    per_entry = bound(4.0 * (2 * b * d + 2 * b * k1 * d) + inputs, flops,
+                      PEAK_F32_FLOPS)[0]
+    return bound(4.0 * 2 * d * (n0 + n1) + inputs, flops,
+                 PEAK_F32_FLOPS) + (per_entry, n0, n1)
+
+
+def phase_kernels_sgns(seed: int, dev):
+    print("== K3 (SGNS step) against its plain version ==")
+    v, d, b, k1 = SGNS_SHAPES[0]
+    cases = [("smoke model", SGNS_SHAPES[0], {}),
+             ("hot class", SGNS_SHAPES[1], {}),
+             ("V=64, ~190 hits per row", (64, 128, 2048, 6), {}),
+             ("dots past +-MAX_EXP", SGNS_SHAPES[0], {"scale": 3.0}),
+             ("dead negatives and pairs", SGNS_SHAPES[0], {"dead": True})]
+    worst = 0.0
+    for name, (v, d, b, k1), kw in cases:
+        args = sgns_inputs(v, d, b, k1, seed, dev, **kw)
+        errs, kept, first = sgns_errors(*args)
+        again = sgns_errors(*args)[2]
+        rep = max((x - y).abs().max().item() / max(
+            (y - o).abs().max().item(), 1e-30)
+            for x, y, o in zip(again, first, args[:2]))
+        dots = torch.einsum("bd,bkd->bk", args[0][args[2]], args[1][args[3]])
+        sat = (dots.abs() > 6.0).float().mean().item()
+        print(f"sgns_step {name} (V={v} D={d} B={b} K+1={k1}): "
+              f"max err / max update syn0 {errs[0]:.3e}, syn1neg "
+              f"{errs[1]:.3e} (tol {TOL_SGNS}); untouched rows bit-equal: "
+              f"{kept}; two launches {rep:.3e} apart; |dot| > 6 for "
+              f"{sat:.1%} of the entries")
+        check(max(errs) <= TOL_SGNS and rep <= TOL_SGNS,
+              f"sgns_step disagrees with its plain version ({name})")
+        check(kept, f"sgns_step moved a row no live pair touches ({name})")
+        if "scale" in kw:
+            check(sat > 0.1, "the saturation case saturates nothing")
+        worst = max(worst, *errs, rep)
+    return {"sgns_step": {"max_err": worst}}
+
+
+def topic_corpus(seed: int):
+    """A seeded corpus of W2V_SENTENCES sentences of W2V_SENT words over
+    W2V_VOCAB words ``w<i>`` planted in W2V_TOPICS topics (word i in topic
+    i % W2V_TOPICS). A sentence belongs to one topic: W2V_MIN_COUNT
+    copies of every word of the topic are spread over its sentences (so
+    each word occurs at least that often), and the other slots draw from
+    the topic's Zipf distribution over its words, or with probability
+    W2V_NOISE from a global Zipf distribution over all words."""
+    rng = np.random.default_rng(seed)
+    names = np.array([f"w{i}" for i in range(W2V_VOCAB)], dtype=object)
+    cdf = lambda n: np.cumsum(1.0 / np.arange(1, n + 1)) / \
+        np.sum(1.0 / np.arange(1, n + 1))
+    glob_word = rng.permutation(W2V_VOCAB)     # the word of global rank r
+    glob_cdf = cdf(W2V_VOCAB)
+    per_topic = W2V_SENTENCES // W2V_TOPICS
+    sentences = []
+    for t in range(W2V_TOPICS):
+        members = np.arange(t, W2V_VOCAB, W2V_TOPICS)
+        cover = rng.permutation(np.repeat(members, W2V_MIN_COUNT))
+        parts = np.array_split(cover, per_topic)
+        n_free = per_topic * W2V_SENT - len(cover)
+        topical = members[np.minimum(np.searchsorted(
+            cdf(len(members)), rng.random(n_free)), len(members) - 1)]
+        noise = glob_word[np.minimum(np.searchsorted(
+            glob_cdf, rng.random(n_free)), W2V_VOCAB - 1)]
+        free = np.where(rng.random(n_free) < W2V_NOISE, noise, topical)
+        start = 0
+        for part in parts:
+            n = W2V_SENT - len(part)
+            sent = rng.permutation(np.concatenate([part,
+                                                   free[start:start + n]]))
+            start += n
+            sentences.append(names[sent].tolist())
+    order = rng.permutation(len(sentences))
+    return [sentences[i] for i in order]
+
+
+def topic_agreement(model) -> float:
+    """The share of the W2V_TOP_N nearest neighbours (``words_nearest``)
+    of the W2V_QUERY_WORDS most frequent words that share their topic
+    (chance: 1 / W2V_TOPICS)."""
+    same = 0
+    for i in range(W2V_QUERY_WORDS):
+        w = model.vocab.word_at_index(i)
+        t = int(w[1:]) % W2V_TOPICS
+        same += sum(int(x[1:]) % W2V_TOPICS == t
+                    for x in model.words_nearest(w, W2V_TOP_N))
+    return same / (W2V_QUERY_WORDS * W2V_TOP_N)
+
+
+def ns_margin(model: Word2Vec, chunk) -> float:
+    """Mean sigmoid(syn0[context] . syn1neg[center]) over the chunk's
+    skip-gram pairs less the mean over the same contexts and the chunk's
+    negatives (those that are not the center). Only negative sampling
+    writes syn1neg, so the margin is 0 if K3 wrote nothing and below 0 if
+    it pushed the wrong way."""
+    lt = model.lookup_table
+    dev = chunk["table"].device
+    syn0, syn1neg = (torch.from_numpy(a).to(dev) for a in (lt.syn0,
+                                                            lt.syn1neg))
+    l1 = syn0[chunk["cxs"]]                                # [NB, B, D]
+    pos = torch.sigmoid((l1 * syn1neg[chunk["cens"]]).sum(-1))
+    neg = torch.sigmoid(torch.einsum("nbd,nbkd->nbk", l1,
+                                     syn1neg[chunk["draws"]]))
+    keep = chunk["draws"] != chunk["cens"][..., None]
+    return (pos.mean() - neg[keep].mean()).item()
+
+
+def w2v_model(seed: int, dev) -> Word2Vec:
+    return Word2Vec(layer_size=W2V_D, window=W2V_WINDOW, negative=W2V_NEG,
+                    batch_size=W2V_BATCH, epochs=1,
+                    min_word_frequency=W2V_MIN_COUNT, seed=seed, device=dev)
+
+
+def w2v_rehearsal(seed: int = 0):
+    """The smoke's word2vec fit on the CPU (plain SGNS step), printing its
+    topic agreement and negative-sampling margin: the sources of
+    W2V_AGREEMENT_CPU and W2V_NS_MARGIN_CPU. Run as
+    ``python3 -c "import chip_smoke; chip_smoke.w2v_rehearsal()"``."""
+    corpus = topic_corpus(seed)
+    model = w2v_model(seed, "cpu")
+    t0 = time.perf_counter()
+    model.fit_tokens(corpus)
+    agreement = topic_agreement(model)
+    # the smoke's chunk, then two chunks of other pairs and draws
+    margins = [ns_margin(model, w2v_chunk(model, corpus, s, "cpu"))
+               for s in (seed, seed + 1, seed + 2)]
+    print(f"CPU rehearsal, seed {seed}: vocab {model.vocab_size()}, "
+          f"{model.fit_stats}, {time.perf_counter() - t0:.1f} s; topic "
+          f"agreement {agreement!r}; negative-sampling margins {margins!r}")
+    return agreement, margins[0]
+
+
+def w2v_chunk(model: Word2Vec, corpus, seed: int, dev, n_batches: int = 16):
+    """The inputs of ``n_batches`` skip-gram batches of the trained model
+    as ``skipgram_batches`` takes them, with fixed draws [NB, B, K] from
+    the unigram table."""
+    lt = model.lookup_table
+    rng = np.random.default_rng(seed + 5)
+    seqs = model._sequences_as_indices(corpus[:200])
+    centers, contexts = model._make_pairs(seqs, rng)
+    order = rng.permutation(len(centers))[:n_batches * W2V_BATCH]
+    check(len(order) == n_batches * W2V_BATCH, "too few pairs for a chunk")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    P, C, M = lt.huffman_tensors()
+    table = up(lt.table.astype(np.int64))
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    draws = table[torch.randint(0, len(table), (n_batches, W2V_BATCH,
+                                                W2V_NEG), generator=g,
+                                device=dev)]
+    shape = (n_batches, W2V_BATCH)
+    return {"huffman": (up(P.astype(np.int64)), up(C), up(M)),
+            "cens": up(centers[order].astype(np.int64).reshape(shape)),
+            "cxs": up(contexts[order].astype(np.int64).reshape(shape)),
+            "plive": torch.ones(shape, device=dev),
+            "alphas": torch.full((n_batches,), 0.0125, device=dev),
+            "draws": draws, "table": table}
+
+
+def run_chunk(model: Word2Vec, chunk, ns_step, draw=None, tables=None):
+    """The chunk's batches on ``tables``, by default device copies of the
+    model's."""
+    if tables is None:
+        lt = model.lookup_table
+        tables = tuple(torch.from_numpy(a).to(chunk["table"].device)
+                       for a in (lt.syn0, lt.syn1, lt.syn1neg))
+    skipgram_batches(tables, chunk["huffman"], chunk["cens"], chunk["cxs"],
+                     chunk["plive"], chunk["alphas"], negative=W2V_NEG,
+                     draw=draw or (lambda i: chunk["draws"][i]),
+                     ns_step=ns_step)
+    return tables
+
+
+def phase_word2vec(seed: int, dev):
+    print("== training: word2vec skip-gram, HS + negative sampling ==")
+    t0 = time.perf_counter()
+    corpus = topic_corpus(seed)
+    corpus_s = time.perf_counter() - t0
+    n_tokens = sum(len(s) for s in corpus)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = w2v_model(seed, dev)
+    t0 = time.perf_counter()
+    model.build_vocab(corpus)
+    vocab_s = time.perf_counter() - t0
+    depth = max(w.code_length for w in model.vocab.vocab_words())
+    print(f"corpus: {len(corpus)} sentences, {n_tokens} tokens, "
+          f"{W2V_TOPICS} topics ({corpus_s:.2f} s to make); vocabulary and "
+          f"Huffman tree: {model.vocab_size()} words, depth up to {depth}, "
+          f"{vocab_s:.3f} s of host time")
+    check(model.vocab_size() == W2V_VOCAB,
+          f"the vocabulary has {model.vocab_size()} words, not {W2V_VOCAB}")
+    for fn in (sgns_step, sgns_step_plain):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model.fit_tokens(corpus)
+    fit_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in (sgns_step, sgns_step_plain)}
+    peak = torch.cuda.max_memory_allocated() - held
+    st = model.fit_stats
+    pairs_per_s = st["examples"] / st["loop_s"]
+    print(f"fit_tokens: {st['examples']} skip-gram pairs in {st['batches']} "
+          f"batches of {W2V_BATCH}; pair assembly {st['assembly_s']:.3f} s "
+          f"(host), device loop {st['loop_s']:.3f} s: {pairs_per_s:.0f} "
+          f"pairs/s; whole fit {fit_s:.3f} s; device memory at its peak "
+          f"{peak / 2**20:.1f} MiB above the earlier phases' tensors")
+    print(f"launches over the fit: {counts}")
+    lt = model.lookup_table
+    check(all(np.isfinite(a).all() for a in (lt.syn0, lt.syn1, lt.syn1neg)),
+          "a word2vec table is not finite")
+    check(counts["sgns_step"] == st["batches"]
+          and counts["sgns_step_plain"] == 0,
+          "K3 did not run exactly once per negative-sampling batch")
+    t0 = time.perf_counter()
+    agreement = topic_agreement(model)
+    print(f"topic agreement of the {W2V_TOP_N} nearest neighbours of the "
+          f"{W2V_QUERY_WORDS} most frequent words: {agreement:.4f} (chance "
+          f"{1 / W2V_TOPICS:.4f}, CPU rehearsal {W2V_AGREEMENT_CPU}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(agreement >= 10.0 / W2V_TOPICS,
+          "the embeddings do not beat 10x chance on topic agreement")
+    check(agreement >= W2V_AGREEMENT_CPU - 0.05,
+          "topic agreement fell more than 0.05 below the CPU rehearsal's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "w2v.zip")
+        save_word2vec(model, path)
+        loaded = load_word2vec(path, device=dev)
+    same = all(np.array_equal(getattr(loaded.lookup_table, n), getattr(lt, n))
+               for n in ("syn0", "syn1", "syn1neg"))
+    print(f"save_word2vec -> load_word2vec: tables bit-equal: {same}")
+    check(same, "the loaded word2vec differs from the saved one")
+    chunk = w2v_chunk(model, corpus, seed, dev)
+    margin = ns_margin(model, chunk)
+    print(f"negative-sampling margin (sigmoid of the pairs' dots less the "
+          f"negatives', over the chunk's {chunk['cens'].numel()} pairs): "
+          f"{margin:.4f} (CPU rehearsal {W2V_NS_MARGIN_CPU})")
+    check(margin >= W2V_NS_MARGIN_CPU / 2,
+          "the negative-sampling margin is less than half the CPU "
+          "rehearsal's: syn1neg did not learn the pairs")
+    before = [torch.from_numpy(a).to(dev) for a in (lt.syn0, lt.syn1,
+                                                     lt.syn1neg)]
+    # the HS ops' index_add_ adds with atomics in any order unless torch
+    # is told to be deterministic: both runs then take the same HS path
+    # and differ by the NS step only
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = run_chunk(model, chunk, sgns_step)
+            want = run_chunk(model, chunk, plain_step_f64)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    chunk_err = [(a - b).abs().max().item()
+                 / max((b - o).abs().max().item(), 1e-30)
+                 for a, b, o in zip(got, want, before)]
+    print(f"16 batches through K3 vs the plain step (f64, rounded once) on "
+          f"the card, same draws:"
+          f" max err / max update syn0 {chunk_err[0]:.3e}, syn1 "
+          f"{chunk_err[1]:.3e}, syn1neg {chunk_err[2]:.3e} (tol {TOL_SGNS})")
+    check(max(chunk_err) <= TOL_SGNS,
+          "a chunk through K3 disagrees with the same chunk through the "
+          "plain step")
+    return model, chunk, {
+        "tokens": n_tokens, "sentences": len(corpus),
+        "vocab": model.vocab_size(), "huffman_depth": depth,
+        "corpus_s": corpus_s, "vocab_huffman_s": vocab_s,
+        "pair_assembly_s": st["assembly_s"], "device_loop_s": st["loop_s"],
+        "pairs": st["examples"], "batches": st["batches"],
+        "pairs_per_s": pairs_per_s, "fit_s": fit_s, "launches": counts,
+        "topic_agreement": agreement, "ns_margin": margin,
+        "chunk_max_err": max(chunk_err),
+        "phase_memory_bytes": peak}
+
+
+def phase_times_word2vec(model: Word2Vec, chunk, seed: int, dev):
+    print("== times: K3 and the word2vec batch loop (CUDA events) ==")
+    res = {"sgns_step": {}, "main_path": {}}
+    b = W2V_BATCH
+    labels = torch.zeros((b, W2V_NEG + 1), device=dev)
+    labels[:, 0] = 1.0
+    cen, draws = chunk["cens"][0], chunk["draws"][0]
+    real = (chunk["cxs"][0], torch.cat([cen[:, None], draws], dim=1), labels,
+            torch.cat([torch.ones((b, 1), device=dev),
+                       (draws != cen[:, None]).float()], dim=1))
+    lt = model.lookup_table
+    for v, d, bb, k1 in SGNS_SHAPES + ((SGNS_SHAPES[0][0], W2V_D, 1,
+                                        W2V_NEG + 1),):
+        if (v, d, bb) == SGNS_SHAPES[0][:3]:  # the fit's own batch
+            syn0, syn1neg = (torch.from_numpy(a).to(dev)
+                             for a in (lt.syn0, lt.syn1neg))
+            args = (syn0, syn1neg) + real
+        else:
+            args = sgns_inputs(v, d, bb, k1, seed, dev)
+        # back-to-back calls can be bound by the wrapper's host time, so
+        # the kernels' own device time comes from the profiler
+        call = time_ms(lambda: sgns_step(*args, 0.0125), iters=50)
+        ms, rows = profile_ms(lambda: sgns_step(*args, 0.0125), n=20)
+        plain = time_ms(lambda: sgns_step_plain(*args, 0.0125), iters=10)
+        b_ms, b_by, entry_ms, n0, n1 = sgns_bound(*args)
+        key = f"{v}x{d}x{bb}x{k1}"
+        res["sgns_step"][key] = dict(
+            ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, bound_per_entry_ms=entry_ms,
+            distinct_rows=[n0, n1],
+            launches=[dict(ms=r[0], name=r[2][:80]) for r in rows])
+        print(f"sgns_step V={v} D={d} B={bb} K+1={k1}: {ms:.4f} ms of "
+              f"kernels per call (" + ", ".join(
+                  f"{short_name(r[2])} {r[0] * 1e3:.1f} us" for r in rows)
+              + f"), {call:.4f} ms per call back to back, plain "
+              f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {n0} distinct "
+              f"syn0 rows, {n1} syn1neg rows of this batch; counted per "
+              f"entry {entry_ms:.5f} ms)")
+    draw = unigram_draw(chunk["table"], W2V_NEG, b,
+                        torch.Generator(device=dev).manual_seed(seed))
+    n = chunk["cens"].shape[0]
+    tables = tuple(torch.from_numpy(a).to(dev)
+                   for a in (lt.syn0, lt.syn1, lt.syn1neg))
+    loop = lambda: run_chunk(model, chunk, sgns_step, draw=draw,
+                             tables=tables)
+    loop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loop()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    busy, rows = profile_ms(loop, n=2)
+    groups = {"K3 sgns kernels": 0.0, "draws (randint)": 0.0,
+              "HS and glue ops": 0.0}
+    for ms_, _, name in rows:
+        key = ("K3 sgns kernels" if "sgns_" in name
+               else "draws (randint)" if "distribution" in name
+               or "random" in name.lower() or "philox" in name.lower()
+               else "HS and glue ops")
+        groups[key] += ms_
+    groups["host gaps (wall - kernels)"] = wall - busy
+    res["main_path"]["chunk16"] = dict(
+        wall_ms=wall, device_busy_ms=busy, groups=groups,
+        pairs_per_s=n * b / wall * 1e3,
+        kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                 for r in rows[:16]])
+    print(f"16 batches (on a copy of the tables, the fit's draws): {wall:.3f} "
+          f"ms wall ({n * b / wall * 1e3:.0f} pairs/s), {busy:.3f} ms of "
+          f"kernels ({busy / wall:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:16]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return res
+
+
+def merge(times: dict, part: dict) -> None:
+    """Fold one phase's timings into the report, key by key (several
+    phases time a "main_path")."""
+    for k, v in part.items():
+        times.setdefault(k, {}).update(v)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -943,6 +1437,7 @@ def main(argv=None) -> int:
     phase_build()
     with torch.inference_mode():
         errs = phase_kernels(args.seed, dev)
+        errs.update(phase_kernels_sgns(args.seed, dev))
     cfg = TransformerConfig(vocab_size=8192, d_model=2048, n_layers=4,
                             n_heads=32, d_ff=8192, max_len=1024,
                             dtype_policy="performance", use_flash=True,
@@ -952,16 +1447,23 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         times = phase_times(lm, widths, args.seed, dev)
     net, k1_launches, predict = phase_predict(args.seed, dev)
-    times.update(phase_times_predict(net, args.seed, dev))
+    merge(times, phase_times_predict(net, args.seed, dev))
     peak_serve = torch.cuda.max_memory_allocated()
     tnet, train = phase_train(args.seed, dev)
-    times.update(phase_times_train(tnet, args.seed, dev))
+    merge(times, phase_times_train(tnet, args.seed, dev))
     peak_train = torch.cuda.max_memory_allocated()
-    peak = max(peak_serve, peak_train)
+    del tnet
+    w2v, chunk, word2vec = phase_word2vec(args.seed, dev)
+    peak_w2v = torch.cuda.max_memory_allocated()
+    merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
+    peak = max(peak_serve, peak_train, peak_w2v)
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
-          f"phases {peak_serve / 2**30:.3f} GiB, training phase "
-          f"{peak_train / 2**30:.3f} GiB; the 30 fits took "
-          f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more); whole run "
+          f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
+          f"{peak_train / 2**30:.3f} GiB, the 30 fits "
+          f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more; word2vec "
+          f"fit {peak_w2v / 2**30:.3f} GiB, "
+          f"{word2vec['phase_memory_bytes'] / 2**20:.1f} MiB above what the "
+          f"earlier phases hold); whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
@@ -969,6 +1471,9 @@ def main(argv=None) -> int:
     k1 = times["lstm_scan"][f"{n1}x{t1}x{h1}"]
     n2, t2, h2 = BWD_SHAPES[0]
     k2 = times["lstm_scan_bwd"][f"{n2}x{t2}x{h2}"]
+    k3 = times["sgns_step"]["x".join(map(str, SGNS_SHAPES[0]))]
+    k3_floor = times["sgns_step"]["{}x{}x1x{}".format(
+        SGNS_SHAPES[0][0], W2V_D, W2V_NEG + 1)]
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
@@ -1016,10 +1521,24 @@ def main(argv=None) -> int:
          "library_ms": None,
          "floor_ms": k2["floor_ms"],
          "shape": f"N={n2} T={t2} H={h2} f32"},
+        {"name": "sgns_step", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/sgns.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_sgns.py:159",
+         "launches": word2vec["launches"]["sgns_step"],
+         "max_abs_err": errs["sgns_step"]["max_err"],
+         "max_err_is": "of the largest entry of each table's update",
+         "tolerance": TOL_SGNS,
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "bound_per_entry_ms": k3["bound_per_entry_ms"],
+         "library_ms": None,
+         "floor_ms": k3_floor["ms"],
+         "shape": "V={} D={} B={} K+1={} f32".format(*SGNS_SHAPES[0])},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
                   "serving": serve, "predict": predict, "train": train,
+                  "word2vec": word2vec,
                   "times": times, "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

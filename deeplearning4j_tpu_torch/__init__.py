@@ -6,7 +6,7 @@ its module paths (``ops/``, ``nn/``, ``optimize/``, ``datasets/``,
 by name. It imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``deeplearning4j_tpu``.
 
-Ported so far, two serving paths and one training path:
+Ported so far, two serving paths and two training paths:
 
 * paged-KV ``/generate`` of the TransformerLM:
   ``models.transformer.TransformerLM`` -> ``serving.paged.PagedDecoder``
@@ -18,13 +18,18 @@ Ported so far, two serving paths and one training path:
 * training of a MultiLayerNetwork (the char-RNN with truncated BPTT
   first): ``nn.multilayer.MultiLayerNetwork.fit`` / ``fit_iterator`` with
   ``nn.losses`` and ``optimize.updaters``, checkpoints through
-  ``utils.serialization.write_model`` and ``MultiLayerNetwork.load``.
+  ``utils.serialization.write_model`` and ``MultiLayerNetwork.load``;
+* Word2Vec skip-gram training (hierarchical softmax plus negative
+  sampling) and CBOW: ``nlp.word2vec.Word2Vec.fit`` / ``fit_tokens`` on
+  ``nlp.{text,vocab,huffman,lookup}``, files through
+  ``nlp.serializer.save_word2vec`` / ``load_word2vec``.
 
-Their four TPU kernels are hand-written CUDA C++ for sm_90a under
+Their five TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode
-attention (``ops/paged_attention.py``) and the fused peephole-LSTM scan
-with its reverse-time backward (``ops/lstm_scan.py``), built with
-``nvcc`` at first use (``ops/build.py``).
+attention (``ops/paged_attention.py``), the fused peephole-LSTM scan
+with its reverse-time backward (``ops/lstm_scan.py``) and the
+skip-gram negative-sampling step (``ops/sgns.py``), built with ``nvcc``
+at first use (``ops/build.py``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU device it raises

@@ -15,7 +15,14 @@ output, 1e-4 abs on every output of the LSTM scan (f32 math, sums in
 another order than the plain version's matmul). The LSTM backward: 1e-4
 abs on dxproj, dh0 and dc0, and 1e-4 of the largest entry on dU and dp,
 which sum N*T products. A full-width char-RNN fit on the card against
-the same fit on the CPU: see that test.
+the same fit on the CPU: see that test. The SGNS step (K3): within 1e-5
+of the largest entry of each table's update of the plain step run in
+f64 on the same inputs (K3's float atomics add in another order; the
+plain step in f32 on the card adds with atomics onto the tables and
+drifts by more than that at ~190 hits per row), rows no live pair
+touches bit-equal; a word2vec fit on
+the card against the same fit on the CPU with the same draws: see that
+test.
 """
 
 import numpy as np
@@ -25,6 +32,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import flash_attention as port_flash
 from deeplearning4j_tpu_torch.ops import lstm_scan as port_lstm
 from deeplearning4j_tpu_torch.ops import paged_attention as port_paged
+from deeplearning4j_tpu_torch.ops import sgns as port_sgns
 
 
 def _qkv(seed, n, t, h, d):
@@ -368,3 +376,110 @@ def test_full_width_fit_on_the_card_matches_the_cpu():
     for pa, pb in zip(card.params, cpu.params):
         for k in pa:
             assert (pa[k].cpu() - pb[k]).abs().max().item() < 1e-3, k
+
+
+def _sgns_args(seed, v, d, b, k1, dev, scale=0.1, dead=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    syn0 = torch.randn((v, d), generator=g, device=dev) * scale
+    syn1neg = torch.randn((v, d), generator=g, device=dev) * scale
+    cx = torch.randint(0, v, (b,), generator=g, device=dev)
+    tgt = torch.randint(0, v, (b, k1), generator=g, device=dev)
+    labels = torch.zeros((b, k1), device=dev)
+    labels[:, 0] = 1.0
+    live = torch.ones((b, k1), device=dev)
+    if dead:
+        live = (torch.rand((b, k1), generator=g, device=dev) > 0.3).float()
+        live[::7] = 0.0
+    return syn0, syn1neg, cx, tgt, labels, live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v,d,b,k1,scale,dead", [
+    (71290, 128, 2048, 6, 0.1, False), (100000, 100, 1024, 6, 0.1, False),
+    (64, 128, 2048, 6, 0.1, False), (5000, 128, 2048, 6, 3.0, False),
+    (5000, 128, 2048, 6, 0.1, True), (300, 20, 33, 3, 0.5, True),
+    (1000, 300, 1, 6, 0.1, False), (1000, 512, 64, 2, 0.1, False)],
+    ids=["smoke", "hot-class", "collide", "saturated", "dead", "ragged",
+         "b1-d300", "d512"])
+def test_sgns_kernel_matches_plain_on_card(v, d, b, k1, scale, dead):
+    dev = _need_card()
+    syn0, syn1neg, cx, tgt, lbl, live = _sgns_args(v + d, v, d, b, k1, dev,
+                                                   scale, dead)
+    k0, k1_ = syn0.clone(), syn1neg.clone()
+    before = port_sgns.sgns_step.launches
+    alpha = torch.tensor(0.025, device=dev)
+    port_sgns.sgns_step(k0, k1_, cx, tgt, lbl, live, alpha)
+    torch.cuda.synchronize()
+    assert port_sgns.sgns_step.launches == before + 1
+    p0, p1 = syn0.double(), syn1neg.double()
+    port_sgns.sgns_step_plain(p0, p1, cx, tgt, lbl.double(), live.double(),
+                              alpha)
+    touched = (live.sum(1) > 0, live > 0)
+    for got, want, old, rows in ((k0, p0, syn0, cx[touched[0]]),
+                                 (k1_, p1, syn1neg, tgt[touched[1]])):
+        upd = (want - old.double()).abs().max().item()
+        assert (got.double() - want).abs().max().item() <= 1e-5 * upd
+        hit = torch.zeros(len(old), dtype=torch.bool, device=dev)
+        hit[rows] = True
+        assert torch.equal(got[~hit], old[~hit])
+    again0, again1 = syn0.clone(), syn1neg.clone()
+    port_sgns.sgns_step(again0, again1, cx, tgt, lbl, live, 0.025)
+    for again, first, want, old in ((again0, k0, p0, syn0),
+                                    (again1, k1_, p1, syn1neg)):
+        assert (again - first).abs().max().item() <= 1e-5 * (
+            (want - old.double()).abs().max().item())
+
+
+@pytest.mark.gpu
+def test_sgns_refuses_what_the_kernel_does_not_take():
+    dev = _need_card()
+    syn0, syn1neg, cx, tgt, lbl, live = _sgns_args(0, 50, 16, 8, 3, dev)
+    with pytest.raises(ValueError, match="int64"):
+        port_sgns.sgns_step(syn0, syn1neg, cx.int(), tgt, lbl, live, 0.1)
+    with pytest.raises(ValueError, match="D=600"):
+        big = torch.zeros((50, 600), device=dev)
+        port_sgns.sgns_step(big, big.clone(), cx, tgt, lbl, live, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_sgns.sgns_step(syn0, syn1neg, cx, tgt.t().contiguous().t(),
+                            lbl, live, 0.1)
+
+
+@pytest.mark.gpu
+def test_word2vec_fit_on_the_card_matches_the_cpu():
+    """Skip-gram with HS and 5 negatives at D=128 on a small Zipf corpus,
+    on the card and on the CPU with the same draws (numpy, per batch
+    index): K3 launches once per batch, its plain version never, and the
+    three tables agree within 1e-5 abs (float atomics add in another
+    order; the tables' entries are of order 0.01-0.1)."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    rng = np.random.default_rng(0)
+    toks = [[f"w{int(x)}" for x in rng.zipf(1.2, 40) if x < 3000]
+            for _ in range(400)]
+    models, draws = [], {}
+    for device in (dev, "cpu"):
+        m = Word2Vec(layer_size=128, window=5, negative=5, batch_size=512,
+                     seed=1, device=device)
+        m.build_vocab(toks)
+        table = m.lookup_table.table
+
+        def draw(i, device=device, table=table):
+            if i not in draws:
+                draws[i] = table[np.random.default_rng(i).integers(
+                    0, len(table), (512, 5))].astype(np.int64)
+            return torch.from_numpy(draws[i]).to(device)
+        models.append((m, draw))
+    for fn in (port_sgns.sgns_step, port_sgns.sgns_step_plain):
+        fn.launches = 0
+    models[0][0].fit_tokens(toks, draw=models[0][1])
+    n_batches = len(draws)
+    assert n_batches > 10
+    assert (port_sgns.sgns_step.launches,
+            port_sgns.sgns_step_plain.launches) == (n_batches, 0)
+    models[1][0].fit_tokens(toks, draw=models[1][1])
+    for name in ("syn0", "syn1", "syn1neg"):
+        a = getattr(models[0][0].lookup_table, name)
+        b = getattr(models[1][0].lookup_table, name)
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() < 1e-5, name

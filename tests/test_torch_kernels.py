@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package (CPU) and against their
+"""The port's five kernels against the JAX package (CPU) and against their
 plain versions (card).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
@@ -30,6 +30,13 @@ against the JAX function the TPU kernel implements:
     ``torch.autograd.gradcheck`` in f64 and its gradients equal autograd
     through the plain forward at 1e-10 (f64), with and without cotangents
     on h_T and c_T.
+  * K3 SGNS step — the port's plain step (``ops/sgns.sgns_step_plain``)
+    against ``nlp/word2vec._neg_body`` in f32 at 1e-6 abs (the TPU kernel
+    ``sgns_fused_step`` does not run on the installed jax, so its own
+    oracle stands in), and the port's batch loop ``skipgram_batches``
+    with the JAX draws replayed against ``_skipgram_epoch(...,
+    sgns_kernel=False)`` at 1e-5 abs, syn1 included; the f64 cases are in
+    ``tests/test_torch_word2vec.py``.
 
 The same kernels on the card, against their plain versions, are in
 ``tests/test_torch_gpu.py``.
@@ -44,6 +51,7 @@ jnp = pytest.importorskip("jax.numpy")  # the JAX reference side
 from deeplearning4j_tpu_torch.ops import flash_attention as port_flash  # noqa: E402
 from deeplearning4j_tpu_torch.ops import lstm_scan as port_lstm  # noqa: E402
 from deeplearning4j_tpu_torch.ops import paged_attention as port_paged  # noqa: E402
+from deeplearning4j_tpu_torch.ops import sgns as port_sgns  # noqa: E402
 
 TOL = 1e-5
 
@@ -381,3 +389,102 @@ class TestLstmScanFn:
         (hs.sum() + c_t.sum()).backward()
         assert port_lstm.lstm_scan_bwd_plain.launches == bwd + 1
         assert all(a.grad is not None for a in args)
+
+
+def _sgns_case(seed, v=50, d=36, b=16, k1=6, scale=0.1):
+    """f32 tables and a batch with a repeated context, colliding target
+    rows, a dead negative and a fully dead pair."""
+    rng = np.random.default_rng(seed)
+    syn0 = (rng.standard_normal((v, d)) * scale).astype(np.float32)
+    syn1neg = (rng.standard_normal((v, d)) * scale).astype(np.float32)
+    cx = rng.integers(0, v, size=(b,))
+    cx[5] = cx[4]
+    tgt = rng.integers(0, v, size=(b, k1))
+    tgt[3] = tgt[2]
+    labels = np.zeros((b, k1), np.float32)
+    labels[:, 0] = 1.0
+    live = np.ones((b, k1), np.float32)
+    live[1, 2] = 0.0
+    live[7, :] = 0.0
+    return syn0, syn1neg, cx, tgt, labels, live
+
+
+class TestSgnsPlainAgainstJax:
+    @pytest.mark.parametrize("seed,scale", [(3, 0.1), (11, 4.0)],
+                             ids=["small", "saturated"])
+    def test_f32_matches_neg_body(self, seed, scale):
+        from deeplearning4j_tpu.nlp.word2vec import _neg_body
+
+        syn0, syn1neg, cx, tgt, lbl, live = _sgns_case(seed, scale=scale)
+        r0, r1 = _neg_body(jnp.asarray(syn0), jnp.asarray(syn1neg),
+                           jnp.asarray(cx), jnp.asarray(tgt),
+                           jnp.asarray(lbl), jnp.asarray(live), 0.025)
+        p0, p1 = _port(syn0), _port(syn1neg)
+        port_sgns.sgns_step(p0, p1, torch.from_numpy(cx),
+                            torch.from_numpy(tgt), _port(lbl), _port(live),
+                            0.025)
+        assert p0.dtype == torch.float32
+        assert np.abs(p0.numpy() - np.asarray(r0)).max() < 1e-6
+        assert np.abs(p1.numpy() - np.asarray(r1)).max() < 1e-6
+
+    def test_batch_loop_matches_skipgram_epoch(self):
+        """The shape of the JAX package's epoch contract: 3 stacked batches,
+        the last one partly padded, negatives drawn with the same keys."""
+        import jax
+
+        from deeplearning4j_tpu.nlp.word2vec import _skipgram_epoch
+        from deeplearning4j_tpu_torch.nlp.word2vec import skipgram_batches
+
+        rng = np.random.default_rng(5)
+        v, vh, d, l = 30, 40, 24, 4
+        nb, b, k = 3, 8, 5
+        syn0 = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        syn1 = rng.standard_normal((vh, d)).astype(np.float32) * 0.1
+        syn1neg = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        P = rng.integers(0, vh, size=(v, l))
+        C = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        M = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        table = rng.integers(0, v, size=(64,))
+        cens = rng.integers(0, v, size=(nb, b))
+        cxs = rng.integers(0, v, size=(nb, b))
+        plive = np.ones((nb, b), np.float32)
+        plive[2, 6:] = 0.0
+        keys = jnp.stack([jax.random.PRNGKey(i) for i in range(nb)])
+        alphas = np.full((nb,), 0.025, np.float32)
+        want = _skipgram_epoch(
+            jnp.array(syn0), jnp.array(syn1), jnp.array(syn1neg),
+            jnp.asarray(P, jnp.int32), jnp.asarray(C), jnp.asarray(M),
+            jnp.asarray(table, jnp.int32), jnp.asarray(cens, jnp.int32),
+            jnp.asarray(cxs, jnp.int32), jnp.asarray(plive), keys,
+            jnp.asarray(alphas), use_neg=True, negative_k=k)
+        t_table = torch.from_numpy(table)
+
+        def draw(i):
+            idx = jax.random.randint(keys[i], (b, k), 0, len(table))
+            return t_table[torch.from_numpy(np.array(idx, np.int64))]
+
+        tables = (_port(syn0), _port(syn1), _port(syn1neg))
+        before = port_sgns.sgns_step_plain.launches
+        skipgram_batches(tables, (torch.from_numpy(P), _port(C), _port(M)),
+                         torch.from_numpy(cens), torch.from_numpy(cxs),
+                         _port(plive), _port(alphas), negative=k, draw=draw)
+        assert port_sgns.sgns_step_plain.launches == before + nb
+        for got, ref in zip(tables, want):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
+
+    def test_cpu_wrapper_counts_plain_calls_only(self):
+        syn0, syn1neg, cx, tgt, lbl, live = _sgns_case(0)
+        kern, plain = (port_sgns.sgns_step.launches,
+                       port_sgns.sgns_step_plain.launches)
+        port_sgns.sgns_step(_port(syn0), _port(syn1neg),
+                            torch.from_numpy(cx), torch.from_numpy(tgt),
+                            _port(lbl), _port(live), 0.025)
+        assert port_sgns.sgns_step.launches == kern
+        assert port_sgns.sgns_step_plain.launches == plain + 1
+
+    def test_wrapper_refuses_other_devices(self):
+        t = torch.zeros((4, 8), device="meta")
+        idx = torch.zeros((2,), dtype=torch.int64, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            port_sgns.sgns_step(t, t, idx, idx[:, None], t[:2, :1],
+                                t[:2, :1], 0.025)

@@ -7,7 +7,8 @@
   * Its entry points (``TransformerLM``, ``PagedDecoder``,
     ``MultiLayerNetwork`` and its ``load``, ``ServingEngine``, and the
     training ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
-    ``load`` with the updater section) run on the card unless given
+    ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
+    and ``Word2Vec.from_arrays``) run on the card unless given
     ``device="cpu"``; with no card they raise instead of moving to the
     CPU.
   * Its knob table is a copy of the JAX table's serving entries (same
@@ -181,6 +182,37 @@ class TestEntryPointsNeedACardOrCpu:
             np.asarray(jc.net.updater_state[0]["cache"]["W"]))
 
 
+    def test_word2vec_entry_points(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu.nlp.serializer import save_word2vec as jsave
+        from deeplearning4j_tpu.nlp.word2vec import Word2Vec as JaxWord2Vec
+
+        from deeplearning4j_tpu_torch.nlp import Word2Vec, load_word2vec
+
+        toks = [["a", "b", "c", "a"], ["b", "a", "d"]]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Word2Vec(layer_size=4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Word2Vec(layer_size=4, device="cuda")
+        m = Word2Vec(layer_size=4, negative=2, device="cpu").fit_tokens(toks)
+        assert m.device == torch.device("cpu")
+        assert np.isfinite(m.lookup_table.syn1neg).all()
+        j = JaxWord2Vec(layer_size=4, negative=2).fit_tokens(toks)
+        path = str(tmp_path / "w2v.zip")
+        jsave(j, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_word2vec(path)
+        rows = [{"word": w.word, "count": w.count, "codes": w.codes,
+                 "points": w.points} for w in j.vocab.vocab_words()]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Word2Vec.from_arrays(m.config(), rows,
+                                 {"syn0": j.lookup_table.syn0,
+                                  "syn1": j.lookup_table.syn1})
+        assert load_word2vec(path, device="cpu").device == \
+            torch.device("cpu")
+
+
 def test_knob_table_copies_the_jax_entries(monkeypatch):
     from deeplearning4j_tpu.ops import env as jenv
 
@@ -231,7 +263,7 @@ def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
     for name in ("flash_attention", "paged_attention", "lstm_scan",
-                 "lstm_scan_bwd"):
+                 "lstm_scan_bwd", "sgns"):
         src = build.CSRC / f"{name}.cu"
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
