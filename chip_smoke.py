@@ -2,8 +2,10 @@
 """Drive the PyTorch port's paths on one NVIDIA card: the paged
 ``/generate`` path of the TransformerLM, the ``/predict`` path of the
 char-RNN MultiLayerNetwork, the char-RNN's training with truncated BPTT
-and RMSProp, and Word2Vec skip-gram training with hierarchical softmax
-and negative sampling.
+and RMSProp, Word2Vec skip-gram training with hierarchical softmax
+and negative sampling, the TransformerLM's long-context ``ring_forward``,
+and the training of a MultiLayerNetwork of masked MultiHeadAttention
+layers.
 
 Run from the repository root, with no arguments:
 
@@ -13,7 +15,7 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds the five kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the six kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per source, started together) and prints each
    function's ptxas register and spill line;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -40,6 +42,18 @@ What it does, in order (any failure raises and exits non-zero):
    tables and drifts past the bar itself): max error <= 1e-5 of the
    largest entry of each table's update, two launches within the same
    bar (float atomics), and every row no live pair touches bit-equal;
+   K5, flash attention with a key bias and a visibility offset, at (a)
+   the ring-local shape of ``bench.py:522`` (N=1, T=4096, H=8, D=64,
+   bf16, offset 0), (b) the masked shape of ``bench.py:581`` (N=4,
+   T=2048, H=8, D=64, bf16, causal, a seeded key mask keeping ~80 %),
+   (c) T=1024 at offsets 1024, 512, -512 and -1024 (the last: O exactly
+   0, lse exactly -inf), (d) ragged Tq=192 x Tk=320, (e) a batch row
+   with every key masked, (f) f32 at D in {32, 64, 128}: bf16 within
+   2e-2 on O and 1e-3 on lse, f32 within 1e-4 on both, rows with no
+   visible key exactly O = 0 and lse = -inf; and a 4-shard ring driven
+   in one process (``ring_flash_step`` for every (my, src) step of a
+   4-rank ring) against the plain full attention, causal and not, with
+   and without a key mask, within 2e-2;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -107,7 +121,25 @@ What it does, in order (any failure raises and exits non-zero):
    at B=1 (its floor) beside its plain version and bound, breaks 16
    batches down with ``torch.profiler`` (K3, the draws, the HS and glue
    ops, the host gaps) and reports the phase's peak device memory;
-9. prints one ``{"kernels": [...]}`` line, the card line again, and last
+9. joins a world-1 NCCL group (``parallel/mesh.init_seq_group``) and
+   runs ``ring_forward`` on the bench transformer (as in 4, at max_len
+   4096) at N=1, T=4096, bf16: finite logits within 5e-2 of ``forward``
+   (K4) on the same tokens, and within 1e-3 in f32 at T=1024; K5 launched
+   once per layer (4), its plain version and K4 never; times one forward
+   (and ``strategy="ulysses"`` once) and breaks it down with
+   ``torch.profiler`` (K5, GEMMs, other kernels, host gaps);
+10. trains a MultiLayerNetwork of two ``MultiHeadAttention(n_out=512,
+   num_heads=8)`` layers and an ``RnnOutputLayer`` in f32 with Adam: 20
+   ``fit`` calls of N=32 x T=512 seeded sequences of lengths 64-512 with
+   a feature mask. Checks: finite losses, the mean of the last 5 below
+   the first, K5 launched twice per fit and nothing else of attention,
+   one fit's gradients within 1e-4 of the largest entry of autograd
+   through K5's plain version, ``write_model`` then ``load`` gives the
+   same ``score``; times and profiles a ``fit``. Then times K5 at cases
+   a and b beside its plain version, ``scaled_dot_product_attention``
+   with the equivalent causal or boolean mask, and its bound (bytes, and
+   4·D flops per visible pair at the bf16 rate);
+11. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -141,7 +173,9 @@ from deeplearning4j_tpu_torch.models.char_rnn import (  # noqa: E402
 from deeplearning4j_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     TransformerLM,
+    forward,
     prefill_cache,
+    ring_forward,
 )
 from deeplearning4j_tpu_torch.nlp.serializer import (  # noqa: E402
     load_word2vec,
@@ -152,13 +186,18 @@ from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: E402
     skipgram_batches,
     unigram_draw,
 )
+from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration  # noqa: E402
+from deeplearning4j_tpu_torch.nn.conf import layers as L  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
 )
 from deeplearning4j_tpu_torch.ops import build  # noqa: E402
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
+from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_block,
+    flash_attention_block_plain,
     flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.nn.layers import recurrent  # noqa: E402
@@ -178,6 +217,12 @@ from deeplearning4j_tpu_torch.ops.paged_attention import (  # noqa: E402
 from deeplearning4j_tpu_torch.ops.sgns import (  # noqa: E402
     sgns_step,
     sgns_step_plain,
+)
+from deeplearning4j_tpu_torch.parallel.mesh import init_seq_group  # noqa: E402
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import (  # noqa: E402
+    ring_flash_finish,
+    ring_flash_init,
+    ring_flash_step,
 )
 from deeplearning4j_tpu_torch.serving.decode import _sample_step  # noqa: E402
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine  # noqa: E402
@@ -242,6 +287,18 @@ W2V_AGREEMENT_CPU = 0.9368
 # (the chunk's draws from the CPU generator); over three chunks of other
 # pairs and draws it gave 0.0411-0.0419
 W2V_NS_MARGIN_CPU = 0.04186078906059265
+# K5: the ring-local shape of bench.py:522 (N, T, H, D) and the masked
+# shape of bench.py:581, ~80 % of keys kept
+EXT_RING, EXT_MASKED, EXT_KEEP = (1, 4096, 8, 64), (4, 2048, 8, 64), 0.8
+TOL_EXT_F32 = 1e-4            # K5 in f32: O and lse
+RING_SHARDS = 4               # the in-process ring
+# ring_forward on the bench transformer at bench.py:522's T, and in f32
+RING_T, RING_T_F32 = 4096, 1024
+TOL_RING_BF16 = 5e-2          # bf16 logits, ring (K5) against forward (K4)
+TOL_RING_F32 = 1e-3           # f32 logits, the same two paths
+# the masked MultiHeadAttention network: 2 MHA(512, 8 heads) layers
+MHA_N, MHA_T, MHA_F, MHA_W, MHA_HEADS, MHA_CLASSES = 32, 512, 64, 512, 8, 16
+MHA_FITS, MHA_LR = 20, 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -293,7 +350,8 @@ def short_name(mangled: str) -> str:
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd", "sgns"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns",
+                            "flash_attention_ext"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -961,7 +1019,8 @@ def phase_times_train(net: MultiLayerNetwork, seed: int, dev):
         low = name.lower()
         key = ("K2 lstm_scan_bwd_kernel" if "lstm_scan_bwd_kernel" in name
                else "K1 lstm_scan_kernel" if "lstm_scan_kernel" in name
-               else "GEMMs" if "gemm" in low or "sm90_xmma" in low
+               else "GEMMs" if "gemm" in low or "xmma" in low
+               or "nvjet" in low
                else "updater (foreach)" if "foreach" in low
                or "multi_tensor" in low
                else "other kernels")
@@ -1410,6 +1469,414 @@ def phase_times_word2vec(model: Word2Vec, chunk, seed: int, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 5: K5, the ring and the masked MultiHeadAttention network
+# ---------------------------------------------------------------------------
+
+
+def ext_inputs(n: int, tq: int, tk: int, h: int, d: int, seed: int, dev,
+               dtype=torch.bfloat16, keep: float = 0.0):
+    """q [n, tq, h, d], k, v [n, tk, h, d] of N(0, 1) entries in ``dtype``,
+    and with ``keep`` > 0 a seeded [n, tk] key mask keeping that share."""
+    g = torch.Generator(device=dev).manual_seed(seed + n + tq + tk + d)
+    q = torch.randn((n, tq, h, d), generator=g, device=dev, dtype=dtype)
+    k, v = (torch.randn((n, tk, h, d), generator=g, device=dev, dtype=dtype)
+            for _ in range(2))
+    km = None
+    if keep:
+        km = (torch.rand((n, tk), generator=g, device=dev) < keep).float()
+    return q, k, v, km
+
+
+def ext_errors(o, lse, ro, rlse):
+    """(max |dO|, max |dlse| over the finite rows, whether the rows that
+    must be -inf are exactly -inf with O exactly 0)."""
+    fin = torch.isfinite(rlse)
+    exact = bool(torch.equal(torch.isfinite(lse), fin)
+                 and (lse[~fin] == float("-inf")).all()
+                 and (o[(~fin).permute(0, 2, 1)] == 0).all())
+    el = (lse[fin] - rlse[fin]).abs().max().item() if fin.any() else 0.0
+    return (o.float() - ro.float()).abs().max().item(), el, exact
+
+
+def check_ext(name, q, k, v, km, offset, tol_o, tol_lse):
+    o, lse = flash_attention_block(q, k, v, offset=offset, key_mask=km)
+    ro, rlse = flash_attention_block_plain(q, k, v, offset=offset,
+                                           key_mask=km)
+    torch.cuda.synchronize()
+    eo, el, exact = ext_errors(o, lse, ro, rlse)
+    dead = int((~torch.isfinite(rlse)).sum().item())
+    print(f"flash_attention_block {name}: max|dO| {eo:.3e} (tol {tol_o}), "
+          f"max|dlse| {el:.3e} (tol {tol_lse}); {dead} rows with no "
+          f"visible key exactly O = 0, lse = -inf: {exact}")
+    check(eo <= tol_o and el <= tol_lse and exact,
+          f"flash_attention_block disagrees with its plain version ({name})")
+    return eo, el
+
+
+def four_shard_ring(q, k, v, km, causal: bool, p: int = RING_SHARDS):
+    """Every (my, src) step a p-rank ring takes, in one process: the
+    shards in a list, ``ring_flash_step`` per step, combined per rank."""
+    tl = q.shape[1] // p
+    sh = lambda a, r: None if a is None else a[:, r * tl:(r + 1) * tl]
+    outs = []
+    for my in range(p):
+        st = ring_flash_init(sh(q, my))
+        for step in range(p):
+            src = (my - step) % p
+            st = ring_flash_step(st, sh(q, my), sh(k, src), sh(v, src),
+                                 sh(km, src), my=my, src=src, t_local=tl,
+                                 n_dev=p, causal=causal)
+        outs.append(ring_flash_finish(st, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def phase_kernels_ext(seed: int, dev):
+    print("== K5 (flash attention with a key bias and an offset) against "
+          "its plain version ==")
+    bf, f32 = torch.bfloat16, torch.float32
+    err_o = err_lse = 0.0
+
+    def run(name, args, offset, tol_o, tol_lse):
+        nonlocal err_o, err_lse
+        eo, el = check_ext(name, *args, offset, tol_o, tol_lse)
+        err_o, err_lse = max(err_o, eo), max(err_lse, el)
+
+    n, t, h, d = EXT_RING
+    run(f"a: ring-local N={n} T={t} H={h} D={d} bf16 off=0",
+        ext_inputs(n, t, t, h, d, seed, dev), 0, TOL_FLASH_O, TOL_FLASH_LSE)
+    n, t, h, d = EXT_MASKED
+    run(f"b: masked N={n} T={t} H={h} D={d} bf16 causal, keep {EXT_KEEP}",
+        ext_inputs(n, t, t, h, d, seed, dev, keep=EXT_KEEP), 0,
+        TOL_FLASH_O, TOL_FLASH_LSE)
+    for off in (1024, 512, -512, -1024):
+        run(f"c: T=1024 H=8 D=64 bf16 off={off}",
+            ext_inputs(2, 1024, 1024, 8, 64, seed + off, dev), off,
+            TOL_FLASH_O, TOL_FLASH_LSE)
+    q, k, v, km = ext_inputs(2, 1024, 1024, 8, 64, seed, dev)
+    o, lse = flash_attention_block(q, k, v, offset=-1024)
+    torch.cuda.synchronize()
+    check(bool((o == 0).all()) and bool((lse == float("-inf")).all()),
+          "off = -1024 did not give O exactly 0 and lse exactly -inf")
+    for off in (0, 320, -100):
+        run(f"d: ragged Tq=192 Tk=320 H=8 D=64 bf16 masked off={off}",
+            ext_inputs(2, 192, 320, 8, 64, seed + off, dev, keep=0.7), off,
+            TOL_FLASH_O, TOL_FLASH_LSE)
+    q, k, v, km = ext_inputs(3, 512, 512, 8, 64, seed, dev, keep=0.8)
+    km[1] = 0.0
+    run("e: batch row 1 with every key masked, T=512 bf16 off=512",
+        (q, k, v, km), 512, TOL_FLASH_O, TOL_FLASH_LSE)
+    for dd in (32, 64, 128):
+        run(f"f: f32 D={dd} T=640 H=4 masked off=0",
+            ext_inputs(2, 640, 640, 4, dd, seed, dev, f32, keep=0.8), 0,
+            TOL_EXT_F32, TOL_EXT_F32)
+    # the in-process 4-shard ring: K5 at the offsets a 4-rank ring uses
+    err_ring = 0.0
+    for causal in (True, False):
+        for keep in (0.0, 0.8):
+            q, k, v, km = ext_inputs(2, 4 * 512, 4 * 512, 8, 64, seed + 5,
+                                     dev, keep=keep)
+            got = four_shard_ring(q, k, v, km, causal)
+            want = flash_attention_block_plain(
+                q, k, v, offset=0 if causal else q.shape[1],
+                key_mask=km)[0]
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            print(f"{RING_SHARDS}-shard ring in one process, T=2048 H=8 "
+                  f"D=64 bf16, causal={causal}, mask={bool(keep)}: max|dO| "
+                  f"{e:.3e} (tol {TOL_FLASH_O})")
+            check(e <= TOL_FLASH_O, "the in-process ring disagrees with the "
+                  "plain full attention")
+            err_ring = max(err_ring, e)
+    return {"flash_attention_block": {"max_abs_err": err_o,
+                                      "max_abs_err_lse": err_lse,
+                                      "max_abs_err_ring": err_ring}}
+
+
+def ext_bound(q, km, offset: int):
+    """K5's bound on these inputs: q, k, v read once, O and lse written
+    once, the mask read once; 4·D flops (q·k and p·v) per visible
+    (query, key) pair per head, counted on this mask, at the bf16 rate."""
+    n, t, h, d = q.shape
+    qi = torch.arange(t, device=q.device)
+    vis = (qi[:, None] + offset >= qi[None, :]).float()      # [T, T]
+    keep = torch.ones((n, t), device=q.device) if km is None else km
+    pairs = float((vis.sum(0)[None] * keep).sum().item()) * h
+    nbytes = 4 * n * t * h * d * q.element_size() + 4.0 * n * h * t \
+        + (4.0 * n * t if km is not None else 0.0)
+    return bound(nbytes, 4.0 * d * pairs) + (pairs,)
+
+
+def phase_times_ext(seed: int, dev):
+    print("== times: K5, its plain version and scaled_dot_product_attention "
+          "(CUDA events) ==")
+    res = {"flash_attention_block": {}}
+    for case, (n, t, h, d), keep in (("a", EXT_RING, 0.0),
+                                     ("b", EXT_MASKED, EXT_KEEP)):
+        q, k, v, km = ext_inputs(n, t, t, h, d, seed, dev, keep=keep)
+        ms = time_ms(lambda: flash_attention_block(q, k, v, offset=0,
+                                                   key_mask=km), iters=10)
+        plain = time_ms(lambda: flash_attention_block_plain(
+            q, k, v, offset=0, key_mask=km), iters=3, warmup=1)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if km is None:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), iters=10)
+        else:
+            allowed = (torch.ones((t, t), dtype=torch.bool, device=dev)
+                       .tril()[None, None] & (km > 0)[:, None, None, :])
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=allowed), iters=10)
+        b_ms, b_by, pairs = ext_bound(q, km, 0)
+        res["flash_attention_block"][case] = dict(
+            shape=f"N={n} T={t} H={h} D={d} bf16 causal"
+                  + (f", keep {keep}" if keep else ""),
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, gflop=4.0 * d * pairs / 1e9)
+        print(f"flash_attention_block {case} (N={n} T={t} H={h} D={d}): "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {4.0 * d * pairs / 1e9:.2f} GFLOP "
+              f"of visible pairs), {4.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+    return res
+
+
+def ring_cfg(seed: int, **kw) -> TransformerConfig:
+    """The bench transformer of ``bench.py:356-370`` at the long-context
+    length of ``bench.py:522``."""
+    base = dict(vocab_size=8192, d_model=2048, n_layers=4, n_heads=32,
+                d_ff=8192, max_len=RING_T, dtype_policy="performance",
+                use_flash=True, seed=seed)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def phase_ring(seed: int, dev, tmp: str):
+    print("== ring: TransformerLM ring_forward on a world-1 NCCL group ==")
+    import torch.distributed as dist
+
+    group = init_seq_group(os.path.join(tmp, "seq_store"), 0, 1,
+                           backend="nccl")
+    try:
+        cfg = ring_cfg(seed)
+        lm = TransformerLM(cfg, device=dev)
+        n_params = sum(v.numel() for v in [lm.params[k] for k in (
+            "embed", "pos")] + list(lm.params["blocks"].values()))
+        print(f"bench transformer: d_model {cfg.d_model}, {cfg.n_layers} "
+              f"layers, {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}"
+              f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
+              f"{n_params / 1e6:.1f} M parameters; backend "
+              f"{dist.get_backend(group)}, world {dist.get_world_size()}")
+        g = torch.Generator(device=dev).manual_seed(seed + 11)
+        toks = torch.randint(0, cfg.vocab_size, (1, RING_T), generator=g,
+                             device=dev)
+        cp = lm.compute_params
+        kernels = (flash_attention_block, flash_attention_block_plain,
+                   flash_attention, flash_attention_plain)
+        with torch.inference_mode():
+            for fn in kernels:
+                fn.launches = 0
+            ring = ring_forward(cp, toks, cfg, group)
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in kernels}
+            ref = forward(cp, toks, cfg)[0]
+            torch.cuda.synchronize()
+            err = (ring - ref).abs().max().item()
+            print(f"ring_forward N=1 T={RING_T}: logits {tuple(ring.shape)}, "
+                  f"finite {bool(torch.isfinite(ring).all())}; max |ring - "
+                  f"forward (K4)| {err:.3e} (tol {TOL_RING_BF16}); launches "
+                  f"{counts}")
+            check(tuple(ring.shape) == (1, RING_T, cfg.vocab_size)
+                  and bool(torch.isfinite(ring).all()),
+                  "ring_forward gave logits of the wrong shape or not finite")
+            check(err <= TOL_RING_BF16, "ring_forward disagrees with forward")
+            check(counts["flash_attention_block"] == cfg.n_layers
+                  and counts["flash_attention_block_plain"] == 0
+                  and counts["flash_attention"] == 0,
+                  "ring_forward did not run K5 once per layer (and nothing "
+                  "else)")
+            cfg32 = ring_cfg(seed, dtype_policy="strict")
+            toks32 = toks[:, :RING_T_F32]
+            r32 = ring_forward(lm.params, toks32, cfg32, group)
+            f32 = forward(lm.params, toks32, cfg32)[0]
+            torch.cuda.synchronize()
+            err32 = (r32 - f32).abs().max().item()
+            print(f"f32 strict at T={RING_T_F32}: max |ring - forward| "
+                  f"{err32:.3e} (tol {TOL_RING_F32})")
+            check(err32 <= TOL_RING_F32,
+                  "ring_forward disagrees with forward in f32")
+            ring_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group),
+                              iters=5, warmup=1)
+            fwd_ms = time_ms(lambda: forward(cp, toks, cfg), iters=5,
+                             warmup=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            uly = ring_forward(cp, toks, cfg, group, strategy="ulysses")
+            torch.cuda.synchronize()
+            uly_ms = (time.perf_counter() - t0) * 1e3
+            err_u = (uly - ref).abs().max().item()
+            busy, rows = profile_ms(lambda: ring_forward(cp, toks, cfg,
+                                                         group), n=3)
+        groups = {"K5 flash_ext_kernel": 0.0, "GEMMs": 0.0,
+                  "other kernels": 0.0}
+        for ms_, _, name in rows:
+            low = name.lower()
+            key = ("K5 flash_ext_kernel" if "flash_ext_kernel" in name
+                   else "GEMMs" if "gemm" in low or "xmma" in low
+                   or "nvjet" in low or "cutlass" in low
+                   else "other kernels")
+            groups[key] += ms_
+        groups["host gaps (wall - kernels)"] = ring_ms - busy
+        tokens_per_s = RING_T / ring_ms * 1e3
+        print(f"ring_forward: {ring_ms:.3f} ms per forward ({tokens_per_s:.0f}"
+              f" tokens/s); forward through K4 {fwd_ms:.3f} ms; ulysses once "
+              f"{uly_ms:.3f} ms (max |ulysses - forward| {err_u:.3e}); "
+              f"kernels {busy:.3f} ms ({busy / ring_ms:.1%}): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in groups.items()))
+        for ms_, calls, name in rows[:10]:
+            print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+        check(err_u <= TOL_RING_BF16, "ulysses disagrees with forward")
+    finally:
+        dist.destroy_process_group()
+    del lm
+    return counts, {"tokens": RING_T, "max_abs_err_vs_forward": err,
+                    "max_abs_err_f32": err32, "ring_ms": ring_ms,
+                    "forward_k4_ms": fwd_ms, "ulysses_ms": uly_ms,
+                    "ulysses_max_abs_err": err_u,
+                    "tokens_per_s": tokens_per_s,
+                    "profile": dict(device_busy_ms=busy, groups=groups,
+                                    kernels=[dict(ms=r[0], calls=r[1],
+                                                  name=r[2][:120])
+                                             for r in rows[:12]])}
+
+
+def mha_conf(seed: int):
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .learning_rate(MHA_LR).updater("adam").list()
+            .layer(0, L.MultiHeadAttention(n_in=MHA_F, n_out=MHA_W,
+                                           num_heads=MHA_HEADS,
+                                           activation="tanh"))
+            .layer(1, L.MultiHeadAttention(n_in=MHA_W, n_out=MHA_W,
+                                           num_heads=MHA_HEADS,
+                                           activation="tanh"))
+            .layer(2, L.RnnOutputLayer(n_in=MHA_W, n_out=MHA_CLASSES,
+                                       activation="softmax",
+                                       loss_function="mcxent"))
+            .build())
+
+
+def mha_batch(seed: int, dev):
+    """N x T sequences of MHA_F features with lengths in [64, T]: each
+    step's class is the argmax of a fixed random projection of its
+    features plus a skewed prior, so there is something to learn."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((MHA_N, MHA_T, MHA_F)).astype(np.float32)
+    proj = np.random.default_rng(1234).standard_normal(
+        (MHA_F, MHA_CLASSES)).astype(np.float32)
+    prior = np.linspace(2.0, 0.0, MHA_CLASSES, dtype=np.float32)
+    y = np.eye(MHA_CLASSES, dtype=np.float32)[
+        np.argmax(x @ proj + prior, axis=-1)]
+    lengths = rng.integers(64, MHA_T + 1, MHA_N)
+    mask = (np.arange(MHA_T)[None] < lengths[:, None]).astype(np.float32)
+    up = lambda a: torch.from_numpy(a).to(dev)
+    return up(x), up(y), up(mask)
+
+
+class _PlainBlock:
+    """Stands in for FlashBlockFn: autograd through K5's plain version."""
+
+    @staticmethod
+    def apply(q, k, v, key_mask, offset):
+        return flash_attention_block_plain(q, k, v, offset=offset,
+                                           key_mask=key_mask)
+
+
+def mha_grads(net: MultiLayerNetwork, x, y, mask):
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in net.params]
+    loss, _ = net._loss(leaves, net.states, x, y, train=True,
+                        step=net.iteration, mask=mask)
+    flat = [v for p in leaves for v in p.values()]
+    names = [f"{i}.{k}" for i, p in enumerate(leaves) for k in p]
+    return names, torch.autograd.grad(loss, flat)
+
+
+def phase_mha_train(seed: int, dev):
+    print("== training: a masked MultiHeadAttention network ==")
+    net = MultiLayerNetwork(mha_conf(seed), device=dev).init()
+    print(f"MultiLayerNetwork: 2 MultiHeadAttention({MHA_W}, {MHA_HEADS} "
+          f"heads) + RnnOutputLayer({MHA_CLASSES}), f32, Adam lr {MHA_LR}, "
+          f"{net.num_params()} parameters; {MHA_FITS} fits of N={MHA_N} "
+          f"T={MHA_T}, lengths 64-{MHA_T}")
+    batches = [mha_batch(seed + i, dev) for i in range(MHA_FITS)]
+    kernels = (flash_attention_block, flash_attention_block_plain,
+               flash_attention, flash_attention_plain)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(net.fit(*b)) for b in batches]
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses))
+    print(f"{MHA_FITS} fits in {wall:.3f} s ({wall / MHA_FITS * 1e3:.2f} ms "
+          f"each, first calls included); launches {counts}")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(np.mean(losses[-5:]) < losses[0], "the loss did not fall")
+    check(counts["flash_attention_block"] == 2 * MHA_FITS
+          and counts["flash_attention_block_plain"] == 0
+          and counts["flash_attention"] == 0,
+          "K5 did not launch exactly twice per fit (and nothing else)")
+    x, y, mask = mha_batch(seed + 99, dev)
+    names, got = mha_grads(net, x, y, mask)
+    saved, flash_mod.FlashBlockFn = flash_mod.FlashBlockFn, _PlainBlock
+    try:
+        _, want = mha_grads(net, x, y, mask)
+    finally:
+        flash_mod.FlashBlockFn = saved
+    grad_err = {n: ((a - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30)).item()
+                for n, a, b in zip(names, got, want)}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"one fit's gradients, K5 + blocked backward vs autograd through "
+          f"the plain version: max error {grad_err[worst]:.3e} of the "
+          f"largest entry (leaf {worst}; tol {TOL_GRAD})")
+    check(grad_err[worst] <= TOL_GRAD,
+          "the K5 path's gradients disagree with the plain version's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mha.zip")
+        write_model(net, path)
+        loaded = MultiLayerNetwork.load(path, device=dev)
+    s0, s1 = net.score(x, y, mask), loaded.score(x, y, mask)
+    print(f"write_model -> MultiLayerNetwork.load: score {s0:.6f} vs "
+          f"{s1:.6f}")
+    check(s0 == s1 and loaded.iteration == net.iteration,
+          "the saved and loaded MHA network scores differently")
+    fit_ms = time_ms(lambda: net.fit(*batches[0]), iters=5, warmup=1)
+    busy, rows = profile_ms(lambda: net.fit(*batches[0]), n=3)
+    groups = {"K5 flash_ext_kernel": 0.0, "GEMMs": 0.0,
+              "other kernels (blocked backward, Adam, glue)": 0.0}
+    for ms_, _, name in rows:
+        low = name.lower()
+        key = ("K5 flash_ext_kernel" if "flash_ext_kernel" in name
+               else "GEMMs" if "gemm" in low or "xmma" in low
+               or "nvjet" in low or "cutlass" in low
+               else "other kernels (blocked backward, Adam, glue)")
+        groups[key] += ms_
+    groups["host gaps (wall - kernels)"] = fit_ms - busy
+    print(f"fit: {fit_ms:.3f} ms per call; kernels {busy:.3f} ms "
+          f"({busy / fit_ms:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:10]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return counts, {"fits": MHA_FITS, "loss_per_fit": losses,
+                    "wall_s": wall, "grad_max_err": grad_err[worst],
+                    "fit_ms": fit_ms,
+                    "profile": dict(device_busy_ms=busy, groups=groups,
+                                    kernels=[dict(ms=r[0], calls=r[1],
+                                                  name=r[2][:120])
+                                             for r in rows[:12]])}
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -1438,6 +1905,7 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         errs = phase_kernels(args.seed, dev)
         errs.update(phase_kernels_sgns(args.seed, dev))
+        errs.update(phase_kernels_ext(args.seed, dev))
     cfg = TransformerConfig(vocab_size=8192, d_model=2048, n_layers=4,
                             n_heads=32, d_ff=8192, max_len=1024,
                             dtype_policy="performance", use_flash=True,
@@ -1456,14 +1924,22 @@ def main(argv=None) -> int:
     w2v, chunk, word2vec = phase_word2vec(args.seed, dev)
     peak_w2v = torch.cuda.max_memory_allocated()
     merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
-    peak = max(peak_serve, peak_train, peak_w2v)
+    del w2v, chunk
+    with tempfile.TemporaryDirectory() as tmp:
+        ring_counts, ring = phase_ring(args.seed, dev, tmp)
+    mha_counts, mha = phase_mha_train(args.seed, dev)
+    with torch.inference_mode():
+        merge(times, phase_times_ext(args.seed, dev))
+    peak_sp = torch.cuda.max_memory_allocated()
+    peak = max(peak_serve, peak_train, peak_w2v, peak_sp)
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
           f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more; word2vec "
           f"fit {peak_w2v / 2**30:.3f} GiB, "
           f"{word2vec['phase_memory_bytes'] / 2**20:.1f} MiB above what the "
-          f"earlier phases hold); whole run "
+          f"earlier phases hold; ring, MHA training and K5 timing "
+          f"{peak_sp / 2**30:.3f} GiB); whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
@@ -1474,6 +1950,7 @@ def main(argv=None) -> int:
     k3 = times["sgns_step"]["x".join(map(str, SGNS_SHAPES[0]))]
     k3_floor = times["sgns_step"]["{}x{}x1x{}".format(
         SGNS_SHAPES[0][0], W2V_D, W2V_NEG + 1)]
+    k5a, k5b = (times["flash_attention_block"][c] for c in "ab")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
@@ -1534,11 +2011,25 @@ def main(argv=None) -> int:
          "library_ms": None,
          "floor_ms": k3_floor["ms"],
          "shape": "V={} D={} B={} K+1={} f32".format(*SGNS_SHAPES[0])},
+        {"name": "flash_attention_block", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/flash_attention_ext.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:289",
+         "launches": ring_counts["flash_attention_block"],
+         "launches_mha_train": mha_counts["flash_attention_block"],
+         "max_abs_err": errs["flash_attention_block"]["max_abs_err"],
+         "max_abs_err_lse": errs["flash_attention_block"]["max_abs_err_lse"],
+         "max_abs_err_ring": errs["flash_attention_block"][
+             "max_abs_err_ring"],
+         "tolerance": TOL_FLASH_O,
+         "ms": k5a["ms"], "plain_ms": k5a["plain_ms"],
+         "bound_ms": k5a["bound_ms"], "bound_by": k5a["bound_by"],
+         "library_ms": k5a["library_ms"], "shape": k5a["shape"],
+         "case_b": k5b},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
                   "serving": serve, "predict": predict, "train": train,
-                  "word2vec": word2vec,
+                  "word2vec": word2vec, "ring": ring, "mha_train": mha,
                   "times": times, "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

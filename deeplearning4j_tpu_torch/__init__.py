@@ -2,11 +2,12 @@
 
 The JAX package beside this one is the reference; this package mirrors
 its module paths (``ops/``, ``nn/``, ``optimize/``, ``datasets/``,
-``models/``, ``serving/``, ``utils/``) so a reader finds each counterpart
+``models/``, ``parallel/``, ``serving/``, ``utils/``) so a reader finds each counterpart
 by name. It imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``deeplearning4j_tpu``.
 
-Ported so far, two serving paths and two training paths:
+Ported so far, two serving paths, three training paths and the
+long-context forward:
 
 * paged-KV ``/generate`` of the TransformerLM:
   ``models.transformer.TransformerLM`` -> ``serving.paged.PagedDecoder``
@@ -22,13 +23,21 @@ Ported so far, two serving paths and two training paths:
 * Word2Vec skip-gram training (hierarchical softmax plus negative
   sampling) and CBOW: ``nlp.word2vec.Word2Vec.fit`` / ``fit_tokens`` on
   ``nlp.{text,vocab,huffman,lookup}``, files through
-  ``nlp.serializer.save_word2vec`` / ``load_word2vec``.
+  ``nlp.serializer.save_word2vec`` / ``load_word2vec``;
+* the TransformerLM's long-context forward over a ``'seq'`` process
+  group: ``models.transformer.ring_forward`` on
+  ``parallel.sequence_parallel`` (ring attention, Ulysses) and
+  ``parallel.mesh``;
+* MultiLayerNetworks of ``MultiHeadAttention`` layers
+  (``nn.layers.attention``), masked batches included.
 
-Their five TPU kernels are hand-written CUDA C++ for sm_90a under
+Their six TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode
 attention (``ops/paged_attention.py``), the fused peephole-LSTM scan
 with its reverse-time backward (``ops/lstm_scan.py``) and the
-skip-gram negative-sampling step (``ops/sgns.py``), built with ``nvcc``
+skip-gram negative-sampling step (``ops/sgns.py``) and flash attention
+with a key bias and a visibility offset (``ops/flash_attention.py``,
+beside the flash prefill), built with ``nvcc``
 at first use (``ops/build.py``).
 
 Every entry point runs on ``cuda`` unless the caller passes

@@ -5,9 +5,12 @@ Ported: ``TransformerConfig`` (same fields and defaults), ``init_params``
 (same distributions, a ``torch.Generator`` in place of ``jax.random``),
 ``_ln``, ``_attention``, ``forward``, ``prefill_cache`` (:756) and
 ``TransformerLM`` (``load`` of a JAX zip, ``.params``, ``.cfg``), plus
-:func:`params_from_numpy` for a JAX parameter tree handed over as numpy.
-Training, Adam, accumulation, remat, ring/pipeline modes, MoE and
-``lm.generate`` wait for later slices; an MoE config raises.
+:func:`params_from_numpy` for a JAX parameter tree handed over as numpy,
+and ``ring_forward`` (:695), the long-context forward with attention
+sequence-parallel over the ``'seq'`` group (ring or Ulysses,
+``parallel/sequence_parallel.py``). Training, Adam, accumulation, remat,
+the pipeline mode, the ring's training step, MoE and ``lm.generate`` wait
+for later slices; an MoE config raises.
 
 Parameters are a dict in the JAX layout: ``embed`` [V, d], ``pos``
 [max_len, d], ``lnf_g``/``lnf_b`` [d], and ``blocks`` whose leaves are
@@ -206,9 +209,9 @@ def _block(bp: Params, h, cfg: TransformerConfig, attend):
     return h + inner @ c(bp["W2"]) + c(bp["b2"])
 
 
-def _embed(params: Params, tokens, cfg: TransformerConfig):
+def _embed(params: Params, tokens, cfg: TransformerConfig, start: int = 0):
     t = tokens.shape[1]
-    h = params["embed"][tokens.long()] + params["pos"][:t][None]
+    h = params["embed"][tokens.long()] + params["pos"][start:start + t][None]
     return h.to(cfg.compute_dtype)
 
 
@@ -226,6 +229,43 @@ def forward(params: Params, tokens, cfg: TransformerConfig
     logits = h @ params["embed"].T  # tied head
     return logits.float(), torch.zeros((), dtype=torch.float32,
                                        device=logits.device)
+
+
+def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
+                 strategy: str = "ring") -> torch.Tensor:
+    """The forward with attention sequence-parallel over ``group``, for
+    sequences sharded over ranks: ``tokens`` [N, T_local] is this rank's
+    shard (rank r holds positions r * T_local ..), embedded with its own
+    slice of ``pos``; every block runs :func:`_block` with the sharded
+    attention (``strategy="ring"``: K/V shards rotate, each step through
+    K5; ``"ulysses"``: two head <-> sequence all-to-alls around dense
+    attention, heads divisible by the world size). Returns this rank's
+    logits [N, T_local, V] f32. Dense configs only."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+        ring_attention_sharded,
+        ulysses_attention_sharded,
+    )
+
+    check_dense(cfg)
+    if strategy not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
+    sharded_att = (ring_attention_sharded if strategy == "ring"
+                   else ulysses_attention_sharded)
+    n, t = tokens.shape
+    hd = cfg.d_model // cfg.n_heads
+
+    def attend(q, k, v):
+        split = lambda a: a.reshape(n, t, cfg.n_heads, hd)
+        out = sharded_att(split(q), split(k), split(v), group, causal=True)
+        return out.reshape(n, t, cfg.d_model)
+
+    h = _embed(params, tokens, cfg, start=dist.get_rank(group) * t)
+    for layer in range(cfg.n_layers):
+        h = _block(_layer(params["blocks"], layer), h, cfg, attend)
+    h = _ln(h.float(), params["lnf_g"], params["lnf_b"])
+    return (h @ params["embed"].T).float()
 
 
 def prefill_cache(params: Params, tokens, cfg: TransformerConfig
@@ -293,3 +333,13 @@ class TransformerLM:
         with torch.inference_mode():
             tokens = torch.as_tensor(tokens, device=self.device)
             return forward(self.compute_params, tokens, self.cfg)[0]
+
+    def ring_logits(self, tokens, group, strategy: str = "ring"
+                    ) -> torch.Tensor:
+        """This rank's token shard [N, T_local] -> its logits [N, T_local,
+        V] f32, attention sequence-parallel over ``group``
+        (:func:`ring_forward`)."""
+        with torch.inference_mode():
+            tokens = torch.as_tensor(tokens, device=self.device)
+            return ring_forward(self.compute_params, tokens, self.cfg,
+                                group, strategy)

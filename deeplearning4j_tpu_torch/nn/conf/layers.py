@@ -314,8 +314,9 @@ class GRU(FeedForwardLayer):
 class MultiHeadAttention(FeedForwardLayer):
     """Multi-head self-attention over [N, T, F] sequences.
 
-    Beyond-reference capability of the JAX package; the port parses its
-    conf but has no runtime for it yet. n_out is the model width; head_dim = n_out // num_heads."""
+    Beyond-reference capability of the JAX package. Runtime:
+    nn/layers/attention.py (K5 for a masked batch, K4 without, on the
+    card). n_out is the model width; head_dim = n_out // num_heads."""
 
     num_heads: int = 4
     causal: bool = False

@@ -8,6 +8,7 @@ raises, naming the layer. The conf-family tuples are the JAX package's.
 from __future__ import annotations
 
 from deeplearning4j_tpu_torch.nn.conf import layers as conf_layers
+from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttentionImpl
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     DenseLayerImpl,
     OutputLayerImpl,
@@ -20,6 +21,7 @@ FACTORY = {
     conf_layers.OutputLayer: OutputLayerImpl,
     conf_layers.RnnOutputLayer: RnnOutputLayerImpl,
     conf_layers.GravesLSTM: GravesLSTMImpl,
+    conf_layers.MultiHeadAttention: MultiHeadAttentionImpl,
 }
 
 # recurrent layers with carryable state (rnnTimeStep)

@@ -502,7 +502,12 @@ class MultiLayerNetwork:
         """Back to the empty (0, ...) stream state; params untouched. The
         next rnn_time_step sizes it for its batch."""
         for i, layer in enumerate(self.layers):
-            if hasattr(layer, "step"):
+            if getattr(layer, "grows_state", False):
+                # a KV cache starts empty; a zeroed one of the old length
+                # would be attended to (the JAX package's fault: ROADMAP
+                # queue 3)
+                self.states[i] = {}
+            elif hasattr(layer, "step"):
                 self.states[i] = {
                     k: torch.zeros((0,) + tuple(v.shape[1:]), dtype=v.dtype,
                                    device=v.device)

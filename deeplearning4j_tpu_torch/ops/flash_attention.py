@@ -1,40 +1,63 @@
-"""Flash-attention forward, K4 of the port (counterpart:
-``deeplearning4j_tpu/ops/pallas_attention.py`` — ``_flash_raw`` and its
-kernel body ``_flash_kernel``, reached through ``flash_attention`` and
-``attention_auto``).
+"""Flash attention: K4 and K5 of the port, their backward and the dispatch
+(counterpart: ``deeplearning4j_tpu/ops/pallas_attention.py`` —
+``_flash_raw`` :117 with ``_flash_bwd`` :176, ``_flash_ext_raw`` :289
+with ``_flash_ext_bwd`` :335, ``flash_attention_block`` :388,
+``flash_attention_masked`` :449, ``_dense_masked`` :463 and
+``attention_auto`` :481).
 
-Three things live here:
+Every tensor keeps the ``[N, T, H, D]`` layout; the kernels read q, k and
+v through their strides, so nothing folds heads. What lives here:
 
-* :func:`flash_attention_plain` — the plain PyTorch version: dense masked
-  softmax in f32. The CPU path and the card's equivalence oracle.
-* :func:`flash_attention` — the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor goes to the hand-written kernel
-  ``csrc/flash_attention.cu`` or the wrapper raises. There is no fallback
-  on the card.
-* a launch counter on each: ``flash_attention.launches`` counts kernel
-  launches only, ``flash_attention_plain.launches`` counts plain calls.
+* K4, :func:`flash_attention` (``csrc/flash_attention.cu``), causal or
+  full attention, and its plain version :func:`flash_attention_plain`.
+* K5, :func:`flash_attention_block` (``csrc/flash_attention_ext.cu``):
+  K4 plus an additive key bias (a key padding mask, shared by the heads)
+  and a visibility offset — key ``ki`` is visible to query ``qi`` iff
+  ``qi + offset >= ki``, so ``offset = 0`` is causal, ``offset >= Tk``
+  shows every key and ``offset <= -Tq`` hides every key; Tq may differ
+  from Tk (a ring step attends a local Q shard to a rotating K/V shard). A
+  row with no visible key gives O = 0 and lse = -inf. Its plain version
+  is :func:`flash_attention_block_plain`.
+* :class:`FlashBlockFn` and :class:`FlashFn`, the autograd functions: the
+  forward is the wrapper (the kernel on the card), the backward is the
+  JAX package's blocked backward in plain PyTorch, over key tiles of 128,
+  recomputing probabilities from the saved lse (K5's with the lse
+  cotangent). In the JAX package that backward is XLA outside any Pallas
+  kernel; a kernel for it is later work.
+* :func:`flash_attention_masked`, :func:`dense_masked` and
+  :func:`attention_auto`, the dispatch of the MultiHeadAttention layer: a
+  key mask goes to K5, no mask to K4, a head size the kernels do not take
+  to the dense path on the card.
 
-Source note. Replaces the TPU kernel ``_flash_kernel``. At the serving
-shapes (T <= 1024, D = 64, bf16) memory sets the card's bound (~5 us at
-T=1024, H=32 against 3.35 TB/s); this first kernel does its products with
-f32 FMAs out of shared memory, so the FMA rate bounds it in practice. The
-design (see the .cu header): one CTA per (64-row q tile, n*h), K/V tiles
-of 64 keys streamed through shared memory up to the diagonal, online
-softmax in f32 registers, ragged T masked in the kernel so every bucket
-width runs through it, and [N,T,H,D] read through its strides without
-head-folding transposes. The backward (``_flash_bwd``) comes with the
-training slice.
+Each wrapper sends a CPU tensor to its plain version and a CUDA tensor to
+its kernel, or raises: no fallback on the card. A launch counter sits on
+each wrapper and each plain version (``.launches``).
+
+Not carried over: the JAX package keeps K5 off (``kernel_gate
+.measured_win``) until a TPU measurement proves it; no TPU number carries
+over to the card, so here K5 is the path, as K4 and K6 are.
+
+Source note (K4 and K5). At the serving widths memory bounds K4 on the
+H100; at the ring's and the masked layer's widths (T >= 2048) the
+products bound both (~1000 flops per byte). Both do their products with
+f32 FMAs out of shared memory: one CTA per (64-row q tile, n*h), 64-key
+K/V tiles streamed up to the last visible one, online softmax in f32
+registers, ragged T masked in the kernel. K5 also skips every key tile
+its q tile cannot see, since the offset is a host integer here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import build
+from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
 
 HEAD_DIMS = (16, 32, 64, 128)
+BWD_BLOCK_K = 128  # the JAX package's _BLOCK_K: key tile of the backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,17 +65,22 @@ _L = ctypes.c_longlong
 _SIGNATURE = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                       _I, _I, _I, _P]}
+_EXT_SIGNATURE = {"flash_attention_ext_fwd": [
+    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _P]}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False):
-    """q, k, v [N, T, H, D] -> (o [N, T, H, D] in q's dtype, lse [N, H, T]
-    f32): f32 scores scaled by 1/sqrt(D), causal mask, softmax, f32
-    p @ v. The same function as the kernel, materialising the scores."""
+    """q, k, v [N, T, H, D] -> (o [N, T, H, D] in q's dtype, lse [N, H, T]):
+    scores scaled by 1/sqrt(D) in at least f32 (f64 stays f64), causal
+    mask, softmax, p @ v. The same function as the kernel, materialising
+    the scores."""
     flash_attention_plain.launches += 1
     n, t, h, d = q.shape
-    qf = q.float().permute(0, 2, 1, 3) * (1.0 / (d ** 0.5))
-    kf = k.float().permute(0, 2, 1, 3)
-    vf = v.float().permute(0, 2, 1, 3)
+    dt = softmax_dtype(q.dtype)
+    qf = q.to(dt).permute(0, 2, 1, 3) * (1.0 / (d ** 0.5))
+    kf = k.to(dt).permute(0, 2, 1, 3)
+    vf = v.to(dt).permute(0, 2, 1, 3)
     s = qf @ kf.transpose(-1, -2)                       # [N, H, T, T]
     if causal:
         mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
@@ -70,6 +98,31 @@ def _lib():
     return build.load("flash_attention", _SIGNATURE)
 
 
+def _check_inputs(what, q, k, v, same_t: bool):
+    n, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != n or k.shape[2:] != q.shape[2:] \
+            or (same_t and k.shape != q.shape):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head size {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                         "the kernel takes matching f32 or bf16")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{what}: {name} on {x.device}, q on "
+                             f"{q.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{what}: {name}'s last axis must be "
+                             "contiguous")
+
+
+def _strides(x):
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
 def flash_attention(q, k, v, *, causal: bool = False):
     """q, k, v [N, T, H, D] -> (o [N, T, H, D] in q's dtype, lse [N, H, T]
     f32). CPU tensors: :func:`flash_attention_plain`. CUDA tensors: the
@@ -78,38 +131,254 @@ def flash_attention(q, k, v, *, causal: bool = False):
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_inputs("flash_attention", q, k, v, same_t=True)
     n, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head size {d} not in "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; the kernel takes matching f32 or bf16")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {x.device}, "
-                             f"q on {q.device}")
-        if x.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name}'s last axis must "
-                             "be contiguous")
     o = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, t), dtype=torch.float32, device=q.device)
     lib = _lib()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, t, h, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(bool(causal)), _DTYPE_CODE[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), n, t, h, d, *_strides(q), *_strides(k),
+        *_strides(v), int(bool(causal)), _DTYPE_CODE[q.dtype],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return o, lse
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: additive key bias + visibility offset
+# ---------------------------------------------------------------------------
+
+
+def key_keep(key_mask):
+    """[N, Tk] 0/1 (or bool) key mask -> bool, True where a key is kept."""
+    return key_mask if key_mask.dtype == torch.bool else key_mask != 0
+
+
+def key_bias(key_mask, dtype=torch.float32):
+    """[N, Tk] 0/1 (or bool) key mask -> additive bias: 0 keeps, -inf
+    masks."""
+    keep = key_keep(key_mask)
+    zero = torch.zeros((), dtype=dtype, device=keep.device)
+    return torch.where(keep, zero, torch.full_like(zero, float("-inf")))
+
+
+def _visible(tq: int, k0: int, k1: int, offset: int, device):
+    """[Tq, k1 - k0] bool: qi + offset >= ki for keys k0..k1-1."""
+    qi = torch.arange(tq, device=device)[:, None]
+    ki = torch.arange(k0, k1, device=device)[None, :]
+    return qi + offset >= ki
+
+
+def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None):
+    """q [N, Tq, H, D], k, v [N, Tk, H, D], key_mask [N, Tk] 0/1 or None ->
+    (o [N, Tq, H, D] in q's dtype, lse [N, H, Tq]). A dense masked softmax
+    in at least f32 (f64 stays f64): scores q.k / sqrt(D) plus the key
+    bias, keys with qi + offset < ki hidden; a row with no visible key
+    gives O = 0 and lse = -inf. The same function as K5, materialising
+    the scores."""
+    flash_attention_block_plain.launches += 1
+    n, tq, h, d = q.shape
+    tk = k.shape[1]
+    dt = softmax_dtype(q.dtype)
+    qf = q.to(dt).permute(0, 2, 1, 3) * (1.0 / (d ** 0.5))
+    kf = k.to(dt).permute(0, 2, 1, 3)
+    vf = v.to(dt).permute(0, 2, 1, 3)
+    s = qf @ kf.transpose(-1, -2)                       # [N, H, Tq, Tk]
+    if key_mask is not None:
+        s = s + key_bias(key_mask, dt)[:, None, None, :]
+    s = s.masked_fill(~_visible(tq, 0, tk, int(offset), q.device),
+                      float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                    # -inf: none visible
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                  torch.zeros_like(lse))[..., None])
+    o = (p @ vf).permute(0, 2, 1, 3).to(q.dtype)
+    return o.contiguous(), lse
+
+
+flash_attention_block_plain.launches = 0
+
+
+def _ext_lib():
+    return build.load("flash_attention_ext", _EXT_SIGNATURE)
+
+
+def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
+    """q [N, Tq, H, D], k, v [N, Tk, H, D], key_mask [N, Tk] 0/1 or None,
+    offset a host integer -> (o [N, Tq, H, D] in q's dtype, lse [N, H, Tq]
+    f32). CPU tensors: :func:`flash_attention_block_plain`. CUDA tensors:
+    the hand-written kernel K5, or an exception."""
+    if q.device.type == "cpu":
+        return flash_attention_block_plain(q, k, v, offset=offset,
+                                           key_mask=key_mask)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_block: unsupported device {q.device}")
+    _check_inputs("flash_attention_block", q, k, v, same_t=False)
+    n, tq, h, d = q.shape
+    tk = k.shape[1]
+    kb = None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (n, tk) \
+                or key_mask.device != q.device:
+            raise ValueError(
+                f"flash_attention_block: key_mask {tuple(key_mask.shape)} "
+                f"on {key_mask.device}, expected ({n}, {tk}) on {q.device}")
+        kb = key_bias(key_mask).contiguous()
+    # offsets past either end give the same function as the ends
+    off = max(-tq, min(tk, int(offset)))
+    o = torch.empty((n, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
+    lib = _ext_lib()
+    rc = lib.flash_attention_ext_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kb is None else kb.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), n, tq, tk, h, d, *_strides(q), *_strides(k),
+        *_strides(v), off, _DTYPE_CODE[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, "flash_attention_block")
+    flash_attention_block.launches += 1
+    return o, lse
+
+
+flash_attention_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the blocked backward (plain PyTorch, as the JAX package's is XLA)
+# ---------------------------------------------------------------------------
+
+
+def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
+    """(dq, dk, dv) of ``(o, lse) = flash_attention_block(q, k, v, ...)``
+    for the cotangents g [N, Tq, H, D] and g_lse [N, H, Tq] (or None), by
+    the JAX package's ``_flash_ext_bwd``: probabilities recomputed per
+    tile of ``BWD_BLOCK_K`` keys from the saved lse, never the [Tq, Tk]
+    score matrix; dS = P * (dP - D + g_lse) / sqrt(D). Math in at least
+    f32; gradients in the inputs' dtypes. Masked and invisible keys have
+    P = 0, hence zero dK and dV."""
+    n, tq, h, d = q.shape
+    tk = k.shape[1]
+    dt = softmax_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    heads = lambda a: a.to(dt).permute(0, 2, 1, 3)      # [N, H, T, D]
+    qf, kf, vf, gf = heads(q), heads(k), heads(v), heads(g)
+    dvec = (gf * heads(o)).sum(-1)                      # [N, H, Tq]
+    if g_lse is not None:
+        dvec = dvec - g_lse.to(dt)
+    lse = lse.to(dt)
+    lse_safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    kb = None if key_mask is None else key_bias(key_mask, dt)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for k0 in range(0, tk, BWD_BLOCK_K):
+        k1 = min(tk, k0 + BWD_BLOCK_K)
+        ks, vs = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        s = (qf @ ks.transpose(-1, -2)) * scale         # [N, H, Tq, b]
+        if kb is not None:
+            s = s + kb[:, None, None, k0:k1]
+        s = s.masked_fill(~_visible(tq, k0, k1, int(offset), q.device),
+                          float("-inf"))
+        p = torch.exp(s - lse_safe[..., None])          # hidden -> 0
+        dv[:, :, k0:k1] = p.transpose(-1, -2) @ gf
+        ds = p * (gf @ vs.transpose(-1, -2) - dvec[..., None]) * scale
+        dq += ds @ ks
+        dk[:, :, k0:k1] = ds.transpose(-1, -2) @ qf
+    back = lambda a, like: a.permute(0, 2, 1, 3).to(like.dtype).contiguous()
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+class FlashBlockFn(torch.autograd.Function):
+    """``(o, lse) = FlashBlockFn.apply(q, k, v, key_mask, offset)``: K5
+    (its plain version on the CPU) forward, the blocked backward with the
+    lse cotangent (ring callers combine shards through lse). No gradient
+    reaches the mask or the offset."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, offset):
+        o, lse = flash_attention_block(q, k, v, offset=offset,
+                                       key_mask=key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.offset = int(offset)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_block_bwd(q, k, v, key_mask, ctx.offset, o, lse,
+                                     g, g_lse)
+        return dq, dk, dv, None, None
+
+
+class FlashFn(torch.autograd.Function):
+    """``o = FlashFn.apply(q, k, v, causal)``: K4 (its plain version on the
+    CPU) forward, the JAX package's ``_flash_bwd``: the blocked backward
+    with no key bias, offset 0 (causal) or T (full) and no lse
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.offset = 0 if causal else k.shape[1]
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_block_bwd(q, k, v, None, ctx.offset, o, lse, g)
+        return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
+# the single-device dispatch of the MultiHeadAttention layer
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_masked(q, k, v, key_mask, *, causal: bool = False):
+    """q, k, v [N, T, H, D], key_mask [N, T] 0/1 -> [N, T, H, D]: attention
+    with padded keys left out of the softmax, through K5 (offset 0 when
+    causal, T otherwise). Differentiable through :class:`FlashBlockFn`."""
+    t = q.shape[1]
+    o, _ = FlashBlockFn.apply(q, k, v, key_mask, 0 if causal else t)
+    return o
+
+
+def dense_masked(q, k, v, key_mask=None, *, causal: bool):
+    """The JAX package's ``_dense_masked`` (and, with no mask, its
+    ``dense_attention``): dense attention with a key padding mask,
+    softmax in at least f32; a row with every key masked gives 0. q, k, v
+    [N, T, H, D], key_mask [N, T] 0/1 or None."""
+    d = q.shape[-1]
+    s = torch.einsum("nqhd,nkhd->nhqk", q, k)
+    s = s.to(softmax_dtype(s.dtype)) / (d ** 0.5)
+    if causal:
+        t = q.shape[1]
+        tril = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~tril, float("-inf"))
+    if key_mask is not None:
+        s = s.masked_fill(~key_keep(key_mask)[:, None, None, :],
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isfinite(s).any(-1, keepdim=True), p,
+                    torch.zeros_like(p))
+    return torch.einsum("nhqk,nkhd->nqhd", p.to(q.dtype), v)
+
+
+def attention_auto(q, k, v, *, causal: bool = False, key_mask=None):
+    """q, k, v [N, T, H, D] -> [N, T, H, D]. A key mask ([N, T] 0/1) goes
+    to K5 (:func:`flash_attention_masked`), no mask to K4 (:class:`FlashFn`);
+    the CPU runs their plain versions through the same functions. A head
+    size the kernels do not take (:data:`HEAD_DIMS`) goes to the dense
+    path on the card, as the JAX package's ``flash_fits``/``ext_fits``
+    send a shape its kernel does not fit."""
+    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
+        return dense_masked(q, k, v, key_mask, causal=causal)
+    if key_mask is not None:
+        return flash_attention_masked(q, k, v, key_mask, causal=causal)
+    return FlashFn.apply(q, k, v, causal)

@@ -22,7 +22,12 @@ plain step in f32 on the card adds with atomics onto the tables and
 drifts by more than that at ~190 hits per row), rows no live pair
 touches bit-equal; a word2vec fit on
 the card against the same fit on the CPU with the same draws: see that
-test.
+test. K5 (flash attention with a key bias and an offset): 1e-4 abs on O
+and lse in f32, 2e-2 on O and 1e-3 on lse in bf16, and the rows with no
+visible key exactly O = 0, lse = -inf; the in-process 4-shard ring
+against the plain full attention at the same bars; ``FlashBlockFn``'s
+gradients against autograd through the plain version at 1e-4 of the
+largest entry.
 """
 
 import numpy as np
@@ -133,7 +138,8 @@ def test_kernels_build_with_nvcc():
     from deeplearning4j_tpu_torch.ops import build
 
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns",
+                            "flash_attention_ext"]):
         assert res.path.exists()
         assert "registers" in res.log
 
@@ -483,3 +489,180 @@ def test_word2vec_fit_on_the_card_matches_the_cpu():
         b = getattr(models[1][0].lookup_table, name)
         assert np.isfinite(a).all()
         assert np.abs(a - b).max() < 1e-5, name
+
+
+def _ext_case(seed, n, tq, tk, h, d, dev, dtype, masked):
+    rng = np.random.default_rng(seed)
+    q = _port(rng.standard_normal((n, tq, h, d)).astype(np.float32), dev,
+              dtype)
+    k, v = (_port(rng.standard_normal((n, tk, h, d)).astype(np.float32),
+                  dev, dtype) for _ in range(2))
+    km = None
+    if masked:
+        km = (rng.random((n, tk)) < 0.8).astype(np.float32)
+        km[-1] = 0.0  # a batch row with every key masked
+        km = _port(km, dev)
+    return q, k, v, km
+
+
+def _ext_errors(o, lse, ro, rlse):
+    """max |dO|, max |dlse| over finite rows; and whether the -inf rows
+    agree exactly (with O = 0 there)."""
+    fin = torch.isfinite(rlse)
+    same_inf = bool(torch.equal(torch.isfinite(lse), fin)
+                    and (lse[~fin] == float("-inf")).all())
+    dead = (~fin).permute(0, 2, 1)                      # [N, Tq, H]
+    same_inf &= bool((o[dead] == 0).all())
+    el = (lse[fin] - rlse[fin]).abs().max().item() if fin.any() else 0.0
+    return (o.float() - ro.float()).abs().max().item(), el, same_inf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol_o,tol_lse", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-3)])
+@pytest.mark.parametrize("tq,tk,offset,d", [
+    (128, 128, 0, 64), (192, 320, 0, 32), (192, 320, 320, 16),
+    (320, 192, -100, 128), (256, 256, -256, 64), (100, 100, 37, 64),
+    (64, 1000, 500, 64), (1000, 64, -900, 32)])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_flash_ext_kernel_matches_plain_on_card(tq, tk, offset, d, masked,
+                                                dtype, tol_o, tol_lse):
+    dev = _need_card()
+    q, k, v, km = _ext_case(tq + tk + d, 2, tq, tk, 3, d, dev, dtype,
+                            masked)
+    before = port_flash.flash_attention_block.launches
+    o, lse = port_flash.flash_attention_block(q, k, v, offset=offset,
+                                              key_mask=km)
+    torch.cuda.synchronize()
+    assert port_flash.flash_attention_block.launches == before + 1
+    ro, rlse = port_flash.flash_attention_block_plain(q, k, v, offset=offset,
+                                                      key_mask=km)
+    eo, el, same_inf = _ext_errors(o, lse, ro, rlse)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert eo <= tol_o and el <= tol_lse and same_inf
+
+
+@pytest.mark.gpu
+def test_flash_ext_reads_strided_heads_on_card():
+    """q/k/v as [N, T, H, D] views of a wider projection (the MHA layer's
+    reshape of x @ W) give the same result as contiguous copies."""
+    dev = _need_card()
+    rng = np.random.default_rng(1)
+    x = _port(rng.standard_normal((2, 130, 3, 2 * 64)).astype(np.float32),
+              dev)
+    q, k = x[..., :64], x[..., 64:]
+    assert not q.is_contiguous()
+    a = port_flash.flash_attention_block(q, k, k, offset=0)
+    b = port_flash.flash_attention_block(q.contiguous(), k.contiguous(),
+                                         k.contiguous(), offset=0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_four_shard_ring_in_one_process_on_card(causal, masked):
+    """Every (my, src) step a 4-rank ring takes, through K5, against the
+    plain full attention."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+        ring_flash_finish,
+        ring_flash_init,
+        ring_flash_step,
+    )
+
+    p, tl = 4, 96
+    q, k, v, km = _ext_case(7, 2, p * tl, p * tl, 4, 64, dev, torch.float32,
+                            masked)
+    shard = lambda a, r: a[:, r * tl:(r + 1) * tl]
+    outs = []
+    for my in range(p):
+        st = ring_flash_init(shard(q, my))
+        for step in range(p):
+            src = (my - step) % p
+            st = ring_flash_step(st, shard(q, my), shard(k, src),
+                                 shard(v, src),
+                                 None if km is None else shard(km, src),
+                                 my=my, src=src, t_local=tl, n_dev=p,
+                                 causal=causal)
+        outs.append(ring_flash_finish(st, q.dtype))
+    got = torch.cat(outs, dim=1)
+    want = port_flash.flash_attention_block_plain(
+        q, k, v, offset=0 if causal else p * tl, key_mask=km)[0]
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_block_fn_gradients_match_autograd_through_plain_on_card():
+    dev = _need_card()
+    q, k, v, km = _ext_case(3, 2, 200, 300, 3, 64, dev, torch.float32, True)
+    # autograd through the plain version's logsumexp gives NaN on a row
+    # with every key masked (the blocked backward gives 0 there, as the
+    # JAX package's does: tests/test_torch_flash_ext.py), so every row of
+    # this case keeps some keys
+    km[-1, ::3] = 1.0
+    g = torch.randn((2, 200, 3, 64), device=dev)
+    g_lse = torch.randn((2, 3, 200), device=dev)
+    got, want = [], []
+    for fn, out in ((lambda a, b, c: port_flash.FlashBlockFn.apply(
+            a, b, c, km, 50), got), (lambda a, b, c:
+            port_flash.flash_attention_block_plain(a, b, c, offset=50,
+                                                   key_mask=km), want)):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        o, lse = fn(*ins)
+        fin = torch.isfinite(lse)
+        torch.autograd.backward([o, torch.where(fin, lse, 0.0)],
+                                [g, torch.where(fin, g_lse, 0.0)])
+        out.extend(x.grad for x in ins)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_ext_refuses_what_the_kernel_does_not_take():
+    dev = _need_card()
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        port_flash.flash_attention_block(q, q, q, offset=0)
+    q = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="key_mask"):
+        port_flash.flash_attention_block(
+            q, q, q, offset=0, key_mask=torch.ones((1, 9), device=dev))
+
+
+@pytest.mark.gpu
+def test_masked_attention_network_on_the_card_goes_through_k5():
+    """A MultiLayerNetwork of two MultiHeadAttention layers fitted on the
+    card with a feature mask: K5 launches once per layer per fit, its
+    plain version never; unmasked, K4 does."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(3).learning_rate(0.01)
+            .updater("adam").list()
+            .layer(0, L.MultiHeadAttention(n_in=16, n_out=64, num_heads=4,
+                                           activation="tanh"))
+            .layer(1, L.MultiHeadAttention(n_in=64, n_out=64, num_heads=2))
+            .layer(2, L.RnnOutputLayer(n_in=64, n_out=5,
+                                       activation="softmax",
+                                       loss_function="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf, device=dev).init()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 70, 16)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (4, 70))]
+    mask = (np.arange(70)[None] < np.array([[70], [40], [9], [1]])
+            ).astype(np.float32)
+    fns = (port_flash.flash_attention_block,
+           port_flash.flash_attention_block_plain,
+           port_flash.flash_attention, port_flash.flash_attention_plain)
+    for fn in fns:
+        fn.launches = 0
+    losses = [float(net.fit(x, y, mask)) for _ in range(3)]
+    assert [fn.launches for fn in fns] == [6, 0, 0, 0]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    net.fit(x, y)
+    assert [fn.launches for fn in fns] == [6, 0, 2, 0]

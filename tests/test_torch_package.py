@@ -4,9 +4,10 @@
     module imports in a fresh interpreter with ``jax`` absent from
     ``sys.modules`` afterwards, and no ``import`` statement in the
     package or in ``chip_smoke.py`` names either.
-  * Its entry points (``TransformerLM``, ``PagedDecoder``,
-    ``MultiLayerNetwork`` and its ``load``, ``ServingEngine``, and the
-    training ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
+  * Its entry points (``TransformerLM`` and its ``ring_forward``,
+    ``PagedDecoder``, ``MultiLayerNetwork`` and its ``load`` (a
+    MultiHeadAttention network too), ``ServingEngine``, and the training
+    ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
     ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
     and ``Word2Vec.from_arrays``) run on the card unless given
     ``device="cpu"``; with no card they raise instead of moving to the
@@ -182,6 +183,53 @@ class TestEntryPointsNeedACardOrCpu:
             np.asarray(jc.net.updater_state[0]["cache"]["W"]))
 
 
+    def test_ring_forward_and_attention_network(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.models.transformer import (
+            TransformerConfig,
+            TransformerLM,
+            ring_forward,
+        )
+        from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+        from deeplearning4j_tpu_torch.nn.conf import layers as L
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.parallel.mesh import init_seq_group
+        from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+        cfg = TransformerConfig(vocab_size=16, d_model=16, n_layers=1,
+                                n_heads=2, d_ff=32, max_len=32)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TransformerLM(cfg)
+        lm = TransformerLM(cfg, device="cpu")
+        import torch.distributed as dist
+
+        group = init_seq_group(str(tmp_path / "store"), 0, 1)
+        try:
+            assert dist.get_backend(group) == "gloo"  # no card: gloo
+            toks = torch.randint(0, 16, (1, 24))
+            got = ring_forward(lm.compute_params, toks, cfg, group)
+            assert got.device == torch.device("cpu")
+            assert torch.allclose(got, lm.logits(toks), atol=1e-5)
+        finally:
+            dist.destroy_process_group()
+        conf = (NeuralNetConfiguration.builder().list()
+                .layer(0, L.MultiHeadAttention(n_in=4, n_out=8, num_heads=2))
+                .layer(1, L.RnnOutputLayer(n_in=8, n_out=3,
+                                           activation="softmax"))
+                .build())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiLayerNetwork(conf)
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        path = str(tmp_path / "mha.zip")
+        write_model(net, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MultiLayerNetwork.load(path)
+        x = np.ones((2, 5, 4), np.float32)
+        loaded = MultiLayerNetwork.load(path, device="cpu")
+        assert loaded.params[0]["Wq"].device == torch.device("cpu")
+        assert torch.equal(loaded.output(x), net.output(x))
+
     def test_word2vec_entry_points(self, no_card, tmp_path):
         import numpy as np
 
@@ -263,7 +311,7 @@ def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
     for name in ("flash_attention", "paged_attention", "lstm_scan",
-                 "lstm_scan_bwd", "sgns"):
+                 "lstm_scan_bwd", "sgns", "flash_attention_ext"):
         src = build.CSRC / f"{name}.cu"
         text = src.read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
