@@ -48,12 +48,16 @@ What it does, in order (any failure raises and exits non-zero):
    T=2048, H=8, D=64, bf16, causal, a seeded key mask keeping ~80 %),
    (c) T=1024 at offsets 1024, 512, -512 and -1024 (the last: O exactly
    0, lse exactly -inf), (d) ragged Tq=192 x Tk=320, (e) a batch row
-   with every key masked, (f) f32 at D in {32, 64, 128}: bf16 within
-   2e-2 on O and 1e-3 on lse, f32 within 1e-4 on both, rows with no
-   visible key exactly O = 0 and lse = -inf; and a 4-shard ring driven
-   in one process (``ring_flash_step`` for every (my, src) step of a
-   4-rank ring) against the plain full attention, causal and not, with
-   and without a key mask, within 2e-2;
+   with every key masked, (f) f32 at D in {32, 64, 128}, and at the
+   shapes the main path gives it: (g) one ring step of the bench
+   transformer (N=1, T=4096, H=32, D=64, bf16, offset 0) and (h) a
+   layer of the masked MHA fit (N=32, T=512, H=8, D=64, f32, the fit's
+   length mask, offset 512): bf16 within 2e-2 on O and 1e-3 on lse,
+   f32 within 1e-4 on both, rows with no visible key exactly O = 0 and
+   lse = -inf; and a 4-shard ring driven in one process
+   (``ring_flash_step`` for every (my, src) step of a 4-rank ring)
+   against the plain full attention, causal and not, with and without a
+   key mask, within 2e-2;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -1570,6 +1574,19 @@ def phase_kernels_ext(seed: int, dev):
         run(f"f: f32 D={dd} T=640 H=4 masked off=0",
             ext_inputs(2, 640, 640, 4, dd, seed, dev, f32, keep=0.8), 0,
             TOL_EXT_F32, TOL_EXT_F32)
+    # the shapes the main path gives K5: one ring step per layer of the
+    # bench transformer (world 1, offset 0), and each MHA layer of the
+    # masked fit (not causal: offset T; the fit's own length mask)
+    rc = ring_cfg(seed)
+    n, t, h, d = 1, RING_T, rc.n_heads, rc.d_model // rc.n_heads
+    run(f"g: ring path N={n} T={t} H={h} D={d} bf16 off=0",
+        ext_inputs(n, t, t, h, d, seed + 7, dev), 0, TOL_FLASH_O,
+        TOL_FLASH_LSE)
+    q, k, v, _ = ext_inputs(MHA_N, MHA_T, MHA_T, MHA_HEADS,
+                            MHA_W // MHA_HEADS, seed, dev, f32)
+    run(f"h: MHA fit N={MHA_N} T={MHA_T} H={MHA_HEADS} "
+        f"D={MHA_W // MHA_HEADS} f32, lengths 64-{MHA_T}, off={MHA_T}",
+        (q, k, v, mha_batch(seed, dev)[2]), MHA_T, TOL_EXT_F32, TOL_EXT_F32)
     # the in-process 4-shard ring: K5 at the offsets a 4-rank ring uses
     err_ring = 0.0
     for causal in (True, False):

@@ -2,8 +2,7 @@
 (counterpart: ``deeplearning4j_tpu/ops/pallas_attention.py`` —
 ``_flash_raw`` :117 with ``_flash_bwd`` :176, ``_flash_ext_raw`` :289
 with ``_flash_ext_bwd`` :335, ``flash_attention_block`` :388,
-``flash_attention_masked`` :449, ``_dense_masked`` :463 and
-``attention_auto`` :481).
+``flash_attention_masked`` :449 and ``attention_auto`` :481).
 
 Every tensor keeps the ``[N, T, H, D]`` layout; the kernels read q, k and
 v through their strides, so nothing folds heads. What lives here:
@@ -24,10 +23,11 @@ v through their strides, so nothing folds heads. What lives here:
   recomputing probabilities from the saved lse (K5's with the lse
   cotangent). In the JAX package that backward is XLA outside any Pallas
   kernel; a kernel for it is later work.
-* :func:`flash_attention_masked`, :func:`dense_masked` and
-  :func:`attention_auto`, the dispatch of the MultiHeadAttention layer: a
-  key mask goes to K5, no mask to K4, a head size the kernels do not take
-  to the dense path on the card.
+* :func:`flash_attention_masked` and :func:`attention_auto`, the dispatch
+  of the MultiHeadAttention layer: a key mask goes to K5, no mask to K4.
+  The JAX package's ``_dense_masked`` route for shapes its kernels do not
+  fit is not carried over: on the card a head size outside
+  :data:`HEAD_DIMS` raises in the wrapper.
 
 Each wrapper sends a CPU tensor to its plain version and a CUDA tensor to
 its kernel, or raises: no fallback on the card. A launch counter sits on
@@ -349,36 +349,10 @@ def flash_attention_masked(q, k, v, key_mask, *, causal: bool = False):
     return o
 
 
-def dense_masked(q, k, v, key_mask=None, *, causal: bool):
-    """The JAX package's ``_dense_masked`` (and, with no mask, its
-    ``dense_attention``): dense attention with a key padding mask,
-    softmax in at least f32; a row with every key masked gives 0. q, k, v
-    [N, T, H, D], key_mask [N, T] 0/1 or None."""
-    d = q.shape[-1]
-    s = torch.einsum("nqhd,nkhd->nhqk", q, k)
-    s = s.to(softmax_dtype(s.dtype)) / (d ** 0.5)
-    if causal:
-        t = q.shape[1]
-        tril = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~tril, float("-inf"))
-    if key_mask is not None:
-        s = s.masked_fill(~key_keep(key_mask)[:, None, None, :],
-                          float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    p = torch.where(torch.isfinite(s).any(-1, keepdim=True), p,
-                    torch.zeros_like(p))
-    return torch.einsum("nhqk,nkhd->nqhd", p.to(q.dtype), v)
-
-
 def attention_auto(q, k, v, *, causal: bool = False, key_mask=None):
     """q, k, v [N, T, H, D] -> [N, T, H, D]. A key mask ([N, T] 0/1) goes
     to K5 (:func:`flash_attention_masked`), no mask to K4 (:class:`FlashFn`);
-    the CPU runs their plain versions through the same functions. A head
-    size the kernels do not take (:data:`HEAD_DIMS`) goes to the dense
-    path on the card, as the JAX package's ``flash_fits``/``ext_fits``
-    send a shape its kernel does not fit."""
-    if q.device.type == "cuda" and q.shape[-1] not in HEAD_DIMS:
-        return dense_masked(q, k, v, key_mask, causal=causal)
+    the CPU runs their plain versions through the same functions."""
     if key_mask is not None:
         return flash_attention_masked(q, k, v, key_mask, causal=causal)
     return FlashFn.apply(q, k, v, causal)

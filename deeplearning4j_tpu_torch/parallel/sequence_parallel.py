@@ -1,9 +1,9 @@
 """Sequence parallelism: ring attention and Ulysses over the ``'seq'``
 process group (counterpart: ``deeplearning4j_tpu/parallel/
 sequence_parallel.py`` — ``multi_head_attention`` :48,
-``_ring_attention_body`` :84, ``_ring_attention_body_flash`` :145,
-``ring_attention_sharded`` :207, ``_ulysses_body`` :272,
-``ulysses_attention_sharded`` :289 and ``mha_apply`` :318).
+``_ring_attention_body_flash`` :145, ``ring_attention_sharded`` :207,
+``_ulysses_body`` :272, ``ulysses_attention_sharded`` :289 and
+``mha_apply`` :318).
 
 Where the JAX functions take a global array and a mesh and run their body
 under ``shard_map``, these take each rank's own shard ``[N, T_local, H,
@@ -13,21 +13,22 @@ positions ``r * T_local .. (r + 1) * T_local - 1``.
 
 The ring keeps each rank's Q shard and rotates K/V (and the mask shard
 with them) to rank + 1 after every step but the last, so a world of 1
-never communicates. Its flash body runs each step's local block product
-through K5 (:func:`ring_flash_step`): the offset ``(my - src) * T_local``
+never communicates. Each step's local block product runs through K5
+(:func:`ring_flash_step`): the offset ``(my - src) * T_local``
 expresses shard-level causality (``T_local * P`` shows every key when the
 attention is not causal), and the shards' results combine exactly in log
 space through each block's lse; a block with no visible key has lse =
--inf and weighs nothing. The einsum body does the same with dense scores.
-Both give exact full attention. Gradients through the ring across
-processes are not ported (the ring training step comes with
-TransformerLM training).
+-inf and weighs nothing. The result is exact full attention. The JAX
+package's einsum body (``_ring_attention_body`` :84, its
+``use_flash=False``) is not carried over: the ring always runs K5 on the
+card. Gradients through the ring across processes are not ported (the
+ring training step comes with TransformerLM training).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
@@ -93,47 +94,6 @@ def _mask_shard(key_mask):
     return None if key_mask is None else key_keep(key_mask).to(torch.float32)
 
 
-def _ring_attention_body(q, k, v, key_mask=None, *, causal: bool,
-                         t_local: int, group=None):
-    """Per-rank einsum body: online softmax over the rotating K/V shards,
-    with dense [N, H, T_local, T_local] scores per step."""
-    n_dev, my = dist.get_world_size(group), dist.get_rank(group)
-    n, tq, h, d = q.shape
-    dt = softmax_dtype(q.dtype)
-    scale = 1.0 / math.sqrt(d)
-    q32 = q.to(dt)
-    m = torch.full((n, h, tq), float("-inf"), dtype=dt, device=q.device)
-    l = torch.zeros((n, h, tq), dtype=dt, device=q.device)
-    o = torch.zeros((n, tq, h, d), dtype=dt, device=q.device)
-    q_pos = my * t_local + torch.arange(tq, device=q.device)
-    k_blk, v_blk, km_blk = k, v, _mask_shard(key_mask)
-    for step in range(n_dev):
-        src = (my - step) % n_dev
-        s = torch.einsum("nqhd,nkhd->nhqk", q32, k_blk.to(dt)) * scale
-        if causal:
-            k_pos = src * t_local + torch.arange(t_local, device=q.device)
-            s = s.masked_fill(~(q_pos[:, None] >= k_pos[None, :]),
-                              float("-inf"))
-        if km_blk is not None:
-            s = s.masked_fill(~key_keep(km_blk)[:, None, None, :],
-                              float("-inf"))
-        m_new = torch.maximum(m, s.amax(-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new,
-                             torch.zeros_like(m_new))
-        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
-                        torch.zeros_like(s))
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
-                           torch.zeros_like(m))
-        l = l * corr + p.sum(-1)
-        o = o * _rows(corr) + torch.einsum("nhqk,nkhd->nqhd", p,
-                                           v_blk.to(dt))
-        m = m_new
-        if step < n_dev - 1:
-            k_blk, v_blk, km_blk = _rotate(k_blk, v_blk, km_blk, group)
-    denom = torch.where(l > 0, l, torch.ones_like(l))
-    return (o / _rows(denom)).to(q.dtype)
-
-
 def ring_flash_init(q) -> RingState:
     """The flash body's accumulators for a Q shard [N, Tq, H, D]: the
     running max M of the blocks' lse, the denominator l and the numerator
@@ -193,20 +153,18 @@ def _ring_attention_body_flash(q, k, v, key_mask=None, *, causal: bool,
 
 
 def ring_attention_sharded(q, k, v, group=None, *, causal: bool = False,
-                           key_mask=None, use_flash: Optional[bool] = None):
+                           key_mask=None):
     """Exact full attention with the sequence sharded over the group: q,
     k, v this rank's [N, T_local, H, D] shards, key_mask its [N, T_local]
-    0/1 shard (rotating with its K/V). Returns this rank's output shard.
-    ``use_flash`` None or True: the flash body (K5 on the card); False:
-    the einsum body."""
+    0/1 shard (rotating with its K/V). Returns this rank's output shard,
+    through the flash body (K5 on the card, its plain version on the
+    CPU)."""
     t_local = q.shape[1]
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"ring attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
-    body = (_ring_attention_body if use_flash is False
-            else _ring_attention_body_flash)
-    return body(q, k, v, key_mask, causal=causal, t_local=t_local,
-                group=group)
+    return _ring_attention_body_flash(q, k, v, key_mask, causal=causal,
+                                      t_local=t_local, group=group)
 
 
 # ---------------------------------------------------------------------------

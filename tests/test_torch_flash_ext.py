@@ -120,12 +120,12 @@ def test_masked_attention_matches_dense_masked(t, causal):
     want = np.asarray(_dense_masked(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), jnp.asarray(km),
                                     causal=causal))
+    before = pf.flash_attention_block_plain.launches
     got = pf.flash_attention_masked(_t(q), _t(k), _t(v), _t(km),
                                     causal=causal)
+    assert pf.flash_attention_block_plain.launches == before + 1
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
-    np.testing.assert_allclose(
-        pf.dense_masked(_t(q), _t(k), _t(v), _t(km), causal=causal).numpy(),
-        want, rtol=0, atol=TOL)
+    assert (got.numpy()[1] == 0).all()  # batch row 1: every key masked
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])

@@ -632,6 +632,19 @@ def test_flash_ext_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_attention_auto_on_card_raises_for_a_head_size_no_kernel_takes(
+        masked):
+    """No dense route on the card: a head size outside HEAD_DIMS raises
+    in K4's or K5's wrapper, as the wrappers do themselves."""
+    dev = _need_card()
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    km = torch.ones((1, 8), device=dev) if masked else None
+    with pytest.raises(ValueError, match="head size"):
+        port_flash.attention_auto(q, q, q, key_mask=km)
+
+
+@pytest.mark.gpu
 def test_masked_attention_network_on_the_card_goes_through_k5():
     """A MultiLayerNetwork of two MultiHeadAttention layers fitted on the
     card with a feature mask: K5 launches once per layer per fit, its

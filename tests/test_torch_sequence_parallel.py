@@ -9,12 +9,15 @@ records whether ``jax`` or the JAX package got into its
 workers are killed and the file's tests fail. The parent holds the JAX
 side: ``ring_attention_sharded`` (its einsum body; the kernel-backed body
 computes the same function), ``ulysses_attention_sharded`` and
-``ring_forward`` on the conftest's virtual CPU mesh of the same size.
+``ring_forward`` on the conftest's virtual CPU mesh of the same size, and
+``multi_head_attention`` on the whole sequence.
 
-  * ring attention, both bodies (flash through K5's plain version, and
-    einsum), causal and not, with and without a key mask (one batch row
-    with a whole shard of keys masked, so some ring steps see no key),
-    and Ulysses causal and not: N=2, T=96, H=4, D=16, f32, at 1e-5 abs;
+  * the port's ring (its flash body, through K5's plain version here),
+    causal and not, with and without a key mask (one batch row with a
+    whole shard of keys masked, so some ring steps see no key), against
+    the JAX ring and against the JAX dense attention of the unsharded
+    sequence; Ulysses causal and not: N=2, T=96, H=4, D=16, f32, at 1e-5
+    abs;
   * ``ring_forward`` of a TransformerLM (2 layers, d_model 64, 8 heads,
     T=512, f32 strict) loaded from the JAX package's zip, ring and
     Ulysses, against the JAX ``ring_forward``: logits at 1e-4 abs.
@@ -40,15 +43,14 @@ LM_TOL = 1e-4
 LM_T = 512
 LM_KW = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=8, d_ff=128,
              max_len=LM_T, seed=5)
-ATT_CASES = [(body, causal, masked)
-             for body in ("flash", "einsum")
-             for causal in (True, False)
+REFS = ("jax_ring", "jax_dense")
+ATT_CASES = [(causal, masked) for causal in (True, False)
              for masked in (False, True)]
 ULY_CASES = [True, False]
 
 
-def _att_name(body, causal, masked):
-    return f"ring_{body}_{'causal' if causal else 'full'}_" \
+def _att_name(causal, masked):
+    return f"ring_{'causal' if causal else 'full'}_" \
            f"{'mask' if masked else 'nomask'}"
 
 
@@ -82,10 +84,10 @@ def _worker(rank, world, tmp):
         a[:, rank * tl:(rank + 1) * tl]))
     q, k, v, km = (shard(data[x]) for x in ("q", "k", "v", "km"))
     out = {}
-    for body, causal, masked in ATT_CASES:
-        out[_att_name(body, causal, masked)] = ring_attention_sharded(
-            q, k, v, group, causal=causal, key_mask=km if masked else None,
-            use_flash=body == "flash").numpy()
+    for causal, masked in ATT_CASES:
+        out[_att_name(causal, masked)] = ring_attention_sharded(
+            q, k, v, group, causal=causal,
+            key_mask=km if masked else None).numpy()
     for causal in ULY_CASES:
         out[f"ulysses_{causal}"] = ulysses_attention_sharded(
             q, k, v, group, causal=causal).numpy()
@@ -128,6 +130,7 @@ def run(request, tmp_path_factory):
         ring_forward,
     )
     from deeplearning4j_tpu.parallel.sequence_parallel import (
+        multi_head_attention,
         ring_attention_sharded,
         ulysses_attention_sharded,
     )
@@ -152,11 +155,12 @@ def run(request, tmp_path_factory):
     ref = {}
     for causal in (True, False):
         for masked in (False, True):
-            o = np.asarray(ring_attention_sharded(
-                q, k, v, mesh, causal=causal,
-                key_mask=data["km"] if masked else None, use_flash=False))
-            for body in ("flash", "einsum"):
-                ref[_att_name(body, causal, masked)] = o
+            km = data["km"] if masked else None
+            ref["jax_ring", _att_name(causal, masked)] = np.asarray(
+                ring_attention_sharded(q, k, v, mesh, causal=causal,
+                                       key_mask=km, use_flash=False))
+            ref["jax_dense", _att_name(causal, masked)] = np.asarray(
+                multi_head_attention(q, k, v, causal=causal, key_mask=km))
         ref[f"ulysses_{causal}"] = np.asarray(ulysses_attention_sharded(
             q, k, v, mesh, causal=causal))
     toks = jax.numpy.asarray(data["tokens"])
@@ -172,12 +176,13 @@ def test_spawn_ends_in_time_and_workers_import_no_jax(run):
     assert port["foreign_modules"] == [], port["foreign_modules"]
 
 
-@pytest.mark.parametrize("body,causal,masked", ATT_CASES,
+@pytest.mark.parametrize("causal,masked", ATT_CASES,
                          ids=[_att_name(*c) for c in ATT_CASES])
-def test_ring_attention_matches_jax(run, body, causal, masked):
+@pytest.mark.parametrize("reference", REFS)
+def test_ring_attention_matches_jax(run, reference, causal, masked):
     _, port, ref, _ = run
-    name = _att_name(body, causal, masked)
-    got, want = port[name], ref[name]
+    name = _att_name(causal, masked)
+    got, want = port[name], ref[reference, name]
     assert got.shape == want.shape == (N, T, H, D)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
     if masked:  # batch row 1 saw no key of the first shard; still finite
