@@ -16,8 +16,13 @@ What it does, in order (any failure raises and exits non-zero):
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
 2. builds the six kernels from ``deeplearning4j_tpu_torch/csrc/`` with
-   ``nvcc`` (one process per source, started together) and prints each
-   function's ptxas register and spill line;
+   ``nvcc`` (one process per library, started together; K4 and K5 are one
+   library over ``csrc/flash_fwd.cuh``), prints each function's ptxas
+   register and spill line, and checks with ``cuobjdump -sass`` that the
+   K4/K5 library holds tensor-core ``HGMMA`` and ``cp.async`` ``LDGSTS``
+   instructions; then builds that library's variant with one bf16 P in
+   P.V (``-DFLASH_P_SPLIT=0``), which is timed and read against the
+   shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes — flash prefill (K4): causal bf16, N=1, H=32, hd=64,
    T in {192, 512, 1024}, max abs error <= 2e-2 on O and <= 1e-3 on lse;
@@ -54,7 +59,11 @@ What it does, in order (any failure raises and exits non-zero):
    layer of the masked MHA fit (N=32, T=512, H=8, D=64, f32, the fit's
    length mask, offset 512): bf16 within 2e-2 on O and 1e-3 on lse,
    f32 within 1e-4 on both, rows with no visible key exactly O = 0 and
-   lse = -inf; and a 4-shard ring driven in one process
+   lse = -inf. At (a) and (g), which are K4's function too (g is K4's
+   shape in Ulysses and ``forward``), K4 within the same bars of its
+   plain version and bit-equal to K5; the one-P variant's and
+   ``scaled_dot_product_attention``'s errors against the same plain
+   version are printed beside them. And a 4-shard ring driven in one process
    (``ring_flash_step`` for every (my, src) step of a 4-rank ring)
    against the plain full attention, causal and not, with and without a
    key mask, within 2e-2;
@@ -93,7 +102,10 @@ What it does, in order (any failure raises and exits non-zero):
    ``MultiLayerNetwork.load`` gives the trained net's ``output``;
 7. times each kernel, its plain version and PyTorch's library call where
    one computes the same function (K4: ``scaled_dot_product_attention``)
-   with CUDA events beside the bound (max of bytes / 3.35 TB/s and flops /
+   with CUDA events (K4, K5 and their library call: the calls queued
+   behind a sleep kernel, so the events time the device alone; their
+   back-to-back time, host launches included, beside it)
+   beside the bound (max of bytes / 3.35 TB/s and flops /
    peak, H100 SXM data sheet: 989 TFLOP/s dense bf16 for K4 and K6,
    67 TFLOP/s f32 for K1, which runs strict f32 with TF32 off), and the
    main paths: prefill ms per width, decode-tick ms at 64 lanes,
@@ -128,9 +140,11 @@ What it does, in order (any failure raises and exits non-zero):
 9. joins a world-1 NCCL group (``parallel/mesh.init_seq_group``) and
    runs ``ring_forward`` on the bench transformer (as in 4, at max_len
    4096) at N=1, T=4096, bf16: finite logits within 5e-2 of ``forward``
-   (K4) on the same tokens, and within 1e-3 in f32 at T=1024; K5 launched
-   once per layer (4), its plain version and K4 never; times one forward
-   (and ``strategy="ulysses"`` once) and breaks it down with
+   (K4) on the same tokens (and says whether they are bit-equal), and
+   within 1e-3 in f32 at T=1024; K5 launched once per layer (4), its plain
+   version and K4 never; ``strategy="ulysses"`` within 5e-2 of
+   ``forward`` with K4 launched once per layer (its local attention over
+   all T); times both forwards and breaks the ring's down with
    ``torch.profiler`` (K5, GEMMs, other kernels, host gaps);
 10. trains a MultiLayerNetwork of two ``MultiHeadAttention(n_out=512,
    num_heads=8)`` layers and an ``RnnOutputLayer`` in f32 with Adam: 20
@@ -140,9 +154,11 @@ What it does, in order (any failure raises and exits non-zero):
    one fit's gradients within 1e-4 of the largest entry of autograd
    through K5's plain version, ``write_model`` then ``load`` gives the
    same ``score``; times and profiles a ``fit``. Then times K5 at cases
-   a and b beside its plain version, ``scaled_dot_product_attention``
-   with the equivalent causal or boolean mask, and its bound (bytes, and
-   4·D flops per visible pair at the bf16 rate);
+   a, b and g (bf16; the one-P variant too at a and g) and h (f32, the
+   fit's layer) beside its plain version, ``scaled_dot_product_attention``
+   with the equivalent causal or boolean mask (TF32 off), and its bound
+   (bytes, and 4·D flops per visible pair at 989 TFLOP/s for bf16 and at
+   the 3xTF32 rate, 165 TFLOP/s, for f32);
 11. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -240,6 +256,9 @@ from deeplearning4j_tpu_torch.utils.serialization import (  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+# f32 products at f32 accuracy on the tensor cores: 3xTF32, three TF32
+# products (495 TFLOP/s dense, data sheet) per f32 product; K5's f32 bound
+PEAK_F32_TC_FLOPS = 495e12 / 3
 TOL_FLASH_O = 2e-2           # bf16 in, f32 math, O rounded to bf16
 TOL_FLASH_LSE = 1e-3         # f32 lse from bf16 inputs
 TOL_PAGED = 1e-3             # f32 output from a bf16 arena
@@ -249,6 +268,7 @@ TOL_LSTM_BWD = 1e-4          # abs on dxproj, dh0, dc0; of the largest
 TOL_GRAD = 1e-4              # of each gradient leaf's largest entry
 TOL_PREDICT = 1e-5           # batched answer vs the same rows alone
 FLASH_WIDTHS = (192, 512, 1024)
+ONE_P = ("-DFLASH_P_SPLIT=0",)  # the K4/K5 variant with one bf16 P in P.V
 H, HD, BT, M_TABLE, LANES = 32, 64, 16, 64, 64
 N_REQUESTS, N_CLIENTS = 16, 8  # plus one streamed request
 KERNELS = (flash_attention, flash_attention_plain, paged_attention,
@@ -354,8 +374,7 @@ def short_name(mangled: str) -> str:
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd", "sgns",
-                            "flash_attention_ext"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -366,6 +385,19 @@ def phase_build():
                 print(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
             elif "spill stores" in line and fn:
                 print(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    # the K4/K5 library (csrc/flash_fwd.cuh's kernels): its bf16 kernels
+    # must issue wgmma (HGMMA) and copy K/V with cp.async (LDGSTS); its
+    # f32 ones stay on the CUDA cores (FFMA)
+    text = build.sass("flash_attention")
+    sass = {op: text.count(op) for op in ("HGMMA", "LDGSTS", "FFMA")}
+    print("  cuobjdump -sass flash_attention: " + ", ".join(
+        f"{op} x{c}" for op, c in sass.items()))
+    check(sass["HGMMA"] > 0 and sass["LDGSTS"] > 0,
+          "flash_attention: no tensor-core (HGMMA) or cp.async (LDGSTS) "
+          "instruction in its SASS")
+    (res,) = build.build(["flash_attention"], ONE_P)
+    print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
+    return sass
 
 
 def flash_inputs(t: int, seed: int, dev):
@@ -712,26 +744,53 @@ def profile_ms(fn, n: int = 5):
     return sum(r[0] for r in rows), rows
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: ``iters`` calls queued behind a sleep
+    kernel (~50 ms, far longer than the host needs to launch them), timed
+    with CUDA events around them. Back-to-back events (:func:`time_ms`)
+    also count the host's time per launch where it exceeds a short
+    kernel's own (K4 at T <= 1024); torch.profiler's kernel sums proved
+    short of records on the card (half of case a's launches missing in
+    one run)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # clock cycles
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def phase_times(lm: TransformerLM, widths, seed: int, dev):
-    print("== times (CUDA events) ==")
+    print("== times (CUDA events; K4 and SDPA queued behind a sleep "
+          "kernel, and back to back) ==")
     cfg = lm.cfg
     res = {"flash_attention": {}, "paged_attention": {}, "main_path": {}}
     for t in FLASH_WIDTHS:
         q, k, v = flash_inputs(t, seed, dev)
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+        kern = lambda: flash_attention(q, k, v, causal=True)
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=True)
+        ms, lib = device_ms(kern), device_ms(sdpa)
+        ev, lib_ev = time_ms(kern), time_ms(sdpa)
         plain = time_ms(lambda: flash_attention_plain(q, k, v, causal=True),
                         iters=5)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True))
         nbytes = 4 * t * H * HD * 2 + H * t * 4
         flops = 2.0 * HD * t * (t + 1) * H
         b_ms, b_by = bound(nbytes, flops)
         res["flash_attention"][t] = dict(ms=ms, plain_ms=plain,
                                          library_ms=lib, bound_ms=b_ms,
-                                         bound_by=b_by)
-        print(f"flash_attention T={t}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                                         bound_by=b_by, events_ms=ev,
+                                         library_events_ms=lib_ev)
+        print(f"flash_attention T={t}: {ms:.4f} ms on the device "
+              f"({ev:.4f} back to back), plain {plain:.4f} ms, sdpa "
+              f"{lib:.4f} ms ({lib_ev:.4f}), bound {b_ms:.4f} ms ({b_by})")
     q, ck, cv, tables, pos = paged_inputs(seed + 1, dev)
     ms = time_ms(lambda: paged_attention(q, ck, cv, tables, pos))
     plain = time_ms(lambda: paged_attention_plain(q, ck, cv, tables, pos),
@@ -1518,6 +1577,61 @@ def check_ext(name, q, k, v, km, offset, tol_o, tol_lse):
     return eo, el
 
 
+def k5_one_p(q, k, v):
+    """K5 at offset 0 with no bias, from the variant library built with
+    one bf16 P in P.V (``ONE_P``): read and timed beside the shipped
+    kernel, called through no wrapper (so no launch counter), on no
+    path."""
+    lib = build.load("flash_attention", flash_mod.SIGNATURES, ONE_P)
+    (n, h, d), strides = flash_mod._check_inputs("one-P K5", q, k, v,
+                                                 same_t=False)
+    tq, tk = q.shape[1], k.shape[1]
+    o = torch.empty((n, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_ext_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+        lse.data_ptr(), n, tq, tk, h, d, *strides, 0, 1, q.device.index,
+        flash_mod._stream(q.device))
+    build.check(lib, rc, "flash_attention_block (one bf16 P)")
+    return o, lse
+
+
+def sdpa_causal(q, k, v):
+    """``scaled_dot_product_attention``, causal, of [N, T, H, D] tensors."""
+    return F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)),
+        is_causal=True).transpose(1, 2)
+
+
+def check_causal(name, q, k, v):
+    """Causal bf16 with no bias, where K4 computes K5's function at offset
+    0: K4 against its plain version at the bars and bit-equal to K5; the
+    one-P variant and SDPA read against the same plain version."""
+    ro, rlse = flash_attention_plain(q, k, v, causal=True)
+    o4, lse4 = flash_attention(q, k, v, causal=True)
+    o5, lse5 = flash_attention_block(q, k, v, offset=0)
+    o1, lse1 = k5_one_p(q, k, v)
+    o_sdpa = sdpa_causal(q, k, v)
+    torch.cuda.synchronize()
+    err = lambda a, b: (a.float() - b.float()).abs().max().item()
+    res = dict(k4_o=err(o4, ro), k4_lse=err(lse4, rlse),
+               k4_equals_k5=bool(torch.equal(o4, o5)
+                                 and torch.equal(lse4, lse5)),
+               one_p_o=err(o1, ro), one_p_lse=err(lse1, rlse),
+               sdpa_o=err(o_sdpa, ro), max_abs_o=ro.float().abs().max().item())
+    print(f"flash_attention {name}: max|dO| {res['k4_o']:.3e} (tol "
+          f"{TOL_FLASH_O}), max|dlse| {res['k4_lse']:.3e} (tol "
+          f"{TOL_FLASH_LSE}); bit-equal to K5 at offset 0: "
+          f"{res['k4_equals_k5']}. Against the same plain version (max|O| "
+          f"{res['max_abs_o']:.3f}): one-P variant max|dO| "
+          f"{res['one_p_o']:.3e}, max|dlse| {res['one_p_lse']:.3e}; sdpa "
+          f"max|dO| {res['sdpa_o']:.3e}")
+    check(res["k4_o"] <= TOL_FLASH_O and res["k4_lse"] <= TOL_FLASH_LSE,
+          f"flash_attention disagrees with its plain version ({name})")
+    check(res["k4_equals_k5"], f"K4 and K5 at offset 0 differ ({name})")
+    return res
+
+
 def four_shard_ring(q, k, v, km, causal: bool, p: int = RING_SHARDS):
     """Every (my, src) step a p-rank ring takes, in one process: the
     shards in a list, ``ring_flash_step`` per step, combined per rank."""
@@ -1546,9 +1660,13 @@ def phase_kernels_ext(seed: int, dev):
         eo, el = check_ext(name, *args, offset, tol_o, tol_lse)
         err_o, err_lse = max(err_o, eo), max(err_lse, el)
 
+    witnesses = {}  # K4, the one-P variant and SDPA at cases a and g
     n, t, h, d = EXT_RING
-    run(f"a: ring-local N={n} T={t} H={h} D={d} bf16 off=0",
-        ext_inputs(n, t, t, h, d, seed, dev), 0, TOL_FLASH_O, TOL_FLASH_LSE)
+    name = f"a: ring-local N={n} T={t} H={h} D={d} bf16 off=0"
+    run(name, ext_inputs(n, t, t, h, d, seed, dev), 0, TOL_FLASH_O,
+        TOL_FLASH_LSE)
+    witnesses["a"] = check_causal(name,
+                                  *ext_inputs(n, t, t, h, d, seed, dev)[:3])
     n, t, h, d = EXT_MASKED
     run(f"b: masked N={n} T={t} H={h} D={d} bf16 causal, keep {EXT_KEEP}",
         ext_inputs(n, t, t, h, d, seed, dev, keep=EXT_KEEP), 0,
@@ -1577,11 +1695,13 @@ def phase_kernels_ext(seed: int, dev):
     # the shapes the main path gives K5: one ring step per layer of the
     # bench transformer (world 1, offset 0), and each MHA layer of the
     # masked fit (not causal: offset T; the fit's own length mask)
-    rc = ring_cfg(seed)
-    n, t, h, d = 1, RING_T, rc.n_heads, rc.d_model // rc.n_heads
-    run(f"g: ring path N={n} T={t} H={h} D={d} bf16 off=0",
-        ext_inputs(n, t, t, h, d, seed + 7, dev), 0, TOL_FLASH_O,
+    # (g is also K4's shape in Ulysses and in `forward`)
+    n, t, h, d = ring_shape(seed)
+    name = f"g: ring path N={n} T={t} H={h} D={d} bf16 off=0"
+    run(name, ext_inputs(n, t, t, h, d, seed + 7, dev), 0, TOL_FLASH_O,
         TOL_FLASH_LSE)
+    witnesses["g"] = check_causal(name, *ext_inputs(n, t, t, h, d, seed + 7,
+                                                 dev)[:3])
     q, k, v, _ = ext_inputs(MHA_N, MHA_T, MHA_T, MHA_HEADS,
                             MHA_W // MHA_HEADS, seed, dev, f32)
     run(f"h: MHA fit N={MHA_N} T={MHA_T} H={MHA_HEADS} "
@@ -1607,13 +1727,16 @@ def phase_kernels_ext(seed: int, dev):
             err_ring = max(err_ring, e)
     return {"flash_attention_block": {"max_abs_err": err_o,
                                       "max_abs_err_lse": err_lse,
-                                      "max_abs_err_ring": err_ring}}
+                                      "max_abs_err_ring": err_ring,
+                                      "causal_cases": witnesses}}
 
 
 def ext_bound(q, km, offset: int):
     """K5's bound on these inputs: q, k, v read once, O and lse written
     once, the mask read once; 4·D flops (q·k and p·v) per visible
-    (query, key) pair per head, counted on this mask, at the bf16 rate."""
+    (query, key) pair per head, counted on this mask, at the fastest rate
+    this card reaches for q's type at its accuracy: bf16 tensor cores, and
+    for f32 3xTF32 on the tensor cores (the planned f32 design)."""
     n, t, h, d = q.shape
     qi = torch.arange(t, device=q.device)
     vis = (qi[:, None] + offset >= qi[None, :]).float()      # [T, T]
@@ -1621,40 +1744,73 @@ def ext_bound(q, km, offset: int):
     pairs = float((vis.sum(0)[None] * keep).sum().item()) * h
     nbytes = 4 * n * t * h * d * q.element_size() + 4.0 * n * h * t \
         + (4.0 * n * t if km is not None else 0.0)
-    return bound(nbytes, 4.0 * d * pairs) + (pairs,)
+    peak = PEAK_F32_TC_FLOPS if q.dtype == torch.float32 \
+        else PEAK_BF16_FLOPS
+    return bound(nbytes, 4.0 * d * pairs, peak) + (pairs,)
 
 
 def phase_times_ext(seed: int, dev):
     print("== times: K5, its plain version and scaled_dot_product_attention "
-          "(CUDA events) ==")
+          "(CUDA events; queued behind a sleep kernel, and back to back) ==")
     res = {"flash_attention_block": {}}
-    for case, (n, t, h, d), keep in (("a", EXT_RING, 0.0),
-                                     ("b", EXT_MASKED, EXT_KEEP)):
-        q, k, v, km = ext_inputs(n, t, t, h, d, seed, dev, keep=keep)
-        ms = time_ms(lambda: flash_attention_block(q, k, v, offset=0,
-                                                   key_mask=km), iters=10)
+    torch.backends.cuda.matmul.allow_tf32 = False  # strict f32 (case h)
+    # a, b: bf16 causal (the ring-local and masked shapes); g: bf16
+    # causal, the ring phase's own shape (K4's too, in Ulysses); h: f32,
+    # the masked MHA fit's layer (not causal: offset T, the fit's length
+    # mask). At a and g the one-P variant is timed beside the kernel.
+    mha_shape = (MHA_N, MHA_T, MHA_HEADS, MHA_W // MHA_HEADS)
+    for case, (n, t, h, d), keep, dtype in (
+            ("a", EXT_RING, 0.0, torch.bfloat16),
+            ("b", EXT_MASKED, EXT_KEEP, torch.bfloat16),
+            ("g", ring_shape(seed), 0.0, torch.bfloat16),
+            ("h", mha_shape, None, torch.float32)):
+        q, k, v, km = ext_inputs(n, t, t, h, d, seed, dev, dtype=dtype,
+                                 keep=keep or 0.0)
+        causal = keep is not None
+        if not causal:
+            km = mha_batch(seed, dev)[2]
+        off = 0 if causal else t
+        kern = lambda: flash_attention_block(q, k, v, offset=off,
+                                             key_mask=km)
+        ms, ev = device_ms(kern), time_ms(kern, iters=10)
         plain = time_ms(lambda: flash_attention_block_plain(
-            q, k, v, offset=0, key_mask=km), iters=3, warmup=1)
+            q, k, v, offset=off, key_mask=km), iters=3, warmup=1)
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         if km is None:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), iters=10)
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                          is_causal=True)
         else:
-            allowed = (torch.ones((t, t), dtype=torch.bool, device=dev)
-                       .tril()[None, None] & (km > 0)[:, None, None, :])
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=allowed), iters=10)
-        b_ms, b_by, pairs = ext_bound(q, km, 0)
+            allowed = (km > 0)[:, None, None, :]
+            if causal:
+                allowed = allowed & torch.ones(
+                    (t, t), dtype=torch.bool, device=dev).tril()[None, None]
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=allowed)
+        lib, lib_ev = device_ms(sdpa), time_ms(sdpa, iters=10)
+        one_p = device_ms(lambda: k5_one_p(q, k, v)) if case in "ag" \
+            else None
+        b_ms, b_by, pairs = ext_bound(q, km, off)
+        kind = "bf16 causal" if causal else "f32, the fit's length mask"
         res["flash_attention_block"][case] = dict(
-            shape=f"N={n} T={t} H={h} D={d} bf16 causal"
+            shape=f"N={n} T={t} H={h} D={d} {kind}"
                   + (f", keep {keep}" if keep else ""),
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, gflop=4.0 * d * pairs / 1e9)
-        print(f"flash_attention_block {case} (N={n} T={t} H={h} D={d}): "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {4.0 * d * pairs / 1e9:.2f} GFLOP "
-              f"of visible pairs), {4.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+            bound_by=b_by, gflop=4.0 * d * pairs / 1e9, events_ms=ev,
+            library_events_ms=lib_ev, one_p_ms=one_p)
+        print(f"flash_attention_block {case} (N={n} T={t} H={h} D={d} "
+              f"{kind}): {ms:.4f} ms on the device ({ev:.4f} back to back), "
+              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms ({lib_ev:.4f}), "
+              f"bound {b_ms:.4f} ms ({b_by}; {4.0 * d * pairs / 1e9:.2f}"
+              f" GFLOP of visible pairs), {4.0 * d * pairs / ms / 1e9:.1f} "
+              "TFLOP/s" + ("" if one_p is None else
+                           f"; one-P variant {one_p:.4f} ms"))
     return res
+
+
+def ring_shape(seed: int):
+    """(N, T, H, D) of the attention in the ring phase's transformer."""
+    rc = ring_cfg(seed)
+    return 1, RING_T, rc.n_heads, rc.d_model // rc.n_heads
 
 
 def ring_cfg(seed: int, **kw) -> TransformerConfig:
@@ -1700,8 +1856,8 @@ def phase_ring(seed: int, dev, tmp: str):
             err = (ring - ref).abs().max().item()
             print(f"ring_forward N=1 T={RING_T}: logits {tuple(ring.shape)}, "
                   f"finite {bool(torch.isfinite(ring).all())}; max |ring - "
-                  f"forward (K4)| {err:.3e} (tol {TOL_RING_BF16}); launches "
-                  f"{counts}")
+                  f"forward (K4)| {err:.3e} (tol {TOL_RING_BF16}; bit-equal "
+                  f"{err == 0.0}); launches {counts}")
             check(tuple(ring.shape) == (1, RING_T, cfg.vocab_size)
                   and bool(torch.isfinite(ring).all()),
                   "ring_forward gave logits of the wrong shape or not finite")
@@ -1725,19 +1881,22 @@ def phase_ring(seed: int, dev, tmp: str):
                               iters=5, warmup=1)
             fwd_ms = time_ms(lambda: forward(cp, toks, cfg), iters=5,
                              warmup=1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            for fn in kernels:
+                fn.launches = 0
             uly = ring_forward(cp, toks, cfg, group, strategy="ulysses")
             torch.cuda.synchronize()
-            uly_ms = (time.perf_counter() - t0) * 1e3
+            uly_counts = {fn.__name__: fn.launches for fn in kernels}
             err_u = (uly - ref).abs().max().item()
+            uly_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group,
+                                                  strategy="ulysses"),
+                             iters=5, warmup=1)
             busy, rows = profile_ms(lambda: ring_forward(cp, toks, cfg,
                                                          group), n=3)
-        groups = {"K5 flash_ext_kernel": 0.0, "GEMMs": 0.0,
+        groups = {"K5 flash_fwd_tc": 0.0, "GEMMs": 0.0,
                   "other kernels": 0.0}
         for ms_, _, name in rows:
             low = name.lower()
-            key = ("K5 flash_ext_kernel" if "flash_ext_kernel" in name
+            key = ("K5 flash_fwd_tc" if "flash_fwd" in name
                    else "GEMMs" if "gemm" in low or "xmma" in low
                    or "nvjet" in low or "cutlass" in low
                    else "other kernels")
@@ -1745,17 +1904,24 @@ def phase_ring(seed: int, dev, tmp: str):
         groups["host gaps (wall - kernels)"] = ring_ms - busy
         tokens_per_s = RING_T / ring_ms * 1e3
         print(f"ring_forward: {ring_ms:.3f} ms per forward ({tokens_per_s:.0f}"
-              f" tokens/s); forward through K4 {fwd_ms:.3f} ms; ulysses once "
-              f"{uly_ms:.3f} ms (max |ulysses - forward| {err_u:.3e}); "
+              f" tokens/s); forward through K4 {fwd_ms:.3f} ms; ulysses "
+              f"(K4 over all T) {uly_ms:.3f} ms (max |ulysses - forward| "
+              f"{err_u:.3e}; launches {uly_counts}); "
               f"kernels {busy:.3f} ms ({busy / ring_ms:.1%}): " + ", ".join(
                   f"{k} {v:.3f} ms" for k, v in groups.items()))
         for ms_, calls, name in rows[:10]:
             print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
         check(err_u <= TOL_RING_BF16, "ulysses disagrees with forward")
+        check(uly_counts["flash_attention"] == cfg.n_layers
+              and uly_counts["flash_attention_plain"] == 0
+              and uly_counts["flash_attention_block"] == 0,
+              "ulysses did not run K4 once per layer (and nothing else)")
     finally:
         dist.destroy_process_group()
     del lm
     return counts, {"tokens": RING_T, "max_abs_err_vs_forward": err,
+                    "bit_equal_to_forward": err == 0.0,
+                    "ulysses_launches": uly_counts,
                     "max_abs_err_f32": err32, "ring_ms": ring_ms,
                     "forward_k4_ms": fwd_ms, "ulysses_ms": uly_ms,
                     "ulysses_max_abs_err": err_u,
@@ -1870,11 +2036,11 @@ def phase_mha_train(seed: int, dev):
           "the saved and loaded MHA network scores differently")
     fit_ms = time_ms(lambda: net.fit(*batches[0]), iters=5, warmup=1)
     busy, rows = profile_ms(lambda: net.fit(*batches[0]), n=3)
-    groups = {"K5 flash_ext_kernel": 0.0, "GEMMs": 0.0,
+    groups = {"K5 flash_fwd_fma": 0.0, "GEMMs": 0.0,
               "other kernels (blocked backward, Adam, glue)": 0.0}
     for ms_, _, name in rows:
         low = name.lower()
-        key = ("K5 flash_ext_kernel" if "flash_ext_kernel" in name
+        key = ("K5 flash_fwd_fma" if "flash_fwd" in name
                else "GEMMs" if "gemm" in low or "xmma" in low
                or "nvjet" in low or "cutlass" in low
                else "other kernels (blocked backward, Adam, glue)")
@@ -1918,7 +2084,7 @@ def main(argv=None) -> int:
     print(f"torch.cuda.get_device_name(0): {kind}; torch {torch.__version__}"
           f", CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
-    phase_build()
+    sass = phase_build()
     with torch.inference_mode():
         errs = phase_kernels(args.seed, dev)
         errs.update(phase_kernels_sgns(args.seed, dev))
@@ -1967,19 +2133,27 @@ def main(argv=None) -> int:
     k3 = times["sgns_step"]["x".join(map(str, SGNS_SHAPES[0]))]
     k3_floor = times["sgns_step"]["{}x{}x1x{}".format(
         SGNS_SHAPES[0][0], W2V_D, W2V_NEG + 1)]
-    k5a, k5b = (times["flash_attention_block"][c] for c in "ab")
+    k5a, k5b, k5g, k5h = (times["flash_attention_block"][c]
+                          for c in "abgh")
+    # K4 is also held at the ring phase's shape (case g: Ulysses, forward)
+    k4_err = max(errs["flash_attention"]["max_abs_err"],
+                 *(c["k4_o"] for c in errs["flash_attention_block"]
+                   ["causal_cases"].values()))
+    k4_err_lse = max(errs["flash_attention"]["max_abs_err_lse"],
+                     *(c["k4_lse"] for c in errs["flash_attention_block"]
+                       ["causal_cases"].values()))
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:117",
          "launches": launches["flash_attention"],
-         "max_abs_err": errs["flash_attention"]["max_abs_err"],
-         "max_abs_err_lse": errs["flash_attention"]["max_abs_err_lse"],
+         "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
          "bound_ms": f4["bound_ms"], "bound_by": f4["bound_by"],
          "library_ms": f4["library_ms"],
-         "shape": f"N=1 T={max(FLASH_WIDTHS)} H={H} hd={HD} bf16 causal"},
+         "shape": f"N=1 T={max(FLASH_WIDTHS)} H={H} hd={HD} bf16 causal",
+         "sass": sass},
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_paged.py:145",
@@ -2041,7 +2215,8 @@ def main(argv=None) -> int:
          "ms": k5a["ms"], "plain_ms": k5a["plain_ms"],
          "bound_ms": k5a["bound_ms"], "bound_by": k5a["bound_by"],
          "library_ms": k5a["library_ms"], "shape": k5a["shape"],
-         "case_b": k5b},
+         "case_b": k5b, "case_g": k5g, "case_h": k5h, "sass": sass,
+         "causal_cases": errs["flash_attention_block"]["causal_cases"]},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,

@@ -238,8 +238,8 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
     shard (rank r holds positions r * T_local ..), embedded with its own
     slice of ``pos``; every block runs :func:`_block` with the sharded
     attention (``strategy="ring"``: K/V shards rotate, each step through
-    K5; ``"ulysses"``: two head <-> sequence all-to-alls around dense
-    attention, heads divisible by the world size). Returns this rank's
+    K5; ``"ulysses"``: two head <-> sequence all-to-alls around K4 over
+    all T, heads divisible by the world size). Returns this rank's
     logits [N, T_local, V] f32. Dense configs only."""
     import torch.distributed as dist
 

@@ -1,12 +1,16 @@
 """Builds the port's CUDA C++ kernels with ``nvcc`` and binds them with
 ``ctypes`` (no JAX counterpart: Pallas kernels compile inside XLA).
 
-Each ``csrc/<name>.cu`` has a plain C interface and becomes
+Each library ``<name>`` is built from ``csrc/<name>.cu`` (or the sources
+:data:`LIBRARIES` lists for it), which have a plain C interface, into
 ``build/torch_kernels/lib<name>-<digest>.so`` under the checkout, at
-first use. The digest covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``nvcc`` runs with
-``-Xptxas -v``; its register and spill report is kept beside the library
-(``.log``) and returned by :func:`build`.
+first use. The digest covers the sources, every header beside them
+(``csrc/*.cuh``, which a source may include) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. ``nvcc`` runs
+with ``-Xptxas -v``; its register and spill report is kept beside the
+library (``.log``) and returned by :func:`build`. :func:`sass` disassembles
+a built library with ``cuobjdump`` (the check that a kernel issues
+tensor-core instructions).
 
 Sources never include PyTorch's headers: a file with a plain C interface
 compiles in seconds, one that includes them in minutes.
@@ -30,8 +34,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# libraries built from more than one source: K4's entry point
+# (flash_attention.cu) calls K5's (flash_attention_ext.cu), so the flash
+# kernels of csrc/flash_fwd.cuh are compiled once, into one library
+LIBRARIES = {"flash_attention": ("flash_attention.cu",
+                                 "flash_attention_ext.cu")}
+
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 @dataclass(frozen=True)
@@ -50,28 +60,62 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+def sources(name: str) -> List[Path]:
+    """The sources of library ``name``."""
+    return [CSRC / s for s in LIBRARIES.get(name, (f"{name}.cu",))]
+
+
+def _target(name: str, flags: Sequence[str] = ()) -> Path:
+    """The path of library ``name``: a digest of its sources, every
+    ``csrc/*.cuh`` (by name and content) and every flag ``nvcc`` gets
+    (the link flags and ``flags`` included)."""
+    digest = hashlib.sha256()
+    for path in sources(name) + sorted(CSRC.glob("*.cuh")):
+        digest.update(b"\0" + path.name.encode() + b"\0")
+        digest.update(path.read_bytes())
+    digest.update(b"\0" + " ".join((*NVCC_FLAGS, *flags)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str]) -> List[BuildResult]:
-    """Compile every named source that has no up-to-date library, one
-    ``nvcc`` per source, all started together. Raises on any failure."""
+def cuobjdump_path():
+    """``cuobjdump`` of the CUDA toolkit, or None where there is none."""
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def sass(name: str) -> str:
+    """The SASS of library ``name`` (built if needed), from ``cuobjdump
+    -sass``. Raises where there is no ``cuobjdump``."""
+    tool = cuobjdump_path()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: it comes with the CUDA "
+                           "toolkit")
+    (res,) = build([name])
+    return subprocess.run([tool, "-sass", str(res.path)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def build(names: Sequence[str],
+          flags: Sequence[str] = ()) -> List[BuildResult]:
+    """Compile every named library that is not up to date, one ``nvcc``
+    per library, all started together; ``flags`` are added to
+    :data:`NVCC_FLAGS` (a variant build, e.g. a ``-D`` switch). Raises on
+    any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     results: Dict[str, BuildResult] = {}
     for name in names:
-        target = _target(name)
+        target = _target(name, flags)
         log_path = target.with_suffix(".log")
         if target.exists() and log_path.exists():
             results[name] = BuildResult(name, target, log_path.read_text(),
                                         0.0)
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               *map(str, sources(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, target, tmp, log_path, proc, time.monotonic()))
@@ -90,15 +134,17 @@ def build(names: Sequence[str]) -> List[BuildResult]:
     return [results[n] for n in names]
 
 
-def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed. Each
-    entry of ``functions`` gets its ``argtypes`` (``c_void_p`` for every
-    pointer and for the stream) and an ``int`` return: the CUDA error
-    code of the launch, 0 on success."""
+def load(name: str, functions: Dict[str, list],
+         flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Library ``name`` (built with ``flags`` added), loaded and built if
+    needed. Each entry of ``functions`` gets its ``argtypes``
+    (``c_void_p`` for every pointer and for the stream) and an ``int``
+    return: the CUDA error code of the launch, 0 on success."""
+    key = (name, tuple(flags))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            (res,) = build([name])
+            (res,) = build([name], flags)
             lib = ctypes.CDLL(str(res.path))
             for fn, argtypes in functions.items():
                 f = getattr(lib, fn)
@@ -106,7 +152,7 @@ def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

@@ -37,13 +37,18 @@ Not carried over: the JAX package keeps K5 off (``kernel_gate
 .measured_win``) until a TPU measurement proves it; no TPU number carries
 over to the card, so here K5 is the path, as K4 and K6 are.
 
-Source note (K4 and K5). At the serving widths memory bounds K4 on the
-H100; at the ring's and the masked layer's widths (T >= 2048) the
-products bound both (~1000 flops per byte). Both do their products with
-f32 FMAs out of shared memory: one CTA per (64-row q tile, n*h), 64-key
-K/V tiles streamed up to the last visible one, online softmax in f32
-registers, ragged T masked in the kernel. K5 also skips every key tile
-its q tile cannot see, since the offset is a host integer here.
+Source note (K4 and K5). Both sources build into one library, whose
+kernels are ``csrc/flash_fwd.cuh``'s: K4's entry point calls K5's with no
+key bias and offset 0 (causal) or T (full), so the two give the same bits
+on the same inputs. At the
+serving widths memory bounds K4 on the H100; at the ring's and the
+masked layer's widths (T >= 2048) the products bound both (~1000 flops
+per byte). In bf16 the products run on the tensor cores (``wgmma``, P
+fed from registers), K/V tiles arrive by ``cp.async`` in a two-stage
+ring, and only tiles that hide a key from some row or carry a bias test
+each element; every q tile stops at its last visible key tile, since the
+offset is a host integer here. f32 stays on the CUDA cores (``wgmma`` on
+f32 is TF32, which the port pins off).
 """
 
 from __future__ import annotations
@@ -62,12 +67,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURE = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                      _I, _I, _I, _P]}
-_EXT_SIGNATURE = {"flash_attention_ext_fwd": [
-    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _P]}
+# the entry points of the one library both sources build into
+SIGNATURES = {
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                            _I, _I, _I, _P],
+    "flash_attention_ext_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _I, _I, _I, _P]}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False):
@@ -95,32 +102,40 @@ flash_attention_plain.launches = 0
 
 
 def _lib():
-    return build.load("flash_attention", _SIGNATURE)
+    return build.load("flash_attention", SIGNATURES)
 
 
 def _check_inputs(what, q, k, v, same_t: bool):
-    n, _, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != n or k.shape[2:] != q.shape[2:] \
-            or (same_t and k.shape != q.shape):
-        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+    """Raise on what the kernels do not take; else the (n, h, d) of q and
+    the [N, T, H] strides of q, k and v, in the launch's order. Kept to a
+    few attribute reads: it runs on the host before every launch."""
+    qs, ks = q.shape, k.shape
+    if ks != v.shape or ks[0] != qs[0] or ks[2:] != qs[2:] \
+            or (same_t and ks != qs):
+        raise ValueError(f"{what}: q {tuple(qs)}, k {tuple(ks)}, "
                          f"v {tuple(v.shape)} do not match")
+    n, _, h, d = qs
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: head size {d} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "the kernel takes matching f32 or bf16")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
+    strides = (q.stride(), k.stride(), v.stride())
+    for name, x, st in zip("qkv", (q, k, v), strides):
+        if x is not q and x.device != q.device:
             raise ValueError(f"{what}: {name} on {x.device}, q on "
                              f"{q.device}")
-        if x.stride(-1) != 1:
+        if st[3] != 1:
             raise ValueError(f"{what}: {name}'s last axis must be "
                              "contiguous")
+    return (n, h, d), strides[0][:3] + strides[1][:3] + strides[2][:3]
 
 
-def _strides(x):
-    return x.stride(0), x.stride(1), x.stride(2)
+def _stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the kernels
+    launch on it)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def flash_attention(q, k, v, *, causal: bool = False):
@@ -131,16 +146,17 @@ def flash_attention(q, k, v, *, causal: bool = False):
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_inputs("flash_attention", q, k, v, same_t=True)
-    n, t, h, d = q.shape
-    o = torch.empty((n, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((n, h, t), dtype=torch.float32, device=q.device)
+    (n, h, d), strides = _check_inputs("flash_attention", q, k, v,
+                                       same_t=True)
+    t = q.shape[1]
+    dev = q.device
+    o = torch.empty((n, t, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((n, h, t), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, t, h, d, *_strides(q), *_strides(k),
-        *_strides(v), int(bool(causal)), _DTYPE_CODE[q.dtype],
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), n, t, h, d, *strides, int(bool(causal)),
+        _DTYPE_CODE[q.dtype], dev.index, _stream(dev))
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return o, lse
@@ -203,10 +219,6 @@ def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None):
 flash_attention_block_plain.launches = 0
 
 
-def _ext_lib():
-    return build.load("flash_attention_ext", _EXT_SIGNATURE)
-
-
 def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
     """q [N, Tq, H, D], k, v [N, Tk, H, D], key_mask [N, Tk] 0/1 or None,
     offset a host integer -> (o [N, Tq, H, D] in q's dtype, lse [N, H, Tq]
@@ -218,9 +230,9 @@ def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_block: unsupported device {q.device}")
-    _check_inputs("flash_attention_block", q, k, v, same_t=False)
-    n, tq, h, d = q.shape
-    tk = k.shape[1]
+    (n, h, d), strides = _check_inputs("flash_attention_block", q, k, v,
+                                       same_t=False)
+    tq, tk = q.shape[1], k.shape[1]
     kb = None
     if key_mask is not None:
         if tuple(key_mask.shape) != (n, tk) \
@@ -233,13 +245,12 @@ def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
     off = max(-tq, min(tk, int(offset)))
     o = torch.empty((n, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
-    lib = _ext_lib()
+    lib = _lib()
     rc = lib.flash_attention_ext_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kb is None else kb.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, tq, tk, h, d, *_strides(q), *_strides(k),
-        *_strides(v), off, _DTYPE_CODE[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), n, tq, tk, h, d, *strides, off,
+        _DTYPE_CODE[q.dtype], q.device.index, _stream(q.device))
     build.check(lib, rc, "flash_attention_block")
     flash_attention_block.launches += 1
     return o, lse

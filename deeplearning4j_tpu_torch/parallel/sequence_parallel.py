@@ -36,6 +36,7 @@ import torch.distributed as dist
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     FlashBlockFn,
+    FlashFn,
     attention_auto,
     key_keep,
 )
@@ -174,12 +175,14 @@ def ring_attention_sharded(q, k, v, group=None, *, causal: bool = False,
 
 def _ulysses_body(q, k, v, *, causal: bool, group=None):
     """Swap the sharded axis from sequence to heads (each rank then holds
-    every position for H/P heads), attend locally with
-    :func:`multi_head_attention`, and swap back."""
+    every position for H/P heads), attend locally through K4
+    (:class:`FlashFn`: causal or full attention over all T, its plain
+    version on the CPU; the JAX body's einsum materialises the [T, T]
+    scores), and swap back."""
     qh = all_to_all(q, 2, 1, group)
     kh = all_to_all(k, 2, 1, group)
     vh = all_to_all(v, 2, 1, group)
-    att = multi_head_attention(qh, kh, vh, causal=causal)
+    att = FlashFn.apply(qh, kh, vh, causal)
     return all_to_all(att, 1, 2, group)
 
 

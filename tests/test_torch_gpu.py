@@ -27,7 +27,11 @@ and lse in f32, 2e-2 on O and 1e-3 on lse in bf16, and the rows with no
 visible key exactly O = 0, lse = -inf; the in-process 4-shard ring
 against the plain full attention at the same bars; ``FlashBlockFn``'s
 gradients against autograd through the plain version at 1e-4 of the
-largest entry.
+largest entry, and the blocked backward on the card against the CPU at
+the same bar, zero on an all-masked row. K4 and K5 share one kernel
+template (``csrc/flash_fwd.cuh``): they give the same bits at offset 0
+(causal) or T (full), misaligned bf16 views the same bits as contiguous
+copies, and the built libraries' SASS holds HGMMA, LDGSTS and FFMA.
 """
 
 import numpy as np
@@ -82,7 +86,9 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t,d", [(8, 16), (96, 32), (192, 64), (130, 128)])
+@pytest.mark.parametrize("t,d", [(8, 16), (96, 32), (192, 64), (130, 128),
+                                 (1, 64), (63, 32), (65, 16), (127, 128),
+                                 (129, 64), (300, 128), (300, 16)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain_on_card(t, d, causal, dtype, tol):
     dev = _need_card()
@@ -138,8 +144,7 @@ def test_kernels_build_with_nvcc():
     from deeplearning4j_tpu_torch.ops import build
 
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd", "sgns",
-                            "flash_attention_ext"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns"]):
         assert res.path.exists()
         assert "registers" in res.log
 
@@ -523,7 +528,14 @@ def _ext_errors(o, lse, ro, rlse):
 @pytest.mark.parametrize("tq,tk,offset,d", [
     (128, 128, 0, 64), (192, 320, 0, 32), (192, 320, 320, 16),
     (320, 192, -100, 128), (256, 256, -256, 64), (100, 100, 37, 64),
-    (64, 1000, 500, 64), (1000, 64, -900, 32)])
+    (64, 1000, 500, 64), (1000, 64, -900, 32),
+    # the bf16 kernel's tiles: 64 or 128 q rows (one or two warpgroups),
+    # 64 keys; Tq, Tk on either side of them, offsets that cut a 128-row
+    # q tile mid-way (a warpgroup, or part of one, with no visible key)
+    (1, 1, 0, 16), (1, 300, 300, 128), (63, 65, 0, 32), (65, 63, 63, 128),
+    (127, 129, 0, 64), (129, 127, 127, 16), (300, 300, 0, 128),
+    (300, 129, -64, 32), (129, 300, 300, 64), (300, 300, -64, 64),
+    (300, 300, -100, 16), (256, 300, -200, 128), (300, 63, -37, 64)])
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
 def test_flash_ext_kernel_matches_plain_on_card(tq, tk, offset, d, masked,
                                                 dtype, tol_o, tol_lse):
@@ -556,6 +568,59 @@ def test_flash_ext_reads_strided_heads_on_card():
     b = port_flash.flash_attention_block(q.contiguous(), k.contiguous(),
                                          k.contiguous(), offset=0)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_ext_reads_misaligned_bf16_views_on_card(d):
+    """bf16 q/k/v views whose rows are not 16-byte aligned (the kernel
+    copies them with plain loads instead of cp.async) give the same bits
+    as contiguous copies, which it copies asynchronously."""
+    dev = _need_card()
+    rng = np.random.default_rng(d)
+    x = _port(rng.standard_normal((2, 130, 3, 2 * d + 1)).astype(np.float32),
+              dev, torch.bfloat16)
+    q, k = x[..., 1:d + 1], x[..., d + 1:]
+    assert q.stride(1) % 8 and k.storage_offset() % 8
+    for offset in (0, 130, -40):
+        a = port_flash.flash_attention_block(q, k, k, offset=offset)
+        b = port_flash.flash_attention_block(q.contiguous(), k.contiguous(),
+                                             k.contiguous(), offset=offset)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(1, 16), (65, 32), (192, 64), (300, 128),
+                                 (1024, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k4_and_k5_give_the_same_bits_on_card(t, d, causal, dtype):
+    """K4 is K5's launch with no key bias and offset 0 (causal) or T
+    (full): the same O and lse to the bit."""
+    dev = _need_card()
+    q, k, v = (_port(a, dev, dtype) for a in _qkv(t + d, 2, t, 3, d))
+    o4, lse4 = port_flash.flash_attention(q, k, v, causal=causal)
+    o5, lse5 = port_flash.flash_attention_block(q, k, v,
+                                                offset=0 if causal else t)
+    torch.cuda.synchronize()
+    assert torch.equal(o4, o5) and torch.equal(lse4, lse5)
+
+
+@pytest.mark.gpu
+def test_flash_libraries_issue_tensor_core_instructions():
+    """The built K4/K5 library holds wgmma (HGMMA in SASS, the bf16
+    kernels), cp.async (LDGSTS, their K/V ring) and FFMA (the f32
+    kernels, which stay on the CUDA cores)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import build
+
+    if build.cuobjdump_path() is None:
+        pytest.skip("cuobjdump not found (it comes with the CUDA toolkit): "
+                    "the SASS cannot be read on this machine")
+    sass = build.sass("flash_attention")
+    assert "HGMMA" in sass
+    assert "LDGSTS" in sass
+    assert "FFMA" in sass
 
 
 @pytest.mark.gpu
@@ -616,6 +681,34 @@ def test_flash_block_fn_gradients_match_autograd_through_plain_on_card():
         out.extend(x.grad for x in ins)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_block_bwd_on_card_gives_zero_on_an_all_masked_row():
+    """The blocked backward on CUDA tensors against the same call on the
+    CPU, with a batch row whose every key is masked (so every query row of
+    it sees no key): dq = dk = dv = 0 on that row, and agreement elsewhere
+    within 1e-4 of the largest entry."""
+    dev = _need_card()
+    q, k, v, km = _ext_case(4, 2, 200, 300, 3, 64, "cpu", torch.float32,
+                            True)
+    assert (km[-1] == 0).all()
+    o, lse = port_flash.flash_attention_block_plain(q, k, v, offset=50,
+                                                    key_mask=km)
+    assert (lse[-1] == float("-inf")).all()
+    rng = np.random.default_rng(5)
+    g = _port(rng.standard_normal((2, 200, 3, 64)).astype(np.float32))
+    g_lse = _port(rng.standard_normal((2, 3, 200)).astype(np.float32))
+    args = (q, k, v, km, 50, o, lse, g, g_lse)
+    want = port_flash.flash_block_bwd(*args)
+    got = port_flash.flash_block_bwd(
+        *(a.to(dev) if torch.is_tensor(a) else a for a in args))
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        a = a.cpu()
+        assert torch.isfinite(a).all()
+        assert (a[-1] == 0).all() and (b[-1] == 0).all()
         assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
 
 

@@ -488,3 +488,85 @@ class TestSgnsPlainAgainstJax:
         with pytest.raises(ValueError, match="unsupported device"):
             port_sgns.sgns_step(t, t, idx, idx[:, None], t[:2, :1],
                                 t[:2, :1], 0.025)
+
+
+class TestBuildTarget:
+    """``ops/build._target``, the library path a source builds to: a
+    digest of the source, every ``csrc/*.cuh`` and the flags, so an edited
+    shared header rebuilds every library (no ``nvcc`` needed here)."""
+
+    @pytest.mark.parametrize("change", ["header", "new_header", "flag",
+                                        "variant_flag", "second_source"])
+    def test_a_changed_input_gives_a_new_target(self, change, tmp_path,
+                                                monkeypatch):
+        from deeplearning4j_tpu_torch.ops import build
+
+        (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+        (tmp_path / "k2.cu").write_text("// one\n")
+        (tmp_path / "shared.cuh").write_text("// one\n")
+        monkeypatch.setattr(build, "CSRC", tmp_path)
+        monkeypatch.setattr(build, "LIBRARIES", {"k": ("k.cu", "k2.cu")})
+        before = build._target("k")
+        assert build._target("k") == before  # unchanged inputs: reused
+        flags = ()
+        if change == "header":
+            (tmp_path / "shared.cuh").write_text("// two\n")
+        elif change == "new_header":
+            (tmp_path / "other.cuh").write_text("")
+        elif change == "flag":
+            monkeypatch.setattr(build, "NVCC_FLAGS",
+                                build.NVCC_FLAGS + ("-lcuda",))
+        elif change == "variant_flag":
+            flags = ("-DFLASH_P_SPLIT=0",)
+        else:
+            (tmp_path / "k2.cu").write_text("// two\n")
+        after = build._target("k", flags)
+        assert after != before
+        assert after.parent == before.parent
+        assert after.name.startswith("libk-")
+
+    def test_k4_and_k5_share_the_kernel_header(self):
+        """K5's launcher includes the kernel header, K4's calls K5's entry
+        point, and both build into one library: the kernels compile
+        once."""
+        from deeplearning4j_tpu_torch.ops import build
+
+        k4, k5 = build.sources("flash_attention")
+        assert (k4.name, k5.name) == ("flash_attention.cu",
+                                      "flash_attention_ext.cu")
+        assert '#include "flash_fwd.cuh"' in k5.read_text()
+        k4_src = k4.read_text()
+        assert "#include" not in k4_src
+        assert "return flash_attention_ext_fwd(" in k4_src
+
+
+class TestFlashLaunchArguments:
+    """``ops/flash_attention._check_inputs``, which the K4 and K5 wrappers
+    run before every launch: (n, h, d) and the [N, T, H] strides of q, k
+    and v in the order the C entry points take them, or a ValueError."""
+
+    def test_strided_views_give_their_own_strides(self):
+        x = torch.zeros((2, 130, 3, 2 * 64))
+        q, k = x[..., :64], x[..., 64:]
+        v = torch.zeros((2, 3, 130, 64)).permute(0, 2, 1, 3)
+        (n, h, d), strides = port_flash._check_inputs(
+            "t", q, k, v, same_t=True)
+        assert (n, h, d) == (2, 3, 64)
+        assert strides == q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+        assert strides[:3] == (130 * 3 * 128, 3 * 128, 128)
+        assert strides[6:] == (3 * 130 * 64, 64, 130 * 64)
+
+    @pytest.mark.parametrize("bad", ["shape", "head", "dtype", "last_axis"])
+    def test_refuses_what_the_kernels_do_not_take(self, bad):
+        q = torch.zeros((1, 8, 2, 64))
+        k = v = q
+        if bad == "shape":
+            k = torch.zeros((1, 9, 2, 64))
+        elif bad == "head":
+            q = k = v = torch.zeros((1, 8, 2, 48))
+        elif bad == "dtype":
+            k = q.to(torch.bfloat16)
+        else:
+            v = torch.zeros((1, 8, 64, 2)).transpose(-1, -2)
+        with pytest.raises(ValueError):
+            port_flash._check_inputs("t", q, k, v, same_t=True)

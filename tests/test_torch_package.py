@@ -311,10 +311,13 @@ def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
     for name in ("flash_attention", "paged_attention", "lstm_scan",
-                 "lstm_scan_bwd", "sgns", "flash_attention_ext"):
-        src = build.CSRC / f"{name}.cu"
-        text = src.read_text()
-        assert 'extern "C"' in text and "cudaGetLastError" in text
-        assert "torch/extension.h" not in text  # plain C interface
+                 "lstm_scan_bwd", "sgns"):
+        texts = [src.read_text() for src in build.sources(name)]
+        assert all('extern "C"' in text for text in texts)
+        assert any("cudaGetLastError" in text for text in texts)
+        # plain C interface
+        assert not any("torch/extension.h" in text for text in texts)
+    assert [p.name for p in build.sources("flash_attention")] == [
+        "flash_attention.cu", "flash_attention_ext.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
