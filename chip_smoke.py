@@ -19,17 +19,18 @@ What it does, in order (any failure raises and exits non-zero):
    ``nvcc`` (one process per library, started together; K4 and K5 are one
    library over ``csrc/flash_fwd.cuh``), prints each function's ptxas
    register and spill line, and checks with ``cuobjdump -sass`` that the
-   K4/K5 library holds tensor-core ``HGMMA`` and ``cp.async`` ``LDGSTS``
-   instructions; then builds that library's variant with one bf16 P in
+   K4/K5 library holds tensor-core ``HGMMA`` (bf16), TF32 ``HMMA`` (f32:
+   3xTF32) and ``cp.async`` ``LDGSTS`` instructions; then builds that library's variant with one bf16 P in
    P.V (``-DFLASH_P_SPLIT=0``), which is timed and read against the
    shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes — flash prefill (K4): causal bf16, N=1, H=32, hd=64,
    T in {192, 512, 1024}, max abs error <= 2e-2 on O and <= 1e-3 on lse;
    paged decode (K6): 64 lanes, bt=16, m=64, H=32, hd=64, bf16 arena,
-   positions inside block 0, across blocks and at the full window, max abs
-   error <= 1e-3, and a trash block poisoned with 1e6 in K and -1e6 in V
-   moves no active lane's output by a single bit; LSTM scan (K1), f32,
+   positions inside block 0, across blocks and at the full window, and
+   one lane at the full window among 63 at 16 tokens: max abs error <=
+   1e-3, two launches bit-equal, and a trash block poisoned with 1e6 in K
+   and -1e6 in V moves no active lane's output by a single bit; LSTM scan (K1), f32,
    with and without the cell sequence, at (N, T, H) = (64, 100, 200) (the
    char-RNN at full width with a full batch), the three shape classes of
    ``benchmarks/pallas_lstm_bench.py`` (32, 128, 128), (64, 256, 256),
@@ -102,9 +103,11 @@ What it does, in order (any failure raises and exits non-zero):
    ``MultiLayerNetwork.load`` gives the trained net's ``output``;
 7. times each kernel, its plain version and PyTorch's library call where
    one computes the same function (K4: ``scaled_dot_product_attention``)
-   with CUDA events (K4, K5 and their library call: the calls queued
-   behind a sleep kernel, so the events time the device alone; their
-   back-to-back time, host launches included, beside it)
+   with CUDA events (K4, K5, K6 and their library call: the calls
+   queued behind a sleep kernel, so the events time the device alone;
+   their back-to-back time, host launches included, beside it; K6 also
+   at one lane of 1024 tokens among 63 of 16, with GB/s and the bound's
+   share)
    beside the bound (max of bytes / 3.35 TB/s and flops /
    peak, H100 SXM data sheet: 989 TFLOP/s dense bf16 for K4 and K6,
    67 TFLOP/s f32 for K1, which runs strict f32 with TF32 off), and the
@@ -386,15 +389,18 @@ def phase_build():
             elif "spill stores" in line and fn:
                 print(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     # the K4/K5 library (csrc/flash_fwd.cuh's kernels): its bf16 kernels
-    # must issue wgmma (HGMMA) and copy K/V with cp.async (LDGSTS); its
-    # f32 ones stay on the CUDA cores (FFMA)
+    # must issue wgmma (HGMMA), its f32 ones TF32 tensor-core products
+    # (HMMA ... TF32: 3xTF32 on mma.sync), and both copy K/V with
+    # cp.async (LDGSTS)
     text = build.sass("flash_attention")
-    sass = {op: text.count(op) for op in ("HGMMA", "LDGSTS", "FFMA")}
+    sass = {op: text.count(op) for op in ("HGMMA", "LDGSTS")}
+    sass["HMMA_TF32"] = sum(1 for line in text.splitlines()
+                            if "HMMA" in line and "TF32" in line)
     print("  cuobjdump -sass flash_attention: " + ", ".join(
         f"{op} x{c}" for op, c in sass.items()))
-    check(sass["HGMMA"] > 0 and sass["LDGSTS"] > 0,
-          "flash_attention: no tensor-core (HGMMA) or cp.async (LDGSTS) "
-          "instruction in its SASS")
+    check(sass["HGMMA"] > 0 and sass["LDGSTS"] > 0 and sass["HMMA_TF32"] > 0,
+          "flash_attention: no wgmma (HGMMA), TF32 mma (HMMA ... TF32) or "
+          "cp.async (LDGSTS) instruction in its SASS")
     (res,) = build.build(["flash_attention"], ONE_P)
     print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
     return sass
@@ -406,14 +412,20 @@ def flash_inputs(t: int, seed: int, dev):
                         dtype=torch.bfloat16) for _ in range(3)]
 
 
-def paged_inputs(seed: int, dev, n_blocks: int = 4096):
+def paged_inputs(seed: int, dev, n_blocks: int = 4096,
+                 skewed: bool = False):
     """64 lanes over a bf16 arena of ``n_blocks`` (+ trash): positions
-    inside block 0, across blocks, and at the full window."""
+    inside block 0, across blocks, and at the full window; ``skewed``:
+    one lane at the full window and 63 at 16 tokens (what K6's context
+    splits are for)."""
     rng = np.random.default_rng(seed)
     t_max = M_TABLE * BT
     pos = rng.integers(0, t_max, LANES).astype(np.int32)
     pos[:8] = rng.integers(0, BT, 8)      # inside block 0
     pos[8:12] = t_max - 1                 # the full window
+    if skewed:
+        pos[:] = BT - 1
+        pos[0] = t_max - 1
     tables = np.zeros((LANES, M_TABLE), np.int32)
     perm = rng.permutation(np.arange(1, n_blocks + 1))
     nxt = 0
@@ -446,23 +458,30 @@ def phase_kernels(seed: int, dev):
         check(eo <= TOL_FLASH_O and el <= TOL_FLASH_LSE,
               f"flash_attention disagrees with its plain version at T={t}")
         err_o, err_lse = max(err_o, eo), max(err_lse, el)
-    q, ck, cv, tables, pos = paged_inputs(seed, dev)
-    out = paged_attention(q, ck, cv, tables, pos)
-    ref = paged_attention_plain(q, ck, cv, tables, pos)
-    torch.cuda.synchronize()
-    err_p = (out - ref).abs().max().item()
-    print(f"paged_attention S={LANES} m={M_TABLE} pos in "
-          f"[{int(pos.min())}, {int(pos.max())}]: max|d| {err_p:.3e} "
-          f"(tol {TOL_PAGED})")
-    check(err_p <= TOL_PAGED,
-          "paged_attention disagrees with its plain version")
-    ck[0], cv[0] = 1e6, -1e6
-    poisoned = paged_attention(q, ck, cv, tables, pos)
-    torch.cuda.synchronize()
-    check(torch.equal(out, poisoned),
-          "a poisoned trash block moved an active lane's output")
-    print("paged_attention: trash block poisoned (K=1e6, V=-1e6): "
-          "outputs bit-equal")
+    err_p = 0.0
+    for skewed in (False, True):
+        q, ck, cv, tables, pos = paged_inputs(seed, dev, skewed=skewed)
+        out = paged_attention(q, ck, cv, tables, pos)
+        again = paged_attention(q, ck, cv, tables, pos)
+        ref = paged_attention_plain(q, ck, cv, tables, pos)
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        same = torch.equal(out, again)
+        print(f"paged_attention S={LANES} m={M_TABLE} pos in "
+              f"[{int(pos.min())}, {int(pos.max())}]"
+              f"{' (one long lane)' if skewed else ''}: max|d| {e:.3e} "
+              f"(tol {TOL_PAGED}); two launches bit-equal: {same}")
+        check(e <= TOL_PAGED,
+              "paged_attention disagrees with its plain version")
+        check(same, "two paged_attention launches differ")
+        ck[0], cv[0] = 1e6, -1e6
+        poisoned = paged_attention(q, ck, cv, tables, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(out, poisoned),
+              "a poisoned trash block moved an active lane's output")
+        print("paged_attention: trash block poisoned (K=1e6, V=-1e6): "
+              "outputs bit-equal")
+        err_p = max(err_p, e)
     err_l = 0.0
     for n, t, h in LSTM_SHAPES + ((1, 8, LSTM_H),):
         args = lstm_inputs(n, t, h, seed, dev)
@@ -767,7 +786,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def phase_times(lm: TransformerLM, widths, seed: int, dev):
-    print("== times (CUDA events; K4 and SDPA queued behind a sleep "
+    print("== times (CUDA events; K4, K6 and SDPA queued behind a sleep "
           "kernel, and back to back) ==")
     cfg = lm.cfg
     res = {"flash_attention": {}, "paged_attention": {}, "main_path": {}}
@@ -791,20 +810,29 @@ def phase_times(lm: TransformerLM, widths, seed: int, dev):
         print(f"flash_attention T={t}: {ms:.4f} ms on the device "
               f"({ev:.4f} back to back), plain {plain:.4f} ms, sdpa "
               f"{lib:.4f} ms ({lib_ev:.4f}), bound {b_ms:.4f} ms ({b_by})")
-    q, ck, cv, tables, pos = paged_inputs(seed + 1, dev)
-    ms = time_ms(lambda: paged_attention(q, ck, cv, tables, pos))
-    plain = time_ms(lambda: paged_attention_plain(q, ck, cv, tables, pos),
-                    iters=5)
-    vis = float((pos.long() + 1).sum().item())
-    nbytes = vis * H * HD * 2 * 2 + LANES * H * HD * (2 + 4) \
-        + tables.numel() * 4 + LANES * 4
-    flops = 4.0 * vis * H * HD
-    b_ms, b_by = bound(nbytes, flops)
-    res["paged_attention"] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  mean_context=vis / LANES)
-    print(f"paged_attention S={LANES} mean context {vis / LANES:.1f}: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for skewed in (True, False):  # the smoke's mix last: the tick's
+        q, ck, cv, tables, pos = paged_inputs(seed + 1, dev, skewed=skewed)
+        kern = lambda: paged_attention(q, ck, cv, tables, pos)
+        ms, ev = device_ms(kern), time_ms(kern)
+        plain = time_ms(lambda: paged_attention_plain(q, ck, cv, tables,
+                                                      pos), iters=5)
+        vis = float((pos.long() + 1).sum().item())
+        nbytes = vis * H * HD * 2 * 2 + LANES * H * HD * (2 + 4) \
+            + tables.numel() * 4 + LANES * 4
+        flops = 4.0 * vis * H * HD
+        b_ms, b_by = bound(nbytes, flops)
+        r = dict(ms=ms, events_ms=ev, plain_ms=plain, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, mean_context=vis / LANES,
+                 gb_per_s=nbytes / ms / 1e6, bound_share=b_ms / ms)
+        if skewed:
+            res["paged_attention"]["one_long_lane"] = r
+        else:
+            res["paged_attention"].update(r)
+        print(f"paged_attention S={LANES} mean context {vis / LANES:.1f}"
+              f"{' (one lane at 1024, 63 at 16)' if skewed else ''}: "
+              f"{ms:.4f} ms on the device ({ev:.4f} back to back), "
+              f"{nbytes / ms / 1e6:.1f} GB/s, bound {b_ms:.4f} ms ({b_by}; "
+              f"{b_ms / ms:.1%} of the time), plain {plain:.4f} ms")
     with torch.inference_mode():
         for w in widths:
             toks = torch.randint(0, cfg.vocab_size, (1, w), device=dev)
@@ -2036,11 +2064,11 @@ def phase_mha_train(seed: int, dev):
           "the saved and loaded MHA network scores differently")
     fit_ms = time_ms(lambda: net.fit(*batches[0]), iters=5, warmup=1)
     busy, rows = profile_ms(lambda: net.fit(*batches[0]), n=3)
-    groups = {"K5 flash_fwd_fma": 0.0, "GEMMs": 0.0,
+    groups = {"K5 flash_fwd_tc<float>": 0.0, "GEMMs": 0.0,
               "other kernels (blocked backward, Adam, glue)": 0.0}
     for ms_, _, name in rows:
         low = name.lower()
-        key = ("K5 flash_fwd_fma" if "flash_fwd" in name
+        key = ("K5 flash_fwd_tc<float>" if "flash_fwd" in name
                else "GEMMs" if "gemm" in low or "xmma" in low
                or "nvjet" in low or "cutlass" in low
                else "other kernels (blocked backward, Adam, glue)")
@@ -2153,7 +2181,10 @@ def main(argv=None) -> int:
          "bound_ms": f4["bound_ms"], "bound_by": f4["bound_by"],
          "library_ms": f4["library_ms"],
          "shape": f"N=1 T={max(FLASH_WIDTHS)} H={H} hd={HD} bf16 causal",
-         "sass": sass},
+         "sass": sass,
+         "design": "K5's launch with no bias, offset 0 or T: one template "
+                   "(csrc/flash_fwd.cuh), bf16 wgmma, f32 3xTF32 on "
+                   "mma.sync, a 2-stage cp.async K/V ring"},
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_paged.py:145",
@@ -2162,9 +2193,14 @@ def main(argv=None) -> int:
          "tolerance": TOL_PAGED,
          "ms": p6["ms"], "plain_ms": p6["plain_ms"],
          "bound_ms": p6["bound_ms"], "bound_by": p6["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "events_ms": p6["events_ms"],
+         "gb_per_s": p6["gb_per_s"],
          "shape": f"S={LANES} bt={BT} m={M_TABLE} H={H} hd={HD} bf16, "
-                  f"mean context {p6['mean_context']:.1f}"},
+                  f"mean context {p6['mean_context']:.1f}",
+         "one_long_lane": p6["one_long_lane"],
+         "design": "context splits of 256 tokens (a grid axis) merged in "
+                   "split order by a second kernel; 16-byte row reads, 8 "
+                   "rounds of K and V in flight per warp"},
         {"name": "lstm_scan", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:230",
@@ -2216,6 +2252,10 @@ def main(argv=None) -> int:
          "bound_ms": k5a["bound_ms"], "bound_by": k5a["bound_by"],
          "library_ms": k5a["library_ms"], "shape": k5a["shape"],
          "case_b": k5b, "case_g": k5g, "case_h": k5h, "sass": sass,
+         "design": "bf16: wgmma m64nNk16, P from registers (bf16 hi + lo); "
+                   "f32: 3xTF32 on mma.sync m16n8k8, operands split in "
+                   "registers; a 2-stage cp.async K/V ring, masking only "
+                   "where needed",
          "causal_cases": errs["flash_attention_block"]["causal_cases"]},
     ]
     if args.out:

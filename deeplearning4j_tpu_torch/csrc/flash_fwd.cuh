@@ -24,28 +24,43 @@
 // waiting on memory, so flops at 989 TFLOP/s; at the serving prefill
 // widths (T <= 1024) the bytes at 3.35 TB/s. Past the products, each
 // score costs an exp2 on the SFU (16 per clock per SM against 4096 bf16
-// tensor-core flops), so the softmax is as long as the two products.
+// tensor-core flops), so the softmax is as long as the two products. In
+// f32 (the MHA layer's fit) the products at f32 accuracy: three TF32
+// products each, 495 / 3 = 165 TFLOP/s.
 //
-// What the bf16 design does about it (tc:: below):
-//  * tensor cores: S = Q.K^T and O += P.V are wgmma.mma_async m64nNk16
-//    (bf16 in, f32 accumulate). A CTA holds one or two consumer
-//    warpgroups of 64 q rows each (128 rows where Tq > 64); Q stays in
-//    shared memory for the whole sweep; P is fed as the A operand of the
+// What the design does about it (tc:: below, one template for both
+// types):
+//  * tensor cores. bf16: S = Q.K^T and O += P.V are wgmma.mma_async
+//    m64nNk16 (bf16 in, f32 accumulate); P is fed as the A operand of the
 //    second product straight from the first product's accumulator
 //    fragments, as a bf16 high part and the bf16 rounding of the rest
 //    (two products: one bf16 P would carry 2^-9 relative error into O;
-//    FLASH_P_SPLIT=0 builds the one-P variant), so scores never reach
-//    shared memory. m, l and O stay in f32 registers.
+//    FLASH_P_SPLIT=0 builds the one-P variant). f32: 3xTF32 on
+//    mma.sync m16n8k8 (every operand split in registers into a TF32 high
+//    part and the TF32 rounding of the rest, three products summed in
+//    f32: f32-accurate, while TF32 alone stays off in the port). mma.sync
+//    takes both operands from registers, so V is read in place ([keys][D])
+//    and P is the score fragment as it stands, its keys permuted inside
+//    each slice of 8 (A column t is key 2t, column t + 4 key 2t + 1) and
+//    V's B fragment read in the same order; wgmma's TF32 form reads B
+//    K-major from shared memory only, so it would need V transposed there
+//    beside the split halves (224 KB at D = 64 with two warpgroups in the
+//    layout worked out for it, more than fits at D = 128). Scores
+//    never reach shared memory; m, l and O stay in f32 registers. A CTA
+//    holds one or two consumer warpgroups of 64 q rows each (128 rows
+//    where Tq > 64); Q stays in shared memory for the whole sweep.
 //  * asynchronous copies: 64-key K and V tiles arrive by cp.async.cg
 //    16-byte copies (zero-filled past Tk) in a 2-stage ring: tile j+1 is
 //    in flight while tile j is multiplied, with one barrier per tile.
-//    Shared tiles use the 128/64/32-byte swizzle that matches a row of D
-//    bf16 (bank-conflict free for the copies and for wgmma). A tensor
-//    whose base or strides are not 16-byte aligned is copied with plain
-//    loads into the same ring instead (never refused).
+//    bf16 tiles use the 128/64/32-byte swizzle that matches a row of D
+//    bf16 (bank-conflict free for the copies and for wgmma); f32 tiles
+//    pad each row to D + 4 floats (conflict free for the fragment reads).
+//    A tensor whose base or strides are not 16-byte aligned is copied with
+//    plain loads into the same ring instead (never refused).
 //  * masking only where needed: tiles wholly visible to every row of a
 //    warpgroup with no key bias skip the per-element test; only the
-//    diagonal tile, the ragged end and biased tiles apply it. Each q tile
+//    diagonal tile, the ragged end and biased tiles apply it. A key tile
+//    the bias masks whole (a length mask's tail) is not multiplied. Each q tile
 //    stops at its last visible key tile, a warpgroup skips the tiles none
 //    of its rows can see, and a q tile with no visible key writes O = 0,
 //    lse = -inf without loading K or V. q tiles are launched latest
@@ -53,10 +68,6 @@
 //  * the softmax works in log2 units (scores scaled by log2(e) / sqrt(D),
 //    exp2), keeps per-thread partial row sums and reduces them once at
 //    the end.
-//
-// f32 (fma:: below) stays on the CUDA cores: wgmma on f32 is TF32, which
-// the port pins off, so the f32 instantiations keep K5's first design
-// (f32 FMAs out of shared memory, 64x64 tiles, synchronous loads).
 
 #pragma once
 
@@ -64,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // 1: P.V from P's bf16 high part and the bf16 rounding of the rest (two
 // products per k-slice); 0: from one bf16 P (a variant build, timed
@@ -113,212 +126,7 @@ cudaError_t set_smem(K kernel, int bytes, int device, bool (&done)[64]) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: f32 FMAs on the CUDA cores
-// ---------------------------------------------------------------------------
-
-namespace fma {
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-
-template <int D>
-constexpr size_t smem_floats() {
-  // Qs [64][D+1] + Kt [D][65] + Vs [64][D] + Ps [64][65] + Bs [64]
-  return static_cast<size_t>(kBlockQ) * (D + 1) +
-         static_cast<size_t>(D) * (kBlockK + 1) +
-         static_cast<size_t>(kBlockK) * D +
-         static_cast<size_t>(kBlockQ) * (kBlockK + 1) + kBlockK;
-}
-
-// one CTA per (64-row q tile, n*h); 256 threads as 16 x 16, each owning 4
-// rows x 4 key columns of a score tile and 4 rows x D/16 output columns
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ kb,
-                  float* __restrict__ o, float* __restrict__ lse, int Tq,
-                  int Tk, int H, Strides sq, Strides sk, Strides sv, int off,
-                  float scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int OC = D / 16;            // output columns per thread
-  constexpr int QP = D + 1;             // padded Qs row
-  constexpr int KP = kBlockK + 1;       // padded Kt / Ps row
-  extern __shared__ float smem[];
-  float* Qs = smem;                     // [kBlockQ][QP]
-  float* Kt = Qs + kBlockQ * QP;        // [D][KP]   (K transposed)
-  float* Vs = Kt + D * KP;              // [kBlockK][D]
-  float* Ps = Vs + kBlockK * D;         // [kBlockQ][KP]
-  float* Bs = Ps + kBlockQ * KP;        // [kBlockK] key bias
-
-  const int nh = blockIdx.x;
-  const int n = nh / H;
-  const int h = nh % H;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-
-  // keys this q tile can see: ki <= q_last + off (off is clamped by the
-  // caller to [-Tq, Tk], so the sum cannot overflow)
-  const int q_last = min(q0 + kBlockQ, Tq) - 1;
-  const int k_end = min(Tk, q_last + off + 1);  // exclusive; may be <= 0
-  const int n_kt = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
-
-  const float* qb = q + n * sq.n + h * sq.h;
-  const float* kbase = k + n * sk.n + h * sk.h;
-  const float* vbase = v + n * sv.n + h * sv.h;
-  const float* bias = kb ? kb + static_cast<long long>(n) * Tk : nullptr;
-
-  if (n_kt > 0) {
-    for (int i = tid; i < kBlockQ * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      const int t = q0 + r;
-      Qs[r * QP + d] = t < Tq ? qb[t * sq.t + d] * scale : 0.f;
-    }
-  }
-
-  float m_i[4], l_i[4], acc[4][OC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      const int t = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (t < Tk) {
-        kx = kbase[t * sk.t + d];
-        vx = vbase[t * sv.t + d];
-      }
-      Kt[d * KP + r] = kx;
-      Vs[r * D + d] = vx;
-    }
-    if (tid < kBlockK) {
-      const int t = k0 + tid;
-      Bs[tid] = t < Tk ? (bias ? bias[t] : 0.f) : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = Qs[(ty * 4 + r) * QP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Kt[d * KP + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + ty * 4 + r;
-      float bmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c;
-        const int kj = k0 + col;
-        // Bs is -inf past Tk; a -inf bias (a masked key) stays -inf
-        const float sv_ = s[r][c] + Bs[col];
-        s[r][c] = (qi + off >= kj) ? sv_ : -INFINITY;
-        bmax = fmaxf(bmax, s[r][c]);
-      }
-#pragma unroll
-      for (int sh = 8; sh > 0; sh >>= 1)
-        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, sh));
-      const float m_new = fmaxf(m_i[r], bmax);
-      // a row that has seen no visible key yet keeps m = -inf; keep the
-      // exp arguments finite (exp(-inf - -inf) would be nan)
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m_i[r] == -INFINITY ? 0.f : expf(m_i[r] - m_safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pr = s[r][c] == -INFINITY ? 0.f : expf(s[r][c] - m_safe);
-        Ps[(ty * 4 + r) * KP + tx + 16 * c] = pr;
-        rs += pr;
-      }
-#pragma unroll
-      for (int sh = 8; sh > 0; sh >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, sh);
-      l_i[r] = l_i[r] * corr + rs;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) acc[r][c] *= corr;
-      m_i[r] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float a[4], b[OC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = Ps[(ty * 4 + r) * KP + j];
-#pragma unroll
-      for (int c = 0; c < OC; ++c) b[c] = Vs[j * D + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-  }
-
-  const long long on = static_cast<long long>(Tq) * H * D;
-  const long long ot = static_cast<long long>(H) * D;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + ty * 4 + r;
-    if (qi < Tq) {
-      // l = 0 exactly when no key was visible: O = 0, lse = -inf
-      const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
-      float* orow = o + n * on + qi * ot + static_cast<long long>(h) * D;
-#pragma unroll
-      for (int c = 0; c < OC; ++c)
-        orow[tx + 16 * c] = acc[r][c] * inv;
-      if (tx == 0) {
-        lse[(static_cast<long long>(n) * H + h) * Tq + qi] =
-            l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : -INFINITY;
-      }
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch(const Params& a, int device, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  static bool done[64] = {};
-  const cudaError_t err =
-      set_smem(flash_fwd_fma<D>, static_cast<int>(bytes), device, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.N * a.H, (a.Tq + kBlockQ - 1) / kBlockQ);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_fwd_fma<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.kb, static_cast<float*>(a.o), a.lse,
-      a.Tq, a.Tk, a.H, a.sq, a.sk, a.sv, a.off, scale);
-  return cudaSuccess;
-}
-
-}  // namespace fma
-
-// ---------------------------------------------------------------------------
-// bf16: wgmma on the tensor cores, cp.async K/V ring
+// tensor cores: wgmma (bf16) or mma.sync 3xTF32 (f32), cp.async K/V ring
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -352,17 +160,36 @@ struct Tile {
   }
 };
 
+// A tile of `rows` rows of D f32 in shared memory, as the mma.sync
+// fragments read it: row-major, each row padded to D + 4 floats, so the
+// 32 lanes' fragment reads of Q, K and V fall in 32 distinct banks.
+template <int D>
+struct TileF {
+  static constexpr int kLd = D + 4;  // floats per row
+  static constexpr __host__ __device__ uint32_t bytes(int rows) {
+    return static_cast<uint32_t>(rows) * kLd * 4;
+  }
+};
+
+template <typename T, int D>
+constexpr uint32_t tile_bytes(int rows) {
+  return std::is_same<T, float>::value ? TileF<D>::bytes(rows)
+                                       : Tile<D>::bytes(rows);
+}
+
 // shared memory: Q [BQ rows], then kStages K tiles, then kStages V tiles:
 // a ring with the next key tile in flight while one is multiplied (a
-// deeper ring timed no faster on an H100)
-template <int D, int NWG>
+// deeper ring timed no faster on an H100). f32 at D = 128 with two
+// warpgroups: 198 KB of the 227.
+template <typename T, int D, int NWG>
 struct Smem {
   static constexpr int kStages = 2;
   static constexpr int kBlockQ = 64 * NWG;
+  static constexpr uint32_t kTile = tile_bytes<T, D>(kBlockK);
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = Tile<D>::bytes(kBlockQ);
-  static constexpr uint32_t kV = kK + kStages * Tile<D>::bytes(kBlockK);
-  static constexpr uint32_t kBytes = kV + kStages * Tile<D>::bytes(kBlockK);
+  static constexpr uint32_t kK = tile_bytes<T, D>(kBlockQ);
+  static constexpr uint32_t kV = kK + kStages * kTile;
+  static constexpr uint32_t kBytes = kV + kStages * kTile;
 };
 
 // wgmma shared-memory matrix descriptor: start address, leading and
@@ -587,21 +414,145 @@ __device__ __forceinline__ void load_tile(uint8_t* gsm, uint32_t ssm,
   }
 }
 
+// The same for f32, into the padded row-major layout of TileF.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(uint8_t* gsm, uint32_t ssm,
+                                          const float* base, long long st,
+                                          int t0, int t_end, bool async,
+                                          int tid) {
+  constexpr int C = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = tid; i < ROWS * C; i += NT) {
+    const int r = i / C;
+    const int c = i % C;
+    const int t = t0 + r;
+    const bool ok = t < t_end;
+    const float* src = ok ? base + t * st + c * 4 : base;
+    const uint32_t off = (r * TileF<D>::kLd + c * 4) * 4;
+    if (async) {
+      cp_async16(ssm + off, src, ok);
+    } else {
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) w = make_float4(src[0], src[1], src[2], src[3]);
+      *reinterpret_cast<float4*>(gsm + off) = w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 products at f32 accuracy: 3xTF32 on mma.sync m16n8k8. Each operand
+// x is split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest);
+// a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with f32 accumulation, the
+// dropped a_lo.b_lo being ~2^-22 relative, near f32's own rounding.
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A (16x8, row) a0
+// (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B (8x8, col) b0 (k=t,
+// n=g), b1 (k=t+4, n=g); C c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3
+// (g+8, 2t+1): per warp, the wgmma accumulator layout above.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a.b by 3xTF32, the small products first. The three products
+// accumulate from zero and their sum is added to d on the CUDA cores
+// (rounded to nearest), once per k8 step: the tensor cores' own
+// accumulation is not f32's round-to-nearest, and one accumulator over
+// all of D and every key tile gave the masked MHA layer's O 6.2e-6 from
+// the plain version on an H100 80GB HBM3 (700 W), against 1.4e-6 this way
+// (chip_smoke.py, case h) and 1.0e-6 for f32 FMAs.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += c[i];
+}
+
+// s[4j + 2r + c] += Q.K^T at row g + 8r of this warp's 16 rows (qw), key
+// 8j + 2t + c of the tile (ks)
+template <int D>
+__device__ __forceinline__ void qk_3xtf32(float* s, const float* qw,
+                                          const float* ks, int g, int t) {
+  constexpr int L = TileF<D>::kLd;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    const float* qa = qw + g * L + 8 * kk + t;
+    split_tf32(qa[0], ah[0], al[0]);
+    split_tf32(qa[8 * L], ah[1], al[1]);
+    split_tf32(qa[4], ah[2], al[2]);
+    split_tf32(qa[8 * L + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      uint32_t bh[2], bl[2];
+      const float* kb = ks + (8 * j + g) * L + 8 * kk + t;
+      split_tf32(kb[0], bh[0], bl[0]);
+      split_tf32(kb[4], bh[1], bl[1]);
+      mma_3xtf32(s + 4 * j, ah, al, bh, bl);
+    }
+  }
+}
+
+// o[4n + 2r + c] += P.V at row g + 8r, column 8n + 2t + c, with P the
+// score fragment s as it stands: in key slice j, A column t is key
+// 8j + 2t and column t + 4 is key 8j + 2t + 1 (a permutation of the
+// slice's keys, which V's B fragment (vs, [keys][D]) reads the same way)
+template <int D>
+__device__ __forceinline__ void pv_3xtf32(float* o, const float* s,
+                                          const float* vs, int g, int t) {
+  constexpr int L = TileF<D>::kLd;
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(s[4 * j], ah[0], al[0]);      // (g, key 2t)
+    split_tf32(s[4 * j + 2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32(s[4 * j + 1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32(s[4 * j + 3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      const float* vb = vs + (8 * j + 2 * t) * L + 8 * n + g;
+      split_tf32(vb[0], bh[0], bl[0]);
+      split_tf32(vb[L], bh[1], bl[1]);
+      mma_3xtf32(o + 4 * n, ah, al, bh, bl);
+    }
+  }
+}
+
 // One q tile of 64 * NWG rows of head (n, h): NWG consumer warpgroups of
 // 64 rows each share the K/V ring. aligned: bit 0/1/2 when q/k/v may be
-// copied 16 bytes at a time.
-template <int D, int NWG>
+// copied 16 bytes at a time. T is the element type (bf16: wgmma; f32:
+// 3xTF32 mma.sync); masking, the softmax and the ring are shared.
+template <typename T, int D, int NWG>
 __device__ __forceinline__ void attend(const Params& p, const int n,
                                        const int h, const int q0,
                                        const int aligned,
                                        const float scale_log2, uint8_t* gsm,
                                        const uint32_t ssm) {
-  using TL = Tile<D>;
-  using SM = Smem<D, NWG>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  using SM = Smem<T, D, NWG>;
   constexpr int S = SM::kStages;
   constexpr int BQ = SM::kBlockQ;
   constexpr int NT = NWG * 128;
-  constexpr int RB = TL::kRowBytes;
+  constexpr int RB = Tile<D>::kRowBytes;
   constexpr int NS = kBlockK / 2;   // score accumulators per thread
   constexpr int NO = D / 2;         // output accumulators per thread
   const int tid = threadIdx.x;
@@ -620,12 +571,9 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
       q0w < p.Tq ? min(p.Tk, min(q0w + 63, p.Tq - 1) + p.off + 1) : 0;
   const int row0 = q0w + warp * 16 + (lane >> 2);    // rows row0, row0 + 8
 
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
-                            n * p.sq.n + h * p.sq.h;
-  const __nv_bfloat16* kbase = static_cast<const __nv_bfloat16*>(p.k) +
-                               n * p.sk.n + h * p.sk.h;
-  const __nv_bfloat16* vbase = static_cast<const __nv_bfloat16*>(p.v) +
-                               n * p.sv.n + h * p.sv.h;
+  const T* qb = static_cast<const T*>(p.q) + n * p.sq.n + h * p.sq.h;
+  const T* kbase = static_cast<const T*>(p.k) + n * p.sk.n + h * p.sk.h;
+  const T* vbase = static_cast<const T*>(p.v) + n * p.sv.n + h * p.sv.h;
   const float* bias = p.kb ? p.kb + static_cast<long long>(n) * p.Tk : nullptr;
 
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
@@ -636,7 +584,7 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
 
   // K and V of key tile j into ring stage j % S (one commit group)
   auto load_kv = [&](int j) {
-    const uint32_t st = j % S * TL::bytes(kBlockK);
+    const uint32_t st = j % S * SM::kTile;
     load_tile<D, kBlockK, NT>(gsm + SM::kK + st, ssm + SM::kK + st, kbase,
                               p.sk.t, j * kBlockK, p.Tk, aligned & 2, tid);
     load_tile<D, kBlockK, NT>(gsm + SM::kV + st, ssm + SM::kV + st, vbase,
@@ -654,38 +602,58 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     const uint32_t stage = kt % S;
+    // a key tile whose every key the bias masks adds nothing to any row
+    // (every p is 0 and the rescale is by 2^0): its bias is read here,
+    // under the barrier's wait, and the tile is skipped below (a length
+    // mask leaves whole tiles masked)
+    bool live = true;
+    if (bias != nullptr) {
+      const int ka = k0 + lane, kb = ka + 32;
+      live = (ka < p.Tk && bias[ka] != -INFINITY) ||
+             (kb < p.Tk && bias[kb] != -INFINITY);
+    }
     // tile kt has landed for every thread (later ones may be in flight),
     // and every warpgroup is done with tile kt - 1, whose stage the next
     // copy reuses
     cp_async_wait<S - 2>();
-    fence_proxy_async();
+    if constexpr (!F32) fence_proxy_async();
     __syncthreads();
     if (kt + S - 1 < n_kt) load_kv(kt + S - 1);
     cp_async_commit();
     if (k0 >= k_end_w) continue;  // no row of this warpgroup sees the tile
+    // every warp of the CTA reads the same keys, so the vote is the same
+    // in the four warps of a warpgroup
+    if (!__any_sync(0xffffffffu, live)) continue;
 
     // S = Q . K^T (64 rows x 64 keys per warpgroup)
-    const uint32_t ks = ssm + SM::kK + stage * TL::bytes(kBlockK);
-    const uint32_t vs = ssm + SM::kV + stage * TL::bytes(kBlockK);
-    const uint32_t qs = ssm + SM::kQ + wg * 64 * RB;
     float s[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    fence_regs<NS>(s);
-    wgmma_fence();
+    if constexpr (F32) {
+      const float* qw = reinterpret_cast<const float*>(gsm + SM::kQ) +
+                        (64 * wg + 16 * warp) * TileF<D>::kLd;
+      const float* ks = reinterpret_cast<const float*>(
+          gsm + SM::kK + stage * SM::kTile);
+      qk_3xtf32<D>(s, qw, ks, lane >> 2, t4);
+    } else {
+      const uint32_t ks = ssm + SM::kK + stage * SM::kTile;
+      const uint32_t qs = ssm + SM::kQ + wg * 64 * RB;
+      fence_regs<NS>(s);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t blk = kk * 32 / RB;  // column block of this k-slice
-      const uint32_t in = kk * 32 % RB;
-      Mma<kBlockK>::ss(s, desc(qs + blk * BQ * RB + in, 16, 8 * RB,
-                               TL::kLayout),
-                       desc(ks + blk * kBlockK * RB + in, 16, 8 * RB,
-                            TL::kLayout),
-                       kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t blk = kk * 32 / RB;  // column block of this k-slice
+        const uint32_t in = kk * 32 % RB;
+        Mma<kBlockK>::ss(s, desc(qs + blk * BQ * RB + in, 16, 8 * RB,
+                                 Tile<D>::kLayout),
+                         desc(ks + blk * kBlockK * RB + in, 16, 8 * RB,
+                              Tile<D>::kLayout),
+                         kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NS>(s);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs<NS>(s);
 
     // scores in log2 units; the per-element test only where some key of
     // the tile is hidden from some row of the warpgroup, or biased
@@ -744,43 +712,52 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
 
-    // O += P . V with P in registers, in the A-fragment order (k-slice kk
-    // holds score columns 16kk .. 16kk + 15). P is split into a bf16 high
-    // part and the bf16 rounding of the rest, two products per slice: one
-    // bf16 P would carry 2^-9 relative error into O, a rounding flip of
-    // O past the 2e-2 bar where |O| >= 4.
-    constexpr int NP = FLASH_P_SPLIT ? 2 : 1;  // parts of P
-    uint32_t a[kBlockK / 16][NP][4];
+    if constexpr (F32) {
+      // O += P . V by 3xTF32, P split in registers
+      const float* vs = reinterpret_cast<const float*>(
+          gsm + SM::kV + stage * SM::kTile);
+      pv_3xtf32<D>(o, s, vs, lane >> 2, t4);
+    } else {
+      // O += P . V with P in registers, in the A-fragment order (k-slice
+      // kk holds score columns 16kk .. 16kk + 15). P is split into a bf16
+      // high part and the bf16 rounding of the rest, two products per
+      // slice: one bf16 P would carry 2^-9 relative error into O, a
+      // rounding flip of O past the 2e-2 bar where |O| >= 4.
+      const uint32_t vs = ssm + SM::kV + stage * SM::kTile;
+      constexpr int NP = FLASH_P_SPLIT ? 2 : 1;  // parts of P
+      uint32_t a[kBlockK / 16][NP][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk)
+      for (int kk = 0; kk < kBlockK / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-        a[kk][0][j] = *reinterpret_cast<const uint32_t*>(&hi);
-        if constexpr (NP == 2) {
-          const float2 hf = __bfloat1622float2(hi);
-          a[kk][NP - 1][j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+        for (int j = 0; j < 4; ++j) {
+          const float x0 = s[8 * kk + 2 * j], x1 = s[8 * kk + 2 * j + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+          a[kk][0][j] = *reinterpret_cast<const uint32_t*>(&hi);
+          if constexpr (NP == 2) {
+            const float2 hf = __bfloat1622float2(hi);
+            a[kk][NP - 1][j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+          }
         }
+      fence_regs<NO>(o);
+      fence_regs<kBlockK / 4 * NP>(&a[0][0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        const uint64_t dv = desc(vs + kk * 16 * RB, kBlockK * RB, 8 * RB,
+                                 Tile<D>::kLayout);
+#pragma unroll
+        for (int part = 0; part < NP; ++part)
+          Mma<D>::rs_mn(o, a[kk][part], dv);
       }
-    fence_regs<NO>(o);
-    fence_regs<kBlockK / 4 * NP>(&a[0][0][0]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint64_t dv = desc(vs + kk * 16 * RB, kBlockK * RB, 8 * RB,
-                               TL::kLayout);
-#pragma unroll
-      for (int part = 0; part < NP; ++part) Mma<D>::rs_mn(o, a[kk][part], dv);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NO>(o);
+      fence_regs<kBlockK / 4 * NP>(&a[0][0][0]);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs<NO>(o);
-    fence_regs<kBlockK / 4 * NP>(&a[0][0][0]);
   }
 
   // l = 0 exactly when no key was visible: O = 0, lse = -inf
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o);
+  T* ob = static_cast<T*>(p.o);
   const long long ot = static_cast<long long>(p.H) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -793,13 +770,17 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
     if (qi >= p.Tq) continue;
     const float lr = l[r];
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
-    __nv_bfloat16* orow = ob + (static_cast<long long>(n) * p.Tq + qi) * ot +
-                          static_cast<long long>(h) * D;
+    T* orow = ob + (static_cast<long long>(n) * p.Tq + qi) * ot +
+              static_cast<long long>(h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                o[4 * j + 2 * r + 1] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = o[4 * j + 2 * r] * inv, x1 = o[4 * j + 2 * r + 1] * inv;
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(x0, x1);
+    }
     if (t4 == 0)
       p.lse[(static_cast<long long>(n) * p.H + h) * p.Tq + qi] =
           lr > 0.f ? (m[r] + log2f(lr)) * kLn2 : -INFINITY;
@@ -808,45 +789,61 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
 
 // One CTA per (n*h, q tile); the latest q tiles (the heaviest under a
 // causal offset) are launched first.
-template <int D, int NWG>
+template <typename T, int D, int NWG>
 __global__ void __launch_bounds__(NWG * 128, D <= 64 ? 2 : 1)
     flash_fwd_tc(const Params p, const int aligned, const float scale_log2) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
-  attend<D, NWG>(p, blockIdx.x / p.H, blockIdx.x % p.H,
-                 (gridDim.y - 1 - blockIdx.y) * Smem<D, NWG>::kBlockQ,
-                 aligned, scale_log2, smem_raw + pad, raw + pad);
+  attend<T, D, NWG>(p, blockIdx.x / p.H, blockIdx.x % p.H,
+                    (gridDim.y - 1 - blockIdx.y) * Smem<T, D, NWG>::kBlockQ,
+                    aligned, scale_log2, smem_raw + pad, raw + pad);
 }
 
+// whether a tensor of T may be copied 16 bytes at a time
+template <typename T>
 int aligned16(const void* ptr, const Strides& s) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && s.n % 8 == 0 &&
-         s.t % 8 == 0 && s.h % 8 == 0;
+  constexpr long long e = 16 / sizeof(T);  // elements in 16 bytes
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && s.n % e == 0 &&
+         s.t % e == 0 && s.h % e == 0;
 }
 
-template <int D, int NWG>
+template <typename T, int D, int NWG>
 cudaError_t launch(const Params& a, int device, cudaStream_t stream) {
-  using SM = Smem<D, NWG>;
+  using SM = Smem<T, D, NWG>;
   const int bytes = static_cast<int>(SM::kBytes) + 1024;  // + alignment
   static bool done[64] = {};
   const cudaError_t err =
-      set_smem(flash_fwd_tc<D, NWG>, bytes, device, done);
+      set_smem(flash_fwd_tc<T, D, NWG>, bytes, device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.N * a.H, (a.Tq + SM::kBlockQ - 1) / SM::kBlockQ);
-  const int aligned = aligned16(a.q, a.sq) | aligned16(a.k, a.sk) << 1 |
-                      aligned16(a.v, a.sv) << 2;
+  const int aligned = aligned16<T>(a.q, a.sq) |
+                      aligned16<T>(a.k, a.sk) << 1 |
+                      aligned16<T>(a.v, a.sv) << 2;
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_fwd_tc<D, NWG><<<grid, NWG * 128, bytes, stream>>>(a, aligned,
-                                                           scale_log2);
+  flash_fwd_tc<T, D, NWG><<<grid, NWG * 128, bytes, stream>>>(a, aligned,
+                                                              scale_log2);
   return cudaSuccess;
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_rows(const Params& a, int device, cudaStream_t stream) {
   // two consumer warpgroups (a 128-row q tile) where Tq has the rows
-  return a.Tq > 64 ? launch<D, 2>(a, device, stream)
-                   : launch<D, 1>(a, device, stream);
+  return a.Tq > 64 ? launch<T, D, 2>(a, device, stream)
+                   : launch<T, D, 1>(a, device, stream);
+}
+
+template <typename T>
+cudaError_t launch_d(const Params& a, int D, int device,
+                     cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_rows<T, 16>(a, device, stream);
+    case 32: return launch_rows<T, 32>(a, device, stream);
+    case 64: return launch_rows<T, 64>(a, device, stream);
+    case 128: return launch_rows<T, 128>(a, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc
@@ -855,24 +852,8 @@ cudaError_t launch_rows(const Params& a, int device, cudaStream_t stream) {
 // dtype returns cudaErrorInvalidValue without launching.
 cudaError_t run(const Params& a, int D, int dtype, int device,
                 cudaStream_t stream) {
-  if (dtype == 0) {
-    switch (D) {
-      case 16: return fma::launch<16>(a, device, stream);
-      case 32: return fma::launch<32>(a, device, stream);
-      case 64: return fma::launch<64>(a, device, stream);
-      case 128: return fma::launch<128>(a, device, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (D) {
-      case 16: return tc::launch_rows<16>(a, device, stream);
-      case 32: return tc::launch_rows<32>(a, device, stream);
-      case 64: return tc::launch_rows<64>(a, device, stream);
-      case 128: return tc::launch_rows<128>(a, device, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (dtype == 0) return tc::launch_d<float>(a, D, device, stream);
+  if (dtype == 1) return tc::launch_d<__nv_bfloat16>(a, D, device, stream);
   return cudaErrorInvalidValue;
 }
 

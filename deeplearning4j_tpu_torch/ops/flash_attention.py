@@ -47,8 +47,11 @@ per byte). In bf16 the products run on the tensor cores (``wgmma``, P
 fed from registers), K/V tiles arrive by ``cp.async`` in a two-stage
 ring, and only tiles that hide a key from some row or carry a bias test
 each element; every q tile stops at its last visible key tile, since the
-offset is a host integer here. f32 stays on the CUDA cores (``wgmma`` on
-f32 is TF32, which the port pins off).
+offset is a host integer here. In f32 (the MHA layer's fit) the products
+also run on the tensor cores, by 3xTF32 on ``mma.sync``: each operand is
+split into a TF32 high part and the TF32 rounding of the rest, and three
+TF32 products are summed in f32, which is f32-accurate (held at 1e-4 like
+the f32 path always was); TF32 alone stays off (``ops/device.py``).
 """
 
 from __future__ import annotations

@@ -16,12 +16,16 @@ Three things live here:
 
 Source note. Replaces the TPU kernel ``_paged_kernel``. Memory bounds it
 on the card: every visible token's K and V row is read once for 4*D
-flops per head. The design (see the .cu header): one CTA per (lane, group
-of 4 heads), one warp per head with D/32 elements per thread; the CTA
-reads ``tables[s, j]`` and ``pos[s]`` itself and walks only blocks
-``j <= pos // bt``, stopping at ``pos``, with an f32 online softmax — so
-it reads the visible tokens' bytes and nothing else, and the trash block
-is never read by an active lane.
+flops per head. The design (see the .cu header) splits each lane's
+context into splits of :data:`SPLIT_TOKENS` tokens (whole blocks), a
+grid axis sized from the table width, so a long lane is several CTAs at
+once; each thread reads 16 bytes of a row, a warp several tokens of its
+head per load, with up to 8 such loads of K and V in flight. A CTA reads
+``tables[s, j]`` and ``pos[s]`` itself (no host sync) and only visible
+tokens, so the trash block is never read by an active lane. Each split
+leaves an f32 partial (max, sum, accumulator) in a workspace this
+wrapper allocates, and a second small kernel merges them in split order
+(the same bits on every launch); a table of one split needs neither.
 
 Mask contract (the gather path's): token ``t`` of lane ``s`` is visible
 iff ``t <= pos[s]``; physical block 0 is trash and never visible.
@@ -36,11 +40,13 @@ import torch
 from deeplearning4j_tpu_torch.ops import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+SPLIT_TOKENS = 256  # context tokens per split of the kernel's grid
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _P]}
+_SIGNATURE = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _P]}
 
 
 def paged_attention_plain(q, ck, cv, tables, pos):
@@ -93,7 +99,8 @@ def paged_attention(q, ck, cv, tables, pos):
                          f"{cv.dtype}; the kernel takes f32 or bf16")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention: tables and pos must be int32")
-    if tables.shape[0] != s or pos.shape != (s,):
+    m = tables.shape[1]
+    if tables.shape[0] != s or pos.shape != (s,) or m < 1:
         raise ValueError(f"paged_attention: tables {tuple(tables.shape)} / "
                          f"pos {tuple(pos.shape)} for {s} lanes")
     for name, x in (("q", q), ("ck", ck), ("cv", cv), ("tables", tables),
@@ -103,13 +110,26 @@ def paged_attention(q, ck, cv, tables, pos):
                              f"q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
-    out = torch.empty((s, h, hd), dtype=torch.float32, device=q.device)
+    if ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("paged_attention: ck and cv must be 16-byte "
+                         "aligned (the kernel reads rows 16 bytes a thread)")
+    dev = q.device
+    out = torch.empty((s, h, hd), dtype=torch.float32, device=dev)
+    sb = max(1, SPLIT_TOKENS // bt)  # table slots per split
+    n_split = -(-m // sb)
+    pm = pl = po = None
+    if n_split > 1:  # the splits' partials, merged by the second kernel
+        pm = torch.empty((s, n_split, h), dtype=torch.float32, device=dev)
+        pl = torch.empty_like(pm)
+        po = torch.empty((s, n_split, h, hd), dtype=torch.float32,
+                         device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     lib = _lib()
     rc = lib.paged_attention_fwd(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), s, h, hd, bt, tables.shape[1],
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[ck.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl), ptr(po), s, h, hd,
+        bt, m, sb, _DTYPE_CODE[q.dtype], _DTYPE_CODE[ck.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -31,7 +31,10 @@ largest entry, and the blocked backward on the card against the CPU at
 the same bar, zero on an all-masked row. K4 and K5 share one kernel
 template (``csrc/flash_fwd.cuh``): they give the same bits at offset 0
 (causal) or T (full), misaligned bf16 views the same bits as contiguous
-copies, and the built libraries' SASS holds HGMMA, LDGSTS and FFMA.
+copies, and the built libraries' SASS holds HGMMA, LDGSTS and the f32
+kernels' TF32 HMMA. K6 at contexts on either side of its split
+boundaries, in every q/kv dtype pair and head size: 1e-3 abs, two
+launches bit-equal.
 """
 
 import numpy as np
@@ -121,6 +124,55 @@ def test_paged_kernel_matches_plain_on_card(hd, dtype):
     ckt[0], cvt[0] = 1e6, -1e6
     poisoned = port_paged.paged_attention(qt, ckt, cvt, tt, pt)
     assert torch.equal(out, poisoned)
+
+
+def _split_case(seed, contexts, h, hd, bt, m):
+    """One lane per context (tokens 0 .. context - 1 visible), each on
+    its own arena blocks (from 1; block 0 is trash)."""
+    rng = np.random.default_rng(seed)
+    s = len(contexts)
+    n_blocks = s * m
+    q = rng.standard_normal((s, h, hd)).astype(np.float32)
+    ck = rng.standard_normal((n_blocks + 1, bt, h, hd)).astype(np.float32)
+    cv = rng.standard_normal((n_blocks + 1, bt, h, hd)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, n_blocks + 1))
+    pos = np.array(contexts, np.int32) - 1
+    tables = np.zeros((s, m), np.int32)
+    for i in range(s):
+        used = int(pos[i]) // bt + 1
+        tables[i, :used] = perm[i * m:i * m + used]
+    return q, ck, cv, tables, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_paged_kernel_at_split_boundaries_on_card(hd, q_dtype, kv_dtype):
+    """K6 cuts a lane's context into splits of SPLIT_TOKENS tokens: lanes
+    that end one token before, on and one after a split boundary (the
+    first and the second), at a single token and at the full window,
+    against the plain version at 1e-3; two launches give the same bits
+    (the partials merge in split order), and a poisoned trash block moves
+    no output bit."""
+    dev = _need_card()
+    st, bt = port_paged.SPLIT_TOKENS, 16
+    m = (2 * st) // bt + 4
+    contexts = [st - 1, st, st + 1, 2 * st - 1, 2 * st, 2 * st + 1, 1,
+                m * bt]
+    q, ck, cv, tables, pos = _split_case(hd + 1, contexts, 3, hd, bt, m)
+    qt = _port(q, dev, q_dtype)
+    ckt, cvt = (_port(a, dev, kv_dtype) for a in (ck, cv))
+    tt, pt = torch.from_numpy(tables).to(dev), torch.from_numpy(pos).to(dev)
+    out = port_paged.paged_attention(qt, ckt, cvt, tt, pt)
+    again = port_paged.paged_attention(qt, ckt, cvt, tt, pt)
+    ref = port_paged.paged_attention_plain(qt, ckt, cvt, tt, pt)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 1e-3
+    assert torch.equal(out, again)
+    ckt[0], cvt[0] = 1e6, -1e6
+    assert torch.equal(out, port_paged.paged_attention(qt, ckt, cvt, tt, pt))
 
 
 @pytest.mark.gpu
@@ -555,6 +607,54 @@ def test_flash_ext_kernel_matches_plain_on_card(tq, tk, offset, d, masked,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("tq,tk", [(100, 170), (170, 100), (64, 129)])
+def test_flash_ext_f32_at_every_offset_on_card(tq, tk, d):
+    """K5 in f32 (3xTF32 on the tensor cores) at offsets from -Tq (no key
+    visible) to Tk (every key), ragged Tq and Tk, with a key bias and a
+    batch row whose every key is masked: O and lse within 1e-4 of the
+    plain version, the rows with no visible key exactly O = 0 and lse =
+    -inf."""
+    dev = _need_card()
+    q, k, v, km = _ext_case(tq * tk + d, 2, tq, tk, 3, d, dev,
+                            torch.float32, True)
+    offsets = sorted({-tq, -tq + 1, -tq // 2, -1, 0, 1, 63, 64, tk // 2,
+                      tk - 1, tk})
+    for offset in offsets:
+        o, lse = port_flash.flash_attention_block(q, k, v, offset=offset,
+                                                  key_mask=km)
+        ro, rlse = port_flash.flash_attention_block_plain(
+            q, k, v, offset=offset, key_mask=km)
+        eo, el, same_inf = _ext_errors(o, lse, ro, rlse)
+        assert eo <= 1e-4 and el <= 1e-4 and same_inf, offset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol_o,tol_lse", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-3)])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_ext_length_mask_on_card(d, dtype, tol_o, tol_lse):
+    """A length mask (the MHA layer's padding) masks whole key tiles,
+    which the kernel does not multiply: lengths at and around the 64-key
+    tile edges, one key and none, causal and full, against the plain
+    version."""
+    dev = _need_card()
+    tk = 300
+    lengths = [0, 1, 63, 64, 65, 128, 200, tk]
+    q, k, v, _ = _ext_case(d, len(lengths), tk, tk, 2, d, dev, dtype,
+                           False)
+    km = _port((np.arange(tk)[None, :] < np.array(lengths)[:, None])
+               .astype(np.float32), dev)
+    for offset in (0, tk):
+        o, lse = port_flash.flash_attention_block(q, k, v, offset=offset,
+                                                  key_mask=km)
+        ro, rlse = port_flash.flash_attention_block_plain(
+            q, k, v, offset=offset, key_mask=km)
+        eo, el, same_inf = _ext_errors(o, lse, ro, rlse)
+        assert eo <= tol_o and el <= tol_lse and same_inf, offset
+
+
+@pytest.mark.gpu
 def test_flash_ext_reads_strided_heads_on_card():
     """q/k/v as [N, T, H, D] views of a wider projection (the MHA layer's
     reshape of x @ W) give the same result as contiguous copies."""
@@ -609,8 +709,9 @@ def test_k4_and_k5_give_the_same_bits_on_card(t, d, causal, dtype):
 @pytest.mark.gpu
 def test_flash_libraries_issue_tensor_core_instructions():
     """The built K4/K5 library holds wgmma (HGMMA in SASS, the bf16
-    kernels), cp.async (LDGSTS, their K/V ring) and FFMA (the f32
-    kernels, which stay on the CUDA cores)."""
+    kernels), cp.async (LDGSTS, the K/V ring of both types) and TF32
+    tensor-core products (HMMA ... TF32: the f32 kernels' 3xTF32 on
+    mma.sync)."""
     _need_card()
     from deeplearning4j_tpu_torch.ops import build
 
@@ -620,7 +721,8 @@ def test_flash_libraries_issue_tensor_core_instructions():
     sass = build.sass("flash_attention")
     assert "HGMMA" in sass
     assert "LDGSTS" in sass
-    assert "FFMA" in sass
+    assert any("HMMA" in line and "TF32" in line
+               for line in sass.splitlines())
 
 
 @pytest.mark.gpu

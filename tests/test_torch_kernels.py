@@ -13,7 +13,10 @@ against the JAX function the TPU kernel implements:
     ``paged_attention(..., interpret=True)`` and the gather path, with
     lanes inside block 0, across blocks and at the full window; a trash
     block poisoned with 1e6 in K and -1e6 in V moves no active lane's
-    output by a single bit. Tolerance 1e-5 abs (f32).
+    output by a single bit. Tolerance 1e-5 abs (f32). Also at contexts
+    one before, on and one after the card kernel's split boundary
+    (``SPLIT_TOKENS``), a single token and the full window, f32 and bf16
+    arenas, with the trash block poisoned in both packages.
   * K1 LSTM scan — the port's plain scan against JAX
     ``_lstm_scan_reference`` and ``lstm_pallas_scan(..., interpret=True)``
     on hs, h_T and c_T, and its cell sequence against
@@ -148,6 +151,25 @@ def _arena_case(seed, s=6, h=2, hd=16, bt=4, m=4):
     return q, ck, cv, tables, pos
 
 
+def _split_case(seed, contexts, h, hd, bt, m):
+    """One lane per context (tokens 0 .. context - 1 visible), each on
+    its own arena blocks (from 1; block 0 is trash), the rest of its
+    table pointing at the trash block."""
+    rng = np.random.default_rng(seed)
+    s = len(contexts)
+    n_blocks = s * m
+    q = rng.standard_normal((s, h, hd)).astype(np.float32)
+    ck = rng.standard_normal((n_blocks + 1, bt, h, hd)).astype(np.float32)
+    cv = rng.standard_normal((n_blocks + 1, bt, h, hd)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, n_blocks + 1))
+    pos = np.array(contexts, np.int32) - 1
+    tables = np.zeros((s, m), np.int32)
+    for i in range(s):
+        used = int(pos[i]) // bt + 1
+        tables[i, :used] = perm[i * m:i * m + used]
+    return q, ck, cv, tables, pos
+
+
 def _jax_gather(q, ck, cv, tables, pos):
     """serving/paged.py's gather-path attention math."""
     import jax
@@ -181,6 +203,33 @@ class TestPagedPlainAgainstJax:
         assert out.dtype == np.float32 and out.shape == q.shape
         assert np.abs(out - ref).max() < TOL
         assert np.abs(out - gather).max() < TOL
+
+    @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+    def test_matches_pallas_kernel_at_split_boundaries(self, kv_dtype):
+        """The card kernel cuts a lane's context into splits of
+        SPLIT_TOKENS tokens, so its oracle, the plain version, is held to
+        the Pallas kernel at contexts one before, on and one after a
+        split boundary, at a single token and at the full window, with
+        the trash block poisoned (K = 1e6, V = -1e6) in both."""
+        from deeplearning4j_tpu.ops.pallas_paged import paged_attention
+
+        st, bt = port_paged.SPLIT_TOKENS, 16
+        m = st // bt + 2
+        contexts = [st - 1, st, st + 1, 1, m * bt]
+        q, ck, cv, tables, pos = _split_case(len(kv_dtype), contexts, h=2,
+                                             hd=16, bt=bt, m=m)
+        ck[0], cv[0] = 1e6, -1e6
+        tdt = getattr(torch, kv_dtype)
+        ckt, cvt = _port(ck, dtype=tdt), _port(cv, dtype=tdt)
+        ref = np.asarray(paged_attention(
+            jnp.asarray(q), jnp.asarray(ck, dtype=kv_dtype),
+            jnp.asarray(cv, dtype=kv_dtype), jnp.asarray(tables),
+            jnp.asarray(pos), interpret=True))
+        out = port_paged.paged_attention(
+            _port(q), ckt, cvt, torch.from_numpy(tables),
+            torch.from_numpy(pos)).numpy()
+        assert out.shape == q.shape and np.isfinite(out).all()
+        assert np.abs(out - ref).max() < TOL
 
     def test_trash_block_content_is_invisible(self):
         q, ck, cv, tables, pos = _arena_case(2)
