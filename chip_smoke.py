@@ -20,7 +20,12 @@ What it does, in order (any failure raises and exits non-zero):
    library over ``csrc/flash_fwd.cuh``), prints each function's ptxas
    register and spill line, and checks with ``cuobjdump -sass`` that the
    K4/K5 library holds tensor-core ``HGMMA`` (bf16), TF32 ``HMMA`` (f32:
-   3xTF32) and ``cp.async`` ``LDGSTS`` instructions; then builds that library's variant with one bf16 P in
+   3xTF32) and ``cp.async`` ``LDGSTS`` instructions, and that both LSTM
+   libraries (K1, K2) hold the cluster barrier (``CLUSTER_BARRIER_SASS``,
+   at each cluster's start and end: no grid-wide barrier) and the DSMEM
+   stores of the per-step exchange (``STAS``), and K2 TF32 ``HMMA`` (its
+   gate and dU products: 3xTF32);
+   then builds that library's variant with one bf16 P in
    P.V (``-DFLASH_P_SPLIT=0``), which is timed and read against the
    shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -35,7 +40,8 @@ What it does, in order (any failure raises and exits non-zero):
    char-RNN at full width with a full batch), the three shape classes of
    ``benchmarks/pallas_lstm_bench.py`` (32, 128, 128), (64, 256, 256),
    (128, 512, 512), and (1, 8, 200): max abs error <= 1e-4 on hs, h_T,
-   c_T and cs; LSTM scan backward (K2), f32, at (N, T, H) = (32, 50, 200)
+   c_T and cs, and two launches give the same bits; LSTM scan backward
+   (K2), f32, at (N, T, H) = (32, 50, 200)
    (the char-RNN's training window), (64, 100, 200), the three shape
    classes and (1, 8, 200): max error <= 1e-4 on dxproj, dh0 and dc0
    (abs) and on dU and dp (relative to the largest entry: they sum N*T
@@ -84,7 +90,8 @@ What it does, in order (any failure raises and exits non-zero):
    1-4 one-hot rows of T=100 from 8 client threads, checks every answer
    (HTTP 200, finite probabilities that sum to 1, within 1e-5 of
    ``net.output`` on the same rows alone), that K1's launch counter rose
-   during the burst while its plain version's stayed at 0, and samples
+   during the burst while its plain version's stayed at 0 (and records
+   the batch rows N of every K1 launch the batcher made), and samples
    200 characters with ``CharRnn.sample`` through ``rnn_time_step``;
 6. trains the full-width char-RNN (``char_rnn_conf(80, lstm_size=200,
    num_layers=2, tbptt_length=50)``, RMSProp: the shape ``bench.py:206``
@@ -103,19 +110,20 @@ What it does, in order (any failure raises and exits non-zero):
    ``MultiLayerNetwork.load`` gives the trained net's ``output``;
 7. times each kernel, its plain version and PyTorch's library call where
    one computes the same function (K4: ``scaled_dot_product_attention``)
-   with CUDA events (K4, K5, K6 and their library call: the calls
+   with CUDA events (K1, K2, K4, K5, K6 and the library call: the calls
    queued behind a sleep kernel, so the events time the device alone;
    their back-to-back time, host launches included, beside it; K6 also
    at one lane of 1024 tokens among 63 of 16, with GB/s and the bound's
    share)
    beside the bound (max of bytes / 3.35 TB/s and flops /
    peak, H100 SXM data sheet: 989 TFLOP/s dense bf16 for K4 and K6,
-   67 TFLOP/s f32 for K1, which runs strict f32 with TF32 off), and the
+   165 TFLOP/s for K1 and K2, the 3xTF32 rate of f32-accurate products,
+   67 TFLOP/s f32 for K3), and the
    main paths: prefill ms per width, decode-tick ms at 64 lanes,
    generated tokens/s, ``output()`` ms at batch 64, ``/predict`` rows/s,
    ``fit`` ms and training characters/s, peak device memory. For K1 and
    K2 it also prints the sequential floor (T steps, each at the per-step
-   time of a one-row launch on the same grid) and, for K1, as a reference
+   time of a one-row launch: one cluster) and, for K1, as a reference
    line only, cuDNN's ``torch.nn.LSTM`` at the same shape (no peepholes:
    not the same function); K1 is also timed with the cell sequence at
    the training window;
@@ -262,6 +270,9 @@ PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 # f32 products at f32 accuracy on the tensor cores: 3xTF32, three TF32
 # products (495 TFLOP/s dense, data sheet) per f32 product; K5's f32 bound
 PEAK_F32_TC_FLOPS = 495e12 / 3
+# the cluster barrier (barrier.cluster.arrive / wait) in SASS: K1's and
+# K2's clusters meet at it at their start and end
+CLUSTER_BARRIER_SASS = ("UCGABAR_ARV", "UCGABAR_WAIT")
 TOL_FLASH_O = 2e-2           # bf16 in, f32 math, O rounded to bf16
 TOL_FLASH_LSE = 1e-3         # f32 lse from bf16 inputs
 TOL_PAGED = 1e-3             # f32 output from a bf16 arena
@@ -401,6 +412,22 @@ def phase_build():
     check(sass["HGMMA"] > 0 and sass["LDGSTS"] > 0 and sass["HMMA_TF32"] > 0,
           "flash_attention: no wgmma (HGMMA), TF32 mma (HMMA ... TF32) or "
           "cp.async (LDGSTS) instruction in its SASS")
+    # K1 and K2: the clusters' barrier (at their start and end) and the
+    # per-step DSMEM exchange (st.async: STAS, counted on an mbarrier);
+    # K2's two products run 3xTF32 on the tensor cores (HMMA ... TF32)
+    for name in ("lstm_scan", "lstm_scan_bwd"):
+        text = build.sass(name)
+        found = {op: text.count(op) for op in CLUSTER_BARRIER_SASS}
+        found["STAS"] = text.count("STAS")
+        if name == "lstm_scan_bwd":
+            found["HMMA_TF32"] = sum(1 for line in text.splitlines()
+                                     if "HMMA" in line and "TF32" in line)
+        print(f"  cuobjdump -sass {name}: " + ", ".join(
+            f"{op} x{c}" for op, c in found.items()))
+        check(all(found.values()), f"{name}: no cluster barrier "
+              f"({' / '.join(CLUSTER_BARRIER_SASS)}), DSMEM store (STAS) "
+              "or, in K2, TF32 tensor-core product in its SASS")
+        sass[name] = found
     (res,) = build.build(["flash_attention"], ONE_P)
     print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
     return sass
@@ -487,17 +514,22 @@ def phase_kernels(seed: int, dev):
         args = lstm_inputs(n, t, h, seed, dev)
         for emit_cs in (False, True):
             out = lstm_scan(*args, emit_cs=emit_cs)
+            again = lstm_scan(*args, emit_cs=emit_cs)
             ref = lstm_scan_plain(*args, emit_cs=emit_cs)
             torch.cuda.synchronize()
             errs = [(a - b).abs().max().item() for a, b in zip(out, ref)
                     if b is not None]
+            same = all(a is None or torch.equal(a, b)
+                       for a, b in zip(out, again))
             names = "hs h_T c_T cs".split()[:len(errs)]
             print(f"lstm_scan N={n} T={t} H={h} emit_cs={emit_cs}: " + ", ".join(
                 f"max|d{k}| {e:.3e}" for k, e in zip(names, errs))
-                + f" (tol {TOL_LSTM})")
+                + f" (tol {TOL_LSTM}); two launches bit-equal: {same}")
             check(max(errs) <= TOL_LSTM and (out[3] is None) != emit_cs,
                   f"lstm_scan disagrees with its plain version at "
                   f"N={n} T={t} H={h} emit_cs={emit_cs}")
+            check(same, f"two lstm_scan launches differ at N={n} T={t} "
+                  f"H={h} emit_cs={emit_cs}")
             err_l = max(err_l, *errs)
     err_b = abs_b = 0.0
     for n, t, h in BWD_SHAPES + ((1, 8, LSTM_H),):
@@ -685,15 +717,28 @@ def phase_predict(seed: int, dev):
               f"{time.perf_counter() - t0:.3f} s")
         for fn in (lstm_scan, lstm_scan_plain):  # counts from the burst on
             fn.launches = 0
+        batch_rows = []  # N of every K1 call the layers make
+
+        def recorded(xproj, *a, **kw):
+            batch_rows.append(int(xproj.shape[0]))
+            return lstm_scan(xproj, *a, **kw)
+
         s0 = eng.stats.snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(N_CLIENTS) as ex:
-            answers = list(ex.map(lambda x: _post(
-                eng.url, {"batch": x.tolist()}, path="/predict"), reqs))
+        recurrent.lstm_scan = recorded
+        try:
+            with ThreadPoolExecutor(N_CLIENTS) as ex:
+                answers = list(ex.map(lambda x: _post(
+                    eng.url, {"batch": x.tolist()}, path="/predict"), reqs))
+        finally:
+            recurrent.lstm_scan = lstm_scan
         wall = time.perf_counter() - t0
         counts = {fn.__name__: fn.launches
                   for fn in (lstm_scan, lstm_scan_plain)}
+        rows_hist = {n: batch_rows.count(n) for n in sorted(set(batch_rows))}
+        check(len(batch_rows) == counts["lstm_scan"],
+              "a K1 launch of the burst was not recorded")
         s1 = eng.stats.snapshot()
         rows = sum(x.shape[0] for x in reqs)
         batches = s1["batches"] - s0["batches"]
@@ -702,7 +747,8 @@ def phase_predict(seed: int, dev):
               f"{wall:.3f} s: {rows / wall:.1f} rows/s, {batches} batches "
               f"({rows / max(batches, 1):.2f} real rows each, {pad} pad "
               f"rows), latency {s1['latency_ms']}")
-        print(f"launches during the burst: {counts}")
+        print(f"launches during the burst: {counts}; K1 launches by batch "
+              f"rows N: {rows_hist}")
         check(counts["lstm_scan"] > 0,
               "K1 was not launched while serving /predict")
         check(counts["lstm_scan_plain"] == 0,
@@ -738,6 +784,7 @@ def phase_predict(seed: int, dev):
     return net, counts, {"requests": len(answers), "rows": rows,
                          "wall_s": wall, "rows_per_s": rows / wall,
                          "batches": batches, "pad_rows": pad,
+                         "k1_launches_by_rows": rows_hist,
                          "latency_ms": s1["latency_ms"],
                          "max_abs_err_vs_direct": err,
                          "sample_chars_per_s": 200 / sample_s}
@@ -887,24 +934,27 @@ def phase_times(lm: TransformerLM, widths, seed: int, dev):
 
 def lstm_bound(n: int, t: int, h: int, emit_cs: bool = False):
     """Each input read once, each output written once, f32; 2*N*T*H*4H
-    flops of h @ U at the f32 rate."""
+    flops of h @ U at the 3xTF32 rate (the fastest f32-accurate products
+    on this card)."""
     nbytes = 4.0 * (n * t * 4 * h + n * t * h + 4 * h * h + 3 * h
                     + 4 * n * h + (n * t * h if emit_cs else 0))
-    return bound(nbytes, 2.0 * n * t * h * 4 * h, PEAK_F32_FLOPS)
+    return bound(nbytes, 2.0 * n * t * h * 4 * h, PEAK_F32_TC_FLOPS)
 
 
 def phase_times_predict(net: MultiLayerNetwork, seed: int, dev):
-    print("== times: K1 and the /predict path (CUDA events) ==")
+    print("== times: K1 and the /predict path (CUDA events; K1 queued "
+          "behind a sleep kernel, and back to back) ==")
     res = {"lstm_scan": {}, "main_path": {}}
     for n, t, h in LSTM_SHAPES:
         args = lstm_inputs(n, t, h, seed, dev)
-        ms = time_ms(lambda: lstm_scan(*args), iters=10)
+        ms = device_ms(lambda: lstm_scan(*args), iters=10)
+        ev = time_ms(lambda: lstm_scan(*args), iters=10)
         plain = time_ms(lambda: lstm_scan_plain(*args), iters=2, warmup=1)
         b_ms, b_by = lstm_bound(n, t, h)
-        # the sequential floor: the per-step time of a one-row launch on
-        # the same grid (slope between T=8 and T=8+t), times T
+        # the sequential floor: the per-step time of a one-row launch
+        # (slope between T=8 and T=8+t), times T
         one = [lstm_inputs(1, tt, h, seed, dev) for tt in (8, 8 + t)]
-        short, long_ = (time_ms(lambda a=a: lstm_scan(*a), iters=10)
+        short, long_ = (device_ms(lambda a=a: lstm_scan(*a), iters=10)
                         for a in one)
         step_us = (long_ - short) / t * 1e3
         lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev)
@@ -912,10 +962,11 @@ def phase_times_predict(net: MultiLayerNetwork, seed: int, dev):
         with torch.inference_mode():
             cudnn = time_ms(lambda: lstm(xin), iters=10)
         res["lstm_scan"][f"{n}x{t}x{h}"] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            step_floor_us=step_us, floor_ms=step_us * t / 1e3,
-            cudnn_lstm_ms=cudnn)
-        print(f"lstm_scan N={n} T={t} H={h}: {ms:.4f} ms, plain "
+            ms=ms, events_ms=ev, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, step_floor_us=step_us,
+            floor_ms=step_us * t / 1e3, cudnn_lstm_ms=cudnn)
+        print(f"lstm_scan N={n} T={t} H={h}: {ms:.4f} ms on the device "
+              f"({ev:.4f} back to back), plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sequential "
               f"floor {step_us * t / 1e3:.4f} ms ({step_us:.2f} us/step "
               f"at N=1); reference only (no peepholes): cuDNN nn.LSTM "
@@ -1059,33 +1110,38 @@ def phase_train(seed: int, dev):
 
 
 def phase_times_train(net: MultiLayerNetwork, seed: int, dev):
-    print("== times: K2, K1 with cs, and fit (CUDA events) ==")
+    print("== times: K2, K1 with cs, and fit (CUDA events; K1 and K2 "
+          "queued behind a sleep kernel, and back to back) ==")
     res = {"lstm_scan_bwd": {}, "main_path": {}}
     for n, t, h in BWD_SHAPES:
         args = lstm_bwd_inputs(n, t, h, seed, dev)
-        ms = time_ms(lambda: lstm_scan_bwd(*args), iters=10)
+        ms = device_ms(lambda: lstm_scan_bwd(*args), iters=10)
+        ev = time_ms(lambda: lstm_scan_bwd(*args), iters=10)
         plain = time_ms(lambda: lstm_scan_bwd_plain(*args), iters=2,
                         warmup=1)
         b_ms, b_by = lstm_bwd_bound(n, t, h)
         one = [lstm_bwd_inputs(1, tt, h, seed, dev) for tt in (8, 8 + t)]
-        short, long_ = (time_ms(lambda a=a: lstm_scan_bwd(*a), iters=10)
+        short, long_ = (device_ms(lambda a=a: lstm_scan_bwd(*a), iters=10)
                         for a in one)
         step_us = (long_ - short) / t * 1e3
         res["lstm_scan_bwd"][f"{n}x{t}x{h}"] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            step_floor_us=step_us, floor_ms=step_us * t / 1e3)
-        print(f"lstm_scan_bwd N={n} T={t} H={h}: {ms:.4f} ms, plain "
+            ms=ms, events_ms=ev, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, step_floor_us=step_us,
+            floor_ms=step_us * t / 1e3)
+        print(f"lstm_scan_bwd N={n} T={t} H={h}: {ms:.4f} ms on the device "
+              f"({ev:.4f} back to back), plain "
               f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), sequential "
               f"floor {step_us * t / 1e3:.4f} ms ({step_us:.2f} us/step at "
               "N=1)")
     n, t, h = BWD_SHAPES[0]
     args = lstm_inputs(n, t, h, seed, dev)
-    ms = time_ms(lambda: lstm_scan(*args, emit_cs=True), iters=10)
+    ms = device_ms(lambda: lstm_scan(*args, emit_cs=True), iters=10)
+    ev = time_ms(lambda: lstm_scan(*args, emit_cs=True), iters=10)
     b_ms, b_by = lstm_bound(n, t, h, emit_cs=True)
-    res["lstm_scan_cs"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
-                               shape=f"{n}x{t}x{h}")
-    print(f"lstm_scan N={n} T={t} H={h} emit_cs=True: {ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
+    res["lstm_scan_cs"] = dict(ms=ms, events_ms=ev, bound_ms=b_ms,
+                               bound_by=b_by, shape=f"{n}x{t}x{h}")
+    print(f"lstm_scan N={n} T={t} H={h} emit_cs=True: {ms:.4f} ms on the "
+          f"device ({ev:.4f} back to back), bound {b_ms:.4f} ms ({b_by})")
     rng = np.random.default_rng(seed + 4)
     eye = np.eye(VOCAB, dtype=np.float32)
     ids = rng.integers(0, VOCAB, (TRAIN_BATCH, SEQ + 1))
@@ -1104,12 +1160,12 @@ def phase_times_train(net: MultiLayerNetwork, seed: int, dev):
           f"per call, {TRAIN_BATCH * SEQ / fit_ms * 1e3:.0f} training "
           "characters/s")
     busy, rows = profile_ms(lambda: net.fit(x, y))
-    groups = {"K1 lstm_scan_kernel": 0.0, "K2 lstm_scan_bwd_kernel": 0.0,
+    groups = {"K1 lstm_fwd_cluster": 0.0, "K2 lstm_bwd_*": 0.0,
               "GEMMs": 0.0, "updater (foreach)": 0.0, "other kernels": 0.0}
     for ms_, _, name in rows:
         low = name.lower()
-        key = ("K2 lstm_scan_bwd_kernel" if "lstm_scan_bwd_kernel" in name
-               else "K1 lstm_scan_kernel" if "lstm_scan_kernel" in name
+        key = ("K2 lstm_bwd_*" if "lstm_bwd_" in name
+               else "K1 lstm_fwd_cluster" if "lstm_fwd_cluster" in name
                else "GEMMs" if "gemm" in low or "xmma" in low
                or "nvjet" in low
                else "updater (foreach)" if "foreach" in low
@@ -1132,11 +1188,11 @@ def phase_times_train(net: MultiLayerNetwork, seed: int, dev):
 def lstm_bwd_bound(n: int, t: int, h: int):
     """Each input (xproj, U, p, h0, c0, cs, hs, dhs, dh_T, dc_T) read
     once, each output (dxproj, dU, dp, dh0, dc0) written once, f32;
-    3 * 2*N*T*H*4H flops (the gate recompute, dz U^T and dU) at the f32
-    rate."""
+    3 * 2*N*T*H*4H flops (the gate recompute, dz U^T and dU) at the
+    3xTF32 rate."""
     nbytes = 4.0 * (2 * n * t * 4 * h + 3 * n * t * h + 2 * 4 * h * h
                     + 6 * h + 6 * n * h)
-    return bound(nbytes, 3 * 2.0 * n * t * h * 4 * h, PEAK_F32_FLOPS)
+    return bound(nbytes, 3 * 2.0 * n * t * h * 4 * h, PEAK_F32_TC_FLOPS)
 
 
 def sgns_inputs(v: int, d: int, b: int, k1: int, seed: int, dev,
@@ -2210,9 +2266,14 @@ def main(argv=None) -> int:
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None,
-         "floor_ms": k1["floor_ms"],
-         "shape": f"N={n1} T={t1} H={h1} f32"},
+         "library_ms": None, "events_ms": k1["events_ms"],
+         "floor_ms": k1["floor_ms"], "cudnn_lstm_ms": k1["cudnn_lstm_ms"],
+         "sass": sass["lstm_scan"],
+         "shape": f"N={n1} T={t1} H={h1} f32",
+         "design": "one cluster of 16 (or 8) CTAs per block of batch rows, "
+                   "U's column slice in shared memory, h through "
+                   "distributed shared memory (st.async counted on the "
+                   "receiver's mbarrier)"},
         {"name": "lstm_scan_bwd", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:396",
@@ -2222,9 +2283,12 @@ def main(argv=None) -> int:
          "tolerance": TOL_LSTM_BWD,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None,
-         "floor_ms": k2["floor_ms"],
-         "shape": f"N={n2} T={t2} H={h2} f32"},
+         "library_ms": None, "events_ms": k2["events_ms"],
+         "floor_ms": k2["floor_ms"], "sass": sass["lstm_scan_bwd"],
+         "shape": f"N={n2} T={t2} H={h2} f32",
+         "design": "the gate recompute and dU as products over the card; "
+                   "the sweep on K1's clusters, partial dz U^T "
+                   "reduce-scattered through distributed shared memory"},
         {"name": "sgns_step", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/sgns.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_sgns.py:159",

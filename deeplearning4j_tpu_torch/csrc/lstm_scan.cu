@@ -13,56 +13,49 @@
 // Outputs hs [N,T,H], h_T [N,H], c_T [N,H] and, with emit_cs, the cell
 // sequence cs [T,N,H] that the backward kernel (K2) reads.
 //
-// What bounds it on the H100: the recurrence. Every step needs the whole
-// h_{t-1} of every hidden unit, so the T steps run one after the other;
-// across the card the work is 2*N*T*H*4H flops (operations bound 2.05
-// GFLOP / 67 TFLOP/s = 30 us at the char-RNN's N=64, T=100, H=200), but
-// each step also pays one grid-wide exchange of h, which sets a floor of
-// T barrier latencies.
+// What bounds it on the H100: the recurrence. Each step needs the whole
+// h_{t-1} of its batch row, so the T steps of a row run one after the
+// other. The work is 2*N*T*H*4H flops (2.05 GFLOP at the char-RNN's N=64,
+// T=100, H=200: 12.4 us at the 3xTF32 rate), far below what the T
+// dependent steps cost: the time is T times the latency of one step.
 //
-// What the design does about it:
-//  * U (16*H^2 bytes: 640 KB at H=200) does not fit one SM's 227 KB of
-//    shared memory, so the TPU design (U whole in VMEM) cannot carry over.
-//    The grid is persistent and cooperative: CTA j owns `upb` hidden units
-//    (all four gate columns of each) and keeps its U[:, those columns]
-//    slice (H*upb*16 bytes) in shared memory for the whole sequence. upb
-//    is the smallest power of two that fits the grid on the card's SMs
-//    (upb=2 -> 100 CTAs at H=200), so every CTA is co-resident.
-//  * The cell state of a unit depends only on that unit, so c never
-//    leaves its owning CTA (a per-CTA slice of a scratch buffer, written
-//    and read by the same thread). Only h is exchanged: each step writes
-//    h_t to one of two global buffers (k-major [H][N], L2-resident) and
-//    reads h_{t-1} from the other, then one grid barrier (an atomic
-//    arrival counter) separates the steps. Double buffering makes the
-//    next step's writes safe against this step's readers. h is read and
-//    written with __ldcg/__stcg (L2 only): an L1 line of the buffer from
-//    two steps back would be stale.
-//  * The per-step product h_{t-1} U is done here with FMAs, no library
-//    call: h_{t-1} streams through shared memory in [64 k][64 rows]
-//    tiles, each (row, unit) pair accumulates its four gate dots from a
-//    float4 of U, and `ks` threads split a pair's k range (summed with
-//    warp shuffles) when the batch is too small to give every thread a
-//    pair. The tile's row pitch is padded so those reads hit distinct
-//    banks.
-//  * xproj [N,T,4H] is read through its strides: no time-major copy (the
-//    TPU kernel's swapaxes served its (8,128) tiling). h0 and c0 are read
-//    directly at t = 0.
-// Not done yet (later work): thread-block clusters with U in distributed
-// shared memory and a cluster barrier in place of the grid barrier;
-// TF32/bf16 tensor-core products.
+// What the design does about it (the latency of a step):
+//  * Batch rows never depend on each other, only the hidden units of one
+//    row do. The grid is one thread-block cluster per block of R batch
+//    rows (R from the planner, ops/lstm_scan.py plan_scan: a power of two
+//    up to 16 that puts every row block on the card at once; N=1 is one
+//    cluster). The cluster's C CTAs (16, non-portable, where the card
+//    schedules it, else 8) split the hidden units: CTA q owns `units`
+//    consecutive units, all four gate columns of each. Clusters share
+//    nothing: no cooperative launch, no grid-wide barrier.
+//  * U stays in shared memory: each CTA keeps U[:, its columns] as one
+//    float4 per (k, unit) (16*H*units bytes: 41.6 KB at H=200, C=16) for
+//    the whole sequence. Where the slice does not fit (H=1000, H=512 with
+//    16-row blocks) the planner keeps its first k_smem rows there and the
+//    CTA reads the rest from L2 (__ldg) each step.
+//  * h crosses between CTAs through distributed shared memory only: each
+//    CTA holds the row block's whole h_{t-1} in a double-buffered tile
+//    [2][H][R]; after the cell update it stores its units' h_t into the
+//    other buffer of every CTA of the cluster (st.async, float4 where
+//    R >= 4), each store completing its bytes on that buffer's mbarrier
+//    in the receiver, which waits for H*R*4 bytes before its next step
+//    (csrc/lstm_cluster.cuh). A CTA can only send h_{t+1} after it has
+//    h_t from every peer, and each peer sent h_t after reading h_{t-1},
+//    so a buffer is never overwritten while it is read. Nothing on the
+//    sequential path goes through L2: hs (and cs) are written to device
+//    memory off the path, the cell state stays in its owner's registers,
+//    and the next step's xproj is loaded into registers one step ahead.
+//  * The per-step product h_{t-1} U[:, own columns] is R*units*4*H FMAs
+//    (42K at N=64 with 4-row blocks and C=16): each thread takes one unit
+//    and every row of the block over an interleaved share of k (`ksplit`
+//    threads per unit), one float4 of U against R values of h per k; the
+//    shares are summed through shared memory in a fixed order, so two
+//    launches give the same bits.
+//  * xproj [N,T,4H] is read through its strides: no time-major copy.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <algorithm>
+#include "lstm_cluster.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kKT = 64;  // k rows of h per shared-memory tile
-constexpr int kNR = 64;  // batch rows per round
-constexpr int kPT = 2;   // (row, unit) pairs per thread per round, at most
 
 struct Params {
   const float* xproj;
@@ -71,175 +64,266 @@ struct Params {
   const float* p;      // [3, H]
   const float* h0;     // [N, H]
   const float* c0;     // [N, H]
-  float* hbuf;         // [2][H][N] exchange buffers
-  float* cbuf;         // [H][N] cell state, owner-private
   float* hs;           // [N, T, H]
   float* hT;           // [N, H]
   float* cT;           // [N, H]
   float* cs;           // [T, N, H] or null
-  unsigned int* counter;  // grid-barrier arrivals, zero at launch
-  int N, T, H, upb, ks, nrp;
+  int N, T, H, units, ksplit, k_smem, cluster;
 };
 
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
+// Shared memory of one CTA, in floats (each part a multiple of 4):
+//   mbar u64 [2]                 the two buffers' mbarriers (16 bytes)
+//   us  float4 [k_smem][u_ld(units)] U[k, the gate columns of a unit]
+//   hb  float [2][round4(H*ldh)] h_{t-1} of the row block, [k][ldh]
+//   red float4 [ksplit][R*units+1] the k shares of each (row, unit)
+//   hst float [round4(units*R)]  this CTA's h_t, [unit][R]
+// Padding against bank conflicts: a k row of hb holds R values and, from
+// R = 8, four more (the k-share lanes read rows an odd number of float4s
+// apart); each k share of red is one float4 longer than its R*units
+// entries (the lanes of one unit write shares an odd number apart).
+constexpr __host__ __device__ int h_ld(int R) { return R >= 8 ? R + 4 : R; }
+
+size_t fwd_smem_bytes(int H, int R, int units, int ksplit, int k_smem) {
+  return 4 * (4 + 4 * static_cast<size_t>(k_smem) * u_ld(units) +
+              2 * round4(static_cast<size_t>(H) * h_ld(R)) +
+              4 * static_cast<size_t>(ksplit) * (units * R + 1) +
+              round4(static_cast<size_t>(units) * R));
 }
 
-// All CTAs are co-resident (cooperative launch), so spinning is safe.
-// Arrivals only grow: barrier number b waits for nblocks * b of them.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(counter, 1u);
-    volatile unsigned int* c = counter;
-    while (*c < target) {
+// acc[r][g] += h[r] * w.g for the R rows of one k row of the h tile
+template <int R>
+__device__ __forceinline__ void fma_rows(float (&acc)[R][4], float4 w,
+                                         const float* hk) {
+  float hv[R];
+  if constexpr (R >= 4) {
+#pragma unroll
+    for (int r = 0; r < R; r += 4) {
+      const float4 h4 = *reinterpret_cast<const float4*>(hk + r);
+      hv[r] = h4.x;
+      hv[r + 1] = h4.y;
+      hv[r + 2] = h4.z;
+      hv[r + 3] = h4.w;
     }
-    __threadfence();
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) hv[r] = hk[r];
   }
-  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    acc[r][0] = fmaf(hv[r], w.x, acc[r][0]);
+    acc[r][1] = fmaf(hv[r], w.y, acc[r][1]);
+    acc[r][2] = fmaf(hv[r], w.z, acc[r][2]);
+    acc[r][3] = fmaf(hv[r], w.w, acc[r][3]);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    lstm_scan_kernel(const Params P) {
+template <int R>
+__global__ void __launch_bounds__(kThreads) lstm_fwd_cluster(const Params P) {
   extern __shared__ float4 smem4[];
-  const int H = P.H, N = P.N, T = P.T, upb = P.upb, ks = P.ks;
+  const int H = P.H, T = P.T, units = P.units, ks = P.ksplit;
   const int tid = threadIdx.x;
-  const int unit0 = blockIdx.x * upb;
-  float4* us = smem4;                                      // [H][upb]
-  float* ht = reinterpret_cast<float*>(smem4 + H * upb);   // [kKT][nrp]
+  const int rank = static_cast<int>(cluster_rank());
+  const int row0 = static_cast<int>(cluster_index()) * R;
+  const int nrows = min(R, P.N - row0);
+  const int unit0 = rank * units;
+  const int nunits = max(0, min(units, H - unit0));
+  constexpr int ldh = h_ld(R);
+  const size_t hbs = round4(static_cast<size_t>(H) * ldh);
+  const int rs = R * units + 1;  // float4s per k share of red
+  const int lu = u_ld(units);     // float4s per k row of us
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem4);
+  float4* us = smem4 + 1;
+  float* hb = reinterpret_cast<float*>(us + static_cast<size_t>(P.k_smem) *
+                                                lu);
+  float4* red = reinterpret_cast<float4*>(hb + 2 * hbs);
+  float* hst = reinterpret_cast<float*>(red + static_cast<size_t>(ks) * rs);
 
-  // this CTA's slice of U: for unit u, the float4 of its i, f, o, g columns
-  for (int idx = tid; idx < H * upb; idx += kThreads) {
-    const int k = idx / upb;
-    const int unit = unit0 + idx % upb;
+  for (int idx = tid; idx < P.k_smem * lu; idx += kThreads) {
+    const int k = idx / lu, uu = idx % lu;
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (unit < H) {
-      const float* row = P.u + static_cast<size_t>(k) * 4 * H + unit;
-      w = make_float4(row[0], row[H], row[2 * H], row[3 * H]);
+    if (uu < nunits) {
+      const float* col = P.u + static_cast<size_t>(k) * 4 * H + unit0 + uu;
+      w = make_float4(col[0], col[H], col[2 * H], col[3 * H]);
     }
     us[idx] = w;
   }
-  __syncthreads();
+  for (int idx = tid; idx < H * ldh; idx += kThreads) {
+    const int k = idx / ldh, r = idx % ldh;
+    hb[idx] = r < nrows ? P.h0[static_cast<size_t>(row0 + r) * H + k] : 0.f;
+  }
+  for (int idx = tid; idx < units * R; idx += kThreads) hst[idx] = 0.f;
 
-  const int s = tid % ks;             // this thread's share of a pair's k
-  const int slot = tid / ks;
-  const int slots = kThreads / ks;
-  const size_t hn = static_cast<size_t>(H) * N;
+  // owned (row, unit) items: unit fastest, so hs writes are coalesced
+  const int owned = nunits * nrows;
+  float c[kMaxOwned], hv_out[kMaxOwned], xq[kMaxOwned][4], pp[kMaxOwned][3];
+#pragma unroll
+  for (int i = 0; i < kMaxOwned; ++i) {
+    const int o = tid + i * kThreads;
+    if (o < owned) {
+      const int uu = o % nunits, r = o / nunits;
+      const int n = row0 + r, unit = unit0 + uu;
+      c[i] = P.c0[static_cast<size_t>(n) * H + unit];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) pp[i][g] = P.p[g * H + unit];
+      const float* xp = P.xproj + n * P.sxn + unit;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xq[i][g] = xp[g * H];
+    }
+  }
+  // every CTA of the cluster has started (its shared memory exists),
+  // set up its mbarriers and loaded its tiles before any peer stores
+  mbar_init(mbar);
+  cluster_sync();
 
+  const int s = tid % ks, uu_item = tid / ks;
+  const bool item = uu_item < nunits;
+  const int unit_item = unit0 + uu_item;
   for (int t = 0; t < T; ++t) {
-    const float* hin = P.hbuf + static_cast<size_t>(t & 1) * hn;
-    float* hout = P.hbuf + static_cast<size_t>((t + 1) & 1) * hn;
-    for (int n0 = 0; n0 < N; n0 += kNR) {
-      const int nr = min(kNR, N - n0);
-      const int npairs = nr * upb;
-      float acc[kPT][4];
+    // h_{t-1} from every CTA (the exchange of step t-1: the buffer's
+    // ((t-1)/2)-th use)
+    if (t > 0) mbar_wait(mbar + (t & 1), ((t - 1) >> 1) & 1);
+    const float* hin = hb + static_cast<size_t>(t & 1) * hbs;
+    // ---- k share of z[:, own columns] = h_{t-1} U for one unit, R rows
+    if (item) {
+      float acc[R][4];
 #pragma unroll
-      for (int i = 0; i < kPT; ++i)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
-
-      for (int k0 = 0; k0 < H; k0 += kKT) {
-        const int kt = min(kKT, H - k0);
-        __syncthreads();  // the previous tile's readers are done
-        for (int idx = tid; idx < kt * nr; idx += kThreads) {
-          const int kk = idx / nr;
-          const int nn = idx % nr;
-          ht[kk * P.nrp + nn] =
-              t == 0 ? P.h0[static_cast<size_t>(n0 + nn) * H + k0 + kk]
-                     : __ldcg(hin + static_cast<size_t>(k0 + kk) * N + n0 +
-                              nn);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kPT; ++i) {
-          const int pair = slot + i * slots;
-          if (pair < npairs) {
-            const int nl = pair / upb;
-            const int uu = pair % upb;
-            float a0 = acc[i][0], a1 = acc[i][1], a2 = acc[i][2],
-                  a3 = acc[i][3];
-            for (int kk = s; kk < kt; kk += ks) {
-              const float hv = ht[kk * P.nrp + nl];
-              const float4 w = us[(k0 + kk) * upb + uu];
-              a0 = fmaf(hv, w.x, a0);
-              a1 = fmaf(hv, w.y, a1);
-              a2 = fmaf(hv, w.z, a2);
-              a3 = fmaf(hv, w.w, a3);
-            }
-            acc[i][0] = a0;
-            acc[i][1] = a1;
-            acc[i][2] = a2;
-            acc[i][3] = a3;
-          }
-        }
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+      // k in order: the rows of U in shared memory, then the rest from
+      // L2 in a loop of its own, unrolled so its loads overlap
+      int k = s;
+#pragma unroll 4
+      for (; k < P.k_smem; k += ks)
+        fma_rows<R>(acc, us[k * lu + uu_item], hin + k * ldh);
+#pragma unroll 4
+      for (; k < H; k += ks) {
+        const float* col = P.u + static_cast<size_t>(k) * 4 * H + unit_item;
+        fma_rows<R>(acc,
+                    make_float4(__ldg(col), __ldg(col + H),
+                                __ldg(col + 2 * H), __ldg(col + 3 * H)),
+                    hin + k * ldh);
       }
-      // sum the ks partial dots of each pair (ks consecutive lanes)
-      for (int off = ks >> 1; off > 0; off >>= 1) {
+      float4* mine = red + static_cast<size_t>(s) * rs + uu_item;
 #pragma unroll
-        for (int i = 0; i < kPT; ++i)
+      for (int r = 0; r < R; ++r)
+        mine[r * units] =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    // ---- cell update of the owned items
 #pragma unroll
-          for (int g = 0; g < 4; ++g)
-            acc[i][g] += __shfl_xor_sync(0xffffffffu, acc[i][g], off);
+    for (int i = 0; i < kMaxOwned; ++i) {
+      const int o = tid + i * kThreads;
+      if (o >= owned) continue;
+      const int uu = o % nunits, r = o / nunits;
+      float z0 = xq[i][0], z1 = xq[i][1], z2 = xq[i][2], z3 = xq[i][3];
+      for (int q = 0; q < ks; ++q) {  // fixed order: same bits every launch
+        const float4 v = red[static_cast<size_t>(q) * rs + r * units + uu];
+        z0 += v.x;
+        z1 += v.y;
+        z2 += v.z;
+        z3 += v.w;
       }
-      if (s == 0) {
+      const float c_prev = c[i];
+      const float ig = sigmoidf_(z0 + pp[i][0] * c_prev);
+      const float fg = sigmoidf_(z1 + pp[i][1] * c_prev);
+      const float gg = tanhf(z3);
+      const float cn = fg * c_prev + ig * gg;
+      const float og = sigmoidf_(z2 + pp[i][2] * cn);
+      const float h = og * tanhf(cn);
+      c[i] = cn;
+      hv_out[i] = h;
+      hst[uu * R + r] = h;
+    }
+    // ---- h_t of this CTA's units into every CTA's other buffer; this
+    // CTA expects H*R*4 bytes there, from all of them
+    if (t + 1 < T) {
+      __syncthreads();
+      if (tid == 0) mbar_expect(mbar + ((t + 1) & 1), 4 * H * R);
+      broadcast_to_cluster<R, ldh>(
+          hst, hb + static_cast<size_t>((t + 1) & 1) * hbs +
+                   static_cast<size_t>(unit0) * ldh,
+          nunits, P.cluster, mbar + ((t + 1) & 1));
+    }
 #pragma unroll
-        for (int i = 0; i < kPT; ++i) {
-          const int pair = slot + i * slots;
-          if (pair >= npairs) continue;
-          const int n = n0 + pair / upb;
-          const int unit = unit0 + pair % upb;
-          if (unit >= H) continue;
-          const float* xp = P.xproj + n * P.sxn + t * P.sxt + unit;
-          const size_t own = static_cast<size_t>(unit) * N + n;
-          const size_t nh = static_cast<size_t>(n) * H + unit;
-          const float c_prev = t == 0 ? P.c0[nh] : P.cbuf[own];
-          const float ig = sigmoidf_(acc[i][0] + xp[0] + P.p[unit] * c_prev);
-          const float fg =
-              sigmoidf_(acc[i][1] + xp[H] + P.p[H + unit] * c_prev);
-          const float gg = tanhf(acc[i][3] + xp[3 * H]);
-          const float c = fg * c_prev + ig * gg;
-          const float og =
-              sigmoidf_(acc[i][2] + xp[2 * H] + P.p[2 * H + unit] * c);
-          const float h = og * tanhf(c);
-          P.cbuf[own] = c;
-          __stcg(hout + own, h);
-          P.hs[(static_cast<size_t>(n) * T + t) * H + unit] = h;
-          if (P.cs != nullptr)
-            P.cs[(static_cast<size_t>(t) * N + n) * H + unit] = c;
-          if (t == T - 1) {
-            P.hT[nh] = h;
-            P.cT[nh] = c;
-          }
-        }
+    for (int i = 0; i < kMaxOwned; ++i) {
+      const int o = tid + i * kThreads;
+      if (o >= owned) continue;
+      const int n = row0 + o / nunits, unit = unit0 + o % nunits;
+      P.hs[(static_cast<size_t>(n) * T + t) * H + unit] = hv_out[i];
+      if (P.cs != nullptr)
+        P.cs[(static_cast<size_t>(t) * P.N + n) * H + unit] = c[i];
+      if (t == T - 1) {
+        P.hT[static_cast<size_t>(n) * H + unit] = hv_out[i];
+        P.cT[static_cast<size_t>(n) * H + unit] = c[i];
+      } else {
+        const float* xp = P.xproj + n * P.sxn + (t + 1) * P.sxt + unit;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xq[i][g] = xp[g * H];
       }
     }
-    if (t + 1 < T) grid_barrier(P.counter, gridDim.x * (t + 1));
+  }
+  cluster_sync();
+}
+
+using Kernel = void (*)(const Params);
+
+Kernel fwd_kernel(int rows) {
+  switch (rows) {
+    case 1: return lstm_fwd_cluster<1>;
+    case 2: return lstm_fwd_cluster<2>;
+    case 4: return lstm_fwd_cluster<4>;
+    case 8: return lstm_fwd_cluster<8>;
+    case 16: return lstm_fwd_cluster<16>;
+    default: return nullptr;
   }
 }
 
-int pow2_floor(int x) {
-  int p = 1;
-  while (p * 2 <= x) p *= 2;
-  return p;
+// The plan's numbers, checked against what the kernel assumes; 0 if the
+// plan is one the kernel takes.
+int check_plan(int N, int H, int rows, int cluster, int units, int ksplit,
+               int k_smem, int smem) {
+  if (N <= 0 || H <= 0 || fwd_kernel(rows) == nullptr ||
+      (cluster != 8 && cluster != 16) || units * cluster < H ||
+      units <= 0 || ksplit <= 0 || units * ksplit > kThreads ||
+      rows * units > kMaxOwned * kThreads || k_smem < 0 || k_smem > H ||
+      fwd_smem_bytes(H, rows, units, ksplit, k_smem) !=
+          static_cast<size_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 = success). A grid that cannot be
-// co-resident returns cudaErrorCooperativeLaunchTooLarge without launching;
-// the wrapper raises on any nonzero code.
+// How many clusters of this plan's kernel the card runs at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+extern "C" int lstm_scan_fwd_clusters(int rows, int cluster, int smem,
+                                      int device) {
+  if (cudaSetDevice(device) != cudaSuccess || fwd_kernel(rows) == nullptr)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  Params P = {};
+  int capacity = 0;
+  const int err = cluster_launch(fwd_kernel(rows), P, 1, cluster,
+                                 static_cast<size_t>(smem), nullptr,
+                                 &capacity);
+  return err != 0 ? -err : capacity;
+}
+
+// Returns the CUDA error of the launch (0 = success); a plan the kernel
+// does not take returns cudaErrorInvalidValue without launching. The
+// wrapper raises on any nonzero code.
 extern "C" int lstm_scan_fwd(const void* xproj, long long sxn, long long sxt,
                              const void* u, const void* p, const void* h0,
-                             const void* c0, void* hbuf, void* cbuf, void* hs,
-                             void* hT, void* cT, void* cs, void* counter,
-                             int N, int T, int H, int upb, int device,
-                             void* stream) {
+                             const void* c0, void* hs, void* hT, void* cT,
+                             void* cs, int N, int T, int H, int rows,
+                             int cluster, int units, int ksplit, int k_smem,
+                             int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (N <= 0 || T <= 0 || H <= 0 || upb <= 0 || upb > 8 || (upb & (upb - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  int bad = check_plan(N, H, rows, cluster, units, ksplit, k_smem, smem);
+  if (bad == 0 && T <= 0) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad != 0) return bad;
   Params P;
   P.xproj = static_cast<const float*>(xproj);
   P.sxn = sxn;
@@ -248,42 +332,21 @@ extern "C" int lstm_scan_fwd(const void* xproj, long long sxn, long long sxt,
   P.p = static_cast<const float*>(p);
   P.h0 = static_cast<const float*>(h0);
   P.c0 = static_cast<const float*>(c0);
-  P.hbuf = static_cast<float*>(hbuf);
-  P.cbuf = static_cast<float*>(cbuf);
   P.hs = static_cast<float*>(hs);
   P.hT = static_cast<float*>(hT);
   P.cT = static_cast<float*>(cT);
   P.cs = static_cast<float*>(cs);
-  P.counter = static_cast<unsigned int*>(counter);
   P.N = N;
   P.T = T;
   P.H = H;
-  P.upb = upb;
-  const int pairs = std::min(N, kNR) * upb;  // pairs in a full round
-  P.ks = std::max(1, std::min(8, pow2_floor(std::max(1, kThreads / pairs))));
-  P.nrp = kNR + 32 / P.ks;
-  const int grid = (H + upb - 1) / upb;
-  const size_t smem = static_cast<size_t>(H) * upb * sizeof(float4) +
-                      static_cast<size_t>(kKT) * P.nrp * sizeof(float);
-  err = cudaFuncSetAttribute(lstm_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
-                                                      lstm_scan_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (static_cast<long long>(per_sm) * sms < grid)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(lstm_scan_kernel), dim3(grid),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  P.units = units;
+  P.ksplit = ksplit;
+  P.k_smem = k_smem;
+  P.cluster = cluster;
+  const int rc = cluster_launch(fwd_kernel(rows), P, (N + rows - 1) / rows,
+                                cluster, static_cast<size_t>(smem),
+                                static_cast<cudaStream_t>(stream), nullptr);
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* kernel_error_string(int code) {

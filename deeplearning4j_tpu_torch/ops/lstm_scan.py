@@ -17,6 +17,9 @@ What lives here:
 * a launch counter on each: ``lstm_scan.launches`` and
   ``lstm_scan_bwd.launches`` count kernel launches only, the ``_plain``
   counters count plain calls.
+* :func:`plan_scan` — the kernels' layout for a shape: batch rows per
+  block, CTAs per cluster, hidden units per CTA, U rows kept in shared
+  memory, shared-memory bytes (a plain function, tested on the CPU).
 * :class:`LstmScanFn` — the autograd function (the ``custom_vjp``): its
   forward runs :func:`lstm_scan` with the cell sequence, its backward
   :func:`lstm_scan_bwd`.
@@ -31,35 +34,49 @@ and returns ``(dxproj, dU, dp, dh0, dc0)``.
 
 Source note. Replaces the TPU kernels ``_make_lstm_kernel`` and
 ``_lstm_bwd_kernel``. On the H100 the recurrence bounds both: the
-operations bound is 2*N*T*H*4H flops at the f32 rate for the forward (30
-us at the char-RNN's N=64, T=100, H=200) and three times that for the
-backward, but every step needs every unit's h (forward) or dz (backward)
-from the step before, so each of the T steps pays a grid-wide exchange.
-The design (see the .cu headers): a persistent cooperative grid in which
-each CTA owns a few hidden units and keeps their slice of U in shared
-memory for the whole sequence, the cell state (and its cotangent) stays
-with its owner, h or dz is exchanged through two L2-resident buffers with
-one grid barrier per step, and the products are written out with FMAs.
-The kernels compute in f32; inputs of another dtype are cast to f32 first
-and the outputs are f32 (the callers cast back, as the JAX layer does).
+operations bound is 2*N*T*H*4H flops at the 3xTF32 rate for the forward
+(12.4 us at the char-RNN's N=64, T=100, H=200) and three times that for
+the backward, but every step of a batch row needs every unit's h
+(forward) or dz (backward) of that row from the step before, so the time
+is T times the latency of one step. The design (see the .cu headers):
+one thread-block cluster per block of batch rows, its CTAs splitting the
+hidden units, each CTA keeping its slice of U in shared memory for the
+whole sequence; h (forward) or the partial dz U^T (backward) crosses
+between the CTAs through distributed shared memory, stores counted on
+the receiving CTA's mbarrier, with no barrier across the cluster or the
+grid per step; the backward's gate recompute and dU run before and after
+its sweep as products over the whole card, on the tensor cores at f32
+accuracy (3xTF32); the per-step products are FMAs; every sum runs in a
+fixed order (two launches give the same bits). The kernels compute
+in f32; inputs of another dtype are cast to f32 first and the outputs are
+f32 (the callers cast back, as the JAX layer does).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.ops import build
 
-MAX_UNITS_PER_CTA = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURE = {"lstm_scan_fwd": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _I, _I, _I, _I, _I, _P]}
-_BWD_SIGNATURE = {"lstm_scan_bwd": [_P, _L, _L] + [_P] * 18
-                  + [_I, _I, _I, _I, _I, _P]}
+_SIGNATURE = {"lstm_scan_fwd": [_P, _L, _L] + [_P] * 8 + [_I] * 10 + [_P],
+              "lstm_scan_fwd_clusters": [_I] * 4}
+_BWD_SIGNATURE = {"lstm_scan_bwd": [_P, _L, _L] + [_P] * 16 + [_I] * 10
+                  + [_P],
+                  "lstm_scan_bwd_clusters": [_I] * 4}
+
+THREADS = 256               # per CTA (csrc/lstm_cluster.cuh kThreads)
+MAX_OWNED = 2               # (row, unit) items per thread (kMaxOwned)
+ROW_BLOCKS = (1, 2, 4, 8, 16)  # batch rows per cluster: the kernels' templates
+CLUSTER_SIZES = (16, 8)     # CTAs per cluster, in the order tried
+SMEM_OPTIN_H100 = 232_448   # dynamic shared memory a block may use, H100
+DU_TILE = 64                # output tile of K2's dU product (kTile)
 
 
 def lstm_scan_plain(xproj, u, p, h0, c0, *, emit_cs: bool = False):
@@ -89,18 +106,131 @@ def lstm_scan_plain(xproj, u, p, h0, c0, *, emit_cs: bool = False):
 lstm_scan_plain.launches = 0
 
 
-def units_per_cta(h: int, sms: int) -> int:
-    """Hidden units each CTA owns: the smallest power of two that puts the
-    grid (ceil(H / upb) CTAs) on at most ``sms`` SMs, so every CTA of the
-    cooperative grid is resident. Raises past MAX_UNITS_PER_CTA."""
-    upb = 1
-    while -(-h // upb) > sms:
-        upb *= 2
-        if upb > MAX_UNITS_PER_CTA:
-            raise ValueError(
-                f"lstm_scan: H={h} needs more than {MAX_UNITS_PER_CTA} "
-                f"units per CTA on {sms} SMs; the kernel does not take it")
-    return upb
+@dataclass(frozen=True)
+class ScanPlan:
+    """One launch's layout (the .cu files recompute ``smem`` from the rest
+    and refuse a plan whose count differs)."""
+
+    rows: int       # batch rows per block; one cluster per block
+    cluster: int    # CTAs per cluster; they split the hidden units
+    units: int      # hidden units per CTA (the last CTAs may hold fewer)
+    ksplit: int     # K1: threads sharing one unit's k range (K2: 1)
+    k_smem: int     # rows of the CTA's column slice of U in shared memory
+    smem: int       # dynamic shared-memory bytes per CTA
+    blocks: int     # row blocks, i.e. clusters in the grid
+    du_splits: int  # K2: row ranges of the dU product (K1: 1)
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _layout(n: int, t: int, h: int, rows: int, cluster: int,
+            backward: bool, smem_limit: int, sms: int) -> Optional[ScanPlan]:
+    """The layout at one (rows, cluster), or None where the kernel cannot
+    take it: a CTA's units must fit its threads, each thread owns at most
+    MAX_OWNED (row, unit) items, and the fixed tiles must fit the shared
+    memory; U's column slice (16 bytes per k row and unit, the units
+    padded to an odd count against bank conflicts) takes what is left, up
+    to all H rows."""
+    units = -(-h // cluster)
+    if units > THREADS or rows * units > MAX_OWNED * THREADS:
+        return None
+    ksplit, du_splits = 1, 1
+    if backward:
+        # two mbarriers; dz [units][R] float4; partial dh_carry
+        # [2][C][units][R]
+        fixed = 4 * (4 + 4 * units * rows
+                     + 2 * _round4(cluster * units * rows))
+        tiles = -(-h // DU_TILE) * -(-4 * h // DU_TILE)
+        du_splits = max(1, min(n * t // 256, 2 * sms // tiles))
+    else:
+        # k shares: a power of two, each of at least 8 k rows
+        while units * ksplit * 2 <= THREADS and ksplit * 2 <= max(1, h // 8):
+            ksplit *= 2
+        # two mbarriers; h [2][H][ldh] (rows padded by 4 from R = 8); k
+        # shares [ksplit][R*units + 1] float4; h_t [units][R]
+        ldh = rows + 4 if rows >= 8 else rows
+        fixed = 4 * (4 + 2 * _round4(h * ldh)
+                     + 4 * ksplit * (units * rows + 1)
+                     + _round4(units * rows))
+    if fixed > smem_limit:
+        return None
+    row = 16 * (units | 1)
+    k_smem = min(h, (smem_limit - fixed) // row)
+    return ScanPlan(rows, cluster, units, ksplit, k_smem,
+                    fixed + row * k_smem, -(-n // rows), du_splits)
+
+
+def plan_scan(n: int, t: int, h: int, *, backward: bool, sms: int,
+              smem_limit: int,
+              capacity: Callable[[int, int, int], int]) -> ScanPlan:
+    """The layout of K1 (``backward=False``) or K2's sweep at (N, T, H).
+    ``capacity(rows, cluster, smem)`` is how many clusters of that kernel
+    the card runs at once (``cudaOccupancyMaxActiveClusters``). Tries 16
+    CTAs per cluster, then 8; at each, the fewest rows per block that put
+    every row block on the card at once (N=1: one cluster), else the most
+    the layout allows. Raises ValueError, with the reason, where no layout
+    takes the shape: the wrapper never falls back to the plain version."""
+    if min(n, t, h) <= 0:
+        raise ValueError(f"lstm_scan: empty shape N={n} T={t} H={h}")
+    why = []
+    for cluster in CLUSTER_SIZES:
+        best, fitted = None, False
+        for rows in ROW_BLOCKS:
+            lay = _layout(n, t, h, rows, cluster, backward, smem_limit, sms)
+            if lay is None:
+                continue
+            fitted = True
+            cap = capacity(rows, cluster, lay.smem)
+            if cap >= 1:
+                best = lay
+                if lay.blocks <= cap:
+                    break
+        if best is not None:
+            return best
+        why.append(f"clusters of {cluster} CTAs do not schedule" if fitted
+                   else f"{-(-h // cluster)} units per CTA at {cluster} CTAs "
+                   "per cluster do not fit a CTA")
+    raise ValueError(f"lstm_scan: no cluster layout for N={n} T={t} H={h}: "
+                     + "; ".join(why))
+
+
+_capacity: Dict[tuple, int] = {}
+_plans: Dict[tuple, ScanPlan] = {}
+
+
+def _card_plan(lib, query: str, n: int, t: int, h: int, backward: bool,
+               dev: torch.device) -> ScanPlan:
+    """:func:`plan_scan` on this card, the cluster capacities asked of
+    ``cudaOccupancyMaxActiveClusters`` once each (a query that fails
+    raises with its CUDA error)."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    # K1's layout does not depend on T (K2's dU ranges do): one entry per
+    # batch size and width, however many sequence lengths a server sees
+    key = (query, index, n, t if backward else None, h)
+    if key in _plans:
+        return _plans[key]
+    props = torch.cuda.get_device_properties(index)
+
+    def capacity(rows, cluster, smem):
+        ck = (query, index, rows, cluster, smem)
+        if ck not in _capacity:
+            got = getattr(lib, query)(rows, cluster, smem, index)
+            if got < 0:
+                build.check(lib, -got, f"{query}({rows} rows, cluster "
+                            f"{cluster}, {smem} bytes)")
+            _capacity[ck] = got
+        return _capacity[ck]
+
+    plan = plan_scan(n, t, h, backward=backward,
+                     sms=props.multi_processor_count,
+                     smem_limit=getattr(props, "shared_memory_per_block_optin",
+                                        SMEM_OPTIN_H100),
+                     capacity=capacity)
+    _plans[key] = plan
+    return plan
 
 
 def _card_inputs(what, xproj, u, p, h0, c0, extra=()):
@@ -108,7 +238,7 @@ def _card_inputs(what, xproj, u, p, h0, c0, extra=()):
     ``(name, tensor, shape_of(N, T, H))``) and cast every tensor to f32:
     xproj keeps its strides when its last axis is unit-stride, the rest
     are made contiguous. Returns the f32 tensors in order, then
-    (N, T, H, units per CTA)."""
+    (N, T, H)."""
     if xproj.dim() != 3 or xproj.shape[-1] % 4:
         raise ValueError(f"{what}: xproj {tuple(xproj.shape)} is not "
                          "[N, T, 4H]")
@@ -132,9 +262,7 @@ def _card_inputs(what, xproj, u, p, h0, c0, extra=()):
     if xproj.stride(-1) != 1:
         xproj = xproj.contiguous()
     rest = [x.to(f32).contiguous() for _, x, _ in named]
-    upb = units_per_cta(h, torch.cuda.get_device_properties(xproj.device)
-                        .multi_processor_count)
-    return [xproj] + rest + [n, t, h, upb]
+    return [xproj] + rest + [n, t, h]
 
 
 def lstm_scan(xproj, u, p, h0, c0, *, emit_cs: bool = False):
@@ -144,24 +272,23 @@ def lstm_scan(xproj, u, p, h0, c0, *, emit_cs: bool = False):
         return lstm_scan_plain(xproj, u, p, h0, c0, emit_cs=emit_cs)
     if xproj.device.type != "cuda":
         raise ValueError(f"lstm_scan: unsupported device {xproj.device}")
-    xproj, u, p, h0, c0, n, t, h, upb = _card_inputs(
+    xproj, u, p, h0, c0, n, t, h = _card_inputs(
         "lstm_scan", xproj, u, p, h0, c0)
     dev = xproj.device
     f32 = torch.float32
-    hbuf = torch.empty((2, h, n), dtype=f32, device=dev)
-    cbuf = torch.empty((h, n), dtype=f32, device=dev)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lib = build.load("lstm_scan", _SIGNATURE)
+    pl = _card_plan(lib, "lstm_scan_fwd_clusters", n, t, h, False, dev)
     hs = torch.empty((n, t, h), dtype=f32, device=dev)
     h_t = torch.empty((n, h), dtype=f32, device=dev)
     c_t = torch.empty((n, h), dtype=f32, device=dev)
     cs = torch.empty((t, n, h), dtype=f32, device=dev) if emit_cs else None
-    lib = build.load("lstm_scan", _SIGNATURE)
     rc = lib.lstm_scan_fwd(
         xproj.data_ptr(), xproj.stride(0), xproj.stride(1), u.data_ptr(),
-        p.data_ptr(), h0.data_ptr(), c0.data_ptr(), hbuf.data_ptr(),
-        cbuf.data_ptr(), hs.data_ptr(), h_t.data_ptr(), c_t.data_ptr(),
-        cs.data_ptr() if cs is not None else None, counter.data_ptr(),
-        n, t, h, upb, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        p.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        h_t.data_ptr(), c_t.data_ptr(),
+        cs.data_ptr() if cs is not None else None, n, t, h, pl.rows,
+        pl.cluster, pl.units, pl.ksplit, pl.k_smem, pl.smem, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "lstm_scan")
     lstm_scan.launches += 1
     return hs, h_t, c_t, cs
@@ -223,8 +350,8 @@ def lstm_scan_bwd(xproj, u, p, h0, c0, cs, hs, dhs, dh_t, dc_t):
                                    dc_t)
     if xproj.device.type != "cuda":
         raise ValueError(f"lstm_scan_bwd: unsupported device {xproj.device}")
-    (xproj, u, p, h0, c0, cs, hs, dhs, dh_t, dc_t, n, t, h,
-     upb) = _card_inputs("lstm_scan_bwd", xproj, u, p, h0, c0, extra=(
+    (xproj, u, p, h0, c0, cs, hs, dhs, dh_t, dc_t, n, t,
+     h) = _card_inputs("lstm_scan_bwd", xproj, u, p, h0, c0, extra=(
          ("cs", cs, lambda n, t, h: (t, n, h)),
          ("hs", hs, lambda n, t, h: (n, t, h)),
          ("dhs", dhs, lambda n, t, h: (n, t, h)),
@@ -237,17 +364,19 @@ def lstm_scan_bwd(xproj, u, p, h0, c0, cs, hs, dhs, dh_t, dc_t):
     dp = torch.empty((3, h), dtype=f32, device=dev)
     dh0 = torch.empty((n, h), dtype=f32, device=dev)
     dc0 = torch.empty((n, h), dtype=f32, device=dev)
-    dzbuf = torch.empty((2, h, n, 4), dtype=f32, device=dev)
-    dhc = torch.empty((h, n), dtype=f32, device=dev)
-    dcc = torch.empty((h, n), dtype=f32, device=dev)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = build.load("lstm_scan_bwd", _BWD_SIGNATURE)
+    pl = _card_plan(lib, "lstm_scan_bwd_clusters", n, t, h, True, dev)
+    # the dU product's per-range slices, and each row's dp sums
+    ws = (torch.empty((pl.du_splits, h, 4 * h), dtype=f32, device=dev)
+          if pl.du_splits > 1 else None)
+    dpp = torch.empty((n, 3, h), dtype=f32, device=dev)
     rc = lib.lstm_scan_bwd(
         xproj.data_ptr(), xproj.stride(0), xproj.stride(1),
         *(x.data_ptr() for x in (u, p, h0, c0, cs, hs, dhs, dh_t, dc_t,
-                                 dxproj, du, dp, dh0, dc0, dzbuf, dhc, dcc,
-                                 counter)),
-        n, t, h, upb, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                                 dxproj, du, dp, dh0, dc0)),
+        ws.data_ptr() if ws is not None else None, dpp.data_ptr(),
+        n, t, h, pl.rows, pl.cluster, pl.units, pl.k_smem, pl.smem,
+        pl.du_splits, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, rc, "lstm_scan_bwd")
     lstm_scan_bwd.launches += 1
     return dxproj, du, dp, dh0, dc0

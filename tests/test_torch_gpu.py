@@ -12,9 +12,11 @@ machine does not have; the files that compare against JAX skip there).
 Tolerances: f32 inputs 1e-4 abs, bf16 inputs 2e-2 abs on flash O (f32
 math, O rounded to bf16), 1e-3 abs on lse and on paged attention's f32
 output, 1e-4 abs on every output of the LSTM scan (f32 math, sums in
-another order than the plain version's matmul). The LSTM backward: 1e-4
-abs on dxproj, dh0 and dc0, and 1e-4 of the largest entry on dU and dp,
-which sum N*T products. A full-width char-RNN fit on the card against
+another order than the plain version's matmul), two launches bit-equal,
+a partial last row block, and a shape the layout planner refuses raising
+through the wrapper. The LSTM backward: 1e-4 abs on dxproj, dh0 and dc0,
+and 1e-4 of the largest entry on dU and dp, which sum N*T products; two
+launches bit-equal. A full-width char-RNN fit on the card against
 the same fit on the CPU: see that test. The SGNS step (K3): within 1e-5
 of the largest entry of each table's update of the plain step run in
 f64 on the same inputs (K3's float atomics add in another order; the
@@ -289,10 +291,54 @@ def test_lstm_scan_refuses_what_the_kernel_does_not_take():
     x, u, p, h0, c0 = _lstm_args(2, 2, 8, 16, dev)
     with pytest.raises(ValueError, match="expected"):
         port_lstm.lstm_scan(x, u[:, :32], p, h0, c0)
-    with pytest.raises(ValueError, match="units per CTA"):
-        big = 8 * torch.cuda.get_device_properties(dev) \
-            .multi_processor_count + 8
-        port_lstm.lstm_scan(*_lstm_args(3, 1, 8, big, dev))
+    # H=4100: 257 units per CTA at 16 CTAs per cluster, 513 at 8; the
+    # planner finds no layout and the wrapper raises with its reason
+    big = 4100
+    zeros = [torch.zeros(s, device=dev) for s in (
+        (1, 8, 4 * big), (big, 4 * big), (3, big), (1, big), (1, big))]
+    with pytest.raises(ValueError, match="no cluster layout"):
+        port_lstm.lstm_scan(*zeros)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit_cs", [False, True])
+@pytest.mark.parametrize("n,t,h", [(1, 8, 200), (64, 100, 200),
+                                   (32, 50, 200), (70, 9, 300),
+                                   (5, 20, 1000)])
+def test_lstm_scan_two_launches_give_the_same_bits_on_card(n, t, h,
+                                                           emit_cs):
+    """K1 sums its k shares in a fixed order: no atomics, the same bits."""
+    dev = _need_card()
+    args = _lstm_args(n + t + h, n, t, h, dev)
+    out = port_lstm.lstm_scan(*args, emit_cs=emit_cs)
+    again = port_lstm.lstm_scan(*args, emit_cs=emit_cs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again)
+               if a is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [37, 97])
+def test_lstm_scans_with_a_partial_row_block_on_card(n):
+    """A batch whose last row block is partial: the rows past N are zeros
+    in the cluster's tiles and are never written out."""
+    dev = _need_card()
+    lib = port_lstm.build.load("lstm_scan", port_lstm._SIGNATURE)
+    pl = port_lstm._card_plan(lib, "lstm_scan_fwd_clusters", n, 12, 200,
+                              False, dev)
+    assert n % pl.rows != 0
+    args = _lstm_args(n, n, 12, 200, dev)
+    out = port_lstm.lstm_scan(*args, emit_cs=True)
+    ref = port_lstm.lstm_scan_plain(*args, emit_cs=True)
+    for a, b in zip(out, ref):
+        assert (a - b).abs().max().item() < 1e-4
+    bwd = _bwd_args(n, n, 12, 200, dev)
+    lib = port_lstm.build.load("lstm_scan_bwd", port_lstm._BWD_SIGNATURE)
+    pl = port_lstm._card_plan(lib, "lstm_scan_bwd_clusters", n, 12, 200,
+                              True, dev)
+    assert n % pl.rows != 0
+    got = port_lstm.lstm_scan_bwd(*bwd)
+    assert max(_bwd_errors(got, port_lstm.lstm_scan_bwd_plain(*bwd))) < 1e-4
 
 
 @pytest.mark.gpu
@@ -356,8 +402,9 @@ def _bwd_errors(out, ref):
                                    (70, 9, 300), (64, 100, 200),
                                    (32, 128, 128), (5, 12, 270)])
 def test_lstm_scan_bwd_kernel_matches_plain_on_card(n, t, h):
-    """(5, 12, 270): 4 units per CTA, the last CTA holds 2 (H % 4 != 0);
-    (70, 9, 300): two rounds of batch rows, the second partial."""
+    """(5, 12, 270): 17 units per CTA, the last CTA of each cluster holds
+    15 (H % 16 != 0); (70, 9, 300): 16-row blocks, the last partial;
+    (32, 128, 128): 16 ranges of rows in the dU product."""
     dev = _need_card()
     args = _bwd_args(n + t + h, n, t, h, dev)
     before = port_lstm.lstm_scan_bwd.launches

@@ -32,7 +32,10 @@ against the JAX function the TPU kernel implements:
     order), f64 against the f64 vjp at 1e-12. ``LstmScanFn`` passes
     ``torch.autograd.gradcheck`` in f64 and its gradients equal autograd
     through the plain forward at 1e-10 (f64), with and without cotangents
-    on h_T and c_T.
+    on h_T and c_T. The cards' layout planner for K1 and K2
+    (``plan_scan``: rows per cluster, cluster size, units per CTA, U rows
+    in shared memory, shared-memory bytes) at the paths' shapes, N=1,
+    ragged N and H, H=1000, the largest shape class, and its refusals.
   * K3 SGNS step — the port's plain step (``ops/sgns.sgns_step_plain``)
     against ``nlp/word2vec._neg_body`` in f32 at 1e-6 abs (the TPU kernel
     ``sgns_fused_step`` does not run on the installed jax, so its own
@@ -309,16 +312,87 @@ class TestLstmScanPlainAgainstJax:
         assert port_lstm.lstm_scan.launches == kern
         assert port_lstm.lstm_scan_plain.launches == plain + 1
 
-    @pytest.mark.parametrize("h,sms,upb", [(200, 132, 2), (128, 132, 1),
-                                           (256, 132, 2), (512, 132, 4),
-                                           (16, 132, 1), (1056, 132, 8)])
-    def test_units_per_cta_fits_the_grid_on_the_sms(self, h, sms, upb):
-        assert port_lstm.units_per_cta(h, sms) == upb
-        assert -(-h // upb) <= sms
 
-    def test_units_per_cta_refuses_what_no_grid_holds(self):
-        with pytest.raises(ValueError, match="units per CTA"):
-            port_lstm.units_per_cta(1057, 132)
+
+def _h100_capacity(rows, cluster, smem):
+    """A stand-in for cudaOccupancyMaxActiveClusters on an H100, one CTA
+    per SM: 8 clusters of 16 CTAs, 16 of 8."""
+    return 128 // cluster
+
+
+def _plan(n, t, h, backward, capacity=_h100_capacity):
+    return port_lstm.plan_scan(n, t, h, backward=backward, sms=132,
+                               smem_limit=port_lstm.SMEM_OPTIN_H100,
+                               capacity=capacity)
+
+
+class TestScanPlan:
+    """The kernels' layout planner (K1 and K2's sweep), a plain function."""
+
+    @pytest.mark.parametrize("n,t,h,backward,rows,k_smem", [
+        (64, 100, 200, False, 8, 200),   # /predict at batch 64: 8 x 16 CTAs
+        (32, 50, 200, False, 4, 200),    # a training window's forward
+        (32, 50, 200, True, 4, 200),     # and its backward
+        (1, 8, 200, False, 1, 200),      # one row: one cluster
+        (1, 8, 200, True, 1, 200),
+        (70, 9, 300, False, 16, 300),    # ragged N: a partial row block
+        (5, 12, 270, True, 1, 270),      # ragged H: the last CTA holds 14
+        (5, 20, 1000, False, 1, 218),    # U's slice partly in L2
+        (5, 20, 1000, True, 1, 221),
+        (128, 512, 512, False, 16, 156),  # the largest shape class
+        (128, 512, 512, True, 16, 300),
+    ])
+    def test_plan_at_the_paths_shapes(self, n, t, h, backward, rows,
+                                      k_smem):
+        pl = _plan(n, t, h, backward)
+        assert (pl.rows, pl.k_smem) == (rows, k_smem)
+        assert pl.rows in port_lstm.ROW_BLOCKS and pl.cluster == 16
+        assert pl.units == -(-h // 16) and pl.units * pl.cluster >= h
+        assert pl.blocks == -(-n // pl.rows)
+        assert pl.blocks <= _h100_capacity(pl.rows, pl.cluster, pl.smem)
+        assert pl.rows * pl.units <= port_lstm.MAX_OWNED * port_lstm.THREADS
+        assert pl.smem <= port_lstm.SMEM_OPTIN_H100
+        assert (pl.ksplit == 1) == backward or pl.units * 2 > 256
+        assert pl.units * pl.ksplit <= port_lstm.THREADS
+        assert (pl.du_splits >= 1) and (pl.du_splits == 1 or backward)
+
+    def test_shared_memory_count_matches_the_kernels_layout(self):
+        pl = _plan(64, 100, 200, False)
+        # two 8-byte mbarriers, U's slice, then the kernel's tiles: h rows
+        # of 8 padded to 12, each of the 16 k shares one float4 longer
+        hbuf, red, hst = 2 * 200 * 12, 4 * 16 * (13 * 8 + 1), 13 * 8
+        assert pl.smem == 16 + 4 * (4 * 200 * 13 + hbuf + red + hst)
+        pl = _plan(32, 50, 200, True)
+        dz, rb = 4 * 13 * 4, 2 * 16 * 13 * 4
+        assert pl.smem == 16 + 4 * (4 * 200 * 13 + dz + rb)
+        assert pl.du_splits == 5  # 52 tiles of dU x 5 ranges of 320 rows
+        # 16 units a CTA: U's rows padded to 17 float4s (odd: no bank
+        # conflicts between the k-share lanes)
+        pl = _plan(32, 128, 256, True)
+        assert (pl.units, pl.rows, pl.k_smem) == (16, 4, 256)
+        dz, rb = 4 * 16 * 4, 2 * 16 * 16 * 4
+        assert pl.smem == 16 + 4 * (4 * 256 * 17 + dz + rb)
+
+    def test_clusters_of_8_where_16_do_not_schedule(self):
+        pl = _plan(64, 100, 200, False,
+                   capacity=lambda r, c, s: 0 if c == 16 else 16)
+        assert (pl.cluster, pl.units, pl.rows, pl.blocks) == (8, 25, 4, 16)
+
+    def test_more_rows_per_block_where_fewer_clusters_fit(self):
+        pl = _plan(64, 100, 200, False, capacity=lambda r, c, s: 4)
+        assert (pl.rows, pl.blocks) == (16, 4)
+        # past 16 rows per block, row blocks run in waves
+        pl = _plan(1000, 10, 200, True, capacity=lambda r, c, s: 4)
+        assert (pl.rows, pl.blocks) == (16, 63)
+
+    @pytest.mark.parametrize("h,capacity,why", [
+        (4100, _h100_capacity, "257 units per CTA"),
+        (200, lambda r, c, s: 0, "do not schedule"),
+    ])
+    def test_refuses_what_no_cluster_takes(self, h, capacity, why):
+        with pytest.raises(ValueError, match="no cluster layout") as err:
+            _plan(1, 8, h, False, capacity=capacity)
+        assert why in str(err.value)
 
 
 # ---------------------------------------------------------------------------
