@@ -52,8 +52,9 @@ What it does, in order (any failure raises and exits non-zero):
    dead negatives and pairs, against the plain step run in f64 on the
    same inputs (its f32 run on the card adds with atomics onto the
    tables and drifts past the bar itself): max error <= 1e-5 of the
-   largest entry of each table's update, two launches within the same
-   bar (float atomics), and every row no live pair touches bit-equal;
+   largest entry of each table's update, two launches bit-equal (each
+   row's hits summed in batch order, no float atomics), and every row no
+   live pair touches bit-equal;
    K5, flash attention with a key bias and a visibility offset, at (a)
    the ring-local shape of ``bench.py:522`` (N=1, T=4096, H=8, D=64,
    bf16, offset 0), (b) the masked shape of ``bench.py:581`` (N=4,
@@ -140,14 +141,21 @@ What it does, in order (any failure raises and exits non-zero):
    that the negative-sampling margin (``ns_margin``: how far syn1neg,
    which only K3 writes, scores the pairs above the negatives) is at
    least half the rehearsal's (``W2V_NS_MARGIN_CPU``), that ``save_word2vec`` then ``load_word2vec`` gives bit-equal tables,
-   and that 16 batches through K3 agree with the same batches through the
+   that the fit's skip-gram chunks ran as CUDA graph replays, and that
+   16 batches through K3 agree with the same batches through the
    plain step (same draws; f64, rounded once per batch; the HS ops
-   deterministic in both runs) within 1e-5 of the largest update. It times
-   the host's vocabulary, Huffman and pair assembly, the device loop
-   (skip-gram pairs/s, ``bench.py:3445``'s metric), K3 at both shapes and
-   at B=1 (its floor) beside its plain version and bound, breaks 16
-   batches down with ``torch.profiler`` (K3, the draws, the HS and glue
-   ops, the host gaps) and reports the phase's peak device memory;
+   deterministic in both runs) within 1e-5 of the largest update, and
+   the same 16 batches replayed as one graph with the eager loop (bit-
+   equal where the graph captures under ``use_deterministic_algorithms``,
+   else within 1e-5 of each table's change). It times the host's
+   vocabulary, Huffman and pair assembly, the device loop (skip-gram
+   pairs/s, ``bench.py:3445``'s metric, with the graphs' captures and
+   without), K3 at both shapes, at V=64 and at B=1 (its floor) beside its
+   plain version and bound (device time behind a sleep kernel, back to
+   back, and each launch from ``torch.profiler``), breaks 16 batches
+   down, eager and replayed, with ``torch.profiler`` (K3, the draws, the
+   HS and glue ops, the host gaps; K3's two kernels once per batch in the
+   trace and on the counter) and reports the phase's peak device memory;
 9. joins a world-1 NCCL group (``parallel/mesh.init_seq_group``) and
    runs ``ring_forward`` on the bench transformer (as in 4, at max_len
    4096) at N=1, T=4096, bf16: finite logits within 5e-2 of ``forward``
@@ -213,7 +221,9 @@ from deeplearning4j_tpu_torch.nlp.serializer import (  # noqa: E402
     save_word2vec,
 )
 from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: E402
+    SkipgramGraphs,
     Word2Vec,
+    replay_draw,
     skipgram_batches,
     unigram_draw,
 )
@@ -246,6 +256,8 @@ from deeplearning4j_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.sgns import (  # noqa: E402
+    WARP_HITS,
+    hit_lists,
     sgns_step,
     sgns_step_plain,
 )
@@ -306,7 +318,7 @@ TRAIN_LR = 0.003
 # K3: the smoke's word2vec (V, D, B, K+1), then the hot class of
 # bench.py:764 (its shape only)
 SGNS_SHAPES = ((71290, 128, 2048, 6), (100_000, 100, 1024, 6))
-TOL_SGNS = 1e-5  # of the largest entry of each table's update (atomics)
+TOL_SGNS = 1e-5  # of the largest entry of each table's update (f32 sums)
 # word2vec: bench.py:3433's model (layer 128, window 5, 5 negatives, batch
 # 2048, 1 epoch) at min count 5, the cut that gives text8's 71,290 words
 W2V_VOCAB, W2V_TOPICS, W2V_SENT, W2V_SENTENCES = 71290, 100, 100, 10_000
@@ -1272,6 +1284,15 @@ def sgns_bound(syn0, syn1neg, cx, tgt, labels, live):
                  PEAK_F32_FLOPS) + (per_entry, n0, n1)
 
 
+def hottest_rows(cx, tgt, live):
+    """(most hits on one syn0 row, on one syn1neg row, rows of more than
+    WARP_HITS hits: those a CTA of K3 sums) of a batch, from hit_lists."""
+    lists = hit_lists(cx, tgt, live)
+    n = [torch.diff(starts) for _, starts, _ in lists]
+    return (int(n[0].max()), int(n[1].max()),
+            int(sum((x > WARP_HITS).sum().item() for x in n)))
+
+
 def phase_kernels_sgns(seed: int, dev):
     print("== K3 (SGNS step) against its plain version ==")
     v, d, b, k1 = SGNS_SHAPES[0]
@@ -1285,22 +1306,23 @@ def phase_kernels_sgns(seed: int, dev):
         args = sgns_inputs(v, d, b, k1, seed, dev, **kw)
         errs, kept, first = sgns_errors(*args)
         again = sgns_errors(*args)[2]
-        rep = max((x - y).abs().max().item() / max(
-            (y - o).abs().max().item(), 1e-30)
-            for x, y, o in zip(again, first, args[:2]))
+        same = all(torch.equal(x, y) for x, y in zip(again, first))
         dots = torch.einsum("bd,bkd->bk", args[0][args[2]], args[1][args[3]])
         sat = (dots.abs() > 6.0).float().mean().item()
+        hot0, hot1, n_cta = hottest_rows(args[2], args[3], args[5])
         print(f"sgns_step {name} (V={v} D={d} B={b} K+1={k1}): "
               f"max err / max update syn0 {errs[0]:.3e}, syn1neg "
               f"{errs[1]:.3e} (tol {TOL_SGNS}); untouched rows bit-equal: "
-              f"{kept}; two launches {rep:.3e} apart; |dot| > 6 for "
-              f"{sat:.1%} of the entries")
-        check(max(errs) <= TOL_SGNS and rep <= TOL_SGNS,
+              f"{kept}; two launches bit-equal: {same}; |dot| > 6 for "
+              f"{sat:.1%} of the entries; hottest rows {hot0} (syn0) and "
+              f"{hot1} (syn1neg) hits, {n_cta} rows of more than {WARP_HITS}")
+        check(max(errs) <= TOL_SGNS,
               f"sgns_step disagrees with its plain version ({name})")
+        check(same, f"two sgns_step launches differ ({name})")
         check(kept, f"sgns_step moved a row no live pair touches ({name})")
         if "scale" in kw:
             check(sat > 0.1, "the saturation case saturates nothing")
-        worst = max(worst, *errs, rep)
+        worst = max(worst, *errs)
     return {"sgns_step": {"max_err": worst}}
 
 
@@ -1423,18 +1445,35 @@ def w2v_chunk(model: Word2Vec, corpus, seed: int, dev, n_batches: int = 16):
             "draws": draws, "table": table}
 
 
+def chunk_tables(model: Word2Vec, dev):
+    """Device copies of the model's syn0, syn1 and syn1neg."""
+    lt = model.lookup_table
+    return tuple(torch.tensor(a, device=dev)
+                 for a in (lt.syn0, lt.syn1, lt.syn1neg))
+
+
 def run_chunk(model: Word2Vec, chunk, ns_step, draw=None, tables=None):
-    """The chunk's batches on ``tables``, by default device copies of the
-    model's."""
+    """The chunk's batches in an eager loop of ``skipgram_step`` on
+    ``tables``, by default device copies of the model's."""
     if tables is None:
-        lt = model.lookup_table
-        tables = tuple(torch.from_numpy(a).to(chunk["table"].device)
-                       for a in (lt.syn0, lt.syn1, lt.syn1neg))
+        tables = chunk_tables(model, chunk["table"].device)
     skipgram_batches(tables, chunk["huffman"], chunk["cens"], chunk["cxs"],
                      chunk["plive"], chunk["alphas"], negative=W2V_NEG,
-                     draw=draw or (lambda i: chunk["draws"][i]),
+                     draw=draw or replay_draw(chunk["draws"]),
                      ns_step=ns_step)
     return tables
+
+
+def chunk_graph(model: Word2Vec, chunk, draw=None, tables=None):
+    """The chunk's batches captured as one CUDA graph (the fit's path) on
+    ``tables``; returns the tables and the runner, whose ``run`` replays
+    the chunk again."""
+    if tables is None:
+        tables = chunk_tables(model, chunk["table"].device)
+    runner = SkipgramGraphs(tables, chunk["huffman"], W2V_BATCH, W2V_NEG,
+                            draw or replay_draw(chunk["draws"]))
+    runner.run(chunk["cens"], chunk["cxs"], chunk["plive"], chunk["alphas"])
+    return tables, runner
 
 
 def phase_word2vec(seed: int, dev):
@@ -1471,8 +1510,14 @@ def phase_word2vec(seed: int, dev):
           f"(host), device loop {st['loop_s']:.3f} s: {pairs_per_s:.0f} "
           f"pairs/s; whole fit {fit_s:.3f} s; device memory at its peak "
           f"{peak / 2**20:.1f} MiB above the earlier phases' tensors")
-    print(f"launches over the fit: {counts}")
+    print(f"launches over the fit: {counts}; CUDA graphs: "
+          f"{st['graph_captures']} captured in {st['graph_capture_s']:.3f} s "
+          f"(in the device loop), {st['graph_replays']} replays; "
+          f"{st['examples'] / (st['loop_s'] - st['graph_capture_s']):.0f} "
+          f"pairs/s after the captures")
     lt = model.lookup_table
+    check(st["graph_replays"] > 0 and st["graph_captures"] > 0,
+          "the fit's skip-gram chunks did not run as CUDA graph replays")
     check(all(np.isfinite(a).all() for a in (lt.syn0, lt.syn1, lt.syn1neg)),
           "a word2vec table is not finite")
     check(counts["sgns_step"] == st["batches"]
@@ -1504,30 +1549,54 @@ def phase_word2vec(seed: int, dev):
     check(margin >= W2V_NS_MARGIN_CPU / 2,
           "the negative-sampling margin is less than half the CPU "
           "rehearsal's: syn1neg did not learn the pairs")
-    before = [torch.from_numpy(a).to(dev) for a in (lt.syn0, lt.syn1,
-                                                     lt.syn1neg)]
-    # the HS ops' index_add_ adds with atomics in any order unless torch
-    # is told to be deterministic: both runs then take the same HS path
-    # and differ by the NS step only
+    before = chunk_tables(model, dev)
+    # the chunk three ways on copies of the same tables with the same
+    # draws: replayed as a graph, eagerly, and through the plain step in
+    # f64. Under torch.use_deterministic_algorithms the HS ops' index_add_
+    # adds in a fixed order, so graph and eager can give the same bits and
+    # K3 against the plain step differs by the NS step only
+    det_error = None
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
+            try:
+                graph = chunk_graph(model, chunk)[0]
+            except RuntimeError as e:  # reported; the graph is retried below
+                det_error = f"{type(e).__name__}: {str(e)[:200]}"
             got = run_chunk(model, chunk, sgns_step)
             want = run_chunk(model, chunk, plain_step_f64)
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-    chunk_err = [(a - b).abs().max().item()
-                 / max((b - o).abs().max().item(), 1e-30)
-                 for a, b, o in zip(got, want, before)]
+    if det_error is not None:
+        graph = chunk_graph(model, chunk)[0]
+        torch.cuda.synchronize()
+    rel = lambda xs, ys: [(a.double() - b.double()).abs().max().item()
+                          / max((b.double() - o.double()).abs().max().item(),
+                                1e-30) for a, b, o in zip(xs, ys, before)]
+    chunk_err = rel(got, want)
+    graph_err = rel(graph, got)
+    graph_same = all(torch.equal(a, b) for a, b in zip(graph, got))
     print(f"16 batches through K3 vs the plain step (f64, rounded once) on "
           f"the card, same draws:"
           f" max err / max update syn0 {chunk_err[0]:.3e}, syn1 "
           f"{chunk_err[1]:.3e}, syn1neg {chunk_err[2]:.3e} (tol {TOL_SGNS})")
+    print("the same 16 batches replayed as one CUDA graph vs the eager loop"
+          + (" (both deterministic)" if det_error is None else
+             f" (the graph not deterministic: its capture under "
+             f"use_deterministic_algorithms raised {det_error})")
+          + f": bit-equal {graph_same}; max diff / max update syn0 "
+          f"{graph_err[0]:.3e}, syn1 {graph_err[1]:.3e}, syn1neg "
+          f"{graph_err[2]:.3e}")
     check(max(chunk_err) <= TOL_SGNS,
           "a chunk through K3 disagrees with the same chunk through the "
           "plain step")
+    if det_error is None:
+        check(graph_same, "the replayed chunk differs from the eager loop "
+              "under deterministic algorithms")
+    check(max(graph_err) <= TOL_SGNS,
+          "the replayed chunk disagrees with the eager loop")
     return model, chunk, {
         "tokens": n_tokens, "sentences": len(corpus),
         "vocab": model.vocab_size(), "huffman_depth": depth,
@@ -1536,8 +1605,34 @@ def phase_word2vec(seed: int, dev):
         "pairs": st["examples"], "batches": st["batches"],
         "pairs_per_s": pairs_per_s, "fit_s": fit_s, "launches": counts,
         "topic_agreement": agreement, "ns_margin": margin,
-        "chunk_max_err": max(chunk_err),
+        "chunk_max_err": max(chunk_err), "graph_vs_eager": dict(
+            bit_equal=graph_same, max_err=max(graph_err),
+            deterministic=det_error is None, capture_error=det_error),
+        "graph_captures": st["graph_captures"],
+        "graph_capture_s": st["graph_capture_s"],
+        "graph_replays": st["graph_replays"],
+        "pairs_per_s_after_capture":
+            st["examples"] / (st["loop_s"] - st["graph_capture_s"]),
         "phase_memory_bytes": peak}
+
+
+def chunk_profile(fn, wall: float):
+    """The kernels of one call of ``fn`` (a 16-batch chunk) by group from
+    torch.profiler, the host gaps beside ``wall`` ms, and K3's launches
+    in the trace."""
+    busy, rows = profile_ms(fn, n=2)
+    groups = {"K3 sgns kernels": 0.0, "draws (randint)": 0.0,
+              "HS and glue ops": 0.0}
+    k3 = 0.0
+    for ms_, calls, name in rows:
+        key = ("K3 sgns kernels" if "sgns_" in name
+               else "draws (randint)" if "distribution" in name
+               or "random" in name.lower() or "philox" in name.lower()
+               else "HS and glue ops")
+        groups[key] += ms_
+        k3 += calls if "sgns_" in name else 0
+    groups["host gaps (wall - kernels)"] = wall - busy
+    return busy, rows, groups, k3
 
 
 def phase_times_word2vec(model: Word2Vec, chunk, seed: int, dev):
@@ -1551,68 +1646,90 @@ def phase_times_word2vec(model: Word2Vec, chunk, seed: int, dev):
             torch.cat([torch.ones((b, 1), device=dev),
                        (draws != cen[:, None]).float()], dim=1))
     lt = model.lookup_table
-    for v, d, bb, k1 in SGNS_SHAPES + ((SGNS_SHAPES[0][0], W2V_D, 1,
-                                        W2V_NEG + 1),):
+    for v, d, bb, k1 in SGNS_SHAPES + ((64, W2V_D, b, W2V_NEG + 1),
+                                       (SGNS_SHAPES[0][0], W2V_D, 1,
+                                        W2V_NEG + 1)):
         if (v, d, bb) == SGNS_SHAPES[0][:3]:  # the fit's own batch
             syn0, syn1neg = (torch.from_numpy(a).to(dev)
                              for a in (lt.syn0, lt.syn1neg))
             args = (syn0, syn1neg) + real
         else:
             args = sgns_inputs(v, d, bb, k1, seed, dev)
-        # back-to-back calls can be bound by the wrapper's host time, so
-        # the kernels' own device time comes from the profiler
+        # device time: the calls queued behind a sleep kernel; back to
+        # back: the wrapper's host time included; the profiler: each launch
+        ms = device_ms(lambda: sgns_step(*args, 0.0125), iters=50)
         call = time_ms(lambda: sgns_step(*args, 0.0125), iters=50)
-        ms, rows = profile_ms(lambda: sgns_step(*args, 0.0125), n=20)
+        busy, rows = profile_ms(lambda: sgns_step(*args, 0.0125), n=20)
         plain = time_ms(lambda: sgns_step_plain(*args, 0.0125), iters=10)
         b_ms, b_by, entry_ms, n0, n1 = sgns_bound(*args)
+        hot0, hot1, n_cta = hottest_rows(*args[2:4], args[5])
         key = f"{v}x{d}x{bb}x{k1}"
         res["sgns_step"][key] = dict(
-            ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, bound_per_entry_ms=entry_ms,
-            distinct_rows=[n0, n1],
+            ms=ms, events_ms=call, profiler_ms=busy,
+            launches_per_call=len(rows), plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, bound_per_entry_ms=entry_ms,
+            distinct_rows=[n0, n1], hottest_rows=[hot0, hot1],
+            rows_over_slots=n_cta,
             launches=[dict(ms=r[0], name=r[2][:80]) for r in rows])
-        print(f"sgns_step V={v} D={d} B={bb} K+1={k1}: {ms:.4f} ms of "
-              f"kernels per call (" + ", ".join(
-                  f"{short_name(r[2])} {r[0] * 1e3:.1f} us" for r in rows)
+        print(f"sgns_step V={v} D={d} B={bb} K+1={k1}: {ms:.4f} ms of device "
+              f"time per call, {len(rows)} launches ("
+              + ", ".join(f"{short_name(r[2])} {r[0] * 1e3:.1f} us"
+                          for r in rows)
               + f"), {call:.4f} ms per call back to back, plain "
               f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {n0} distinct "
-              f"syn0 rows, {n1} syn1neg rows of this batch; counted per "
-              f"entry {entry_ms:.5f} ms)")
+              f"syn0 rows, {n1} syn1neg rows of this batch, the hottest "
+              f"{hot0} and {hot1} hits, {n_cta} rows of more than "
+              f"{WARP_HITS}; "
+              f"counted per entry {entry_ms:.5f} ms)")
+    n = chunk["cens"].shape[0]
+    # the chunk eagerly (the fit's draws, from a generator) and replayed as
+    # one graph (the generator registered with it), on copies of the tables
+    loops = {}
     draw = unigram_draw(chunk["table"], W2V_NEG, b,
                         torch.Generator(device=dev).manual_seed(seed))
-    n = chunk["cens"].shape[0]
-    tables = tuple(torch.from_numpy(a).to(dev)
-                   for a in (lt.syn0, lt.syn1, lt.syn1neg))
-    loop = lambda: run_chunk(model, chunk, sgns_step, draw=draw,
-                             tables=tables)
-    loop()
-    torch.cuda.synchronize()
+    tables = chunk_tables(model, dev)
+    loops["eager"] = lambda: run_chunk(model, chunk, sgns_step, draw=draw,
+                                       tables=tables)
+    gdraw = unigram_draw(chunk["table"], W2V_NEG, b,
+                         torch.Generator(device=dev).manual_seed(seed))
+    gtables = chunk_tables(model, dev)
     t0 = time.perf_counter()
-    for _ in range(3):
-        loop()
+    runner = chunk_graph(model, chunk, draw=gdraw, tables=gtables)[1]
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
-    busy, rows = profile_ms(loop, n=2)
-    groups = {"K3 sgns kernels": 0.0, "draws (randint)": 0.0,
-              "HS and glue ops": 0.0}
-    for ms_, _, name in rows:
-        key = ("K3 sgns kernels" if "sgns_" in name
-               else "draws (randint)" if "distribution" in name
-               or "random" in name.lower() or "philox" in name.lower()
-               else "HS and glue ops")
-        groups[key] += ms_
-    groups["host gaps (wall - kernels)"] = wall - busy
-    res["main_path"]["chunk16"] = dict(
-        wall_ms=wall, device_busy_ms=busy, groups=groups,
-        pairs_per_s=n * b / wall * 1e3,
-        kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
-                 for r in rows[:16]])
-    print(f"16 batches (on a copy of the tables, the fit's draws): {wall:.3f} "
-          f"ms wall ({n * b / wall * 1e3:.0f} pairs/s), {busy:.3f} ms of "
-          f"kernels ({busy / wall:.1%}): " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in groups.items()))
-    for ms_, calls, name in rows[:16]:
-        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    capture_s = time.perf_counter() - t0
+    loops["graph"] = lambda: runner.run(chunk["cens"], chunk["cxs"],
+                                        chunk["plive"], chunk["alphas"])
+    for mode, loop in loops.items():
+        loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loop()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        before = sgns_step.launches
+        busy, rows, groups, k3 = chunk_profile(loop, wall)
+        counted = (sgns_step.launches - before) / 3
+        res["main_path"][f"chunk16_{mode}"] = dict(
+            wall_ms=wall, device_busy_ms=busy, groups=groups,
+            pairs_per_s=n * b / wall * 1e3, k3_kernels_in_trace=k3,
+            k3_launches_counted=counted,
+            kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                     for r in rows[:16]])
+        print(f"16 batches {mode} (on a copy of the tables, the fit's "
+              f"draws): {wall:.3f} ms wall ({n * b / wall * 1e3:.0f} pairs/s)"
+              f", {busy:.3f} ms of kernels ({busy / wall:.1%}): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in groups.items())
+              + f"; K3 kernels per chunk in the trace {k3:g}, K3 launches "
+              f"counted {counted:g}")
+        for ms_, calls, name in rows[:12]:
+            print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+        check(k3 == 2 * n and counted == n,
+              f"the {mode} chunk's trace or counter does not show K3 once "
+              f"per batch (two kernels a call)")
+    res["main_path"]["chunk16_graph"]["capture_s"] = capture_s
+    print(f"capturing the 16-batch graph (its first replay included): "
+          f"{capture_s:.3f} s")
     return res
 
 
@@ -2299,9 +2416,16 @@ def main(argv=None) -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "bound_per_entry_ms": k3["bound_per_entry_ms"],
-         "library_ms": None,
+         "library_ms": None, "events_ms": k3["events_ms"],
+         "launches_per_call": k3["launches_per_call"],
          "floor_ms": k3_floor["ms"],
-         "shape": "V={} D={} B={} K+1={} f32".format(*SGNS_SHAPES[0])},
+         "v64_ms": times["sgns_step"][f"64x{W2V_D}x{W2V_BATCH}x{W2V_NEG + 1}"]
+         ["ms"],
+         "shape": "V={} D={} B={} K+1={} f32".format(*SGNS_SHAPES[0]),
+         "design": "two launches: a warp per pair gathers into scratch and "
+                   "puts each hit on its row's owner (integer atomics); "
+                   "each owner sums its row's hits in batch order (its CTA "
+                   "for more than 32) and adds once; no float atomics"},
         {"name": "flash_attention_block", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention_ext.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:289",

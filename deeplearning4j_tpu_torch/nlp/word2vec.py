@@ -2,9 +2,8 @@
 ``deeplearning4j_tpu/nlp/word2vec.py`` — ``MAX_EXP``, ``_hs_body``,
 ``_cbow_body``, ``_skipgram_epoch``, ``_cbow_epoch`` and ``Word2Vec``).
 
-The JAX package runs each chunk of minibatches as one ``lax.scan``. The
-port runs the same minibatches in a Python loop of eager ops on the
-tables' device, updating syn0, syn1 and syn1neg in place:
+One skip-gram minibatch is :func:`skipgram_step`, in place on syn0, syn1
+and syn1neg:
 
 * hierarchical softmax on every batch (:func:`hs_body`: ``index_select``,
   ``einsum`` and ``index_add_``, XLA work in the JAX package as here);
@@ -13,21 +12,29 @@ tables' device, updating syn0, syn1 and syn1neg in place:
   its plain version on the CPU;
 * CBOW runs HS only (:func:`cbow_body`).
 
+The JAX package runs each chunk of minibatches as one jitted
+``lax.scan``. On the CPU the port loops over :func:`skipgram_step` in
+Python (:func:`skipgram_batches`). On the card a Python loop of ~30 eager
+launches a batch is bound by the host, so ``fit_tokens`` runs each chunk
+as one CUDA graph replay (:class:`SkipgramGraphs`), the counterpart of the
+scan; CBOW stays an eager loop.
+
 The vocabulary, Huffman tree, pairs, their permutation, the padding of the
 last batch (``pair_live = 0``) and the learning rate of each batch are the
 JAX package's, drawn from the same numpy stream, so both packages train on
 the same minibatches in the same order. Negatives are drawn on the device:
 the JAX package with ``jax.random``, the port with a ``torch.Generator``
 seeded from ``seed``. ``fit_tokens`` takes a ``draw`` callable instead,
-which is how a test replays the JAX draws. The tables, the Huffman tensors
-and the unigram table stay on the device for the whole fit; only the pairs
-go up, one chunk of batches per copy.
+which is how a test replays the JAX draws (:func:`replay_draw` replays
+fixed negatives on the card). The tables, the Huffman tensors and the
+unigram table stay on the device for the whole fit; only the pairs go up,
+one chunk of batches per copy.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,11 +46,19 @@ from deeplearning4j_tpu_torch.nlp.text import (
 )
 from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabConstructor
 from deeplearning4j_tpu_torch.ops.device import resolve_device
-from deeplearning4j_tpu_torch.ops.sgns import MAX_EXP, mean_scale, sgns_step
+from deeplearning4j_tpu_torch.ops.sgns import (
+    MAX_EXP,
+    mean_scale,
+    reserve,
+    sgns_step,
+)
 
-CHUNK_BATCHES = 128  # minibatches per host -> device copy of the pairs
+CHUNK_BATCHES = 128  # minibatches per host -> device copy, and per graph
 
-Draw = Callable[[int], torch.Tensor]
+# draw(global batch index) -> [B, K] int64 negatives on the tables' device;
+# the index is an int in an eager loop and a 0-d int64 tensor on the card
+# inside a captured chunk
+Draw = Callable[[Union[int, torch.Tensor]], torch.Tensor]
 
 
 def _hs_path(syn1, l1, points, codes, mask, alpha):
@@ -89,32 +104,156 @@ def cbow_body(syn0, syn1, ctx_idx, ctx_mask, points, codes, mask, alpha):
     return syn0, syn1
 
 
+def ns_constants(batch: int, negative: int, dtype, device):
+    """The NS step's labels [B, K+1] (1 in column 0, the centre word) and
+    the centre's liveness column [B, 1] of ones."""
+    labels = torch.zeros((batch, negative + 1), dtype=dtype, device=device)
+    labels[:, 0] = 1.0
+    return labels, torch.ones((batch, 1), dtype=dtype, device=device)
+
+
+def skipgram_step(tables, huffman, cen, cx, pl, alpha, negatives=None,
+                  labels=None, ones=None, ns_step=sgns_step) -> None:
+    """One skip-gram minibatch, in place (the body of ``_skipgram_epoch``'s
+    scan): HS along the Huffman paths of the centre words ``cen`` [B] for
+    the syn0 rows ``cx`` [B]; then, with ``negatives`` [B, K], the NS step
+    ``ns_step`` (``sgns_step``, or a plain version to compare against) on
+    the targets [cen, negatives], a negative equal to its centre dead.
+    ``pl`` [B] is the pairs' liveness, ``alpha`` the batch's rate (a 0-d
+    tensor or a float), ``labels`` and ``ones`` from :func:`ns_constants`."""
+    syn0, syn1, syn1neg = tables
+    P, C, M = huffman
+    hs_body(syn0, syn1, cx, P[cen], C[cen], M[cen] * pl[:, None], alpha)
+    if negatives is not None:
+        tgt = torch.cat([cen[:, None], negatives], dim=1)
+        live = torch.cat([ones, (negatives != cen[:, None]).to(syn0.dtype)],
+                         dim=1) * pl[:, None]
+        ns_step(syn0, syn1neg, cx, tgt, labels, live, alpha)
+
+
 def skipgram_batches(tables, huffman, cens, cxs, plive, alphas, *,
                      negative: int = 0, draw: Optional[Draw] = None,
                      first_index: int = 0, ns_step=sgns_step) -> None:
-    """Train on stacked skip-gram minibatches, in place (the body of
-    ``_skipgram_epoch``). ``tables`` = (syn0, syn1, syn1neg), ``huffman``
-    = (P, C, M) [V, L]; cens/cxs [NB, B] int64, plive [NB, B] and alphas
-    [NB], all on the tables' device. Batch j draws its negatives with
-    ``draw(first_index + j)`` -> [B, negative] words; ``ns_step`` is the
-    NS step (``sgns_step``, or its plain version to compare against)."""
-    syn0, syn1, syn1neg = tables
-    P, C, M = huffman
-    nb, b = cens.shape
-    if negative > 0:
-        labels = torch.zeros((b, negative + 1), dtype=syn0.dtype,
-                             device=syn0.device)
-        labels[:, 0] = 1.0
-        ones = torch.ones((b, 1), dtype=syn0.dtype, device=syn0.device)
-    for j in range(nb):
-        cen, cx, pl, alpha = cens[j], cxs[j], plive[j], alphas[j]
-        hs_body(syn0, syn1, cx, P[cen], C[cen], M[cen] * pl[:, None], alpha)
-        if negative > 0:
-            draws = draw(first_index + j)                 # [B, K]
-            tgt = torch.cat([cen[:, None], draws], dim=1)
-            live = torch.cat([ones, (draws != cen[:, None]).to(syn0.dtype)],
-                             dim=1) * pl[:, None]
-            ns_step(syn0, syn1neg, cx, tgt, labels, live, alpha)
+    """Train on stacked skip-gram minibatches, in place, in an eager loop
+    of :func:`skipgram_step` (the body of ``_skipgram_epoch``; the CPU's
+    path, and on the card the reference a graph replay is held to).
+    ``tables`` = (syn0, syn1, syn1neg), ``huffman`` = (P, C, M) [V, L];
+    cens/cxs [NB, B] int64, plive [NB, B] and alphas [NB], all on the
+    tables' device. Batch j draws its negatives with ``draw(first_index +
+    j)`` -> [B, negative] words."""
+    syn0 = tables[0]
+    consts = (ns_constants(cens.shape[1], negative, syn0.dtype, syn0.device)
+              if negative > 0 else (None, None))
+    for j in range(cens.shape[0]):
+        negatives = draw(first_index + j) if negative > 0 else None
+        skipgram_step(tables, huffman, cens[j], cxs[j], plive[j], alphas[j],
+                      negatives, *consts, ns_step=ns_step)
+
+
+class SkipgramGraphs:
+    """The card's skip-gram loop, the counterpart of ``_skipgram_epoch``'s
+    one ``lax.scan`` per chunk: a chunk of n batches runs as one CUDA graph
+    replay of n :func:`skipgram_step` calls. Each chunk length is captured
+    once, the first time it comes (``CHUNK_BATCHES``, and the shorter last
+    chunk of a phase), into graphs that share one memory pool; :meth:`run`
+    copies a chunk's pairs, liveness, rates and global batch indices into
+    the graph's static buffers and replays it.
+
+    The draw is captured as it is. It is called with the batch index as a
+    0-d int64 tensor on the card (:func:`replay_draw` reads fixed negatives
+    by it); a generator it carries as ``draw.generator``
+    (:func:`unigram_draw`) is registered with every graph, so each replay
+    advances it as the eager loop would and draws the same negatives.
+    Replays run K3's kernels without its Python wrapper, so :meth:`run`
+    adds the K3 calls captured in the chunk to ``sgns_step.launches``. No
+    fallback: a failed capture raises."""
+
+    def __init__(self, tables, huffman, batch: int, negative: int = 0,
+                 draw: Optional[Draw] = None):
+        self.tables, self.huffman = tables, huffman
+        self.device = tables[0].device
+        self.batch, self.negative, self.draw = batch, negative, draw
+        self.stream = torch.cuda.Stream(self.device)
+        self._graphs: dict = {}
+        self._pool = None
+        self.captures = self.replays = 0
+        self.capture_s = 0.0
+
+    def run(self, cens, cxs, plive, alphas, first_index: int = 0) -> None:
+        """Train on one chunk: cens/cxs [n, B] int64, plive [n, B], alphas
+        [n] (host or device tensors), batch j the global batch
+        ``first_index + j``."""
+        n = cens.shape[0]
+        if n not in self._graphs:
+            self._graphs[n] = self._capture(n)
+        graph, bufs, k3_calls = self._graphs[n]
+        index = torch.arange(first_index, first_index + n)
+        for buf, src in zip(bufs, (cens, cxs, plive, alphas, index)):
+            buf.copy_(src)
+        graph.replay()
+        self.replays += 1
+        sgns_step.launches += k3_calls
+
+    def _capture(self, n: int):
+        t0 = time.perf_counter()
+        dev, dtype = self.device, self.tables[0].dtype
+        bufs = (torch.zeros((n, self.batch), dtype=torch.int64, device=dev),
+                torch.zeros((n, self.batch), dtype=torch.int64, device=dev),
+                torch.zeros((n, self.batch), dtype=dtype, device=dev),
+                torch.zeros((n,), dtype=dtype, device=dev),
+                torch.zeros((n,), dtype=torch.int64, device=dev))
+        if not self._graphs:
+            self._warm_up()
+        graph = torch.cuda.CUDAGraph()
+        gen = getattr(self.draw, "generator", None)
+        if gen is not None:
+            graph.register_generator_state(gen)
+        captured = sgns_step.captured
+        with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
+            self._chunk(*bufs)
+        self._pool = graph.pool()
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return graph, bufs, sgns_step.captured - captured
+
+    def _chunk(self, cens, cxs, plive, alphas, index) -> None:
+        syn0 = self.tables[0]
+        consts = (ns_constants(self.batch, self.negative, syn0.dtype,
+                               self.device)
+                  if self.negative else (None, None))
+        for j in range(cens.shape[0]):
+            negatives = self.draw(index[j]) if self.negative else None
+            skipgram_step(self.tables, self.huffman, cens[j], cxs[j],
+                          plive[j], alphas[j], negatives, *consts)
+
+    def _warm_up(self) -> None:
+        """Before the first capture, on the capture stream: K3 readied
+        there (``ops.sgns.reserve``: its scratch, its kernels loaded), and
+        the PyTorch ops of one batch of the same shapes run on one-row
+        scratch tables with every pair dead, so every kernel and library
+        handle a capture meets exists already. K3 itself does not run (its
+        launch counter counts the fit's batches only), and no table, draw
+        or generator of the fit is touched."""
+        dev, b = self.device, self.batch
+        syn0, (P, C, M) = self.tables[0], self.huffman
+        d, width = syn0.shape[1], P.shape[1]
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            tables = tuple(torch.zeros((1, d), dtype=syn0.dtype, device=dev)
+                           for _ in range(3))
+            huffman = tuple(torch.zeros((1, width), dtype=x.dtype, device=dev)
+                            for x in (P, C, M))
+            rows = torch.zeros((b,), dtype=torch.int64, device=dev)
+            dead = torch.zeros((b,), dtype=syn0.dtype, device=dev)
+            negatives, consts = None, (None, None)
+            if self.negative:
+                reserve(dev, syn0.shape[0], d, b, self.negative + 1)
+                negatives = torch.zeros((b, self.negative), dtype=torch.int64,
+                                        device=dev)
+                consts = ns_constants(b, self.negative, syn0.dtype, dev)
+            skipgram_step(tables, huffman, rows, rows, dead, dead[0],
+                          negatives, *consts, ns_step=lambda *args: None)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
 
 
 def cbow_batches(tables, huffman, cens, ctxs, cmasks, plive, alphas) -> None:
@@ -132,10 +271,22 @@ def unigram_draw(table: torch.Tensor, negative: int, batch: int,
                  gen: torch.Generator) -> Draw:
     """Negatives from the device-resident unigram table: ``randint(0,
     table_size)`` with ``gen`` on the table's device, then a lookup."""
-    def draw(_batch_index: int) -> torch.Tensor:
+    def draw(_batch_index) -> torch.Tensor:
         idx = torch.randint(0, table.shape[0], (batch, negative),
                             generator=gen, device=table.device)
         return table[idx]
+    draw.generator = gen  # registered with the graphs that capture it
+    return draw
+
+
+def replay_draw(negatives: torch.Tensor) -> Draw:
+    """A draw of fixed negatives [N, B, K] by global batch index: an int
+    in an eager loop, a 0-d int64 tensor on the card in a captured chunk
+    (read on the device, so each replay takes its own batches')."""
+    def draw(index) -> torch.Tensor:
+        if isinstance(index, torch.Tensor):
+            return negatives.index_select(0, index.reshape(1))[0]
+        return negatives[index]
     return draw
 
 
@@ -190,7 +341,8 @@ class Word2Vec:
         # the last fit: examples (pairs, or CBOW windows) and minibatches
         # over all phases, host seconds of their assembly, and seconds of
         # the batch loop up to the tables' copy back (which waits for the
-        # device)
+        # device); on the card also the skip-gram graphs captured, their
+        # capture seconds (in the loop's) and their replays
         self.fit_stats: dict = {}
 
     def config(self) -> dict:
@@ -328,7 +480,9 @@ class Word2Vec:
         """Train on tokenized sentences. ``draw(global_batch_index)`` ->
         int64 [batch_size, negative] words on the device replaces the
         generator's negatives (the global index counts batches across
-        epochs: phase * batches_per_phase + batch)."""
+        epochs: phase * batches_per_phase + batch; on the card a 0-d int64
+        tensor, see :func:`replay_draw`). On the card the skip-gram chunks
+        run as CUDA graph replays (:class:`SkipgramGraphs`)."""
         if self.vocab is None:
             self.build_vocab(token_sequences)
         lt = self.lookup_table
@@ -349,6 +503,10 @@ class Word2Vec:
             gen = torch.Generator(device=dev).manual_seed(self.seed)
             draw = unigram_draw(up(lt.table.astype(np.int64)), self.negative,
                                 B, gen)
+        graphs = None
+        if dev.type == "cuda" and not self.use_cbow:
+            graphs = SkipgramGraphs((syn0, syn1, syn1neg), huffman, B,
+                                    self.negative if use_neg else 0, draw)
         n_phases = max(1, self.epochs * self.iterations)
         stats = {"examples": 0, "batches": 0, "assembly_s": 0.0,
                  "loop_s": 0.0}
@@ -368,7 +526,7 @@ class Word2Vec:
             stats["assembly_s"] += t1 - t0
             stats["examples"] += n_ex
             stats["batches"] += nb
-            alphas = up(np.array(
+            alphas = torch.from_numpy(np.array(
                 [self._alpha(phase, bi, n_phases, nb) for bi in range(nb)],
                 np.float32))
             for s0 in range(0, nb, CHUNK_BATCHES):
@@ -377,19 +535,26 @@ class Word2Vec:
                 sl = slice(s0 * B, s1 * B)
                 ex = [_pad_rows(c[sl], chunk * B) for c in cols]
                 plive = (np.arange(s0 * B, s1 * B) < n_ex).astype(np.float32)
-                cen = up(ex[0].astype(np.int64).reshape(chunk, B))
-                pl = up(plive.reshape(chunk, B))
+                cen = torch.from_numpy(
+                    ex[0].astype(np.int64).reshape(chunk, B))
+                pl = torch.from_numpy(plive.reshape(chunk, B))
                 if self.use_cbow:
                     cbow_batches(
-                        (syn0, syn1), huffman, cen,
+                        (syn0, syn1), huffman, cen.to(dev),
                         up(ex[1].astype(np.int64).reshape(chunk, B, -1)),
-                        up(ex[2].reshape(chunk, B, -1)), pl, alphas[s0:s1])
+                        up(ex[2].reshape(chunk, B, -1)), pl.to(dev),
+                        alphas[s0:s1].to(dev))
+                    continue
+                cx = torch.from_numpy(
+                    ex[1].astype(np.int64).reshape(chunk, B))
+                if graphs is not None:  # copied into the graph's buffers
+                    graphs.run(cen, cx, pl, alphas[s0:s1], phase * nb + s0)
                 else:
                     skipgram_batches(
-                        (syn0, syn1, syn1neg), huffman, cen,
-                        up(ex[1].astype(np.int64).reshape(chunk, B)), pl,
-                        alphas[s0:s1], negative=self.negative if use_neg
-                        else 0, draw=draw, first_index=phase * nb + s0)
+                        (syn0, syn1, syn1neg), huffman, cen.to(dev),
+                        cx.to(dev), pl.to(dev), alphas[s0:s1].to(dev),
+                        negative=self.negative if use_neg else 0, draw=draw,
+                        first_index=phase * nb + s0)
             stats["loop_s"] += time.perf_counter() - t1
 
         t1 = time.perf_counter()
@@ -398,6 +563,10 @@ class Word2Vec:
         if use_neg:
             lt.syn1neg = syn1neg.cpu().numpy()
         stats["loop_s"] += time.perf_counter() - t1
+        if graphs is not None:
+            stats.update(graph_captures=graphs.captures,
+                         graph_capture_s=graphs.capture_s,
+                         graph_replays=graphs.replays)
         self.fit_stats = stats
         return self
 

@@ -17,7 +17,13 @@ What lives here:
   ``csrc/sgns.cu`` or the wrapper raises. There is no fallback on the
   card.
 * a launch counter on each: ``sgns_step.launches`` counts kernel calls
-  only, ``sgns_step_plain.launches`` plain calls.
+  only, ``sgns_step_plain.launches`` plain calls. A call made while a
+  CUDA graph is being captured launches nothing: it counts in
+  ``sgns_step.captured``, and whoever replays the graph adds its
+  captured calls to ``launches`` on each replay.
+* :func:`hit_lists` — the rows each table's owners update and their hits
+  in the order the kernel sums them; :func:`reserve` and
+  :func:`workspace_sizes` — the kernel's scratch.
 
 Both update syn0 [V, D] and syn1neg [V, D] in place and return them: the
 port's counterpart of the TPU kernel's ``input_output_aliases``. contexts
@@ -28,13 +34,21 @@ negatives and padded pairs; alpha is a float or a 0-d tensor.
 Source note. Replaces the TPU kernel ``_sgns_kernel``. Memory bounds it
 on the H100: each distinct row a live pair touches (at most B context
 rows of syn0 and B*(K+1) rows of syn1neg) is read once and written once,
-at most 4*(2*B*D + 2*B*(K+1)*D) bytes, for about 6*B*(K+1)*D flops. The design (see the .cu header): one warp per
-pair with D across its lanes, three launches on the caller's stream —
-the stale gathers, dot, saturated coefficient and neu1e with the row
-counts of the collision scales taken by atomics; the scaled
-contributions added with float atomics into a zeroed [V, D] buffer per
-table; each touched row's sum added to its table once, the buffers reset
-where they were touched, so they are zeroed once and never swept.
+at most 4*(2*B*D + 2*B*(K+1)*D) bytes, for about 6*B*(K+1)*D flops. The
+design (see the .cu header): two launches on the caller's stream. The
+first, one warp per pair with D across its lanes, computes the stale
+gathers, dots, saturated coefficients and neu1e into scratch and puts
+every hit on its row's owner (integer atomics on a [V] head map and the
+owner's count, :data:`SLOTS` slots per owner). The second gives each
+touched row to its owner, which sums the row's contributions from zero
+in batch order (a whole CTA, with a fixed tree over its warps, for a
+row of more than :data:`WARP_HITS` hits) and adds the sum once. No float
+atomics: two launches give the same bits. :func:`hit_lists` is the
+order the owners sum in, in plain PyTorch.
+
+The scratch (:func:`reserve`) is O(B*D + V): per (device, stream), grown
+when a larger batch or table comes, never while a CUDA graph is being
+captured. A capture needs it allocated first, on the capture stream.
 """
 
 from __future__ import annotations
@@ -49,15 +63,21 @@ from deeplearning4j_tpu_torch.ops import build
 
 MAX_EXP = 6.0  # word2vec.c's sigmoid table range; dots past it saturate
 MAX_DIM = 512  # the kernel holds D / 32 elements per lane, at most 16
+SLOTS = 64     # hits a row's owner keeps by slot (csrc/sgns.cu kSlots)
+WARP_HITS = 16  # rows of up to this many hits: summed by the owner's warp
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURE = {"sgns_step": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
-                            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P]}
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P],
+              "sgns_prepare": [_I]}
+# the scratch in the kernel's argument order
+_SCRATCH = ("l1", "neu1e", "coef", "hit_row", "head0", "head1", "count",
+            "slots", "hot", "hot_count")
 
 _work_lock = threading.Lock()
-# per device: the two [V] count buffers and the two [V*D] delta buffers
-_work: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+# per (device, stream handle): the kernel's scratch, by _SCRATCH name
+_work: Dict[Tuple[torch.device, int], Dict[str, torch.Tensor]] = {}
 
 
 def mean_scale(n_rows: int, idx, live):
@@ -94,29 +114,99 @@ def sgns_step_plain(syn0, syn1neg, contexts, targets, labels, live, alpha):
 sgns_step_plain.launches = 0
 
 
-def _workspace(dev: torch.device, v: int, d: int):
-    """The kernel's zeroed buffers on ``dev``: counts of syn1neg and syn0
-    rows [V], and the update of each table [V*D]. Each call leaves them
-    zero again (it resets only what it touched), so they are allocated
-    once per device and size, and grown when a larger table comes. The
-    caller holds ``_work_lock`` until its launches are enqueued."""
-    bufs = _work.get(dev)
-    if bufs is None or bufs[0].numel() < v or bufs[2].numel() < v * d:
-        bufs = tuple(torch.zeros((n,), dtype=torch.float32, device=dev)
-                     for n in (v, v, v * d, v * d))
-        _work[dev] = bufs
+def workspace_sizes(v: int, d: int, b: int, k1: int
+                    ) -> Dict[str, Tuple[int, torch.dtype]]:
+    """Elements and dtype of each scratch tensor of a call at (V, D, B,
+    K+1), with H = B*(K+2) hits at most: the stale l1 and neu1e of every
+    pair [B*D], g*live [B*(K+1)], each hit's row [H], a head map per table
+    [V] (-1 between calls), each owner's count [H] (0 between calls),
+    slots [H*SLOTS], and the list of rows of more than WARP_HITS hits
+    with its length and a count of finished CTAs (0 between calls). No
+    [V, D] buffer."""
+    f32, i32 = torch.float32, torch.int32
+    h = b * (k1 + 1)
+    return {"l1": (b * d, f32), "neu1e": (b * d, f32), "coef": (b * k1, f32),
+            "hit_row": (h, i32), "head0": (v, i32), "head1": (v, i32),
+            "count": (h, i32), "slots": (h * SLOTS, i32),
+            "hot": (h // (WARP_HITS + 1) + 1, i32), "hot_count": (2, i32)}
+
+
+def _workspace(dev: torch.device, stream, v: int, d: int, b: int, k1: int):
+    """The scratch of calls on ``stream`` (allocated on it, or grown when
+    a larger table or batch comes). Raises while a graph is being
+    captured: the capture's kernels would keep pointers into memory the
+    graph's pool owns. The caller holds ``_work_lock``."""
+    key = (dev, stream.cuda_stream)
+    need = workspace_sizes(v, d, b, k1)
+    bufs = _work.get(key)
+    if bufs is not None and all(bufs[n].numel() >= need[n][0] for n in need):
+        return bufs
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "sgns_step: no scratch of this size for the capture stream; call "
+            "ops.sgns.reserve on it before capturing a CUDA graph")
+    with torch.cuda.stream(stream):
+        bufs = {}
+        for n, (size, dtype) in need.items():
+            old = _work.get(key, {}).get(n)
+            size = max(size, 0 if old is None else old.numel())
+            fill = -1 if n.startswith("head") else 0
+            bufs[n] = torch.full((size,), fill, dtype=dtype, device=dev)
+    _work[key] = bufs
     return bufs
+
+
+def reserve(device, v: int, d: int, b: int, k1: int, stream=None) -> None:
+    """Ready calls at (V, D, B, K+1) on ``stream`` (the device's current
+    stream by default) for a CUDA graph's capture: their scratch allocated
+    there now, the kernel built and its functions loaded on the device
+    (lazy module loading would load them at their first launch). Calls on
+    that stream then allocate and load nothing."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    lib = build.load("sgns", _SIGNATURE)
+    build.check(lib, lib.sgns_prepare(dev.index), "sgns_prepare")
+    with _work_lock:
+        _workspace(dev, stream or torch.cuda.current_stream(dev), v, d, b, k1)
+
+
+def hit_lists(contexts, targets, live):
+    """For (syn0, syn1neg): the rows a batch updates and each row's hits in
+    the order K3 sums them, as ``(rows, starts, hits)``: ``rows`` [R]
+    ascending, ``hits`` the hit indices of ``rows[r]`` at
+    ``hits[starts[r]:starts[r + 1]]``, ascending (batch order). Hit
+    indices as the kernel numbers them: b*(K+1) + k for a target entry with
+    live != 0, B*(K+1) + b for a context whose pair has a live entry. A
+    row's owner warp sums up to WARP_HITS hits, a CTA more."""
+    b, k1 = targets.shape
+    n_hits = b * (k1 + 1)
+    flat = live.reshape(-1) != 0
+    t_hits = torch.nonzero(flat).squeeze(1)
+    c_hits = torch.nonzero(live.sum(dim=1) > 0).squeeze(1)
+    out = []
+    for rows, hits in ((contexts[c_hits], c_hits + b * k1),
+                       (targets.reshape(-1)[t_hits], t_hits)):
+        order = torch.argsort(rows * n_hits + hits)
+        rows, hits = rows[order], hits[order]
+        uniq, counts = torch.unique_consecutive(rows, return_counts=True)
+        starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        out.append((uniq, starts, hits))
+    return tuple(out)
 
 
 def sgns_step(syn0, syn1neg, contexts, targets, labels, live, alpha):
     """CPU tensors: :func:`sgns_step_plain`. CUDA tensors: the
-    hand-written kernel, or an exception. The kernel takes f32 tables,
-    labels and live, int64 indices in [0, V) (an index outside traps on
-    the device, which fails the launch and the CUDA context, as PyTorch's
-    own device-side index checks do) and D <= 512, and runs on the
-    current stream. Its zeroed buffers are shared per device: a lock keeps
-    one thread's three launches together on the stream, so threads may
-    share a stream, but calls must not run on two streams at once."""
+    hand-written kernel (two launches on the current stream), or an
+    exception. The kernel takes f32 tables, labels and live, int64 indices
+    in [0, V) (an index outside traps on the device, which fails the
+    launch and the CUDA context, as PyTorch's own device-side index checks
+    do), D <= 512, and V and B*(K+2) below 2^31. It allocates nothing once
+    its stream's scratch is big enough (:func:`reserve`), reads a tensor
+    alpha on the device and never reads back to the host, so a call can
+    be captured in a CUDA graph. A lock keeps one thread's two launches
+    together on the stream; calls on different streams have their own
+    scratch."""
     if syn0.device.type == "cpu":
         return sgns_step_plain(syn0, syn1neg, contexts, targets, labels,
                                live, alpha)
@@ -134,6 +224,9 @@ def sgns_step(syn0, syn1neg, contexts, targets, labels, live, alpha):
                          f"{tuple(live.shape)} for targets {(b, k1)}")
     if not 0 < d <= MAX_DIM:
         raise ValueError(f"sgns_step: D={d}; the kernel takes 1..{MAX_DIM}")
+    if v >= 2**31 or b * (k1 + 1) >= 2**31:
+        raise ValueError(f"sgns_step: V={v}, B*(K+2)={b * (k1 + 1)}; the "
+                         "kernel indexes rows and hits with 32-bit ints")
     for name, x, dtype in (("syn0", syn0, torch.float32),
                            ("syn1neg", syn1neg, torch.float32),
                            ("contexts", contexts, torch.int64),
@@ -159,22 +252,28 @@ def sgns_step(syn0, syn1neg, contexts, targets, labels, live, alpha):
         alpha_ptr, alpha_val = None, float(alpha)
     if b == 0:
         return syn0, syn1neg
-    gbuf = torch.empty((b, k1), dtype=torch.float32, device=dev)
-    neubuf = torch.empty((b, d), dtype=torch.float32, device=dev)
+    # 16-byte row loads where every row starts on 16 bytes
+    vec = int(d % 4 == 0 and syn0.data_ptr() % 16 == 0
+              and syn1neg.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev)
+    capturing = torch.cuda.is_current_stream_capturing()
     lib = build.load("sgns", _SIGNATURE)
     with _work_lock:
-        work = _workspace(dev, v, d)
+        work = _workspace(dev, stream, v, d, b, k1)
         rc = lib.sgns_step(
             syn0.data_ptr(), syn1neg.data_ptr(), contexts.data_ptr(),
             targets.data_ptr(), labels.data_ptr(), live.data_ptr(),
-            alpha_ptr, alpha_val, gbuf.data_ptr(), neubuf.data_ptr(),
-            *(x.data_ptr() for x in work), b, k1, d, v, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:  # a failed call may leave its buffers dirty
-            _work.pop(dev, None)
+            alpha_ptr, alpha_val, *(work[n].data_ptr() for n in _SCRATCH),
+            b, k1, d, v, vec, dev.index, stream.cuda_stream)
+        if rc != 0:  # a failed call may leave its maps dirty
+            _work.pop((dev, stream.cuda_stream), None)
     build.check(lib, rc, "sgns_step")
-    sgns_step.launches += 1
+    if capturing:
+        sgns_step.captured += 1
+    else:
+        sgns_step.launches += 1
     return syn0, syn1neg
 
 
 sgns_step.launches = 0
+sgns_step.captured = 0

@@ -19,14 +19,18 @@ and 1e-4 of the largest entry on dU and dp, which sum N*T products; two
 launches bit-equal. A full-width char-RNN fit on the card against
 the same fit on the CPU: see that test. The SGNS step (K3): within 1e-5
 of the largest entry of each table's update of the plain step run in
-f64 on the same inputs (K3's float atomics add in another order; the
-plain step in f32 on the card adds with atomics onto the tables and
+f64 on the same inputs (K3 sums each row's hits in batch order in f32;
+the plain step in f32 on the card adds with atomics onto the tables and
 drifts by more than that at ~190 hits per row), rows no live pair
-touches bit-equal; a word2vec fit on
-the card against the same fit on the CPU with the same draws: see that
-test. K5 (flash attention with a key bias and an offset): 1e-4 abs on O
-and lse in f32, 2e-2 on O and 1e-3 on lse in bf16, and the rows with no
-visible key exactly O = 0, lse = -inf; the in-process 4-shard ring
+touches bit-equal, two launches bit-equal, and a first call's scratch
+far below one [V, D] table; a word2vec fit on the card (CUDA graph
+replays) against the same fit on the CPU with the same draws, the
+graph's draws against the eager draws (bit-equal), graph-replayed chunks
+against the eager loop within 1e-5 of each table's change, and K3's
+launch counter under capture and replay: see those tests. K5 (flash
+attention with a key bias and an offset): 1e-4 abs on O and lse in f32,
+2e-2 on O and 1e-3 on lse in bf16, and the rows with no visible key
+exactly O = 0, lse = -inf; the in-process 4-shard ring
 against the plain full attention at the same bars; ``FlashBlockFn``'s
 gradients against autograd through the plain version at 1e-4 of the
 largest entry, and the blocked backward on the card against the CPU at
@@ -508,10 +512,16 @@ def _sgns_args(seed, v, d, b, k1, dev, scale=0.1, dead=False):
     (71290, 128, 2048, 6, 0.1, False), (100000, 100, 1024, 6, 0.1, False),
     (64, 128, 2048, 6, 0.1, False), (5000, 128, 2048, 6, 3.0, False),
     (5000, 128, 2048, 6, 0.1, True), (300, 20, 33, 3, 0.5, True),
-    (1000, 300, 1, 6, 0.1, False), (1000, 512, 64, 2, 0.1, False)],
+    (1000, 300, 1, 6, 0.1, False), (1000, 512, 64, 2, 0.1, False),
+    (3, 128, 2048, 6, 0.1, False), (1, 36, 500, 6, 0.1, True)],
     ids=["smoke", "hot-class", "collide", "saturated", "dead", "ragged",
-         "b1-d300", "d512"])
+         "b1-d300", "d512", "hot-v3", "one-row-d36"])
 def test_sgns_kernel_matches_plain_on_card(v, d, b, k1, scale, dead):
+    """K3 against the plain step in f64 within 1e-5 of each table's
+    update, untouched rows bit-equal, and two launches bit-equal (every
+    row's sum in batch order, no float atomics). V=64 gives ~190 hits a
+    syn1neg row, V=3 ~4,000 and V=1 every hit one row (the owner CTA's
+    scan in several rounds)."""
     dev = _need_card()
     syn0, syn1neg, cx, tgt, lbl, live = _sgns_args(v + d, v, d, b, k1, dev,
                                                    scale, dead)
@@ -534,10 +544,28 @@ def test_sgns_kernel_matches_plain_on_card(v, d, b, k1, scale, dead):
         assert torch.equal(got[~hit], old[~hit])
     again0, again1 = syn0.clone(), syn1neg.clone()
     port_sgns.sgns_step(again0, again1, cx, tgt, lbl, live, 0.025)
-    for again, first, want, old in ((again0, k0, p0, syn0),
-                                    (again1, k1_, p1, syn1neg)):
-        assert (again - first).abs().max().item() <= 1e-5 * (
-            (want - old.double()).abs().max().item())
+    assert torch.equal(again0, k0) and torch.equal(again1, k1_)
+
+
+@pytest.mark.gpu
+def test_sgns_allocates_no_table_sized_buffer_on_card():
+    """A first call on a fresh stream allocates its scratch, O(B*D + V):
+    far less than one [V, D] table (the atomic design's delta buffers were
+    two)."""
+    dev = _need_card()
+    v, d, b, k1 = 71290, 128, 2048, 6
+    args = _sgns_args(1, v, d, b, k1, dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        port_sgns.sgns_step(*args, 0.025)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(dev) - before
+    assert 0 < grown < v * d * 4
+    sizes = port_sgns.workspace_sizes(v, d, b, k1)
+    assert grown >= sum(4 * n for n, _ in sizes.values())
 
 
 @pytest.mark.gpu
@@ -557,42 +585,180 @@ def test_sgns_refuses_what_the_kernel_does_not_take():
 @pytest.mark.gpu
 def test_word2vec_fit_on_the_card_matches_the_cpu():
     """Skip-gram with HS and 5 negatives at D=128 on a small Zipf corpus,
-    on the card and on the CPU with the same draws (numpy, per batch
-    index): K3 launches once per batch, its plain version never, and the
-    three tables agree within 1e-5 abs (float atomics add in another
-    order; the tables' entries are of order 0.01-0.1)."""
+    on the CPU and on the card with the same draws (numpy, per batch
+    index; the card replays them from the device, by the index its graphs
+    read there): the card's chunks run as CUDA graph replays, K3 launches
+    once per batch, its plain version never, and the three tables agree
+    within 1e-5 abs (HS's index_add_ adds with atomics in another order;
+    the tables' entries are of order 0.01-0.1)."""
     dev = _need_card()
-    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec, replay_draw
 
     rng = np.random.default_rng(0)
     toks = [[f"w{int(x)}" for x in rng.zipf(1.2, 40) if x < 3000]
             for _ in range(400)]
-    models, draws = [], {}
-    for device in (dev, "cpu"):
-        m = Word2Vec(layer_size=128, window=5, negative=5, batch_size=512,
-                     seed=1, device=device)
-        m.build_vocab(toks)
-        table = m.lookup_table.table
+    draws = {}
+    cpu = Word2Vec(layer_size=128, window=5, negative=5, batch_size=512,
+                   seed=1, device="cpu")
+    cpu.build_vocab(toks)
+    table = cpu.lookup_table.table
 
-        def draw(i, device=device, table=table):
-            if i not in draws:
-                draws[i] = table[np.random.default_rng(i).integers(
-                    0, len(table), (512, 5))].astype(np.int64)
-            return torch.from_numpy(draws[i]).to(device)
-        models.append((m, draw))
+    def draw(i):
+        draws[i] = table[np.random.default_rng(i).integers(
+            0, len(table), (512, 5))].astype(np.int64)
+        return torch.from_numpy(draws[i])
+    cpu.fit_tokens(toks, draw=draw)
+    n_batches = len(draws)
+    assert n_batches > 10 and sorted(draws) == list(range(n_batches))
+    card = Word2Vec(layer_size=128, window=5, negative=5, batch_size=512,
+                    seed=1, device=dev)
+    card.build_vocab(toks)
+    negatives = torch.from_numpy(np.stack([draws[i]
+                                           for i in range(n_batches)]))
     for fn in (port_sgns.sgns_step, port_sgns.sgns_step_plain):
         fn.launches = 0
-    models[0][0].fit_tokens(toks, draw=models[0][1])
-    n_batches = len(draws)
-    assert n_batches > 10
+    card.fit_tokens(toks, draw=replay_draw(negatives.to(dev)))
     assert (port_sgns.sgns_step.launches,
             port_sgns.sgns_step_plain.launches) == (n_batches, 0)
-    models[1][0].fit_tokens(toks, draw=models[1][1])
+    st = card.fit_stats
+    assert st["graph_replays"] >= 1 and st["graph_captures"] >= 1
     for name in ("syn0", "syn1", "syn1neg"):
-        a = getattr(models[0][0].lookup_table, name)
-        b = getattr(models[1][0].lookup_table, name)
+        a = getattr(card.lookup_table, name)
+        b = getattr(cpu.lookup_table, name)
         assert np.isfinite(a).all()
         assert np.abs(a - b).max() < 1e-5, name
+
+
+def _chunk_case(seed, dev, v=3000, vh=2999, d=128, nb=7, b=512, k=5,
+                width=12):
+    """Tables, Huffman paths and nb batches of pairs (the last partly
+    padded) on the card, as skipgram_batches takes them."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    tables = tuple(t((rng.standard_normal((n, d)) * 0.1).astype(np.float32))
+                   for n in (v, vh, v))
+    huffman = (t(rng.integers(0, vh, (v, width))),
+               t(rng.integers(0, 2, (v, width)).astype(np.float32)),
+               t((rng.random((v, width)) < 0.7).astype(np.float32)))
+    zipf = lambda n: np.minimum(rng.zipf(1.3, n), v) - 1
+    cens, cxs = (t(zipf(nb * b).reshape(nb, b)) for _ in range(2))
+    plive = np.ones((nb, b), np.float32)
+    plive[-1, b // 3:] = 0.0
+    alphas = t(np.linspace(0.025, 0.02, nb).astype(np.float32))
+    negatives = t(zipf(nb * b * k).reshape(nb, b, k))
+    return tables, huffman, cens, cxs, t(plive), alphas, negatives
+
+
+def _changes_agree(got, want, before, tol=1e-5):
+    for a, b, o in zip(got, want, before):
+        upd = (b.double() - o.double()).abs().max().item()
+        assert (a.double() - b.double()).abs().max().item() <= tol * upd
+
+
+@pytest.mark.gpu
+def test_graph_draws_equal_the_eager_draws_on_card():
+    """unigram_draw's generator registered with a captured graph: two
+    replays of three draws give the eager loop's six draws from the same
+    seed."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.nlp.word2vec import unigram_draw
+
+    table = torch.arange(1000, device=dev) * 7
+    eager = unigram_draw(table, 5, 512,
+                         torch.Generator(device=dev).manual_seed(3))
+    want = [eager(i) for i in range(6)]
+    draw = unigram_draw(table, 5, 512,
+                        torch.Generator(device=dev).manual_seed(3))
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(draw.generator)
+    out = torch.zeros((3, 512, 5), dtype=torch.int64, device=dev)
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.graph(graph, stream=stream):
+        for j in range(3):
+            out[j].copy_(draw(j))
+    got = []
+    for _ in range(2):
+        graph.replay()
+        got.extend(out.clone())
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["replayed", "unigram", "hs-only"],
+                         ids=["replayed-negatives", "unigram-generator",
+                              "hs-only"])
+def test_graph_replayed_chunks_match_the_eager_loop_on_card(mode):
+    """Seven batches as graph replays of a 4-batch chunk and a 3-batch
+    tail (two captures) against the eager loop of skipgram_step on copies
+    of the same tables with the same draws (or none: HS only): within
+    1e-5 of each table's change (HS's index_add_ adds with atomics). K3's
+    counter: the captures count nothing, each replay its chunk's
+    batches."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.nlp.word2vec import (
+        SkipgramGraphs,
+        replay_draw,
+        skipgram_batches,
+        unigram_draw,
+    )
+
+    tables, huffman, cens, cxs, plive, alphas, negatives = _chunk_case(
+        5, dev)
+    nb, b, k = negatives.shape
+    if mode == "hs-only":
+        tables, k = tables[:2] + (None,), 0
+    before = [x.clone() for x in tables if x is not None]
+    eager_tables = [None if x is None else x.clone() for x in tables]
+
+    def make_draw():
+        if mode == "replayed":
+            return replay_draw(negatives)
+        if mode == "unigram":
+            return unigram_draw(torch.arange(2999, device=dev), k, b,
+                                torch.Generator(device=dev).manual_seed(9))
+        return None
+    skipgram_batches(eager_tables, huffman, cens, cxs, plive, alphas,
+                     negative=k, draw=make_draw())
+    port_sgns.sgns_step.launches = 0
+    runner = SkipgramGraphs(tables, huffman, b, k, make_draw())
+    for s0, s1 in ((0, 4), (4, 7)):
+        runner.run(cens[s0:s1], cxs[s0:s1], plive[s0:s1], alphas[s0:s1],
+                   s0)
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (2, 2)
+    assert port_sgns.sgns_step.launches == (nb if k else 0)
+    _changes_agree(tables[:len(before)], eager_tables, before)
+
+
+@pytest.mark.gpu
+def test_graph_replays_count_k3_launches_on_card():
+    """A 3-batch chunk replayed four times adds 12 to K3's counter and
+    nothing to the plain version's; the capture added nothing to either
+    (it launched nothing) and counted its three calls as captured."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.nlp.word2vec import (
+        SkipgramGraphs,
+        replay_draw,
+    )
+
+    tables, huffman, cens, cxs, plive, alphas, negatives = _chunk_case(
+        6, dev, nb=3)
+    runner = SkipgramGraphs(tables, huffman, cens.shape[1],
+                            negatives.shape[2], replay_draw(negatives))
+    counts = (port_sgns.sgns_step.launches,
+              port_sgns.sgns_step_plain.launches,
+              port_sgns.sgns_step.captured)
+    runner.run(cens, cxs, plive, alphas)
+    assert (port_sgns.sgns_step.launches, port_sgns.sgns_step.captured) == \
+        (counts[0] + 3, counts[2] + 3)
+    for _ in range(3):
+        runner.run(cens, cxs, plive, alphas)
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 4
+    assert port_sgns.sgns_step.launches == counts[0] + 12
+    assert port_sgns.sgns_step_plain.launches == counts[1]
 
 
 def _ext_case(seed, n, tq, tk, h, d, dev, dtype, masked):

@@ -41,8 +41,14 @@ against the JAX function the TPU kernel implements:
     ``sgns_fused_step`` does not run on the installed jax, so its own
     oracle stands in), and the port's batch loop ``skipgram_batches``
     with the JAX draws replayed against ``_skipgram_epoch(...,
-    sgns_kernel=False)`` at 1e-5 abs, syn1 included; the f64 cases are in
-    ``tests/test_torch_word2vec.py``.
+    sgns_kernel=False)`` at 1e-5 abs, syn1 included, also as a
+    128-batch chunk's shape cut to a chunk of 3 and a tail of 2 through
+    the one-batch function ``skipgram_step``; the f64 cases are in
+    ``tests/test_torch_word2vec.py``. The kernel's host-side helpers:
+    ``hit_lists`` (each row's hits in the order the kernel's owners sum
+    them) against a numpy reference, a row of one hit and rows of ~190;
+    ``workspace_sizes`` holds no [V, D] buffer; ``replay_draw`` reads the
+    same negatives by an int and by a 0-d tensor index.
 
 The same kernels on the card, against their plain versions, are in
 ``tests/test_torch_gpu.py``.
@@ -117,6 +123,56 @@ class TestFlashPlainAgainstJax:
         o, _ = port_flash.flash_attention(_port(q), _port(k), _port(v),
                                           causal=causal)
         assert np.abs(o.numpy() - ref).max() < TOL
+
+    def test_one_batch_loop_matches_skipgram_epoch_chunk_and_tail(self):
+        """Five batches through ``skipgram_step`` in a plain Python loop
+        (the body each card graph captures) against the JAX scan run as a
+        chunk of three and a tail of two, the last batch partly padded,
+        with the same keys' negatives."""
+        import jax
+
+        from deeplearning4j_tpu.nlp.word2vec import _skipgram_epoch
+        from deeplearning4j_tpu_torch.nlp.word2vec import (
+            ns_constants,
+            skipgram_step,
+        )
+
+        rng = np.random.default_rng(8)
+        v, vh, d, l = 40, 39, 16, 5
+        nb, b, k = 5, 12, 4
+        syn0 = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        syn1 = rng.standard_normal((vh, d)).astype(np.float32) * 0.1
+        syn1neg = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        P = rng.integers(0, vh, size=(v, l))
+        C = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        M = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        table = rng.integers(0, v, size=(64,))
+        cens = rng.integers(0, v, size=(nb, b))
+        cxs = rng.integers(0, v, size=(nb, b))
+        plive = np.ones((nb, b), np.float32)
+        plive[-1, 7:] = 0.0
+        keys = jnp.stack([jax.random.PRNGKey(10 + i) for i in range(nb)])
+        alphas = np.linspace(0.025, 0.02, nb).astype(np.float32)
+        want = (jnp.array(syn0), jnp.array(syn1), jnp.array(syn1neg))
+        for s0, s1 in ((0, 3), (3, 5)):
+            want = _skipgram_epoch(
+                *want, jnp.asarray(P, jnp.int32), jnp.asarray(C),
+                jnp.asarray(M), jnp.asarray(table, jnp.int32),
+                jnp.asarray(cens[s0:s1], jnp.int32),
+                jnp.asarray(cxs[s0:s1], jnp.int32),
+                jnp.asarray(plive[s0:s1]), keys[s0:s1],
+                jnp.asarray(alphas[s0:s1]), use_neg=True, negative_k=k)
+        tables = (_port(syn0), _port(syn1), _port(syn1neg))
+        huffman = (torch.from_numpy(P), _port(C), _port(M))
+        consts = ns_constants(b, k, torch.float32, "cpu")
+        for j in range(nb):
+            idx = jax.random.randint(keys[j], (b, k), 0, len(table))
+            negatives = torch.from_numpy(table[np.asarray(idx)])
+            skipgram_step(tables, huffman, torch.from_numpy(cens[j]),
+                          torch.from_numpy(cxs[j]), _port(plive[j]),
+                          _port(alphas[j]), negatives, *consts)
+        for got, ref in zip(tables, want):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
 
     def test_cpu_wrapper_counts_plain_calls_only(self):
         q, k, v = (_port(a) for a in _qkv(0, 1, 8, 2, 16))
@@ -304,6 +360,56 @@ class TestLstmScanPlainAgainstJax:
         for ours, r in zip((hs, h_t, c_t), ref):
             assert np.abs(ours.numpy() - np.asarray(r)).max() < 1e-12
 
+    def test_one_batch_loop_matches_skipgram_epoch_chunk_and_tail(self):
+        """Five batches through ``skipgram_step`` in a plain Python loop
+        (the body each card graph captures) against the JAX scan run as a
+        chunk of three and a tail of two, the last batch partly padded,
+        with the same keys' negatives."""
+        import jax
+
+        from deeplearning4j_tpu.nlp.word2vec import _skipgram_epoch
+        from deeplearning4j_tpu_torch.nlp.word2vec import (
+            ns_constants,
+            skipgram_step,
+        )
+
+        rng = np.random.default_rng(8)
+        v, vh, d, l = 40, 39, 16, 5
+        nb, b, k = 5, 12, 4
+        syn0 = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        syn1 = rng.standard_normal((vh, d)).astype(np.float32) * 0.1
+        syn1neg = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        P = rng.integers(0, vh, size=(v, l))
+        C = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        M = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        table = rng.integers(0, v, size=(64,))
+        cens = rng.integers(0, v, size=(nb, b))
+        cxs = rng.integers(0, v, size=(nb, b))
+        plive = np.ones((nb, b), np.float32)
+        plive[-1, 7:] = 0.0
+        keys = jnp.stack([jax.random.PRNGKey(10 + i) for i in range(nb)])
+        alphas = np.linspace(0.025, 0.02, nb).astype(np.float32)
+        want = (jnp.array(syn0), jnp.array(syn1), jnp.array(syn1neg))
+        for s0, s1 in ((0, 3), (3, 5)):
+            want = _skipgram_epoch(
+                *want, jnp.asarray(P, jnp.int32), jnp.asarray(C),
+                jnp.asarray(M), jnp.asarray(table, jnp.int32),
+                jnp.asarray(cens[s0:s1], jnp.int32),
+                jnp.asarray(cxs[s0:s1], jnp.int32),
+                jnp.asarray(plive[s0:s1]), keys[s0:s1],
+                jnp.asarray(alphas[s0:s1]), use_neg=True, negative_k=k)
+        tables = (_port(syn0), _port(syn1), _port(syn1neg))
+        huffman = (torch.from_numpy(P), _port(C), _port(M))
+        consts = ns_constants(b, k, torch.float32, "cpu")
+        for j in range(nb):
+            idx = jax.random.randint(keys[j], (b, k), 0, len(table))
+            negatives = torch.from_numpy(table[np.asarray(idx)])
+            skipgram_step(tables, huffman, torch.from_numpy(cens[j]),
+                          torch.from_numpy(cxs[j]), _port(plive[j]),
+                          _port(alphas[j]), negatives, *consts)
+        for got, ref in zip(tables, want):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
+
     def test_cpu_wrapper_counts_plain_calls_only(self):
         args = [_port(a) for a in _lstm_case(0)]
         kern, plain = (port_lstm.lstm_scan.launches,
@@ -459,6 +565,56 @@ class TestLstmScanBwdPlainAgainstJax:
             assert o.dtype == torch.float64, name
             assert np.abs(o.numpy() - np.asarray(r)).max() < 1e-12, name
 
+    def test_one_batch_loop_matches_skipgram_epoch_chunk_and_tail(self):
+        """Five batches through ``skipgram_step`` in a plain Python loop
+        (the body each card graph captures) against the JAX scan run as a
+        chunk of three and a tail of two, the last batch partly padded,
+        with the same keys' negatives."""
+        import jax
+
+        from deeplearning4j_tpu.nlp.word2vec import _skipgram_epoch
+        from deeplearning4j_tpu_torch.nlp.word2vec import (
+            ns_constants,
+            skipgram_step,
+        )
+
+        rng = np.random.default_rng(8)
+        v, vh, d, l = 40, 39, 16, 5
+        nb, b, k = 5, 12, 4
+        syn0 = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        syn1 = rng.standard_normal((vh, d)).astype(np.float32) * 0.1
+        syn1neg = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        P = rng.integers(0, vh, size=(v, l))
+        C = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        M = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        table = rng.integers(0, v, size=(64,))
+        cens = rng.integers(0, v, size=(nb, b))
+        cxs = rng.integers(0, v, size=(nb, b))
+        plive = np.ones((nb, b), np.float32)
+        plive[-1, 7:] = 0.0
+        keys = jnp.stack([jax.random.PRNGKey(10 + i) for i in range(nb)])
+        alphas = np.linspace(0.025, 0.02, nb).astype(np.float32)
+        want = (jnp.array(syn0), jnp.array(syn1), jnp.array(syn1neg))
+        for s0, s1 in ((0, 3), (3, 5)):
+            want = _skipgram_epoch(
+                *want, jnp.asarray(P, jnp.int32), jnp.asarray(C),
+                jnp.asarray(M), jnp.asarray(table, jnp.int32),
+                jnp.asarray(cens[s0:s1], jnp.int32),
+                jnp.asarray(cxs[s0:s1], jnp.int32),
+                jnp.asarray(plive[s0:s1]), keys[s0:s1],
+                jnp.asarray(alphas[s0:s1]), use_neg=True, negative_k=k)
+        tables = (_port(syn0), _port(syn1), _port(syn1neg))
+        huffman = (torch.from_numpy(P), _port(C), _port(M))
+        consts = ns_constants(b, k, torch.float32, "cpu")
+        for j in range(nb):
+            idx = jax.random.randint(keys[j], (b, k), 0, len(table))
+            negatives = torch.from_numpy(table[np.asarray(idx)])
+            skipgram_step(tables, huffman, torch.from_numpy(cens[j]),
+                          torch.from_numpy(cxs[j]), _port(plive[j]),
+                          _port(alphas[j]), negatives, *consts)
+        for got, ref in zip(tables, want):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
+
     def test_cpu_wrapper_counts_plain_calls_only(self):
         args, cot = _bwd_case(0, 3, 8, 16)
         targs = [_port(a) for a in args]
@@ -595,6 +751,56 @@ class TestSgnsPlainAgainstJax:
         for got, ref in zip(tables, want):
             assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
 
+    def test_one_batch_loop_matches_skipgram_epoch_chunk_and_tail(self):
+        """Five batches through ``skipgram_step`` in a plain Python loop
+        (the body each card graph captures) against the JAX scan run as a
+        chunk of three and a tail of two, the last batch partly padded,
+        with the same keys' negatives."""
+        import jax
+
+        from deeplearning4j_tpu.nlp.word2vec import _skipgram_epoch
+        from deeplearning4j_tpu_torch.nlp.word2vec import (
+            ns_constants,
+            skipgram_step,
+        )
+
+        rng = np.random.default_rng(8)
+        v, vh, d, l = 40, 39, 16, 5
+        nb, b, k = 5, 12, 4
+        syn0 = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        syn1 = rng.standard_normal((vh, d)).astype(np.float32) * 0.1
+        syn1neg = rng.standard_normal((v, d)).astype(np.float32) * 0.1
+        P = rng.integers(0, vh, size=(v, l))
+        C = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        M = rng.integers(0, 2, size=(v, l)).astype(np.float32)
+        table = rng.integers(0, v, size=(64,))
+        cens = rng.integers(0, v, size=(nb, b))
+        cxs = rng.integers(0, v, size=(nb, b))
+        plive = np.ones((nb, b), np.float32)
+        plive[-1, 7:] = 0.0
+        keys = jnp.stack([jax.random.PRNGKey(10 + i) for i in range(nb)])
+        alphas = np.linspace(0.025, 0.02, nb).astype(np.float32)
+        want = (jnp.array(syn0), jnp.array(syn1), jnp.array(syn1neg))
+        for s0, s1 in ((0, 3), (3, 5)):
+            want = _skipgram_epoch(
+                *want, jnp.asarray(P, jnp.int32), jnp.asarray(C),
+                jnp.asarray(M), jnp.asarray(table, jnp.int32),
+                jnp.asarray(cens[s0:s1], jnp.int32),
+                jnp.asarray(cxs[s0:s1], jnp.int32),
+                jnp.asarray(plive[s0:s1]), keys[s0:s1],
+                jnp.asarray(alphas[s0:s1]), use_neg=True, negative_k=k)
+        tables = (_port(syn0), _port(syn1), _port(syn1neg))
+        huffman = (torch.from_numpy(P), _port(C), _port(M))
+        consts = ns_constants(b, k, torch.float32, "cpu")
+        for j in range(nb):
+            idx = jax.random.randint(keys[j], (b, k), 0, len(table))
+            negatives = torch.from_numpy(table[np.asarray(idx)])
+            skipgram_step(tables, huffman, torch.from_numpy(cens[j]),
+                          torch.from_numpy(cxs[j]), _port(plive[j]),
+                          _port(alphas[j]), negatives, *consts)
+        for got, ref in zip(tables, want):
+            assert np.abs(got.numpy() - np.asarray(ref)).max() < TOL
+
     def test_cpu_wrapper_counts_plain_calls_only(self):
         syn0, syn1neg, cx, tgt, lbl, live = _sgns_case(0)
         kern, plain = (port_sgns.sgns_step.launches,
@@ -611,6 +817,85 @@ class TestSgnsPlainAgainstJax:
         with pytest.raises(ValueError, match="unsupported device"):
             port_sgns.sgns_step(t, t, idx, idx[:, None], t[:2, :1],
                                 t[:2, :1], 0.025)
+
+
+def _hit_lists_numpy(cx, tgt, live):
+    """Per table, {row: [hit indices ascending]} with the kernel's
+    numbering (targets b*(K+1) + k, contexts B*(K+1) + b)."""
+    b, k1 = tgt.shape
+    syn0, syn1neg = {}, {}
+    for i in range(b):
+        for k in range(k1):
+            if live[i, k] != 0:
+                syn1neg.setdefault(int(tgt[i, k]), []).append(i * k1 + k)
+        if live[i].sum() > 0:
+            syn0.setdefault(int(cx[i]), []).append(b * k1 + i)
+    return syn0, syn1neg
+
+
+class TestSgnsHostHelpers:
+    @pytest.mark.parametrize("v,b,k1,dead", [
+        (500, 16, 6, False), (5000, 8, 3, True), (64, 2048, 6, False),
+        (64, 2048, 6, True)],
+        ids=["one-hit-rows", "dead", "190-hits", "190-hits-dead"])
+    def test_hit_lists_match_numpy(self, v, b, k1, dead):
+        rng = np.random.default_rng(v + b)
+        cx = rng.integers(0, v, size=(b,))
+        tgt = rng.integers(0, v, size=(b, k1))
+        live = np.ones((b, k1), np.float32)
+        if dead:
+            live[rng.random((b, k1)) < 0.3] = 0.0
+            live[::7] = 0.0
+        got = port_sgns.hit_lists(torch.from_numpy(cx),
+                                  torch.from_numpy(tgt), _port(live))
+        want = _hit_lists_numpy(cx, tgt, live)
+        for (rows, starts, hits), ref in zip(got, want):
+            assert rows.tolist() == sorted(ref)
+            assert starts[0] == 0 and starts[-1] == hits.numel()
+            for r, a, e in zip(rows.tolist(), starts[:-1].tolist(),
+                               starts[1:].tolist()):
+                assert hits[a:e].tolist() == ref[r]
+        lengths = [np.diff(t[1].numpy()) for t in got]
+        if v == 64:  # ~190 hits a syn1neg row: the owner CTA's path
+            assert port_sgns.SLOTS > port_sgns.WARP_HITS
+            assert lengths[1].max() > port_sgns.SLOTS
+            assert lengths[1].mean() > 100
+        elif not dead:
+            assert lengths[1].min() == 1
+
+    def test_hit_lists_of_a_row_hit_once(self):
+        cx = torch.tensor([3, 4])
+        tgt = torch.tensor([[7, 8], [9, 8]])
+        live = torch.tensor([[1.0, 1.0], [1.0, 0.0]])
+        (r0, s0, h0), (r1, s1, h1) = port_sgns.hit_lists(cx, tgt, live)
+        assert (r0.tolist(), s0.tolist(), h0.tolist()) == \
+            ([3, 4], [0, 1, 2], [4, 5])
+        assert (r1.tolist(), s1.tolist(), h1.tolist()) == \
+            ([7, 8, 9], [0, 1, 2, 3], [0, 1, 2])
+
+    @pytest.mark.parametrize("v,d,b,k1", [(71290, 128, 2048, 6),
+                                          (100_000, 100, 1024, 6),
+                                          (64, 128, 2048, 6)])
+    def test_workspace_holds_no_table_sized_buffer(self, v, d, b, k1):
+        sizes = port_sgns.workspace_sizes(v, d, b, k1)
+        h = b * (k1 + 1)
+        assert sizes["head0"][0] == sizes["head1"][0] == v
+        assert sizes["count"][0] == sizes["hit_row"][0] == h
+        assert sizes["slots"][0] == h * port_sgns.SLOTS
+        assert sizes["l1"][0] == sizes["neu1e"][0] == b * d
+        assert all(n < v * d or v * d <= b * d for n, _ in sizes.values())
+        nbytes = sum(4 * n for n, _ in sizes.values())
+        if v > b:
+            assert nbytes < v * d * 4 / 5
+
+    def test_replay_draw_by_int_and_by_tensor(self):
+        from deeplearning4j_tpu_torch.nlp.word2vec import replay_draw
+
+        negatives = torch.arange(4 * 6 * 3).reshape(4, 6, 3)
+        draw = replay_draw(negatives)
+        for i in range(4):
+            assert torch.equal(draw(i), negatives[i])
+            assert torch.equal(draw(torch.tensor(i)), negatives[i])
 
 
 class TestBuildTarget:

@@ -3,7 +3,8 @@
   * It never imports ``jax`` and nothing of ``deeplearning4j_tpu``: every
     module imports in a fresh interpreter with ``jax`` absent from
     ``sys.modules`` afterwards, and no ``import`` statement in the
-    package or in ``chip_smoke.py`` names either.
+    package, in ``chip_smoke.py`` or in the kernel timing scripts
+    (``scripts/time_k*.py``) names either.
   * Its entry points (``TransformerLM`` and its ``ring_forward``,
     ``PagedDecoder``, ``MultiLayerNetwork`` and its ``load`` (a
     MultiHeadAttention network too), ``ServingEngine``, and the training
@@ -69,7 +70,10 @@ def _imported_names(path):
 
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
-     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]),
+     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    + [os.path.join(REPO, "scripts", f)
+       for f in os.listdir(os.path.join(REPO, "scripts"))
+       if f.startswith("time_k") and f.endswith(".py")]),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_import_of_jax_or_the_jax_package(path):
     for name in _imported_names(path):

@@ -9,7 +9,7 @@
   * A whole ``fit_tokens``, all three tables at 1e-5 abs in f32 (the same
     minibatches; sums taken in another order): HS only over 2 epochs, HS
     plus negatives with the JAX draws replayed through ``draw``, CBOW,
-    and with subsampling.
+    and with subsampling; and in chunks with a shorter tail.
   * Port against port: one seed gives the same bits twice; ``fit`` on
     sentences equals ``fit_tokens`` on their tokens.
   * Files: ``save_word2vec`` / ``load_word2vec`` and the text format, in
@@ -215,6 +215,20 @@ class TestFitAgainstJax:
             np.testing.assert_allclose(b, a, rtol=0, atol=TOL_FIT, err_msg=n)
         # training moved the tables (the comparison is not of fresh ones)
         assert np.abs(p.lookup_table.syn1).max() > 1e-3
+
+    def test_chunks_with_a_shorter_tail_match_jax(self, monkeypatch):
+        """Chunks of CHUNK_BATCHES (cut to 4 here) and a shorter tail, each
+        batch through the one-batch function ``skipgram_step`` (what a
+        card graph captures), against the JAX fit with its draws
+        replayed, at the tolerance above."""
+        monkeypatch.setattr(pw2v, "CHUNK_BATCHES", 4)
+        j, p = fit_pair(negative=3, batch=32)
+        nb = p.fit_stats["batches"]
+        assert nb > 4 and nb % 4 != 0
+        for n in ("syn0", "syn1", "syn1neg"):
+            np.testing.assert_allclose(getattr(p.lookup_table, n),
+                                       np.asarray(getattr(j.lookup_table, n)),
+                                       rtol=0, atol=TOL_FIT, err_msg=n)
 
     def test_batches_of_a_chunk_counted_across_phases(self, monkeypatch):
         """``draw`` sees global batch indices phase * nb + b, chunk after
