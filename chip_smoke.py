@@ -4,8 +4,8 @@
 char-RNN MultiLayerNetwork, the char-RNN's training with truncated BPTT
 and RMSProp, Word2Vec skip-gram training with hierarchical softmax
 and negative sampling, the TransformerLM's long-context ``ring_forward``,
-and the training of a MultiLayerNetwork of masked MultiHeadAttention
-layers.
+the training of a MultiLayerNetwork of masked MultiHeadAttention
+layers, and the TransformerLM's training and top-k/top-p sampling.
 
 Run from the repository root, with no arguments:
 
@@ -15,17 +15,18 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds the six kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the seven kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per library, started together; K4 and K5 are one
-   library over ``csrc/flash_fwd.cuh``), prints each function's ptxas
+   library over ``csrc/flash_fwd.cuh``; K7, the flash backward, is
+   ``csrc/flash_bwd.cu``), prints each function's ptxas
    register and spill line, and checks with ``cuobjdump -sass`` that the
    K4/K5 library holds tensor-core ``HGMMA`` (bf16), TF32 ``HMMA`` (f32:
    3xTF32) and ``cp.async`` ``LDGSTS`` instructions, and that both LSTM
    libraries (K1, K2) hold the cluster barrier (``CLUSTER_BARRIER_SASS``,
    at each cluster's start and end: no grid-wide barrier) and the DSMEM
    stores of the per-step exchange (``STAS``), and K2 TF32 ``HMMA`` (its
-   gate and dU products: 3xTF32);
-   then builds that library's variant with one bf16 P in
+   gate and dU products: 3xTF32), and K7 bf16 and TF32 ``HMMA``
+   (``mma.sync``); then builds the K4/K5 library's variant with one bf16 P in
    P.V (``-DFLASH_P_SPLIT=0``), which is timed and read against the
    shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -74,7 +75,15 @@ What it does, in order (any failure raises and exits non-zero):
    version are printed beside them. And a 4-shard ring driven in one process
    (``ring_flash_step`` for every (my, src) step of a 4-rank ring)
    against the plain full attention, causal and not, with and without a
-   key mask, within 2e-2;
+   key mask, within 2e-2; and K7, the flash backward, against its plain
+   version ``flash_block_bwd`` on the same card inputs (o and lse of K5's
+   plain forward, seeded cotangents): at the LM's training layer (N=16,
+   T=1024, H=32, D=64, bf16, causal), the MHA fit's layer (case h, f32),
+   K5's masked case b with an lse cotangent, T=1024 at offset -512 (rows
+   with no visible key) with an lse cotangent, a batch row with every key
+   masked (its gradients exactly 0), and ragged Tq=300 x Tk=420 at D in
+   {16, 32, 128}: within 1e-2 of the largest entry of each gradient in
+   bf16 and 1e-4 in f32, two launches bit-equal;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -178,7 +187,24 @@ What it does, in order (any failure raises and exits non-zero):
    with the equivalent causal or boolean mask (TF32 off), and its bound
    (bytes, and 4·D flops per visible pair at 989 TFLOP/s for bf16 and at
    the 3xTF32 rate, 165 TFLOP/s, for f32);
-11. prints one ``{"kernels": [...]}`` line, the card line again, and last
+11. times K7 at the LM's training layer (bf16) and at case h (f32) beside
+   its plain version, the backward of ``scaled_dot_product_attention`` on
+   the same inputs (device time), its bound (bytes, and 10·D flops of
+   five products per visible pair at 989 TFLOP/s bf16 or the 3xTF32
+   rate, 165 TFLOP/s, for f32) and the tile pairs it runs;
+12. trains the bench transformer (as in 4; ``bench.py:371``
+   ``bench_transformer``: Adam at lr 1e-4, f32 masters, bf16 compute) on
+   a seeded Markov token stream (4 successors a token): 5 ``fit`` steps
+   of 16 x T=1024, then one ``fit_batches`` of 5. Checks: finite losses
+   that fall, K4 and K7 launched once per layer per step and their plain
+   versions never, nonzero gradients in Wq, Wk and Wv, ``save`` then
+   ``TransformerLM.load`` gives bit-equal logits; then ``generate`` with
+   top_k 40 and top_p 0.9 (K4 in its prefill), one HTTP ``/generate``
+   with top_k answering 200 with ``lm.generate``'s tokens, and a streamed
+   one with top_k answering 400. Prints the step's ms, training tokens/s,
+   its profile (K4, K7, GEMMs, Adam, other kernels, host gaps) and the
+   phase's peak device memory;
+13. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -195,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -209,6 +236,7 @@ from deeplearning4j_tpu_torch.models.char_rnn import (  # noqa: E402
     CharRnn,
     char_rnn_conf,
 )
+from deeplearning4j_tpu_torch.models import transformer as lm_mod  # noqa: E402
 from deeplearning4j_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
     TransformerLM,
@@ -240,6 +268,8 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_block,
     flash_attention_block_plain,
     flash_attention_plain,
+    flash_block_bwd,
+    flash_bwd,
 )
 from deeplearning4j_tpu_torch.nn.layers import recurrent  # noqa: E402
 from deeplearning4j_tpu_torch.ops.lstm_scan import (  # noqa: E402
@@ -349,6 +379,13 @@ TOL_RING_F32 = 1e-3           # f32 logits, the same two paths
 # the masked MultiHeadAttention network: 2 MHA(512, 8 heads) layers
 MHA_N, MHA_T, MHA_F, MHA_W, MHA_HEADS, MHA_CLASSES = 32, 512, 64, 512, 8, 16
 MHA_FITS, MHA_LR = 20, 1e-3
+# K7, the flash backward: of the largest entry of each gradient (bf16: P
+# and dS rounded to bf16 for their products; f32: 3xTF32)
+TOL_BWD_BF16, TOL_BWD_F32 = 1e-2, 1e-4
+# the LM's training: bench.py:371 bench_transformer, batch 16 x T=1024 at
+# _transformer_bench_cfg's lr (bench.py:356); 5 fits, then fit_batches of 5
+LM_BATCH, LM_T, LM_LR, LM_FITS, LM_MULTI = 16, 1024, 1e-4, 5, 5
+LM_SUCCESSORS = 4  # the token stream: a Markov chain of 4 successors a token
 
 
 def check(cond: bool, msg: str) -> None:
@@ -400,7 +437,8 @@ def short_name(mangled: str) -> str:
 def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
-                            "lstm_scan", "lstm_scan_bwd", "sgns"]):
+                            "lstm_scan", "lstm_scan_bwd", "sgns",
+                            "flash_bwd"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -440,6 +478,17 @@ def phase_build():
               f"({' / '.join(CLUSTER_BARRIER_SASS)}), DSMEM store (STAS) "
               "or, in K2, TF32 tensor-core product in its SASS")
         sass[name] = found
+    # K7: mma.sync on the tensor cores, bf16 (HMMA ... BF16) and f32 by
+    # 3xTF32 (HMMA ... TF32)
+    lines = [ln for ln in build.sass("flash_bwd").splitlines()
+             if "HMMA" in ln]
+    found = {"HMMA_BF16": sum("BF16" in ln for ln in lines),
+             "HMMA_TF32": sum("TF32" in ln for ln in lines)}
+    print("  cuobjdump -sass flash_bwd: " + ", ".join(
+        f"{op} x{c}" for op, c in found.items()))
+    check(all(found.values()), "flash_bwd: no bf16 or TF32 tensor-core "
+          "product (HMMA) in its SASS")
+    sass["flash_bwd"] = found
     (res,) = build.build(["flash_attention"], ONE_P)
     print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
     return sass
@@ -820,6 +869,28 @@ def profile_ms(fn, n: int = 5):
                    if e.device_type == DeviceType.CUDA
                    and e.device_time_total > 0), reverse=True)
     return sum(r[0] for r in rows), rows
+
+
+def launches_in_one_call(fn, name: str, tries: int = 3) -> int:
+    """The CUDA kernels whose name holds ``name`` that one call of ``fn``
+    launches, as torch.profiler records them: the most over ``tries``
+    sessions of one call each (a dropped record can only lower a
+    session's count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA
+                             and name in e.name))
+    return best
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1932,22 +2003,24 @@ def phase_kernels_ext(seed: int, dev):
                                       "causal_cases": witnesses}}
 
 
-def ext_bound(q, km, offset: int):
-    """K5's bound on these inputs: q, k, v read once, O and lse written
-    once, the mask read once; 4·D flops (q·k and p·v) per visible
-    (query, key) pair per head, counted on this mask, at the fastest rate
-    this card reaches for q's type at its accuracy: bf16 tensor cores, and
-    for f32 3xTF32 on the tensor cores (the planned f32 design)."""
+def ext_bound(q, km, offset: int, tensors: int = 4, flops: float = 4.0):
+    """The bound of an attention pass on these inputs: ``tensors`` [N, T,
+    H, D] tensors moved once (K5: q, k, v read, O written; K7: q, k, v, O,
+    dO read, dq, dk, dv written: 8), lse and the mask once; ``flops``·D
+    flops per visible (query, key) pair per head, counted on this mask
+    (K5: q·k and p·v, 4; K7: five products, 10), at the fastest rate this
+    card reaches for q's type at its accuracy: bf16 tensor cores, and for
+    f32 3xTF32 on the tensor cores."""
     n, t, h, d = q.shape
     qi = torch.arange(t, device=q.device)
     vis = (qi[:, None] + offset >= qi[None, :]).float()      # [T, T]
     keep = torch.ones((n, t), device=q.device) if km is None else km
     pairs = float((vis.sum(0)[None] * keep).sum().item()) * h
-    nbytes = 4 * n * t * h * d * q.element_size() + 4.0 * n * h * t \
+    nbytes = tensors * n * t * h * d * q.element_size() + 4.0 * n * h * t \
         + (4.0 * n * t if km is not None else 0.0)
     peak = PEAK_F32_TC_FLOPS if q.dtype == torch.float32 \
         else PEAK_BF16_FLOPS
-    return bound(nbytes, 4.0 * d * pairs, peak) + (pairs,)
+    return bound(nbytes, flops * d * pairs, peak) + (pairs,)
 
 
 def phase_times_ext(seed: int, dev):
@@ -2193,7 +2266,8 @@ def phase_mha_train(seed: int, dev):
           f"T={MHA_T}, lengths 64-{MHA_T}")
     batches = [mha_batch(seed + i, dev) for i in range(MHA_FITS)]
     kernels = (flash_attention_block, flash_attention_block_plain,
-               flash_attention, flash_attention_plain)
+               flash_attention, flash_attention_plain, flash_bwd,
+               flash_block_bwd)
     for fn in kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -2210,6 +2284,9 @@ def phase_mha_train(seed: int, dev):
           and counts["flash_attention_block_plain"] == 0
           and counts["flash_attention"] == 0,
           "K5 did not launch exactly twice per fit (and nothing else)")
+    check(counts["flash_bwd"] == 2 * MHA_FITS
+          and counts["flash_block_bwd"] == 0,
+          "K7 did not launch twice per fit (its plain version never)")
     x, y, mask = mha_batch(seed + 99, dev)
     names, got = mha_grads(net, x, y, mask)
     saved, flash_mod.FlashBlockFn = flash_mod.FlashBlockFn, _PlainBlock
@@ -2221,7 +2298,7 @@ def phase_mha_train(seed: int, dev):
                     / b.abs().max().clamp_min(1e-30)).item()
                 for n, a, b in zip(names, got, want)}
     worst = max(grad_err, key=grad_err.get)
-    print(f"one fit's gradients, K5 + blocked backward vs autograd through "
+    print(f"one fit's gradients, K5 + K7 vs autograd through "
           f"the plain version: max error {grad_err[worst]:.3e} of the "
           f"largest entry (leaf {worst}; tol {TOL_GRAD})")
     check(grad_err[worst] <= TOL_GRAD,
@@ -2237,15 +2314,11 @@ def phase_mha_train(seed: int, dev):
           "the saved and loaded MHA network scores differently")
     fit_ms = time_ms(lambda: net.fit(*batches[0]), iters=5, warmup=1)
     busy, rows = profile_ms(lambda: net.fit(*batches[0]), n=3)
-    groups = {"K5 flash_fwd_tc<float>": 0.0, "GEMMs": 0.0,
-              "other kernels (blocked backward, Adam, glue)": 0.0}
+    groups = {"K5 flash_fwd_tc<float>": 0.0, "K7 flash_bwd": 0.0,
+              "GEMMs": 0.0, "other kernels (Adam, glue)": 0.0}
     for ms_, _, name in rows:
-        low = name.lower()
-        key = ("K5 flash_fwd_tc<float>" if "flash_fwd" in name
-               else "GEMMs" if "gemm" in low or "xmma" in low
-               or "nvjet" in low or "cutlass" in low
-               else "other kernels (blocked backward, Adam, glue)")
-        groups[key] += ms_
+        groups[kernel_group(name, "K5 flash_fwd_tc<float>",
+                            "other kernels (Adam, glue)")] += ms_
     groups["host gaps (wall - kernels)"] = fit_ms - busy
     print(f"fit: {fit_ms:.3f} ms per call; kernels {busy:.3f} ms "
           f"({busy / fit_ms:.1%}): " + ", ".join(
@@ -2259,6 +2332,361 @@ def phase_mha_train(seed: int, dev):
                                     kernels=[dict(ms=r[0], calls=r[1],
                                                   name=r[2][:120])
                                              for r in rows[:12]])}
+
+
+def kernel_group(name: str, fwd: str, other: str) -> str:
+    """A profiler kernel's group: the flash forward, K7, GEMMs, other."""
+    low = name.lower()
+    if "flash_fwd" in name:
+        return fwd
+    if "flash_bwd" in name:
+        return "K7 flash_bwd"
+    if "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
+        return "GEMMs"
+    return other
+
+
+# ---------------------------------------------------------------------------
+# K7: the flash backward
+# ---------------------------------------------------------------------------
+
+
+def bwd_inputs(n: int, tq: int, tk: int, h: int, d: int, seed: int, dev,
+               dtype=torch.bfloat16, keep: float = 0.0, offset: int = 0,
+               with_glse: bool = False):
+    """K7's arguments: K5's inputs, (o, lse) of its plain forward, seeded
+    cotangents g (and g_lse)."""
+    q, k, v, km = ext_inputs(n, tq, tk, h, d, seed, dev, dtype, keep)
+    o, lse = flash_attention_block_plain(q, k, v, offset=offset,
+                                         key_mask=km)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    go = torch.randn(o.shape, generator=g, device=dev, dtype=dtype)
+    gl = (torch.randn(lse.shape, generator=g, device=dev)
+          if with_glse else None)
+    return q, k, v, km, offset, o, lse.float(), go, gl
+
+
+def bwd_error(got, want) -> float:
+    """The largest error of dq, dk, dv, each of its largest entry."""
+    return max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def check_bwd(name: str, args, tol: float) -> float:
+    """K7 against its plain version on the same card inputs, two launches
+    bit-equal, every gradient finite, rows of a batch row with every key
+    masked exactly 0."""
+    got = flash_bwd(*args)
+    again = flash_bwd(*args)
+    want = flash_block_bwd(*args)
+    torch.cuda.synchronize()
+    err = bwd_error(got, want)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    km = args[3]
+    dead = [] if km is None else [i for i in range(km.shape[0])
+                                  if not bool(km[i].any())]
+    zero = all(bool((a[i] == 0).all()) for a in got for i in dead)
+    print(f"flash_bwd {name}: max error {err:.3e} of the largest entry "
+          f"(tol {tol}); finite {finite}; two launches bit-equal {same}"
+          + (f"; all-masked rows {dead} exactly 0: {zero}" if dead else ""))
+    check(err <= tol and finite and same and zero,
+          f"flash_bwd disagrees with its plain version ({name})")
+    return err
+
+
+def phase_kernels_bwd(seed: int, dev):
+    print("== K7 (the flash backward) against its plain version, "
+          "flash_block_bwd ==")
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    cfg = lm_cfg(seed)
+    h, d = cfg.n_heads, cfg.d_model // cfg.n_heads
+    errs["train"] = check_bwd(
+        f"train: the LM's layer N={LM_BATCH} T={LM_T} H={h} D={d} bf16 "
+        "causal", bwd_inputs(LM_BATCH, LM_T, LM_T, h, d, seed, dev),
+        TOL_BWD_BF16)
+    errs["h"] = check_bwd(
+        f"h: MHA fit N={MHA_N} T={MHA_T} H={MHA_HEADS} "
+        f"D={MHA_W // MHA_HEADS} f32, lengths 64-{MHA_T}, off={MHA_T}",
+        mha_bwd_inputs(seed, dev), TOL_BWD_F32)
+    n, t, hh, dd = EXT_MASKED
+    errs["b"] = check_bwd(
+        f"b: masked N={n} T={t} H={hh} D={dd} bf16 causal, keep "
+        f"{EXT_KEEP}, g_lse", bwd_inputs(n, t, t, hh, dd, seed, dev,
+                                         keep=EXT_KEEP, with_glse=True),
+        TOL_BWD_BF16)
+    errs["c"] = check_bwd(
+        "c: T=1024 H=8 D=64 bf16 off=-512 (rows with no visible key), "
+        "g_lse", bwd_inputs(2, 1024, 1024, 8, 64, seed, dev, offset=-512,
+                            with_glse=True), TOL_BWD_BF16)
+    args = bwd_inputs(3, 512, 512, 8, 64, seed, dev, keep=0.8, offset=512)
+    args[3][1] = 0.0  # batch row 1: every key masked (lse -inf)
+    o, lse = flash_attention_block_plain(*args[:3], offset=512,
+                                         key_mask=args[3])
+    args = args[:5] + (o, lse.float()) + args[7:]
+    errs["e"] = check_bwd("e: batch row 1 with every key masked, T=512 "
+                          "bf16 off=512", args, TOL_BWD_BF16)
+    for dd, dtype, tol in ((32, f32, TOL_BWD_F32), (128, f32, TOL_BWD_F32),
+                           (16, bf, TOL_BWD_BF16), (128, bf, TOL_BWD_BF16)):
+        errs[f"f{dd}{'f32' if dtype == f32 else 'bf16'}"] = check_bwd(
+            f"f: D={dd} {dtype} ragged Tq=300 Tk=420 H=4 masked off=60",
+            bwd_inputs(2, 300, 420, 4, dd, seed, dev, dtype, keep=0.8,
+                       offset=60, with_glse=True), tol)
+    return {"flash_bwd": {"max_err": max(errs.values()), "cases": errs}}
+
+
+def mha_bwd_inputs(seed: int, dev):
+    """K7's arguments at a layer of the masked MHA fit (case h)."""
+    q, k, v, _ = ext_inputs(MHA_N, MHA_T, MHA_T, MHA_HEADS,
+                            MHA_W // MHA_HEADS, seed, dev, torch.float32)
+    km = mha_batch(seed, dev)[2]
+    o, lse = flash_attention_block_plain(q, k, v, offset=MHA_T, key_mask=km)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    return (q, k, v, km, MHA_T, o, lse,
+            torch.randn(o.shape, generator=g, device=dev), None)
+
+
+def sdpa_backward(q, k, v, g, km, causal: bool):
+    """One call: the backward of ``scaled_dot_product_attention`` on these
+    inputs (its forward run once, outside the timing)."""
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    t = q.shape[1]
+    if km is None:
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    else:
+        allowed = (km > 0)[:, None, None, :]
+        if causal:
+            allowed = allowed & torch.ones((t, t), dtype=torch.bool,
+                                           device=q.device).tril()[None,
+                                                                   None]
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=allowed)
+    gs = g.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(o, (qs, ks, vs), gs,
+                                       retain_graph=True)
+
+
+def phase_times_bwd(seed: int, dev):
+    print("== times: K7, its plain version and the backward of "
+          "scaled_dot_product_attention (CUDA events; queued behind a "
+          "sleep kernel, and back to back) ==")
+    torch.backends.cuda.matmul.allow_tf32 = False  # strict f32 (case h)
+    res = {"flash_bwd": {}}
+    cfg = lm_cfg(seed)
+    h, d = cfg.n_heads, cfg.d_model // cfg.n_heads
+    for case, args, causal in (
+            ("train", bwd_inputs(LM_BATCH, LM_T, LM_T, h, d, seed, dev),
+             True),
+            ("h", mha_bwd_inputs(seed, dev), False)):
+        q, k, v, km, off, o, lse, g, _ = args
+        kern = lambda: flash_bwd(*args)
+        ms, ev = device_ms(kern, iters=10), time_ms(kern, iters=10)
+        plain = time_ms(lambda: flash_block_bwd(*args), iters=3, warmup=1)
+        lib_fn = sdpa_backward(q, k, v, g, km, causal)
+        lib = device_ms(lib_fn, iters=10)
+        b_ms, b_by, pairs = ext_bound(q, km, off, tensors=8, flops=10.0)
+        # K7's own launches in one call, read from the profiler's records
+        per_call = launches_in_one_call(kern, "flash_bwd_")
+        n, t = q.shape[:2]
+        kind = ("bf16 causal" if causal
+                else "f32, the MHA fit's length mask, off=T")
+        res["flash_bwd"][case] = dict(
+            shape=f"N={n} T={t} H={q.shape[2]} D={q.shape[3]} {kind}",
+            ms=ms, events_ms=ev, plain_ms=plain, library_ms=lib,
+            bound_ms=b_ms, bound_by=b_by, gflop=10.0 * q.shape[3] * pairs
+            / 1e9, launches_per_call=per_call)
+        print(f"flash_bwd {case} ({res['flash_bwd'][case]['shape']}): "
+              f"{ms:.4f} ms on the device ({ev:.4f} back to back), plain "
+              f"{plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {10.0 * q.shape[3] * pairs / 1e9:.2f}"
+              f" GFLOP of five products over the visible pairs), "
+              f"{10.0 * q.shape[3] * pairs / ms / 1e9:.1f} TFLOP/s; "
+              f"{per_call} kernel launches per call (profiler)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the LM's training and sampling
+# ---------------------------------------------------------------------------
+
+
+def lm_cfg(seed: int) -> TransformerConfig:
+    """``bench.py:356`` ``_transformer_bench_cfg``: d_model 2048, 4 layers,
+    32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16 compute with f32
+    masters, lr 1e-4."""
+    return TransformerConfig(vocab_size=8192, d_model=2048, n_layers=4,
+                             n_heads=32, d_ff=8192, max_len=LM_T,
+                             dtype_policy="performance", use_flash=True,
+                             learning_rate=LM_LR, seed=seed)
+
+
+def markov_tokens(seed: int, shape, vocab: int):
+    """Token ids [..., T + 1] from a fixed random Markov chain: each token
+    is followed by one of ``LM_SUCCESSORS`` fixed successors (uniformly),
+    so a model can learn ~log(LM_SUCCESSORS) nats of it."""
+    succ = np.random.default_rng(1234).integers(0, vocab,
+                                                (vocab, LM_SUCCESSORS))
+    rng = np.random.default_rng(seed)
+    *lead, t1 = shape
+    rows = int(np.prod(lead))
+    ids = np.empty((rows, t1), np.int64)
+    ids[:, 0] = rng.integers(0, vocab, rows)
+    pick = rng.integers(0, LM_SUCCESSORS, (rows, t1))
+    for j in range(1, t1):
+        ids[:, j] = succ[ids[:, j - 1], pick[:, j]]
+    return ids.reshape(shape)
+
+
+def lm_batch(seed: int, dev, k=None):
+    shape = ((LM_BATCH, LM_T + 1) if k is None
+             else (k, LM_BATCH, LM_T + 1))
+    ids = torch.from_numpy(markov_tokens(seed, shape, 8192)).to(dev)
+    return ids[..., :-1], ids[..., 1:]
+
+
+def phase_lm_train(seed: int, dev):
+    print("== training and sampling: the bench TransformerLM ==")
+    cfg = lm_cfg(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lm = TransformerLM(cfg, device=dev)
+    n_params = sum(x.numel() for x in lm_mod.tree_leaves(lm.params))
+    print(f"TransformerLM: d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"bf16 compute, f32 masters, Adam lr {cfg.learning_rate}, "
+          f"{n_params} parameters; {LM_FITS} fits then fit_batches of "
+          f"{LM_MULTI}, batch {LM_BATCH} x T={LM_T}, a Markov token stream "
+          f"of {LM_SUCCESSORS} successors a token")
+    batches = [lm_batch(seed + i, dev) for i in range(LM_FITS)]
+    xs, ys = lm_batch(seed + 100, dev, k=LM_MULTI)
+    kernels = (flash_attention, flash_bwd, flash_attention_plain,
+               flash_block_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(lm.fit(x, y)) for x, y in batches]
+    multi = [float(v) for v in lm.fit_batches(xs, ys)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    steps = LM_FITS + LM_MULTI
+    peak = torch.cuda.max_memory_allocated() - held
+    print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
+          + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi))
+    print(f"{steps} steps in {wall:.3f} s (first calls included); "
+          f"launches {counts}; peak device memory {peak / 2**30:.3f} GiB "
+          "above what the earlier phases hold")
+    check(all(np.isfinite(losses + multi)), "a training loss is not finite")
+    check(np.mean(multi) < losses[0] and multi[-1] < losses[0],
+          "the loss did not fall")
+    check(lm.iteration == steps and int(lm.opt["t"]) == steps,
+          "the iteration is not the step count")
+    check(counts["flash_attention"] == counts["flash_bwd"]
+          == cfg.n_layers * steps,
+          "K4 and K7 did not launch once per layer per step")
+    check(counts["flash_attention_plain"] == 0
+          and counts["flash_block_bwd"] == 0,
+          "a plain flash version ran while training on the card")
+    grads = lm_mod.value_and_grad(
+        lambda p: lm_mod.loss_fn(p, batches[0][0], batches[0][1], cfg),
+        lm.params)[1]["blocks"]
+    qkv = {k: grads[k].abs().max().item() for k in ("Wq", "Wk", "Wv")}
+    print(f"largest |gradient| of Wq, Wk, Wv: {qkv}")
+    check(min(qkv.values()) > 0, "no gradient reached Wq, Wk or Wv")
+    del grads
+
+    x, y = batches[0]
+    step_ms = time_ms(lambda: lm.fit(x, y), iters=5, warmup=1)
+    busy, rows = profile_ms(lambda: lm.fit(x, y), n=3)
+    adam_busy, _ = profile_ms(lambda: lm_mod._adam_update(
+        lm.params, lm.opt["m"], lm.opt,
+        torch.tensor(LM_LR, device=dev)), n=3)
+    groups = {"K4 flash_fwd_tc<bf16>": 0.0, "K7 flash_bwd": 0.0,
+              "GEMMs": 0.0, "other kernels": 0.0}
+    for ms_, _, name in rows:
+        groups[kernel_group(name, "K4 flash_fwd_tc<bf16>",
+                            "other kernels")] += ms_
+    groups["Adam (its kernels, profiled alone)"] = adam_busy
+    groups["other kernels"] -= adam_busy
+    groups["host gaps (wall - kernels)"] = step_ms - busy
+    tok_s = LM_BATCH * LM_T / step_ms * 1e3
+    print(f"fit: {step_ms:.3f} ms per step, {tok_s:.0f} training tokens/s; "
+          f"kernels {busy:.3f} ms ({busy / step_ms:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:12]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+
+    probe = lm_batch(seed + 200, dev)[0][:2, :256]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm.zip")
+        t0 = time.perf_counter()
+        lm.save(path)
+        t1 = time.perf_counter()
+        loaded = TransformerLM.load(path, device=dev)
+        torch.cuda.synchronize()
+        io_s = (t1 - t0, time.perf_counter() - t1)
+        size = os.path.getsize(path)
+    same = torch.equal(lm.logits(probe), loaded.logits(probe))
+    print(f"save -> TransformerLM.load ({size / 2**30:.3f} GiB in "
+          f"{tempfile.gettempdir()}: save {io_s[0]:.1f} s, load "
+          f"{io_s[1]:.1f} s): iteration {loaded.iteration}, logits "
+          f"bit-equal: {same}")
+    check(same and loaded.iteration == lm.iteration,
+          "the saved and loaded LM differs from the trained one")
+    del loaded
+
+    prompt = lm_batch(seed + 300, dev)[0][:2, :64]
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = lm.generate(prompt, 32, temperature=0.8, seed=seed, top_k=40,
+                      top_p=0.9)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (2, 32) and bool((out >= 0).all())
+          and bool((out < cfg.vocab_size).all()),
+          f"generate gave {tuple(out.shape)} tokens out of range")
+    check(flash_attention.launches == cfg.n_layers
+          and flash_attention_plain.launches == 0,
+          "generate's prefill did not run K4 once per layer")
+    print(f"generate top_k=40 top_p=0.9, 2 prompts of 64, 32 new tokens: "
+          f"{gen_s:.3f} s (prefill through K4, then dense-cache decode "
+          "steps)")
+    eng = ServingEngine(lm, kv_blocks=256, device=dev).start()
+    try:
+        req = {"tokens": prompt[:1].tolist(), "n_new": 16,
+               "temperature": 0.7, "seed": 3, "top_k": 40}
+        status, body = _post(eng.url, req)
+        want = lm.generate(prompt[:1], 16, temperature=0.7, seed=3,
+                           top_k=40)
+        got = json.loads(body)["tokens"]
+        check(status == 200 and got == want.tolist(),
+              f"HTTP /generate with top_k: {status}, {body[:200]}")
+        try:
+            _post(eng.url, dict(req, stream=True))
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        check(refused == 400, "a streamed request with top_k was not "
+              "refused with 400")
+    finally:
+        eng.stop()
+    print("HTTP /generate with top_k: 200 with lm.generate's tokens; with "
+          "stream: 400")
+    return lm, counts, {"steps": steps, "loss_per_fit": losses,
+                        "fit_batches_losses": multi, "wall_s": wall,
+                        "launches": counts, "step_ms": step_ms,
+                        "tokens_per_s": tok_s, "peak_memory_bytes": peak,
+                        "qkv_grad_max": qkv, "checkpoint_bytes": size,
+                        "checkpoint_io_s": io_s, "generate_s": gen_s,
+                        "profile": dict(device_busy_ms=busy, groups=groups,
+                                        kernels=[dict(ms=r[0], calls=r[1],
+                                                      name=r[2][:120])
+                                                 for r in rows[:12]])}
 
 
 def merge(times: dict, part: dict) -> None:
@@ -2290,6 +2718,7 @@ def main(argv=None) -> int:
         errs = phase_kernels(args.seed, dev)
         errs.update(phase_kernels_sgns(args.seed, dev))
         errs.update(phase_kernels_ext(args.seed, dev))
+        errs.update(phase_kernels_bwd(args.seed, dev))
     cfg = TransformerConfig(vocab_size=8192, d_model=2048, n_layers=4,
                             n_heads=32, d_ff=8192, max_len=1024,
                             dtype_policy="performance", use_flash=True,
@@ -2314,16 +2743,21 @@ def main(argv=None) -> int:
     mha_counts, mha = phase_mha_train(args.seed, dev)
     with torch.inference_mode():
         merge(times, phase_times_ext(args.seed, dev))
+    merge(times, phase_times_bwd(args.seed, dev))
     peak_sp = torch.cuda.max_memory_allocated()
-    peak = max(peak_serve, peak_train, peak_w2v, peak_sp)
+    del lm
+    _, lm_counts, lm_train = phase_lm_train(args.seed, dev)
+    peak_lm = torch.cuda.max_memory_allocated()
+    peak = max(peak_serve, peak_train, peak_w2v, peak_sp, peak_lm)
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
           f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more; word2vec "
           f"fit {peak_w2v / 2**30:.3f} GiB, "
           f"{word2vec['phase_memory_bytes'] / 2**20:.1f} MiB above what the "
-          f"earlier phases hold; ring, MHA training and K5 timing "
-          f"{peak_sp / 2**30:.3f} GiB); whole run "
+          f"earlier phases hold; ring, MHA training, K5 and K7 timing "
+          f"{peak_sp / 2**30:.3f} GiB; LM training "
+          f"{peak_lm / 2**30:.3f} GiB); whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
@@ -2336,6 +2770,7 @@ def main(argv=None) -> int:
         SGNS_SHAPES[0][0], W2V_D, W2V_NEG + 1)]
     k5a, k5b, k5g, k5h = (times["flash_attention_block"][c]
                           for c in "abgh")
+    k7, k7h = times["flash_bwd"]["train"], times["flash_bwd"]["h"]
     # K4 is also held at the ring phase's shape (case g: Ulysses, forward)
     k4_err = max(errs["flash_attention"]["max_abs_err"],
                  *(c["k4_o"] for c in errs["flash_attention_block"]
@@ -2348,6 +2783,7 @@ def main(argv=None) -> int:
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:117",
          "launches": launches["flash_attention"],
+         "launches_lm_train": lm_counts["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
@@ -2445,12 +2881,32 @@ def main(argv=None) -> int:
                    "registers; a 2-stage cp.async K/V ring, masking only "
                    "where needed",
          "causal_cases": errs["flash_attention_block"]["causal_cases"]},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:176 "
+                     "(_flash_bwd, XLA; and _flash_ext_bwd :335)",
+         "launches": lm_counts["flash_bwd"],
+         "launches_mha_train": mha_counts["flash_bwd"],
+         "max_abs_err": errs["flash_bwd"]["max_err"],
+         "max_err_is": "of the largest entry of each gradient",
+         "tolerance": TOL_BWD_BF16, "tolerance_f32": TOL_BWD_F32,
+         "cases": errs["flash_bwd"]["cases"],
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+         "library_ms": k7["library_ms"], "events_ms": k7["events_ms"],
+         "launches_per_call": k7["launches_per_call"],
+         "shape": k7["shape"], "case_h": k7h, "sass": sass["flash_bwd"],
+         "design": "two passes, no float atomics: a CTA per 64-row q tile "
+                   "writes dQ (and Dvec), a CTA per 64-key tile dK and dV; "
+                   "P recomputed in both; bf16 mma.sync m16n8k16, f32 "
+                   "3xTF32 m16n8k8; hidden tiles skipped"},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
                   "serving": serve, "predict": predict, "train": train,
                   "word2vec": word2vec, "ring": ring, "mha_train": mha,
-                  "times": times, "peak_memory_bytes": peak}
+                  "lm_train": lm_train, "times": times,
+                  "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:

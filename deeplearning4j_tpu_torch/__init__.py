@@ -6,7 +6,7 @@ its module paths (``ops/``, ``nn/``, ``optimize/``, ``datasets/``,
 by name. It imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``deeplearning4j_tpu``.
 
-Ported so far, two serving paths, three training paths and the
+Ported so far, two serving paths, four training paths and the
 long-context forward:
 
 * paged-KV ``/generate`` of the TransformerLM:
@@ -29,7 +29,13 @@ long-context forward:
   ``parallel.sequence_parallel`` (ring attention, Ulysses) and
   ``parallel.mesh``;
 * MultiLayerNetworks of ``MultiHeadAttention`` layers
-  (``nn.layers.attention``), masked batches included.
+  (``nn.layers.attention``), masked batches included;
+* training and sampling of the TransformerLM:
+  ``models.transformer.TransformerLM.fit`` / ``fit_batches`` /
+  ``fit_iterator`` / ``evaluate`` (Adam, accumulation, ``ops.remat``,
+  bf16 loss scaling through ``ops.lowprec``), ``save`` / ``load`` in the
+  JAX zip layout, and ``generate`` with top-k / top-p (also behind
+  ``/generate``).
 
 Their six TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode
@@ -37,8 +43,9 @@ attention (``ops/paged_attention.py``), the fused peephole-LSTM scan
 with its reverse-time backward (``ops/lstm_scan.py``) and the
 skip-gram negative-sampling step (``ops/sgns.py``) and flash attention
 with a key bias and a visibility offset (``ops/flash_attention.py``,
-beside the flash prefill), built with ``nvcc``
-at first use (``ops/build.py``).
+beside the flash prefill); so is the flash backward that training runs
+(``flash_bwd`` in ``ops/flash_attention.py``), which the JAX package left
+to XLA. All are built with ``nvcc`` at first use (``ops/build.py``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU device it raises

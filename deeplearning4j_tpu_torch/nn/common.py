@@ -1,14 +1,16 @@
 """The per-layer application policy of the containers (counterpart:
 ``deeplearning4j_tpu/nn/common.py`` — ``tbptt_backprop_window``,
 ``compute_dtype_of``, ``cast_for_compute``, ``apply_layer``,
-``cast_loss_input`` and ``decay_lr_scale_entry``).
+``cast_loss_input``, ``remat_apply`` and ``decay_lr_scale_entry``).
 
 Under ``dtype_policy="performance"`` a layer's f32 params and input are
 cast to bf16 for its computation, output layers are never downcast (a
 bf16 input is upcast to f32 for them), and a cast layer's returned
 recurrent state is cast back to f32 so stored states keep one dtype.
-Remat (``conf.gradient_checkpointing`` or a ``DL4J_TPU_REMAT`` policy
-other than ``none``) is not ported yet: training with it raises.
+In training a layer runs under the remat ladder (``ops/remat.py``): a
+``DL4J_TPU_REMAT`` policy other than ``none`` wins, else
+``conf.gradient_checkpointing`` means ``block``. The policy is read in
+training only (the JAX package reads it at every trace).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayerImpl
-from deeplearning4j_tpu_torch.ops import env as envknob
+from deeplearning4j_tpu_torch.ops.remat import remat_policy, remat_wrap
 
 
 def tbptt_backprop_window(conf) -> Optional[int]:
@@ -44,15 +46,6 @@ def cast_for_compute(params, x, dtype):
     return {k: cast(v) for k, v in params.items()}, cast(x)
 
 
-def _check_no_remat(conf) -> None:
-    policy = envknob.raw("DL4J_TPU_REMAT").strip().lower() or "none"
-    if conf.gradient_checkpointing or policy != "none":
-        raise NotImplementedError(
-            "activation remat (conf.gradient_checkpointing or "
-            f"DL4J_TPU_REMAT={policy!r}) is not ported yet; train with "
-            "gradient_checkpointing off and DL4J_TPU_REMAT unset or 'none'")
-
-
 def apply_layer(layer, conf, params, state, x, gen, mask, kwargs=None, *,
                 train: bool = False):
     """One layer under the container's policy: the dtype cast, then
@@ -65,10 +58,17 @@ def apply_layer(layer, conf, params, state, x, gen, mask, kwargs=None, *,
         params, x = cast_for_compute(params, x, compute_dtype)
     elif compute_dtype is not None and x.dtype == compute_dtype:
         x = x.to(torch.float32)
+    effective = "none"
     if train:
-        _check_no_remat(conf)
-    y, new_state = layer.apply(params, state, x, train=train, gen=gen,
-                               mask=mask, **(kwargs or {}))
+        env_policy = remat_policy("auto")
+        effective = env_policy if env_policy != "none" else (
+            "block" if conf.gradient_checkpointing else "none")
+    if effective != "none":
+        y, new_state = remat_apply(layer, params, state, x, gen, mask,
+                                   kwargs, policy=effective)
+    else:
+        y, new_state = layer.apply(params, state, x, train=train, gen=gen,
+                                   mask=mask, **(kwargs or {}))
     if cast_active and new_state:
         new_state = {k: v.to(torch.float32) if v.dtype == compute_dtype
                      else v for k, v in new_state.items()}
@@ -80,6 +80,24 @@ def cast_loss_input(x: torch.Tensor) -> torch.Tensor:
     if x.dtype in (torch.bfloat16, torch.float16):
         return x.to(torch.float32)
     return x
+
+
+def remat_apply(layer, params, state, x, gen, mask, kwargs, policy: str):
+    """A training ``layer.apply`` under a rung of the remat ladder: the
+    backward recomputes the layer's activations (``block``) or all but its
+    products' outputs (``dots``). The dropout generator is replayed from
+    its state at the call, so the recompute draws the same masks."""
+    gen_state = None if gen is None else gen.get_state()
+
+    def run(p, s, xx):
+        g = gen
+        if gen_state is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(gen_state)
+        return layer.apply(p, s, xx, train=True, gen=g, mask=mask,
+                           **(kwargs or {}))
+
+    return remat_wrap(run, policy)(params, state, x)
 
 
 def decay_lr_scale_entry(state, rate: float):

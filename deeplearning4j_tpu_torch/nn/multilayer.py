@@ -24,9 +24,10 @@ configuration fed [N, T, F] runs one step per window of
 ``tbptt_fwd_length`` steps, carrying the recurrent state across windows as
 data. ``output`` pads a ragged batch to its bucket and slices the answer
 back; ``fit`` pads one only inside ``fit_iterator`` (or with
-``DL4J_TPU_BUCKET_BATCHES=1``), masking the pad rows out of the loss. The
-Solver (non-SGD ``optimization_algo``), layerwise pretraining and remat
-are not ported yet and raise.
+``DL4J_TPU_BUCKET_BATCHES=1``), masking the pad rows out of the loss.
+Layers train under the remat ladder (``nn/common.apply_layer``). The
+Solver (non-SGD ``optimization_algo``) and layerwise pretraining are not
+ported yet and raise.
 """
 
 from __future__ import annotations

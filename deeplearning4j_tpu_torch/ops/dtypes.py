@@ -1,7 +1,8 @@
 """Numerics policy helpers (counterpart: ``deeplearning4j_tpu/ops/dtypes.py``).
 
 Only the softmax accumulation rule is ported: the training-time policy
-objects wait for the training slice.
+objects wait for a later slice (bf16 loss-scaled training is
+``ops/lowprec.py``).
 """
 
 from __future__ import annotations

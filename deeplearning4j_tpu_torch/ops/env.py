@@ -1,9 +1,9 @@
 """Env knobs the port reads — its own copy of the entries of the JAX
 package's table (``deeplearning4j_tpu/ops/env.py``) that the ported paths
 read, same names, kinds and defaults: the paged ``/generate`` path, the
-``/predict`` batcher, shape bucketing and the remat policy (which training
-refuses when set, remat not being ported yet). The rest of the table
-waits for the slices that read them.
+``/predict`` batcher, shape bucketing, the remat policy
+(``ops/remat.py``) and bf16 loss-scaled training (``ops/lowprec.py``).
+The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
@@ -41,6 +41,15 @@ _register("DL4J_TPU_BUCKET_BATCHES", "", "enum",
 _register("DL4J_TPU_REMAT", "", "enum",
           "activation-remat policy ladder for block scans and per-layer "
           "remat: none (default) / dots / block")
+_register("DL4J_TPU_BF16", "0", "bool",
+          "bf16 master-weight training mode for the containers and "
+          "TransformerLM/BertMLM: f32 master params + updater state, bf16 "
+          "cast at the train-step boundary, dynamic loss scaling "
+          "(halve-and-skip on non-finite grads)")
+_register("DL4J_TPU_LOSS_SCALE", "", "str",
+          "dynamic loss-scale policy 'init' or 'init:growth_interval' "
+          "('' = 32768:2000: start at 2^15, double after 2000 clean "
+          "steps, halve-and-skip on non-finite grads, floor 1)")
 _register("DL4J_TPU_SERVE_MAX_BATCH", "64", "int",
           "dynamic-batcher max rows per dispatched batch")
 _register("DL4J_TPU_SERVE_MAX_WAIT_MS", "10", "float",
@@ -90,3 +99,16 @@ def get_float(name: str) -> float:
         return float(raw(name).strip())
     except ValueError:
         return float(knob(name).default)
+
+
+_FALSY = ("0", "off", "false", "no")
+
+
+def get_bool(name: str) -> bool:
+    """The JAX table's bool convention: '0'/'off'/'false'/'no' => False,
+    any other non-empty value => True, unset or empty => the table
+    default (False when that is empty)."""
+    v = raw(name).strip().lower()
+    if v == "":
+        v = knob(name).default.strip().lower()
+    return v != "" and v not in _FALSY

@@ -17,12 +17,18 @@ v through their strides, so nothing folds heads. What lives here:
   from Tk (a ring step attends a local Q shard to a rotating K/V shard). A
   row with no visible key gives O = 0 and lse = -inf. Its plain version
   is :func:`flash_attention_block_plain`.
+* K7, :func:`flash_bwd` (``csrc/flash_bwd.cu``), the backward of both:
+  dq, dk and dv from q, k, v, o, lse and the cotangents (with the lse
+  cotangent, a key bias and an offset, as K5's). In the JAX package that
+  backward is XLA outside any Pallas kernel; its plain version here is
+  :func:`flash_block_bwd`, the JAX package's blocked backward in plain
+  PyTorch, over key tiles of 128, recomputing probabilities from the saved
+  lse.
 * :class:`FlashBlockFn` and :class:`FlashFn`, the autograd functions: the
-  forward is the wrapper (the kernel on the card), the backward is the
-  JAX package's blocked backward in plain PyTorch, over key tiles of 128,
-  recomputing probabilities from the saved lse (K5's with the lse
-  cotangent). In the JAX package that backward is XLA outside any Pallas
-  kernel; a kernel for it is later work.
+  forward is K5's or K4's wrapper, the backward K7's. K4's forward goes
+  through one custom operator (``torch.ops.dl4j_tpu_torch.flash_attention``),
+  so a selective activation checkpoint (``ops/remat.py``, ``dots``) can
+  keep its output instead of launching it again.
 * :func:`flash_attention_masked` and :func:`attention_auto`, the dispatch
   of the MultiHeadAttention layer: a key mask goes to K5, no mask to K4.
   The JAX package's ``_dense_masked`` route for shapes its kernels do not
@@ -31,7 +37,8 @@ v through their strides, so nothing folds heads. What lives here:
 
 Each wrapper sends a CPU tensor to its plain version and a CUDA tensor to
 its kernel, or raises: no fallback on the card. A launch counter sits on
-each wrapper and each plain version (``.launches``).
+each wrapper and each plain version (``.launches``; K7's wrapper counts
+one per call, which launches its two passes).
 
 Not carried over: the JAX package keeps K5 off (``kernel_gate
 .measured_win``) until a TPU measurement proves it; no TPU number carries
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -78,6 +86,9 @@ SIGNATURES = {
     "flash_attention_ext_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                 _I, _I, _I, _P]}
+# K7's library: q k v o g lse glse kb dq dk dv dvec, N Tq Tk H D off dtype
+# device, stream
+BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 8 + [_P]}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False):
@@ -274,7 +285,8 @@ def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
     tile of ``BWD_BLOCK_K`` keys from the saved lse, never the [Tq, Tk]
     score matrix; dS = P * (dP - D + g_lse) / sqrt(D). Math in at least
     f32; gradients in the inputs' dtypes. Masked and invisible keys have
-    P = 0, hence zero dK and dV."""
+    P = 0, hence zero dK and dV. K7's plain version."""
+    flash_block_bwd.launches += 1
     n, tq, h, d = q.shape
     tk = k.shape[1]
     dt = softmax_dtype(q.dtype)
@@ -307,11 +319,83 @@ def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
     return back(dq, q), back(dk, k), back(dv, v)
 
 
+flash_block_bwd.launches = 0
+
+
+def _aligned(x):
+    """``x`` contiguous and 16-byte aligned (K7 copies 16 bytes at a
+    time)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def flash_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
+    """(dq, dk, dv) of ``(o, lse) = flash_attention_block(q, k, v,
+    offset=offset, key_mask=key_mask)`` (K4's with no mask and offset 0 or
+    T) for the cotangents g [N, Tq, H, D] and g_lse [N, H, Tq] or None.
+    CPU tensors: :func:`flash_block_bwd`. CUDA tensors: the hand-written
+    kernel K7, or an exception. Gradients in the inputs' dtype."""
+    if q.device.type == "cpu":
+        return flash_block_bwd(q, k, v, key_mask, offset, o, lse, g, g_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    (n, h, d), _ = _check_inputs("flash_bwd", q, k, v, same_t=False)
+    tq, tk = q.shape[1], k.shape[1]
+    if o.shape != q.shape or g.shape != q.shape or o.dtype != q.dtype \
+            or o.device != q.device or g.device != q.device:
+        raise ValueError(f"flash_bwd: o {tuple(o.shape)} {o.dtype}, g "
+                         f"{tuple(g.shape)} do not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, x in (("lse", lse), ("g_lse", g_lse)):
+        if x is not None and (tuple(x.shape) != (n, h, tq)
+                              or x.device != q.device):
+            raise ValueError(f"flash_bwd: {name} {tuple(x.shape)} on "
+                             f"{x.device}, expected ({n}, {h}, {tq}) on "
+                             f"{q.device}")
+    kb = None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (n, tk) or key_mask.device != q.device:
+            raise ValueError(
+                f"flash_bwd: key_mask {tuple(key_mask.shape)} on "
+                f"{key_mask.device}, expected ({n}, {tk}) on {q.device}")
+        kb = key_bias(key_mask).contiguous()
+    q, k, v, o = (_aligned(x) for x in (q, k, v, o))
+    g = _aligned(g.to(q.dtype))
+    lse = lse.float().contiguous()
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    off = max(-tq, min(tk, int(offset)))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dvec = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_bwd", BWD_SIGNATURES)
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        g.data_ptr(), lse.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(),
+        None if kb is None else kb.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dvec.data_ptr(), n, tq, tk, h, d, off,
+        _DTYPE_CODE[q.dtype], q.device.index, _stream(q.device))
+    build.check(lib, rc, "flash_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+@torch.library.custom_op("dl4j_tpu_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's wrapper as one operator: a selective checkpoint sees it as one
+    op and can keep its outputs (``ops/remat.saved_ops``)."""
+    return flash_attention(q, k, v, causal=causal)
+
+
 class FlashBlockFn(torch.autograd.Function):
     """``(o, lse) = FlashBlockFn.apply(q, k, v, key_mask, offset)``: K5
-    (its plain version on the CPU) forward, the blocked backward with the
-    lse cotangent (ring callers combine shards through lse). No gradient
-    reaches the mask or the offset."""
+    (its plain version on the CPU) forward, K7 (:func:`flash_block_bwd` on
+    the CPU) backward with the lse cotangent (ring callers combine shards
+    through lse). No gradient reaches the mask or the offset."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, offset):
@@ -324,20 +408,20 @@ class FlashBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, key_mask, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_block_bwd(q, k, v, key_mask, ctx.offset, o, lse,
-                                     g, g_lse)
+        dq, dk, dv = flash_bwd(q, k, v, key_mask, ctx.offset, o, lse, g,
+                               g_lse)
         return dq, dk, dv, None, None
 
 
 class FlashFn(torch.autograd.Function):
     """``o = FlashFn.apply(q, k, v, causal)``: K4 (its plain version on the
-    CPU) forward, the JAX package's ``_flash_bwd``: the blocked backward
-    with no key bias, offset 0 (causal) or T (full) and no lse
-    cotangent."""
+    CPU) forward, K7 (:func:`flash_block_bwd` on the CPU) backward, as the
+    JAX package's ``_flash_bwd``: no key bias, offset 0 (causal) or T
+    (full), no lse cotangent."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention(q, k, v, causal=causal)
+        o, lse = torch.ops.dl4j_tpu_torch.flash_attention(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.offset = 0 if causal else k.shape[1]
         return o
@@ -345,7 +429,7 @@ class FlashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_block_bwd(q, k, v, None, ctx.offset, o, lse, g)
+        dq, dk, dv = flash_bwd(q, k, v, None, ctx.offset, o, lse, g)
         return dq, dk, dv, None
 
 

@@ -4,8 +4,8 @@
 Same closed form as the JAX package. The budget is the device's own
 memory — ``torch.cuda.get_device_properties(dev).total_memory`` on the
 card, the host's physical memory on the CPU — instead of the JAX
-package's ``DL4J_TPU_HBM_GB`` knob. Preflight and remat sizing wait for
-the training slice.
+package's ``DL4J_TPU_HBM_GB`` knob. Preflight, remat sizing and the AOT
+memory ledger (``measure_memory``) wait for a later slice.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   application/x-ndjson: one {"token": t} line per token as
                   it is sampled, then {"done": true, "tokens": [...]} (or
                   {"error": ...} if generation failed mid-stream).
-                  "top_k"/"top_p" answer 400: not ported yet.
+                  "top_k"/"top_p" sample through ``lm.generate`` (one
+                  generator seeded with "seed" for the batch, calls
+                  serialized), as the JAX engine does (:509-529); with
+                  "stream" they answer 400.
                   429 when the decode queue is full, 503 when the decode
                   worker is dead or the engine is draining, 504 past the
                   request's deadline, 400 for a malformed request.
@@ -45,7 +48,7 @@ env knobs through the port's copy of the table (``ops/env.py``):
 Not ported yet: /embed, /search, the POST /models lifecycle, shadow
 traffic, /prefill and /prime, the serving mesh, the circuit breaker and
 the watchdog, the fixed-slot pool (``DL4J_TPU_SERVE_KV_BLOCK=0``),
-record_base64, top-k / top-p sampling and Prometheus exposition.
+record_base64 and Prometheus exposition.
 """
 
 from __future__ import annotations
@@ -144,7 +147,7 @@ class ServingEngine:
         self.stats = ServingStats()
         self.registry = ModelRegistry(device=self.device)
         self._batchers: Dict[str, DynamicBatcher] = {}
-        self._lock = threading.Lock()         # the direct /predict path
+        self._lock = threading.Lock()  # direct /predict, filtered /generate
         self._engine_lock = threading.Lock()  # batcher creation
         self.decoder: Optional[PagedDecoder] = None
         if isinstance(model, TransformerLM):
@@ -179,27 +182,34 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
 
     # -- in-process surface -----------------------------------------------
-    def _admit(self, top_k=None, top_p=None) -> None:
+    def _admit(self) -> None:
         if self._draining:
             raise DrainingError("engine is draining; admission closed")
         if self.decoder is None:
             raise ClientRequestError(
                 "POST /generate needs a TransformerLM; this engine serves "
                 f"a {type(self.model).__name__}")
-        if top_k is not None or top_p is not None:
-            raise ClientRequestError("top_k/top_p sampling is not ported "
-                                     "yet; send plain temperature sampling")
 
     def generate(self, tokens, n_new: int, *, temperature: float = 1.0,
                  seed: int = 0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
                  slo: Optional[str] = None) -> np.ndarray:
-        """[N, T] (or [T]) prompts -> [N, n_new] sampled continuations;
-        row i draws from seed + i."""
-        self._admit(top_k, top_p)
+        """[N, T] (or [T]) prompts -> [N, n_new] sampled continuations.
+        Plain sampling goes through the paged decoder (row i draws from
+        seed + i); ``top_k``/``top_p`` through ``lm.generate``, one call
+        at a time."""
+        self._admit()
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
+        if top_k is not None or top_p is not None:
+            with self._lock:
+                out = self.model.generate(
+                    tokens, int(n_new), temperature=float(temperature),
+                    seed=int(seed), top_k=top_k, top_p=top_p)
+                out = out.cpu().numpy()
+            self.stats.record_tokens(int(out.size))
+            return out
         return np.asarray(self.decoder.generate(
             tokens, int(n_new), temperature=float(temperature),
             seed=int(seed), slo=slo))
@@ -405,6 +415,7 @@ class ServingEngine:
                 n = int(self.headers.get("Content-Length", 0))
                 payload = json.loads(self.rfile.read(n))
                 toks = np.asarray(payload["tokens"], np.int32)
+                # JSON numbers may arrive as floats: top_k is an int
                 tk, tp = payload.get("top_k"), payload.get("top_p")
                 kwargs = dict(temperature=float(payload.get("temperature",
                                                             1.0)),
@@ -412,7 +423,11 @@ class ServingEngine:
                               slo=payload.get("slo"))
                 n_new = int(payload.get("n_new", 16))
                 if payload.get("stream"):
-                    engine._admit(tk, tp)
+                    if tk is not None or tp is not None:
+                        self._send(400, {"error": "stream does not "
+                                         "support top_k/top_p"})
+                        return
+                    engine._admit()
                     if toks.ndim > 1 and toks.shape[0] != 1:
                         self._send(400, {"error": "stream takes ONE "
                                          "prompt per request"})
@@ -421,8 +436,9 @@ class ServingEngine:
                                                  **kwargs)
                     self._stream_tokens(gen)
                     return
-                out = engine.generate(toks, n_new, top_k=tk, top_p=tp,
-                                      **kwargs)
+                out = engine.generate(
+                    toks, n_new, top_k=int(tk) if tk is not None else None,
+                    top_p=float(tp) if tp is not None else None, **kwargs)
                 self._send(200, {"tokens": out.tolist()})
 
             def _stream_tokens(self, gen):

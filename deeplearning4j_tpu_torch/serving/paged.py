@@ -300,7 +300,6 @@ class PagedDecoder:
         check_dense(cfg)
         self.lm = lm
         self.cfg = cfg
-        self._params = lm.compute_params
         bt = max(1, min(int(block_tokens), cfg.max_len))
         while cfg.max_len % bt:
             bt //= 2
@@ -700,7 +699,7 @@ class PagedDecoder:
                 i, buf, write_table, inserts = picked
                 t0 = time.perf_counter()
                 try:
-                    paged_admit(self._params, self._arena,
+                    paged_admit(self.lm.compute_params, self._arena,
                                 self._to_device(buf),
                                 self._to_device(write_table), self.cfg)
                 except Exception as e:  # noqa: BLE001 — lane isolation boundary
@@ -753,7 +752,7 @@ class PagedDecoder:
         t0 = time.perf_counter()
         try:
             _, logits = paged_decode_step(
-                self._params, self._arena, self._to_device(tok),
+                self.lm.compute_params, self._arena, self._to_device(tok),
                 self._to_device(pos), self._to_device(tables), self.cfg)
             nxt = _sample_step(logits, temps, gens).cpu().numpy()
         except Exception as e:  # noqa: BLE001 — device boundary

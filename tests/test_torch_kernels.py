@@ -1,4 +1,4 @@
-"""The port's five kernels against the JAX package (CPU) and against their
+"""The port's kernels against the JAX package (CPU) and against their
 plain versions (card).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
@@ -49,6 +49,16 @@ against the JAX function the TPU kernel implements:
     them) against a numpy reference, a row of one hit and rows of ~190;
     ``workspace_sizes`` holds no [V, D] buffer; ``replay_draw`` reads the
     same negatives by an int and by a 0-d tensor index.
+
+  * K7 flash backward — its wrapper ``flash_bwd`` sends CPU tensors to
+    its plain version ``flash_block_bwd`` (held against the JAX
+    ``_flash_ext_bwd`` in ``tests/test_torch_flash_ext.py``), and
+    ``FlashFn``/``FlashBlockFn`` call it once per backward and give, on
+    the CPU, the f64 gradients of autograd through the dense plain
+    forward at 1e-10 (with a key mask, an lse cotangent, Tq != Tk and
+    offsets past either end), and zero gradients for queries that see no
+    key; K4's forward is one custom operator, the one the ``dots`` remat
+    rung keeps.
 
 The same kernels on the card, against their plain versions, are in
 ``tests/test_torch_gpu.py``.
@@ -978,3 +988,94 @@ class TestFlashLaunchArguments:
             v = torch.zeros((1, 8, 64, 2)).transpose(-1, -2)
         with pytest.raises(ValueError):
             port_flash._check_inputs("t", q, k, v, same_t=True)
+
+
+class TestFlashBwdHostSide:
+    """K7's wrapper and autograd functions on the CPU."""
+
+    def test_cpu_tensors_route_to_the_plain_backward(self):
+        rng = np.random.default_rng(0)
+        q, k, v = (_port(rng.standard_normal((2, 40, 3, 16))
+                         .astype(np.float32)) for _ in range(3))
+        km = _port((rng.random((2, 40)) < 0.8).astype(np.float32))
+        o, lse = port_flash.flash_attention_block_plain(q, k, v, offset=5,
+                                                        key_mask=km)
+        g = _port(rng.standard_normal((2, 40, 3, 16)).astype(np.float32))
+        g_lse = _port(rng.standard_normal((2, 3, 40)).astype(np.float32))
+        args = (q, k, v, km, 5, o, lse, g, g_lse)
+        before = (port_flash.flash_bwd.launches,
+                  port_flash.flash_block_bwd.launches)
+        got = port_flash.flash_bwd(*args)
+        assert (port_flash.flash_bwd.launches,
+                port_flash.flash_block_bwd.launches) == (before[0],
+                                                         before[1] + 1)
+        for a, b in zip(got, port_flash.flash_block_bwd(*args)):
+            assert torch.equal(a, b)
+
+    def test_autograd_functions_call_the_backward_once(self):
+        rng = np.random.default_rng(1)
+        ins = [_port(rng.standard_normal((1, 20, 2, 16)).astype(np.float32))
+               .requires_grad_() for _ in range(3)]
+        before = port_flash.flash_block_bwd.launches
+        o = port_flash.FlashFn.apply(*ins, True)
+        torch.autograd.grad(o.sum(), ins)
+        o, lse = port_flash.FlashBlockFn.apply(*ins, None, 3)
+        torch.autograd.grad(o.sum() + lse.sum(), ins)
+        assert port_flash.flash_block_bwd.launches == before + 2
+
+    @pytest.mark.parametrize("tq,tk,offset,masked", [
+        (64, 64, 0, False), (64, 64, 64, False), (40, 40, 5, True),
+        (30, 50, 20, True), (50, 30, 0, True), (1, 1, 0, False),
+        (17, 130, 130, True), (130, 130, 0, False), (20, 37, 1000, True)])
+    def test_block_fn_gradients_equal_autograd_of_the_plain_forward_f64(
+            self, tq, tk, offset, masked):
+        """FlashBlockFn's backward (the plain K7 on the CPU) against
+        autograd through the dense plain forward, in f64 at 1e-10; every
+        query sees key 0 (offset >= 0, key 0 kept), so the dense
+        logsumexp has a finite gradient everywhere."""
+        rng = np.random.default_rng(tq * 1000 + tk)
+        q, k, v = (_port(rng.standard_normal((2, t, 3, 16)),
+                         dtype=torch.float64).requires_grad_()
+                   for t in (tq, tk, tk))
+        km = None
+        if masked:
+            km = _port(rng.random((2, tk)) < 0.7, dtype=torch.float64)
+            km[:, 0] = 1.0
+        g = _port(rng.standard_normal((2, tq, 3, 16)), dtype=torch.float64)
+        g_lse = _port(rng.standard_normal((2, 3, tq)), dtype=torch.float64)
+        o, lse = port_flash.FlashBlockFn.apply(q, k, v, km, offset)
+        got = torch.autograd.grad((o * g).sum() + (lse * g_lse).sum(),
+                                  (q, k, v))
+        o, lse = port_flash.flash_attention_block_plain(q, k, v,
+                                                        offset=offset,
+                                                        key_mask=km)
+        want = torch.autograd.grad((o * g).sum() + (lse * g_lse).sum(),
+                                   (q, k, v))
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float64
+            assert (a - b).abs().max().item() <= 1e-10
+
+    def test_queries_and_keys_out_of_sight_get_zero_gradients(self):
+        """offset -8 hides every key from queries 0-7 (lse -inf) and keys
+        Tq-8.. from every query: their gradients are 0, none is NaN."""
+        rng = np.random.default_rng(3)
+        q, k, v = (_port(rng.standard_normal((2, 24, 2, 16)))
+                   .requires_grad_() for _ in range(3))
+        o, lse = port_flash.FlashBlockFn.apply(q, k, v, None, -8)
+        assert torch.isneginf(lse[:, :, :8]).all()
+        g = _port(rng.standard_normal((2, 24, 2, 16)))
+        dq, dk, dv = torch.autograd.grad((o * g).sum(), (q, k, v))
+        assert all(torch.isfinite(a).all() for a in (dq, dk, dv))
+        assert not dq[:, :8].any() and dq[:, 8:].abs().max() > 0
+        assert not dk[:, 16:].any() and not dv[:, 16:].any()
+        assert dv[:, :16].abs().max() > 0
+
+    def test_k4_forward_is_one_operator_kept_by_dots(self):
+        from deeplearning4j_tpu_torch.ops import remat
+
+        op = torch.ops.dl4j_tpu_torch.flash_attention
+        assert op.default in remat.saved_ops()
+        q, k, v = (_port(a) for a in _qkv(2, 1, 24, 2, 16))
+        o, lse = op(q, k, v, True)
+        ro, rlse = port_flash.flash_attention_plain(q, k, v, causal=True)
+        assert torch.equal(o, ro) and torch.equal(lse, rlse)

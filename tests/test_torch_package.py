@@ -275,7 +275,8 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_SERVE_SLOTS", "DL4J_TPU_SERVE_QUEUE_CAP",
         "DL4J_TPU_SERVE_TIMEOUT_S", "DL4J_TPU_SERVE_MAX_BATCH",
         "DL4J_TPU_SERVE_MAX_WAIT_MS", "DL4J_TPU_SERVE_BATCH",
-        "DL4J_TPU_BUCKET_BATCHES", "DL4J_TPU_REMAT"}
+        "DL4J_TPU_BUCKET_BATCHES", "DL4J_TPU_REMAT", "DL4J_TPU_BF16",
+        "DL4J_TPU_LOSS_SCALE"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -285,6 +286,12 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
     assert penv.get_float("DL4J_TPU_SERVE_TIMEOUT_S") == 60.0
     with pytest.raises(penv.KnobError):
         penv.raw("DL4J_TPU_SERVE_KV_BLOK")
+    for v in ("", " ", "0", "off", "No", "1", "yes", "x"):
+        monkeypatch.setenv("DL4J_TPU_BF16", v)
+        assert penv.get_bool("DL4J_TPU_BF16") == \
+            jenv.get_bool("DL4J_TPU_BF16"), v
+    monkeypatch.setenv("DL4J_TPU_LOSS_SCALE", "8:2")
+    assert penv.raw("DL4J_TPU_LOSS_SCALE") == "8:2"
 
 
 def test_engine_reads_the_knobs(monkeypatch):
@@ -315,7 +322,7 @@ def test_kernel_sources_ship_and_build_flags():
     from deeplearning4j_tpu_torch.ops import build
 
     for name in ("flash_attention", "paged_attention", "lstm_scan",
-                 "lstm_scan_bwd", "sgns"):
+                 "lstm_scan_bwd", "sgns", "flash_bwd"):
         texts = [src.read_text() for src in build.sources(name)]
         assert all('extern "C"' in text for text in texts)
         assert any("cudaGetLastError" in text for text in texts)

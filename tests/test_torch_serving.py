@@ -11,8 +11,10 @@
     streaming equals non-streaming, a sampled request gives the same
     tokens solo and co-scheduled, and a preempted sampled request resumes
     its own stream.
-  * Serving surface: top_k/top_p answer 400, ``/metrics`` carries each
-    kernel's launch counts, ``/health``, 429 backpressure, SLO classes.
+  * Serving surface: top_k/top_p answer 200 with ``lm.generate``'s
+    tokens (400 with "stream", as the JAX engine answers), ``/metrics``
+    carries each kernel's launch counts, ``/health``, 429 backpressure,
+    SLO classes.
 """
 
 import json
@@ -195,12 +197,33 @@ class TestEnginePortAgainstPort:
 
 class TestEngineSurface:
     def test_top_k_top_p_answer_400(self, engine):
-        for extra in ({"top_k": 5}, {"top_p": 0.9},
-                      {"top_k": 5, "stream": True}):
+        """A filter with "stream" answers 400, as the JAX engine does
+        (``engine.py:1074-1078``); without "stream" it answers 200."""
+        for extra in ({"top_k": 5}, {"top_p": 0.9}, {"top_k": 5.0}):
             with pytest.raises(urllib.error.HTTPError) as e:
-                _post(engine.url, {"tokens": [[1, 2]], "n_new": 3, **extra})
+                _post(engine.url, {"tokens": [[1, 2]], "n_new": 3,
+                                   "stream": True, **extra})
             assert e.value.code == 400
-            assert "not ported yet" in json.loads(e.value.read())["error"]
+            assert json.loads(e.value.read())["error"] == \
+                "stream does not support top_k/top_p"
+            status, body = _post(engine.url, {"tokens": [[1, 2]],
+                                              "n_new": 3, **extra})
+            assert status == 200
+            assert np.asarray(json.loads(body)["tokens"]).shape == (1, 3)
+
+    @pytest.mark.parametrize("extra", [{"top_k": 5}, {"top_p": 0.9},
+                                       {"top_k": 3, "top_p": 0.5}])
+    def test_top_k_top_p_answer_200_with_lm_generate_tokens(self, engine,
+                                                             lm, extra):
+        prompts = [[1, 2, 3, 4], [5, 6, 7, 8]]
+        status, body = _post(engine.url, {"tokens": prompts, "n_new": 6,
+                                          "temperature": 0.8, "seed": 11,
+                                          **extra})
+        assert status == 200
+        want = lm.generate(np.asarray(prompts), 6, temperature=0.8,
+                           seed=11, **extra)
+        np.testing.assert_array_equal(np.asarray(json.loads(body)["tokens"]),
+                                      want.numpy())
 
     def test_metrics_and_health(self, engine):
         engine.generate([[1, 2, 3]], 4, temperature=0.0)

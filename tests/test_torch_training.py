@@ -31,7 +31,7 @@ held at 1e-5 abs (the same f32 math, summed in another order).
     against port, fit 4 == fit 2, save, load, fit 2, bit for bit, with
     dropout on.
   * ``CharRnn.fit_text``: the same losses as the JAX package's.
-  * What is not ported raises: the Solver, pretraining, remat.
+  * What is not ported raises: the Solver, pretraining; remat trains.
 """
 
 import numpy as np
@@ -455,19 +455,39 @@ class TestNotPortedRaises:
             net.fit_iterator(it)
 
     def test_remat(self, monkeypatch):
-        x, y = np.zeros((2, 2), np.float32), np.eye(2, dtype=np.float32)
-        conf = (pconf.NeuralNetConfiguration.builder().list()
-                .layer(0, pL.DenseLayer(n_in=2, n_out=2))
-                .layer(1, pL.OutputLayer(n_in=2, n_out=2)).build())
-        net = MultiLayerNetwork(conf, device="cpu").init()
-        monkeypatch.setenv("DL4J_TPU_REMAT", "dots")
-        with pytest.raises(NotImplementedError, match="remat"):
-            net.fit(x, y)
-        monkeypatch.setenv("DL4J_TPU_REMAT", "none")
-        net.fit(x, y)
-        net.conf.gradient_checkpointing = True
-        with pytest.raises(NotImplementedError, match="remat"):
-            net.fit(x, y)
+        """Remat, once refused here, now trains: under DL4J_TPU_REMAT
+        dots and block, and under conf.gradient_checkpointing, three f64
+        fits (with dropout, replayed in the recompute) give the params of
+        the same fits without remat within 1e-10, and an unknown policy
+        raises."""
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((6, 4))
+        y = np.eye(3)[rng.integers(0, 3, 6)]
+
+        def fitted(policy, checkpointing=False):
+            monkeypatch.setenv("DL4J_TPU_REMAT", policy)
+            conf = (pconf.NeuralNetConfiguration.builder().seed(3)
+                    .drop_out(0.5).list()
+                    .layer(0, pL.DenseLayer(n_in=4, n_out=5,
+                                            activation="tanh"))
+                    .layer(1, pL.OutputLayer(n_in=5, n_out=3)).build())
+            conf.gradient_checkpointing = checkpointing
+            net = MultiLayerNetwork(conf, device="cpu").init()
+            net.params = [{k: v.double() for k, v in p.items()}
+                          for p in net.params]
+            net.updater_state = net.updater.init(net.params)
+            for _ in range(3):
+                net.fit(x, y)
+            return _flat_tree(net.params)
+
+        want = fitted("none")
+        for got in (fitted("dots"), fitted("block"), fitted("none", True)):
+            for (ka, a), (kb, b) in zip(got, want):
+                assert ka == kb
+                assert np.abs(a - b).max() <= TOL_F64, ka
+        monkeypatch.setenv("DL4J_TPU_REMAT", "sideways")
+        with pytest.raises(ValueError, match="remat"):
+            fitted("sideways")
 
 
 def test_feed_forward_train_draws_the_iteration_stream():
