@@ -25,10 +25,11 @@ What it does, in order (any failure raises and exits non-zero):
    libraries (K1, K2) hold the cluster barrier (``CLUSTER_BARRIER_SASS``,
    at each cluster's start and end: no grid-wide barrier) and the DSMEM
    stores of the per-step exchange (``STAS``), and K2 TF32 ``HMMA`` (its
-   gate and dU products: 3xTF32), and K7 bf16 and TF32 ``HMMA``
-   (``mma.sync``); then builds the K4/K5 library's variant with one bf16 P in
-   P.V (``-DFLASH_P_SPLIT=0``), which is timed and read against the
-   shipped split-P kernel and never runs on a path;
+   gate and dU products: 3xTF32), and that every K7 kernel holds
+   ``LDGSTS`` and, in bf16, ``HGMMA`` (``wgmma``), in f32 TF32 ``HMMA``
+   (3xTF32 on ``mma.sync``); then builds the K4/K5 library's variant
+   with one bf16 P in P.V (``-DFLASH_P_SPLIT=0``), which is timed and
+   read against the shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes — flash prefill (K4): causal bf16, N=1, H=32, hd=64,
    T in {192, 512, 1024}, max abs error <= 2e-2 on O and <= 1e-3 on lse;
@@ -83,7 +84,8 @@ What it does, in order (any failure raises and exits non-zero):
    with no visible key) with an lse cotangent, a batch row with every key
    masked (its gradients exactly 0), and ragged Tq=300 x Tk=420 at D in
    {16, 32, 128}: within 1e-2 of the largest entry of each gradient in
-   bf16 and 1e-4 in f32, two launches bit-equal;
+   bf16 and 1e-4 in f32, two launches bit-equal, masked keys' dK and dV
+   exactly 0;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -478,20 +480,40 @@ def phase_build():
               f"({' / '.join(CLUSTER_BARRIER_SASS)}), DSMEM store (STAS) "
               "or, in K2, TF32 tensor-core product in its SASS")
         sass[name] = found
-    # K7: mma.sync on the tensor cores, bf16 (HMMA ... BF16) and f32 by
-    # 3xTF32 (HMMA ... TF32)
-    lines = [ln for ln in build.sass("flash_bwd").splitlines()
-             if "HMMA" in ln]
-    found = {"HMMA_BF16": sum("BF16" in ln for ln in lines),
-             "HMMA_TF32": sum("TF32" in ln for ln in lines)}
+    # K7: every bf16 kernel multiplies by wgmma (HGMMA), every f32 kernel
+    # by 3xTF32 on mma.sync (HMMA ... TF32), and every kernel takes its
+    # tiles by cp.async (LDGSTS)
+    found = bwd_sass(build.sass_functions(build.sass("flash_bwd")))
     print("  cuobjdump -sass flash_bwd: " + ", ".join(
-        f"{op} x{c}" for op, c in found.items()))
-    check(all(found.values()), "flash_bwd: no bf16 or TF32 tensor-core "
-          "product (HMMA) in its SASS")
+        f"{op} {c}" for op, c in found.items()))
+    check(found["kernels_bf16"] > 0 and found["kernels_f32"] > 0
+          and found["bf16_with_HGMMA_LDGSTS"] == found["kernels_bf16"]
+          and found["f32_with_HMMA_TF32_LDGSTS"] == found["kernels_f32"],
+          "flash_bwd: a bf16 kernel without wgmma (HGMMA) or an f32 kernel "
+          "without TF32 mma (HMMA ... TF32), or one without cp.async "
+          "(LDGSTS), in its SASS")
     sass["flash_bwd"] = found
     (res,) = build.build(["flash_attention"], ONE_P)
     print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
     return sass
+
+
+def bwd_sass(kernels: dict) -> dict:
+    """Counts of K7's kernels (``build.sass_functions`` of its library) by
+    type, and of those whose SASS holds what their design issues: bf16
+    wgmma (HGMMA), f32 TF32 tensor-core products (HMMA ... TF32), both
+    cp.async (LDGSTS)."""
+    bf = {n: t for n, t in kernels.items() if "flash_bwd" in n
+          and "__nv_bfloat16" in n}
+    f32 = {n: t for n, t in kernels.items() if "flash_bwd" in n
+           and n not in bf}
+    tf32 = lambda t: any("HMMA" in ln and "TF32" in ln
+                         for ln in t.splitlines())
+    return {"kernels_bf16": len(bf), "kernels_f32": len(f32),
+            "bf16_with_HGMMA_LDGSTS": sum("HGMMA" in t and "LDGSTS" in t
+                                          for t in bf.values()),
+            "f32_with_HMMA_TF32_LDGSTS": sum(tf32(t) and "LDGSTS" in t
+                                             for t in f32.values())}
 
 
 def flash_inputs(t: int, seed: int, dev):
@@ -2388,10 +2410,15 @@ def check_bwd(name: str, args, tol: float) -> float:
     dead = [] if km is None else [i for i in range(km.shape[0])
                                   if not bool(km[i].any())]
     zero = all(bool((a[i] == 0).all()) for a in got for i in dead)
+    # masked keys: dK and dV exactly 0
+    masked = km is not None and bool((km == 0).any())
+    keys0 = not masked or all(bool((a[km == 0] == 0).all())
+                              for a in got[1:])
     print(f"flash_bwd {name}: max error {err:.3e} of the largest entry "
           f"(tol {tol}); finite {finite}; two launches bit-equal {same}"
-          + (f"; all-masked rows {dead} exactly 0: {zero}" if dead else ""))
-    check(err <= tol and finite and same and zero,
+          + (f"; all-masked rows {dead} exactly 0: {zero}" if dead else "")
+          + (f"; masked keys' dK, dV exactly 0: {keys0}" if masked else ""))
+    check(err <= tol and finite and same and zero and keys0,
           f"flash_bwd disagrees with its plain version ({name})")
     return err
 

@@ -10,7 +10,8 @@ source or header rebuilds and an unchanged one is reused. ``nvcc`` runs
 with ``-Xptxas -v``; its register and spill report is kept beside the
 library (``.log``) and returned by :func:`build`. :func:`sass` disassembles
 a built library with ``cuobjdump`` (the check that a kernel issues
-tensor-core instructions).
+tensor-core instructions); :func:`sass_functions` splits that text by
+kernel.
 
 Sources never include PyTorch's headers: a file with a plain C interface
 compiles in seconds, one that includes them in minutes.
@@ -95,6 +96,21 @@ def sass(name: str) -> str:
     (res,) = build([name])
     return subprocess.run([tool, "-sass", str(res.path)], check=True,
                           capture_output=True, text=True).stdout
+
+
+def sass_functions(text: str) -> Dict[str, str]:
+    """``cuobjdump -sass`` output split by kernel: each function's
+    (mangled) name to its SASS, the lines from its ``Function :`` header
+    to the next."""
+    out: Dict[str, List[str]] = {}
+    lines = None
+    for line in text.splitlines():
+        if "Function : " in line:
+            lines = out.setdefault(line.split("Function : ", 1)[1].strip(),
+                                   [])
+        elif lines is not None:
+            lines.append(line)
+    return {name: "\n".join(body) for name, body in out.items()}
 
 
 def build(names: Sequence[str],

@@ -43,8 +43,10 @@ boundaries, in every q/kv dtype pair and head size: 1e-3 abs, two
 launches bit-equal. K7 (the flash backward) against its plain version,
 ``flash_block_bwd``, on the same card inputs: 1e-2 of the largest entry
 of each gradient in bf16 (P and dS rounded to bf16 for their products)
-and 1e-4 in f32 (3xTF32), an all-masked batch row exactly zero, with
-and without an lse cotangent, two launches bit-equal; a TransformerLM
+and 1e-4 in f32 (3xTF32), an all-masked batch row exactly zero,
+masked keys' dK and dV exactly zero (whole key tiles masked too), with
+and without an lse cotangent, two launches bit-equal, its bf16 kernels
+on wgmma and all on cp.async (SASS); a TransformerLM
 step on the card puts nonzero gradients into Wq, Wk and Wv and agrees
 with the same step on the CPU (see that test for its bars); remat
 ``dots``/``block`` on the card give the no-remat forward bit for bit and
@@ -1109,8 +1111,17 @@ TOL_BWD = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 def _bwd_case(seed, n, tq, tk, h, d, offset, masked, with_glse, dev, dtype):
     """Inputs of K7 from K5's plain forward on the card: q, k, v, the key
-    mask, o, lse, the cotangents g and g_lse (or None)."""
-    q, k, v, km = _ext_case(seed, n, tq, tk, h, d, dev, dtype, masked)
+    mask, o, lse, the cotangents g and g_lse (or None). ``masked``:
+    False, True (each key kept with p = 0.8, the last batch row with every
+    key masked) or "lengths" (a length mask, the first batch row 64 keys
+    long, so that whole 64-key tiles are masked)."""
+    q, k, v, km = _ext_case(seed, n, tq, tk, h, d, dev, dtype,
+                            masked is True)
+    if masked == "lengths":
+        lengths = np.random.default_rng(seed + 2).integers(1, tk + 1, n)
+        lengths[0] = min(64, tk)
+        km = _port((np.arange(tk)[None] < lengths[:, None]).astype(
+            np.float32), dev)
     o, lse = port_flash.flash_attention_block_plain(q, k, v, offset=offset,
                                                     key_mask=km)
     rng = np.random.default_rng(seed + 1)
@@ -1139,6 +1150,9 @@ def _rel_errors(got, want):
     (2, 256, 256, 2, 64, 256, True, False),    # the MHA fit's full + mask
     (1, 128, 128, 2, 64, -128, False, True),   # every key hidden
     (16, 1024, 1024, 32, 64, 0, False, False),  # the LM's training layer
+    (3, 512, 512, 2, 64, 512, "lengths", False),  # whole key tiles masked
+    (2, 300, 420, 3, 16, 60, True, True),      # ragged Tq != Tk, D = 16
+    (2, 300, 420, 3, 128, 60, True, True),     # and D = 128
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(n, tq, tk, h, d, offset,
                                                 masked, with_glse, dtype):
@@ -1156,9 +1170,12 @@ def test_flash_bwd_kernel_matches_plain_on_card(n, tq, tk, h, d, offset,
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert torch.isfinite(a).all()
-    if masked:  # the batch row with every key masked: no gradient
+    if masked is True:  # the batch row with every key masked: no gradient
         for a in got:
             assert (a[-1] == 0).all()
+    if masked:  # masked keys: dK and dV exactly 0
+        for a in got[1:]:
+            assert (a[args[3] == 0] == 0).all()
     if offset <= -tq:
         assert all((a == 0).all() for a in got)
     else:
@@ -1175,6 +1192,32 @@ def test_flash_bwd_two_launches_give_the_same_bits_on_card(dtype):
     b = port_flash.flash_bwd(*args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernels_run_on_wgmma_and_cp_async():
+    """K7's SASS, kernel by kernel: every bf16 kernel multiplies with wgmma
+    (HGMMA), every f32 kernel with TF32 tensor-core products (HMMA ...
+    TF32: 3xTF32 on mma.sync), and every kernel takes its tiles by
+    cp.async (LDGSTS)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import build
+
+    if build.cuobjdump_path() is None:
+        pytest.skip("cuobjdump not found (it comes with the CUDA toolkit): "
+                    "the SASS cannot be read on this machine")
+    kernels = {name: text for name, text in
+               build.sass_functions(build.sass("flash_bwd")).items()
+               if "flash_bwd" in name}
+    bf16 = [t for n, t in kernels.items() if "__nv_bfloat16" in n]
+    f32 = [t for n, t in kernels.items() if "__nv_bfloat16" not in n]
+    assert bf16 and f32
+    for text in bf16:
+        assert "HGMMA" in text and "LDGSTS" in text
+    for text in f32:
+        assert "LDGSTS" in text
+        assert any("HMMA" in line and "TF32" in line
+                   for line in text.splitlines())
 
 
 @pytest.mark.gpu

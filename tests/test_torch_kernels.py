@@ -957,6 +957,36 @@ class TestBuildTarget:
         assert "#include" not in k4_src
         assert "return flash_attention_ext_fwd(" in k4_src
 
+    def test_k7_shares_the_primitives_not_the_forward(self):
+        """K7 (its own library) and the forward include one header of
+        primitives; K7 does not include the forward, so its library holds
+        only its own kernels (what its SASS check reads)."""
+        from deeplearning4j_tpu_torch.ops import build
+
+        (k7,) = build.sources("flash_bwd")
+        fwd = build.CSRC / "flash_fwd.cuh"
+        for src in (k7, fwd):
+            assert '#include "flash_tc.cuh"' in src.read_text()
+        assert "flash_fwd.cuh" not in k7.read_text()
+
+    def test_sass_functions_splits_by_kernel(self):
+        from deeplearning4j_tpu_torch.ops import build
+
+        text = ("\n\tcode for sm_90a\n"
+                "\t\tFunction : _Z3fooI13__nv_bfloat16Li64EEvv\n"
+                "\t.headerflags @\"EF_CUDA_SM90\"\n"
+                "        /*0000*/ HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4] ;\n"
+                "        /*0010*/ LDGSTS.E.BYPASS.128 [R3], desc[UR6][R4] ;\n"
+                "\t\tFunction : _Z3fooIfLi64EEvv\n"
+                "        /*0000*/ HMMA.1688.F32.TF32 R8, R4, R2, R8 ;\n")
+        funcs = build.sass_functions(text)
+        assert list(funcs) == ["_Z3fooI13__nv_bfloat16Li64EEvv",
+                               "_Z3fooIfLi64EEvv"]
+        bf16, f32 = funcs.values()
+        assert "HGMMA" in bf16 and "LDGSTS" in bf16 and "HMMA" not in bf16
+        assert "TF32" in f32 and "HGMMA" not in f32
+        assert build.sass_functions("no kernels here") == {}
+
 
 class TestFlashLaunchArguments:
     """``ops/flash_attention._check_inputs``, which the K4 and K5 wrappers
