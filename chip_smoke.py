@@ -3,9 +3,11 @@
 ``/generate`` path of the TransformerLM, the ``/predict`` path of the
 char-RNN MultiLayerNetwork, the char-RNN's training with truncated BPTT
 and RMSProp, Word2Vec skip-gram training with hierarchical softmax
-and negative sampling, the TransformerLM's long-context ``ring_forward``,
-the training of a MultiLayerNetwork of masked MultiHeadAttention
-layers, and the TransformerLM's training and top-k/top-p sampling.
+and negative sampling, the TransformerLM's long-context ``ring_forward``
+and its sequence-parallel training (ring and Ulysses), the training of a
+MultiLayerNetwork of masked MultiHeadAttention layers, the
+TransformerLM's training and top-k/top-p sampling, and the BERT
+encoder's MLM pretraining, fine-tuning and embeddings.
 
 Run from the repository root, with no arguments:
 
@@ -175,7 +177,27 @@ What it does, in order (any failure raises and exits non-zero):
    version and K4 never; ``strategy="ulysses"`` within 5e-2 of
    ``forward`` with K4 launched once per layer (its local attention over
    all T); times both forwards and breaks the ring's down with
-   ``torch.profiler`` (K5, GEMMs, other kernels, host gaps);
+   ``torch.profiler`` (K5, GEMMs, other kernels, host gaps). On the same
+   group it trains the bench transformer at max_len 4096 in the sequence
+   mode (``TransformerLM(cfg, group=...)``, Adam lr 1e-4): 3 ``fit``
+   steps and one ``fit_batches`` of 3 on a global batch of 4 x T=4096 of
+   the Markov stream (see 12), then 3 steps of ``make_ring_train_step(...,
+   strategy="ulysses")``. Checks: finite losses that fall; per layer per
+   step K5 and K7 once (ring), K4 and K7 once (Ulysses), no plain
+   version; nonzero gradients in Wq, Wk and Wv; from the same weights
+   and batch, the first ring step's loss (1e-2 relative), gradients and
+   updated leaves (1e-2 of each leaf's largest entry for Wq, Wk, Wv, Wo,
+   2e-2 for the rest: the card LM step test's bars) against the dense
+   ``make_train_step``'s. Then K7 under a real lse cotangent: the
+   4-shard ring driven in one process forward and backward
+   (``ring_flash_step`` for every (my, src), with autograd) at the LM's
+   layer (N=4, T=4096, H=32, D=64, bf16 causal) and at K5's masked case
+   b: dq, dk, dv within 1e-2 of each gradient's largest entry of the same
+   chain through the plain versions and of the dense backward, masked
+   keys' dK and dV exactly 0, K5 and K7 once per step and a nonzero lse
+   cotangent into every K7 call. Prints each strategy's step ms, tokens/s
+   and profile (K4 or K5, K7, GEMMs, Adam, other, NCCL, host gaps) and
+   the phase's peak memory;
 10. trains a MultiLayerNetwork of two ``MultiHeadAttention(n_out=512,
    num_heads=8)`` layers and an ``RnnOutputLayer`` in f32 with Adam: 20
    ``fit`` calls of N=32 x T=512 seeded sequences of lengths 64-512 with
@@ -205,8 +227,29 @@ What it does, in order (any failure raises and exits non-zero):
    with top_k answering 200 with ``lm.generate``'s tokens, and a streamed
    one with top_k answering 400. Prints the step's ms, training tokens/s,
    its profile (K4, K7, GEMMs, Adam, other kernels, host gaps) and the
-   phase's peak device memory;
-13. prints one ``{"kernels": [...]}`` line, the card line again, and last
+   phase's peak device memory; and one dense step's ms and peak memory
+   by default, under ``DL4J_TPU_REMAT=dots``, ``=block`` and under
+   ``DL4J_TPU_BF16=1``;
+13. trains the BERT encoder at BERT-base widths (google-research/bert
+   ``uncased_L-12_H-768_A-12``: vocab 30522, d_model 768, 12 layers, 12
+   heads, d_ff 3072, max_len 512; pad 0, [MASK] 103; the repo's pre-LN
+   blocks, no segment embeddings, no pooler), strict f32, Adam lr 1e-4,
+   on a seeded Markov stream of 16 x T=512 rows with lengths 128-512 and
+   pad tails: 5 MLM ``fit`` steps and one ``fit_batches`` of 3. Checks:
+   finite losses, and the 8 batches' mean loss under their training
+   masks lower after the steps than before; K5 and K7 once per layer per
+   step and their plain versions never; nonzero gradients in Wq, Wk and Wv; ``save``
+   then ``BertMLM.load`` gives bit-equal ``predict_logits``;
+   ``embed_tokens`` finite, with an all-pad row within 1e-4 of the JAX
+   package's -1e9 attention (the mean of V); a ``BertClassifier``
+   fine-tuned 10 steps on a planted two-class label reaches 0.75 on 64
+   held-out rows, and ``encoder_lr_scale=0`` leaves the encoder
+   bit-equal. Prints the MLM step's ms, non-pad tokens/s, profile and the
+   phase's peak memory, and times K5 and K7 at BERT's layer (N=16,
+   T=512, H=12, D=64, f32, the phase's key mask) beside their plain
+   versions, ``scaled_dot_product_attention`` with the boolean mask (its
+   backward for K7; TF32 off) and their bounds;
+14. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -217,6 +260,7 @@ Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -238,6 +282,7 @@ from deeplearning4j_tpu_torch.models.char_rnn import (  # noqa: E402
     CharRnn,
     char_rnn_conf,
 )
+from deeplearning4j_tpu_torch.models import bert as bert_mod  # noqa: E402
 from deeplearning4j_tpu_torch.models import transformer as lm_mod  # noqa: E402
 from deeplearning4j_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig,
@@ -388,6 +433,25 @@ TOL_BWD_BF16, TOL_BWD_F32 = 1e-2, 1e-4
 # _transformer_bench_cfg's lr (bench.py:356); 5 fits, then fit_batches of 5
 LM_BATCH, LM_T, LM_LR, LM_FITS, LM_MULTI = 16, 1024, 1e-4, 5, 5
 LM_SUCCESSORS = 4  # the token stream: a Markov chain of 4 successors a token
+# the ring's training: the bench transformer at max_len RING_T, a global
+# batch of 4 x T=4096 (16,384 tokens a step, the LM phase's count); 3 fits,
+# fit_batches of 3, then 3 Ulysses steps
+RT_N, RT_T, RT_FITS, RT_MULTI, RT_ULYSSES = 4, RING_T, 3, 3, 3
+# the ring step against the dense step at the card LM step test's bars
+# (tests/test_torch_gpu.py): the loss within 1e-2 relative, the attention
+# weights within 1e-2 of each leaf's largest entry, the rest 2e-2 (bf16
+# roundings of the two paths differ)
+TOL_STEP_LOSS, TOL_STEP_REST = 1e-2, 2e-2
+# BERT-base widths (google-research/bert uncased_L-12_H-768_A-12
+# bert_config.json) in the repo's encoder (pre-LN, no segment embeddings,
+# no pooler), strict f32, Adam lr 1e-4; batch 16 x T=512, lengths 128-512
+BERT_KW = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
+               d_ff=3072, max_len=512, pad_token_id=0, mask_token_id=103,
+               learning_rate=1e-4)
+BERT_N, BERT_T, BERT_MIN_LEN, BERT_FITS, BERT_MULTI = 16, 512, 128, 5, 3
+# fine-tuning on a planted two-class label: 10 steps of 16 rows, then the
+# accuracy on 64 held-out rows of the same law
+FT_STEPS, FT_HELD_OUT, FT_ACCURACY = 10, 64, 0.75
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2119,101 +2183,96 @@ def ring_cfg(seed: int, **kw) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
-def phase_ring(seed: int, dev, tmp: str):
+def phase_ring(seed: int, dev, group):
     print("== ring: TransformerLM ring_forward on a world-1 NCCL group ==")
     import torch.distributed as dist
 
-    group = init_seq_group(os.path.join(tmp, "seq_store"), 0, 1,
-                           backend="nccl")
-    try:
-        cfg = ring_cfg(seed)
-        lm = TransformerLM(cfg, device=dev)
-        n_params = sum(v.numel() for v in [lm.params[k] for k in (
-            "embed", "pos")] + list(lm.params["blocks"].values()))
-        print(f"bench transformer: d_model {cfg.d_model}, {cfg.n_layers} "
-              f"layers, {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}"
-              f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
-              f"{n_params / 1e6:.1f} M parameters; backend "
-              f"{dist.get_backend(group)}, world {dist.get_world_size()}")
-        g = torch.Generator(device=dev).manual_seed(seed + 11)
-        toks = torch.randint(0, cfg.vocab_size, (1, RING_T), generator=g,
-                             device=dev)
-        cp = lm.compute_params
-        kernels = (flash_attention_block, flash_attention_block_plain,
-                   flash_attention, flash_attention_plain)
-        with torch.inference_mode():
-            for fn in kernels:
-                fn.launches = 0
-            ring = ring_forward(cp, toks, cfg, group)
-            torch.cuda.synchronize()
-            counts = {fn.__name__: fn.launches for fn in kernels}
-            ref = forward(cp, toks, cfg)[0]
-            torch.cuda.synchronize()
-            err = (ring - ref).abs().max().item()
-            print(f"ring_forward N=1 T={RING_T}: logits {tuple(ring.shape)}, "
-                  f"finite {bool(torch.isfinite(ring).all())}; max |ring - "
-                  f"forward (K4)| {err:.3e} (tol {TOL_RING_BF16}; bit-equal "
-                  f"{err == 0.0}); launches {counts}")
-            check(tuple(ring.shape) == (1, RING_T, cfg.vocab_size)
-                  and bool(torch.isfinite(ring).all()),
-                  "ring_forward gave logits of the wrong shape or not finite")
-            check(err <= TOL_RING_BF16, "ring_forward disagrees with forward")
-            check(counts["flash_attention_block"] == cfg.n_layers
-                  and counts["flash_attention_block_plain"] == 0
-                  and counts["flash_attention"] == 0,
-                  "ring_forward did not run K5 once per layer (and nothing "
-                  "else)")
-            cfg32 = ring_cfg(seed, dtype_policy="strict")
-            toks32 = toks[:, :RING_T_F32]
-            r32 = ring_forward(lm.params, toks32, cfg32, group)
-            f32 = forward(lm.params, toks32, cfg32)[0]
-            torch.cuda.synchronize()
-            err32 = (r32 - f32).abs().max().item()
-            print(f"f32 strict at T={RING_T_F32}: max |ring - forward| "
-                  f"{err32:.3e} (tol {TOL_RING_F32})")
-            check(err32 <= TOL_RING_F32,
-                  "ring_forward disagrees with forward in f32")
-            ring_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group),
-                              iters=5, warmup=1)
-            fwd_ms = time_ms(lambda: forward(cp, toks, cfg), iters=5,
-                             warmup=1)
-            for fn in kernels:
-                fn.launches = 0
-            uly = ring_forward(cp, toks, cfg, group, strategy="ulysses")
-            torch.cuda.synchronize()
-            uly_counts = {fn.__name__: fn.launches for fn in kernels}
-            err_u = (uly - ref).abs().max().item()
-            uly_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group,
-                                                  strategy="ulysses"),
-                             iters=5, warmup=1)
-            busy, rows = profile_ms(lambda: ring_forward(cp, toks, cfg,
-                                                         group), n=3)
-        groups = {"K5 flash_fwd_tc": 0.0, "GEMMs": 0.0,
-                  "other kernels": 0.0}
-        for ms_, _, name in rows:
-            low = name.lower()
-            key = ("K5 flash_fwd_tc" if "flash_fwd" in name
-                   else "GEMMs" if "gemm" in low or "xmma" in low
-                   or "nvjet" in low or "cutlass" in low
-                   else "other kernels")
-            groups[key] += ms_
-        groups["host gaps (wall - kernels)"] = ring_ms - busy
-        tokens_per_s = RING_T / ring_ms * 1e3
-        print(f"ring_forward: {ring_ms:.3f} ms per forward ({tokens_per_s:.0f}"
-              f" tokens/s); forward through K4 {fwd_ms:.3f} ms; ulysses "
-              f"(K4 over all T) {uly_ms:.3f} ms (max |ulysses - forward| "
-              f"{err_u:.3e}; launches {uly_counts}); "
-              f"kernels {busy:.3f} ms ({busy / ring_ms:.1%}): " + ", ".join(
-                  f"{k} {v:.3f} ms" for k, v in groups.items()))
-        for ms_, calls, name in rows[:10]:
-            print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
-        check(err_u <= TOL_RING_BF16, "ulysses disagrees with forward")
-        check(uly_counts["flash_attention"] == cfg.n_layers
-              and uly_counts["flash_attention_plain"] == 0
-              and uly_counts["flash_attention_block"] == 0,
-              "ulysses did not run K4 once per layer (and nothing else)")
-    finally:
-        dist.destroy_process_group()
+    cfg = ring_cfg(seed)
+    lm = TransformerLM(cfg, device=dev)
+    n_params = sum(v.numel() for v in [lm.params[k] for k in (
+        "embed", "pos")] + list(lm.params["blocks"].values()))
+    print(f"bench transformer: d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers, {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}"
+          f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
+          f"{n_params / 1e6:.1f} M parameters; backend "
+          f"{dist.get_backend(group)}, world {dist.get_world_size()}")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    toks = torch.randint(0, cfg.vocab_size, (1, RING_T), generator=g,
+                         device=dev)
+    cp = lm.compute_params
+    kernels = (flash_attention_block, flash_attention_block_plain,
+               flash_attention, flash_attention_plain)
+    with torch.inference_mode():
+        for fn in kernels:
+            fn.launches = 0
+        ring = ring_forward(cp, toks, cfg, group)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        ref = forward(cp, toks, cfg)[0]
+        torch.cuda.synchronize()
+        err = (ring - ref).abs().max().item()
+        print(f"ring_forward N=1 T={RING_T}: logits {tuple(ring.shape)}, "
+              f"finite {bool(torch.isfinite(ring).all())}; max |ring - "
+              f"forward (K4)| {err:.3e} (tol {TOL_RING_BF16}; bit-equal "
+              f"{err == 0.0}); launches {counts}")
+        check(tuple(ring.shape) == (1, RING_T, cfg.vocab_size)
+              and bool(torch.isfinite(ring).all()),
+              "ring_forward gave logits of the wrong shape or not finite")
+        check(err <= TOL_RING_BF16, "ring_forward disagrees with forward")
+        check(counts["flash_attention_block"] == cfg.n_layers
+              and counts["flash_attention_block_plain"] == 0
+              and counts["flash_attention"] == 0,
+              "ring_forward did not run K5 once per layer (and nothing "
+              "else)")
+        cfg32 = ring_cfg(seed, dtype_policy="strict")
+        toks32 = toks[:, :RING_T_F32]
+        r32 = ring_forward(lm.params, toks32, cfg32, group)
+        f32 = forward(lm.params, toks32, cfg32)[0]
+        torch.cuda.synchronize()
+        err32 = (r32 - f32).abs().max().item()
+        print(f"f32 strict at T={RING_T_F32}: max |ring - forward| "
+              f"{err32:.3e} (tol {TOL_RING_F32})")
+        check(err32 <= TOL_RING_F32,
+              "ring_forward disagrees with forward in f32")
+        ring_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group),
+                          iters=5, warmup=1)
+        fwd_ms = time_ms(lambda: forward(cp, toks, cfg), iters=5,
+                         warmup=1)
+        for fn in kernels:
+            fn.launches = 0
+        uly = ring_forward(cp, toks, cfg, group, strategy="ulysses")
+        torch.cuda.synchronize()
+        uly_counts = {fn.__name__: fn.launches for fn in kernels}
+        err_u = (uly - ref).abs().max().item()
+        uly_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group,
+                                              strategy="ulysses"),
+                         iters=5, warmup=1)
+        busy, rows = profile_ms(lambda: ring_forward(cp, toks, cfg,
+                                                     group), n=3)
+    groups = {"K5 flash_fwd_tc": 0.0, "GEMMs": 0.0,
+              "other kernels": 0.0}
+    for ms_, _, name in rows:
+        low = name.lower()
+        key = ("K5 flash_fwd_tc" if "flash_fwd" in name
+               else "GEMMs" if "gemm" in low or "xmma" in low
+               or "nvjet" in low or "cutlass" in low
+               else "other kernels")
+        groups[key] += ms_
+    groups["host gaps (wall - kernels)"] = ring_ms - busy
+    tokens_per_s = RING_T / ring_ms * 1e3
+    print(f"ring_forward: {ring_ms:.3f} ms per forward ({tokens_per_s:.0f}"
+          f" tokens/s); forward through K4 {fwd_ms:.3f} ms; ulysses "
+          f"(K4 over all T) {uly_ms:.3f} ms (max |ulysses - forward| "
+          f"{err_u:.3e}; launches {uly_counts}); "
+          f"kernels {busy:.3f} ms ({busy / ring_ms:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:10]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    check(err_u <= TOL_RING_BF16, "ulysses disagrees with forward")
+    check(uly_counts["flash_attention"] == cfg.n_layers
+          and uly_counts["flash_attention_plain"] == 0
+          and uly_counts["flash_attention_block"] == 0,
+          "ulysses did not run K4 once per layer (and nothing else)")
     del lm
     return counts, {"tokens": RING_T, "max_abs_err_vs_forward": err,
                     "bit_equal_to_forward": err == 0.0,
@@ -2226,6 +2285,315 @@ def phase_ring(seed: int, dev, tmp: str):
                                     kernels=[dict(ms=r[0], calls=r[1],
                                                   name=r[2][:120])
                                              for r in rows[:12]])}
+
+
+# ---------------------------------------------------------------------------
+# slice 12: sequence-parallel training and K7 with an lse cotangent
+# ---------------------------------------------------------------------------
+
+
+def ring_batch(seed: int, dev, k=None):
+    """Global tokens/targets [(K,) RT_N, RT_T] from the Markov stream."""
+    shape = (RT_N, RT_T + 1) if k is None else (k, RT_N, RT_T + 1)
+    ids = torch.from_numpy(markov_tokens(seed, shape, 8192)).to(dev)
+    return ids[..., :-1], ids[..., 1:]
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's largest error, of its largest entry in ``want``."""
+    return {k: ((got[k].float() - want[k].float()).abs().max()
+                / want[k].float().abs().max().clamp_min(1e-30)).item()
+            for k in want}
+
+
+def lm_bar(name: str, attention_bar: float, rest_bar: float) -> float:
+    """The card LM step test's bars: the attention weights at the dtype's
+    bar, the other leaves at the bf16 rounding bar."""
+    return attention_bar if name in ("blocks.Wq", "blocks.Wk", "blocks.Wv",
+                                     "blocks.Wo") else rest_bar
+
+
+def step_profile(fn, step_ms: float, fwd: str, adam_ms: float):
+    """(device-busy ms, groups, rows) of one call of a training step."""
+    busy, rows = profile_ms(fn, n=3)
+    groups = {fwd: 0.0, "K7 flash_bwd": 0.0, "GEMMs": 0.0, "NCCL": 0.0,
+              "other kernels": 0.0}
+    for ms_, _, name in rows:
+        key = ("NCCL" if "nccl" in name.lower()
+               else kernel_group(name, fwd, "other kernels"))
+        groups[key] += ms_
+    groups["Adam (its kernels, profiled alone)"] = adam_ms
+    groups["other kernels"] -= adam_ms
+    groups["host gaps (wall - kernels)"] = step_ms - busy
+    return busy, groups, rows
+
+
+class plain_flash:
+    """Within it, ``FlashBlockFn`` runs K5's and K7's plain versions on
+    the card (the chain's reference); nothing else changes."""
+
+    def __enter__(self):
+        self.saved = (flash_mod.flash_attention_block, flash_mod.flash_bwd)
+        flash_mod.flash_attention_block = flash_attention_block_plain
+        flash_mod.flash_bwd = flash_block_bwd
+        return self
+
+    def __exit__(self, *exc):
+        flash_mod.flash_attention_block, flash_mod.flash_bwd = self.saved
+        return False
+
+
+def ring_chain_grads(q, k, v, km, g, p: int = RING_SHARDS):
+    """dq, dk, dv of the causal ``p``-shard ring driven in one process
+    (``ring_flash_step`` for every (my, src), combined per rank through
+    each block's lse, as :func:`four_shard_ring`) for the cotangent g."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        out = four_shard_ring(*leaves, km, causal=True, p=p)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def dense_grads(q, k, v, km, g):
+    """dq, dk, dv of the whole sequence's causal attention in one call:
+    ``FlashFn`` (K4 + K7) without a mask, ``FlashBlockFn`` (K5 + K7) with
+    one."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        if km is None:
+            out = flash_mod.FlashFn.apply(*leaves, True)
+        else:
+            out = flash_mod.FlashBlockFn.apply(*leaves, km, 0)[0]
+        return torch.autograd.grad(out, leaves, g)
+
+
+def check_ring_backward(name: str, q, k, v, km, seed: int):
+    """K7 under a real lse cotangent: the in-process ring's gradients
+    through K5/K7 against the same chain through their plain versions and
+    against the dense backward, each within 1e-2 of each gradient's
+    largest entry; masked keys' dK and dV exactly 0; the lse cotangents
+    K7 received, and its launches."""
+    gen = torch.Generator(device=q.device).manual_seed(seed + 3)
+    g = torch.randn(q.shape, generator=gen, device=q.device, dtype=q.dtype)
+    seen = []
+    real = flash_mod.flash_bwd
+
+    def spy(*args):
+        if args[-1] is not None:
+            seen.append(args[-1].abs().max().item())
+        return real(*args)
+
+    spy.launches = 0  # K7's wrapper counts on the name it is called by
+    for fn in (flash_attention_block, flash_block_bwd,
+               flash_attention_block_plain):
+        fn.launches = 0
+    flash_mod.flash_bwd = spy
+    try:
+        got = ring_chain_grads(q, k, v, km, g)
+    finally:
+        flash_mod.flash_bwd = real
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in (
+        flash_attention_block, flash_block_bwd, flash_attention_block_plain)}
+    counts["flash_bwd"] = spy.launches
+    with plain_flash():
+        plain = ring_chain_grads(q, k, v, km, g)
+    dense = dense_grads(q, k, v, km, g)
+    torch.cuda.synchronize()
+    e_plain, e_dense = bwd_error(got, plain), bwd_error(got, dense)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    keys0 = km is None or all(bool((a[km == 0] == 0).all())
+                              for a in got[1:])
+    n_steps = RING_SHARDS * RING_SHARDS
+    print(f"{RING_SHARDS}-shard ring backward in one process, {name}: max "
+          f"error {e_plain:.3e} against the plain chain, {e_dense:.3e} "
+          f"against the dense backward (of each gradient's largest entry, "
+          f"tol {TOL_BWD_BF16}); finite {finite}; largest |g_lse| K7 "
+          f"received {max(seen):.3e} over {len(seen)} calls; launches "
+          f"{counts}" + ("" if km is None else
+                         f"; masked keys' dK, dV exactly 0: {keys0}"))
+    check(e_plain <= TOL_BWD_BF16 and e_dense <= TOL_BWD_BF16 and finite
+          and keys0, f"the ring's backward through K7 disagrees ({name})")
+    check(len(seen) == n_steps and max(seen) > 0,
+          "K7 got no lse cotangent in the ring's backward")
+    check(counts["flash_attention_block"] == n_steps
+          and counts["flash_bwd"] == n_steps
+          and counts["flash_block_bwd"] == 0
+          and counts["flash_attention_block_plain"] == 0,
+          "the ring's chain did not run K5 and K7 once per step")
+    return {"max_err_vs_plain_chain": e_plain,
+            "max_err_vs_dense": e_dense, "max_abs_g_lse": max(seen),
+            "launches": counts}
+
+
+def phase_ring_train(seed: int, dev, group):
+    print("== ring training: the bench TransformerLM, sequence-parallel on "
+          "the world-1 NCCL group ==")
+    cfg = ring_cfg(seed, learning_rate=LM_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lm = TransformerLM(cfg, device=dev, group=group)
+    L = cfg.n_layers
+    print(f"TransformerLM(cfg, group=...): d_model {cfg.d_model}, {L} "
+          f"layers, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, max_len {cfg.max_len}, bf16 compute, f32 "
+          f"masters, Adam lr {cfg.learning_rate}; global batch {RT_N} x "
+          f"T={RT_T} ({RT_N * RT_T} tokens a step), {RT_FITS} fits, then "
+          f"fit_batches of {RT_MULTI}; then {RT_ULYSSES} Ulysses steps")
+    p0 = lm_mod.tree_map(torch.clone, lm.params)
+    batches = [ring_batch(seed + i, dev) for i in range(RT_FITS)]
+    xs, ys = ring_batch(seed + 100, dev, k=RT_MULTI)
+    kernels = (flash_attention_block, flash_attention_block_plain,
+               flash_attention, flash_attention_plain, flash_bwd,
+               flash_block_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(lm.fit(x, y)) for x, y in batches]
+    multi = [float(v) for v in lm.fit_batches(xs, ys)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    steps = RT_FITS + RT_MULTI
+    print("ring loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
+          + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi)
+          + f"; {steps} steps in {wall:.3f} s (first calls included); "
+          f"launches {counts}")
+    check(all(np.isfinite(losses + multi)), "a ring training loss is not "
+          "finite")
+    check(np.mean(multi) < losses[0] and multi[-1] < losses[0],
+          "the ring training loss did not fall")
+    check(lm.iteration == steps and int(lm.opt["t"]) == steps,
+          "the iteration is not the step count")
+    check(counts["flash_attention_block"] == counts["flash_bwd"] == L * steps
+          and counts["flash_attention"] == 0
+          and counts["flash_attention_plain"] == 0
+          and counts["flash_attention_block_plain"] == 0
+          and counts["flash_block_bwd"] == 0,
+          "the ring step did not run K5 and K7 once per layer per step "
+          "(and nothing else)")
+    uly = lm_mod.make_ring_train_step(cfg, group, strategy="ulysses")
+    up, uo = lm.params, lm.opt
+    for fn in kernels:
+        fn.launches = 0
+    uly_losses = []
+    for i in range(RT_ULYSSES):
+        up, uo, loss = uly(up, uo, *ring_batch(seed + 200 + i, dev))
+        uly_losses.append(float(loss))
+    uly_counts = {fn.__name__: fn.launches for fn in kernels}
+    print("ulysses loss per step: " + " ".join(f"{v:.4f}" for v in
+                                               uly_losses)
+          + f"; launches {uly_counts}")
+    check(all(np.isfinite(uly_losses)) and max(uly_losses) < losses[0],
+          "the Ulysses losses are not finite or not below the first")
+    check(uly_counts["flash_attention"] == uly_counts["flash_bwd"]
+          == L * RT_ULYSSES
+          and uly_counts["flash_attention_block"] == 0
+          and uly_counts["flash_attention_plain"] == 0
+          and uly_counts["flash_attention_block_plain"] == 0
+          and uly_counts["flash_block_bwd"] == 0,
+          "the Ulysses step did not run K4 and K7 once per layer per step "
+          "(and nothing else)")
+    del up, uo
+
+    # from the same weights and batch: the ring step against the dense
+    # step, gradients and updated leaves at the card LM step test's bars
+    x, y = batches[0]
+    ring_loss = lambda p: lm_mod.nll_loss(
+        lm_mod.ring_forward(p, x, cfg, group), y)
+    _, rg = lm_mod.value_and_grad(ring_loss, p0)
+    _, dg = lm_mod.value_and_grad(
+        lambda p: lm_mod.loss_fn(p, x, y, cfg), p0)
+    rg, dg = lm_mod._named(rg), lm_mod._named(dg)
+    qkv = {k: rg[f"blocks.{k}"].abs().max().item()
+           for k in ("Wq", "Wk", "Wv")}
+    grad_err = leaf_errors(rg, dg)
+    del rg, dg
+    opt0 = lm_mod.init_opt_state(p0, False)
+    rp, _, rloss = lm_mod.make_ring_train_step(cfg, group)(p0, opt0, x, y)
+    dp, _, dloss = lm_mod.make_train_step(cfg)(p0, opt0, x, y)
+    leaf_err = leaf_errors(lm_mod._named(rp), lm_mod._named(dp))
+    flips = sum(int(((rp_ - p0_).sign() != (dp_ - p0_).sign()).sum())
+                for rp_, dp_, p0_ in zip(lm_mod.tree_leaves(rp),
+                                         lm_mod.tree_leaves(dp),
+                                         lm_mod.tree_leaves(p0)))
+    n_params = sum(a.numel() for a in lm_mod.tree_leaves(p0))
+    del rp, dp, opt0
+    loss_err = abs(float(rloss) - float(dloss)) / abs(float(dloss))
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_p = max(leaf_err, key=leaf_err.get)
+    print(f"first step, ring vs dense make_train_step from the same "
+          f"weights and batch: loss {float(rloss):.6f} vs "
+          f"{float(dloss):.6f} (relative {loss_err:.3e}, tol "
+          f"{TOL_STEP_LOSS}); gradients: worst {worst_g} "
+          f"{grad_err[worst_g]:.3e}; updated leaves: worst {worst_p} "
+          f"{leaf_err[worst_p]:.3e} of each leaf's largest entry (tol "
+          f"{TOL_BWD_BF16} attention weights, {TOL_STEP_REST} the rest); "
+          f"{flips} of {n_params} updates differ in sign; largest |grad| "
+          f"of Wq, Wk, Wv {qkv}")
+    check(min(qkv.values()) > 0, "no ring gradient reached Wq, Wk or Wv")
+    check(loss_err <= TOL_STEP_LOSS,
+          "the ring step's loss disagrees with the dense step's")
+    check(all(e <= lm_bar(k, TOL_BWD_BF16, TOL_STEP_REST)
+              for k, e in grad_err.items()),
+          "the ring step's gradients disagree with the dense step's")
+    check(all(e <= lm_bar(k, TOL_BWD_BF16, TOL_STEP_REST)
+              for k, e in leaf_err.items()),
+          "the ring step's updated leaves disagree with the dense step's")
+
+    ring_ms = time_ms(lambda: lm.fit(x, y), iters=3, warmup=1)
+    uly_ms = time_ms(lambda: uly(lm.params, lm.opt, x, y), iters=3,
+                     warmup=1)
+    adam_ms, _ = profile_ms(lambda: lm_mod._adam_update(
+        lm.params, lm.opt["m"], lm.opt,
+        torch.tensor(LM_LR, device=dev)), n=3)
+    prof = {}
+    for name, fn, ms, fwd in (
+            ("ring", lambda: lm.fit(x, y), ring_ms, "K5 flash_fwd_tc<bf16>"),
+            ("ulysses", lambda: uly(lm.params, lm.opt, x, y), uly_ms,
+             "K4 flash_fwd_tc<bf16>")):
+        busy, groups, rows = step_profile(fn, ms, fwd, adam_ms)
+        tok_s = RT_N * RT_T / ms * 1e3
+        print(f"{name} step: {ms:.3f} ms, {tok_s:.0f} training tokens/s; "
+              f"kernels {busy:.3f} ms ({busy / ms:.1%}): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in groups.items()))
+        for ms_, calls, kname in rows[:8]:
+            print(f"  {ms_:8.4f} ms  x{calls:<3d} {kname[:100]}")
+        prof[name] = dict(step_ms=ms, tokens_per_s=tok_s,
+                          device_busy_ms=busy, groups=groups,
+                          kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                                   for r in rows[:12]])
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"ring training phase: peak device memory {peak / 2**30:.3f} GiB "
+          "above what the earlier phases hold")
+    del lm, p0
+
+    print("== K7 with an lse cotangent: the in-process ring's backward ==")
+    h, d = cfg.n_heads, cfg.d_model // cfg.n_heads
+    chains = {}
+    q, k, v, _ = ext_inputs(RT_N, RT_T, RT_T, h, d, seed + 21, dev)
+    chains["lm_layer"] = check_ring_backward(
+        f"the LM's layer N={RT_N} T={RT_T} H={h} D={d} bf16 causal",
+        q, k, v, None, seed)
+    n, t, hh, dd = EXT_MASKED
+    q, k, v, km = ext_inputs(n, t, t, hh, dd, seed + 22, dev,
+                             keep=EXT_KEEP)
+    chains["b"] = check_ring_backward(
+        f"b: masked N={n} T={t} H={hh} D={dd} bf16 causal, keep "
+        f"{EXT_KEEP}", q, k, v, km, seed)
+    del q, k, v, km
+    return counts, uly_counts, {
+        "steps": steps, "loss_per_fit": losses, "fit_batches_losses": multi,
+        "ulysses_losses": uly_losses, "wall_s": wall, "launches": counts,
+        "ulysses_launches": uly_counts, "qkv_grad_max": qkv,
+        "first_step_vs_dense": {"loss_rel_err": loss_err,
+                                "grad_errs": grad_err,
+                                "leaf_errs": leaf_err,
+                                "update_sign_flips": flips,
+                                "n_params": n_params},
+        "profile": prof, "peak_memory_bytes": peak,
+        "ring_backward": chains}
 
 
 def mha_conf(seed: int):
@@ -2601,7 +2969,8 @@ def phase_lm_train(seed: int, dev):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     steps = LM_FITS + LM_MULTI
-    peak = torch.cuda.max_memory_allocated() - held
+    peak_abs = torch.cuda.max_memory_allocated()
+    peak = peak_abs - held
     print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
           + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi))
     print(f"{steps} steps in {wall:.3f} s (first calls included); "
@@ -2646,6 +3015,7 @@ def phase_lm_train(seed: int, dev):
               f"{k} {v:.3f} ms" for k, v in groups.items()))
     for ms_, calls, name in rows[:12]:
         print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    variants = lm_step_variants(lm, x, y)
 
     probe = lm_batch(seed + 200, dev)[0][:2, :256]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2708,12 +3078,335 @@ def phase_lm_train(seed: int, dev):
                         "fit_batches_losses": multi, "wall_s": wall,
                         "launches": counts, "step_ms": step_ms,
                         "tokens_per_s": tok_s, "peak_memory_bytes": peak,
-                        "qkv_grad_max": qkv, "checkpoint_bytes": size,
+                        "peak_abs_bytes": peak_abs,
+                        "step_variants": variants, "qkv_grad_max": qkv,
+                        "checkpoint_bytes": size,
                         "checkpoint_io_s": io_s, "generate_s": gen_s,
                         "profile": dict(device_busy_ms=busy, groups=groups,
                                         kernels=[dict(ms=r[0], calls=r[1],
                                                       name=r[2][:120])
                                                  for r in rows[:12]])}
+
+
+class env_set:
+    """Within it, the given environment variables hold these values; on
+    leaving, each is restored (or removed)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def lm_step_variants(lm: TransformerLM, x, y):
+    """ms and peak device memory of one dense step of ``lm`` by default,
+    under each remat rung and under bf16 loss scaling (the knobs set while
+    the step is built and run; peak memory above what was allocated
+    before the step)."""
+    out = {}
+    for name, env in (("default", {}),
+                      ("DL4J_TPU_REMAT=dots", {"DL4J_TPU_REMAT": "dots"}),
+                      ("DL4J_TPU_REMAT=block", {"DL4J_TPU_REMAT": "block"}),
+                      ("DL4J_TPU_BF16=1", {"DL4J_TPU_BF16": "1"})):
+        with env_set(**env):
+            step = lm_mod.make_train_step(lm.cfg)
+            opt = (lm_mod.init_opt_state(lm.params, True)
+                   if step.loss_scaled else lm.opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: step(lm.params, opt, x, y), iters=3,
+                         warmup=1)
+            peak = torch.cuda.max_memory_allocated() - base
+            loss = float(step(lm.params, opt, x, y)[2])
+        del opt
+        out[name] = {"ms": ms, "peak_bytes": peak, "loss": loss}
+        print(f"dense step {name}: {ms:.3f} ms, peak {peak / 2**30:.3f} GiB "
+              f"above the model and its optimizer state, loss {loss:.4f}")
+        check(np.isfinite(loss), f"the {name} step's loss is not finite")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BERT: MLM pretraining, fine-tuning and embeddings
+# ---------------------------------------------------------------------------
+
+
+def bert_tokens(seed: int, k=None):
+    """[(K,) BERT_N, BERT_T] ids 1 .. V-1 from the Markov stream; each row
+    keeps a length drawn from [BERT_MIN_LEN, BERT_T] and pads the rest."""
+    shape = (BERT_N, BERT_T) if k is None else (k, BERT_N, BERT_T)
+    ids = 1 + markov_tokens(seed, shape, BERT_KW["vocab_size"] - 1)
+    rows = ids.reshape(-1, BERT_T)
+    lengths = np.random.default_rng(seed + 7).integers(
+        BERT_MIN_LEN, BERT_T + 1, rows.shape[0])
+    rows[np.arange(BERT_T)[None] >= lengths[:, None]] = 0
+    return rows.reshape(shape)
+
+
+def planted_rows(seed: int, n: int):
+    """n rows and two-class labels: a class-c row's real tokens are drawn
+    from its own 8 ids (1000-1007 for class 1, 2000-2007 for class 0);
+    lengths as :func:`bert_tokens`'."""
+    rng = np.random.default_rng(seed)
+    labels = rng.permutation(np.arange(n) % 2)
+    ids = np.where(labels[:, None] == 1, 1000, 2000) \
+        + rng.integers(0, 8, (n, BERT_T))
+    lengths = rng.integers(BERT_MIN_LEN, BERT_T + 1, n)
+    ids[np.arange(BERT_T)[None] >= lengths[:, None]] = 0
+    return ids, labels
+
+
+def dense_bi_attention(q, k, v, n_heads: int, key_mask):
+    """The JAX package's ``_bi_attention`` (``bert.py:115``): scores with
+    -1e9 at masked keys, softmax in f32; an all-pad sequence attends
+    uniformly."""
+    n, t, d = q.shape
+    hd = d // n_heads
+    qh, kh, vh = (a.reshape(n, t, n_heads, hd) for a in (q, k, v))
+    s = torch.einsum("nqhd,nkhd->nhqk", qh, kh) / hd ** 0.5
+    s = s.masked_fill(~key_mask[:, None, None, :], -1e9)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("nhqk,nkhd->nqhd", p, vh).reshape(n, t, d)
+
+
+class jax_attention:
+    """Within it, BERT's encoder attends by :func:`dense_bi_attention`."""
+
+    def __enter__(self):
+        self.saved = bert_mod._bi_attention
+        bert_mod._bi_attention = dense_bi_attention
+        return self
+
+    def __exit__(self, *exc):
+        bert_mod._bi_attention = self.saved
+        return False
+
+
+def bert_kernel_times(batch, seed: int, dev):
+    """K5 and K7 at BERT's layer (N, T, H, D) = (BERT_N, BERT_T, 12, 64),
+    f32, offset T, the phase's key mask: against their plain versions,
+    timed beside them, SDPA with the equivalent boolean mask (TF32 off; its
+    backward for K7) and the bounds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h = BERT_KW["n_heads"]
+    d = BERT_KW["d_model"] // h
+    km = torch.from_numpy((batch != 0).astype(np.float32)).to(dev)
+    q, k, v, _ = ext_inputs(BERT_N, BERT_T, BERT_T, h, d, seed + 31, dev,
+                            torch.float32)
+    shape = f"N={BERT_N} T={BERT_T} H={h} D={d} f32, lengths " \
+            f"{BERT_MIN_LEN}-{BERT_T}, off={BERT_T}"
+    eo, el = check_ext(f"bert: {shape}", q, k, v, km, BERT_T, TOL_EXT_F32,
+                       TOL_EXT_F32)
+    o, lse = flash_attention_block_plain(q, k, v, offset=BERT_T,
+                                         key_mask=km)
+    g = torch.randn(o.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(seed + 32), device=dev)
+    args = (q, k, v, km, BERT_T, o, lse, g, None)
+    e7 = check_bwd(f"bert: {shape}", args, TOL_BWD_F32)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    allowed = (km > 0)[:, None, None, :]
+    res = {}
+    for name, kern, plain, lib, tensors, flops, err in (
+            ("flash_attention_block",
+             lambda: flash_attention_block(q, k, v, offset=BERT_T,
+                                           key_mask=km),
+             lambda: flash_attention_block_plain(q, k, v, offset=BERT_T,
+                                                 key_mask=km),
+             lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                    attn_mask=allowed),
+             4, 4.0, eo),
+            ("flash_bwd", lambda: flash_bwd(*args),
+             lambda: flash_block_bwd(*args),
+             sdpa_backward(q, k, v, g, km, causal=False), 8, 10.0, e7)):
+        ms, ev = device_ms(kern, iters=10), time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = device_ms(lib, iters=10)
+        b_ms, b_by, pairs = ext_bound(q, km, BERT_T, tensors=tensors,
+                                      flops=flops)
+        gflop = flops * d * pairs / 1e9
+        res[name] = dict(shape=shape, ms=ms, events_ms=ev,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, gflop=gflop, max_err=err)
+        print(f"{name} bert ({shape}): {ms:.4f} ms on the device ({ev:.4f} "
+              f"back to back), plain {plain_ms:.4f} ms, sdpa"
+              f"{' backward' if tensors == 8 else ''} {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {gflop:.2f} GFLOP over the visible "
+              f"pairs), {gflop / ms:.1f} TFLOP/s")
+    res["flash_attention_block"]["max_err_lse"] = el
+    return res
+
+
+def phase_bert(seed: int, dev):
+    print("== BERT: MLM pretraining, fine-tuning and embeddings at "
+          "BERT-base widths ==")
+    cfg = bert_mod.BertConfig(**BERT_KW, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    mlm = bert_mod.BertMLM(cfg, device=dev)
+    L = cfg.n_layers
+    n_params = sum(x.numel() for x in lm_mod.tree_leaves(mlm.params))
+    batches = [bert_tokens(seed + i) for i in range(BERT_FITS)]
+    stack = bert_tokens(seed + 100, k=BERT_MULTI)
+    real = int((batches[0] != 0).sum())
+    print(f"BertMLM: vocab {cfg.vocab_size}, d_model {cfg.d_model}, {L} "
+          f"layers, {cfg.n_heads} heads, d_ff {cfg.d_ff}, max_len "
+          f"{cfg.max_len}, pad {cfg.pad_token_id}, [MASK] {cfg.mask_id}, "
+          f"strict f32, Adam lr {cfg.learning_rate}, {n_params} parameters; "
+          f"{BERT_FITS} fits then fit_batches of {BERT_MULTI}, batch "
+          f"{BERT_N} x T={BERT_T}, lengths {BERT_MIN_LEN}-{BERT_T} "
+          f"({real} real tokens in the first batch)")
+    # the 8 training batches under the masks fit and fit_batches will draw
+    # (a copy of the model's generator): their mean loss before and after
+    # training (each step's own loss is on a new batch and mask)
+    rng = copy.deepcopy(mlm._rng)
+    masked = [[torch.as_tensor(a, device=dev)
+               for a in bert_mod.mask_tokens(b, cfg, rng)]
+              for b in batches + list(stack)]
+
+    def train_loss():
+        with torch.inference_mode():
+            return float(np.mean([float(bert_mod.mlm_loss(mlm.params, *m,
+                                                          cfg))
+                                  for m in masked]))
+
+    before = train_loss()
+    kernels = (flash_attention_block, flash_attention_block_plain,
+               flash_attention, flash_attention_plain, flash_bwd,
+               flash_block_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [mlm.fit(b) for b in batches]
+    last = mlm.fit_batches(stack)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    steps = BERT_FITS + BERT_MULTI
+    after = train_loss()
+    print("MLM loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; fit_batches' last: {last:.4f}; {steps} steps in {wall:.3f} "
+          f"s (first calls included); launches {counts}; the 8 masked "
+          f"batches' mean loss {before:.4f} before training, {after:.4f} "
+          "after")
+    check(all(np.isfinite(losses + [last, after])),
+          "an MLM loss is not finite")
+    check(after < before, "the MLM loss of the training batches did not "
+          "fall")
+    check(int(mlm.opt["t"]) == steps, "Adam's t is not the step count")
+    check(counts["flash_attention_block"] == counts["flash_bwd"] == L * steps
+          and counts["flash_attention_block_plain"] == 0
+          and counts["flash_block_bwd"] == 0
+          and counts["flash_attention"] == 0
+          and counts["flash_attention_plain"] == 0,
+          "BERT did not run K5 and K7 once per layer per step (and nothing "
+          "else)")
+    x, y, w = mlm._masked(batches[0])
+    grads = lm_mod.value_and_grad(
+        lambda p: bert_mod.mlm_loss(p, x, y, w, cfg), mlm.params)[1]
+    qkv = {k: grads["blocks"][k].abs().max().item()
+           for k in ("Wq", "Wk", "Wv")}
+    del grads
+    print(f"largest |gradient| of Wq, Wk, Wv: {qkv}")
+    check(min(qkv.values()) > 0, "no gradient reached Wq, Wk or Wv")
+
+    probe = batches[1][:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.zip")
+        mlm.save(path)
+        loaded = bert_mod.BertMLM.load(path, device=dev)
+        size = os.path.getsize(path)
+    same = bool(np.array_equal(mlm.predict_logits(probe),
+                               loaded.predict_logits(probe)))
+    print(f"save -> BertMLM.load ({size / 2**20:.1f} MiB): predict_logits "
+          f"bit-equal: {same}")
+    check(same and int(loaded.opt["t"]) == steps,
+          "the saved and loaded BertMLM differs from the trained one")
+    del loaded
+    probe = batches[2][:4].copy()
+    probe[2] = 0  # an all-pad row
+    emb = mlm.embed_tokens(probe)
+    with jax_attention():
+        ref = mlm.embed_tokens(probe)
+    err_pad = float(np.abs(emb[2] - ref[2]).max())
+    err_all = float(np.abs(emb - ref).max())
+    print(f"embed_tokens {emb.shape}: finite {bool(np.isfinite(emb).all())}"
+          f"; the all-pad row against the JAX package's -1e9 attention "
+          f"(the mean of V) {err_pad:.3e} (tol {TOL_EXT_F32}), every row "
+          f"{err_all:.3e}")
+    check(bool(np.isfinite(emb).all()) and err_pad <= TOL_EXT_F32,
+          "embed_tokens is not finite or the all-pad row is not JAX's")
+
+    ids, labels = planted_rows(seed + 300, BERT_N * FT_STEPS)
+    clf = bert_mod.BertClassifier(mlm, 2)
+    ft = [clf.fit(ids[i * BERT_N:(i + 1) * BERT_N],
+                  labels[i * BERT_N:(i + 1) * BERT_N])
+          for i in range(FT_STEPS)]
+    hid, hl = planted_rows(seed + 400, FT_HELD_OUT)
+    acc = clf.accuracy(hid, hl)
+    print("fine-tune loss per step: " + " ".join(f"{v:.4f}" for v in ft)
+          + f"; held-out accuracy {acc:.3f} on {FT_HELD_OUT} rows "
+          f"(chance 0.5, bar {FT_ACCURACY})")
+    check(all(np.isfinite(ft)) and acc >= FT_ACCURACY,
+          "the fine-tuned classifier is not above chance")
+    del clf
+    frozen = bert_mod.BertClassifier(mlm, 2, encoder_lr_scale=0.0)
+    head0 = frozen.state["head"]["Wc"].clone()
+    for i in range(2):
+        frozen.fit(ids[i * BERT_N:(i + 1) * BERT_N],
+                   labels[i * BERT_N:(i + 1) * BERT_N])
+    kept = all(torch.equal(a, b) for a, b in zip(
+        lm_mod.tree_leaves(frozen.state["encoder"]),
+        lm_mod.tree_leaves(mlm.params)))
+    moved = not torch.equal(frozen.state["head"]["Wc"], head0)
+    print(f"encoder_lr_scale=0: the encoder bit-equal after 2 steps: {kept}"
+          f"; the head moved: {moved}")
+    check(kept and moved, "encoder_lr_scale=0 moved the encoder or left "
+          "the head")
+    del frozen
+
+    step = lambda: mlm._step(mlm.params, mlm.opt, x, y, w)
+    step_ms = time_ms(step, iters=3, warmup=1)
+    adam_ms, _ = profile_ms(lambda: lm_mod._adam_update(
+        mlm.params, mlm.opt["m"], mlm.opt,
+        torch.tensor(cfg.learning_rate, device=dev)), n=3)
+    busy, groups, rows = step_profile(step, step_ms,
+                                      "K5 flash_fwd_tc<float>", adam_ms)
+    tok_s = real / step_ms * 1e3
+    print(f"MLM step: {step_ms:.3f} ms, {tok_s:.0f} non-pad tokens/s; "
+          f"kernels {busy:.3f} ms ({busy / step_ms:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:10]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"BERT phase: peak device memory {peak / 2**30:.3f} GiB above "
+          "what the earlier phases hold")
+    del mlm
+    times = bert_kernel_times(batches[0], seed, dev)
+    return counts, times, {
+        "steps": steps, "loss_per_fit": losses, "fit_batches_last": last,
+        "train_batches_loss": [before, after],
+        "wall_s": wall, "launches": counts, "qkv_grad_max": qkv,
+        "embed_all_pad_err": err_pad, "embed_err": err_all,
+        "finetune_losses": ft, "finetune_accuracy": acc,
+        "step_ms": step_ms, "tokens_per_s": tok_s, "real_tokens": real,
+        "peak_memory_bytes": peak,
+        "profile": dict(device_busy_ms=busy, groups=groups,
+                        kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                                 for r in rows[:12]])}
 
 
 def merge(times: dict, part: dict) -> None:
@@ -2765,8 +3458,18 @@ def main(argv=None) -> int:
     peak_w2v = torch.cuda.max_memory_allocated()
     merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
     del w2v, chunk
+    import torch.distributed as dist
+
     with tempfile.TemporaryDirectory() as tmp:
-        ring_counts, ring = phase_ring(args.seed, dev, tmp)
+        group = init_seq_group(os.path.join(tmp, "seq_store"), 0, 1,
+                               backend="nccl")
+        try:
+            ring_counts, ring = phase_ring(args.seed, dev, group)
+            rt_counts, uly_counts, ring_train = phase_ring_train(
+                args.seed, dev, group)
+        finally:
+            dist.destroy_process_group()
+    peak_rt = torch.cuda.max_memory_allocated()
     mha_counts, mha = phase_mha_train(args.seed, dev)
     with torch.inference_mode():
         merge(times, phase_times_ext(args.seed, dev))
@@ -2774,17 +3477,23 @@ def main(argv=None) -> int:
     peak_sp = torch.cuda.max_memory_allocated()
     del lm
     _, lm_counts, lm_train = phase_lm_train(args.seed, dev)
-    peak_lm = torch.cuda.max_memory_allocated()
-    peak = max(peak_serve, peak_train, peak_w2v, peak_sp, peak_lm)
+    peak_lm = max(lm_train["peak_abs_bytes"],
+                  torch.cuda.max_memory_allocated())
+    bert_counts, bert_times, bert = phase_bert(args.seed, dev)
+    peak_bert = torch.cuda.max_memory_allocated()
+    peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
+               peak_bert)
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
           f"{train['fits_memory_bytes'] / 2**20:.1f} MiB more; word2vec "
           f"fit {peak_w2v / 2**30:.3f} GiB, "
           f"{word2vec['phase_memory_bytes'] / 2**20:.1f} MiB above what the "
-          f"earlier phases hold; ring, MHA training, K5 and K7 timing "
+          f"earlier phases hold; ring and ring training "
+          f"{peak_rt / 2**30:.3f} GiB; MHA training, K5 and K7 timing "
           f"{peak_sp / 2**30:.3f} GiB; LM training "
-          f"{peak_lm / 2**30:.3f} GiB); whole run "
+          f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB); "
+          f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
@@ -2798,6 +3507,8 @@ def main(argv=None) -> int:
     k5a, k5b, k5g, k5h = (times["flash_attention_block"][c]
                           for c in "abgh")
     k7, k7h = times["flash_bwd"]["train"], times["flash_bwd"]["h"]
+    k5_bert, k7_bert = (bert_times["flash_attention_block"],
+                        bert_times["flash_bwd"])
     # K4 is also held at the ring phase's shape (case g: Ulysses, forward)
     k4_err = max(errs["flash_attention"]["max_abs_err"],
                  *(c["k4_o"] for c in errs["flash_attention_block"]
@@ -2811,6 +3522,7 @@ def main(argv=None) -> int:
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:117",
          "launches": launches["flash_attention"],
          "launches_lm_train": lm_counts["flash_attention"],
+         "launches_ulysses_train": uly_counts["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
@@ -2894,15 +3606,21 @@ def main(argv=None) -> int:
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:289",
          "launches": ring_counts["flash_attention_block"],
          "launches_mha_train": mha_counts["flash_attention_block"],
-         "max_abs_err": errs["flash_attention_block"]["max_abs_err"],
-         "max_abs_err_lse": errs["flash_attention_block"]["max_abs_err_lse"],
+         "launches_ring_train": rt_counts["flash_attention_block"],
+         "launches_bert": bert_counts["flash_attention_block"],
+         "max_abs_err": max(errs["flash_attention_block"]["max_abs_err"],
+                            k5_bert["max_err"]),
+         "max_abs_err_lse": max(
+             errs["flash_attention_block"]["max_abs_err_lse"],
+             k5_bert["max_err_lse"]),
          "max_abs_err_ring": errs["flash_attention_block"][
              "max_abs_err_ring"],
          "tolerance": TOL_FLASH_O,
          "ms": k5a["ms"], "plain_ms": k5a["plain_ms"],
          "bound_ms": k5a["bound_ms"], "bound_by": k5a["bound_by"],
          "library_ms": k5a["library_ms"], "shape": k5a["shape"],
-         "case_b": k5b, "case_g": k5g, "case_h": k5h, "sass": sass,
+         "case_b": k5b, "case_g": k5g, "case_h": k5h, "case_bert": k5_bert,
+         "sass": sass,
          "design": "bf16: wgmma m64nNk16, P from registers (bf16 hi + lo); "
                    "f32: 3xTF32 on mma.sync m16n8k8, operands split in "
                    "registers; a 2-stage cp.async K/V ring, masking only "
@@ -2914,7 +3632,12 @@ def main(argv=None) -> int:
                      "(_flash_bwd, XLA; and _flash_ext_bwd :335)",
          "launches": lm_counts["flash_bwd"],
          "launches_mha_train": mha_counts["flash_bwd"],
-         "max_abs_err": errs["flash_bwd"]["max_err"],
+         "launches_ring_train": rt_counts["flash_bwd"],
+         "launches_ulysses_train": uly_counts["flash_bwd"],
+         "launches_bert": bert_counts["flash_bwd"],
+         "max_abs_err": max(errs["flash_bwd"]["max_err"], k7_bert["max_err"],
+                            *(c["max_err_vs_plain_chain"] for c in
+                              ring_train["ring_backward"].values())),
          "max_err_is": "of the largest entry of each gradient",
          "tolerance": TOL_BWD_BF16, "tolerance_f32": TOL_BWD_F32,
          "cases": errs["flash_bwd"]["cases"],
@@ -2922,17 +3645,21 @@ def main(argv=None) -> int:
          "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": k7["library_ms"], "events_ms": k7["events_ms"],
          "launches_per_call": k7["launches_per_call"],
-         "shape": k7["shape"], "case_h": k7h, "sass": sass["flash_bwd"],
-         "design": "two passes, no float atomics: a CTA per 64-row q tile "
+         "shape": k7["shape"], "case_h": k7h, "case_bert": k7_bert,
+         "ring_backward": ring_train["ring_backward"],
+         "sass": sass["flash_bwd"],
+         "design": "two passes, no float atomics: a CTA per q tile "
                    "writes dQ (and Dvec), a CTA per 64-key tile dK and dV; "
-                   "P recomputed in both; bf16 mma.sync m16n8k16, f32 "
-                   "3xTF32 m16n8k8; hidden tiles skipped"},
+                   "P recomputed in both; bf16 wgmma (P and dS from the "
+                   "accumulators), f32 3xTF32 mma.sync m16n8k8; a 2-stage "
+                   "cp.async ring; hidden tiles skipped"},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
                   "serving": serve, "predict": predict, "train": train,
-                  "word2vec": word2vec, "ring": ring, "mha_train": mha,
-                  "lm_train": lm_train, "times": times,
+                  "word2vec": word2vec, "ring": ring,
+                  "ring_train": ring_train, "mha_train": mha,
+                  "lm_train": lm_train, "bert": bert, "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

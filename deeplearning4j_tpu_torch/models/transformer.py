@@ -12,12 +12,29 @@ the training step (``init_opt_state`` :409, ``_clip_by_global_norm``,
 ``_scheduled_lr``, ``_build_step`` :540 with gradient accumulation and
 the bf16 loss-scaled branch of ``ops/lowprec.py``, ``make_train_step``
 :642, ``make_train_multi_step`` :669, ``_multi_from_step`` :1133) and
-``TransformerLM`` (:1155: ``fit``, ``fit_batches``, ``fit_iterator``,
-``evaluate``, ``output``, ``save``/``load`` in the JAX zip layout,
-``from_state``, ``generate`` with top-k/top-p and its two samplers), plus
-:func:`params_from_numpy` for a JAX parameter tree handed over as numpy.
-Not ported yet: the pipeline mode, the ring's training step, MoE (an MoE
-config raises) and ``measure_memory``.
+the sequence-parallel training step (``make_ring_train_step`` :860,
+``_build_ring_step`` :880, ``_ring_step_shardings`` :907 as
+:func:`ring_step_block`, ``make_ring_train_multi_step`` :919: ring or
+Ulysses over the ``'seq'`` group, DP x SP over a ``parallel/mesh``
+``MeshGroups``) and ``TransformerLM`` (:1155: ``fit``, ``fit_batches``,
+``fit_iterator``, ``evaluate``, ``output``, ``save``/``load`` in the JAX
+zip layout, ``from_state``, ``generate`` with top-k/top-p and its two
+samplers, and the sequence mode ``_sequence_mode`` :1198 / ``_make_step``
+:1201: ``TransformerLM(cfg, group=...)``), plus :func:`params_from_numpy`
+for a JAX parameter tree handed over as numpy. Not ported yet: the
+pipeline mode, MoE (an MoE config raises) and ``measure_memory`` (an XLA
+AOT ledger; ``torch.cuda.max_memory_allocated`` stands in on the card).
+
+What GSPMD does for the JAX ring step is explicit here: each rank takes
+its [N / data, T / seq] block of the global batch, runs
+:func:`ring_forward` on it and differentiates its own mean NLL; the ring's
+and Ulysses' collectives carry the cotangents between the ranks of the
+``'seq'`` group, so each rank's gradient is that of the sum of its
+group's losses. The loss and every gradient leaf are then summed over
+the whole ``data x seq`` world and divided by its size (equal blocks: the
+mean of the ranks' means is the global mean, and the sum of the ranks'
+``pos`` slices is its gradient), and every rank runs the same clip and
+Adam on the same bits, so the params stay bit-equal on every rank.
 
 Parameters are a dict in the JAX layout: ``embed`` [V, d], ``pos``
 [max_len, d], ``lnf_g``/``lnf_b`` [d], and ``blocks`` whose leaves are
@@ -49,6 +66,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import lowprec
@@ -57,6 +75,7 @@ from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
 from deeplearning4j_tpu_torch.ops.flash_attention import attention_auto
 from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.ops.remat import remat_wrap
+from deeplearning4j_tpu_torch.parallel.mesh import as_mesh
 
 Params = Dict[str, Any]
 
@@ -309,9 +328,8 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
     attention (``strategy="ring"``: K/V shards rotate, each step through
     K5; ``"ulysses"``: two head <-> sequence all-to-alls around K4 over
     all T, heads divisible by the world size). Returns this rank's
-    logits [N, T_local, V] f32. Dense configs only."""
-    import torch.distributed as dist
-
+    logits [N, T_local, V] f32. Dense configs only. Differentiable across
+    the group (``parallel/sequence_parallel.py``)."""
     from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
         ring_attention_sharded,
         ulysses_attention_sharded,
@@ -331,8 +349,8 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
         return out.reshape(n, t, cfg.d_model)
 
     h = _embed(params, tokens, cfg, start=dist.get_rank(group) * t)
-    for layer in range(cfg.n_layers):
-        h = _block(_layer(params["blocks"], layer), h, cfg, attend)
+    for bp in _layers(params["blocks"]):
+        h = _block(bp, h, cfg, attend)
     return _at_least_f32(_head(params, _final_ln(params, h)))
 
 
@@ -403,7 +421,7 @@ def init_opt_state(params: Params,
     same dict (``lowprec.OPT_SCALE_KEYS``), as the JAX package keeps it.
     ``loss_scaled`` is the step's ``loss_scaled``; None reads
     ``DL4J_TPU_BF16`` now."""
-    dev = params["embed"].device
+    dev = tree_leaves(params)[0].device
     opt = {"m": tree_map(torch.zeros_like, params),
            "v": tree_map(torch.zeros_like, params),
            "t": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -617,6 +635,99 @@ def make_train_multi_step(cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
+# sequence-parallel training
+# ---------------------------------------------------------------------------
+
+
+def _reject_lowprec(path: str) -> None:
+    """bf16 loss scaling is refused on the sequence-parallel step, as the
+    JAX package refuses it there."""
+    if lowprec.train_policy():
+        raise ValueError(
+            f"DL4J_TPU_BF16 is not supported on the {path} training path "
+            "yet — unset it (the dense and accum paths support it)")
+
+
+def ring_step_block(batch, group):
+    """This rank's block of a global batch [..., N, T]: rows ``data_index
+    * N / data`` on, positions ``seq_index * T / seq`` on (the JAX
+    package's ``P('data', 'seq')`` token sharding, ``_ring_step_shardings``
+    :907). ``group`` is the ``'seq'`` group or a ``MeshGroups``."""
+    mesh = as_mesh(group)
+    d, s = mesh.shape
+    n, t = batch.shape[-2:]
+    if n % d or t % s:
+        raise ValueError(f"batch {n} x {t} does not split over a {d} x {s} "
+                         "('data', 'seq') mesh")
+    i, j = mesh.data_index, mesh.seq_index
+    nl, tl = n // d, t // s
+    return batch[..., i * nl:(i + 1) * nl, j * tl:(j + 1) * tl]
+
+
+def _mean_over(group, loss, grads):
+    """The loss and every gradient leaf summed over ``group`` and divided
+    by its size, in the tree's order (the same collectives on every rank;
+    a world of 1 passes them through)."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return loss, grads
+    for x in [loss] + tree_leaves(grads):
+        dist.all_reduce(x, group=group)
+    return loss / world, tree_map(lambda g: g / world, grads)
+
+
+def _build_ring_step(cfg: TransformerConfig, group, strategy: str):
+    """The optimizer step of :func:`make_ring_train_step`; every
+    sequence-parallel factory validates here."""
+    if cfg.accum_steps != 1:
+        raise ValueError("cfg.accum_steps must be 1 under sequence-parallel "
+                         "training (shard 'data' for more batch instead)")
+    _reject_lowprec("sequence-parallel")
+    _validate_schedule(cfg)
+    check_dense(cfg)
+    if strategy not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
+    mesh = as_mesh(group)
+
+    def step(params, opt, tokens, targets):
+        x, y = ring_step_block(tokens, mesh), ring_step_block(targets, mesh)
+        loss, grads = value_and_grad(
+            lambda p: nll_loss(ring_forward(p, x, cfg, mesh.seq, strategy),
+                               y), params)
+        loss, grads = _mean_over(mesh.world, loss, grads)
+        lr = _scheduled_lr(cfg, opt["t"] + 1)
+        params, opt = _adam_update(params, grads, opt, lr,
+                                   weight_decay=cfg.weight_decay,
+                                   clip_grad_norm=cfg.clip_grad_norm)
+        return params, opt, loss
+
+    step.loss_scaled = False
+    return step
+
+
+def make_ring_train_step(cfg: TransformerConfig, group=None, *,
+                         strategy: str = "ring"):
+    """``step(params, opt, tokens, targets) -> (params, opt, loss)``, the
+    long-context training step: the same objective as
+    :func:`make_train_step` (the mean NLL of the GLOBAL batch, which every
+    rank passes and every rank gets back), with attention
+    sequence-parallel over the ``'seq'`` group (``strategy="ring"``: K5
+    each ring step forward, K7 backward with the lse cotangent;
+    ``"ulysses"``: all-to-alls around ``FlashFn``, K4 and K7) and, for a
+    ``MeshGroups``, the batch split over ``'data'``. Params stay
+    replicated, bit-equal on every rank. Refuses ``accum_steps != 1``,
+    ``DL4J_TPU_BF16``, a bad schedule and MoE."""
+    return _build_ring_step(cfg, group, strategy)
+
+
+def make_ring_train_multi_step(cfg: TransformerConfig, group=None, *,
+                               strategy: str = "ring"):
+    """K sequence-parallel steps over global batches stacked [K, N, T]:
+    the same results as K calls of :func:`make_ring_train_step`'s step."""
+    return _multi_from_step(_build_ring_step(cfg, group, strategy))
+
+
+# ---------------------------------------------------------------------------
 # the model object
 # ---------------------------------------------------------------------------
 
@@ -649,19 +760,28 @@ class TransformerLM:
     (made at first use), ``iteration`` (the optimizer step count), and
     ``compute_params`` (one compute-dtype copy of the block weights that
     inference reads, rebuilt after each optimizer step). Lives on
-    ``device`` — the card unless the caller passes ``device="cpu"``."""
+    ``device`` — the card unless the caller passes ``device="cpu"``.
+
+    With ``group`` (the ``'seq'`` process group, or a ``MeshGroups`` for
+    DP x SP) it trains in the sequence mode: every rank builds the same
+    model and passes the same GLOBAL batch to :meth:`fit` and
+    :meth:`fit_batches`, each rank trains on its own block through the
+    ring step (:func:`make_ring_train_step`), and only the mesh's rank 0
+    writes in :meth:`save`."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
                  params: Optional[Params] = None,
-                 opt: Optional[Params] = None) -> None:
+                 opt: Optional[Params] = None, group=None) -> None:
         check_dense(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.group = group
         self.params = (params if params is not None
                        else init_params(cfg, device=self.device))
         self._opt = opt
         self.iteration = 0 if opt is None else int(opt["t"])
-        self._step = make_train_step(cfg)
+        self._step = (make_train_step(cfg) if group is None
+                      else make_ring_train_step(cfg, group))
         self._multi_step = _multi_from_step(self._step)
         self._compute: Optional[Params] = None
 
@@ -688,20 +808,24 @@ class TransformerLM:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x, device=self.device)
 
+    def _sequence_mode(self) -> bool:
+        return self.group is not None
+
     @classmethod
     def from_state(cls, cfg: TransformerConfig, params: Params,
                    opt: Optional[Params] = None, *,
-                   device=None) -> "TransformerLM":
+                   device=None, group=None) -> "TransformerLM":
         """An LM around existing state, with no random init; the
         iteration is ``opt["t"]``."""
-        return cls(cfg, device=device, params=params, opt=opt)
+        return cls(cfg, device=device, params=params, opt=opt, group=group)
 
     @classmethod
-    def load(cls, path: str, *, device=None,
-             load_updater: bool = True) -> "TransformerLM":
+    def load(cls, path: str, *, device=None, load_updater: bool = True,
+             group=None) -> "TransformerLM":
         """Read a zip written by :meth:`save` or by the JAX package's
         ``TransformerLM.save`` (``transformer.py:1347``). With the updater
-        section, Adam's state comes back and the iteration is its ``t``."""
+        section, Adam's state comes back and the iteration is its ``t``.
+        With ``group``, every rank reads it into the sequence mode."""
         from deeplearning4j_tpu_torch.utils.serialization import (
             npz_bytes_to_tree,
             read_flagship_zip,
@@ -711,7 +835,7 @@ class TransformerLM:
                                                         "TransformerLM")
         cfg = TransformerConfig(**cfg_dict)
         params = params_from_numpy(npz_bytes_to_tree(coeff), device=device)
-        lm = cls(cfg, device=device, params=params)
+        lm = cls(cfg, device=device, params=params, group=group)
         if load_updater and upd is not None:
             lm.opt = _tree_like(init_opt_state(params, lm._step.loss_scaled),
                                 npz_bytes_to_tree(upd), params["embed"].device)
@@ -721,18 +845,25 @@ class TransformerLM:
     def save(self, path: str) -> None:
         """A zip in the JAX package's flagship layout (configuration,
         coefficients, updater: ``utils/serialization.write_flagship_zip``),
-        which the JAX ``TransformerLM.load`` reads."""
+        which the JAX ``TransformerLM.load`` reads. In the sequence mode
+        only the mesh's rank 0 writes (the params are bit-equal on every
+        rank)."""
         from deeplearning4j_tpu_torch.utils.serialization import (
             write_flagship_zip,
         )
 
+        if self._sequence_mode() and dist.get_rank(
+                as_mesh(self.group).world) != 0:
+            return
         write_flagship_zip(path, "TransformerLM", self.cfg, self.params,
                            self.opt)
 
     # -- training -----------------------------------------------------------
     def fit(self, tokens, targets) -> torch.Tensor:
         """One optimizer step on tokens/targets [N, T]; the loss (a 0-d
-        device tensor: reading it waits for the card)."""
+        device tensor: reading it waits for the card). In the sequence
+        mode the global batch: this rank trains on its block, and the
+        loss is the global batch's."""
         params, opt, loss = self._step(self.params, self.opt,
                                        self._tokens(tokens),
                                        self._tokens(targets))

@@ -21,8 +21,17 @@ space through each block's lse; a block with no visible key has lse =
 -inf and weighs nothing. The result is exact full attention. The JAX
 package's einsum body (``_ring_attention_body`` :84, its
 ``use_flash=False``) is not carried over: the ring always runs K5 on the
-card. Gradients through the ring across processes are not ported (the
-ring training step comes with TransformerLM training).
+card.
+
+Both bodies are differentiable across processes, as the JAX package's
+are under ``jax.grad``: each ring step's backward is K7 (through
+:class:`FlashBlockFn`, with the lse cotangent the log-space combination
+gives it), and the rotations' backward sends the K/V cotangents back
+round the ring (``parallel/mesh.ring_shift``). K, V and the mask travel
+as one packed buffer per step, so each step is one P2P pair forward and
+one backward whatever order autograd picks; Ulysses sends q, k and v in
+one all-to-all. The mask carries no gradient; its 0/1 values are exact
+in K's dtype.
 """
 
 from __future__ import annotations
@@ -83,15 +92,22 @@ def multi_head_attention(q, k, v, *, causal: bool = False,
 
 
 def _rotate(k_blk, v_blk, km_blk, group):
-    k_blk = ring_shift(k_blk, group)
-    v_blk = ring_shift(v_blk, group)
+    """K, V and the mask shard to rank + 1 as one buffer (one P2P pair
+    forward, one backward); the mask rides in K's dtype."""
+    parts = [k_blk.reshape(-1), v_blk.reshape(-1)]
     if km_blk is not None:
-        km_blk = ring_shift(km_blk, group)
-    return k_blk, v_blk, km_blk
+        parts.append(km_blk.reshape(-1).to(k_blk.dtype))
+    buf = ring_shift(torch.cat(parts), group)
+    nk = k_blk.numel()
+    k_new = buf[:nk].view(k_blk.shape)
+    v_new = buf[nk:2 * nk].view(v_blk.shape)
+    km_new = None if km_blk is None else buf[2 * nk:].view(km_blk.shape)
+    return k_new, v_new, km_new
 
 
 def _mask_shard(key_mask):
-    """The mask shard as it travels: f32 0/1 (every backend sends it)."""
+    """The mask shard before it travels: f32 0/1 (it rotates in K's
+    dtype)."""
     return None if key_mask is None else key_keep(key_mask).to(torch.float32)
 
 
@@ -175,13 +191,13 @@ def ring_attention_sharded(q, k, v, group=None, *, causal: bool = False,
 
 def _ulysses_body(q, k, v, *, causal: bool, group=None):
     """Swap the sharded axis from sequence to heads (each rank then holds
-    every position for H/P heads), attend locally through K4
+    every position for H/P heads; q, k and v stacked into one
+    all-to-all), attend locally through K4
     (:class:`FlashFn`: causal or full attention over all T, its plain
     version on the CPU; the JAX body's einsum materialises the [T, T]
     scores), and swap back."""
-    qh = all_to_all(q, 2, 1, group)
-    kh = all_to_all(k, 2, 1, group)
-    vh = all_to_all(v, 2, 1, group)
+    qh, kh, vh = all_to_all(torch.stack((q, k, v)), 3, 2,
+                            group).unbind(0)
     att = FlashFn.apply(qh, kh, vh, causal)
     return all_to_all(att, 1, 2, group)
 

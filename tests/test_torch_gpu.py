@@ -52,7 +52,16 @@ with the same step on the CPU (see that test for its bars); remat
 ``dots``/``block`` on the card give the no-remat forward bit for bit and
 its gradients within 1e-2, with K4 launched once (``dots``) or twice
 (``block``) per layer; bf16 loss-scaled steps grow the scale and skip a
-step with a non-finite gradient.
+step with a non-finite gradient. Sequence-parallel training on a world-1
+NCCL group: the ring step (K5, K7) and the Ulysses step (K4, K7), strict
+f32, within 1e-4 of the dense step on the CPU (loss relative, each
+gradient leaf of its largest entry); the 4-shard ring driven in one
+process, forward and backward through K5 and K7 with the lse cotangent,
+within 1e-2 of each gradient's largest entry of the same chain through
+the plain versions, masked keys' dK and dV exactly 0. BERT on the card
+(K5 at offset T with the key mask, K7), strict f32: an MLM step's loss
+and gradients and a fine-tune step's within 1e-4 of the CPU's, an
+all-pad row's encoding too, ``encoder_lr_scale=0`` keeping the encoder.
 """
 
 import numpy as np
@@ -61,6 +70,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as port_flash
 from deeplearning4j_tpu_torch.ops import lstm_scan as port_lstm
+from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.ops import paged_attention as port_paged
 from deeplearning4j_tpu_torch.ops import sgns as port_sgns
 
@@ -1390,3 +1400,213 @@ def test_bf16_loss_scaled_steps_on_card(monkeypatch):
     lm.fit(x, y)
     assert state() == (16.0, 0, 1, 2)
     assert torch.equal(lm.params["blocks"]["Wq"], wq)
+
+
+def _leaf_errors(got, want):
+    """Each leaf's largest error, of its largest entry in ``want`` (the
+    CPU result)."""
+    from deeplearning4j_tpu_torch.models import transformer as pt
+
+    return {name: ((a.cpu() - b).abs().max()
+                   / b.abs().max().clamp_min(1e-30)).item()
+            for (name, a), b in zip(pt._named(got).items(),
+                                    pt.tree_leaves(want))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,fwd", [("ring", "flash_attention_block"),
+                                          ("ulysses", "flash_attention")])
+def test_sequence_parallel_step_on_a_world1_nccl_group_matches_cpu(
+        strategy, fwd, tmp_path):
+    """The ring step (K5 forward, K7 backward with the lse cotangent) and
+    the Ulysses step (K4, K7) on a world-1 NCCL group, strict f32: the
+    loss and every gradient leaf within 1e-4 (of each leaf's largest
+    entry) of the dense step on the CPU, once per layer each, no plain
+    version; the step returns the same loss and moves Wq."""
+    dev = _need_card()
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.parallel.mesh import init_seq_group
+
+    cfg = pt.TransformerConfig(vocab_size=128, d_model=128, n_layers=2,
+                               n_heads=2, d_ff=256, max_len=128, seed=7)
+    params = pt.init_params(cfg, device="cpu")
+    ids = np.random.default_rng(3).integers(0, 128, (2, 129))
+    x, y = torch.from_numpy(ids[:, :-1]), torch.from_numpy(ids[:, 1:])
+    counters = {fn.__name__: fn for fn in (
+        port_flash.flash_attention, port_flash.flash_attention_block,
+        port_flash.flash_bwd, port_flash.flash_attention_plain,
+        port_flash.flash_attention_block_plain, port_flash.flash_block_bwd)}
+    group = init_seq_group(str(tmp_path / "store"), 0, 1, backend="nccl")
+    try:
+        on_card = pt.tree_map(lambda a: a.to(dev), params)
+        xd, yd = x.to(dev), y.to(dev)
+        before = {k: fn.launches for k, fn in counters.items()}
+        loss, grads = pt.value_and_grad(lambda p: pt.nll_loss(
+            pt.ring_forward(p, xd, cfg, group, strategy), yd), on_card)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        step = pt.make_ring_train_step(cfg, group, strategy=strategy)
+        new, opt, step_loss = step(on_card, pt.init_opt_state(on_card),
+                                   xd, yd)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert ran == {k: (cfg.n_layers if k in (fwd, "flash_bwd") else 0)
+                   for k in counters}
+    want_loss, want = pt.value_and_grad(
+        lambda p: pt.loss_fn(p, x, y, cfg), params)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * float(want_loss)
+    assert float(step_loss) == pytest.approx(float(loss), rel=1e-6)
+    for name in ("Wq", "Wk", "Wv"):
+        assert grads["blocks"][name].abs().max().item() > 0, name
+    errs = _leaf_errors(grads, want)
+    assert max(errs.values()) <= 1e-4, errs
+    assert int(opt["t"]) == 1
+    assert not torch.equal(new["blocks"]["Wq"], on_card["blocks"]["Wq"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "masked"])
+def test_four_shard_ring_backward_through_k5_k7_on_card(monkeypatch,
+                                                        masked):
+    """The 4-shard ring driven in one process with autograd (K5 forward
+    per (my, src) step, K7 backward with the lse cotangent of the
+    log-space combination), bf16 causal: dq, dk, dv within 1e-2 of each
+    gradient's largest entry of the same chain through K5's and K7's
+    plain versions on the card; masked keys' dK and dV exactly 0."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.parallel import sequence_parallel as psp
+
+    p, n, t, h, d = 4, 2, 512, 4, 64
+    rng = np.random.default_rng(11)
+    q, k, v, g = (_port(rng.standard_normal((n, t, h, d)), dev,
+                        torch.bfloat16) for _ in range(4))
+    km = None
+    if masked:
+        km = _port((rng.random((n, t)) < 0.8).astype(np.float32), dev)
+        km[:, 0] = 1.0
+
+    def chain():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        tl = t // p
+        sh = lambda a, r: None if a is None else a[:, r * tl:(r + 1) * tl]
+        outs = []
+        for my in range(p):
+            st = psp.ring_flash_init(sh(leaves[0], my))
+            for step in range(p):
+                src = (my - step) % p
+                st = psp.ring_flash_step(st, sh(leaves[0], my),
+                                         sh(leaves[1], src),
+                                         sh(leaves[2], src), sh(km, src),
+                                         my=my, src=src, t_local=tl,
+                                         n_dev=p, causal=True)
+            outs.append(psp.ring_flash_finish(st, q.dtype))
+        return torch.autograd.grad(torch.cat(outs, 1), leaves, g)
+
+    before = (port_flash.flash_attention_block.launches,
+              port_flash.flash_bwd.launches)
+    got = chain()
+    torch.cuda.synchronize()
+    assert (port_flash.flash_attention_block.launches - before[0],
+            port_flash.flash_bwd.launches - before[1]) == (p * p, p * p)
+    monkeypatch.setattr(port_flash, "flash_attention_block",
+                        port_flash.flash_attention_block_plain)
+    monkeypatch.setattr(port_flash, "flash_bwd", port_flash.flash_block_bwd)
+    want = chain()
+    errs = _rel_errors(got, want)
+    assert max(errs) <= TOL_BWD[torch.bfloat16], errs
+    if masked:
+        hidden = km == 0
+        assert (got[1][hidden] == 0).all() and (got[2][hidden] == 0).all()
+
+
+def _bert_case(dev):
+    from deeplearning4j_tpu_torch.models import bert as pb
+
+    cfg = pb.BertConfig(vocab_size=128, d_model=128, n_layers=2, n_heads=2,
+                        d_ff=256, max_len=64, mask_token_id=127, seed=9)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(1, 127, (4, 64))
+    ids[0, 40:] = 0
+    ids[2] = 0  # an all-pad row: the mean of V, as the JAX package
+    return cfg, pb.init_params(cfg, device="cpu"), ids
+
+
+@pytest.mark.gpu
+def test_bert_mlm_step_on_card_matches_cpu():
+    """One BERT MLM step on the card, strict f32: K5 at offset T with the
+    key mask forward and K7 backward, once per layer each, no plain
+    version; the loss within 1e-4 relative and every gradient within 1e-4
+    of each leaf's largest entry of the CPU's; ``BertMLM.fit`` on the card
+    gives the same loss."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models import bert as pb
+
+    cfg, params, ids = _bert_case(dev)
+    x, y, w = (torch.from_numpy(a) for a in pb.mask_tokens(
+        ids, cfg, np.random.default_rng(cfg.seed)))
+    counters = (port_flash.flash_attention_block, port_flash.flash_bwd,
+                port_flash.flash_attention_block_plain,
+                port_flash.flash_block_bwd)
+    before = [fn.launches for fn in counters]
+    on_card = tree_map(lambda a: a.to(dev), params)
+    loss, grads = pb.value_and_grad(lambda p: pb.mlm_loss(
+        p, x.to(dev), y.to(dev), w.to(dev), cfg), on_card)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [cfg.n_layers, cfg.n_layers, 0, 0]
+    want_loss, want = pb.value_and_grad(
+        lambda p: pb.mlm_loss(p, x, y, w, cfg), params)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * float(want_loss)
+    for name in ("Wq", "Wk", "Wv"):
+        assert grads["blocks"][name].abs().max().item() > 0, name
+    errs = _leaf_errors(grads, want)
+    assert max(errs.values()) <= 1e-4, errs
+    with torch.inference_mode():
+        emb = pb.encode(on_card, torch.from_numpy(ids).to(dev), cfg).cpu()
+        want_emb = pb.encode(params, torch.from_numpy(ids), cfg)
+    assert (emb - want_emb).abs().max().item() <= 1e-4
+    mlm = pb.BertMLM(cfg, device=dev, params=on_card)
+    assert mlm.fit(ids) == pytest.approx(float(loss), rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_bert_classifier_step_on_card_matches_cpu():
+    """One fine-tune step on the card, strict f32: the pooled classifier's
+    loss within 1e-4 relative and every gradient within 1e-4 of each
+    leaf's largest entry of the CPU's; ``BertClassifier.fit`` on the card
+    gives the same loss and, at ``encoder_lr_scale=0``, leaves the
+    encoder bit-equal."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models import bert as pb
+
+    cfg, params, ids = _bert_case(dev)
+    labels = torch.tensor([0, 1, 1, 0])
+    head = pb.init_classifier_head(cfg, 2, seed=1, device="cpu")
+    both = {"encoder": params, "head": head}
+
+    def loss_of(b, tokens, lab):
+        logits = pb.classify_logits(b["encoder"], b["head"], tokens, cfg)
+        return torch.nn.functional.cross_entropy(logits, lab)
+
+    on_card = tree_map(lambda a: a.to(dev), both)
+    tok = torch.from_numpy(ids)
+    loss, grads = pb.value_and_grad(
+        lambda b: loss_of(b, tok.to(dev), labels.to(dev)), on_card)
+    want_loss, want = pb.value_and_grad(
+        lambda b: loss_of(b, tok, labels), both)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * float(want_loss)
+    errs = _leaf_errors(grads, want)
+    assert max(errs.values()) <= 1e-4, errs
+    mlm = pb.BertMLM(cfg, device=dev,
+                     params=tree_map(lambda a: a.to(dev), params))
+    clf = pb.BertClassifier(mlm, 2, encoder_lr_scale=0.0)
+    clf.state = {"encoder": clf.state["encoder"],
+                 "head": tree_map(lambda a: a.to(dev), head)}
+    assert clf.fit(ids, labels.numpy()) == pytest.approx(float(loss),
+                                                         rel=1e-6)
+    for a, b in zip(tree_leaves(clf.state["encoder"]),
+                    tree_leaves(mlm.params)):
+        assert torch.equal(a, b)

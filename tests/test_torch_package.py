@@ -5,7 +5,8 @@
     ``sys.modules`` afterwards, and no ``import`` statement in the
     package, in ``chip_smoke.py`` or in the kernel timing scripts
     (``scripts/time_k*.py``) names either.
-  * Its entry points (``TransformerLM`` and its ``ring_forward``,
+  * Its entry points (``TransformerLM`` and its ``ring_forward`` and
+    sequence mode, ``BertMLM``, ``BertClassifier`` and their ``load``,
     ``PagedDecoder``, ``MultiLayerNetwork`` and its ``load`` (a
     MultiHeadAttention network too), ``ServingEngine``, and the training
     ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
@@ -233,6 +234,63 @@ class TestEntryPointsNeedACardOrCpu:
         loaded = MultiLayerNetwork.load(path, device="cpu")
         assert loaded.params[0]["Wq"].device == torch.device("cpu")
         assert torch.equal(loaded.output(x), net.output(x))
+
+    def test_bert_entry_points(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.models.bert import (
+            BertClassifier,
+            BertConfig,
+            BertMLM,
+            init_classifier_head,
+            init_params,
+        )
+
+        cfg = BertConfig(vocab_size=16, d_model=16, n_layers=1, n_heads=2,
+                         d_ff=32, max_len=8, mask_token_id=15)
+        for make in (lambda: BertMLM(cfg), lambda: init_params(cfg),
+                     lambda: init_classifier_head(cfg, 2)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        mlm = BertMLM(cfg, device="cpu")
+        assert mlm.params["embed"].device == torch.device("cpu")
+        ids = np.array([[1, 2, 3, 0], [4, 5, 6, 7]])
+        mlm.fit(ids)
+        path = str(tmp_path / "mlm.zip")
+        mlm.save(path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BertMLM.load(path)
+        assert np.array_equal(BertMLM.load(path, device="cpu")
+                              .embed_tokens(ids), mlm.embed_tokens(ids))
+        clf = BertClassifier(mlm, 2)
+        clf.fit(ids, np.array([0, 1]))
+        path = str(tmp_path / "clf.zip")
+        clf.save(path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BertClassifier.load(path)
+        assert np.array_equal(BertClassifier.load(path, device="cpu")
+                              .predict(ids), clf.predict(ids))
+
+    def test_sequence_mode_transformer_lm(self, no_card, tmp_path):
+        from deeplearning4j_tpu_torch.models.transformer import (
+            TransformerConfig,
+            TransformerLM,
+        )
+        from deeplearning4j_tpu_torch.parallel.mesh import init_seq_group
+        import torch.distributed as dist
+
+        cfg = TransformerConfig(vocab_size=16, d_model=16, n_layers=1,
+                                n_heads=2, d_ff=32, max_len=16)
+        group = init_seq_group(str(tmp_path / "store"), 0, 1)
+        try:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                TransformerLM(cfg, group=group)
+            lm = TransformerLM(cfg, device="cpu", group=group)
+            toks = torch.randint(0, 16, (2, 17))
+            loss = lm.fit(toks[:, :-1], toks[:, 1:])
+            assert loss.device == torch.device("cpu") and lm.iteration == 1
+        finally:
+            dist.destroy_process_group()
 
     def test_word2vec_entry_points(self, no_card, tmp_path):
         import numpy as np
