@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA card: the paged
-``/generate`` path of the TransformerLM, the ``/predict`` path of the
+``/generate`` path of the TransformerLM and its decode planes (k-step
+ticks, speculative decode, the fixed-slot pool, the KV arena's dtype,
+the prefill/decode handoff), the ``/predict`` path of the
 char-RNN MultiLayerNetwork, the char-RNN's training with truncated BPTT
 and RMSProp, Word2Vec skip-gram training with hierarchical softmax
 and negative sampling, the TransformerLM's long-context ``ring_forward``
@@ -39,7 +41,10 @@ What it does, in order (any failure raises and exits non-zero):
    positions inside block 0, across blocks and at the full window, and
    one lane at the full window among 63 at 16 tokens: max abs error <=
    1e-3, two launches bit-equal, and a trash block poisoned with 1e6 in K
-   and -1e6 in V moves no active lane's output by a single bit; LSTM scan (K1), f32,
+   and -1e6 in V moves no active lane's output by a single bit, and the
+   same at the smoke's mix with f32 queries over the bf16 arena (K6's
+   ``<float, bf16>`` instantiation, which an f32 model runs under
+   ``DL4J_TPU_SERVE_KV_DTYPE=bf16``); LSTM scan (K1), f32,
    with and without the cell sequence, at (N, T, H) = (64, 100, 200) (the
    char-RNN at full width with a full batch), the three shape classes of
    ``benchmarks/pallas_lstm_bench.py`` (32, 128, 128), (64, 256, 256),
@@ -97,6 +102,28 @@ What it does, in order (any failure raises and exits non-zero):
    every answer, stream == non-stream, solo == co-scheduled, and that both
    kernels' launch counters rose from 0 during the burst and checks while
    both plain versions' counters stayed at 0;
+   then the decode planes on the same model, 64 lanes and 16-token
+   blocks, against that burst's answers (``phase_decode_planes``): (a)
+   the burst again under ``DL4J_TPU_SERVE_TICK_K=4``, every answer
+   byte-equal, ticks, tokens a tick, host wall a tick and tokens/s beside
+   k = 1's; (b) the 8 greedy requests under ``DL4J_TPU_SERVE_SPEC=int8``
+   and ``=layers:2`` (``SPEC_K`` 4), every transcript byte-equal, K6
+   launched exactly layers x ((k+1) x rounds + base ticks) times, a
+   ``SpecChaos`` all-reject run (int8) byte-equal, a sampled lane
+   holding the pool to the base tick (no round while it is active),
+   rounds, proposals, acceptance (random weights: a check of the
+   mechanism), tokens a dispatch, wall per committed token, and the
+   draft's and the verify's device time at 64 lanes; (c) the fixed-slot
+   pool (``kv_block=0``, 4 slots) serving the 16 requests, solo ==
+   co-scheduled, K4 launched and no plain version, tokens/s and how far
+   its greedy transcripts agree with the paged pool's; (d) an f32 copy
+   of the model (the same master tensors) over a bf16 arena and an f32
+   one, each sized by ``kv_arena_blocks`` on one 4 GiB budget: ~2x the
+   blocks, K6 ``<float, bf16>`` launched, the transcripts' agreement;
+   (e) a prefill-role and a decode-role engine (2048 blocks each):
+   ``/prefill``, ``/prime``, ``/generate`` for the shortest and longest
+   greedy prompt, the answer byte-equal to the unprimed burst's, prefix
+   hits equal to the blocks adopted, payload bytes and each leg's wall;
 5. serves the full-width char-RNN (``char_rnn_conf(80, lstm_size=200,
    num_layers=2)``, the shape ``bench.py:206`` benchmarks; random weights
    from ``--seed`` through the port's own init) through ``ServingEngine``:
@@ -261,11 +288,13 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -308,6 +337,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
 )
 from deeplearning4j_tpu_torch.ops import build  # noqa: E402
+from deeplearning4j_tpu_torch.ops.memory import kv_arena_blocks  # noqa: E402
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -344,10 +374,22 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (  # noqa: E402
     ring_flash_init,
     ring_flash_step,
 )
-from deeplearning4j_tpu_torch.serving.decode import _sample_step  # noqa: E402
+from deeplearning4j_tpu_torch.resilience import (  # noqa: E402
+    SpecChaos,
+    SpecChaosConfig,
+)
+from deeplearning4j_tpu_torch.serving.decode import (  # noqa: E402
+    _sample_step,
+    _tick_for,
+)
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine  # noqa: E402
 from deeplearning4j_tpu_torch.serving.paged import (  # noqa: E402
+    _paged_tick_for,
     paged_decode_step,
+)
+from deeplearning4j_tpu_torch.serving.speculate import (  # noqa: E402
+    SpeculativeDecoder,
+    _verify_for,
 )
 from deeplearning4j_tpu_torch.utils.serialization import (  # noqa: E402
     write_model,
@@ -374,6 +416,9 @@ FLASH_WIDTHS = (192, 512, 1024)
 ONE_P = ("-DFLASH_P_SPLIT=0",)  # the K4/K5 variant with one bf16 P in P.V
 H, HD, BT, M_TABLE, LANES = 32, 64, 16, 64, 64
 N_REQUESTS, N_CLIENTS = 16, 8  # plus one streamed request
+# the decode planes: proposals per speculative round, and the budget both
+# KV-dtype arenas are priced on (ops/memory.kv_arena_blocks)
+SPEC_K, KV_BUDGET = 4, 4 * 2**30
 KERNELS = (flash_attention, flash_attention_plain, paged_attention,
            paged_attention_plain)
 # K1: the char-RNN at full width (N=64 rows, T=100, H=200), then the
@@ -656,6 +701,29 @@ def phase_kernels(seed: int, dev):
         print("paged_attention: trash block poisoned (K=1e6, V=-1e6): "
               "outputs bit-equal")
         err_p = max(err_p, e)
+    # K6's f32-query, bf16-arena instantiation (an f32 model over a
+    # DL4J_TPU_SERVE_KV_DTYPE=bf16 arena), at the smoke's mix
+    q, ck, cv, tables, pos = paged_inputs(seed, dev)
+    q = q.float()
+    out = paged_attention(q, ck, cv, tables, pos)
+    again = paged_attention(q, ck, cv, tables, pos)
+    ref = paged_attention_plain(q, ck, cv, tables, pos)
+    torch.cuda.synchronize()
+    err_pf = (out - ref).abs().max().item()
+    same = torch.equal(out, again)
+    print(f"paged_attention f32 q over a bf16 arena S={LANES} m={M_TABLE}: "
+          f"max|d| {err_pf:.3e} (tol {TOL_PAGED}); two launches bit-equal: "
+          f"{same}")
+    check(err_pf <= TOL_PAGED, "paged_attention (f32 q, bf16 arena) "
+          "disagrees with its plain version")
+    check(same, "two paged_attention launches (f32 q, bf16 arena) differ")
+    ck[0], cv[0] = 1e6, -1e6
+    poisoned = paged_attention(q, ck, cv, tables, pos)
+    torch.cuda.synchronize()
+    check(torch.equal(out, poisoned), "a poisoned trash block moved an "
+          "active lane's output (f32 q, bf16 arena)")
+    print("paged_attention f32 q over a bf16 arena: trash block poisoned: "
+          "outputs bit-equal")
     err_l = 0.0
     for n, t, h in LSTM_SHAPES + ((1, 8, LSTM_H),):
         args = lstm_inputs(n, t, h, seed, dev)
@@ -703,6 +771,7 @@ def phase_kernels(seed: int, dev):
     return {"flash_attention": {"max_abs_err": err_o,
                                 "max_abs_err_lse": err_lse},
             "paged_attention": {"max_abs_err": err_p},
+            "paged_attention_f32q": {"max_abs_err": err_pf},
             "lstm_scan": {"max_abs_err": err_l},
             "lstm_scan_bwd": {"max_err": err_b, "max_abs_err": abs_b}}
 
@@ -787,32 +856,23 @@ def phase_serve(cfg: TransformerConfig, seed: int, dev):
             first.setdefault(min(max(bucket_size(k), k), cfg.max_len), r)
         for r in first.values():
             _post(eng.url, dict(r, n_new=2, temperature=0.0))
-        for fn in KERNELS:  # counts from the timed burst on
-            fn.launches = 0
+        zero_counts()  # counts from the timed burst on
         ticks0, tick_s0 = d.decode_ticks, d.tick_seconds
         adm0, adm_s0 = d.admissions, d.admit_seconds
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(N_CLIENTS) as ex:
-            answers = list(ex.map(lambda p: (p, *_post(eng.url, p)),
-                                  reqs + [stream_req]))
-        wall = time.perf_counter() - t0
+        dtok0 = d.dispatch_stats.decode_tokens
+        toks, wall = burst(eng, reqs + [stream_req])
         ticks = d.decode_ticks - ticks0
         tick_ms = (d.tick_seconds - tick_s0) / max(ticks, 1) * 1e3
+        per_dispatch = (d.dispatch_stats.decode_tokens - dtok0) \
+            / max(ticks, 1)
         adm = d.admissions - adm0
         adm_ms = (d.admit_seconds - adm_s0) / max(adm, 1) * 1e3
-        toks = []
-        for p, status, body in answers:
-            check(status == 200, f"HTTP {status}: {body[:200]}")
-            t = _tokens(p, status, body)
-            check(len(t) == p["n_new"],
-                  f"{len(t)} tokens for n_new {p['n_new']}")
-            toks.append(t)
         generated = sum(len(t) for t in toks)
-        print(f"{len(answers)} requests answered (HTTP 200, right token "
+        print(f"{len(toks)} requests answered (HTTP 200, right token "
               f"counts) in {wall:.3f} s: {generated} tokens, "
               f"{generated / wall:.1f} tokens/s, {ticks} decode ticks "
-              f"({tick_ms:.3f} ms host wall each), {adm} admissions "
+              f"({tick_ms:.3f} ms host wall each, {per_dispatch:.2f} "
+              f"tokens a tick), {adm} admissions "
               f"({adm_ms:.3f} ms each), peak {d.peak_active} active lanes")
         _, body = _post(eng.url, reqs[1])
         check(_tokens(reqs[1], 200, body) == toks[-1],
@@ -825,7 +885,7 @@ def phase_serve(cfg: TransformerConfig, seed: int, dev):
         check(_tokens(reqs[3], 200, body) == toks[3],
               "sampled request alone != the same request co-scheduled")
         print("solo == co-scheduled (greedy and temperature 0.8): ok")
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = counts_now()
         print(f"launches during serving: {counts}")
         check(counts["flash_attention"] > 0 and
               counts["paged_attention"] > 0,
@@ -835,13 +895,14 @@ def phase_serve(cfg: TransformerConfig, seed: int, dev):
               "a plain version ran while serving on the card")
     finally:
         eng.stop()
-    return lm, widths, counts, {"requests": len(answers), "wall_s": wall,
+    return lm, widths, counts, {"requests": len(toks), "wall_s": wall,
                                 "generated_tokens": generated,
                                 "tokens_per_s": generated / wall,
                                 "decode_ticks": ticks,
                                 "tick_wall_ms": tick_ms,
+                                "tokens_per_dispatch": per_dispatch,
                                 "admissions": adm,
-                                "admit_wall_ms": adm_ms}
+                                "admit_wall_ms": adm_ms}, (reqs, toks)
 
 
 def phase_predict(seed: int, dev):
@@ -979,10 +1040,12 @@ def launches_in_one_call(fn, name: str, tries: int = 3) -> int:
     return best
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3,
+              sleep_cycles: int = 100_000_000) -> float:
     """Device time of one call: ``iters`` calls queued behind a sleep
-    kernel (~50 ms, far longer than the host needs to launch them), timed
-    with CUDA events around them. Back-to-back events (:func:`time_ms`)
+    kernel (``sleep_cycles``: ~50 ms by default, far longer than the host
+    needs to launch a kernel's calls), timed with CUDA events around
+    them. Back-to-back events (:func:`time_ms`)
     also count the host's time per launch where it exceeds a short
     kernel's own (K4 at T <= 1024); torch.profiler's kernel sums proved
     short of records on the card (half of case a's launches missing in
@@ -992,7 +1055,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # clock cycles
+    torch.cuda._sleep(sleep_cycles)  # clock cycles
     a.record()
     for _ in range(iters):
         fn()
@@ -1049,6 +1112,24 @@ def phase_times(lm: TransformerLM, widths, seed: int, dev):
               f"{ms:.4f} ms on the device ({ev:.4f} back to back), "
               f"{nbytes / ms / 1e6:.1f} GB/s, bound {b_ms:.4f} ms ({b_by}; "
               f"{b_ms / ms:.1%} of the time), plain {plain:.4f} ms")
+    # the f32-query instantiation at the smoke's mix: the bf16 row's
+    # bytes, with q read in f32
+    q32 = q.float()
+    kern = lambda: paged_attention(q32, ck, cv, tables, pos)
+    ms, ev = device_ms(kern), time_ms(kern)
+    plain = time_ms(lambda: paged_attention_plain(q32, ck, cv, tables, pos),
+                    iters=5)
+    nbytes = vis * H * HD * 2 * 2 + LANES * H * HD * (4 + 4) \
+        + tables.numel() * 4 + LANES * 4
+    b_ms, b_by = bound(nbytes, 4.0 * vis * H * HD)
+    res["paged_attention_f32q"] = dict(
+        ms=ms, events_ms=ev, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, mean_context=vis / LANES, gb_per_s=nbytes / ms / 1e6,
+        bound_share=b_ms / ms)
+    print(f"paged_attention f32 q over a bf16 arena, S={LANES} mean context "
+          f"{vis / LANES:.1f}: {ms:.4f} ms on the device ({ev:.4f} back to "
+          f"back), bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%}), plain "
+          f"{plain:.4f} ms")
     with torch.inference_mode():
         for w in widths:
             toks = torch.randint(0, cfg.vocab_size, (1, w), device=dev)
@@ -1098,6 +1179,412 @@ def phase_times(lm: TransformerLM, widths, seed: int, dev):
               "prefill)")
         for ms_, calls, name in rows[:8]:
             print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return res
+
+
+def burst(eng, reqs, clients: int = N_CLIENTS):
+    """The requests through HTTP ``/generate`` from ``clients`` threads:
+    (transcripts, wall s); every answer HTTP 200 with its token count."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        answers = list(ex.map(lambda p: (p, *_post(eng.url, p)), reqs))
+    wall = time.perf_counter() - t0
+    toks = []
+    for p, status, body in answers:
+        check(status == 200, f"HTTP {status}: {body[:200]}")
+        t = _tokens(p, status, body)
+        check(len(t) == p["n_new"], f"{len(t)} tokens for n_new {p['n_new']}")
+        toks.append(t)
+    return toks, wall
+
+
+def zero_counts():
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def counts_now():
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def agreement(got, want):
+    """(transcripts equal, shortest common prefix, mean common prefix)."""
+    pre = []
+    for a, b in zip(got, want):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        pre.append(n)
+    equal = sum(1 for a, b in zip(got, want) if a == b)
+    return equal, min(pre), float(np.mean(pre))
+
+
+def phase_decode_planes(lm: TransformerLM, burst_run, seed: int, dev):
+    """The decode planes of ``/generate`` on the bench transformer, at
+    the serve phase's 64 lanes and 16-token blocks, against its burst:
+    (a) k-step ticks, (b) speculative decode with both self-drafts, (c)
+    the fixed-slot pool, (d) the bf16 arena under an f32 copy of the
+    model, (e) the prefill/decode handoff."""
+    print("== decode planes: k-step ticks, speculation, fixed slots, KV "
+          "dtype, handoff ==")
+    cfg = lm.cfg
+    reqs, base = burst_run
+    base = base[:len(reqs)]
+    greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0]
+    L = cfg.n_layers
+    out = {}
+
+    # (a) k-step ticks: the serve burst (its streamed request too) at
+    # k = 1, 4, 4, 1 in turns, every answer byte-equal to the serve
+    # phase's
+    stream_req = dict(reqs[1], stream=True)
+    runs = {1: [], 4: []}
+    for kk in (1, 4, 4, 1):
+        with env_set(DL4J_TPU_SERVE_TICK_K=str(kk)):
+            eng = ServingEngine(lm, device=dev).start()
+        d = eng.decoder
+        try:
+            check(d.tick_k == kk, f"DL4J_TPU_SERVE_TICK_K={kk} was not read")
+            zero_counts()
+            toks, wall = burst(eng, reqs + [stream_req])
+            counts = counts_now()
+            snap = d.dispatch_stats.snapshot()
+        finally:
+            eng.stop()
+        check(toks == burst_run[1], f"a k={kk} answer differs from the "
+              "serve burst's")
+        check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0
+              and counts["flash_attention_plain"] == 0
+              and counts["paged_attention_plain"] == 0,
+              f"k={kk} ticks: kernels {counts}")
+        gen = sum(len(t) for t in toks)
+        runs[kk].append(dict(
+            ticks=d.decode_ticks,
+            tokens_per_dispatch=snap["tokens_per_dispatch"],
+            tick_wall_ms=d.tick_seconds / max(d.decode_ticks, 1) * 1e3,
+            tick_wall_s=d.tick_seconds, tokens_per_s=gen / wall,
+            wall_s=wall, launches=counts))
+    out["k_step"] = {f"k{kk}": r for kk, r in runs.items()}
+    ticks = decode_device_times(lm, SPEC_K, seed, dev)
+    out["k_step"]["tick_times"] = ticks
+    for kk in (1, 4):
+        r = runs[kk]
+        print(f"(a) TICK_K={kk} (two bursts of {len(reqs) + 1}, in turns "
+              f"1, 4, 4, 1): answers byte-equal to the serve burst's "
+              f"(greedy and 0.8); ticks {[x['ticks'] for x in r]}, "
+              f"tokens a tick {[x['tokens_per_dispatch'] for x in r]}, "
+              f"host wall a tick "
+              f"{[round(x['tick_wall_ms'], 3) for x in r]} ms, tick wall "
+              f"in all {[round(x['tick_wall_s'] * 1e3, 1) for x in r]} ms,"
+              f" tokens/s {[round(x['tokens_per_s'], 1) for x in r]}; "
+              f"launches {r[0]['launches']}")
+    print(f"(a) one 64-lane tick at mean context {ticks['mean_context']:.1f}"
+          f": k=1 {ticks['tick1_ms']:.3f} ms on the device (kernels "
+          f"{ticks['tick1_kernel_ms']:.3f}), {ticks['tick1_events_ms']:.3f} "
+          f"back to back; k=4 {ticks['tick4_ms']:.3f} on the device "
+          f"(kernels {ticks['tick4_kernel_ms']:.3f}), "
+          f"{ticks['tick4_events_ms']:.3f} back to back")
+
+    # (b) speculative decode: the greedy requests byte-equal to k = 1
+    k = SPEC_K
+    g_reqs = [reqs[i] for i in greedy]
+    g_base = [base[i] for i in greedy]
+    out["spec"] = {}
+    for mode in ("int8", "layers:2"):
+        with env_set(DL4J_TPU_SERVE_SPEC=mode, DL4J_TPU_SERVE_SPEC_K=str(k)):
+            eng = ServingEngine(lm, device=dev).start()
+        d = eng.decoder
+        try:
+            check(isinstance(d, SpeculativeDecoder) and d.spec_k == k,
+                  f"DL4J_TPU_SERVE_SPEC={mode} built {type(d).__name__}")
+            zero_counts()
+            toks, wall = burst(eng, g_reqs)
+            counts = counts_now()
+            st = eng.stats.snapshot()
+            snap = d.dispatch_stats.snapshot()
+            rounds, base_ticks = d.spec_rounds, d.decode_ticks
+            spec_s = d.spec_seconds
+            draft = d._draft
+            res = dict(rounds=rounds, base_ticks=base_ticks,
+                       proposed=st["draft_proposed"],
+                       accepted=st["draft_accepted"],
+                       acceptance_rate=st["acceptance_rate"],
+                       acceptance_note="random weights: a check of the "
+                                       "mechanism, not a rate users see",
+                       tokens_per_dispatch=snap["tokens_per_dispatch"],
+                       round_wall_ms=spec_s / max(rounds, 1) * 1e3,
+                       wall_per_token_ms=wall / sum(map(len, toks)) * 1e3,
+                       tokens_per_s=sum(map(len, toks)) / wall,
+                       launches=counts)
+            check(toks == g_base, f"spec {mode}: a transcript differs from "
+                  "the k=1 greedy burst's")
+            want_k6 = L * ((k + 1) * rounds + base_ticks)
+            check(rounds > 0 and counts["paged_attention"] == want_k6,
+                  f"spec {mode}: {rounds} rounds, K6 launched "
+                  f"{counts['paged_attention']} times, want L x ((k+1) x "
+                  f"rounds + base ticks) = {want_k6}")
+            check(counts["flash_attention"] > 0
+                  and counts["flash_attention_plain"] == 0
+                  and counts["paged_attention_plain"] == 0,
+                  f"spec {mode}: kernels {counts}")
+            if mode == "int8":
+                # a mixed pool: while a sampled lane is active no round
+                # runs, and every answer stays the k = 1 burst's
+                s_i = next(i for i, r in enumerate(reqs)
+                           if r["temperature"] > 0)
+                first, at_end = threading.Event(), []
+                fut = d.submit(reqs[s_i]["tokens"][0], reqs[s_i]["n_new"],
+                               temperature=reqs[s_i]["temperature"],
+                               seed=reqs[s_i]["seed"],
+                               on_token=lambda t: first.set())
+                check(first.wait(120), "the sampled request never started")
+                r0 = d.spec_rounds
+                fut.add_done_callback(lambda f: at_end.append(d.spec_rounds))
+                gf = [d.submit(reqs[i]["tokens"][0], reqs[i]["n_new"],
+                               temperature=0.0) for i in greedy[:3]]
+                mixed = [f.result(timeout=300).tolist() for f in gf]
+                check(fut.result(timeout=300).tolist() == base[s_i]
+                      and mixed == [base[i] for i in greedy[:3]],
+                      "the mixed pool's answers differ from the k=1 burst's")
+                check(at_end and at_end[0] == r0,
+                      "a speculative round ran while a sampled lane was "
+                      "active")
+                res["mixed_pool_rounds_while_sampled"] = at_end[0] - r0
+        finally:
+            eng.stop()
+        if mode == "int8":
+            # chaos: every proposal of rounds 0-2 rejected
+            chaos = SpecChaos(SpecChaosConfig(reject_at_round=0, count=3))
+            cd = SpeculativeDecoder(lm, draft=draft, spec_k=k,
+                                    spec_chaos=chaos, n_blocks=1024,
+                                    device=dev)
+            try:
+                fs = [cd.submit(reqs[i]["tokens"][0], reqs[i]["n_new"],
+                                temperature=0.0) for i in greedy[:2]]
+                got = [f.result(timeout=300).tolist() for f in fs]
+            finally:
+                cd.stop()
+            check(got == [base[i] for i in greedy[:2]] and chaos.log
+                  and cd.stats.draft_rejected > 0,
+                  "an all-reject chaos round changed a transcript")
+            res["chaos_rounds"] = len(chaos.log)
+        # the round's device time at 64 lanes (CUDA events behind a sleep
+        # kernel): the draft's k+1 dense steps, the target's verify
+        res.update(decode_device_times(lm, k, seed, dev, draft=draft))
+        out["spec"][mode] = res
+        print(f"(b) SPEC={mode} k={k}: {len(toks)} greedy transcripts "
+              f"byte-equal to k=1; {rounds} rounds + {base_ticks} base "
+              f"ticks; proposed {res['proposed']}, accepted "
+              f"{res['accepted']} ({res['acceptance_rate']}: random "
+              f"weights); {res['tokens_per_dispatch']} tokens a dispatch; "
+              f"round {res['round_wall_ms']:.3f} ms host wall, draft "
+              f"{res['draft_ms']:.3f} + verify {res['verify_ms']:.3f} ms "
+              f"on the device (kernels {res['draft_kernel_ms']:.3f} + "
+              f"{res['verify_kernel_ms']:.3f}; {res['draft_events_ms']:.3f}"
+              f" + {res['verify_events_ms']:.3f} back to back); "
+              f"{res['wall_per_token_ms']:.3f} ms wall a "
+              f"committed token, {res['tokens_per_s']:.1f} tokens/s; K6 "
+              f"{counts['paged_attention']} = L x ((k+1) x rounds + "
+              f"base ticks)"
+              + (f"; chaos all-reject rounds {res['chaos_rounds']} exact; "
+                 "mixed pool: no round while sampled"
+                 if mode == "int8" else ""))
+
+    # (c) the fixed-slot pool: 4 slots serve the 16 requests
+    eng = ServingEngine(lm, kv_block=0, slots=4, device=dev).start()
+    d = eng.decoder
+    try:
+        zero_counts()
+        toks, wall = burst(eng, reqs)
+        counts = counts_now()
+        _, body = _post(eng.url, reqs[0])
+        solo_g = _tokens(reqs[0], 200, body)
+        _, body = _post(eng.url, reqs[3])
+        solo_s = _tokens(reqs[3], 200, body)
+    finally:
+        eng.stop()
+    check(solo_g == toks[0] and solo_s == toks[3],
+          "fixed-slot: solo != co-scheduled")
+    check(counts["flash_attention"] > 0
+          and counts["flash_attention_plain"] == 0
+          and counts["paged_attention_plain"] == 0,
+          f"fixed-slot: kernels {counts}")
+    eq, pmin, pmean = agreement([toks[i] for i in greedy], g_base)
+    gen = sum(map(len, toks))
+    out["fixed_slot"] = dict(slots=4, tokens_per_s=gen / wall, wall_s=wall,
+                             ticks=d.decode_ticks, launches=counts,
+                             greedy_equal_to_paged=eq,
+                             greedy_common_prefix_min=pmin,
+                             greedy_common_prefix_mean=pmean)
+    print(f"(c) fixed-slot pool, 4 slots: {len(toks)} answers, "
+          f"{gen / wall:.1f} tokens/s, {d.decode_ticks} ticks; solo == "
+          f"co-scheduled; greedy transcripts equal to the paged pool's: "
+          f"{eq}/{len(greedy)} (common prefix min {pmin}, mean "
+          f"{pmean:.1f} tokens); launches {counts}")
+
+    # (d) the arena's dtype: an f32 copy of the model (the same f32
+    # master tensors), a bf16 arena against an f32 one on one budget
+    cfg32 = dataclasses.replace(cfg, dtype_policy="strict")
+    lm32 = TransformerLM(cfg32, device=dev, params=lm.params)
+    budget = KV_BUDGET
+    runs = {}
+    for kv in ("bf16", "f32"):
+        with env_set(DL4J_TPU_SERVE_KV_DTYPE=kv):
+            nb = kv_arena_blocks(cfg32, BT, budget_bytes=budget,
+                                 params=lm32.params)
+            eng = ServingEngine(lm32, kv_blocks=nb, device=dev).start()
+        try:
+            cap = eng.decoder.kv_capacity()
+            zero_counts()
+            toks, wall = burst(eng, g_reqs)
+            runs[kv] = dict(capacity=cap, toks=toks, wall=wall,
+                            launches=counts_now())
+        finally:
+            eng.stop()
+    del lm32
+    c16, c32 = runs["bf16"]["capacity"], runs["f32"]["capacity"]
+    ratio = c16["blocks_total"] / c32["blocks_total"]
+    check(c16["kv_dtype"] == "bfloat16" and c32["kv_dtype"] == "float32"
+          and 1.9 <= ratio <= 2.1,
+          f"KV dtype arenas: {c16} against {c32}")
+    k6_bf16 = runs["bf16"]["launches"]["paged_attention"]
+    check(k6_bf16 > 0 and runs["bf16"]["launches"]["flash_attention"] > 0
+          and all(runs[kv]["launches"][n] == 0 for kv in runs
+                  for n in ("flash_attention_plain",
+                            "paged_attention_plain")),
+          f"KV dtype: kernels {runs['bf16']['launches']}")
+    eq, pmin, pmean = agreement(runs["bf16"]["toks"], runs["f32"]["toks"])
+    out["kv_dtype"] = dict(budget_bytes=budget,
+                           blocks_bf16=c16["blocks_total"],
+                           blocks_f32=c32["blocks_total"], ratio=ratio,
+                           capacity_tokens_bf16=c16["capacity_tokens"],
+                           capacity_tokens_f32=c32["capacity_tokens"],
+                           k6_launches_bf16=k6_bf16,
+                           transcripts_equal=eq, common_prefix_min=pmin,
+                           common_prefix_mean=pmean,
+                           tokens_per_s_bf16=sum(map(
+                               len, runs["bf16"]["toks"]))
+                           / runs["bf16"]["wall"],
+                           tokens_per_s_f32=sum(map(
+                               len, runs["f32"]["toks"]))
+                           / runs["f32"]["wall"])
+    print(f"(d) f32 model, {budget / 2**30:.0f} GiB budget: bf16 arena "
+          f"{c16['blocks_total']} blocks ({c16['capacity_tokens']} tokens) "
+          f"against f32 {c32['blocks_total']} ({ratio:.3f}x); K6 (f32 q, "
+          f"bf16 arena) launched {k6_bf16} times; the two arenas' greedy "
+          f"transcripts equal {eq}/{len(g_reqs)} (common prefix min "
+          f"{pmin}, mean {pmean:.1f})")
+
+    # (e) the handoff: a prefill-role engine and a decode-role engine on
+    # the card, each with its own arena
+    pre = ServingEngine(lm, kv_blocks=2048, device=dev).start()
+    dec = ServingEngine(lm, kv_blocks=2048, device=dev).start()
+    legs = []
+    try:
+        zero_counts()
+        order = sorted(greedy, key=lambda i: len(reqs[i]["tokens"][0]))
+        for i in (order[0], order[-1]):
+            r = reqs[i]
+            t0 = time.perf_counter()
+            _, body = _post(pre.url, {"tokens": r["tokens"][0],
+                                      "n_new": r["n_new"]}, path="/prefill")
+            t_pre = time.perf_counter() - t0
+            payload = json.loads(body)
+            t0 = time.perf_counter()
+            _, pbody = _post(dec.url, payload, path="/prime")
+            t_prime = time.perf_counter() - t0
+            adopted = json.loads(pbody)["adopted"]
+            hits0 = dec.stats.prefix_hits
+            t0 = time.perf_counter()
+            _, gbody = _post(dec.url, r)
+            t_gen = time.perf_counter() - t0
+            hits = dec.stats.prefix_hits - hits0
+            check(_tokens(r, 200, gbody) == base[i],
+                  "a primed answer differs from the unprimed one")
+            check(adopted == len(payload["digests"]) > 0 and hits == adopted,
+                  f"handoff: {adopted} adopted of {len(payload['digests'])}"
+                  f", {hits} prefix hits")
+            legs.append(dict(prompt=len(r["tokens"][0]), blocks=adopted,
+                             payload_bytes=len(body), prefill_s=t_pre,
+                             prime_s=t_prime, generate_s=t_gen,
+                             prefix_hits=hits))
+        counts = counts_now()
+    finally:
+        pre.stop()
+        dec.stop()
+    check(counts["flash_attention"] > 0
+          and counts["flash_attention_plain"] == 0
+          and counts["paged_attention_plain"] == 0,
+          f"handoff: kernels {counts}")
+    out["handoff"] = dict(legs=legs, launches=counts)
+    for leg in legs:
+        print(f"(e) handoff, prompt {leg['prompt']} tokens: {leg['blocks']} "
+              f"blocks, {leg['payload_bytes'] / 2**20:.1f} MiB of JSON; "
+              f"/prefill {leg['prefill_s'] * 1e3:.1f} ms, /prime "
+              f"{leg['prime_s'] * 1e3:.1f} ms, /generate "
+              f"{leg['generate_s'] * 1e3:.1f} ms; primed == unprimed, "
+              f"{leg['prefix_hits']} prefix hits == adopted")
+    return out
+
+
+def host_free_ms(fn, reps: int = 3):
+    """(device ms, back-to-back ms, kernel ms) of one call of a
+    launch-heavy ``fn``: one call queued behind a sleep kernel that
+    outlasts its launches (three times its back-to-back time at up to
+    2 GHz), the median of ``reps`` (one call at a time: the launches of
+    several could fill the card's launch queue and put the host back on
+    the clock); and the sum of its kernels' times from torch.profiler."""
+    ev = time_ms(fn, iters=5, warmup=1)
+    cycles = int(3 * ev * 2e6)
+    dev_ms = float(np.median([device_ms(fn, iters=1, warmup=0,
+                                        sleep_cycles=cycles)
+                              for _ in range(reps)]))
+    return dev_ms, ev, profile_ms(fn, n=3)[0]
+
+
+def decode_device_times(lm: TransformerLM, k: int, seed: int, dev,
+                        draft=None):
+    """Device and back-to-back ms at 64 lanes over the smoke's context
+    mix (capped k+1 below max_len): with ``draft``, one speculative
+    round's draft (k+1 dense fixed-slot steps) and verify (k+1 paged
+    steps); without, a greedy tick at k = 1 and at k = 4."""
+    cfg = lm.cfg
+    _, _, _, tables, pos = paged_inputs(seed + 2, dev)
+    pos = torch.clamp(pos, max=cfg.max_len - k - 2)
+    hd = cfg.d_model // cfg.n_heads
+    zeros, nones = [0.0] * LANES, [None] * LANES
+    res = dict(mean_context=float(pos.float().mean().item()) + 1)
+    with torch.inference_mode():
+        shape = (cfg.n_layers, 4097, BT, cfg.n_heads, hd)
+        arena = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+        tok = torch.randint(0, cfg.vocab_size, (LANES,), device=dev,
+                            dtype=torch.int32)
+        if draft is None:
+            for kk in (1, 4):
+                fn = lambda kk=kk: _paged_tick_for(cfg, kk)(
+                    lm.compute_params, arena, tok, pos, tables, zeros,
+                    nones)
+                (res[f"tick{kk}_ms"], res[f"tick{kk}_events_ms"],
+                 res[f"tick{kk}_kernel_ms"]) = host_free_ms(fn)
+        else:
+            dcfg = draft.cfg
+            dshape = (dcfg.n_layers, LANES, dcfg.max_len, dcfg.n_heads, hd)
+            cache = {n: torch.zeros(dshape, dtype=torch.bfloat16, device=dev)
+                     for n in ("k", "v")}
+            toks = torch.randint(0, cfg.vocab_size, (LANES, k + 1),
+                                 device=dev)
+            (res["draft_ms"], res["draft_events_ms"],
+             res["draft_kernel_ms"]) = host_free_ms(
+                lambda: _tick_for(dcfg, k + 1)(
+                    draft.compute_params, cache, tok, pos, zeros, nones))
+            (res["verify_ms"], res["verify_events_ms"],
+             res["verify_kernel_ms"]) = host_free_ms(
+                lambda: _verify_for(cfg, k)(
+                    lm.compute_params, arena, toks, pos, tables))
+            del cache
+        del arena
     return res
 
 
@@ -3444,9 +3931,10 @@ def main(argv=None) -> int:
                             dtype_policy="performance", use_flash=True,
                             seed=args.seed)
     torch.cuda.reset_peak_memory_stats()
-    lm, widths, launches, serve = phase_serve(cfg, args.seed, dev)
+    lm, widths, launches, serve, burst = phase_serve(cfg, args.seed, dev)
     with torch.inference_mode():
         times = phase_times(lm, widths, args.seed, dev)
+    planes = phase_decode_planes(lm, burst, args.seed, dev)
     net, k1_launches, predict = phase_predict(args.seed, dev)
     merge(times, phase_times_predict(net, args.seed, dev))
     peak_serve = torch.cuda.max_memory_allocated()
@@ -3497,6 +3985,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
     p6 = times["paged_attention"]
+    p6q = times["paged_attention_f32q"]
     n1, t1, h1 = LSTM_SHAPES[0]
     k1 = times["lstm_scan"][f"{n1}x{t1}x{h1}"]
     n2, t2, h2 = BWD_SHAPES[0]
@@ -3546,9 +4035,30 @@ def main(argv=None) -> int:
          "shape": f"S={LANES} bt={BT} m={M_TABLE} H={H} hd={HD} bf16, "
                   f"mean context {p6['mean_context']:.1f}",
          "one_long_lane": p6["one_long_lane"],
+         "launches_k_step": planes["k_step"]["k4"][0]["launches"][
+             "paged_attention"],
+         "launches_spec": {m: r["launches"]["paged_attention"]
+                           for m, r in planes["spec"].items()},
+         "launches_handoff": planes["handoff"]["launches"][
+             "paged_attention"],
          "design": "context splits of 256 tokens (a grid axis) merged in "
                    "split order by a second kernel; 16-byte row reads, 8 "
                    "rounds of K and V in flight per warp"},
+        {"name": "paged_attention_f32q_bf16kv", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "deeplearning4j_tpu/ops/pallas_paged.py:145",
+         "instantiation": "launch_d<float, __nv_bfloat16>: f32 queries "
+                          "over a bf16 arena (DL4J_TPU_SERVE_KV_DTYPE=bf16 "
+                          "on an f32 model)",
+         "launches": planes["kv_dtype"]["k6_launches_bf16"],
+         "max_abs_err": errs["paged_attention_f32q"]["max_abs_err"],
+         "tolerance": TOL_PAGED,
+         "ms": p6q["ms"], "plain_ms": p6q["plain_ms"],
+         "bound_ms": p6q["bound_ms"], "bound_by": p6q["bound_by"],
+         "library_ms": None, "events_ms": p6q["events_ms"],
+         "gb_per_s": p6q["gb_per_s"],
+         "shape": f"S={LANES} bt={BT} m={M_TABLE} H={H} hd={HD} f32 q, "
+                  f"bf16 arena, mean context {p6q['mean_context']:.1f}"},
         {"name": "lstm_scan", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:230",
@@ -3656,7 +4166,8 @@ def main(argv=None) -> int:
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
-                  "serving": serve, "predict": predict, "train": train,
+                  "serving": serve, "decode_planes": planes,
+                  "predict": predict, "train": train,
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,
                   "lm_train": lm_train, "bert": bert, "times": times,

@@ -1,21 +1,22 @@
 """Shape bucketing (counterpart: ``deeplearning4j_tpu/ops/dispatch.py``
 ``bucketing_mode`` :338, ``bucket_size`` :360, ``pad_axis0`` :378,
 ``inference_bucket`` :387, ``pad_rows`` :403 and ``row_validity_mask``
-:422).
+:422; the decode half of ``DispatchStats`` :151).
 
 Admission prefill pads a prompt to a bucket width,
 ``MultiLayerNetwork.output`` pads a ragged batch to a bucket row count,
 and ``fit`` pads a ragged training batch to its bucket with the pad rows
 masked out of the loss, so a stream of arbitrary sizes meets a small set
 of shapes. Inference padding is safe: every op of the ported layers is
-row-independent. Donation, jit caches and dispatch stats have no
+row-independent. Donation, jit caches and the trace counters have no
 counterpart here: PyTorch runs eagerly and the port updates its
-single-owner buffers in place.
+single-owner buffers in place. ``DispatchStats`` keeps the decode
+pools' ledger: ticks dispatched and the tokens they committed.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -83,3 +84,24 @@ def row_validity_mask(n_real: int, n_padded: int,
     if time_steps is not None:
         m = m[:, None].expand(n_padded, time_steps)
     return m
+
+
+class DispatchStats:
+    """A decode pool's dispatch ledger (the JAX ``DispatchStats``'s
+    ``decode_ticks`` / ``decode_tokens``): device ticks dispatched (a
+    k-step tick is one, a speculative round two: draft and verify) and
+    the tokens they committed over every lane. ``tokens_per_dispatch``
+    is what the per-tick host cost divides by."""
+
+    def __init__(self) -> None:
+        self.decode_ticks = 0
+        self.decode_tokens = 0
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "decode_ticks": self.decode_ticks,
+            "decode_tokens": self.decode_tokens,
+            "tokens_per_dispatch": (
+                round(self.decode_tokens / self.decode_ticks, 4)
+                if self.decode_ticks else None),
+        }

@@ -1,8 +1,10 @@
 """Env knobs the port reads — its own copy of the entries of the JAX
 package's table (``deeplearning4j_tpu/ops/env.py``) that the ported paths
-read, same names, kinds and defaults: the paged ``/generate`` path, the
-``/predict`` batcher, shape bucketing, the remat policy
-(``ops/remat.py``) and bf16 loss-scaled training (``ops/lowprec.py``).
+read, same names, kinds and defaults: the ``/generate`` decode planes
+(paged and fixed-slot pools, k-step ticks, speculative decode, the KV
+arena's dtype), the ``/predict`` batcher, shape bucketing, the remat
+policy (``ops/remat.py``) and bf16 loss-scaled training
+(``ops/lowprec.py``).
 The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
@@ -62,12 +64,28 @@ _register("DL4J_TPU_SERVE_QUEUE_CAP", "512", "int",
 _register("DL4J_TPU_SERVE_TIMEOUT_S", "60", "float",
           "per-request deadline; past it /generate and /predict answer 504")
 _register("DL4J_TPU_SERVE_SLOTS", "4", "int",
-          "lane floor of the paged decode pool")
+          "slots of the fixed-slot pool; lane floor of the paged pool")
 _register("DL4J_TPU_SERVE_KV_BLOCK", "16", "int",
-          "paged-KV block size in tokens for /generate")
+          "paged-KV block size in tokens for /generate (0 = the "
+          "fixed-slot pool)")
 _register("DL4J_TPU_SERVE_KV_BLOCKS", "0", "int",
           "paged-KV arena size in blocks (0 = auto-size from the "
           "device's memory via ops/memory.kv_arena_blocks)")
+_register("DL4J_TPU_SERVE_KV_DTYPE", "", "enum",
+          "paged-KV arena dtype: '' = the model's compute dtype, bf16 "
+          "halves KV bytes (the same budget admits ~2x tokens), f32 "
+          "forces full precision")
+_register("DL4J_TPU_SERVE_TICK_K", "1", "int",
+          "decode steps per tick for the fixed-slot and paged /generate "
+          "pools; the worker drops to 1 whenever admissions are pending "
+          "or a lane is within k tokens of its budget")
+_register("DL4J_TPU_SERVE_SPEC", "", "str",
+          "self-speculative decoding draft for greedy /generate on the "
+          "paged pool: '' off, int8 = weight-quantized self-draft, "
+          "layers[:m] = truncated-layer self-draft")
+_register("DL4J_TPU_SERVE_SPEC_K", "4", "int",
+          "draft tokens proposed per speculative round (the target "
+          "verifies k+1 positions)")
 
 
 def knob(name: str) -> Knob:

@@ -1,7 +1,10 @@
 """Paged-KV arena sizing (counterpart: ``deeplearning4j_tpu/ops/memory.py``
 ``kv_block_bytes`` :332 and ``kv_arena_blocks`` :355).
 
-Same closed form as the JAX package. The budget is the device's own
+Same closed form as the JAX package, priced at the arena's dtype
+(``ops/lowprec.kv_dtype``: the model's compute dtype unless
+``DL4J_TPU_SERVE_KV_DTYPE`` says otherwise, so a bf16 arena on an f32
+model gets ~2x the blocks on the same budget). The budget is the device's own
 memory — ``torch.cuda.get_device_properties(dev).total_memory`` on the
 card, the host's physical memory on the CPU — instead of the JAX
 package's ``DL4J_TPU_HBM_GB`` knob. Preflight, remat sizing and the AOT
@@ -39,9 +42,11 @@ def kv_block_bytes(cfg, block_tokens: int,
                    dtype: Optional[torch.dtype] = None) -> int:
     """Bytes of ONE paged KV block across all layers: K and V,
     ``[n_layers, block_tokens, n_heads, head_dim]`` each, in the arena
-    dtype (the model's compute dtype unless given)."""
+    dtype (``ops/lowprec.kv_dtype`` unless given)."""
     if dtype is None:
-        dtype = cfg.compute_dtype
+        from deeplearning4j_tpu_torch.ops import lowprec
+
+        dtype = lowprec.kv_dtype(cfg)
     hd = cfg.d_model // cfg.n_heads
     return (2 * cfg.n_layers * int(block_tokens) * cfg.n_heads * hd
             * _itemsize(dtype))

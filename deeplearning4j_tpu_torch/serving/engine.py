@@ -1,4 +1,4 @@
-"""ServingEngine: the HTTP front door over the paged decoder and the
+"""ServingEngine: the HTTP front door over the decode pools and the
 ``/predict`` batcher (counterpart: ``deeplearning4j_tpu/serving/engine.py``).
 
 It takes ``model=`` (a TransformerLM or a MultiLayerNetwork) or
@@ -21,6 +21,26 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   429 when the decode queue is full, 503 when the decode
                   worker is dead or the engine is draining, 504 past the
                   request's deadline, 400 for a malformed request.
+                  The decoder, as the JAX engine picks it
+                  (``_decoder_for`` :774-850): the paged pool, the
+                  speculative one under ``DL4J_TPU_SERVE_SPEC`` (its
+                  draft from ``ModelRecord.draft_net``), or the fixed-slot
+                  pool under ``DL4J_TPU_SERVE_KV_BLOCK=0`` (no streaming
+                  there: a stream answers after the whole generation). A
+                  ValueError while building it leaves the engine without
+                  a decoder, and ``/generate`` samples through
+                  ``lm.generate``, as in the JAX engine.
+  POST /prefill   (the paged pools; ``engine.py:1104-1120``) {"tokens":
+                  [ids], "n_new"?} -> {"digests": [hex], "k", "v": base64
+                  of the raw blocks, "shape", "dtype": "float32" |
+                  "bfloat16", "block_tokens"}: a prompt's full blocks
+                  below its write block (``PagedDecoder.export_prefix``).
+  POST /prime     (``engine.py:1122-1135``) that payload -> {"adopted":
+                  n}: the blocks adopted into the arena and the prefix
+                  cache (``import_prefix``); a dtype or shape that does not
+                  match the arena answers 400. bf16 blocks travel as raw
+                  16-bit words, both ways, so the JAX engine's payloads
+                  are the port's.
   POST /predict   (a MultiLayerNetwork; ``engine.py:995-1020``)
                   {"record": [...]} -> {"output": [...]},
                   {"batch": [[...], ...]} -> {"outputs": [[...], ...]},
@@ -32,27 +52,35 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   when draining, 400 for malformed rows.
   GET  /health    {"ok", "draining", "model", "device"}; 503 when the
                   engine cannot take traffic.
-  GET  /metrics   {"serving": <ServingStats incl. batch fill>, "models":
-                  <registry listing>, "decode": <pool shape and ticks>
-                  (a TransformerLM engine), "kernels": <launch counts of
-                  each kernel of the served paths and of its plain
-                  version>}
+  GET  /models    {"models": <registry listing>, "default": key, "kv":
+                  {key: <the decoder's kv_capacity: scheme "paged" or
+                  "fixed-slot", capacity_tokens, ...>}}
+  GET  /metrics   {"serving": <ServingStats incl. batch fill, draft
+                  acceptance and the handoff>, "models": <registry
+                  listing>, "decode": <pool shape, ticks, speculative
+                  rounds> and "dispatch": <ticks, tokens, tokens per
+                  dispatch> (a TransformerLM engine), "kernels": <launch
+                  counts of each kernel of the served paths and of its
+                  plain version>}
 
 Constructor arguments take precedence; unset ones read the JAX engine's
 env knobs through the port's copy of the table (``ops/env.py``):
 ``DL4J_TPU_SERVE_QUEUE_CAP``, ``DL4J_TPU_SERVE_TIMEOUT_S``,
 ``DL4J_TPU_SERVE_MAX_BATCH``, ``DL4J_TPU_SERVE_MAX_WAIT_MS``,
 ``DL4J_TPU_SERVE_BATCH``, ``DL4J_TPU_SERVE_SLOTS``,
-``DL4J_TPU_SERVE_KV_BLOCK``, ``DL4J_TPU_SERVE_KV_BLOCKS``.
+``DL4J_TPU_SERVE_KV_BLOCK``, ``DL4J_TPU_SERVE_KV_BLOCKS``,
+``DL4J_TPU_SERVE_SPEC`` (read here), and through the decoders
+``DL4J_TPU_SERVE_TICK_K``, ``DL4J_TPU_SERVE_SPEC_K`` and
+``DL4J_TPU_SERVE_KV_DTYPE``.
 
 Not ported yet: /embed, /search, the POST /models lifecycle, shadow
-traffic, /prefill and /prime, the serving mesh, the circuit breaker and
-the watchdog, the fixed-slot pool (``DL4J_TPU_SERVE_KV_BLOCK=0``),
-record_base64 and Prometheus exposition.
+traffic, the serving mesh and the disaggregation roles, the circuit
+breaker and the watchdog, record_base64 and Prometheus exposition.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import queue as stdqueue
 import threading
@@ -61,10 +89,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import env as envknob
+from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -80,7 +110,8 @@ from deeplearning4j_tpu_torch.serving.batcher import (
     QueueFullError,
     RequestTimeoutError,
 )
-from deeplearning4j_tpu_torch.serving.paged import PagedDecoder
+from deeplearning4j_tpu_torch.serving.decode import ContinuousDecoder
+from deeplearning4j_tpu_torch.serving.paged import PagedDecoder, dtype_name
 from deeplearning4j_tpu_torch.serving.registry import ModelRegistry, restore
 from deeplearning4j_tpu_torch.serving.resilience import (
     ClientRequestError,
@@ -88,6 +119,7 @@ from deeplearning4j_tpu_torch.serving.resilience import (
     WorkerDeadError,
 )
 from deeplearning4j_tpu_torch.serving.slo import SLOClass, parse_slo_classes
+from deeplearning4j_tpu_torch.serving.speculate import SpeculativeDecoder
 from deeplearning4j_tpu_torch.serving.telemetry import ServingStats
 
 # the kernels of each served path: (wrapper, plain version)
@@ -102,6 +134,32 @@ def kernel_counts(kernels) -> Dict[str, Dict[str, int]]:
     """Launch counts of each kernel wrapper and of its plain version."""
     return {name: {"launches": fn.launches, "plain_launches": plain.launches}
             for name, (fn, plain) in kernels.items()}
+
+
+# the handoff's wire dtypes: (numpy word to carry the raw bytes, tensor
+# dtype); numpy has no bfloat16, so bf16 blocks travel as 16-bit words
+_WIRE_DTYPES = {"float32": (np.float32, torch.float32),
+                "bfloat16": (np.int16, torch.bfloat16)}
+
+
+def blocks_to_wire(t: torch.Tensor) -> str:
+    """base64 of a CPU tensor's raw bytes (C order)."""
+    raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+    return base64.b64encode(raw).decode()
+
+
+def blocks_from_wire(data: str, shape, dtype: str) -> torch.Tensor:
+    """The inverse of :func:`blocks_to_wire` for the wire's dtype names
+    ("float32" as the JAX engine writes f32 blocks, "bfloat16" as it
+    writes bf16 ones)."""
+    if dtype not in _WIRE_DTYPES:
+        raise ClientRequestError(
+            f"prefix blocks dtype {dtype!r} is not one of "
+            f"{sorted(_WIRE_DTYPES)}")
+    word, tdt = _WIRE_DTYPES[dtype]
+    a = np.frombuffer(base64.b64decode(data), word).reshape(
+        tuple(int(s) for s in shape))
+    return torch.from_numpy(a.copy()).view(tdt)
 
 
 class ServingEngine:
@@ -149,7 +207,7 @@ class ServingEngine:
         self._batchers: Dict[str, DynamicBatcher] = {}
         self._lock = threading.Lock()  # direct /predict, filtered /generate
         self._engine_lock = threading.Lock()  # batcher creation
-        self.decoder: Optional[PagedDecoder] = None
+        self.decoder = None
         if isinstance(model, TransformerLM):
             self.slots = int(slots if slots is not None
                              else envknob.get_int("DL4J_TPU_SERVE_SLOTS"))
@@ -159,18 +217,11 @@ class ServingEngine:
             self.kv_blocks = int(
                 kv_blocks if kv_blocks is not None
                 else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
-            if self.kv_block <= 0:
-                raise ValueError("kv_block must be > 0: the fixed-slot pool "
-                                 "(DL4J_TPU_SERVE_KV_BLOCK=0) is not ported")
             if isinstance(slo_classes, str):
                 slo_classes = parse_slo_classes(slo_classes)
-            self.decoder = PagedDecoder(
-                model, block_tokens=self.kv_block,
-                n_blocks=self.kv_blocks or None, min_lanes=self.slots,
-                stats=self.stats,
-                default_timeout_s=max(self.request_timeout_s, 300.0),
-                slo_classes=slo_classes or None,
-                queue_cap=self.queue_capacity, device=self.device)
+            rec = self.registry.load("default", model=model)
+            self.registry.serve(rec.name, rec.version)
+            self.decoder = self._decoder_for(rec, slo_classes)
         else:
             rec = self.registry.load("default", model=model,
                                      input_shape=input_shape)
@@ -181,11 +232,36 @@ class ServingEngine:
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 
+    def _decoder_for(self, rec, slo_classes):
+        """The record's decode pool, chosen as the JAX engine chooses it:
+        paged (speculative under ``DL4J_TPU_SERVE_SPEC``) for kv_block >
+        0, fixed-slot for kv_block = 0; None when building it raises a
+        ValueError (``/generate`` then samples through ``lm.generate``)."""
+        timeout = max(self.request_timeout_s, 300.0)
+        try:
+            if self.kv_block <= 0:
+                return ContinuousDecoder(
+                    rec.model, slots=self.slots, stats=self.stats,
+                    default_timeout_s=timeout, device=self.device)
+            paged_kw = dict(
+                block_tokens=self.kv_block, n_blocks=self.kv_blocks or None,
+                min_lanes=self.slots, stats=self.stats,
+                default_timeout_s=timeout, slo_classes=slo_classes or None,
+                queue_cap=self.queue_capacity, device=self.device)
+            spec = lowprec.spec_mode()
+            if spec:
+                return SpeculativeDecoder(rec.model,
+                                          draft=rec.draft_net(spec),
+                                          **paged_kw)
+            return PagedDecoder(rec.model, **paged_kw)
+        except ValueError:
+            return None
+
     # -- in-process surface -----------------------------------------------
     def _admit(self) -> None:
         if self._draining:
             raise DrainingError("engine is draining; admission closed")
-        if self.decoder is None:
+        if not isinstance(self.model, TransformerLM):
             raise ClientRequestError(
                 "POST /generate needs a TransformerLM; this engine serves "
                 f"a {type(self.model).__name__}")
@@ -195,14 +271,15 @@ class ServingEngine:
                  top_p: Optional[float] = None,
                  slo: Optional[str] = None) -> np.ndarray:
         """[N, T] (or [T]) prompts -> [N, n_new] sampled continuations.
-        Plain sampling goes through the paged decoder (row i draws from
-        seed + i); ``top_k``/``top_p`` through ``lm.generate``, one call
-        at a time."""
+        Plain sampling goes through the decoder (row i draws from seed +
+        i; ``slo`` where the pool has classes); ``top_k``/``top_p``, or
+        an engine without a decoder, through ``lm.generate``, one call at
+        a time."""
         self._admit()
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
-        if top_k is not None or top_p is not None:
+        if top_k is not None or top_p is not None or self.decoder is None:
             with self._lock:
                 out = self.model.generate(
                     tokens, int(n_new), temperature=float(temperature),
@@ -210,19 +287,27 @@ class ServingEngine:
                 out = out.cpu().numpy()
             self.stats.record_tokens(int(out.size))
             return out
+        kwargs = {}
+        if slo is not None and self.decoder.supports_streaming:
+            kwargs["slo"] = slo
         return np.asarray(self.decoder.generate(
             tokens, int(n_new), temperature=float(temperature),
-            seed=int(seed), slo=slo))
+            seed=int(seed), **kwargs))
 
     def generate_stream(self, tokens, n_new: int, *,
                         temperature: float = 1.0, seed: int = 0,
                         slo: Optional[str] = None):
         """Streaming ``/generate`` for ONE prompt: an iterator of token ids,
-        each yielded as the decode tick produces it. Admission errors
-        raise HERE, before a caller commits response headers;
-        mid-generation failures raise from the iterator."""
+        each yielded as the decode tick produces it (the fixed-slot pool,
+        or no decoder: the same ids after the whole generation).
+        Admission errors raise HERE, before a caller commits response
+        headers; mid-generation failures raise from the iterator."""
         self._admit()
         prompt = np.asarray(tokens, np.int32).reshape(-1)
+        if self.decoder is None or not self.decoder.supports_streaming:
+            out = self.generate(prompt, n_new, temperature=temperature,
+                                seed=seed, slo=slo)
+            return iter(np.asarray(out).reshape(-1).tolist())
         q: stdqueue.Queue = stdqueue.Queue()
         fut = self.decoder.submit(prompt, int(n_new),
                                   temperature=float(temperature),
@@ -248,6 +333,42 @@ class ServingEngine:
 
         return stream()
 
+    def _paged_decoder(self, name, version, verb: str):
+        """The paged pool of record (name, version), for the handoff."""
+        if self._draining:
+            raise DrainingError("engine is draining; admission closed")
+        rec = self.registry.get(name, version)
+        if not isinstance(rec.model, TransformerLM) or \
+                not isinstance(self.decoder, PagedDecoder):
+            raise ClientRequestError(
+                f"model {rec.key} has no paged decoder to {verb}")
+        return self.decoder
+
+    def prefill_for(self, name, version, tokens, n_new: int):
+        """The prefill half of the handoff: (digests, k_blocks, v_blocks,
+        block_tokens) of the prompt's full blocks below its write block
+        (``PagedDecoder.export_prefix``), for a decode replica's
+        :meth:`prime_for`."""
+        decoder = self._paged_decoder(name, version, "prefill")
+        prompt = np.asarray(tokens, np.int32).reshape(-1)
+        digests, kb, vb = decoder.export_prefix(prompt, int(n_new))
+        return digests, kb, vb, int(decoder.block_tokens)
+
+    def prime_for(self, name, version, digests, k_blocks,
+                  v_blocks) -> int:
+        """The decode half: adopt exported blocks into the arena and the
+        prefix cache; returns the blocks adopted (a partial adoption is
+        fine: the next admission recomputes the rest)."""
+        decoder = self._paged_decoder(name, version, "prime")
+        return int(decoder.import_prefix(digests, k_blocks, v_blocks))
+
+    def kv_report(self) -> Dict[str, Any]:
+        """/models KV capacity per record with a decode pool."""
+        rec = self.registry.default()
+        if rec is None or self.decoder is None:
+            return {}
+        return {rec.key: self.decoder.kv_capacity()}
+
     def predict(self, x, timeout_s: Optional[float] = None) -> np.ndarray:
         """Rows through the default model (dynamic batcher when enabled,
         the locked direct path otherwise)."""
@@ -260,6 +381,10 @@ class ServingEngine:
         if self._draining:
             raise DrainingError("engine is draining; admission closed")
         rec = self.registry.get(name, version)
+        if isinstance(rec.model, TransformerLM):
+            raise ClientRequestError(
+                f"POST /predict needs a MultiLayerNetwork; {rec.key} is a "
+                "TransformerLM (POST /generate)")
         x = self._check_rows(rec, np.asarray(x, np.float32))
         if not self.batching_enabled:
             return self._direct_output(rec, x)
@@ -310,15 +435,29 @@ class ServingEngine:
         kernels: Dict[str, Any] = {}
         d = self.decoder
         if d is not None:
-            out["decode"] = {"lanes": d.lanes, "n_blocks": d.n_blocks,
-                             "block_tokens": d.block_tokens,
-                             "decode_ticks": d.decode_ticks,
-                             "tick_seconds": d.tick_seconds,
-                             "admissions": d.admissions,
-                             "admit_seconds": d.admit_seconds,
-                             "peak_active": d.peak_active}
+            paged = isinstance(d, PagedDecoder)
+            dec = {"scheme": "paged" if paged else "fixed-slot",
+                   "tick_k": d.tick_k,
+                   "decode_ticks": d.decode_ticks,
+                   "tick_seconds": d.tick_seconds,
+                   "admissions": d.admissions,
+                   "admit_seconds": d.admit_seconds,
+                   "peak_active": d.peak_active}
+            if paged:
+                dec.update(lanes=d.lanes, n_blocks=d.n_blocks,
+                           block_tokens=d.block_tokens,
+                           kv_dtype=dtype_name(d.kv_dtype))
+            else:
+                dec.update(slots=d.slots)
+            if isinstance(d, SpeculativeDecoder):
+                dec.update(spec_k=d.spec_k, spec_rounds=d.spec_rounds,
+                           spec_seconds=d.spec_seconds,
+                           draft=d._draft.draft_mode)
+            out["decode"] = dec
+            out["dispatch"] = d.dispatch_stats.snapshot()
+        if isinstance(self.model, TransformerLM):
             kernels.update(GENERATE_KERNELS)
-        if self.registry.default() is not None:
+        else:
             kernels.update(PREDICT_KERNELS)
         out["kernels"] = kernel_counts(kernels)
         return out
@@ -362,6 +501,12 @@ class ServingEngine:
                     self._send(*engine.health())
                 elif path == "/metrics":
                     self._send(200, engine.metrics())
+                elif path == "/models":
+                    default = engine.registry.default()
+                    self._send(200, {
+                        "models": engine.registry.describe(),
+                        "default": default.key if default else None,
+                        "kv": engine.kv_report()})
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -371,6 +516,10 @@ class ServingEngine:
                         self._do_generate()
                     elif self.path == "/predict":
                         self._do_predict()
+                    elif self.path == "/prefill":
+                        self._do_prefill()
+                    elif self.path == "/prime":
+                        self._do_prime()
                     else:
                         self._send(404, {"error": "not found"})
                 except QueueFullError as e:
@@ -386,6 +535,31 @@ class ServingEngine:
                 except Exception as e:  # noqa: BLE001 — serving boundary
                     engine.stats.record_error()
                     self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+            def _do_prefill(self):
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n))
+                toks = np.asarray(payload["tokens"], np.int32).reshape(-1)
+                digests, kb, vb, bt = engine.prefill_for(
+                    payload.get("model"), payload.get("version"), toks,
+                    int(payload.get("n_new", 16)))
+                self._send(200, {
+                    "digests": [d.hex() for d in digests],
+                    "k": blocks_to_wire(kb), "v": blocks_to_wire(vb),
+                    "shape": list(kb.shape), "dtype": dtype_name(kb.dtype),
+                    "block_tokens": int(bt)})
+
+            def _do_prime(self):
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n))
+                shape, dtype = payload["shape"], str(payload["dtype"])
+                kb = blocks_from_wire(payload["k"], shape, dtype)
+                vb = blocks_from_wire(payload["v"], shape, dtype)
+                digests = [bytes.fromhex(d) for d in payload["digests"]]
+                adopted = engine.prime_for(payload.get("model"),
+                                           payload.get("version"), digests,
+                                           kb, vb)
+                self._send(200, {"adopted": int(adopted)})
 
             def _do_predict(self):
                 n = int(self.headers.get("Content-Length", 0))

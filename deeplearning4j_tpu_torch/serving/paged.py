@@ -41,8 +41,33 @@ The tick always runs all ``lanes`` lanes, so a lane's matmul shapes are
 the same whether it runs alone or beside others: a request's tokens do
 not depend on its co-residents.
 
-Not ported yet: k-step ticks, speculative decode, prefix export/import
-(disaggregation), mesh hooks, chaos hooks.
+Decode planes (the JAX package's, carried over):
+
+  * k-step ticks (``DL4J_TPU_SERVE_TICK_K``): ``_paged_tick_for(cfg, k)``
+    runs k steps of the k = 1 body, tokens and pos + 1 fed from step to
+    step on the device, over tables the worker grew k - 1 positions
+    ahead (``_grow(i, lookahead)``) and held constant through the tick.
+    The worker drops to k = 1 (never another k) while a prompt waits, a
+    lane is within k tokens of its budget or of max_len, or the arena
+    cannot fund every lane's lookahead without preempting (k single
+    ticks would preempt inside those k steps, and only a k = 1 tick
+    preempts where they would). So a k-step tick's tokens are those of k
+    single ticks, sampled lanes and preemptions included (each generator
+    advances once per token; greedy lanes draw nothing).
+    In eager PyTorch a k-step tick launches what k single ticks launch:
+    it saves the per-tick bookkeeping and read-backs, not launches.
+  * the arena's dtype (``DL4J_TPU_SERVE_KV_DTYPE``): a bf16 arena under
+    an f32 model halves a block's bytes, so the auto-sized arena holds
+    ~2x the tokens; K6 runs its f32-query, bf16-arena instantiation
+    there (the JAX package takes its XLA gather path at that spot).
+  * the prefill/decode handoff: :meth:`PagedDecoder.export_prefix` runs
+    an admission's prefill and returns a prompt's full blocks below its
+    write block with their chained digests; :meth:`import_prefix` queues
+    them for the worker, which adopts them between ticks as prefix-cache
+    entries (it owns the arena). A later admission of the same window
+    hits them, or recomputes the same bytes on any miss.
+
+Not ported yet: mesh hooks, chaos hooks.
 """
 
 from __future__ import annotations
@@ -65,9 +90,11 @@ from deeplearning4j_tpu_torch.models.transformer import (
     check_dense,
     prefill_cache,
 )
+from deeplearning4j_tpu_torch.ops import env as envknob
+from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops import memory as opsmem
 from deeplearning4j_tpu_torch.ops.device import resolve_device
-from deeplearning4j_tpu_torch.ops.dispatch import bucket_size
+from deeplearning4j_tpu_torch.ops.dispatch import DispatchStats, bucket_size
 from deeplearning4j_tpu_torch.ops.paged_attention import paged_attention
 from deeplearning4j_tpu_torch.serving.batcher import (
     QueueFullError,
@@ -116,21 +143,51 @@ def paged_decode_step(params, arena, tok, pos, tables,
     return arena, h @ params["embed"].T
 
 
-def paged_admit(params, arena, window, write_table, cfg: TransformerConfig):
-    """Admission prefill: window [1, width] int -> arena with the
-    prompt's private blocks written in place. ``prefill_cache`` pads K/V
-    to max_len, so the reshape covers every table entry; write_table
-    sends shared-prefix and beyond-prompt entries to trash block 0."""
-    bt = arena["k"].shape[2]
+def _paged_tick_for(cfg: TransformerConfig, k: int = 1):
+    """k decode steps in one tick over the block arena -> (arena, tokens
+    [S, k] int64 on the device). Every step is the k = 1 body
+    (``paged_decode_step`` then ``_sample_step``), its tokens and pos + 1
+    fed to the next step on the device; the tables are constant through
+    the tick (the worker grew them k - 1 positions ahead)."""
+    def tick(params, arena, tok, pos, tables, temps, gens):
+        out = []
+        for _ in range(k):
+            arena, logits = paged_decode_step(params, arena, tok, pos,
+                                              tables, cfg)
+            tok = _sample_step(logits, temps, gens)
+            pos = pos + 1
+            out.append(tok)
+        return arena, torch.stack(out, dim=1)
+
+    return tick
+
+
+def _prefill_blocks(params, window, cfg: TransformerConfig, bt: int):
+    """``prefill_cache`` of window [1, width] as blocks: (k, v), each
+    [L, max_len // bt, bt, H, hd] in the compute dtype (prefill pads K/V
+    to max_len, so the blocks cover every table entry)."""
     m = cfg.max_len // bt
     hd = cfg.d_model // cfg.n_heads
     c1, _ = prefill_cache(params, window, cfg)
+    return tuple(c1[name][:, 0].reshape(cfg.n_layers, m, bt, cfg.n_heads,
+                                        hd) for name in ("k", "v"))
+
+
+def paged_admit(params, arena, window, write_table, cfg: TransformerConfig):
+    """Admission prefill: window [1, width] int -> arena with the
+    prompt's private blocks written in place; write_table sends
+    shared-prefix and beyond-prompt entries to trash block 0."""
+    blocks = _prefill_blocks(params, window, cfg, arena["k"].shape[2])
     idx = write_table.long()
-    for name in ("k", "v"):
-        blocks = c1[name][:, 0].reshape(cfg.n_layers, m, bt, cfg.n_heads,
-                                        hd)
-        arena[name][:, idx] = blocks.to(arena[name].dtype)
+    for name, b in zip(("k", "v"), blocks):
+        arena[name][:, idx] = b.to(arena[name].dtype)
     return arena
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """'float32' / 'bfloat16': the names numpy and the JAX package give
+    (the handoff's wire format and ``kv_capacity``)."""
+    return str(dtype).replace("torch.", "")
 
 
 class BlockArena:
@@ -216,6 +273,11 @@ class PrefixCache:
         self._arena.incref(block)
         return True
 
+    def reclaimable(self) -> int:
+        """Entries :meth:`reclaim` could evict now (nobody else holds
+        their block)."""
+        return sum(1 for b in self._map.values() if self._arena.refs[b] == 1)
+
     def reclaim(self, n: int) -> int:
         """Evict up to n LRU entries whose only reference is the cache's
         own; returns how many blocks went back to the free list."""
@@ -278,9 +340,12 @@ class _Lane:
 class PagedDecoder:
     """Block-pool continuous decode over a TransformerLM: submit /
     generate / drain / stop, SLO classes, youngest-victim preemption,
-    prefix sharing and per-token ``on_token`` streaming callbacks. Runs on
-    ``device`` (the card unless the caller passes ``device="cpu"``), which
-    must be the model's."""
+    prefix sharing, per-token ``on_token`` streaming callbacks, k-step
+    ticks (``tick_k``, default ``DL4J_TPU_SERVE_TICK_K``), the arena's
+    dtype (``DL4J_TPU_SERVE_KV_DTYPE``) and the prefix handoff
+    (:meth:`export_prefix`, :meth:`import_prefix`). Runs on ``device``
+    (the card unless the caller passes ``device="cpu"``), which must be
+    the model's."""
 
     supports_streaming = True
 
@@ -291,6 +356,7 @@ class PagedDecoder:
                  default_timeout_s: float = 300.0,
                  slo_classes: Optional[List[SLOClass]] = None,
                  queue_cap: Optional[int] = None,
+                 tick_k: Optional[int] = None,
                  device=None) -> None:
         self.device = resolve_device(device)
         if self.device != lm.device:
@@ -305,7 +371,9 @@ class PagedDecoder:
             bt //= 2
         self.block_tokens = bt
         self.table_width = cfg.max_len // bt
-        self.kv_dtype = cfg.compute_dtype
+        # the arena's dtype: a bf16 arena halves a block's bytes, so the
+        # auto-sized arena holds ~2x the tokens on the same budget
+        self.kv_dtype = lowprec.kv_dtype(cfg)
         if n_blocks is None:
             n_blocks = opsmem.kv_arena_blocks(cfg, bt, device=self.device,
                                               params=lm.params,
@@ -345,12 +413,35 @@ class PagedDecoder:
         self._seq = 0        # submit/requeue order (shed picks youngest)
         self._admit_seq = 0  # admission order (preemption picks youngest)
         self.peak_active = 0
+        # steady-state decode runs tick_k steps per tick, dropping to 1
+        # whenever a prompt waits or a lane nears its budget
+        self.tick_k = max(1, int(
+            tick_k if tick_k is not None
+            else envknob.get_int("DL4J_TPU_SERVE_TICK_K")))
+        self.dispatch_stats = DispatchStats()
         # host wall time of the device work, synchronised by each tick's
         # token read-back and each admission's next tick
         self.decode_ticks = 0
         self.tick_seconds = 0.0
         self.admissions = 0
         self.admit_seconds = 0.0
+        # handed-off prefix blocks waiting for the worker (it owns the
+        # arena, so adoption runs on its thread between ticks)
+        self._imports: deque = deque()
+        self._ticks: Dict[int, object] = {}
+        self._start_worker()
+
+    def _tick_fn(self, k: int):
+        """The k-step tick, memoised per k (the worker asks only for 1
+        and ``tick_k``)."""
+        fn = self._ticks.get(k)
+        if fn is None:
+            fn = self._ticks[k] = _paged_tick_for(self.cfg, k)
+        return fn
+
+    def _start_worker(self) -> None:
+        """Start the decode thread (a subclass sets up its own state
+        first: ``serving/speculate.py``)."""
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="paged-decoder")
         self._worker.start()
@@ -373,6 +464,28 @@ class PagedDecoder:
         self._blocks = BlockArena(self.n_blocks)
         self._prefix = PrefixCache(self._blocks)
         self.stats.set_kv_blocks(0, self.n_blocks)
+
+    # -- capacity ---------------------------------------------------------
+    def kv_capacity(self) -> Dict[str, object]:
+        """/models KV report: what the arena can hold, in tokens."""
+        with self._cond:
+            in_use = self._blocks.in_use
+            tokens_in_use = sum(
+                int(self._pos[i]) + 1
+                for i, st in enumerate(self._slots) if st is not None)
+            cached = len(self._prefix)
+        return {
+            "scheme": "paged",
+            "kv_dtype": dtype_name(self.kv_dtype),
+            "block_tokens": self.block_tokens,
+            "blocks_total": self.n_blocks,
+            "blocks_in_use": in_use,
+            "capacity_tokens": self.n_blocks * self.block_tokens,
+            "tokens_in_use": tokens_in_use,
+            "lanes": self.lanes,
+            "prefix_blocks_cached": cached,
+            "mesh_devices": 1,
+        }
 
     # -- client side ------------------------------------------------------
     def submit(self, prompt, n_new: int, temperature: float = 1.0,
@@ -500,6 +613,10 @@ class PagedDecoder:
         self._tables[i, :] = 0
         self._slots[i] = None
         self._gens[i] = None
+        # an idle lane decodes token 0 at position 0 into trash, so its
+        # k-step positions stay inside the table
+        self._tok[i] = 0
+        self._pos[i] = 0
         self.stats.set_kv_blocks(self._blocks.in_use, self.n_blocks)
 
     def _youngest_active(self) -> Optional[int]:
@@ -528,12 +645,14 @@ class PagedDecoder:
         self.stats.record_preemption()
         self.stats.set_queue_depth(self._total_pending())
 
-    def _grow(self, i: int) -> bool:
-        """Ensure lane i's write block for position pos is allocated;
-        preempts the youngest admission (possibly lane i itself) on
-        exhaustion. Returns False iff lane i was preempted."""
+    def _grow(self, i: int, lookahead: int = 0) -> bool:
+        """Ensure lane i's write blocks through position pos + lookahead
+        are allocated (a k-step tick writes pos .. pos + k - 1, a verify
+        pos .. pos + k); preempts the youngest admission (possibly lane i
+        itself) on exhaustion. Returns False iff lane i was preempted."""
         lane = self._slots[i]
-        while int(self._pos[i]) // self.block_tokens >= lane.n_table:
+        while (int(self._pos[i]) + lookahead) // self.block_tokens \
+                >= lane.n_table:
             b = self._blocks.alloc()
             if b is None:
                 self._prefix.reclaim(1)
@@ -549,6 +668,18 @@ class PagedDecoder:
             lane.n_table += 1
         self.stats.set_kv_blocks(self._blocks.in_use, self.n_blocks)
         return True
+
+    def _can_fund(self, lookahead: int) -> bool:
+        """True when every active lane's blocks through pos + lookahead
+        can come from the free list and the cache's reclaimable entries,
+        with no preemption."""
+        need = 0
+        for i, st in enumerate(self._slots):
+            if st is not None:
+                need += max(0, (int(self._pos[i]) + lookahead)
+                            // self.block_tokens + 1 - st.n_table)
+        free = self._blocks.free_count
+        return need <= free or need <= free + self._prefix.reclaimable()
 
     def _pick_admission(self):
         """Pop the single next admissible request (highest SLO class
@@ -574,9 +705,9 @@ class PagedDecoder:
 
     def _admit_bookkeeping(self, i: int, req: _PendingReq):
         """Host-side admission under the lock: prefix lookup, block
-        allocation, table setup. Returns (buf, write_table, inserts) for
-        the device prefill (run OUTSIDE the lock), or None when the arena
-        cannot fund the prompt right now."""
+        allocation, table setup. Returns (buf, width, write_table,
+        inserts) for the device prefill (run OUTSIDE the lock), or None
+        when the arena cannot fund the prompt right now."""
         cfg = self.cfg
         bt = self.block_tokens
         keep = min(req.prompt.size, cfg.max_len - req.n_new)
@@ -587,13 +718,18 @@ class PagedDecoder:
         hits = self._prefix.lookup(hashes)
         if hashes:
             self.stats.record_prefix(len(hits), len(hashes))
+        # hold the hits BEFORE reclaiming for the rest: a hit held only by
+        # the cache is evictable, and reclaim would free it while this
+        # lane reads it (and alloc could hand it out again as fresh)
+        for b in hits:
+            self._blocks.incref(b)
         need = nb_prompt - len(hits)
         if self._blocks.free_count < need:
             self._prefix.reclaim(need - self._blocks.free_count)
         if self._blocks.free_count < need:
+            for b in hits:
+                self._blocks.decref(b)
             return None
-        for b in hits:
-            self._blocks.incref(b)
         fresh = [self._blocks.alloc() for _ in range(need)]
         read_table = np.zeros((self.table_width,), np.int32)
         write_table = np.zeros((self.table_width,), np.int32)
@@ -619,10 +755,151 @@ class PagedDecoder:
         self._slots[i] = _Lane(req, hits + fresh, nb_prompt, window,
                                self._admit_seq)
         self.stats.set_kv_blocks(self._blocks.in_use, self.n_blocks)
-        return buf, write_table, inserts
+        return buf, width, write_table, inserts
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _admit_prefill(self, i: int, buf: np.ndarray, width: int,
+                       write_table: np.ndarray) -> None:
+        """The admission's device prefill (the lane index rides along so
+        a subclass with per-lane state shares the crash-isolation
+        boundary: ``serving/speculate.py`` prefills its draft here)."""
+        paged_admit(self.lm.compute_params, self._arena, self._to_device(buf),
+                    self._to_device(write_table), self.cfg)
+
+    # -- prefill/decode handoff -------------------------------------------
+    def export_prefix(self, prompt, n_new: int):
+        """The prefill role's half of the handoff: the KV of a prompt's
+        full blocks strictly below its write block, computed by the
+        admission's prefill at the admission's width, with their chained
+        digests (the ones the importer's own admission computes), without
+        touching the arena or the worker. Returns (digests, k_blocks,
+        v_blocks), the blocks [L, n, bt, H, hd] CPU tensors in the arena
+        dtype; n is 0 for a prompt of one block."""
+        cfg = self.cfg
+        bt = self.block_tokens
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        n_new = int(n_new)
+        if n_new < 1 or n_new >= cfg.max_len:
+            raise ValueError(f"n_new {n_new} must be in [1, max_len)")
+        keep = min(prompt.size, cfg.max_len - n_new)
+        window = np.ascontiguousarray(prompt[prompt.size - keep:])
+        wb0 = (keep - 1) // bt
+        digests = PrefixCache.chain_hashes(window, bt, wb0)
+        hd = cfg.d_model // cfg.n_heads
+        if wb0 == 0:
+            z = torch.zeros((cfg.n_layers, 0, bt, cfg.n_heads, hd),
+                            dtype=self.kv_dtype)
+            return [], z, z.clone()
+        width = min(max(bucket_size(keep), keep), cfg.max_len)
+        buf = np.zeros((1, width), np.int32)
+        buf[0, :keep] = window
+        # the admission's prefill at the admission's width, cast as its
+        # write casts: the bytes the importer's own prefill would write
+        with torch.inference_mode():
+            kb, vb = _prefill_blocks(self.lm.compute_params,
+                                     self._to_device(buf), cfg, bt)
+            kb, vb = (b[:, :wb0].to(self.kv_dtype).cpu() for b in (kb, vb))
+        self.stats.record_prefix_export()
+        return digests, kb, vb
+
+    def import_prefix(self, digests, k_blocks, v_blocks,
+                      timeout_s: float = 60.0) -> int:
+        """The decode role's half: queue handed-off blocks (tensors, or
+        f32 numpy arrays) for adoption into the arena and the prefix
+        cache by the worker. Returns how many blocks were adopted; an
+        already-cached digest or a short free list shrinks the adopted
+        run, and the next admission recomputes the rest."""
+        cfg = self.cfg
+        hd = cfg.d_model // cfg.n_heads
+        digests = [bytes(d) for d in digests]
+        kb = torch.as_tensor(k_blocks)
+        vb = torch.as_tensor(v_blocks)
+        expect = (cfg.n_layers, len(digests), self.block_tokens,
+                  cfg.n_heads, hd)
+        if tuple(kb.shape) != expect or tuple(vb.shape) != expect:
+            raise ClientRequestError(
+                f"prefix blocks {tuple(kb.shape)}/{tuple(vb.shape)} do not "
+                f"match the arena layout {expect}")
+        if kb.dtype != self.kv_dtype or vb.dtype != self.kv_dtype:
+            raise ClientRequestError(
+                f"prefix blocks dtype {dtype_name(kb.dtype)}/"
+                f"{dtype_name(vb.dtype)} != arena kv dtype "
+                f"{dtype_name(self.kv_dtype)} (mismatched "
+                "DL4J_TPU_SERVE_KV_DTYPE across roles)")
+        if len(digests) >= self.table_width:
+            raise ClientRequestError(
+                f"{len(digests)} handed-off blocks >= table width "
+                f"{self.table_width}; full blocks strictly below the "
+                "write block can never reach it")
+        if not digests:
+            return 0
+        fut = Future()
+        with self._cond:
+            if not self._running:
+                raise RuntimeError("decoder is stopped")
+            if self._dead is not None:
+                raise WorkerDeadError(
+                    f"decoder worker died ({self._dead}); imports would "
+                    "queue forever")
+            self._imports.append((digests, kb, vb, fut))
+            self._cond.notify_all()
+        return int(fut.result(timeout=timeout_s))
+
+    def _apply_import(self, digests, kb, vb, fut) -> None:
+        """Adopt handed-off blocks (worker thread): the leading run of
+        digests the cache lacks goes into fresh blocks, then into the
+        cache, which holds their only reference."""
+        try:
+            with self._cond:
+                hits = self._prefix.lookup(digests)
+                start = len(hits)
+                need = len(digests) - start
+                # the matched run stays cached through the reclaim, or
+                # the adopted blocks would follow a broken chain
+                for b in hits:
+                    self._blocks.incref(b)
+                if need and self._blocks.free_count < need:
+                    self._prefix.reclaim(need - self._blocks.free_count)
+                for b in hits:
+                    self._blocks.decref(b)
+                avail = min(need, self._blocks.free_count)
+                fresh = [self._blocks.alloc() for _ in range(avail)]
+                self.stats.set_kv_blocks(self._blocks.in_use,
+                                         self.n_blocks)
+            if not fresh:
+                fut.set_result(0)
+                return
+            try:
+                ids = torch.tensor(fresh, dtype=torch.long,
+                                   device=self.device)
+                for name, b in (("k", kb), ("v", vb)):
+                    self._arena[name][:, ids] = \
+                        b[:, start:start + avail].to(self.device)
+            except Exception as e:  # noqa: BLE001 — device boundary
+                # the fresh blocks were nobody's: give them back
+                with self._cond:
+                    for b in fresh:
+                        self._blocks.decref(b)
+                fut.set_exception(e)
+                return
+            with self._cond:
+                for t, b in enumerate(fresh):
+                    self._prefix.insert(digests[start + t], b)
+                    # the cache's ref is the only owner; an admission
+                    # that cached the digest first makes insert a no-op
+                    # and this decref frees the duplicate
+                    self._blocks.decref(b)
+                self.stats.set_kv_blocks(self._blocks.in_use,
+                                         self.n_blocks)
+                self.stats.record_prefix_import(avail)
+            fut.set_result(avail)
+        except Exception as e:  # noqa: BLE001 — import isolation boundary
+            if not fut.done():
+                fut.set_exception(e)
 
     # -- worker side ------------------------------------------------------
     def _run(self) -> None:
@@ -638,10 +915,15 @@ class PagedDecoder:
                 for q in self._pending.values():
                     victims.extend(q)
                     q.clear()
+                imports = list(self._imports)
+                self._imports.clear()
                 self.stats.set_queue_depth(0)
                 self._cond.notify_all()
             self.stats.record_worker_death()
             err = WorkerDeadError(f"decoder worker died: {self._dead}")
+            for item in imports:
+                if not item[3].done():
+                    item[3].set_exception(err)
             for v in victims:
                 if not v.future.done():
                     v.future.set_exception(err)
@@ -687,6 +969,15 @@ class PagedDecoder:
     def _run_inner(self) -> None:
         while True:
             self._expire()
+            # adopt handed-off prefix blocks BEFORE admissions, so a
+            # request admitted in this pass hits them
+            while True:
+                with self._cond:
+                    item = self._imports.popleft() if self._imports \
+                        else None
+                if item is None:
+                    break
+                self._apply_import(*item)
             # admission: ONE request per pick so a request admitted later
             # in the same pass can hit the prefix blocks an earlier
             # prefill just cached — inserts land only after the block
@@ -696,12 +987,10 @@ class PagedDecoder:
                     picked = self._pick_admission()
                 if picked is None:
                     break
-                i, buf, write_table, inserts = picked
+                i, buf, width, write_table, inserts = picked
                 t0 = time.perf_counter()
                 try:
-                    paged_admit(self.lm.compute_params, self._arena,
-                                self._to_device(buf),
-                                self._to_device(write_table), self.cfg)
+                    self._admit_prefill(i, buf, width, write_table)
                 except Exception as e:  # noqa: BLE001 — lane isolation boundary
                     # a crashed admission evicts ONLY its own lane; it
                     # wrote (at most) trash + this lane's private blocks,
@@ -733,11 +1022,31 @@ class PagedDecoder:
             if not active:
                 if not self._running:
                     return False
-                self._cond.wait()
+                # imports wake the worker too
+                if not self._imports:
+                    self._cond.wait()
                 return True
+            # adaptive k: a literal drop to 1, never another k, while a
+            # prompt waits, a lane is within k tokens of its budget or of
+            # max_len, or the lookahead would preempt: every lane ends,
+            # and is preempted, where k = 1 would do it
+            k = self.tick_k
+            if k > 1:
+                if self._total_pending():
+                    k = 1
+                else:
+                    for i in active:
+                        st = self._slots[i]
+                        if (st.remaining < k
+                                or int(self._pos[i]) + k
+                                > self.cfg.max_len - 1):
+                            k = 1
+                            break
+                if k > 1 and not self._can_fund(k - 1):
+                    k = 1
             for i in range(self.lanes):
                 if self._slots[i] is not None:
-                    self._grow(i)
+                    self._grow(i, lookahead=k - 1)
             active = [i for i in range(self.lanes)
                       if self._slots[i] is not None]
             tok, pos = self._tok.copy(), self._pos.copy()
@@ -748,18 +1057,21 @@ class PagedDecoder:
             gens = list(self._gens)
         if not active:
             return True
-        # one fixed-shape device tick for the whole pool, no lock held
+        # one fixed-shape device tick for the whole pool, no lock held:
+        # k steps, tokens [S, k]
         t0 = time.perf_counter()
         try:
-            _, logits = paged_decode_step(
+            _, nxt = self._tick_fn(k)(
                 self.lm.compute_params, self._arena, self._to_device(tok),
-                self._to_device(pos), self._to_device(tables), self.cfg)
-            nxt = _sample_step(logits, temps, gens).cpu().numpy()
+                self._to_device(pos), self._to_device(tables), temps, gens)
+            nxt = nxt.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — device boundary
             self._fail_active_lanes(e)
             return True
         self.decode_ticks += 1
         self.tick_seconds += time.perf_counter() - t0
+        self.dispatch_stats.decode_ticks += 1
+        self.dispatch_stats.decode_tokens += len(active) * k
         callbacks = []
         completions = []
         with self._cond:
@@ -767,18 +1079,22 @@ class PagedDecoder:
                 st = self._slots[i]
                 if st is None:
                     continue
-                t = int(nxt[i])
-                st.tokens.append(t)
-                self._tok[i] = t
-                self._pos[i] += 1
-                st.remaining -= 1
-                self.stats.record_tokens(1)
-                if st.on_token is not None:
-                    callbacks.append((st.on_token, t))
-                if (st.remaining <= 0
-                        or self._pos[i] >= self.cfg.max_len - 1):
-                    completions.append(st)
-                    self._release_lane(i)
+                # per-token bookkeeping and callbacks k times, in
+                # emission order, as k single ticks would fire them
+                for j in range(k):
+                    t = int(nxt[i, j])
+                    st.tokens.append(t)
+                    self._tok[i] = t
+                    self._pos[i] += 1
+                    st.remaining -= 1
+                    self.stats.record_tokens(1)
+                    if st.on_token is not None:
+                        callbacks.append((st.on_token, t))
+                    if (st.remaining <= 0
+                            or self._pos[i] >= self.cfg.max_len - 1):
+                        completions.append(st)
+                        self._release_lane(i)
+                        break
             self._cond.notify_all()  # drain() waiters see evictions
         # stream callbacks BEFORE resolving futures (a client iterating
         # tokens must see the last token before done), outside the lock

@@ -1,7 +1,7 @@
 """Model registry: named, versioned load -> warmup -> serve (counterpart:
 ``deeplearning4j_tpu/serving/registry.py`` — ``bucket_ladder``,
-``ModelRecord`` and ``ModelRegistry`` ``load`` / ``warmup`` / ``serve`` /
-``get`` / ``default`` / ``describe``, :49-460).
+``ModelRecord`` with ``draft_net`` :96, and ``ModelRegistry`` ``load`` /
+``warmup`` / ``serve`` / ``get`` / ``default`` / ``describe``, :49-460).
 
   load    adopt a live model or restore a checkpoint zip (dispatching on
           its recorded model class) under (name, auto-assigned version);
@@ -13,9 +13,10 @@
   serve   make (name, version) the default traffic target; a broken
           record is refused, and the prior default keeps its state.
 
+A record hands out the self-drafts of speculative decoding
+(``draft_net``), one per mode however many decoders are built around it.
 Unload, the broken-record isolation of a failed load, quantization,
-speculative drafts, embed adapters, version lineage and chaos hooks wait
-for a later slice.
+embed adapters, version lineage and chaos hooks wait for a later slice.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.ops import dispatch
+from deeplearning4j_tpu_torch.ops import dispatch, lowprec
 
 
 def bucket_ladder(max_batch: int) -> List[int]:
@@ -65,14 +66,28 @@ class ModelRecord:
         self.version = int(version)
         self.model = model
         self.input_shape = tuple(input_shape) if input_shape else None
+        # the serving precision /models reports ('f32' or 'bf16')
+        self.precision = lowprec.precision_of(model)
         self.state = "loaded"
         self.error: Optional[str] = None
         self.loaded_ts = time.strftime("%Y-%m-%dT%H:%M:%S")
         self.warmed_buckets: List[int] = []
+        self._drafts: Dict[str, Any] = {}  # self-drafts, per mode
 
     @property
     def key(self) -> str:
         return f"{self.name}@v{self.version}"
+
+    def draft_net(self, mode: str = "int8"):
+        """The self-draft a ``SpeculativeDecoder`` proposes with
+        (``ops/lowprec.draft_lm`` of this record's model), made once per
+        mode."""
+        mode = (mode or "int8").strip().lower()
+        draft = self._drafts.get(mode)
+        if draft is None:
+            draft = self._drafts[mode] = lowprec.draft_lm(
+                self.model, mode, device=self.model.device)
+        return draft
 
     def describe(self) -> Dict[str, Any]:
         out = {
@@ -80,6 +95,7 @@ class ModelRecord:
             "version": self.version,
             "state": self.state,
             "model_type": type(self.model).__name__,
+            "precision": self.precision,
             "loaded_ts": self.loaded_ts,
             "warmed_buckets": list(self.warmed_buckets),
         }

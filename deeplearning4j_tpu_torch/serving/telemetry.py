@@ -5,8 +5,10 @@ The fields the ported paths record: requests, answers, rejections,
 timeouts, tokens, worker deaths, arena occupancy, prefix-cache hits,
 preemptions, per-class sheds, queue depths, a latency ring, and the
 ``/predict`` batcher's batch fill (``record_batch``: dispatched batches,
-real rows and pad rows). The breaker and speculative-decode counters come
-with the slices that port those planes; Prometheus exposition is not
+real rows and pad rows), the prefill/decode handoff
+(``record_prefix_export`` :190, ``record_prefix_import`` :194) and the
+speculative rounds' acceptance (``record_draft`` :199). The breaker
+counters come with the slice that ports it; Prometheus exposition is not
 ported.
 """
 
@@ -41,6 +43,12 @@ class ServingStats:
         self.prefix_lookups = 0    # prompt blocks consulted in the cache
         self.prefix_hits = 0       # prompt blocks served from the cache
         self.preemptions = 0       # lanes evicted-and-requeued
+        self.prefix_exports = 0        # /prefill exports run
+        self.prefix_imports = 0        # /prime adoptions applied
+        self.prefix_import_blocks = 0  # blocks adopted across adoptions
+        self.draft_proposed = 0    # draft tokens proposed to the target
+        self.draft_accepted = 0    # proposals the target agreed with
+        self.draft_rejected = 0    # proposals the target overruled
         self.shed_by_class: Dict[str, int] = {}  # 429s per SLO class
         self.queue_depths: Dict[str, int] = {}
 
@@ -97,6 +105,24 @@ class ServingStats:
         with self._lock:
             self.preemptions += 1
 
+    def record_prefix_export(self) -> None:
+        with self._lock:
+            self.prefix_exports += 1
+
+    def record_prefix_import(self, blocks: int) -> None:
+        with self._lock:
+            self.prefix_imports += 1
+            self.prefix_import_blocks += int(blocks)
+
+    def record_draft(self, proposed: int, accepted: int) -> None:
+        """One lane's speculative round: ``proposed`` draft tokens, of
+        which the target's greedy argmax agreed with the first
+        ``accepted``."""
+        with self._lock:
+            self.draft_proposed += int(proposed)
+            self.draft_accepted += int(accepted)
+            self.draft_rejected += int(proposed) - int(accepted)
+
     def record_shed(self, slo_class: str) -> None:
         with self._lock:
             self.shed_by_class[slo_class] = \
@@ -148,6 +174,15 @@ class ServingStats:
                 "prefix_lookups": self.prefix_lookups,
                 "prefix_hits": self.prefix_hits,
                 "preemptions": self.preemptions,
+                "prefix_exports": self.prefix_exports,
+                "prefix_imports": self.prefix_imports,
+                "prefix_import_blocks": self.prefix_import_blocks,
+                "draft_proposed": self.draft_proposed,
+                "draft_accepted": self.draft_accepted,
+                "draft_rejected": self.draft_rejected,
+                "acceptance_rate": (
+                    round(self.draft_accepted / self.draft_proposed, 4)
+                    if self.draft_proposed else None),
                 "shed_by_class": dict(self.shed_by_class),
                 "queue_depth": sum(self.queue_depths.values()),
                 "queue_depths": dict(self.queue_depths),

@@ -265,6 +265,171 @@ def test_serving_on_the_card_goes_through_both_kernels():
         eng.stop()
 
 
+@pytest.mark.gpu
+def test_paged_kernel_f32_queries_over_a_bf16_arena_on_card():
+    """K6's f32-query, bf16-arena instantiation (an f32 model under
+    DL4J_TPU_SERVE_KV_DTYPE=bf16) at 64 lanes of mixed contexts: within
+    1e-3 of the plain version, two launches bit-equal, a poisoned trash
+    block moving no output bit."""
+    dev = _need_card()
+    q, ck, cv, tables, pos = _arena_case(5, s=64, h=4, hd=64, bt=16, m=40)
+    qt = _port(q, dev)
+    ckt, cvt = (_port(a, dev, torch.bfloat16) for a in (ck, cv))
+    tt, pt = torch.from_numpy(tables).to(dev), torch.from_numpy(pos).to(dev)
+    before = port_paged.paged_attention.launches
+    out = port_paged.paged_attention(qt, ckt, cvt, tt, pt)
+    again = port_paged.paged_attention(qt, ckt, cvt, tt, pt)
+    ref = port_paged.paged_attention_plain(qt, ckt, cvt, tt, pt)
+    torch.cuda.synchronize()
+    assert port_paged.paged_attention.launches == before + 2
+    assert (out - ref).abs().max().item() < 1e-3
+    assert torch.equal(out, again)
+    ckt[0], cvt[0] = 1e6, -1e6
+    assert torch.equal(out, port_paged.paged_attention(qt, ckt, cvt, tt, pt))
+
+
+def _decode_case(dev, dtype_policy="strict", seed=2):
+    """A small LM on the card and an arena holding three admitted
+    prompts (tables grown 8 positions ahead): (lm, arena, tok, pos,
+    tables)."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from deeplearning4j_tpu_torch.serving.paged import paged_admit
+
+    cfg = TransformerConfig(vocab_size=64, d_model=64, n_layers=2,
+                            n_heads=4, d_ff=128, max_len=128, seed=seed,
+                            dtype_policy=dtype_policy)
+    lm = TransformerLM(cfg, device=dev)
+    bt, m = 16, 8
+    shape = (2, 40, bt, 4, 16)
+    arena = {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+    prompts = [[3, 1, 4, 1, 5], list(range(1, 40)), [9] * 17]
+    tables = np.zeros((3, m), np.int32)
+    tok = np.zeros((3,), np.int32)
+    pos = np.zeros((3,), np.int32)
+    nxt = 1
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            nb = (len(p) - 1 + 8) // bt + 1
+            tables[i, :nb] = range(nxt, nxt + nb)
+            nxt += nb
+            paged_admit(lm.compute_params, arena,
+                        torch.tensor([p], device=dev),
+                        torch.from_numpy(tables[i]).to(dev), cfg)
+            tok[i], pos[i] = p[-1], len(p) - 1
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return lm, arena, to(tok), to(pos), to(tables)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["strict", "performance"])
+def test_k_step_tick_equals_single_ticks_on_card(policy):
+    """A 4-step tick against 4 single ticks from the same arena, greedy
+    and sampled lanes (each generator seeded alike): the same tokens and
+    the same arena bits; K6 once per layer per step."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.serving.paged import _paged_tick_for
+
+    lm, arena, tok, pos, tables = _decode_case(dev, policy)
+    temps = [0.0, 0.8, 0.0]
+    gens = lambda: [None, torch.Generator(device=dev).manual_seed(5), None]
+    two = {n: v.clone() for n, v in arena.items()}
+    with torch.inference_mode():
+        before = port_paged.paged_attention.launches
+        _, many = _paged_tick_for(lm.cfg, 4)(
+            lm.compute_params, arena, tok, pos, tables, temps, gens())
+        assert port_paged.paged_attention.launches == before + 4 * 2
+        g, t, p, ones = gens(), tok, pos, []
+        for _ in range(4):
+            _, one = _paged_tick_for(lm.cfg, 1)(
+                lm.compute_params, two, t, p, tables, temps, g)
+            t, p = one[:, 0], p + 1
+            ones.append(one[:, 0])
+    assert torch.equal(many, torch.stack(ones, 1))
+    for n in ("k", "v"):
+        assert torch.equal(arena[n], two[n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["strict", "performance"])
+def test_verify_greedy_equals_single_ticks_on_card(policy):
+    """The speculative verify of k+1 tokens (the greedy stream, with a
+    wrong proposal in the middle) gives, at every position, the argmax a
+    greedy single tick gives after the same tokens: K6 (k+1) x layers
+    times."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.serving.paged import _paged_tick_for
+    from deeplearning4j_tpu_torch.serving.speculate import _verify_for
+
+    lm, arena, tok, pos, tables = _decode_case(dev, policy, seed=4)
+    k = 4
+    two = {n: v.clone() for n, v in arena.items()}
+    with torch.inference_mode():
+        t, p, stream = tok, pos, []
+        for _ in range(k + 1):
+            _, one = _paged_tick_for(lm.cfg, 1)(
+                lm.compute_params, two, t, p, tables, [0.0] * 3,
+                [None] * 3)
+            t, p = one[:, 0], p + 1
+            stream.append(one[:, 0])
+        greedy = torch.stack(stream, 1)                 # [3, k+1]
+        toks = torch.cat([tok.long()[:, None], greedy[:, :k]], 1)
+        toks[1, 3] = (toks[1, 3] + 1) % 64              # a rejected one
+        before = port_paged.paged_attention.launches
+        _, got = _verify_for(lm.cfg, k)(lm.compute_params, arena, toks,
+                                            pos, tables)
+        assert port_paged.paged_attention.launches == before + (k + 1) * 2
+    # every position up to the wrong proposal equals the greedy stream
+    assert torch.equal(got[0], greedy[0]) and torch.equal(got[2], greedy[2])
+    assert torch.equal(got[1, :3], greedy[1, :3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "layers:1"])
+def test_speculative_engine_equals_target_greedy_on_card(mode, monkeypatch):
+    """DL4J_TPU_SERVE_SPEC through the engine on the card: the greedy
+    transcripts equal the paged engine's, speculative rounds ran, and
+    no plain attention version ran."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+    from deeplearning4j_tpu_torch.serving.speculate import (
+        SpeculativeDecoder,
+    )
+
+    lm = TransformerLM(TransformerConfig(
+        vocab_size=64, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+        max_len=128, dtype_policy="performance"), device=dev)
+    prompts = [[1, 2, 3, 4, 5] * 7, [7, 8, 9], list(range(2, 30))]
+    monkeypatch.delenv("DL4J_TPU_SERVE_SPEC", raising=False)
+    eng = ServingEngine(lm, kv_blocks=32, device=dev)
+    try:
+        base = [eng.generate([p], 20, temperature=0.0)[0].tolist()
+                for p in prompts]
+    finally:
+        eng.stop()
+    monkeypatch.setenv("DL4J_TPU_SERVE_SPEC", mode)
+    eng = ServingEngine(lm, kv_blocks=32, device=dev)
+    try:
+        assert isinstance(eng.decoder, SpeculativeDecoder)
+        port_paged.paged_attention_plain.launches = 0
+        port_flash.flash_attention_plain.launches = 0
+        futs = [eng.decoder.submit(p, 20, temperature=0.0) for p in prompts]
+        got = [f.result(timeout=300).tolist() for f in futs]
+        assert eng.decoder.spec_rounds > 0
+        assert port_paged.paged_attention_plain.launches == 0
+        assert port_flash.flash_attention_plain.launches == 0
+    finally:
+        eng.stop()
+    assert got == base
+
+
 def _lstm_args(seed, n, t, h, dev, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     arrs = (rng.normal(0, 0.5, (n, t, 4 * h)), rng.normal(0, 0.3, (h, 4 * h))

@@ -7,8 +7,10 @@
     (``scripts/time_k*.py``) names either.
   * Its entry points (``TransformerLM`` and its ``ring_forward`` and
     sequence mode, ``BertMLM``, ``BertClassifier`` and their ``load``,
-    ``PagedDecoder``, ``MultiLayerNetwork`` and its ``load`` (a
-    MultiHeadAttention network too), ``ServingEngine``, and the training
+    ``PagedDecoder``, the decode planes (``ContinuousDecoder``,
+    ``SpeculativeDecoder``, ``draft_lm``), ``MultiLayerNetwork`` and its
+    ``load`` (a MultiHeadAttention network too), ``ServingEngine``, and
+    the training
     ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
     ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
     and ``Word2Vec.from_arrays``) run on the card unless given
@@ -123,6 +125,47 @@ class TestEntryPointsNeedACardOrCpu:
             assert eng.decoder.n_blocks == 4096
         finally:
             eng.stop()
+
+    def test_decode_planes(self, no_card, monkeypatch):
+        from deeplearning4j_tpu_torch.models.transformer import (
+            TransformerConfig,
+            TransformerLM,
+        )
+        from deeplearning4j_tpu_torch.ops.lowprec import draft_lm
+        from deeplearning4j_tpu_torch.serving.decode import (
+            ContinuousDecoder,
+        )
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+        from deeplearning4j_tpu_torch.serving.speculate import (
+            SpeculativeDecoder,
+        )
+
+        lm = TransformerLM(TransformerConfig(
+            vocab_size=16, d_model=16, n_layers=2, n_heads=2, d_ff=32,
+            max_len=32), device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ContinuousDecoder(lm, slots=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            draft_lm(lm, "int8")
+        draft = draft_lm(lm, "layers:1", device="cpu")
+        assert draft.params["embed"].device == torch.device("cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SpeculativeDecoder(lm, draft=draft, n_blocks=8)
+        ContinuousDecoder(lm, slots=2, device="cpu").stop()
+        SpeculativeDecoder(lm, draft=draft, n_blocks=8, device="cpu").stop()
+        # the engine's new decoders: fixed-slot and speculative
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(lm, kv_block=0)
+        monkeypatch.setenv("DL4J_TPU_SERVE_SPEC", "layers:1")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(lm, kv_blocks=8)
+        for kw in (dict(kv_block=0), dict(kv_blocks=8)):
+            eng = ServingEngine(lm, device="cpu", **kw)
+            try:
+                assert isinstance(eng.decoder, (ContinuousDecoder,
+                                                SpeculativeDecoder))
+            finally:
+                eng.stop()
 
 
     def test_multilayer_network_and_its_engine(self, no_card, tmp_path):
@@ -334,7 +377,9 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_SERVE_TIMEOUT_S", "DL4J_TPU_SERVE_MAX_BATCH",
         "DL4J_TPU_SERVE_MAX_WAIT_MS", "DL4J_TPU_SERVE_BATCH",
         "DL4J_TPU_BUCKET_BATCHES", "DL4J_TPU_REMAT", "DL4J_TPU_BF16",
-        "DL4J_TPU_LOSS_SCALE"}
+        "DL4J_TPU_LOSS_SCALE", "DL4J_TPU_SERVE_TICK_K",
+        "DL4J_TPU_SERVE_SPEC", "DL4J_TPU_SERVE_SPEC_K",
+        "DL4J_TPU_SERVE_KV_DTYPE"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name

@@ -282,8 +282,26 @@ class TestEngineSurface:
             eng.stop()
 
     def test_fixed_slot_pool_is_not_ported(self, lm):
-        with pytest.raises(ValueError, match="not ported"):
-            ServingEngine(lm, kv_block=0, device="cpu")
+        """The fixed-slot pool is ported now: kv_block=0 is no longer
+        refused, it serves /generate through a ContinuousDecoder with the
+        paged pool's greedy tokens and reports its scheme at /models."""
+        from deeplearning4j_tpu_torch.serving.decode import ContinuousDecoder
+
+        eng = ServingEngine(lm, kv_block=0, device="cpu").start()
+        try:
+            assert isinstance(eng.decoder, ContinuousDecoder)
+            _, body = _post(eng.url, {"tokens": [[1, 2, 3]], "n_new": 5,
+                                      "temperature": 0.0})
+            kv = _get(eng.url, "/models")["kv"]["default@v1"]
+            assert kv["scheme"] == "fixed-slot"
+        finally:
+            eng.stop()
+        paged = ServingEngine(lm, kv_block=16, kv_blocks=64, device="cpu")
+        try:
+            want = paged.generate([[1, 2, 3]], 5, temperature=0.0)
+        finally:
+            paged.stop()
+        assert json.loads(body)["tokens"] == want.tolist()
 
 
 class TestFailureIsolation:
