@@ -134,6 +134,43 @@ What it does, in order (any failure raises and exits non-zero):
    during the burst while its plain version's stayed at 0 (and records
    the batch rows N of every K1 launch the batcher made), and samples
    200 characters with ``CharRnn.sample`` through ``rnn_time_step``;
+   then the serving planes (``phase_serving_planes``): probes
+   ``torch._int_mm``'s shape rules and times the int8 product
+   (``ops/lowprec.int8_matmul``) at the char-RNN head's and the lowprec
+   bench MLP's shapes beside the f32 ``torch.matmul`` (TF32 off) and the
+   bound (1979 TOP/s int8); on an engine built with no model, (a) the
+   char-RNN and the lowprec bench's MLP (``bench.py:2876-2891``:
+   256-512-512-10, 4 Adam fits on the card) calibrated with
+   ``QuantCalibrator``, zipped with ``quant.json`` and loaded through
+   ``POST /models`` as an f32 record (``DL4J_TPU_QUANT=0``) and an int8
+   one: the gate verdict ``ok`` with its delta, the same 64-request burst
+   through each in turns (rows/s), K1 launched and its plain version
+   never, the int8 products counted, every int8 answer within 1e-5 of
+   ``QuantizedNet.output`` of the rows alone and within the gate's max
+   delta of the f32 answer; (b) the resilience bench's MLP
+   (``bench.py:1431-1437``) and the char-RNN zipped with a fitted
+   ``NormalizerStandardize``: answers within 1e-5 of
+   ``output(normalizer.transform(rows))``, K1 launched, ``record_base64``
+   == ``record`` bit for bit; (c) a load under
+   ``DL4J_TPU_QUANT_MAX_DELTA=1e-9`` (``QuantGateError``), a load and a
+   warmup that ``ServingChaos`` fails all land broken while the default
+   answers, with the lineage at ``/models``; (d) on the resilience MLP,
+   three injected failures open the breaker (503, Retry-After), the
+   half-open probe closes it, an injected hang is answered 503 "Wedged"
+   by the 2 s watchdog, which trips the breaker, and a fresh worker
+   answers after the cooldown (the time to recover) while the hung
+   call's late return changes nothing; the burst's greedy requests with
+   the third decode admission faulted: that lane alone evicted, the rest
+   byte-equal to the burst, K4 and K6 launched and no plain version; (e)
+   the bench transformer's zip loaded, warmed and served as lm v1 and v2
+   through ``POST /models``, ``/generate`` on v2 and on v1 by version
+   equal to the burst (K4, K6 counted), v1 unloaded with
+   ``torch.cuda.memory_allocated`` falling by at least its
+   ``hbm_report`` ``param_bytes``, a drain with a stream in flight (the
+   stream completes, new requests 503 with Retry-After,
+   ``/health?ready=1`` live but not ready) and a Prometheus scrape equal
+   to the JSON ``/metrics`` on every serving sample; each leg's wall
+   time printed;
 6. trains the full-width char-RNN (``char_rnn_conf(80, lstm_size=200,
    num_layers=2, tbptt_length=50)``, RMSProp: the shape ``bench.py:206``
    benchmarks and DL4J's ``GravesLSTMCharModellingExample``, at lr 0.003
@@ -287,10 +324,12 @@ Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
 from __future__ import annotations
 
 import argparse
+import base64
 import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -299,6 +338,7 @@ import time
 import urllib.error
 import urllib.request
 import warnings
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -307,6 +347,10 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from deeplearning4j_tpu_torch.etl.calibrate import QuantCalibrator  # noqa: E402
+from deeplearning4j_tpu_torch.etl.normalize import (  # noqa: E402
+    NormalizerStandardize,
+)
 from deeplearning4j_tpu_torch.models.char_rnn import (  # noqa: E402
     CharRnn,
     char_rnn_conf,
@@ -336,7 +380,9 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
 )
+from deeplearning4j_tpu_torch.obs import registry as obs_registry  # noqa: E402
 from deeplearning4j_tpu_torch.ops import build  # noqa: E402
+from deeplearning4j_tpu_torch.ops import lowprec  # noqa: E402
 from deeplearning4j_tpu_torch.ops.memory import kv_arena_blocks  # noqa: E402
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
@@ -375,6 +421,9 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (  # noqa: E402
     ring_flash_step,
 )
 from deeplearning4j_tpu_torch.resilience import (  # noqa: E402
+    InjectedServingFault,
+    ServingChaos,
+    ServingChaosConfig,
     SpecChaos,
     SpecChaosConfig,
 )
@@ -392,6 +441,7 @@ from deeplearning4j_tpu_torch.serving.speculate import (  # noqa: E402
     _verify_for,
 )
 from deeplearning4j_tpu_torch.utils.serialization import (  # noqa: E402
+    tree_to_npz_bytes,
     write_model,
 )
 
@@ -494,6 +544,15 @@ BERT_KW = dict(vocab_size=30522, d_model=768, n_layers=12, n_heads=12,
                d_ff=3072, max_len=512, pad_token_id=0, mask_token_id=103,
                learning_rate=1e-4)
 BERT_N, BERT_T, BERT_MIN_LEN, BERT_FITS, BERT_MULTI = 16, 512, 128, 5, 3
+# the serving planes: the lowprec bench's MLP (bench.py:2876-2891: 256-512-
+# 512-10, 4 Adam fits of 128 rows, calibrated on 256 rows) and the
+# resilience bench's (bench.py:1431-1437: 256-256-128-10); /predict
+# requests of 1-8 rows
+LOWPREC_MLP, RESIL_MLP, QUANT_BATCH = (256, 512, 512, 10), \
+    (256, 256, 128, 10), 256
+MLP_MAX_ROWS = 8
+PLANES_WATCHDOG_S, PLANES_COOLDOWN_S = 2.0, 1.0
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 # fine-tuning on a planted two-class label: 10 steps of 16 rows, then the
 # accuracy on 64 held-out rows of the same law
 FT_STEPS, FT_HELD_OUT, FT_ACCURACY = 10, 64, 0.75
@@ -3896,6 +3955,654 @@ def phase_bert(seed: int, dev):
                                  for r in rows[:12]])}
 
 
+
+# -- the serving planes ------------------------------------------------------
+
+
+def _call(url: str, path: str, payload=None, headers=None,
+          timeout: float = 600.0):
+    """(status, headers, body) of one request; an HTTP error is an answer
+    here, not an exception (the planes check 4xx and 5xx answers)."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url + path, data=data, method="GET" if data is None else "POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _ok(answer, what: str):
+    status, _, body = answer
+    check(status == 200, f"{what}: HTTP {status}: {body[:300]}")
+    return json.loads(body)
+
+
+def _error(answer, status: int, kind: str, what: str):
+    got, hdr, body = answer
+    check(got == status and kind in body,
+          f"{what}: want HTTP {status} {kind}, got {got}: {body[:300]}")
+    return hdr
+
+
+def mlp_conf(widths, seed: int):
+    """Dense ReLU layers and a softmax head, Adam at lr 0.01: the bench
+    MLPs of bench.py:1431-1437 and :2882-2888."""
+    b = (NeuralNetConfiguration.builder().seed(seed).learning_rate(0.01)
+         .updater("adam").list())
+    last = len(widths) - 2
+    for i in range(last):
+        b = b.layer(i, L.DenseLayer(n_in=widths[i], n_out=widths[i + 1],
+                                    activation="relu"))
+    return b.layer(last, L.OutputLayer(
+        n_in=widths[last], n_out=widths[-1], activation="softmax",
+        loss_function="mcxent")).build()
+
+
+def char_batches(seed: int, n: int, rows: int):
+    """``n`` one-hot batches of ``rows`` x SEQ from the smoke's Markov
+    chain over VOCAB characters."""
+    chars = [chr(32 + i) for i in range(VOCAB)]
+    text = markov_text(seed, n * rows * SEQ, chars)
+    idx = np.frombuffer(text.encode(), np.uint8).astype(np.int64) - 32
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return [eye[b] for b in idx.reshape(n, rows, SEQ)]
+
+
+def predict_burst(url: str, reqs, model: str):
+    """The requests through HTTP /predict to record ``model`` from
+    N_CLIENTS threads: (answers, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(N_CLIENTS) as ex:
+        answers = list(ex.map(lambda x: _call(
+            url, "/predict", {"batch": x.tolist(), "model": model}), reqs))
+    wall = time.perf_counter() - t0
+    return [np.asarray(_ok(a, f"/predict to {model}")["outputs"],
+                       np.float32) for a in answers], wall
+
+
+PREDICT_COUNTERS = (lstm_scan, lstm_scan_plain, lowprec.int8_matmul,
+                    lowprec.int8_matmul_plain)
+
+
+def predict_counts():
+    return {fn.__name__: fn.launches for fn in PREDICT_COUNTERS}
+
+
+def zero_predict_counts():
+    for fn in PREDICT_COUNTERS:
+        fn.launches = 0
+
+
+def quant_leg(eng, name: str, net, calib, reqs, input_shape, tmp: str,
+              rnn: bool):
+    """One model's calibrated int8 leg: calibrate, write the zip with
+    quant.json, load it as an f32 record (DL4J_TPU_QUANT=0) and as the
+    int8 record through POST /models, warm both, serve the int8 one, and
+    drive the same burst through each in turns (f32, int8, int8, f32)."""
+    t_leg = time.perf_counter()
+    spec = QuantCalibrator().fit(net, calib).spec(net)
+    path = os.path.join(tmp, f"{name}.zip")
+    write_model(net, path, quant=spec)
+    shape = list(input_shape)
+    with env_set(DL4J_TPU_QUANT="0"):
+        f32 = _ok(_call(eng.url, "/models", {
+            "action": "load", "name": f"{name}_f32", "path": path,
+            "input_shape": shape}), f"load {name} f32")
+    q = _ok(_call(eng.url, "/models", {
+        "action": "load", "name": f"{name}_int8", "path": path,
+        "input_shape": shape}), f"load {name} int8")
+    check(f32["precision"] == "f32" and q["precision"] == "int8",
+          f"{name}: records {f32['precision']}, {q['precision']}")
+    verdict = q["quant"]
+    print(f"{name}: int8 gate {verdict['verdict']}, delta "
+          f"{verdict['delta']:.6g} (max {verdict['max_delta']}) on the "
+          f"{spec.sample.shape[0]}-row gate sample, int8 layers "
+          f"{verdict['layers']}")
+    check(verdict["verdict"] == "ok", f"{name}: gate verdict {verdict}")
+    for rec in (f"{name}_f32", f"{name}_int8"):
+        _ok(_call(eng.url, "/models", {"action": "warmup", "name": rec,
+                                       "max_batch": eng.max_batch}),
+            f"warmup {rec}")
+    _ok(_call(eng.url, "/models", {"action": "serve",
+                                   "name": f"{name}_int8"}),
+        f"serve {name}_int8")
+    rows = sum(x.shape[0] for x in reqs)
+    walls, counts, outs = {"f32": [], "int8": []}, {}, {}
+    for kind in ("f32", "int8", "int8", "f32"):
+        zero_predict_counts()
+        outs[kind], wall = predict_burst(eng.url, reqs, f"{name}_{kind}")
+        walls[kind].append(wall)
+        counts[kind] = predict_counts()
+    for kind in ("f32", "int8"):
+        print(f"{name} {kind}: {len(reqs)} requests, {rows} rows: "
+              + ", ".join(f"{rows / w:.1f}" for w in walls[kind])
+              + f" rows/s; launches {counts[kind]}")
+    c8, c32 = counts["int8"], counts["f32"]
+    check(c8["int8_matmul"] > 0 and c8["int8_matmul_plain"] == 0,
+          f"{name}: the int8 burst's products {c8}")
+    check(c32["int8_matmul"] == 0, f"{name}: an int8 product in f32 {c32}")
+    if rnn:
+        check(c8["lstm_scan"] > 0 and c8["lstm_scan_plain"] == 0,
+              f"{name}: K1 in the int8 burst {c8}")
+    qnet = eng.registry.get(f"{name}_int8").model
+    err_alone = err_f32 = 0.0
+    for x, a8, a32 in zip(reqs, outs["int8"], outs["f32"]):
+        check(np.isfinite(a8).all() and a8.shape == a32.shape,
+              f"{name}: an int8 answer of shape {a8.shape}")
+        alone = qnet.output(x).float().cpu().numpy()
+        err_alone = max(err_alone, float(np.abs(a8 - alone).max()))
+        err_f32 = max(err_f32, float(np.abs(a8 - a32).max()))
+    print(f"{name}: max |int8 answer - QuantizedNet.output(rows alone)| "
+          f"{err_alone:.3e} (tol {TOL_PREDICT}); max |int8 - f32 answer| "
+          f"{err_f32:.3e} (DL4J_TPU_QUANT_MAX_DELTA {verdict['max_delta']})")
+    check(err_alone <= TOL_PREDICT, f"{name}: batched int8 != alone")
+    check(err_f32 <= verdict["max_delta"], f"{name}: int8 strays from f32")
+    leg_s = time.perf_counter() - t_leg
+    print(f"{name}: leg wall {leg_s:.1f} s")
+    return path, spec, {
+        "gate": verdict, "rows": rows, "requests": len(reqs),
+        "rows_per_s": {k: [rows / w for w in v] for k, v in walls.items()},
+        "launches": counts, "max_abs_err_vs_alone": err_alone,
+        "max_abs_err_vs_f32": err_f32, "leg_s": leg_s}
+
+
+def int8_head_times(seed: int, dev):
+    """The int8 product (``ops/lowprec.int8_matmul``: torch._int_mm on
+    zero-padded operands) at the char-RNN head's and the lowprec bench
+    MLP's shapes, beside the f32 ``torch.matmul`` of the same product
+    (TF32 off) and the bound; device time behind a sleep kernel. Also
+    probes _int_mm's shape rules on this build."""
+    probe = {}
+    for m, k, n in ((16, 16, 16), (17, 16, 16), (24, 10, 16),
+                    (24, 16, 10), (1, 200, 80), (24, 200, 80)):
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        b = torch.ones((k, n), dtype=torch.int8, device=dev)
+        try:
+            torch._int_mm(a, b)
+            probe[f"{m}x{k}x{n}"] = "runs"
+        except RuntimeError as e:
+            probe[f"{m}x{k}x{n}"] = str(e).splitlines()[0][:90]
+    print(f"torch._int_mm on this build: {probe}")
+    rng = np.random.default_rng(seed)
+    shapes = {"char_head_1row": (SEQ, LSTM_H, VOCAB),
+              "char_head_64rows": (64 * SEQ, LSTM_H, VOCAB)}
+    f, h, c = LOWPREC_MLP[0], LOWPREC_MLP[1], LOWPREC_MLP[-1]
+    for name, (k, n) in (("mlp_l0", (f, h)), ("mlp_l1", (h, h)),
+                         ("mlp_head", (h, c))):
+        shapes[f"{name}_1row"] = (1, k, n)
+        shapes[f"{name}_{QUANT_BATCH}rows"] = (QUANT_BATCH, k, n)
+    out = {}
+    for name, (m, k, n) in shapes.items():
+        xq = torch.from_numpy(rng.integers(-127, 128, (m, k),
+                                           dtype=np.int8)).to(dev)
+        wq = torch.from_numpy(rng.integers(-127, 128, (k, n),
+                                           dtype=np.int8)).to(dev)
+        xf, wf = xq.float(), wq.float()
+        acc = lowprec.int8_matmul(xq, wq)
+        want = lowprec.int8_matmul_plain(xq.cpu(), wq.cpu())
+        check(torch.equal(acc.cpu(), want),
+              f"int8_matmul on the card != the exact product at {name}")
+        ms = device_ms(lambda: lowprec.int8_matmul(xq, wq))
+        f32_ms = device_ms(lambda: torch.matmul(xf, wf))
+        b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                           PEAK_INT8_OPS)
+        out[name] = {"shape": [m, k, n], "ms": ms, "f32_matmul_ms": f32_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        print(f"int8 product {name} (M,K,N)=({m},{k},{n}): {ms:.4f} ms "
+              f"(torch._int_mm, padded), f32 torch.matmul {f32_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); bit-equal to the exact "
+              "product")
+    return probe, out
+
+
+def prometheus_samples(text: str, owner: str):
+    """{name without dl4j_serving_: value} of one engine's serving ledger
+    in a text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or f'owner="{owner}"' not in line:
+            continue
+        name, value = line.rsplit(" ", 1)
+        name = name.split("{")[0]
+        if name.startswith("dl4j_serving_"):
+            out[name[len("dl4j_serving_"):]] = float(value)
+    return out
+
+
+def flat_numbers(prefix: str, obj, out: dict) -> dict:
+    """A snapshot's numeric leaves under the registry's names."""
+    if isinstance(obj, bool):
+        out[prefix] = 1.0 if obj else 0.0
+    elif isinstance(obj, (int, float)):
+        out[prefix] = float(obj)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            flat_numbers(f"{prefix}_{k}" if prefix else str(k), v, out)
+    return out
+
+
+def write_lm_zip(path: str, lm: TransformerLM) -> None:
+    """The JAX flagship zip of ``lm`` without its optimizer section
+    (serving reads none; ``TransformerLM.load`` takes the zip without
+    it)."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        z.writestr("configuration.json",
+                   json.dumps(dataclasses.asdict(lm.cfg)))
+        z.writestr("coefficients.npz", tree_to_npz_bytes(lm.params))
+        z.writestr("metadata.json", json.dumps({
+            "format_version": 1, "model_class": "TransformerLM"}))
+
+
+def phase_serving_planes(lm: TransformerLM, burst_run, seed: int, dev):
+    """The serving planes on the card (``serving/engine.py``,
+    ``registry.py``, ``resilience.py``, ``batcher.py``): (a) calibrated
+    int8 /predict for the char-RNN and the lowprec bench's MLP, (b) the
+    normalized path, (c) isolation of bad rollouts, (d) the breaker, the
+    watchdog and a faulted decode admission, (e) the POST /models
+    lifecycle of the bench transformer, unload, drain under a live
+    stream and the Prometheus scrape."""
+    print("== serving planes: int8 /predict, normalizers, the lifecycle, "
+          "breaker, watchdog, drain ==")
+    reqs, answers = burst_run
+    rng = np.random.default_rng(seed + 7)
+    out = {}
+    probe, head = int8_head_times(seed, dev)
+    out["int_mm_rules"], out["int8_products"] = probe, head
+    chaos_a = ServingChaos(ServingChaosConfig(load_fail_name="char_bad",
+                                              warmup_fail_name="char_wf"))
+    eng = ServingEngine(device=dev, chaos=chaos_a).start()
+    tmp = tempfile.mkdtemp(prefix="planes_")
+    try:
+        # (a) the char-RNN of bench.py:206 and the lowprec bench's MLP
+        conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2,
+                             seed=seed)
+        cnet = MultiLayerNetwork(conf, device=dev).init(
+            input_shape=(1, VOCAB))
+        calib = char_batches(seed + 3, 4, 32)
+        creqs = [np.eye(VOCAB, dtype=np.float32)[rng.integers(
+            0, VOCAB, (int(rng.integers(1, MAX_ROWS + 1)), SEQ))]
+            for _ in range(N_PREDICT)]
+        char_zip, _, out["char_rnn"] = quant_leg(
+            eng, "char", cnet, calib, creqs, (SEQ, VOCAB), tmp, rnn=True)
+        mnet = MultiLayerNetwork(mlp_conf(LOWPREC_MLP, 7), device=dev).init()
+        srng = np.random.default_rng(1)
+        sx = srng.standard_normal((512, LOWPREC_MLP[0])).astype(np.float32)
+        sy = np.eye(LOWPREC_MLP[-1], dtype=np.float32)[
+            srng.integers(0, LOWPREC_MLP[-1], 512)]
+        for i in range(0, 512, 128):  # 4 fits, bench.py:2889-2890
+            mnet.fit(sx[i:i + 128], sy[i:i + 128])
+        mreqs = [rng.standard_normal((int(rng.integers(1, MLP_MAX_ROWS + 1)),
+                                      LOWPREC_MLP[0])).astype(np.float32)
+                 for _ in range(N_PREDICT)]
+        _, _, out["lowprec_mlp"] = quant_leg(
+            eng, "mlp", mnet, sx[:QUANT_BATCH], mreqs, (LOWPREC_MLP[0],),
+            tmp, rnn=False)
+        # (b) the normalized path: the resilience bench's MLP and the
+        # char-RNN, each zip with a fitted NormalizerStandardize
+        t0 = time.perf_counter()
+        rnet = MultiLayerNetwork(mlp_conf(RESIL_MLP, 7), device=dev).init()
+        norm = NormalizerStandardize().fit(
+            (rng.standard_normal((512, RESIL_MLP[0])) * 3 + 1)
+            .astype(np.float32))
+        rzip = os.path.join(tmp, "resil_norm.zip")
+        write_model(rnet, rzip, normalizer=norm)
+        cnorm = NormalizerStandardize().fit(np.concatenate(calib))
+        czip = os.path.join(tmp, "char_norm.zip")
+        write_model(cnet, czip, normalizer=cnorm)
+        for name, path, shape in (("resil_norm", rzip, [RESIL_MLP[0]]),
+                                  ("char_norm", czip, [SEQ, VOCAB])):
+            d = _ok(_call(eng.url, "/models", {
+                "action": "load", "name": name, "path": path,
+                "input_shape": shape}), f"load {name}")
+            check(d["normalizer"] == "NormalizerStandardize",
+                  f"{name} carries no normalizer: {d}")
+            _ok(_call(eng.url, "/models", {"action": "warmup", "name": name,
+                                           "max_batch": eng.max_batch}),
+                f"warmup {name}")
+        rrows = [rng.standard_normal((int(rng.integers(1, MLP_MAX_ROWS + 1)),
+                                      RESIL_MLP[0])).astype(np.float32)
+                 for _ in range(16)]
+        got, _ = predict_burst(eng.url, rrows, "resil_norm")
+        err_r = max(float(np.abs(g - rnet.output(norm.transform_array(x))
+                                 .cpu().numpy()).max())
+                    for g, x in zip(got, rrows))
+        row = rrows[0][0]
+        a = _ok(_call(eng.url, "/predict", {"record": row.tolist(),
+                                            "model": "resil_norm"}),
+                "record")
+        b = _ok(_call(eng.url, "/predict", {
+            "record_base64": base64.b64encode(row.tobytes()).decode(),
+            "model": "resil_norm"}), "record_base64")
+        check(a["output"] == b["output"], "record_base64 != record")
+        zero_predict_counts()
+        got, _ = predict_burst(eng.url, creqs[:16], "char_norm")
+        c_norm = predict_counts()
+        err_c = max(float(np.abs(g - cnet.output(cnorm.transform_array(x))
+                                 .cpu().numpy()).max())
+                    for g, x in zip(got, creqs[:16]))
+        print(f"normalized /predict: resilience MLP max |answer - "
+              f"output(normalizer.transform(rows))| {err_r:.3e}, char-RNN "
+              f"{err_c:.3e} (tol 1e-5); record_base64 == record bit for "
+              f"bit; char-RNN launches {c_norm}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(err_r <= 1e-5 and err_c <= 1e-5,
+              "a normalized answer strays from output(transform(rows))")
+        check(c_norm["lstm_scan"] > 0 and c_norm["lstm_scan_plain"] == 0,
+              f"K1 in the normalized char-RNN burst: {c_norm}")
+        out["normalized"] = {"max_abs_err_mlp": err_r,
+                             "max_abs_err_char_rnn": err_c,
+                             "launches_char_rnn": c_norm}
+        # (c) isolation: a gate failure, a failed load and a failed
+        # warmup land broken; the default (char_int8) keeps answering
+        t0 = time.perf_counter()
+        x0 = creqs[0]
+        _ok(_call(eng.url, "/models", {"action": "serve",
+                                       "name": "char_int8"}),
+            "serve char_int8 again")
+        default = eng.registry.default().key
+        with env_set(DL4J_TPU_QUANT_MAX_DELTA="1e-9"):
+            _error(_call(eng.url, "/models", {
+                "action": "load", "name": "char_gate", "path": char_zip,
+                "input_shape": [SEQ, VOCAB]}), 400, "QuantGateError",
+                "a gate-failed load")
+        _ok(_call(eng.url, "/predict", {"batch": x0.tolist()}),
+            "the default after a gate failure")
+        _error(_call(eng.url, "/models", {
+            "action": "load", "name": "char_bad", "path": char_zip}), 400,
+            "InjectedServingFault", "a chaos-failed load")
+        _ok(_call(eng.url, "/models", {
+            "action": "load", "name": "char_wf", "path": char_zip,
+            "input_shape": [SEQ, VOCAB]}), "load char_wf")
+        _error(_call(eng.url, "/models", {"action": "warmup",
+                                          "name": "char_wf"}), 400,
+               "InjectedServingFault", "a chaos-failed warmup")
+        hdr = _error(_call(eng.url, "/predict", {"batch": x0.tolist(),
+                                                 "model": "char_wf"}),
+                     503, "broken", "/predict to a broken record")
+        check(hdr.get("Retry-After") == "5", f"Retry-After {hdr}")
+        _ok(_call(eng.url, "/predict", {"batch": x0.tolist()}),
+            "the default after the failed rollouts")
+        models = _ok(_call(eng.url, "/models"), "GET /models")
+        states = {f"{m['name']}@v{m['version']}": m["state"]
+                  for m in models["models"]}
+        check(all(states[k] == "broken" for k in
+                  ("char_gate@v1", "char_bad@v1", "char_wf@v1"))
+              and models["default"] == default,
+              f"isolation: {states}, default {models['default']}")
+        lineage = [(e["from"], e["to"]) for e in models["lineage"]]
+        print(f"isolation: gate failure, failed load, failed warmup all "
+              f"broken, the default {default} answered after each; "
+              f"lineage {lineage}; chaos {chaos_a.log}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        out["isolation"] = {"states": states, "lineage": lineage}
+        eng.stop()
+        out["breaker"] = planes_breaker(rzip, seed, dev)
+        out["admission_fault"] = planes_admission_fault(lm, reqs, answers,
+                                                        dev)
+        out["lifecycle"] = planes_lifecycle(lm, reqs, answers, tmp, dev)
+    finally:
+        eng.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def planes_breaker(zip_path: str, seed: int, dev):
+    """(d) On the resilience MLP under ServingChaos: dispatches 2-4 raise
+    and walk the breaker open (503 with Retry-After, fast-fails counted);
+    after the cooldown the half-open probe closes it; dispatch 6 hangs,
+    the watchdog answers it 503 "Wedged" and trips the breaker, and a
+    fresh worker answers after the cooldown (the time to recover)."""
+    t0 = time.perf_counter()
+    chaos = ServingChaos(ServingChaosConfig(
+        infer_raise_at=2, infer_raise_count=3, infer_hang_at=6,
+        infer_hang_s=120.0))
+    eng = ServingEngine(model_path=zip_path, input_shape=(RESIL_MLP[0],),
+                        breaker_fails=3, breaker_cooldown_s=PLANES_COOLDOWN_S,
+                        watchdog_s=PLANES_WATCHDOG_S, max_wait_ms=1,
+                        chaos=chaos, device=dev).start()
+    try:
+        eng.registry.warmup(max_batch=4)
+        row = {"record": np.linspace(-1, 1, RESIL_MLP[0]).tolist()}
+        _ok(_call(eng.url, "/predict", row), "dispatch 1")
+        for k in (2, 3, 4):
+            _error(_call(eng.url, "/predict", row), 400,
+                   "InjectedServingFault", f"dispatch {k}")
+        hdr = _error(_call(eng.url, "/predict", row), 503, "breaker open",
+                     "the open breaker")
+        check(int(hdr["Retry-After"]) >= 1, f"Retry-After {hdr}")
+        s = eng.stats.snapshot()
+        check(s["breaker_opens"] == 1 and s["fast_fails_503"] >= 1,
+              f"breaker counters {s}")
+        time.sleep(PLANES_COOLDOWN_S + 0.1)
+        _ok(_call(eng.url, "/predict", row), "the half-open probe")
+        s = eng.stats.snapshot()
+        check(s["breaker_closes"] == 1 and s["breaker_probes"] == 1
+              and eng.model_health()["default@v1"] == "serving",
+              f"the probe did not close the breaker: {s}")
+        t_hang = time.perf_counter()
+        _error(_call(eng.url, "/predict", row), 503, "Wedged",
+               "the hung dispatch")
+        t_wedged = time.perf_counter()
+        check(eng.model_health()["default@v1"] == "broken",
+              "the watchdog's verdict did not trip the breaker")
+        s_wedged = eng.stats.snapshot()
+        status = None
+        while status != 200 and time.perf_counter() - t_wedged < 30:
+            time.sleep(0.05)
+            status, _, body = _call(eng.url, "/predict", row)
+        t_back = time.perf_counter()
+        check(status == 200, "no fresh worker answered after the hang")
+        s = eng.stats.snapshot()
+        check(s["wedged_batches"] == 1 and s["watchdog_restarts"] == 1,
+              f"watchdog counters {s}")
+        chaos.release_hangs()
+        time.sleep(0.5)
+        late = eng.stats.snapshot()
+        check(late["completed"] == s["completed"]
+              and late["batches"] == s["batches"],
+              "the hung call's late return changed the counters")
+        res = {"diagnosis_s": t_wedged - t_hang,
+               "recover_s": t_back - t_wedged,
+               "watchdog_s": PLANES_WATCHDOG_S,
+               "cooldown_s": PLANES_COOLDOWN_S,
+               "fast_fails_503": s["fast_fails_503"],
+               "wedged_at": s_wedged["wedged_batches"],
+               "chaos": [list(map(str, e)) for e in chaos.log]}
+        print(f"breaker: opened after 3 injected failures (503, Retry-After "
+              f"{hdr['Retry-After']}), probe closed it; watchdog: the hang "
+              f"answered 503 Wedged in {res['diagnosis_s']:.3f} s "
+              f"(watchdog {PLANES_WATCHDOG_S} s), a fresh worker answered "
+              f"{res['recover_s']:.3f} s later (cooldown "
+              f"{PLANES_COOLDOWN_S} s); the late return changed nothing; "
+              f"{time.perf_counter() - t0:.1f} s")
+        return res
+    finally:
+        chaos.release_hangs()
+        eng.stop(drain=False)
+
+
+def planes_admission_fault(lm: TransformerLM, reqs, answers, dev):
+    """(d) The burst's greedy requests on the bench transformer with the
+    third decode admission faulted: only that lane is evicted, every
+    other transcript is byte-equal to the serve burst's, K4 and K6 ran
+    and their plain versions never."""
+    t0 = time.perf_counter()
+    chaos = ServingChaos(ServingChaosConfig(admit_raise_at=3))
+    eng = ServingEngine(lm, kv_blocks=1024, chaos=chaos, device=dev)
+    greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0]
+    try:
+        d = eng.decoder
+        zero_counts()
+        futs = [d.submit(np.asarray(reqs[i]["tokens"][0], np.int32),
+                         reqs[i]["n_new"], temperature=0.0) for i in greedy]
+        got = []
+        for f in futs:
+            try:
+                got.append(np.asarray(f.result(timeout=600)).reshape(-1)
+                           .tolist())
+            except InjectedServingFault as e:
+                got.append(e)
+        counts = counts_now()
+        crashes = eng.stats.snapshot()["slot_crashes"]
+    finally:
+        eng.stop()
+    check(isinstance(got[2], InjectedServingFault) and crashes == 1,
+          f"the third admission did not fault alone ({crashes} crashes)")
+    same = sum(1 for j, i in enumerate(greedy) if j != 2
+               and got[j] == answers[i])
+    print(f"admission fault: admission 3 evicted alone; {same}/"
+          f"{len(greedy) - 1} co-resident greedy transcripts byte-equal to "
+          f"the serve burst's; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(same == len(greedy) - 1,
+          "a co-resident transcript moved under the admission fault")
+    check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0
+          and counts["flash_attention_plain"] == 0
+          and counts["paged_attention_plain"] == 0,
+          f"the faulted burst's kernels {counts}")
+    return {"equal": same, "of": len(greedy) - 1, "launches": counts}
+
+
+def planes_lifecycle(lm: TransformerLM, reqs, answers, tmp: str, dev):
+    """(e) The bench transformer's zip through POST /models: v1 and v2
+    loaded, warmed and served, /generate on v2 and on v1 by version
+    (greedy answers equal to the serve burst's; K4 and K6 launched, no
+    plain version), v1 unloaded (device memory falls by at least its
+    resident bytes), a drain with a stream in flight (the stream ends,
+    new requests 503, /health?ready=1 not ready), and a Prometheus
+    scrape equal to the JSON /metrics."""
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "lm.zip")
+    write_lm_zip(path, lm)
+    zip_s = time.perf_counter() - t0
+    eng = ServingEngine(kv_blocks=1024, device=dev).start()
+    try:
+        t1 = time.perf_counter()
+        for v in (1, 2):
+            _ok(_call(eng.url, "/models", {"action": "load", "name": "lm",
+                                           "path": path}), f"load lm v{v}")
+            _ok(_call(eng.url, "/models", {"action": "warmup", "name": "lm",
+                                           "version": v, "gen_tokens": 2}),
+                f"warmup lm v{v}")
+            d = _ok(_call(eng.url, "/models", {"action": "serve",
+                                               "name": "lm",
+                                               "version": v}),
+                    f"serve lm v{v}")
+        check(d["prior_default"] == "lm@v1", f"serve v2: {d}")
+        lifecycle_s = time.perf_counter() - t1
+        greedy = [i for i, r in enumerate(reqs)
+                  if r["temperature"] == 0.0][:2]
+        zero_counts()
+        for version in (None, 1):
+            for i in greedy:
+                p = dict(reqs[i])
+                if version is not None:
+                    p.update(model="lm", version=version)
+                got = _ok(_call(eng.url, "/generate", p),
+                          "/generate")["tokens"][0]
+                check(got == answers[i],
+                      f"/generate on lm v{version or 2} != the burst")
+        counts = counts_now()
+        check(counts["flash_attention"] > 0 and counts["paged_attention"] > 0
+              and counts["flash_attention_plain"] == 0
+              and counts["paged_attention_plain"] == 0,
+              f"/generate on the loaded records: {counts}")
+        hbm = eng.hbm_report()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        _ok(_call(eng.url, "/models", {"action": "unload", "name": "lm",
+                                       "version": 1}), "unload lm v1")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        hbm2 = eng.hbm_report()
+        freed_params = (hbm["models"]["lm"]["param_bytes"]
+                        - hbm2["models"]["lm"]["param_bytes"])
+        freed_kv = (hbm["models"]["lm"]["kv_bytes"]
+                    - hbm2["models"]["lm"]["kv_bytes"])
+        print(f"lifecycle: lm v1 and v2 loaded, warmed, served in "
+              f"{lifecycle_s:.1f} s (zip written in {zip_s:.1f} s); "
+              f"/generate on v2 and v1 equal to the burst; launches "
+              f"{counts}; unload v1: memory_allocated fell "
+              f"{(before - after) / 2**20:.1f} MiB, its param_bytes "
+              f"{freed_params / 2**20:.1f} MiB, kv_bytes "
+              f"{freed_kv / 2**20:.1f} MiB")
+        check(before - after >= freed_params > 0,
+              "unloading v1 freed less device memory than its param_bytes")
+        # drain with a stream in flight
+        stream_req = dict(reqs[1], stream=True)
+        first, lines, ends = threading.Event(), [], {}
+
+        def stream():
+            req = urllib.request.Request(
+                eng.url + "/generate", data=json.dumps(stream_req).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                for line in r:
+                    lines.append(json.loads(line))
+                    first.set()
+            ends["stream"] = time.perf_counter()
+
+        ts = threading.Thread(target=stream)
+        ts.start()
+        check(first.wait(120), "the stream sent no first token")
+        td = threading.Thread(target=lambda: ends.update(
+            ok=eng.drain(60.0), drain=time.perf_counter()))
+        t_drain = time.perf_counter()
+        at_drain = len(lines)  # tokens the client had when it began
+        td.start()
+        while not eng.draining:
+            time.sleep(0.001)
+        retry = _error(_call(eng.url, "/generate", reqs[0]), 503,
+                       "draining", "/generate while draining")
+        check(int(retry["Retry-After"]) >= 1, f"Retry-After {retry}")
+        st, _, body = _call(eng.url, "/health?ready=1")
+        ready = json.loads(body)
+        check(st == 503 and ready["live"] and not ready["ready"],
+              f"/health?ready=1 while draining: {st} {ready}")
+        check(_call(eng.url, "/health")[0] == 503, "/health while draining")
+        td.join()
+        ts.join()
+        toks = [x["token"] for x in lines[:-1]]
+        check(ends["ok"] and at_drain < len(toks),
+              f"drain {ends['ok']}: the stream was not in flight "
+              f"({at_drain} of {len(toks)} tokens when it began)")
+        check(lines[-1].get("done") and toks == answers[-1],
+              "the stream in flight did not finish with its tokens")
+        drain_s = ends["drain"] - t_drain
+        # the Prometheus scrape against the JSON /metrics, quiescent
+        snap = _ok(_call(eng.url, "/metrics"), "/metrics")["serving"]
+        st, hdr, text = _call(eng.url, "/metrics",
+                              headers={"Accept": "text/plain"})
+        check(st == 200 and hdr["Content-Type"]
+              == obs_registry.PROMETHEUS_CONTENT_TYPE, f"scrape {st} {hdr}")
+        owner = obs_registry.default_registry()._owner_labels[id(eng)]
+        prom = prometheus_samples(text, owner)
+        want = flat_numbers("", snap, {})
+        diff = {k: (v, prom.get(k)) for k, v in want.items()
+                if prom.get(k) != v}
+        check(not diff and len(want) > 20,
+              f"Prometheus != JSON /metrics: {diff}")
+        print(f"drain: a stream in flight ({at_drain} of {len(toks)} "
+              f"tokens out when it began) ended with all of them, new "
+              f"/generate 503 (Retry-After {retry['Retry-After']}), "
+              f"/health?ready=1 live but not ready; drain wall "
+              f"{drain_s:.3f} s; Prometheus scrape == JSON /metrics on "
+              f"{len(want)} serving samples; "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {"lifecycle_s": lifecycle_s, "zip_s": zip_s,
+                "launches": counts,
+                "memory_fell_bytes": before - after,
+                "param_bytes": freed_params, "kv_bytes": freed_kv,
+                "drain_s": drain_s, "stream_tokens_at_drain": at_drain,
+                "prometheus_samples": len(want)}
+    finally:
+        eng.stop(drain=False)
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -3937,6 +4644,7 @@ def main(argv=None) -> int:
     planes = phase_decode_planes(lm, burst, args.seed, dev)
     net, k1_launches, predict = phase_predict(args.seed, dev)
     merge(times, phase_times_predict(net, args.seed, dev))
+    serving_planes = phase_serving_planes(lm, burst, args.seed, dev)
     peak_serve = torch.cuda.max_memory_allocated()
     tnet, train = phase_train(args.seed, dev)
     merge(times, phase_times_train(tnet, args.seed, dev))
@@ -4011,6 +4719,8 @@ def main(argv=None) -> int:
          "replaces": "deeplearning4j_tpu/ops/pallas_attention.py:117",
          "launches": launches["flash_attention"],
          "launches_lm_train": lm_counts["flash_attention"],
+         "launches_models_lifecycle": serving_planes["lifecycle"][
+             "launches"]["flash_attention"],
          "launches_ulysses_train": uly_counts["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
@@ -4041,6 +4751,8 @@ def main(argv=None) -> int:
                            for m, r in planes["spec"].items()},
          "launches_handoff": planes["handoff"]["launches"][
              "paged_attention"],
+         "launches_models_lifecycle": serving_planes["lifecycle"][
+             "launches"]["paged_attention"],
          "design": "context splits of 256 tokens (a grid axis) merged in "
                    "split order by a second kernel; 16-byte row reads, 8 "
                    "rounds of K and V in flight per warp"},
@@ -4063,6 +4775,10 @@ def main(argv=None) -> int:
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:230",
          "launches": k1_launches["lstm_scan"],
+         "launches_int8_predict": serving_planes["char_rnn"]["launches"][
+             "int8"]["lstm_scan"],
+         "launches_normalized_predict": serving_planes["normalized"][
+             "launches_char_rnn"]["lstm_scan"],
          "launches_train": train["launches"]["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
@@ -4167,6 +4883,7 @@ def main(argv=None) -> int:
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,
                   "serving": serve, "decode_planes": planes,
+                  "serving_planes": serving_planes,
                   "predict": predict, "train": train,
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,

@@ -4,8 +4,10 @@ read, same names, kinds and defaults: the ``/generate`` decode planes
 (paged and fixed-slot pools, k-step ticks, speculative decode, the KV
 arena's dtype), the ``/predict`` batcher, shape bucketing, the remat
 policy (``ops/remat.py``) and bf16 loss-scaled training
-(``ops/lowprec.py``).
-The rest of the table waits for the slices that read them.
+(``ops/lowprec.py``), and the serving planes: calibrated int8
+``/predict``, the circuit breaker, the watchdog, drain, SLO classes and
+tenant quotas. The rest of the table waits for the slices that read
+them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
@@ -86,6 +88,32 @@ _register("DL4J_TPU_SERVE_SPEC", "", "str",
 _register("DL4J_TPU_SERVE_SPEC_K", "4", "int",
           "draft tokens proposed per speculative round (the target "
           "verifies k+1 positions)")
+_register("DL4J_TPU_QUANT", "", "enum",
+          "calibrated int8 serving: '' auto (quantize when the model zip "
+          "carries quant.json AND the accuracy gate passes), 0 off, force "
+          "(quantize even when the gate delta exceeds the bar; the delta "
+          "is still measured and reported)")
+_register("DL4J_TPU_QUANT_MAX_DELTA", "0.05", "float",
+          "int8 accuracy gate: max abs output delta vs the f32 record "
+          "measured at registry load on the calibration gate sample; past "
+          "it the record lands broken and the serving default never moves")
+_register("DL4J_TPU_SERVE_CONTINUOUS", "", "bool",
+          "0 = disable continuous-batching decode for /generate")
+_register("DL4J_TPU_SERVE_BREAKER_FAILS", "5", "int",
+          "consecutive inference failures that open a model's circuit "
+          "breaker (0 disables)")
+_register("DL4J_TPU_SERVE_WATCHDOG_S", "30", "float",
+          "hung-inference watchdog wall deadline per dispatch (0 "
+          "disables)")
+_register("DL4J_TPU_SERVE_DRAIN_S", "20", "float",
+          "graceful-drain deadline on stop()/SIGTERM")
+_register("DL4J_TPU_SERVE_SLO_CLASSES", "", "str",
+          "SLO scheduling classes 'name:deadline_s,...' highest "
+          "priority first ('' = one default class at the request "
+          "timeout)")
+_register("DL4J_TPU_SERVE_TENANT_QUOTAS", "", "str",
+          "per-tenant token-bucket quotas 'name:rate_per_s[:burst],...'"
+          " ('' = no tenant metering; unlisted tenants are unmetered)")
 
 
 def knob(name: str) -> Knob:

@@ -4,8 +4,10 @@ helpers (counterpart: ``deeplearning4j_tpu/ops/lowprec.py`` :57-205 —
 ``cast_array``, ``cast_tree``, ``finite_tree``, ``unscale``,
 ``select_trees``, ``advance_scale``, ``scale_snapshot``,
 ``scale_from_snapshot``, ``OPT_SCALE_KEYS``, ``opt_scale_entries``,
-``opt_scale_state`` and ``opt_with_scale``; and ``quantize_weight``
-:238, ``spec_mode`` :384, ``_DRAFT_WEIGHT_KEYS`` and
+``opt_scale_state`` and ``opt_with_scale``; the int8 ``/predict`` path
+:217-376 — ``QuantGateError``, ``quant_mode``, ``quant_max_delta``,
+``quantize_weight``, ``int8_dense`` and ``QuantizedNet``; and
+``spec_mode`` :384, ``_DRAFT_WEIGHT_KEYS`` and
 ``_fake_quant_matrix`` :396-408, ``draft_lm`` :411, ``kv_dtype`` :472,
 ``precision_of`` :484).
 
@@ -17,21 +19,30 @@ update (halving the scale) when any gradient is not finite. The scale
 doubles after ``growth_interval`` clean steps. The state is three 0-d
 device tensors, so the step never reads it back to the host.
 
-Serving: the paged arena's dtype (``DL4J_TPU_SERVE_KV_DTYPE``) and the
-self-drafts of speculative decoding (``DL4J_TPU_SERVE_SPEC``), derived
-from the target's own weights. The int8 ``/predict`` wrapper
-(``QuantizedNet``, ``int8_dense``) waits for a later slice.
+Serving: calibrated int8 inference (Jacob et al., CVPR 2018):
+per-output-channel weight scales from max|W|, per-tensor activation
+scales from a calibration pass (``etl/calibrate.QuantCalibrator``), an
+int8 x int8 product accumulated in int32 and dequantized to f32 for the
+bias and the activation. :class:`QuantizedNet` routes a
+MultiLayerNetwork's dense-family layers through :func:`int8_dense` and
+runs every other layer (the char-RNN's GravesLSTMs: K1 on the card) in
+f32. The JAX package computes the product with XLA's ``dot_general``
+outside any Pallas kernel, so the port uses PyTorch's int8 GEMM,
+``torch._int_mm``, on the card. Also the paged arena's dtype
+(``DL4J_TPU_SERVE_KV_DTYPE``) and the self-drafts of speculative decoding
+(``DL4J_TPU_SERVE_SPEC``), derived from the target's own weights.
 
 Trees are nests of dicts (and lists) of tensors.
 
 Knobs (``ops/env.py``): ``DL4J_TPU_BF16``, ``DL4J_TPU_LOSS_SCALE``,
+``DL4J_TPU_QUANT``, ``DL4J_TPU_QUANT_MAX_DELTA``,
 ``DL4J_TPU_SERVE_KV_DTYPE``, ``DL4J_TPU_SERVE_SPEC``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -211,6 +222,193 @@ def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = torch.clamp(absmax, min=1e-12) / 127.0
     wq = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return wq, scale.squeeze(-2)
+
+
+class QuantGateError(RuntimeError):
+    """The measured int8 accuracy delta exceeded
+    ``DL4J_TPU_QUANT_MAX_DELTA``: raised inside ``ModelRegistry.load``, so
+    the record lands broken and the serving default never moves."""
+
+
+def quant_mode() -> str:
+    """'off' | 'auto' | 'force' from ``DL4J_TPU_QUANT`` ('' = auto:
+    quantize when the zip carries quant.json and the gate passes)."""
+    v = (env.raw("DL4J_TPU_QUANT") or "").strip().lower()
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    if v == "force":
+        return "force"
+    return "auto"
+
+
+def quant_max_delta() -> float:
+    return float(env.get_float("DL4J_TPU_QUANT_MAX_DELTA") or 0.05)
+
+
+# torch._int_mm's shape rules on CUDA (aten _int_mm_out_cuda): more than
+# 16 rows, K and N positive multiples of 8, int8 operands, an int32
+# result. The H100 machine's build (torch 2.11.0+cu128) agrees, as
+# chip_smoke.py's serving planes probe shows: M = 16, K = 10 and N = 10
+# are refused, M = 17 and the padded shapes run. int8_matmul pads M, K
+# and N with zero rows and columns, which add nothing to an integer sum,
+# and slices the answer.
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-int(n) // m) * m
+
+
+def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 @ [K, N] int8 -> [M, N] int32, exactly (int64 sums:
+    K x 127^2 stays far below 2^31 for every layer width)."""
+    int8_matmul_plain.launches += 1
+    return (xq.to(torch.int64) @ wq.to(torch.int64)).to(torch.int32)
+
+
+int8_matmul_plain.launches = 0
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """CPU tensors: :func:`int8_matmul_plain`. CUDA tensors: PyTorch's
+    int8 GEMM (``torch._int_mm``, int32 accumulation) on the operands
+    zero-padded to its shape rules, or an exception: a shape it refuses
+    raises, nothing moves to a float product."""
+    if xq.device.type == "cpu":
+        return int8_matmul_plain(xq, wq)
+    if xq.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {xq.device}")
+    m, k = xq.shape
+    n = wq.shape[1]
+    mp = max(_ceil(m, _INT_MM_ALIGN), _ceil(_INT_MM_MIN_ROWS, _INT_MM_ALIGN))
+    kp, np_ = _ceil(k, _INT_MM_ALIGN), _ceil(n, _INT_MM_ALIGN)
+    if (mp, kp) != (m, k):
+        padded = xq.new_zeros((mp, kp))
+        padded[:m, :k] = xq
+        xq = padded
+    if (kp, np_) != (k, n):
+        padded = wq.new_zeros((kp, np_))
+        padded[:k, :n] = wq
+        wq = padded
+    acc = torch._int_mm(xq.contiguous(), wq.contiguous())
+    int8_matmul.launches += 1
+    return acc[:m, :n]
+
+
+int8_matmul.launches = 0
+
+
+def int8_quantize_rows(x: torch.Tensor, x_scale) -> torch.Tensor:
+    """[..., in] f32 -> [rows, in] int8 codes: x / x_scale in f32, rounded
+    half to even, clipped to +-127 (the JAX package's order)."""
+    x2 = x.reshape((-1, x.shape[-1])).to(torch.float32)
+    return torch.clamp(torch.round(x2 / x_scale), -127, 127).to(torch.int8)
+
+
+def int8_dense(x, wq, w_scale, x_scale, b=None):
+    """Quantized dense: the int8 codes of ``x`` times ``wq`` with int32
+    accumulation, dequantized to f32 by ``x_scale * w_scale``, the bias
+    added in f32. Takes [..., in] (the RnnOutput head's [N, T, in]
+    reshapes through the same product)."""
+    lead = tuple(x.shape[:-1])
+    xq = int8_quantize_rows(x, x_scale)
+    acc = int8_matmul(xq, wq)
+    y = acc.to(torch.float32) * (x_scale * w_scale)
+    if b is not None:
+        y = y + b
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def _supported_dense(layer) -> bool:
+    """Dense-family layers the int8 path covers: Dense and the Output and
+    RnnOutput heads (x @ W + b, then an elementwise activation). Every
+    other layer runs its f32 apply."""
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        DenseLayerImpl,
+    )
+
+    return type(layer).__name__ in (
+        "DenseLayerImpl", "OutputLayerImpl", "RnnOutputLayerImpl",
+    ) and isinstance(layer, DenseLayerImpl)
+
+
+class QuantizedNet:
+    """int8 inference wrapper of a MultiLayerNetwork: the net's inference
+    forward (preprocessors included) with every supported dense-family
+    layer through :func:`int8_dense` at its calibrated activation scale
+    and every other layer through its f32 apply. It offers the serving
+    surface (``output``, ``params``, ``states``, ``layers``,
+    ``device``), so the registry, warm-up and batcher treat it as the
+    net it wraps."""
+
+    precision = "int8"
+
+    def __init__(self, net, spec):
+        self.base = net
+        self.spec = spec
+        self.device = net.device
+        self.layers = net.layers
+        scales = list(spec.act_scales)
+        if len(scales) < len(net.layers):
+            scales += [None] * (len(net.layers) - len(scales))
+        quant: List[Optional[dict]] = []
+        for i, layer in enumerate(net.layers):
+            sc = scales[i]
+            p = net.params[i] if net.params is not None else None
+            if (sc is None or not sc or p is None or "W" not in p
+                    or not _supported_dense(layer)):
+                quant.append(None)
+                continue
+            wq, w_scale = quantize_weight(p["W"])
+            quant.append({
+                "wq": wq, "w_scale": w_scale,
+                "x_scale": torch.tensor(float(sc), dtype=torch.float32,
+                                        device=self.device),
+                "b": p["b"].float() if "b" in p else None,
+            })
+        # every tensor this wrapper reaches, so an unload drops them all
+        self.params = {"base": net.params, "quant": quant}
+        self.states = net.states
+
+    @property
+    def _input_shape(self):
+        return self.base._input_shape
+
+    def quantized_layers(self) -> List[int]:
+        return [i for i, q in enumerate(self.params["quant"])
+                if q is not None]
+
+    def _forward_quant(self, base_params, quant, states, x):
+        net = self.base
+        batch_n = x.shape[0]
+        for i, layer in enumerate(net.layers):
+            x = net._apply_preprocessor(i, x, batch_n)
+            q = quant[i]
+            if q is None:
+                x, _ = layer.apply(base_params[i], states[i], x,
+                                   train=False)
+            else:
+                z = int8_dense(x, q["wq"], q["w_scale"], q["x_scale"],
+                               q["b"])
+                x = layer.act(z)
+        return x
+
+    def output(self, x) -> torch.Tensor:
+        """Quantized batch inference with the net's bucket padding: a
+        ragged batch is zero-padded to its bucket and the answer sliced
+        back (every layer is row-independent)."""
+        from deeplearning4j_tpu_torch.ops import dispatch
+
+        with torch.inference_mode():
+            x = self.base._as_input(x)
+            n = x.shape[0]
+            target = dispatch.inference_bucket(n)
+            if target is not None:
+                x = dispatch.pad_axis0(x, target)
+            return self._forward_quant(self.params["base"],
+                                       self.params["quant"], self.states,
+                                       x)[:n]
 
 
 def spec_mode() -> str:

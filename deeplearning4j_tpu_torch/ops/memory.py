@@ -1,5 +1,6 @@
-"""Paged-KV arena sizing (counterpart: ``deeplearning4j_tpu/ops/memory.py``
-``kv_block_bytes`` :332 and ``kv_arena_blocks`` :355).
+"""Paged-KV arena sizing and a model's resident bytes (counterpart:
+``deeplearning4j_tpu/ops/memory.py`` ``kv_block_bytes`` :332,
+``kv_arena_blocks`` :355 and ``model_resident_bytes`` :430).
 
 Same closed form as the JAX package, priced at the arena's dtype
 (``ops/lowprec.kv_dtype``: the model's compute dtype unless
@@ -32,10 +33,54 @@ def device_memory_bytes(device: torch.device) -> int:
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of every tensor leaf of a nested dict."""
+    """Bytes of every tensor leaf of a nest of dicts, lists and tuples
+    (None and non-tensor leaves count nothing)."""
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
-    return int(tree.numel() * tree.element_size())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    if torch.is_tensor(tree):
+        return int(tree.numel() * tree.element_size())
+    return 0
+
+
+# the attributes of a served model that hold its tensors: the masters,
+# layer states, optimizer state and (TransformerLM) the compute copy
+MODEL_BUFFER_ATTRS = ("params", "states", "updater_state", "_opt",
+                      "_compute")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def model_resident_bytes(model) -> int:
+    """Device bytes a loaded model keeps resident (its
+    ``MODEL_BUFFER_ATTRS`` trees, and a wrapper's ``base`` model's), each
+    storage counted once however many trees share it. Shape arithmetic:
+    no device read."""
+    seen, total = set(), 0
+    stack = [model]
+    while stack:
+        m = stack.pop()
+        for attr in MODEL_BUFFER_ATTRS:
+            for t in _leaves(getattr(m, attr, None)):
+                key = (t.device, t.untyped_storage().data_ptr())
+                if key in seen:
+                    continue
+                seen.add(key)
+                total += int(t.untyped_storage().nbytes())
+        base = getattr(m, "base", None)
+        if base is not None:
+            stack.append(base)
+    return total
 
 
 def kv_block_bytes(cfg, block_tokens: int,

@@ -191,7 +191,8 @@ class ContinuousDecoder:
     def __init__(self, lm, slots: int = 4,
                  stats: Optional[ServingStats] = None,
                  default_timeout_s: float = 300.0,
-                 tick_k: Optional[int] = None, device=None) -> None:
+                 tick_k: Optional[int] = None, chaos=None,
+                 device=None) -> None:
         self.device = resolve_device(device)
         if self.device != lm.device:
             raise ValueError(f"model lives on {lm.device}, decoder asked "
@@ -205,6 +206,9 @@ class ContinuousDecoder:
             raise ValueError("slots must be >= 1")
         self.stats = stats if stats is not None else ServingStats()
         self.default_timeout_s = float(default_timeout_s)
+        # resilience/chaos.ServingChaos: a fault per admission (on_admit,
+        # JAX decode.py:263-266), which evicts only its own slot
+        self._chaos = chaos
         hd = cfg.d_model // cfg.n_heads
         shape = (cfg.n_layers, self.slots, cfg.max_len, cfg.n_heads, hd)
         # inference tensors: only the worker writes them, in place
@@ -450,6 +454,8 @@ class ContinuousDecoder:
             for i, buf in admits:
                 t0 = time.perf_counter()
                 try:
+                    if self._chaos is not None:
+                        self._chaos.on_admit()
                     self._admit_prefill(i, buf)
                 except Exception as e:  # noqa: BLE001 — slot isolation boundary
                     # a crashed admission evicts ONLY its own slot: it

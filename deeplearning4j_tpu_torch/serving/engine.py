@@ -1,89 +1,100 @@
-"""ServingEngine: the HTTP front door over the decode pools and the
-``/predict`` batcher (counterpart: ``deeplearning4j_tpu/serving/engine.py``).
+"""ServingEngine: the HTTP front door over the registry's records, their
+``/predict`` batchers, ``/generate`` decoders and circuit breakers
+(counterpart: ``deeplearning4j_tpu/serving/engine.py``).
 
-It takes ``model=`` (a TransformerLM or a MultiLayerNetwork) or
-``model_path=`` (a checkpoint zip the JAX package wrote, restored by its
-model class) like the JAX engine (``engine.py:224-232``).
+It takes ``model=`` (a TransformerLM, a MultiLayerNetwork or a
+``QuantizedNet``) or ``model_path=`` (a checkpoint zip the JAX package
+or the port wrote, restored by its model class, with its
+``normalizer.json`` and ``quant.json``) as the record "default", or
+nothing: records are then loaded at run time through ``POST /models``.
+Every record gets its own batcher, decoder and breaker, keyed by
+``rec.key``, so ``"model"``/``"version"`` reach any loaded record.
 
 Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
 
   POST /generate  (a TransformerLM; ``engine.py:1067-1102``)
                   {"tokens": [[ids]] | [ids], "n_new": K, "temperature"?,
-                  "seed"?, "slo"?} -> {"tokens": [[ids]]}. With
-                  "stream": true (one prompt) the response is chunked
-                  application/x-ndjson: one {"token": t} line per token as
-                  it is sampled, then {"done": true, "tokens": [...]} (or
-                  {"error": ...} if generation failed mid-stream).
-                  "top_k"/"top_p" sample through ``lm.generate`` (one
-                  generator seeded with "seed" for the batch, calls
-                  serialized), as the JAX engine does (:509-529); with
-                  "stream" they answer 400.
-                  429 when the decode queue is full, 503 when the decode
-                  worker is dead or the engine is draining, 504 past the
-                  request's deadline, 400 for a malformed request.
-                  The decoder, as the JAX engine picks it
-                  (``_decoder_for`` :774-850): the paged pool, the
-                  speculative one under ``DL4J_TPU_SERVE_SPEC`` (its
-                  draft from ``ModelRecord.draft_net``), or the fixed-slot
-                  pool under ``DL4J_TPU_SERVE_KV_BLOCK=0`` (no streaming
-                  there: a stream answers after the whole generation). A
-                  ValueError while building it leaves the engine without
-                  a decoder, and ``/generate`` samples through
-                  ``lm.generate``, as in the JAX engine.
-  POST /prefill   (the paged pools; ``engine.py:1104-1120``) {"tokens":
-                  [ids], "n_new"?} -> {"digests": [hex], "k", "v": base64
-                  of the raw blocks, "shape", "dtype": "float32" |
-                  "bfloat16", "block_tokens"}: a prompt's full blocks
-                  below its write block (``PagedDecoder.export_prefix``).
-  POST /prime     (``engine.py:1122-1135``) that payload -> {"adopted":
-                  n}: the blocks adopted into the arena and the prefix
-                  cache (``import_prefix``); a dtype or shape that does not
-                  match the arena answers 400. bf16 blocks travel as raw
-                  16-bit words, both ways, so the JAX engine's payloads
-                  are the port's.
-  POST /predict   (a MultiLayerNetwork; ``engine.py:995-1020``)
-                  {"record": [...]} -> {"output": [...]},
-                  {"batch": [[...], ...]} -> {"outputs": [[...], ...]},
-                  optional "model", "version", "timeout_s". Rows go
-                  through the dynamic batcher, or one locked ``output``
-                  call per request under ``DL4J_TPU_SERVE_BATCH=0``.
-                  "record_base64" answers 400: not ported yet. 429 when
-                  the batcher queue is full, 504 past the deadline, 503
-                  when draining, 400 for malformed rows.
-  GET  /health    {"ok", "draining", "model", "device"}; 503 when the
-                  engine cannot take traffic.
-  GET  /models    {"models": <registry listing>, "default": key, "kv":
-                  {key: <the decoder's kv_capacity: scheme "paged" or
-                  "fixed-slot", capacity_tokens, ...>}}
-  GET  /metrics   {"serving": <ServingStats incl. batch fill, draft
-                  acceptance and the handoff>, "models": <registry
-                  listing>, "decode": <pool shape, ticks, speculative
-                  rounds> and "dispatch": <ticks, tokens, tokens per
-                  dispatch> (a TransformerLM engine), "kernels": <launch
-                  counts of each kernel of the served paths and of its
-                  plain version>}
+                  "seed"?, "slo"?, "model"?, "version"?} -> {"tokens":
+                  [[ids]]}. With "stream": true (one prompt) the response
+                  is chunked application/x-ndjson: one {"token": t} line
+                  per token as it is sampled, then {"done": true,
+                  "tokens": [...]} (or {"error": ...}). "top_k"/"top_p"
+                  sample through ``lm.generate`` (400 with "stream").
+                  The decoder, as the JAX engine picks it (``_decoder_for``
+                  :774-850): the paged pool, the speculative one under
+                  ``DL4J_TPU_SERVE_SPEC``, or the fixed-slot pool under
+                  ``DL4J_TPU_SERVE_KV_BLOCK=0``; a ValueError while
+                  building it (or ``DL4J_TPU_SERVE_CONTINUOUS=0``) leaves
+                  the record without one, and ``/generate`` samples
+                  through ``lm.generate``.
+  POST /prefill   (the paged pools; :1104-1120) {"tokens": [ids],
+                  "n_new"?} -> {"digests", "k", "v": base64 of the raw
+                  blocks, "shape", "dtype": "float32" | "bfloat16",
+                  "block_tokens"}; bf16 blocks travel as raw 16-bit words.
+  POST /prime     (:1122-1135) that payload -> {"adopted": n}.
+  POST /predict   (a MultiLayerNetwork; :995-1020) {"record": [...]} |
+                  {"record_base64": "<le float32 bytes>"} -> {"output"},
+                  {"batch": [[...], ...]} -> {"outputs"}; optional
+                  "model", "version", "timeout_s". Rows are reshaped to
+                  the record's input_shape, checked and normalized by its
+                  fitted normalizer (``_shape_rows``: a bad payload is a
+                  400 and no breaker vote), then go through the record's
+                  dynamic batcher, or one locked ``output`` call under
+                  ``DL4J_TPU_SERVE_BATCH=0``.
+  POST /models    {"action": "load", "name", "path", "input_shape"?} |
+                  {"action": "warmup" | "serve" | "unload", "name",
+                  "version"?, "max_batch"?, "gen_tokens"?} (:1172-1197).
+  GET  /health    {"ok", "draining", "model", "models", "health": per-
+                  record breaker or lifecycle state, "device"}; 503 while
+                  draining or when every loaded record is broken.
+                  ``/health?ready=1`` adds "live": true and "ready"
+                  (:1341-1355).
+  GET  /models    {"models", "default", "kv": per-record decoder
+                  capacity, "lineage": the serve() swaps}
+  GET  /metrics   {"serving", "models", "health", "draining", "hbm":
+                  resident bytes per record against the device's memory,
+                  "kernels": launch counts of each kernel of the served
+                  paths and of its plain version, and for the default LM
+                  "decode" and "dispatch"}; with ``Accept: text/plain`` or
+                  ``?format=prometheus`` the process registry's text
+                  exposition (``obs/registry.py``).
+
+Statuses (``do_POST`` :962-993): 429 queue full; 503 with an integer
+Retry-After (ceil, at least 1) for an open breaker, a broken record or a
+drain; 503 "Wedged" for a dispatch the watchdog expired; 503 for a dead
+worker; 504 past the deadline; 400 otherwise.
+
+Resilience (``serving/resilience.py``): a breaker per record fed by
+every dispatch's outcome (payload errors and deadlines do not vote), the
+batcher's watchdog (``DL4J_TPU_SERVE_WATCHDOG_S``), whose verdict trips
+the breaker, ``drain`` (seal the registry, close admission, wait up to
+``DL4J_TPU_SERVE_DRAIN_S``) and the SIGTERM handlers. ``chaos``
+(``resilience/chaos.ServingChaos``) injects faults per dispatch, load,
+warmup and admission.
 
 Constructor arguments take precedence; unset ones read the JAX engine's
-env knobs through the port's copy of the table (``ops/env.py``):
-``DL4J_TPU_SERVE_QUEUE_CAP``, ``DL4J_TPU_SERVE_TIMEOUT_S``,
-``DL4J_TPU_SERVE_MAX_BATCH``, ``DL4J_TPU_SERVE_MAX_WAIT_MS``,
-``DL4J_TPU_SERVE_BATCH``, ``DL4J_TPU_SERVE_SLOTS``,
-``DL4J_TPU_SERVE_KV_BLOCK``, ``DL4J_TPU_SERVE_KV_BLOCKS``,
-``DL4J_TPU_SERVE_SPEC`` (read here), and through the decoders
-``DL4J_TPU_SERVE_TICK_K``, ``DL4J_TPU_SERVE_SPEC_K`` and
-``DL4J_TPU_SERVE_KV_DTYPE``.
+knobs through the port's copy of the table (``ops/env.py``):
+``DL4J_TPU_SERVE_QUEUE_CAP``, ``_TIMEOUT_S``, ``_MAX_BATCH``,
+``_MAX_WAIT_MS``, ``_BATCH``, ``_SLOTS``, ``_KV_BLOCK``, ``_KV_BLOCKS``,
+``_SPEC``, ``_CONTINUOUS``, ``_SLO_CLASSES`` (parsed at construction: a
+malformed spec raises ValueError there), ``_BREAKER_FAILS``,
+``_WATCHDOG_S`` and ``_DRAIN_S``, and through the decoders
+``DL4J_TPU_SERVE_TICK_K``, ``_SPEC_K`` and ``_KV_DTYPE``.
 
-Not ported yet: /embed, /search, the POST /models lifecycle, shadow
-traffic, the serving mesh and the disaggregation roles, the circuit
-breaker and the watchdog, record_base64 and Prometheus exposition.
+Not ported yet: /embed, /search, shadow mirroring, the serving mesh and
+``DL4J_TPU_SERVE_ROLE``, the obs journal and trace spans.
 """
 
 from __future__ import annotations
 
 import base64
+import gc
 import json
+import math
 import queue as stdqueue
+import signal
 import threading
+import time
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Union
@@ -93,8 +104,10 @@ import torch
 
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.obs import registry as obs_registry
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops import lowprec
+from deeplearning4j_tpu_torch.ops import memory as opsmem
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -112,15 +125,24 @@ from deeplearning4j_tpu_torch.serving.batcher import (
 )
 from deeplearning4j_tpu_torch.serving.decode import ContinuousDecoder
 from deeplearning4j_tpu_torch.serving.paged import PagedDecoder, dtype_name
-from deeplearning4j_tpu_torch.serving.registry import ModelRegistry, restore
+from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
 from deeplearning4j_tpu_torch.serving.resilience import (
+    BreakerOpenError,
+    CircuitBreaker,
     ClientRequestError,
     DrainingError,
+    ModelWedgedError,
     WorkerDeadError,
+    breaker_fails_default,
+    drain_s_default,
+    watchdog_s_default,
 )
 from deeplearning4j_tpu_torch.serving.slo import SLOClass, parse_slo_classes
 from deeplearning4j_tpu_torch.serving.speculate import SpeculativeDecoder
 from deeplearning4j_tpu_torch.serving.telemetry import ServingStats
+from deeplearning4j_tpu_torch.streaming.conversion import (
+    decode_record_base64,
+)
 
 # the kernels of each served path: (wrapper, plain version)
 GENERATE_KERNELS = {"flash_attention": (flash_attention,
@@ -128,6 +150,8 @@ GENERATE_KERNELS = {"flash_attention": (flash_attention,
                     "paged_attention": (paged_attention,
                                         paged_attention_plain)}
 PREDICT_KERNELS = {"lstm_scan": (lstm_scan, lstm_scan_plain)}
+SERVED_TYPES = (TransformerLM, MultiLayerNetwork, lowprec.QuantizedNet)
+_OFF = ("0", "off", "false", "no")
 
 
 def kernel_counts(kernels) -> Dict[str, Dict[str, int]]:
@@ -163,12 +187,12 @@ def blocks_from_wire(data: str, shape, dtype: str) -> torch.Tensor:
 
 
 class ServingEngine:
-    """``/generate`` over a TransformerLM, or ``/predict`` over the
-    registry's MultiLayerNetworks, on ``device`` (the card unless the
-    caller passes ``device="cpu"``; it must be the model's)."""
+    """``/generate`` and ``/predict`` over the registry's records on
+    ``device`` (the card unless the caller passes ``device="cpu"``; a
+    live model given must live there)."""
 
     def __init__(self, model=None, *, model_path: Optional[str] = None,
-                 port: int = 0, input_shape=None,
+                 port: int = 0, input_shape=None, normalizer=None,
                  max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None,
                  queue_capacity: Optional[int] = None,
@@ -177,17 +201,22 @@ class ServingEngine:
                  kv_block: Optional[int] = None,
                  kv_blocks: Optional[int] = None,
                  slo_classes: Union[str, List[SLOClass], None] = None,
+                 breaker_fails: Optional[int] = None,
+                 breaker_cooldown_s: float = 2.0,
+                 watchdog_s: Optional[float] = None,
+                 drain_s: Optional[float] = None,
+                 chaos=None, handle_signals: bool = False,
                  device=None) -> None:
         self.device = resolve_device(device)
-        if model is None and model_path is not None:
-            model = restore(model_path, device=self.device)
-        if not isinstance(model, (TransformerLM, MultiLayerNetwork)):
-            raise TypeError("the port's engine serves a TransformerLM or a "
-                            f"MultiLayerNetwork; got {type(model).__name__}")
-        if model.device != self.device:
-            raise ValueError(f"the model lives on {model.device}, the "
-                             f"engine on {self.device}")
-        self.model = model
+        if model is not None:
+            if not isinstance(model, SERVED_TYPES):
+                raise TypeError(
+                    "the port's engine serves a TransformerLM, a "
+                    "MultiLayerNetwork or a QuantizedNet; got "
+                    f"{type(model).__name__}")
+            if model.device != self.device:
+                raise ValueError(f"the model lives on {model.device}, the "
+                                 f"engine on {self.device}")
         self.queue_capacity = int(
             queue_capacity if queue_capacity is not None
             else envknob.get_int("DL4J_TPU_SERVE_QUEUE_CAP"))
@@ -199,119 +228,337 @@ class ServingEngine:
         self.max_wait_ms = float(
             max_wait_ms if max_wait_ms is not None
             else envknob.get_float("DL4J_TPU_SERVE_MAX_WAIT_MS"))
+        self.slots = int(slots if slots is not None
+                         else envknob.get_int("DL4J_TPU_SERVE_SLOTS"))
+        self.kv_block = int(kv_block if kv_block is not None
+                            else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCK"))
+        self.kv_blocks = int(
+            kv_blocks if kv_blocks is not None
+            else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
+        # a typo'd operator spec fails HERE, for every model kind, not
+        # later as FIFO (JAX engine.py:169-172)
+        if slo_classes is None:
+            slo_classes = envknob.raw("DL4J_TPU_SERVE_SLO_CLASSES")
+        self.slo_classes = (parse_slo_classes(slo_classes)
+                            if isinstance(slo_classes, str)
+                            else list(slo_classes))
         self.batching_enabled = (
-            envknob.raw("DL4J_TPU_SERVE_BATCH").strip().lower()
-            not in ("0", "off", "false", "no"))
+            envknob.raw("DL4J_TPU_SERVE_BATCH").strip().lower() not in _OFF)
+        self.continuous_enabled = (
+            envknob.raw("DL4J_TPU_SERVE_CONTINUOUS").strip().lower()
+            not in _OFF)
         self.stats = ServingStats()
-        self.registry = ModelRegistry(device=self.device)
+        # the serving ledger joins the process's metrics registry: one
+        # Prometheus scrape covers it, with a latency histogram
+        metrics = obs_registry.default_registry()
+        metrics.register_ledger(self, "serving_stats", self.stats)
+        self.stats.on_latency = lambda s: metrics.histogram(
+            "dl4j_serving_latency_seconds", s)
+        self.breaker_fails = int(breaker_fails if breaker_fails is not None
+                                 else breaker_fails_default())
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        self.watchdog_s = float(watchdog_s if watchdog_s is not None
+                                else watchdog_s_default())
+        self.drain_s = float(drain_s if drain_s is not None
+                             else drain_s_default())
+        self.chaos = chaos
+        self._breakers: Dict[str, CircuitBreaker] = {}
         self._batchers: Dict[str, DynamicBatcher] = {}
-        self._lock = threading.Lock()  # direct /predict, filtered /generate
-        self._engine_lock = threading.Lock()  # batcher creation
-        self.decoder = None
-        if isinstance(model, TransformerLM):
-            self.slots = int(slots if slots is not None
-                             else envknob.get_int("DL4J_TPU_SERVE_SLOTS"))
-            self.kv_block = int(
-                kv_block if kv_block is not None
-                else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCK"))
-            self.kv_blocks = int(
-                kv_blocks if kv_blocks is not None
-                else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
-            if isinstance(slo_classes, str):
-                slo_classes = parse_slo_classes(slo_classes)
-            rec = self.registry.load("default", model=model)
-            self.registry.serve(rec.name, rec.version)
-            self.decoder = self._decoder_for(rec, slo_classes)
-        else:
+        self._decoders: Dict[str, Any] = {}
+        self._no_decoder: set = set()  # records probed and found ineligible
+        self._draining = False   # the admission gate
+        self._drained = False    # a full drain() ran
+        self._old_handlers: Dict[int, Any] = {}
+        self._lock = threading.Lock()  # direct /predict, lm.generate
+        self._engine_lock = threading.Lock()  # batcher/decoder creation
+        self.registry = ModelRegistry(device=self.device, chaos=chaos,
+                                      stats=self.stats)
+        if model is not None or model_path is not None:
             rec = self.registry.load("default", model=model,
-                                     input_shape=input_shape)
+                                     model_path=model_path,
+                                     input_shape=input_shape,
+                                     normalizer=normalizer)
             self.registry.serve(rec.name, rec.version)
-        self._draining = False
+            if isinstance(rec.model, TransformerLM):
+                self._decoder_for(rec)  # the pool is there before traffic
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           self._make_handler())
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+        if handle_signals:
+            self.install_signal_handlers()
 
-    def _decoder_for(self, rec, slo_classes):
-        """The record's decode pool, chosen as the JAX engine chooses it:
-        paged (speculative under ``DL4J_TPU_SERVE_SPEC``) for kv_block >
-        0, fixed-slot for kv_block = 0; None when building it raises a
-        ValueError (``/generate`` then samples through ``lm.generate``)."""
-        timeout = max(self.request_timeout_s, 300.0)
-        try:
-            if self.kv_block <= 0:
-                return ContinuousDecoder(
-                    rec.model, slots=self.slots, stats=self.stats,
-                    default_timeout_s=timeout, device=self.device)
-            paged_kw = dict(
-                block_tokens=self.kv_block, n_blocks=self.kv_blocks or None,
-                min_lanes=self.slots, stats=self.stats,
-                default_timeout_s=timeout, slo_classes=slo_classes or None,
-                queue_cap=self.queue_capacity, device=self.device)
-            spec = lowprec.spec_mode()
-            if spec:
-                return SpeculativeDecoder(rec.model,
-                                          draft=rec.draft_net(spec),
-                                          **paged_kw)
-            return PagedDecoder(rec.model, **paged_kw)
-        except ValueError:
+    # -- the default record -----------------------------------------------
+    @property
+    def model(self):
+        rec = self.registry.default()
+        return rec.model if rec is not None else None
+
+    @property
+    def decoder(self):
+        """The default record's decode pool (None when it has none)."""
+        rec = self.registry.default()
+        if rec is None or not isinstance(rec.model, TransformerLM):
             return None
+        return self._decoder_for(rec)
 
-    # -- in-process surface -----------------------------------------------
-    def _admit(self) -> None:
+    # -- admission ----------------------------------------------------------
+    def _admit(self, rec) -> CircuitBreaker:
+        """The per-request gate, before the request costs a queue slot: a
+        draining engine and a broken or open record fast-fail (503). Returns
+        the record's breaker (a half-open probe rides through)."""
         if self._draining:
+            self.stats.record_fast_fail()
             raise DrainingError("engine is draining; admission closed")
-        if not isinstance(self.model, TransformerLM):
-            raise ClientRequestError(
-                "POST /generate needs a TransformerLM; this engine serves "
-                f"a {type(self.model).__name__}")
+        if rec.state == "broken":
+            self.stats.record_fast_fail()
+            raise BreakerOpenError(
+                f"model {rec.key} is broken ({rec.error}); reload or "
+                "re-warm it", retry_after_s=5.0)
+        breaker = self._breaker_for(rec)
+        breaker.check()
+        return breaker
 
+    def predict(self, x, timeout_s: Optional[float] = None) -> np.ndarray:
+        """Rows through the default model."""
+        return self.predict_for(None, None, x, timeout_s=timeout_s)
+
+    def predict_for(self, name, version, x,
+                    timeout_s: Optional[float] = None) -> np.ndarray:
+        """[k, ...] rows -> [k, ...] outputs of the (name, version) record
+        (the default record when both are None)."""
+        rec = self.registry.get(name, version)
+        # admission before the unloaded check: a broken record answers
+        # 503 with Retry-After, not a 400
+        breaker = self._admit(rec)
+        if rec.model is None:
+            raise KeyError(f"{rec.key} is unloaded")
+        if isinstance(rec.model, TransformerLM):
+            raise ClientRequestError(
+                f"POST /predict needs a MultiLayerNetwork; {rec.key} is a "
+                "TransformerLM (POST /generate)")
+        x = self._shape_rows(rec, np.asarray(x, np.float32))
+        if not self.batching_enabled:
+            try:
+                out = self._direct_output(rec, x)
+            except Exception as e:  # noqa: BLE001 — serving boundary
+                breaker.record_failure(f"{type(e).__name__}: {e}")
+                raise
+            breaker.record_success()
+            return out
+        return self._batcher_for(rec).predict(x, timeout_s=timeout_s)
+
+    @staticmethod
+    def _shape_rows(rec, x: np.ndarray) -> np.ndarray:
+        """Reshape to the record's input_shape, hold the rows to the
+        model's input rank and feature width (a sequence row may have any
+        length) and apply the fitted normalizer (per final-axis column,
+        after the reshape; the pure form, as a coalesced batch shares
+        buffers). A failure is the client's payload (400, no breaker
+        vote), refused before it can share a batch."""
+        try:
+            if rec.input_shape is not None:
+                x = x.reshape((x.shape[0],) + rec.input_shape)
+        except ValueError as e:
+            raise ClientRequestError(f"bad rows for {rec.key}: {e}") from e
+        want = getattr(rec.model, "_input_shape", None)
+        if want is not None and (x.ndim != len(want) + 1 or x.shape[0] < 1
+                                 or x.shape[-1] != want[-1]):
+            raise ClientRequestError(
+                f"bad rows for {rec.key}: got {list(x.shape)}, each row "
+                f"must have rank {len(want)} and {want[-1]} features")
+        if rec.normalizer is None:
+            return x
+        try:
+            return rec.normalizer.transform_array(x)
+        except Exception as e:  # noqa: BLE001 — input boundary
+            raise ClientRequestError(
+                f"bad request rows for {rec.key}: "
+                f"{type(e).__name__}: {e}") from e
+
+    def _direct_output(self, rec, x: np.ndarray) -> np.ndarray:
+        """The naive per-request path the batcher replaces: one locked
+        ``output`` call per request."""
+        with self._lock:
+            return rec.model.output(x).float().cpu().numpy()
+
+    def _breaker_for(self, rec) -> CircuitBreaker:
+        with self._engine_lock:
+            breaker = self._breakers.get(rec.key)
+            if breaker is None:
+                breaker = self._breakers[rec.key] = CircuitBreaker(
+                    fails=self.breaker_fails,
+                    cooldown_s=self.breaker_cooldown_s,
+                    key=rec.key, stats=self.stats)
+            return breaker
+
+    def _batcher_for(self, rec) -> DynamicBatcher:
+        with self._engine_lock:
+            batcher = self._batchers.get(rec.key)
+            if batcher is None:
+                model, chaos = rec.model, self.chaos
+
+                def infer(batch, _model=model):
+                    if chaos is not None:
+                        # per dispatch; an injected hang blocks here
+                        chaos.on_infer()
+                    return _model.output(batch).float().cpu().numpy()
+
+                batcher = DynamicBatcher(
+                    infer, max_batch=self.max_batch,
+                    max_wait_ms=self.max_wait_ms,
+                    queue_capacity=self.queue_capacity,
+                    default_timeout_s=self.request_timeout_s,
+                    stats=self.stats, watchdog_s=self.watchdog_s,
+                    on_outcome=self._outcome_hook(rec),
+                    on_wedged=self._wedged_hook(rec))
+                self._batchers[rec.key] = batcher
+            return batcher
+
+    def _outcome_hook(self, rec):
+        """A record's breaker, fed per dispatch by its batcher."""
+        def on_outcome(ok: bool, exc, _rec=rec):
+            breaker = self._breaker_for(_rec)
+            if ok:
+                breaker.record_success()
+            elif isinstance(exc, ClientRequestError):
+                pass  # the client's payload: no vote either way
+            elif isinstance(exc, WorkerDeadError):
+                breaker.trip(f"{exc}")  # categorical: nothing dispatches
+            else:
+                breaker.record_failure(f"{type(exc).__name__}: {exc}")
+        return on_outcome
+
+    def _wedged_hook(self, rec):
+        """The watchdog's verdict trips the record's breaker."""
+        def on_wedged(info, _rec=rec):
+            self._breaker_for(_rec).trip(f"watchdog: {info['error']}")
+        return on_wedged
+
+    def _decoder_for(self, rec):
+        """The record's decode pool, built on first use as the JAX engine
+        builds it: paged (speculative under ``DL4J_TPU_SERVE_SPEC``) for
+        kv_block > 0, fixed-slot for kv_block = 0; None for a record that
+        is not a TransformerLM, under ``DL4J_TPU_SERVE_CONTINUOUS=0``, or
+        when building it raises a ValueError."""
+        if not self.continuous_enabled:
+            return None
+        with self._engine_lock:
+            if rec.key in self._no_decoder:
+                return None
+            decoder = self._decoders.get(rec.key)
+            if decoder is not None:
+                return decoder
+            if not isinstance(rec.model, TransformerLM):
+                self._no_decoder.add(rec.key)
+                return None
+            timeout = max(self.request_timeout_s, 300.0)
+            try:
+                if self.kv_block <= 0:
+                    decoder = ContinuousDecoder(
+                        rec.model, slots=self.slots, stats=self.stats,
+                        default_timeout_s=timeout, chaos=self.chaos,
+                        device=self.device)
+                else:
+                    paged_kw = dict(
+                        block_tokens=self.kv_block,
+                        n_blocks=self.kv_blocks or None,
+                        min_lanes=self.slots, stats=self.stats,
+                        default_timeout_s=timeout,
+                        slo_classes=self.slo_classes or None,
+                        queue_cap=self.queue_capacity, chaos=self.chaos,
+                        device=self.device)
+                    spec = lowprec.spec_mode()
+                    if spec:
+                        decoder = SpeculativeDecoder(
+                            rec.model, draft=rec.draft_net(spec),
+                            **paged_kw)
+                    else:
+                        decoder = PagedDecoder(rec.model, **paged_kw)
+            except ValueError:
+                self._no_decoder.add(rec.key)
+                return None
+            self._decoders[rec.key] = decoder
+            return decoder
+
+    # -- /generate ---------------------------------------------------------
     def generate(self, tokens, n_new: int, *, temperature: float = 1.0,
                  seed: int = 0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
-                 slo: Optional[str] = None) -> np.ndarray:
-        """[N, T] (or [T]) prompts -> [N, n_new] sampled continuations.
-        Plain sampling goes through the decoder (row i draws from seed +
-        i; ``slo`` where the pool has classes); ``top_k``/``top_p``, or
-        an engine without a decoder, through ``lm.generate``, one call at
-        a time."""
-        self._admit()
+                 slo: Optional[str] = None, name=None,
+                 version=None) -> np.ndarray:
+        """[N, T] (or [T]) prompts -> [N, n_new] sampled continuations of
+        the (name, version) record. Plain sampling goes through its
+        decoder (row i draws from seed + i; ``slo`` where the pool has
+        classes); ``top_k``/``top_p``, or a record without a decoder,
+        through ``lm.generate``, one call at a time."""
+        rec = self.registry.get(name, version)
+        breaker = self._admit(rec)
+        model = rec.model
+        if model is None:
+            raise KeyError(f"{rec.key} is unloaded")
+        if not isinstance(model, TransformerLM):
+            # addressing a non-LM record is the client's mistake: no vote
+            raise ClientRequestError(
+                f"POST /generate needs a TransformerLM; {rec.key} is a "
+                f"{type(model).__name__}")
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
-        if top_k is not None or top_p is not None or self.decoder is None:
-            with self._lock:
-                out = self.model.generate(
-                    tokens, int(n_new), temperature=float(temperature),
-                    seed=int(seed), top_k=top_k, top_p=top_p)
-                out = out.cpu().numpy()
-            self.stats.record_tokens(int(out.size))
-            return out
-        kwargs = {}
-        if slo is not None and self.decoder.supports_streaming:
-            kwargs["slo"] = slo
-        return np.asarray(self.decoder.generate(
-            tokens, int(n_new), temperature=float(temperature),
-            seed=int(seed), **kwargs))
+        try:
+            out = self._generate_inner(rec, model, tokens, n_new,
+                                       temperature, seed, top_k, top_p, slo)
+        except (RequestTimeoutError, FutureTimeoutError,
+                ClientRequestError):
+            raise  # deadlines and payloads are no evidence of health
+        except Exception as e:  # noqa: BLE001 — serving boundary
+            breaker.record_failure(f"{type(e).__name__}: {e}")
+            raise
+        breaker.record_success()
+        return out
+
+    def _generate_inner(self, rec, model, tokens, n_new, temperature,
+                        seed, top_k, top_p, slo) -> np.ndarray:
+        decoder = (self._decoder_for(rec)
+                   if top_k is None and top_p is None else None)
+        if decoder is not None:
+            kwargs = {}
+            if slo is not None and decoder.supports_streaming:
+                kwargs["slo"] = slo
+            return np.asarray(decoder.generate(
+                tokens, int(n_new), temperature=float(temperature),
+                seed=int(seed), **kwargs))
+        with self._lock:
+            out = model.generate(
+                tokens, int(n_new), temperature=float(temperature),
+                seed=int(seed), top_k=top_k, top_p=top_p).cpu().numpy()
+        self.stats.record_tokens(int(out.size))
+        return out
 
     def generate_stream(self, tokens, n_new: int, *,
                         temperature: float = 1.0, seed: int = 0,
-                        slo: Optional[str] = None):
+                        slo: Optional[str] = None, name=None, version=None):
         """Streaming ``/generate`` for ONE prompt: an iterator of token ids,
         each yielded as the decode tick produces it (the fixed-slot pool,
         or no decoder: the same ids after the whole generation).
         Admission errors raise HERE, before a caller commits response
         headers; mid-generation failures raise from the iterator."""
-        self._admit()
+        rec = self.registry.get(name, version)
         prompt = np.asarray(tokens, np.int32).reshape(-1)
-        if self.decoder is None or not self.decoder.supports_streaming:
+        decoder = (self._decoder_for(rec)
+                   if isinstance(rec.model, TransformerLM) else None)
+        if decoder is None or not decoder.supports_streaming:
+            # generate() admits itself: admitting here too would spend a
+            # half-open probe twice
             out = self.generate(prompt, n_new, temperature=temperature,
-                                seed=seed, slo=slo)
+                                seed=seed, slo=slo, name=name,
+                                version=version)
             return iter(np.asarray(out).reshape(-1).tolist())
+        breaker = self._admit(rec)
         q: stdqueue.Queue = stdqueue.Queue()
-        fut = self.decoder.submit(prompt, int(n_new),
-                                  temperature=float(temperature),
-                                  seed=int(seed), slo=slo, on_token=q.put)
+        fut = decoder.submit(prompt, int(n_new),
+                             temperature=float(temperature),
+                             seed=int(seed), slo=slo, on_token=q.put)
 
         def stream():
             while True:
@@ -324,7 +571,15 @@ class ServingEngine:
                     continue
                 # on_token callbacks run BEFORE the future resolves, so a
                 # done future means every token is already queued
-                fut.result(timeout=0)
+                try:
+                    fut.result(timeout=0)
+                except (RequestTimeoutError, FutureTimeoutError,
+                        ClientRequestError):
+                    raise
+                except Exception as e:  # noqa: BLE001 — serving boundary
+                    breaker.record_failure(f"{type(e).__name__}: {e}")
+                    raise
+                breaker.record_success()
                 while True:
                     try:
                         yield int(q.get_nowait())
@@ -333,25 +588,30 @@ class ServingEngine:
 
         return stream()
 
-    def _paged_decoder(self, name, version, verb: str):
-        """The paged pool of record (name, version), for the handoff."""
-        if self._draining:
-            raise DrainingError("engine is draining; admission closed")
-        rec = self.registry.get(name, version)
-        if not isinstance(rec.model, TransformerLM) or \
-                not isinstance(self.decoder, PagedDecoder):
+    def _paged_decoder(self, rec, verb: str):
+        decoder = self._decoder_for(rec)
+        if not isinstance(decoder, PagedDecoder):
             raise ClientRequestError(
                 f"model {rec.key} has no paged decoder to {verb}")
-        return self.decoder
+        return decoder
 
     def prefill_for(self, name, version, tokens, n_new: int):
         """The prefill half of the handoff: (digests, k_blocks, v_blocks,
         block_tokens) of the prompt's full blocks below its write block
         (``PagedDecoder.export_prefix``), for a decode replica's
         :meth:`prime_for`."""
-        decoder = self._paged_decoder(name, version, "prefill")
+        rec = self.registry.get(name, version)
+        breaker = self._admit(rec)
+        decoder = self._paged_decoder(rec, "prefill")
         prompt = np.asarray(tokens, np.int32).reshape(-1)
-        digests, kb, vb = decoder.export_prefix(prompt, int(n_new))
+        try:
+            digests, kb, vb = decoder.export_prefix(prompt, int(n_new))
+        except ClientRequestError:
+            raise
+        except Exception as e:  # noqa: BLE001 — serving boundary
+            breaker.record_failure(f"{type(e).__name__}: {e}")
+            raise
+        breaker.record_success()
         return digests, kb, vb, int(decoder.block_tokens)
 
     def prime_for(self, name, version, digests, k_blocks,
@@ -359,81 +619,83 @@ class ServingEngine:
         """The decode half: adopt exported blocks into the arena and the
         prefix cache; returns the blocks adopted (a partial adoption is
         fine: the next admission recomputes the rest)."""
-        decoder = self._paged_decoder(name, version, "prime")
-        return int(decoder.import_prefix(digests, k_blocks, v_blocks))
+        rec = self.registry.get(name, version)
+        breaker = self._admit(rec)
+        decoder = self._paged_decoder(rec, "prime")
+        try:
+            adopted = decoder.import_prefix(digests, k_blocks, v_blocks)
+        except ClientRequestError:
+            raise
+        except Exception as e:  # noqa: BLE001 — serving boundary
+            breaker.record_failure(f"{type(e).__name__}: {e}")
+            raise
+        breaker.record_success()
+        return int(adopted)
+
+    # -- reports -----------------------------------------------------------
+    def _live_records(self):
+        out = []
+        for d in self.registry.describe():
+            if d["state"] in ("broken", "unloaded"):
+                continue
+            rec = self.registry.get(d["name"], d["version"])
+            if rec.model is not None:
+                out.append(rec)
+        return out
 
     def kv_report(self) -> Dict[str, Any]:
-        """/models KV capacity per record with a decode pool."""
-        rec = self.registry.default()
-        if rec is None or self.decoder is None:
-            return {}
-        return {rec.key: self.decoder.kv_capacity()}
+        """/models KV capacity per record with a decode pool (eligible
+        decoders are built on first ask: capacity is a property of the
+        configuration)."""
+        out: Dict[str, Any] = {}
+        for rec in self._live_records():
+            decoder = self._decoder_for(rec)
+            if decoder is not None:
+                out[rec.key] = decoder.kv_capacity()
+        return out
 
-    def predict(self, x, timeout_s: Optional[float] = None) -> np.ndarray:
-        """Rows through the default model (dynamic batcher when enabled,
-        the locked direct path otherwise)."""
-        return self.predict_for(None, None, x, timeout_s=timeout_s)
-
-    def predict_for(self, name, version, x,
-                    timeout_s: Optional[float] = None) -> np.ndarray:
-        """[k, ...] rows -> [k, ...] outputs of the (name, version) record
-        (the default record when both are None)."""
-        if self._draining:
-            raise DrainingError("engine is draining; admission closed")
-        rec = self.registry.get(name, version)
-        if isinstance(rec.model, TransformerLM):
-            raise ClientRequestError(
-                f"POST /predict needs a MultiLayerNetwork; {rec.key} is a "
-                "TransformerLM (POST /generate)")
-        x = self._check_rows(rec, np.asarray(x, np.float32))
-        if not self.batching_enabled:
-            return self._direct_output(rec, x)
-        return self._batcher_for(rec).predict(x, timeout_s=timeout_s)
-
-    @staticmethod
-    def _check_rows(rec, x: np.ndarray) -> np.ndarray:
-        """Reshape to the record's input_shape, when it has one, and hold
-        the rows to the model's input rank and feature width (a sequence
-        row may have any length): a malformed request is the client's
-        error (400), refused before it can share a batch."""
-        try:
-            if rec.input_shape is not None:
-                x = x.reshape((x.shape[0],) + rec.input_shape)
-        except ValueError as e:
-            raise ClientRequestError(f"bad rows for {rec.key}: {e}") from e
-        want = rec.model._input_shape
-        if want is not None and (x.ndim != len(want) + 1 or x.shape[0] < 1
-                                 or x.shape[-1] != want[-1]):
-            raise ClientRequestError(
-                f"bad rows for {rec.key}: got {list(x.shape)}, each row "
-                f"must have rank {len(want)} and {want[-1]} features")
-        return x
-
-    def _direct_output(self, rec, x: np.ndarray) -> np.ndarray:
-        """The naive per-request path the batcher replaces: one locked
-        ``output`` call per request."""
-        with self._lock:
-            return rec.model.output(x).float().cpu().numpy()
-
-    def _batcher_for(self, rec) -> DynamicBatcher:
+    def hbm_report(self) -> Dict[str, Any]:
+        """Resident device bytes: every live record's tensors
+        (``ops/memory.model_resident_bytes``) and every live decoder's KV
+        arena (paged: n_blocks + the trash block; fixed slots: one max_len
+        stripe a slot), summed per record name against the device's
+        memory. Shape arithmetic, no device read. Retrieval indexes are
+        not ported: ``indexes`` stays empty."""
+        budget = opsmem.device_memory_bytes(self.device)
+        models: Dict[str, Any] = {}
+        used = 0
         with self._engine_lock:
-            batcher = self._batchers.get(rec.key)
-            if batcher is None:
-                model = rec.model
-                batcher = DynamicBatcher(
-                    lambda batch: model.output(batch).float().cpu().numpy(),
-                    max_batch=self.max_batch, max_wait_ms=self.max_wait_ms,
-                    queue_capacity=self.queue_capacity,
-                    default_timeout_s=self.request_timeout_s,
-                    stats=self.stats)
-                self._batchers[rec.key] = batcher
-            return batcher
+            decoders = dict(self._decoders)
+        for rec in self._live_records():
+            entry = {"param_bytes": opsmem.model_resident_bytes(rec.model),
+                     "kv_bytes": 0}
+            decoder = decoders.get(rec.key)
+            if isinstance(decoder, PagedDecoder):
+                entry["kv_bytes"] = (decoder.n_blocks + 1) * \
+                    opsmem.kv_block_bytes(decoder.cfg, decoder.block_tokens,
+                                          decoder.kv_dtype)
+            elif isinstance(decoder, ContinuousDecoder):
+                entry["kv_bytes"] = decoder.slots * opsmem.kv_block_bytes(
+                    decoder.cfg, decoder.cfg.max_len,
+                    decoder.cfg.compute_dtype)
+            used += entry["param_bytes"] + entry["kv_bytes"]
+            agg = models.setdefault(rec.name,
+                                    {"param_bytes": 0, "kv_bytes": 0})
+            agg["param_bytes"] += entry["param_bytes"]
+            agg["kv_bytes"] += entry["kv_bytes"]
+        return {"budget_bytes": budget, "used_bytes": used,
+                "utilization": used / budget if budget else None,
+                "models": models, "indexes": {}}
 
     def metrics(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {"serving": self.stats.snapshot(),
-                               "models": self.registry.describe()}
-        kernels: Dict[str, Any] = {}
-        d = self.decoder
+                               "models": self.registry.describe(),
+                               "health": self.model_health(),
+                               "draining": self._draining,
+                               "hbm": self.hbm_report()}
+        rec = self.registry.default()
+        with self._engine_lock:
+            d = self._decoders.get(rec.key) if rec is not None else None
         if d is not None:
             paged = isinstance(d, PagedDecoder)
             dec = {"scheme": "paged" if paged else "fixed-slot",
@@ -455,23 +717,79 @@ class ServingEngine:
                            draft=d._draft.draft_mode)
             out["decode"] = dec
             out["dispatch"] = d.dispatch_stats.snapshot()
-        if isinstance(self.model, TransformerLM):
-            kernels.update(GENERATE_KERNELS)
-        else:
-            kernels.update(PREDICT_KERNELS)
+        kernels: Dict[str, Any] = {}
+        for r in self._live_records():
+            kernels.update(GENERATE_KERNELS if isinstance(
+                r.model, TransformerLM) else PREDICT_KERNELS)
         out["kernels"] = kernel_counts(kernels)
         return out
 
+    def model_health(self) -> Dict[str, str]:
+        """Per record: the breaker's state once it has taken traffic, the
+        lifecycle state otherwise (broken and unloaded read as such)."""
+        out: Dict[str, str] = {}
+        with self._engine_lock:
+            breakers = dict(self._breakers)
+        for d in self.registry.describe():
+            key = f"{d['name']}@v{d['version']}"
+            if d["state"] in ("broken", "unloaded"):
+                out[key] = d["state"]
+                continue
+            breaker = breakers.get(key)
+            out[key] = breaker.state if breaker is not None else d["state"]
+        return out
+
     def health(self):
-        """(http_code, body): 503 when draining or a worker (the decode
-        loop, a batcher) died."""
-        dead = ((self.decoder is not None and self.decoder._dead is not None)
-                or any(b._dead is not None for b in self._batchers.values()))
-        ok = not self._draining and not dead
-        body = {"ok": ok, "draining": self._draining,
-                "model": type(self.model).__name__,
-                "device": str(self.device)}
+        """(http_code, body) for /health: 503 while draining or when every
+        loaded record is broken; 200 otherwise (an engine with no records
+        is healthy and empty)."""
+        health = self.model_health()
+        live = [k for k, v in health.items()
+                if v not in ("broken", "unloaded")]
+        loaded = [k for k, v in health.items() if v != "unloaded"]
+        ok = not self._draining and (bool(live) or not loaded)
+        rec = self.registry.default()
+        body = {
+            "ok": ok,
+            "draining": self._draining,
+            "model": (type(rec.model).__name__
+                      if rec is not None and rec.model is not None
+                      else None),
+            "models": [r["name"] + "@v" + str(r["version"])
+                       for r in self.registry.describe()],
+            "health": health,
+            "device": str(self.device),
+        }
         return (200 if ok else 503), body
+
+    def readiness(self):
+        """(http_code, body) for /health?ready=1: "live" is true in every
+        answer this process sends; "ready" is plain /health's ok (false
+        while draining), so a router stops new traffic without reading a
+        drain as death."""
+        code, body = self.health()
+        body = dict(body)
+        body["live"] = True
+        body["ready"] = body["ok"]
+        return code, body
+
+    def retire(self, name, version=None) -> None:
+        """Unload a record after stopping and dropping its batcher,
+        decoder and breaker (they hold the model too), so its device
+        memory is freed now."""
+        rec = self.registry.get(name, version)
+        with self._engine_lock:
+            batcher = self._batchers.pop(rec.key, None)
+            decoder = self._decoders.pop(rec.key, None)
+            self._no_decoder.discard(rec.key)
+            self._breakers.pop(rec.key, None)
+        if batcher is not None:
+            batcher.stop()
+        if decoder is not None:
+            decoder.stop()
+        del batcher, decoder
+        self.registry.unload(rec.name, rec.version)
+        gc.collect()  # cycles through thread targets and closures
 
     # -- HTTP -------------------------------------------------------------
     def _make_handler(self):
@@ -495,18 +813,40 @@ class ServingEngine:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _read_json(self):
+                n = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(n))
+
             def do_GET(self):
-                path = self.path.split("?")[0]
+                path, _, query = self.path.partition("?")
                 if path == "/health":
-                    self._send(*engine.health())
+                    if "ready=1" in query.split("&"):
+                        self._send(*engine.readiness())
+                    else:
+                        self._send(*engine.health())
                 elif path == "/metrics":
-                    self._send(200, engine.metrics())
+                    accept = self.headers.get("Accept", "")
+                    if ("format=prometheus" in query
+                            or "text/plain" in accept
+                            or "openmetrics" in accept):
+                        body = (obs_registry.default_registry()
+                                .render_prometheus().encode())
+                        self.send_response(200)
+                        self.send_header(
+                            "Content-Type",
+                            obs_registry.PROMETHEUS_CONTENT_TYPE)
+                        self.send_header("Content-Length", str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                    else:
+                        self._send(200, engine.metrics())
                 elif path == "/models":
                     default = engine.registry.default()
                     self._send(200, {
                         "models": engine.registry.describe(),
                         "default": default.key if default else None,
-                        "kv": engine.kv_report()})
+                        "kv": engine.kv_report(),
+                        "lineage": engine.registry.lineage()})
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -520,12 +860,23 @@ class ServingEngine:
                         self._do_prefill()
                     elif self.path == "/prime":
                         self._do_prime()
+                    elif self.path == "/models":
+                        self._do_models()
                     else:
                         self._send(404, {"error": "not found"})
                 except QueueFullError as e:
                     self._send(429, {"error": f"QueueFull: {e}"})
-                except (WorkerDeadError, DrainingError) as e:
+                except (BreakerOpenError, DrainingError) as e:
+                    # RFC 9110 delta-seconds is an integer: round a
+                    # sub-second cooldown up to 1
                     self._send(503, {"error": f"Unavailable: {e}"},
+                               headers={"Retry-After": str(max(
+                                   1, math.ceil(e.retry_after_s)))})
+                except ModelWedgedError as e:
+                    self._send(503, {"error": f"Wedged: {e}"},
+                               headers={"Retry-After": "1"})
+                except WorkerDeadError as e:
+                    self._send(503, {"error": f"WorkerDead: {e}"},
                                headers={"Retry-After": "1"})
                 except RequestTimeoutError as e:
                     self._send(504, {"error": f"Timeout: {e}"})
@@ -537,8 +888,7 @@ class ServingEngine:
                     self._send(400, {"error": f"{type(e).__name__}: {e}"})
 
             def _do_prefill(self):
-                n = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(n))
+                payload = self._read_json()
                 toks = np.asarray(payload["tokens"], np.int32).reshape(-1)
                 digests, kb, vb, bt = engine.prefill_for(
                     payload.get("model"), payload.get("version"), toks,
@@ -550,8 +900,7 @@ class ServingEngine:
                     "block_tokens": int(bt)})
 
             def _do_prime(self):
-                n = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(n))
+                payload = self._read_json()
                 shape, dtype = payload["shape"], str(payload["dtype"])
                 kb = blocks_from_wire(payload["k"], shape, dtype)
                 vb = blocks_from_wire(payload["v"], shape, dtype)
@@ -562,18 +911,17 @@ class ServingEngine:
                 self._send(200, {"adopted": int(adopted)})
 
             def _do_predict(self):
-                n = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(n))
+                payload = self._read_json()
                 if "record_base64" in payload:
-                    raise ClientRequestError(
-                        "record_base64 is not ported yet; send record or "
-                        "batch")
-                if "record" in payload:
+                    x = decode_record_base64(payload["record_base64"])[None]
+                elif "record" in payload:
                     x = np.asarray(payload["record"], np.float32)[None]
                 elif "batch" in payload:
                     x = np.asarray(payload["batch"], np.float32)
                 else:
-                    raise ClientRequestError("need record|batch")
+                    self._send(400,
+                               {"error": "need record|record_base64|batch"})
+                    return
                 timeout = payload.get("timeout_s")
                 out = engine.predict_for(
                     payload.get("model"), payload.get("version"), x,
@@ -586,22 +934,22 @@ class ServingEngine:
                     self._send(200, {"output": out[0].tolist()})
 
             def _do_generate(self):
-                n = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(n))
+                payload = self._read_json()
                 toks = np.asarray(payload["tokens"], np.int32)
                 # JSON numbers may arrive as floats: top_k is an int
                 tk, tp = payload.get("top_k"), payload.get("top_p")
                 kwargs = dict(temperature=float(payload.get("temperature",
                                                             1.0)),
                               seed=int(payload.get("seed", 0)),
-                              slo=payload.get("slo"))
+                              slo=payload.get("slo"),
+                              name=payload.get("model"),
+                              version=payload.get("version"))
                 n_new = int(payload.get("n_new", 16))
                 if payload.get("stream"):
                     if tk is not None or tp is not None:
                         self._send(400, {"error": "stream does not "
                                          "support top_k/top_p"})
                         return
-                    engine._admit()
                     if toks.ndim > 1 and toks.shape[0] != 1:
                         self._send(400, {"error": "stream takes ONE "
                                          "prompt per request"})
@@ -643,6 +991,33 @@ class ServingEngine:
                 self.wfile.write(b"0\r\n\r\n")
                 self.wfile.flush()
 
+            def _do_models(self):
+                payload = self._read_json()
+                action = payload.get("action")
+                name = payload.get("name")
+                version = payload.get("version")
+                if action == "load":
+                    rec = engine.registry.load(
+                        name, model_path=payload.get("path"),
+                        input_shape=payload.get("input_shape"))
+                    self._send(200, rec.describe())
+                elif action == "warmup":
+                    self._send(200, engine.registry.warmup(
+                        name, version,
+                        max_batch=int(payload.get("max_batch",
+                                                  engine.max_batch)),
+                        gen_tokens=int(payload.get("gen_tokens", 0))))
+                elif action == "serve":
+                    rec = engine.registry.serve(name, version)
+                    self._send(200, rec.describe())
+                elif action == "unload":
+                    engine.retire(name, version)
+                    self._send(200, engine.registry.get(
+                        name, version).describe())
+                else:
+                    self._send(400, {"error": "action must be "
+                                     "load|warmup|serve|unload"})
+
         return Handler
 
     # -- lifecycle --------------------------------------------------------
@@ -653,38 +1028,82 @@ class ServingEngine:
         return self
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:
-        """Close admission (503) and wait for every admitted request (the
-        decode queue and every batcher's queue and in-flight batch)."""
+        """Close admission (503), seal the registry first (a rollout
+        racing the drain cannot promote a half-warmed record), then wait
+        up to ``DL4J_TPU_SERVE_DRAIN_S`` for every admitted request: the
+        batchers' queues and in-flight batches and the decoders' pending
+        prompts and lanes. True when everything admitted was answered in
+        time."""
+        budget = float(timeout_s if timeout_s is not None else self.drain_s)
         self._draining = True
-        budget = self.request_timeout_s if timeout_s is None else timeout_s
+        self.registry.seal()
+        deadline = time.monotonic() + budget
         with self._engine_lock:
             batchers = list(self._batchers.values())
-        ok = all([b.drain(budget) for b in batchers])
-        if self.decoder is not None:
-            ok = self.decoder.drain(budget) and ok
+            decoders = list(self._decoders.values())
+        ok = True
+        for b in batchers:
+            ok = b.drain(max(0.0, deadline - time.monotonic())) and ok
+        for d in decoders:
+            ok = d.drain(max(0.0, deadline - time.monotonic())) and ok
+        self.stats.record_drain(ok)
+        self._drained = True
         return ok
 
     def stop(self, drain: bool = True,
              drain_timeout_s: Optional[float] = None) -> None:
-        """Shutdown: by default answer everything already admitted, then
-        stop the HTTP server, the batchers and the decode worker."""
-        if drain:
+        """Shutdown: by default answer everything already admitted (a
+        drain, unless one already ran), then stop the HTTP server, the
+        batchers and the decoders."""
+        if drain and not self._drained:
             self.drain(drain_timeout_s)
         self._draining = True
+        self.restore_signal_handlers()
         if self._thread is not None:
+            # shutdown() handshakes with a running serve_forever loop
             self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
         with self._engine_lock:
             batchers = list(self._batchers.values())
+            decoders = list(self._decoders.values())
             self._batchers.clear()
+            self._decoders.clear()
         for b in batchers:
             b.stop()
-        if self.decoder is not None:
-            self.decoder.stop()
+        for d in decoders:
+            d.stop()
+
+    def install_signal_handlers(self, signals=(signal.SIGTERM,)) -> None:
+        """A preemption signal drains and stops the engine. Main thread
+        only (the signal module's rule); raises ValueError elsewhere."""
+        for sig in signals:
+            self._old_handlers[sig] = signal.signal(sig, self._on_signal)
+
+    def restore_signal_handlers(self) -> None:
+        for sig in list(self._old_handlers):
+            try:
+                signal.signal(sig, self._old_handlers[sig])
+            except ValueError:
+                continue  # not the main thread: a later stop restores
+            del self._old_handlers[sig]
+
+    def _on_signal(self, signum, frame) -> None:
+        # close admission in the handler (one flag write); the drain runs
+        # on its own thread
+        self._draining = True
+        threading.Thread(target=self.stop, daemon=True,
+                         name="serve-drain").start()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        return self._drained
 
     @property
     def url(self) -> str:
         return f"http://127.0.0.1:{self.port}"
-

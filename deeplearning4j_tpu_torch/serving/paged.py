@@ -67,7 +67,9 @@ Decode planes (the JAX package's, carried over):
     entries (it owns the arena). A later admission of the same window
     hits them, or recomputes the same bytes on any miss.
 
-Not ported yet: mesh hooks, chaos hooks.
+``chaos`` (``resilience/chaos.ServingChaos``) raises at an admission
+before its prefill (JAX ``paged.py:1148-1149``): the crash-eviction path
+then evicts that lane alone. Not ported yet: mesh hooks.
 """
 
 from __future__ import annotations
@@ -357,7 +359,7 @@ class PagedDecoder:
                  slo_classes: Optional[List[SLOClass]] = None,
                  queue_cap: Optional[int] = None,
                  tick_k: Optional[int] = None,
-                 device=None) -> None:
+                 chaos=None, device=None) -> None:
         self.device = resolve_device(device)
         if self.device != lm.device:
             raise ValueError(f"model lives on {lm.device}, decoder asked "
@@ -366,6 +368,8 @@ class PagedDecoder:
         check_dense(cfg)
         self.lm = lm
         self.cfg = cfg
+        # resilience/chaos.ServingChaos: a fault per admission (on_admit)
+        self._chaos = chaos
         bt = max(1, min(int(block_tokens), cfg.max_len))
         while cfg.max_len % bt:
             bt //= 2
@@ -990,6 +994,8 @@ class PagedDecoder:
                 i, buf, width, write_table, inserts = picked
                 t0 = time.perf_counter()
                 try:
+                    if self._chaos is not None:
+                        self._chaos.on_admit()
                     self._admit_prefill(i, buf, width, write_table)
                 except Exception as e:  # noqa: BLE001 — lane isolation boundary
                     # a crashed admission evicts ONLY its own lane; it

@@ -7,9 +7,11 @@ preemptions, per-class sheds, queue depths, a latency ring, and the
 ``/predict`` batcher's batch fill (``record_batch``: dispatched batches,
 real rows and pad rows), the prefill/decode handoff
 (``record_prefix_export`` :190, ``record_prefix_import`` :194) and the
-speculative rounds' acceptance (``record_draft`` :199). The breaker
-counters come with the slice that ports it; Prometheus exposition is not
-ported.
+speculative rounds' acceptance (``record_draft`` :199), and the
+resilience plane's counters (:128-175): breaker opens, closes and probes,
+503 fast-fails, wedged batches, watchdog restarts, load and warmup
+failures, drains. ``on_latency`` feeds completed-request latencies to the
+engine's Prometheus histogram (``obs/registry.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ class ServingStats:
     def __init__(self, window: int = 2048) -> None:
         self._lock = threading.Lock()
         self._lat = deque(maxlen=int(window))
+        # optional latency sink (the engine's histogram), called outside
+        # the lock
+        self.on_latency = None
         self.requests = 0          # submitted
         self.completed = 0         # answered successfully
         self.errors = 0            # model/payload errors
@@ -36,8 +41,18 @@ class ServingStats:
         self.batched_rows = 0      # real rows in them
         self.padded_rows = 0       # bucket pad rows added to them
         self.generated_tokens = 0  # decode output tokens
-        self.worker_deaths = 0     # decode worker dead from uncaught error
+        self.breaker_opens = 0     # SERVING/DEGRADED -> BROKEN transitions
+        self.breaker_closes = 0    # successful half-open probe recoveries
+        self.breaker_probes = 0    # half-open probe requests admitted
+        self.fast_fails_503 = 0    # requests shed by an open breaker
+        self.wedged_batches = 0    # watchdog-expired in-flight dispatches
+        self.watchdog_restarts = 0  # worker threads replaced after a wedge
+        self.worker_deaths = 0     # worker dead from an uncaught error
         self.slot_crashes = 0      # lanes evicted by a crashed admission
+        self.load_failures = 0     # registry.load exceptions (isolated)
+        self.warmup_failures = 0   # registry.warmup exceptions (isolated)
+        self.drains_started = 0    # graceful drains begun
+        self.drains_completed = 0  # drains that emptied the queues in time
         self.kv_blocks_total = 0   # arena size (allocatable blocks)
         self.kv_blocks_in_use = 0  # gauge: blocks held by lanes + cache
         self.prefix_lookups = 0    # prompt blocks consulted in the cache
@@ -60,6 +75,9 @@ class ServingStats:
         with self._lock:
             self.completed += 1
             self._lat.append(float(seconds))
+        hook = self.on_latency
+        if hook is not None:
+            hook(float(seconds))
 
     def record_error(self) -> None:
         with self._lock:
@@ -82,6 +100,44 @@ class ServingStats:
     def record_tokens(self, n: int) -> None:
         with self._lock:
             self.generated_tokens += int(n)
+
+    def record_breaker_open(self) -> None:
+        with self._lock:
+            self.breaker_opens += 1
+
+    def record_breaker_close(self) -> None:
+        with self._lock:
+            self.breaker_closes += 1
+
+    def record_breaker_probe(self) -> None:
+        with self._lock:
+            self.breaker_probes += 1
+
+    def record_fast_fail(self) -> None:
+        with self._lock:
+            self.fast_fails_503 += 1
+
+    def record_wedged(self) -> None:
+        with self._lock:
+            self.wedged_batches += 1
+
+    def record_watchdog_restart(self) -> None:
+        with self._lock:
+            self.watchdog_restarts += 1
+
+    def record_load_failure(self) -> None:
+        with self._lock:
+            self.load_failures += 1
+
+    def record_warmup_failure(self) -> None:
+        with self._lock:
+            self.warmup_failures += 1
+
+    def record_drain(self, completed: bool) -> None:
+        with self._lock:
+            self.drains_started += 1
+            if completed:
+                self.drains_completed += 1
 
     def record_worker_death(self) -> None:
         with self._lock:
@@ -167,8 +223,18 @@ class ServingStats:
                 "batched_rows": self.batched_rows,
                 "padded_rows": self.padded_rows,
                 "generated_tokens": self.generated_tokens,
+                "breaker_opens": self.breaker_opens,
+                "breaker_closes": self.breaker_closes,
+                "breaker_probes": self.breaker_probes,
+                "fast_fails_503": self.fast_fails_503,
+                "wedged_batches": self.wedged_batches,
+                "watchdog_restarts": self.watchdog_restarts,
                 "worker_deaths": self.worker_deaths,
                 "slot_crashes": self.slot_crashes,
+                "load_failures": self.load_failures,
+                "warmup_failures": self.warmup_failures,
+                "drains_started": self.drains_started,
+                "drains_completed": self.drains_completed,
                 "kv_blocks_total": self.kv_blocks_total,
                 "kv_blocks_in_use": self.kv_blocks_in_use,
                 "prefix_lookups": self.prefix_lookups,

@@ -2,8 +2,10 @@
 — ``write_model_parts`` :60 and ``_tree_to_npz_bytes`` :149 for
 MultiLayerNetwork zips, ``write_flagship_zip`` :175 and
 ``read_flagship_zip`` :197 for the TransformerLM, the zip half of
-``restore_multi_layer_network`` :300 and the npz half of
-``_npz_bytes_into_tree``).
+``restore_multi_layer_network`` :300, the npz half of
+``_npz_bytes_into_tree``, and the optional sections of
+``write_model_parts`` :60-98 with their readers ``read_normalizer`` and
+``read_quant`` :110-147).
 
 The JAX package writes a ModelSerializer-layout zip: ``configuration.json``,
 ``coefficients.npz``, ``metadata.json`` and, as the model has them,
@@ -16,7 +18,10 @@ becomes an int key), and :func:`write_model` writes a MultiLayerNetwork
 zip with the same keys, which the JAX package's
 ``ModelSerializer.restore_multi_layer_network`` reads: the configuration,
 ``coefficients.npz``, ``state.npz``, ``updater.npz`` (the updater state
-in the JAX layout) and ``training_state.json`` with the iteration;
+in the JAX layout), ``training_state.json`` with the iteration and, when
+given, ``normalizer.json`` (a fitted ``etl/normalize`` normalizer) and
+``quant.json`` (an ``etl/calibrate.QuantSpec``), under the JAX entry
+names, so serving applies the statistics the model was trained under;
 :func:`write_flagship_zip` writes a TransformerLM zip (configuration,
 coefficients, updater) that the JAX package's ``TransformerLM.load``
 reads. The ComputationGraph zip waits for a later slice.
@@ -27,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import re
 import zipfile
 from typing import Any, Dict, Optional, Tuple, Union
@@ -35,6 +41,8 @@ import numpy as np
 
 FORMAT_VERSION = 1
 TRAINING_STATE_ENTRY = "training_state.json"
+NORMALIZER_ENTRY = "normalizer.json"
+QUANT_ENTRY = "quant.json"
 _KEY_PART = re.compile(r"\[(\d+)\]|\['((?:[^'\\]|\\.)*)'\]")
 
 
@@ -126,11 +134,13 @@ def tree_to_npz_bytes(tree) -> bytes:
     return buf.getvalue()
 
 
-def write_model(net, path: str, save_updater: bool = True) -> None:
+def write_model(net, path: str, save_updater: bool = True, *,
+                normalizer=None, quant=None) -> None:
     """Write ``net`` (a MultiLayerNetwork of the port) as a zip that the
     JAX package's ``ModelSerializer.restore_multi_layer_network`` and
     :meth:`MultiLayerNetwork.load` read back, updater state and iteration
-    included."""
+    included; ``normalizer`` (fitted) and ``quant`` (a ``QuantSpec``)
+    add their sections."""
     meta = {"format_version": FORMAT_VERSION,
             "model_class": "MultiLayerNetwork",
             "iteration": int(net.iteration),
@@ -144,7 +154,43 @@ def write_model(net, path: str, save_updater: bool = True) -> None:
             z.writestr("updater.npz", tree_to_npz_bytes(net.updater_state))
         z.writestr(TRAINING_STATE_ENTRY,
                    json.dumps(net.training_state()))
+        if normalizer is not None:
+            z.writestr(NORMALIZER_ENTRY, normalizer.to_json())
+        if quant is not None:
+            z.writestr(QUANT_ENTRY, quant.to_json())
         z.writestr("metadata.json", json.dumps(meta))
+
+
+def _read_section(path: str, entry: str) -> Optional[str]:
+    """An optional zip entry's text, or None for a directory, a file that
+    is not a zip, or a zip without it."""
+    if os.path.isdir(path) or not zipfile.is_zipfile(path):
+        return None
+    with zipfile.ZipFile(path, "r") as z:
+        if entry not in z.namelist():
+            return None
+        return z.read(entry).decode()
+
+
+def read_normalizer(path: str):
+    """The fitted normalizer a checkpoint zip carries, or None."""
+    payload = _read_section(path, NORMALIZER_ENTRY)
+    if payload is None:
+        return None
+    from deeplearning4j_tpu_torch.etl.normalize import normalizer_from_json
+
+    return normalizer_from_json(payload)
+
+
+def read_quant(path: str):
+    """The calibrated int8 spec (``QuantSpec``) a checkpoint zip carries,
+    or None."""
+    payload = _read_section(path, QUANT_ENTRY)
+    if payload is None:
+        return None
+    from deeplearning4j_tpu_torch.etl.calibrate import quant_spec_from_json
+
+    return quant_spec_from_json(payload)
 
 
 def keystr_path(key: str) -> Tuple[Union[int, str], ...]:

@@ -62,6 +62,14 @@ the plain versions, masked keys' dK and dV exactly 0. BERT on the card
 (K5 at offset T with the key mask, K7), strict f32: an MLM step's loss
 and gradients and a fine-tune step's within 1e-4 of the CPU's, an
 all-pad row's encoding too, ``encoder_lr_scale=0`` keeping the encoder.
+The int8 ``/predict`` path: ``int8_matmul`` (torch._int_mm on operands
+padded to its shape rules) bit-equal in int32 to the exact CPU product at
+the char-RNN head's and the lowprec MLP's shapes, M = 1 and N = 10
+included; a quantized char-RNN on the card against the CPU at the
+per-code bar (one-step tie flips in at most 1e-4 of the head's input
+codes, the outputs within 1e-5 plus what the flips explain); and
+``retire`` freeing at least the record's ``param_bytes`` of device
+memory.
 """
 
 import numpy as np
@@ -1775,3 +1783,129 @@ def test_bert_classifier_step_on_card_matches_cpu():
     for a, b in zip(tree_leaves(clf.state["encoder"]),
                     tree_leaves(mlm.params)):
         assert torch.equal(a, b)
+
+
+# -- the int8 /predict path and unload (the serving planes) ----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 200, 80), (100, 200, 80),
+                                   (6400, 200, 80), (1, 256, 512),
+                                   (256, 256, 512), (256, 512, 512),
+                                   (1, 512, 10), (256, 512, 10),
+                                   (17, 10, 10), (16, 16, 16)])
+def test_int8_matmul_on_card_is_bit_equal_to_the_cpu(m, k, n):
+    """``int8_matmul`` on the card (torch._int_mm on operands zero-padded
+    to its shape rules) gives the exact int32 product of the CPU path at
+    the char-RNN head's and the lowprec MLP's shapes, M = 1 and N = 10
+    included, and counts one launch."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.ops import lowprec
+
+    rng = np.random.default_rng(m + k + n)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    before = (lowprec.int8_matmul.launches,
+              lowprec.int8_matmul_plain.launches)
+    got = lowprec.int8_matmul(xq.to(dev), wq.to(dev))
+    assert lowprec.int8_matmul.launches == before[0] + 1
+    assert lowprec.int8_matmul_plain.launches == before[1]
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), lowprec.int8_matmul_plain(xq, wq))
+
+
+def _int8_inputs(qnet, x):
+    """The inputs of every int8_dense call of one QuantizedNet forward,
+    and its output (host arrays)."""
+    from deeplearning4j_tpu_torch.ops import lowprec
+
+    seen, orig = [], lowprec.int8_dense
+
+    def rec(xx, *a, **kw):
+        seen.append(xx.detach().float().cpu().numpy())
+        return orig(xx, *a, **kw)
+
+    lowprec.int8_dense = rec
+    try:
+        out = qnet.output(x).float().cpu().numpy()
+    finally:
+        lowprec.int8_dense = orig
+    return seen, out
+
+
+@pytest.mark.gpu
+def test_quantized_char_rnn_on_card_matches_cpu_per_code():
+    """A quantized char-RNN (vocab 80, 2 GravesLSTM x 200, the RnnOutput
+    head int8) on the card against the same net on the CPU: the head's
+    input codes agree except for one-step tie flips in at most 1e-4 of
+    the entries, the outputs within 1e-5 plus the sum of |dcode| *
+    x_scale * w_scale * |w_q| over the flips; K1 ran (no plain scan) and
+    the product went through torch._int_mm."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.etl.calibrate import QuantCalibrator
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lowprec
+
+    conf = char_rnn_conf(80, lstm_size=200, num_layers=2, seed=4)
+    cpu = MultiLayerNetwork(conf, device="cpu").init(input_shape=(1, 80))
+    card = MultiLayerNetwork(conf, device=dev).init(input_shape=(1, 80))
+    card.params = tree_map(lambda a: a.to(dev), cpu.params)
+    card.states = tree_map(lambda a: a.to(dev), cpu.states)
+    rng = np.random.default_rng(5)
+    eye = np.eye(80, dtype=np.float32)
+    calib = [eye[rng.integers(0, 80, (16, 50))] for _ in range(2)]
+    spec = QuantCalibrator().fit(cpu, calib).spec(cpu)
+    qcpu, qcard = (lowprec.QuantizedNet(n, spec) for n in (cpu, card))
+    x = eye[rng.integers(0, 80, (24, 50))]
+    k1 = (port_lstm.lstm_scan.launches, port_lstm.lstm_scan_plain.launches,
+          lowprec.int8_matmul.launches)
+    (xg,), got = _int8_inputs(qcard, x)
+    assert (port_lstm.lstm_scan.launches - k1[0],
+            port_lstm.lstm_scan_plain.launches - k1[1],
+            lowprec.int8_matmul.launches - k1[2]) == (2, 0, 1)
+    (xw,), want = _int8_inputs(qcpu, x)
+    q = qcpu.params["quant"][2]
+    xs = q["x_scale"]
+    cg = lowprec.int8_quantize_rows(torch.from_numpy(xg), xs).numpy()
+    cw = lowprec.int8_quantize_rows(torch.from_numpy(xw), xs).numpy()
+    d = np.abs(cg.astype(np.int64) - cw)
+    assert d.max() <= 1 and (d > 0).sum() <= max(1, 1e-4 * d.size), \
+        int((d > 0).sum())
+    per_k = (q["w_scale"].numpy()[None, :]
+             * np.abs(q["wq"].numpy().astype(np.float64))).max(1)
+    bar = 1e-5 + (d * float(xs) * per_k).sum(1).reshape(got.shape[:-1])
+    assert (np.abs(got - want).max(-1) <= bar).all()
+
+
+@pytest.mark.gpu
+def test_unload_frees_the_records_device_memory():
+    """Retiring a record on the card stops its batcher and drops its
+    tensors: torch.cuda.memory_allocated falls by at least the record's
+    hbm_report param_bytes."""
+    import gc
+
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+
+    net = MultiLayerNetwork(char_rnn_conf(80, lstm_size=512, num_layers=2,
+                                          seed=1), device=dev).init(
+        input_shape=(1, 80))
+    eng = ServingEngine(model=net, input_shape=(20, 80), device=dev)
+    del net
+    try:
+        x = np.eye(80, dtype=np.float32)[np.zeros((3, 20), np.int64)]
+        eng.predict(x)
+        param_bytes = eng.hbm_report()["models"]["default"]["param_bytes"]
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng.retire("default")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        assert param_bytes > 4 * 2**20
+        assert before - after >= param_bytes, (before, after, param_bytes)
+    finally:
+        eng.stop()

@@ -9,7 +9,8 @@
     sequence mode, ``BertMLM``, ``BertClassifier`` and their ``load``,
     ``PagedDecoder``, the decode planes (``ContinuousDecoder``,
     ``SpeculativeDecoder``, ``draft_lm``), ``MultiLayerNetwork`` and its
-    ``load`` (a MultiHeadAttention network too), ``ServingEngine``, and
+    ``load`` (a MultiHeadAttention network too), ``ServingEngine`` (with
+    no model, and over a quantized zip), and
     the training
     ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
     ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
@@ -47,6 +48,11 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) >= 20
+    # the serving planes' subpackages are walked too
+    assert {"deeplearning4j_tpu_torch.etl.normalize",
+            "deeplearning4j_tpu_torch.etl.calibrate",
+            "deeplearning4j_tpu_torch.obs.registry",
+            "deeplearning4j_tpu_torch.streaming.conversion"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -167,6 +173,34 @@ class TestEntryPointsNeedACardOrCpu:
             finally:
                 eng.stop()
 
+
+    def test_serving_planes(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.etl.calibrate import QuantCalibrator
+        from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.ops import lowprec
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+        from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine()
+        net = MultiLayerNetwork(char_rnn_conf(6, lstm_size=4, num_layers=1),
+                                device="cpu").init()
+        spec = QuantCalibrator().fit(net, np.eye(6, dtype=np.float32)[
+            np.zeros((2, 8), np.int64)]).spec(net)
+        path = str(tmp_path / "q.zip")
+        write_model(net, path, quant=spec)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServingEngine(model_path=path)
+        eng = ServingEngine(model_path=path, device="cpu")
+        try:
+            model = eng.registry.get().model
+            assert isinstance(model, lowprec.QuantizedNet)
+            assert model.device == torch.device("cpu")
+        finally:
+            eng.stop()
 
     def test_multilayer_network_and_its_engine(self, no_card, tmp_path):
         from deeplearning4j_tpu.models.char_rnn import (
@@ -379,7 +413,11 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_BUCKET_BATCHES", "DL4J_TPU_REMAT", "DL4J_TPU_BF16",
         "DL4J_TPU_LOSS_SCALE", "DL4J_TPU_SERVE_TICK_K",
         "DL4J_TPU_SERVE_SPEC", "DL4J_TPU_SERVE_SPEC_K",
-        "DL4J_TPU_SERVE_KV_DTYPE"}
+        "DL4J_TPU_SERVE_KV_DTYPE", "DL4J_TPU_QUANT",
+        "DL4J_TPU_QUANT_MAX_DELTA", "DL4J_TPU_SERVE_CONTINUOUS",
+        "DL4J_TPU_SERVE_BREAKER_FAILS", "DL4J_TPU_SERVE_WATCHDOG_S",
+        "DL4J_TPU_SERVE_DRAIN_S", "DL4J_TPU_SERVE_SLO_CLASSES",
+        "DL4J_TPU_SERVE_TENANT_QUOTAS"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name

@@ -5,9 +5,10 @@ written by the JAX package, served by the port's ``ServingEngine``.
     ``output`` on the same rows; the dynamic batcher equals the locked
     direct path (``DL4J_TPU_SERVE_BATCH=0``) within 1e-6 under concurrent
     clients; 429 at queue capacity, 504 past a deadline, 400 on malformed
-    rows, on ``record_base64`` (not ported yet) and on ``/generate`` to a
-    MultiLayerNetwork; the registry's load -> warmup -> serve; ``/metrics``
-    carries the batch fill and K1's launch counts; drain answers 503.
+    rows, on a ``record_base64`` that is not float32 bytes and on
+    ``/generate`` to a MultiLayerNetwork; the registry's load -> warmup ->
+    serve; ``/metrics`` carries the batch fill and K1's launch counts;
+    drain answers 503.
   * Port against JAX: one answer of the port's engine against the JAX
     engine's answer on the same zip and rows, at 1e-5.
   * The batcher alone: the shape guard fails a malformed request alone,
@@ -141,8 +142,8 @@ class TestPredictPortAgainstPort:
                 ({"record": x[0, :, :5].tolist()}, "features"),
                 ({"batch": [1.0, 2.0]}, "rank 2"),
                 ({"record": [[1.0, 2.0], [3.0]]}, "ValueError"),
-                ({"rows": x.tolist()}, "need record|batch"),
-                ({"record_base64": "AAAA"}, "not ported yet"),
+                ({"rows": x.tolist()}, "need record|record_base64|batch"),
+                ({"record_base64": "AAAA"}, "multiple of float32"),
                 ({"record": x[0].tolist(), "model": "nope"}, "nope")):
             code, err = _error(engine.url, payload)
             assert code == 400 and needle in err, (payload.keys(), err)
