@@ -8,8 +8,11 @@ and RMSProp, Word2Vec skip-gram training with hierarchical softmax
 and negative sampling, the TransformerLM's long-context ``ring_forward``
 and its sequence-parallel training (ring and Ulysses), the training of a
 MultiLayerNetwork of masked MultiHeadAttention layers, the
-TransformerLM's training and top-k/top-p sampling, and the BERT
-encoder's MLM pretraining, fine-tuning and embeddings.
+TransformerLM's training and top-k/top-p sampling, the BERT
+encoder's MLM pretraining, fine-tuning and embeddings, and the CNN and
+layer-zoo MultiLayerNetworks (LeNet-5's training, AlexNet, VGG16, the DBN
+and the stacked autoencoder's pretraining, the Solver, an Embedding-LSTM
+net through K1 and K2).
 
 Run from the repository root, with no arguments:
 
@@ -313,7 +316,40 @@ What it does, in order (any failure raises and exits non-zero):
    T=512, H=12, D=64, f32, the phase's key mask) beside their plain
    versions, ``scaled_dot_product_attention`` with the boolean mask (its
    backward for K7; TF32 off) and their bounds;
-14. prints one ``{"kernels": [...]}`` line, the card line again, and last
+14. the CNN and layer-zoo MultiLayerNetworks (``phase_cnn_zoo``), all at
+   full width, strict f32 (cuDNN with TF32 off), on the MNIST stand-in
+   (``datasets/fetchers._synthetic_mnist``; local idx files where
+   ``DL4J_TPU_DATA_DIR`` holds them) and seeded images: (a) LeNet-5
+   (``build_lenet5``: Nesterovs 0.01, momentum 0.9, l2 5e-4) at
+   ``bench.py``'s protocol, batch 512 over 4 rotating batches: the first
+   step against the same step on the CPU (loss and every param leaf
+   within 1e-4 of its largest entry), 30 timed ``fit``s after 3 warm-up
+   ones,
+   then ``fit_batches`` of K=32 three times; samples/s of both, ms per
+   step, a profile of one step (conv forward and backward, pooling,
+   GEMMs, updater, other, host gaps); the loss must fall; (b) AlexNet at
+   227 (``output`` at batch 128, then 5 training steps) and VGG16 at 224
+   (3 training steps at batch 32): ms per step, images/s, peak memory and
+   a step's profile; at batch 2 the logits on the card within 1e-4 of the
+   largest of the CPU's on the same weights; finite losses; (c) the DBN
+   (784-500-250-200-10, binary CD-1) and the stacked denoising
+   autoencoder (784-500-250-10), each through ``fit_iterator`` over 8
+   batches of 128 binarized stand-in digits (layerwise pretraining over
+   the 8 batches, then a fine-tuning ``fit`` per batch) and 2 more
+   ``fit``s: 10 fine-tune steps; each layer's reconstruction loss on the
+   1,024 digits just before and just after its own pretraining (it must
+   fall) and the fine-tune losses (they must fall); (d) the LeNet-5
+   conf under ``line_gradient_descent``, ``conjugate_gradient`` and
+   ``lbfgs``, one ``fit`` of ``iterations=5`` each on a batch of 512:
+   the score must fall, ms per iteration; (e) the layer zoo: an
+   ``EmbeddingLayer(80 -> 200) -> GravesLSTM(200, tanh) ->
+   RnnOutputLayer(80)`` net, 10 ``fit``s at 32 x 100 (K1 and K2 once per
+   fit, their plain versions never), and a CNN zoo (conv, BN on NHWC,
+   LRN, avg pooling, dense, BN, Activation) and an RNN zoo (GRU, a
+   bidirectional LSTM, masked): one ``fit`` and ``output`` each, the card
+   within 1e-4 of each layer's (params, states) and the output's largest
+   entry of the CPU on the same weights;
+15. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -375,7 +411,25 @@ from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: E402
     skipgram_batches,
     unigram_draw,
 )
+from deeplearning4j_tpu_torch.datasets.fetchers import load_mnist_info  # noqa: E402
+from deeplearning4j_tpu_torch.datasets.iterator import ListDataSetIterator  # noqa: E402
+from deeplearning4j_tpu_torch.models.alexnet import build_alexnet  # noqa: E402
+from deeplearning4j_tpu_torch.models.dbn import (  # noqa: E402
+    build_dbn,
+    build_stacked_autoencoder,
+)
+from deeplearning4j_tpu_torch.models.lenet import (  # noqa: E402
+    INPUT_SHAPE as LENET_INPUT,
+    build_lenet5,
+    lenet5_conf,
+)
+from deeplearning4j_tpu_torch.models.vgg import build_vgg16  # noqa: E402
+from deeplearning4j_tpu_torch.nn import conf as nn_conf  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration  # noqa: E402
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (  # noqa: E402
+    CnnToFeedForwardPreProcessor,
+    ReshapePreProcessor,
+)
 from deeplearning4j_tpu_torch.nn.conf import layers as L  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
@@ -556,6 +610,18 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
 # fine-tuning on a planted two-class label: 10 steps of 16 rows, then the
 # accuracy on 64 held-out rows of the same law
 FT_STEPS, FT_HELD_OUT, FT_ACCURACY = 10, 64, 0.75
+# the CNN and layer-zoo phase: LeNet-5 at bench.py:115's protocol (batch
+# 512 over 4 rotating batches, 30 fits after 3 warm-up ones) and
+# bench.py:144's fused form (fit_batches of K=32, 3 times); AlexNet's
+# output at 128 and 5 steps at 128; VGG16's 3 steps at 32; the DBN and the
+# stacked autoencoder on 8 batches of 128, 10 fine-tune steps; the
+# Solver's iterations; the Embedding-LSTM's fits
+LENET_BATCH, LENET_FITS, LENET_K, LENET_REPS = 512, 30, 32, 3
+ALEX_SIZE, ALEX_OUT_BATCH, ALEX_BATCH, ALEX_STEPS = 227, 128, 128, 5
+VGG_SIZE, VGG_BATCH, VGG_STEPS = 224, 32, 3
+PRE_BATCH, PRE_BATCHES, PRE_FINETUNE = 128, 8, 10
+SOLVER_ITERS, ZOO_FITS = 5, 10
+TOL_CARD_CPU = 1e-4  # of the largest entry: the card against the CPU, f32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4603,6 +4669,475 @@ def planes_lifecycle(lm: TransformerLM, reqs, answers, tmp: str, dev):
         eng.stop(drain=False)
 
 
+# ---------------------------------------------------------------------------
+# 14. the CNN and layer-zoo MultiLayerNetworks
+# ---------------------------------------------------------------------------
+
+
+def cpu_twin(net: MultiLayerNetwork) -> MultiLayerNetwork:
+    """The same network on the CPU: the card's params, states and updater
+    state copied over (no fresh init)."""
+    cpu = MultiLayerNetwork(copy.deepcopy(net.conf), device="cpu")
+    cpu._input_shape = net._input_shape
+    to_cpu = lambda t: lowprec.tree_map(lambda a: a.to("cpu", copy=True), t)
+    cpu.params, cpu.states = to_cpu(net.params), to_cpu(net.states)
+    cpu.updater_state = to_cpu(net.updater_state)
+    cpu.iteration = net.iteration
+    return cpu
+
+
+def tree_rel_err(got, want) -> float:
+    """The largest error of any leaf of a tree, relative to the tree's
+    largest entry."""
+    pairs = [(a.cpu().double(), b.cpu().double()) for a, b in
+             zip(lowprec.tree_leaves(got), lowprec.tree_leaves(want))
+             if b.numel()]
+    if not pairs:
+        return 0.0
+    return (max((a - b).abs().max().item() for a, b in pairs)
+            / max(max(b.abs().max().item() for _, b in pairs), 1e-30))
+
+
+def layer_rel_err(got, want) -> float:
+    """The largest error over a network's layers, each relative to its
+    layer's largest entry (a bias ahead of BatchNormalization gets a
+    gradient of rounding noise only, so its own largest entry is no
+    scale)."""
+    return max((tree_rel_err(a, b) for a, b in zip(got, want)),
+               default=0.0)
+
+
+def net_logits(net: MultiLayerNetwork, x) -> torch.Tensor:
+    """The output layer's pre-activation in inference."""
+    with torch.inference_mode():
+        x = net._as_input(x)
+        last = len(net.layers) - 1
+        acts, _ = net._forward(net.params, net.states, x, upto=last)
+        h = net._apply_preprocessor(last, acts[-1], x.shape[0])
+        return net.layers[-1].preout(net.params[-1], h)
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host wall per call of ``n`` calls, the card drained before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def cnn_group(name: str) -> str:
+    low = name.lower()
+    if "lstm_fwd_cluster" in name:
+        return "K1 lstm_fwd_cluster"
+    if "lstm_bwd_" in name:
+        return "K2 lstm_bwd_*"
+    if "pool" in low:
+        return "pooling"
+    if "nhwctonchw" in low or "nchwtonhwc" in low:
+        return "conv layout transposes"
+    if "fft" in low or "cf32" in low or "complex" in low:
+        return "conv by FFT (forward or backward)"
+    if "dgrad" in low or "wgrad" in low:
+        return "conv backward"
+    if any(k in low for k in ("fprop", "conv", "implicit", "winograd")):
+        return "conv forward"
+    if any(k in low for k in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "GEMMs"
+    if "foreach" in low or "multi_tensor" in low:
+        return "updater (foreach)"
+    return "other kernels"
+
+
+def cnn_profile(fn, step_ms: float, n: int = 3) -> dict:
+    """One step's kernels by group (torch.profiler), and the host gaps."""
+    busy, rows = profile_ms(fn, n=n)
+    groups = {g: 0.0 for g in ("conv forward", "conv backward",
+                               "conv by FFT (forward or backward)",
+                               "conv layout transposes", "pooling",
+                               "GEMMs", "updater (foreach)",
+                               "other kernels")}
+    for ms_, _, name in rows:
+        g = cnn_group(name)
+        groups[g] = groups.get(g, 0.0) + ms_
+    groups["host gaps (wall - kernels)"] = step_ms - busy
+    print(f"  profile: {busy:.3f} ms of kernels a step ({busy / step_ms:.1%}"
+          f" of {step_ms:.3f} ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in groups.items()))
+    for ms_, calls, name in rows[:8]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return dict(device_busy_ms=busy, groups=groups,
+                kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                         for r in rows[:12]])
+
+
+def train_flops(net: MultiLayerNetwork, batch: int) -> float:
+    """A training step's operations in the convolutions and dense
+    products, from the configuration's shapes: 2 per multiply-add, the
+    forward and the backward's weight and input gradients (none for the
+    first layer's input)."""
+    shape, macs, first = tuple(net._input_shape), 0, None
+    conf = net.conf
+    for i, lc in enumerate(conf.layers):
+        pp = conf.input_preprocessors.get(i)
+        if pp is not None:
+            shape = pp.out_shape(shape)
+        n = 0
+        if isinstance(lc, (nn_conf.ConvolutionLayer,
+                           nn_conf.SubsamplingLayer)):
+            h, w, c = shape
+            (kh, kw), (sh, sw), (ph, pw) = (lc.kernel_size, lc.stride,
+                                            lc.padding)
+            oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+            if isinstance(lc, nn_conf.ConvolutionLayer):
+                n = oh * ow * lc.n_out * kh * kw * c
+                c = lc.n_out
+            shape = (oh, ow, c)
+        elif isinstance(lc, (nn_conf.DenseLayer, nn_conf.OutputLayer)):
+            n = shape[-1] * lc.n_out
+            shape = (lc.n_out,)
+        if first is None and n:
+            first = n
+        macs += n
+    return 2.0 * batch * (3 * macs - (first or 0))
+
+
+def phase_lenet(seed: int, dev) -> dict:
+    print("== (a) LeNet-5 MNIST training at bench.py's protocol (batch "
+          f"{LENET_BATCH}, {LENET_FITS} fits, then fit_batches of "
+          f"K={LENET_K} x {LENET_REPS}) ==")
+    b = LENET_BATCH
+    net = build_lenet5(device=dev)
+    x, y, prov = load_mnist_info(train=True, num_examples=b * 4)
+    xs = [torch.from_numpy(x[i * b:(i + 1) * b]).to(dev) for i in range(4)]
+    ys = [torch.from_numpy(y[i * b:(i + 1) * b]).to(dev) for i in range(4)]
+    cpu = cpu_twin(net)
+    first = float(net.fit(xs[0], ys[0]))
+    want = float(cpu.fit(x[:b], y[:b]))
+    loss_err = abs(first - want) / abs(want)
+    param_err = layer_rel_err(lowprec.tree_leaves(net.params),
+                              lowprec.tree_leaves(cpu.params))
+    del cpu
+    print(f"LeNet-5 ({net.num_params()} parameters), data {prov}; the first "
+          f"step on the card against the CPU: loss {first:.6f} vs "
+          f"{want:.6f} (rel {loss_err:.2e}), params {param_err:.2e} of each "
+          f"leaf's largest entry (tol {TOL_CARD_CPU})")
+    check(loss_err <= TOL_CARD_CPU and param_err <= TOL_CARD_CPU,
+          "LeNet-5's first step on the card disagrees with the CPU's")
+    i = [1]
+
+    def step():
+        loss = net.fit(xs[i[0] % 4], ys[i[0] % 4])
+        i[0] += 1
+        return loss
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(LENET_FITS)]
+    last = float(losses[-1])  # the readback ends the timed region
+    fit_ms = (time.perf_counter() - t0) / LENET_FITS * 1e3
+    fit_sps = b / fit_ms * 1e3
+    big_x = torch.stack([xs[k % 4] for k in range(LENET_K)])
+    big_y = torch.stack([ys[k % 4] for k in range(LENET_K)])
+    net.fit_batches(big_x, big_y)  # warm, as bench.py does
+    t0 = time.perf_counter()
+    fused = [net.fit_batches(big_x, big_y) for _ in range(LENET_REPS)]
+    fused_ms = (time.perf_counter() - t0) / (LENET_K * LENET_REPS) * 1e3
+    fused_sps = b / fused_ms * 1e3
+    flops = train_flops(net, b)
+    print(f"fit: {fit_ms:.3f} ms a step, {fit_sps:.1f} samples/s; "
+          f"fit_batches: {fused_ms:.3f} ms a step, {fused_sps:.1f} "
+          f"samples/s; {flops / 1e9:.2f} GFLOP a step ({flops / fit_ms / 1e9:.2f}"
+          f" TFLOP/s in fit; f32 bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+    tail = float(np.mean(fused[-1][-8:]))
+    print(f"loss: first step {first:.4f}, after the 30 fits {last:.4f}, "
+          f"the last fit_batches' last 8 steps {tail:.4f}")
+    check(all(np.isfinite(f).all() for f in fused) and np.isfinite(last),
+          "a LeNet-5 loss is not finite")
+    check(tail < first, "LeNet-5's loss did not fall")
+    prof = cnn_profile(step, fit_ms)
+    return dict(data=prov, params=net.num_params(), batch=b,
+                first_step_loss_rel_err=loss_err,
+                first_step_param_err=param_err, fit_ms=fit_ms,
+                fit_samples_per_s=fit_sps, fit_batches_ms=fused_ms,
+                fit_batches_samples_per_s=fused_sps,
+                gflop_per_step=flops / 1e9, loss_first=first,
+                loss_after_fits=last, loss_tail=tail, profile=prof)
+
+
+def phase_big_cnns(seed: int, dev) -> dict:
+    print("== (b) AlexNet at 227 and VGG16 at 224, strict f32 ==")
+    rng = np.random.default_rng(seed + 20)
+    out = {}
+    for name, build, size, batch, steps in (
+            ("alexnet", build_alexnet, ALEX_SIZE, ALEX_BATCH, ALEX_STEPS),
+            ("vgg16", build_vgg16, VGG_SIZE, VGG_BATCH, VGG_STEPS)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net = build(input_size=size, device=dev)
+        x2 = rng.random((2, size, size, 3), dtype=np.float32)
+        cpu = cpu_twin(net)
+        got, want = net_logits(net, x2).cpu(), net_logits(cpu, x2)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        del cpu
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.rand((batch, size, size, 3), generator=gen, device=dev)
+        y = F.one_hot(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev), 1000).float()
+        rec = dict(params=net.num_params(), batch=batch,
+                   logits_rel_err_batch2=err)
+        if name == "alexnet":
+            net.output(x[:ALEX_OUT_BATCH])
+            out_ms = wall_ms(lambda: net.output(x[:ALEX_OUT_BATCH]), 5)
+            rec.update(output_ms=out_ms,
+                       output_images_per_s=ALEX_OUT_BATCH / out_ms * 1e3)
+        losses, step_ms = [], []
+        for _ in range(steps):
+            step_ms.append(wall_ms(lambda: losses.append(
+                float(net.fit(x, y))), 1))
+        ms = float(np.mean(step_ms[1:]))
+        peak = torch.cuda.max_memory_allocated() - held
+        flops = train_flops(net, batch)
+        rec.update(step_ms=ms, first_step_ms=step_ms[0],
+                   images_per_s=batch / ms * 1e3, losses=losses,
+                   peak_bytes=peak, gflop_per_step=flops / 1e9,
+                   bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+        print(f"{name}: {rec['params']} parameters; batch-2 logits on the "
+              f"card within {err:.2e} of the CPU's largest (tol "
+              f"{TOL_CARD_CPU}); " + (
+                  f"output at batch {ALEX_OUT_BATCH} {rec['output_ms']:.3f} "
+                  f"ms ({rec['output_images_per_s']:.1f} images/s); "
+                  if name == "alexnet" else "")
+              + f"{steps} steps at batch {batch}: {ms:.3f} ms a step after "
+              f"the first ({step_ms[0]:.1f}), {rec['images_per_s']:.1f} "
+              f"images/s, {flops / 1e9:.1f} GFLOP a step "
+              f"({flops / ms / 1e9:.2f} TFLOP/s; f32 bound "
+              f"{rec['bound_ms']:.3f} ms); losses "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + f"; peak {peak / 2**30:.3f} GiB above what was held")
+        check(err <= TOL_CARD_CPU,
+              f"{name}'s logits on the card disagree with the CPU's")
+        check(all(np.isfinite(losses)), f"a {name} loss is not finite")
+        rec["profile"] = cnn_profile(lambda: net.fit(x, y), ms, n=2)
+        out[name] = rec
+        del net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrain(seed: int, dev) -> dict:
+    print(f"== (c) pretraining: the DBN and the stacked denoising "
+          f"autoencoder, {PRE_BATCHES} batches of {PRE_BATCH}, then "
+          f"{PRE_FINETUNE} fine-tune steps ==")
+    n = PRE_BATCH * PRE_BATCHES
+    x, y, prov = load_mnist_info(train=True, num_examples=n, binarize=True)
+    x = x.reshape(n, -1)
+    out = {}
+    for name, build in (("dbn", build_dbn),
+                        ("stacked_autoencoder", build_stacked_autoencoder)):
+        net = build(device=dev)
+        init = lowprec.tree_map(torch.clone, net.params)
+        n_pre = sum(1 for lc in net.conf.layers
+                    if isinstance(lc, (nn_conf.RBM, nn_conf.AutoEncoder)))
+        pre_ms = wall_ms(lambda: net.pretrain(
+            ListDataSetIterator(x, y, batch=PRE_BATCH)), 1)
+        xt = torch.from_numpy(x).to(dev)
+        acts = net.feed_forward(xt)  # each layer's input, the ones before
+        recon = []                   # it pretrained (as its pretraining saw)
+        with torch.no_grad():
+            for i in range(n_pre):
+                layer = net.layers[i]
+                pair = [float(layer.pretrain_loss(
+                    p[i], acts[i],
+                    torch.Generator(device=dev).manual_seed(seed)))
+                    for p in (init, net.params)]
+                recon.append(pair)
+        fine = [float(net.fit(xt[(k % PRE_BATCHES) * PRE_BATCH:
+                                 (k % PRE_BATCHES + 1) * PRE_BATCH],
+                              torch.from_numpy(
+                                  y[(k % PRE_BATCHES) * PRE_BATCH:
+                                    (k % PRE_BATCHES + 1) * PRE_BATCH]
+                              ).to(dev)))
+                for k in range(PRE_FINETUNE)]
+        print(f"{name} ({net.num_params()} parameters, data {prov}): "
+              f"pretraining {n_pre} layers x {PRE_BATCHES} batches in "
+              f"{pre_ms:.1f} ms ({pre_ms / (n_pre * PRE_BATCHES):.3f} ms a "
+              "step); reconstruction loss per layer, before -> after its "
+              "pretraining: " + ", ".join(
+                  f"{i}: {a:.3f} -> {b:.3f}" for i, (a, b) in
+                  enumerate(recon))
+              + "; fine-tune losses " + " ".join(f"{v:.4f}" for v in fine))
+        check(all(b < a for a, b in recon),
+              f"a {name} layer's reconstruction loss did not fall")
+        check(all(np.isfinite(fine)) and np.mean(fine[-3:]) < fine[0],
+              f"{name}'s fine-tune loss did not fall")
+        out[name] = dict(params=net.num_params(), pretrain_ms=pre_ms,
+                         reconstruction=recon, finetune_losses=fine,
+                         data=prov)
+    return out
+
+
+def phase_solvers(seed: int, dev) -> dict:
+    print(f"== (d) the Solver: LeNet-5 under the line-search family, "
+          f"iterations={SOLVER_ITERS}, batch {LENET_BATCH} ==")
+    x, y, _ = load_mnist_info(train=True, num_examples=LENET_BATCH)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    out = {}
+    for algo in ("line_gradient_descent", "conjugate_gradient", "lbfgs"):
+        conf = lenet5_conf()
+        conf.optimization_algo, conf.iterations = algo, SOLVER_ITERS
+        net = MultiLayerNetwork(conf, device=dev).init(
+            input_shape=LENET_INPUT)
+        before = net.score(x, y)
+        res = {}
+        ms = wall_ms(lambda: res.setdefault("loss", float(net.fit(x, y))),
+                     1)
+        iters = net.iteration
+        print(f"{algo}: score {before:.4f} -> {res['loss']:.4f} in {iters} "
+              f"iterations, {ms / max(iters, 1):.3f} ms an iteration")
+        check(np.isfinite(res["loss"]) and res["loss"] < before,
+              f"{algo} did not lower LeNet-5's score")
+        out[algo] = dict(score_before=before, score_after=res["loss"],
+                         iterations=iters, ms=ms,
+                         ms_per_iteration=ms / max(iters, 1))
+    return out
+
+
+def embedding_lstm_conf(seed: int):
+    """EmbeddingLayer(VOCAB -> LSTM_H) -> GravesLSTM(LSTM_H, tanh) ->
+    RnnOutputLayer(VOCAB): the char-RNN's widths; a reshape gives the LSTM
+    its [SEQ, LSTM_H] input shape at init."""
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .learning_rate(TRAIN_LR).updater("rmsprop").list()
+            .layer(0, nn_conf.EmbeddingLayer(n_in=VOCAB, n_out=LSTM_H,
+                                             activation="identity"))
+            .layer(1, nn_conf.GravesLSTM(n_in=LSTM_H, n_out=LSTM_H,
+                                         activation="tanh"))
+            .layer(2, nn_conf.RnnOutputLayer(n_in=LSTM_H, n_out=VOCAB,
+                                             activation="softmax",
+                                             loss_function="mcxent"))
+            .input_preprocessor(1, ReshapePreProcessor((SEQ, LSTM_H)))
+            .build())
+
+
+def zoo_confs(seed: int):
+    """(name, conf, input shape, features, labels, mask) of the CNN zoo
+    (conv, BN on NHWC, Activation, LRN, avg pooling, dense, BN,
+    Activation) and the RNN zoo (GRU, bidirectional LSTM, masked)."""
+    rng = np.random.default_rng(seed + 30)
+    b = lambda upd: (NeuralNetConfiguration.builder().seed(seed)
+                     .learning_rate(0.01).updater(upd).momentum(0.9)
+                     .l2(1e-4).list())
+    cnn = (b("nesterovs")
+           .layer(0, nn_conf.ConvolutionLayer(
+               n_in=3, n_out=16, kernel_size=(3, 3), padding=(1, 1),
+               activation="identity"))
+           .layer(1, nn_conf.BatchNormalization(n_out=16))
+           .layer(2, nn_conf.ActivationLayer(activation="relu"))
+           .layer(3, nn_conf.LocalResponseNormalization())
+           .layer(4, nn_conf.SubsamplingLayer(pooling_type="avg"))
+           .layer(5, nn_conf.DenseLayer(n_in=16 * 16 * 16, n_out=64,
+                                        activation="identity"))
+           .layer(6, nn_conf.BatchNormalization(n_out=64))
+           .layer(7, nn_conf.ActivationLayer(activation="tanh"))
+           .layer(8, nn_conf.OutputLayer(n_in=64, n_out=10,
+                                         activation="softmax"))
+           .input_preprocessor(5, CnnToFeedForwardPreProcessor(16, 16, 16))
+           .build())
+    rnn = (b("adagrad")
+           .layer(0, nn_conf.GRU(n_in=32, n_out=64, activation="tanh"))
+           .layer(1, nn_conf.GravesBidirectionalLSTM(n_in=64, n_out=64,
+                                                     activation="tanh"))
+           .layer(2, nn_conf.RnnOutputLayer(n_in=64, n_out=10,
+                                            activation="softmax"))
+           .build())
+    mask = np.ones((8, 20), np.float32)
+    mask[1, 12:] = 0
+    mask[5, 3:] = 0
+    return [("cnn_zoo", cnn, (32, 32, 3),
+             rng.normal(size=(16, 32, 32, 3)).astype(np.float32),
+             np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)], None),
+            ("rnn_zoo", rnn, (20, 32),
+             rng.normal(size=(8, 20, 32)).astype(np.float32),
+             np.eye(10, dtype=np.float32)[rng.integers(0, 10, (8, 20))],
+             mask)]
+
+
+def phase_zoo(seed: int, dev):
+    print(f"== (e) the layer zoo: Embedding({VOCAB} -> {LSTM_H}) -> "
+          f"GravesLSTM({LSTM_H}) -> RnnOutputLayer({VOCAB}), "
+          f"{ZOO_FITS} fits at {TRAIN_BATCH} x {SEQ}; the CNN and RNN zoos "
+          "against the CPU ==")
+    net = MultiLayerNetwork(embedding_lstm_conf(seed), device=dev).init(
+        input_shape=(SEQ,))
+    ids = markov_tokens(seed + 31, (TRAIN_BATCH, SEQ + 1), VOCAB)
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(np.eye(VOCAB, dtype=np.float32)[ids[:, 1:]]).to(dev)
+    net.fit(x, y)  # warm
+    kernels = (lstm_scan, lstm_scan_plain, lstm_scan_bwd,
+               lstm_scan_bwd_plain)
+    for fn in kernels:
+        fn.launches = 0
+    losses = []
+    ms = wall_ms(lambda: losses.append(net.fit(x, y)), ZOO_FITS)
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    losses = [float(v) for v in losses]
+    print(f"Embedding-LSTM: {ms:.3f} ms a fit, "
+          f"{TRAIN_BATCH * SEQ / ms * 1e3:.0f} tokens/s; losses "
+          + " ".join(f"{v:.4f}" for v in losses) + f"; launches {counts}")
+    check(counts["lstm_scan"] == counts["lstm_scan_bwd"] == ZOO_FITS,
+          "K1 and K2 did not launch once per Embedding-LSTM fit")
+    check(counts["lstm_scan_plain"] == counts["lstm_scan_bwd_plain"] == 0,
+          "a plain LSTM scan ran in the Embedding-LSTM fits")
+    check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0],
+          "the Embedding-LSTM loss did not fall")
+    prof = cnn_profile(lambda: net.fit(x, y), ms)
+    out = dict(fit_ms=ms, tokens_per_s=TRAIN_BATCH * SEQ / ms * 1e3,
+               losses=losses, launches=counts, profile=prof)
+    del net
+    for name, conf, shape, xz, yz, mz in zoo_confs(seed):
+        znet = MultiLayerNetwork(conf, device=dev).init(input_shape=shape)
+        cpu = cpu_twin(znet)
+        got = float(znet.fit(xz, yz, mz))
+        want = float(cpu.fit(xz, yz, mz))
+        loss_err = abs(got - want) / abs(want)
+        p_err = layer_rel_err(znet.params, cpu.params)
+        s_err = layer_rel_err(znet.states, cpu.states)
+        o_err = tree_rel_err(znet.output(xz), cpu.output(xz))
+        print(f"{name}: one fit and output, card against CPU: loss rel "
+              f"{loss_err:.2e}, params {p_err:.2e}, states {s_err:.2e}, "
+              f"output {o_err:.2e} (of each layer's, and the output's, "
+              f"largest entry; tol {TOL_CARD_CPU})")
+        check(max(loss_err, p_err, s_err, o_err) <= TOL_CARD_CPU,
+              f"the {name} net on the card disagrees with the CPU")
+        out[name] = dict(loss_rel_err=loss_err, param_err=p_err,
+                         state_err=s_err, output_err=o_err)
+    return counts, out
+
+
+def phase_cnn_zoo(seed: int, dev):
+    """(K1/K2 launches of path (e), the report of (a)-(e))."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = {"lenet5": phase_lenet(seed, dev),
+           "big_cnns": phase_big_cnns(seed, dev),
+           "pretrain": phase_pretrain(seed, dev),
+           "solvers": phase_solvers(seed, dev)}
+    counts, rep["zoo"] = phase_zoo(seed, dev)
+    rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rep["wall_s"] = time.perf_counter() - t0
+    print(f"the CNN and layer-zoo phase: {rep['wall_s']:.1f} s")
+    return counts, rep
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -4677,8 +5212,10 @@ def main(argv=None) -> int:
                   torch.cuda.max_memory_allocated())
     bert_counts, bert_times, bert = phase_bert(args.seed, dev)
     peak_bert = torch.cuda.max_memory_allocated()
+    cnn_counts, cnn = phase_cnn_zoo(args.seed, dev)
+    peak_cnn = cnn["peak_memory_bytes"]
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
-               peak_bert)
+               peak_bert, peak_cnn)
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
@@ -4688,7 +5225,8 @@ def main(argv=None) -> int:
           f"earlier phases hold; ring and ring training "
           f"{peak_rt / 2**30:.3f} GiB; MHA training, K5 and K7 timing "
           f"{peak_sp / 2**30:.3f} GiB; LM training "
-          f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB); "
+          f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB; "
+          f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB); "
           f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
@@ -4780,6 +5318,7 @@ def main(argv=None) -> int:
          "launches_normalized_predict": serving_planes["normalized"][
              "launches_char_rnn"]["lstm_scan"],
          "launches_train": train["launches"]["lstm_scan"],
+         "launches_cnn_zoo": cnn_counts["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -4796,6 +5335,7 @@ def main(argv=None) -> int:
          "source": "deeplearning4j_tpu_torch/csrc/lstm_scan_bwd.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:396",
          "launches": train["launches"]["lstm_scan_bwd"],
+         "launches_cnn_zoo": cnn_counts["lstm_scan_bwd"],
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -4887,7 +5427,8 @@ def main(argv=None) -> int:
                   "predict": predict, "train": train,
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,
-                  "lm_train": lm_train, "bert": bert, "times": times,
+                  "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
+                  "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

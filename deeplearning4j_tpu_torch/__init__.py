@@ -6,7 +6,7 @@ its module paths (``ops/``, ``nn/``, ``optimize/``, ``datasets/``,
 by name. It imports ``torch``, numpy and the standard library only —
 never ``jax`` and nothing of ``deeplearning4j_tpu``.
 
-Ported so far, two serving paths, four training paths and the
+Ported so far, two serving paths, the training paths below and the
 long-context forward:
 
 * paged-KV ``/generate`` of the TransformerLM:
@@ -35,7 +35,15 @@ long-context forward:
   ``fit_iterator`` / ``evaluate`` (Adam, accumulation, ``ops.remat``,
   bf16 loss scaling through ``ops.lowprec``), ``save`` / ``load`` in the
   JAX zip layout, and ``generate`` with top-k / top-p (also behind
-  ``/generate``).
+  ``/generate``);
+* the CNN and layer-zoo MultiLayerNetworks: ``models.lenet``,
+  ``models.alexnet``, ``models.vgg`` and ``models.dbn`` on
+  ``nn.layers.convolution`` and ``nn.layers.normalization`` (PyTorch's
+  own convolution and pooling, cuDNN on the card), layerwise
+  pretraining (``MultiLayerNetwork.pretrain``), the full-batch solvers
+  (``optimize.solvers``), ``eval.evaluation``,
+  ``utils.gradient_check`` and the MNIST fetcher
+  (``datasets.fetchers``).
 
 Their six TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode

@@ -4,8 +4,9 @@
 ``cast_loss_input``, ``remat_apply`` and ``decay_lr_scale_entry``).
 
 Under ``dtype_policy="performance"`` a layer's f32 params and input are
-cast to bf16 for its computation, output layers are never downcast (a
-bf16 input is upcast to f32 for them), and a cast layer's returned
+cast to bf16 for its computation; output and normalization layers (BN's
+batch statistics, LRN's square sums) are never downcast (a bf16 input is
+upcast to f32 for them), and a cast layer's returned
 recurrent state is cast back to f32 so stored states keep one dtype.
 In training a layer runs under the remat ladder (``ops/remat.py``): a
 ``DL4J_TPU_REMAT`` policy other than ``none`` wins, else
@@ -20,7 +21,16 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayerImpl
+from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalizationImpl,
+    LocalResponseNormalizationImpl,
+)
+from deeplearning4j_tpu_torch.ops.lowprec import tree_map
 from deeplearning4j_tpu_torch.ops.remat import remat_policy, remat_wrap
+
+# layers that compute in f32 under the performance policy
+_NEVER_CAST = (OutputLayerImpl, BatchNormalizationImpl,
+               LocalResponseNormalizationImpl)
 
 
 def tbptt_backprop_window(conf) -> Optional[int]:
@@ -43,7 +53,7 @@ def cast_for_compute(params, x, dtype):
     """Cast the input and the layer's f32 params to ``dtype``; only f32 is
     downcast (f64 and integer tensors pass through)."""
     cast = lambda a: a.to(dtype) if a.dtype == torch.float32 else a
-    return {k: cast(v) for k, v in params.items()}, cast(x)
+    return tree_map(cast, params), cast(x)
 
 
 def apply_layer(layer, conf, params, state, x, gen, mask, kwargs=None, *,
@@ -53,7 +63,7 @@ def apply_layer(layer, conf, params, state, x, gen, mask, kwargs=None, *,
     layer's extra ``kwargs`` (carry_state, backprop_window)."""
     compute_dtype = compute_dtype_of(conf)
     cast_active = (compute_dtype is not None
-                   and not isinstance(layer, OutputLayerImpl))
+                   and not isinstance(layer, _NEVER_CAST))
     if cast_active:
         params, x = cast_for_compute(params, x, compute_dtype)
     elif compute_dtype is not None and x.dtype == compute_dtype:

@@ -181,7 +181,7 @@ class ConvolutionLayer(FeedForwardLayer):
     """2D convolution; n_in = input channels, n_out = filters.
 
     Reference: nn/conf/layers/ConvolutionLayer.java (kernel/stride/padding);
-    the port's runtime for it is not written yet.
+    runtime nn/layers/convolution.py (cuDNN on the card; NHWC, HWIO).
     """
 
     kernel_size: Tuple[int, int] = (5, 5)
@@ -244,7 +244,7 @@ class LocalResponseNormalization(Layer):
 class EmbeddingLayer(FeedForwardLayer):
     """Index -> vector lookup (reference: nn/conf/layers/EmbeddingLayer.java;
     runtime feedforward/embedding/EmbeddingLayer.java). Input is int indices;
-    forward is a gather (the port's runtime is not written yet)."""
+    forward is a gather (runtime nn/layers/feedforward.py)."""
 
 
 @register_layer

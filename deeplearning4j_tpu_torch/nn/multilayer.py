@@ -2,10 +2,11 @@
 — ``init``, ``_forward``, ``_regularization_penalty`` :210, ``_loss``
 :233, the train step :278-327, ``fit`` :483 with ``_bucket_batch`` :517,
 ``fit_batches``, the TBPTT window loop :769-839, ``fit_iterator`` :841,
-``output`` :1002, ``feed_forward``, ``score`` :1025, the streaming
-``rnn_clear_previous_state`` / ``rnn_time_step`` :1044-1127,
-``apply_lr_score_decay`` :1129 and ``training_state`` :1144-1171; plus
-``load``, the counterpart of ``ModelSerializer.restore_multi_layer_network``).
+``pretrain`` :926, ``output`` :1002, ``feed_forward``, ``score`` :1025,
+``evaluate`` :1031, the streaming ``rnn_clear_previous_state`` /
+``rnn_time_step`` :1044-1127, ``apply_lr_score_decay`` :1129,
+``training_state`` :1144-1171 and ``clone`` :1177; plus ``load``, the
+counterpart of ``ModelSerializer.restore_multi_layer_network``).
 
 Parameters, layer states and updater state are lists (one entry per
 layer) of dicts of tensors in the JAX layout, on ``device`` — the card
@@ -25,9 +26,14 @@ configuration fed [N, T, F] runs one step per window of
 data. ``output`` pads a ragged batch to its bucket and slices the answer
 back; ``fit`` pads one only inside ``fit_iterator`` (or with
 ``DL4J_TPU_BUCKET_BATCHES=1``), masking the pad rows out of the loss.
-Layers train under the remat ladder (``nn/common.apply_layer``). The
-Solver (non-SGD ``optimization_algo``) and layerwise pretraining are not
-ported yet and raise.
+A network with a BatchNormalization layer is never padded in training
+(the pad rows would enter the batch statistics). Layers train under the
+remat ladder (``nn/common.apply_layer``). A non-SGD ``optimization_algo``
+(line gradient descent, conjugate gradient, LBFGS) runs ``fit`` through
+``optimize/solvers.Solver``; a ``pretrain`` configuration's
+``fit_iterator`` first pretrains its AutoEncoder and RBM layers greedily,
+layer by layer (``pretrain``). A CNN-first network needs its
+``input_shape=(h, w, c)`` at ``init``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,16 +62,23 @@ from deeplearning4j_tpu_torch.nn.layers.factory import (
     STATEFUL_RNN_CONFS,
     create_layer,
 )
-from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayerImpl
+from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    AutoEncoderImpl,
+    OutputLayerImpl,
+    RBMImpl,
+)
 from deeplearning4j_tpu_torch.ops import dispatch
 from deeplearning4j_tpu_torch.ops import rng as rng_mod
 from deeplearning4j_tpu_torch.ops.device import resolve_device
+from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.optimize.listeners import (
     CollectScoresIterationListener,
 )
 from deeplearning4j_tpu_torch.optimize.updaters import (
+    LayerUpdater,
     MultiLayerUpdater,
     apply_updates,
+    flatten_paths,
 )
 
 Layers = List[Dict[str, torch.Tensor]]
@@ -78,15 +91,17 @@ _REG_PARAM_NAMES = ("W", "U")
 def params_from_numpy(layers: Sequence[Dict[str, Any]], *,
                       device=None) -> Layers:
     """The port's params (or states) from a JAX MultiLayerNetwork's list of
-    per-layer dicts handed over as numpy arrays. Float values are carried
-    as f32, bit for bit."""
+    per-layer dicts (nested for the bidirectional LSTM) handed over as
+    numpy arrays. Float values are carried as f32, bit for bit."""
     dev = resolve_device(device)
 
-    def leaf(a):
-        a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+    def node(v):
+        if isinstance(v, dict):
+            return {k: node(x) for k, x in v.items()}
+        a = np.ascontiguousarray(np.asarray(v, dtype=np.float32))
         return torch.from_numpy(a.copy()).to(dev)
 
-    return [{k: leaf(v) for k, v in layer.items()} for layer in layers]
+    return [node(layer) for layer in layers]
 
 
 def updater_state_from_numpy(layers: Sequence[Dict[str, Any]], *,
@@ -120,6 +135,10 @@ class MultiLayerNetwork:
         self._input_shape: Optional[Tuple[int, ...]] = None
         # True while fit_iterator drives fit(): bucketing's "auto" scope
         self._bucket_scope = False
+        # padded rows would enter BN's batch statistics in training
+        self._bucketing_blocked = any(
+            isinstance(lc, conf_layers.BatchNormalization)
+            for lc in conf.layers)
 
     # ------------------------------------------------------------------ init
     def _infer_input_shape(self) -> Tuple[int, ...]:
@@ -158,7 +177,7 @@ class MultiLayerNetwork:
         return self
 
     def num_params(self) -> int:
-        return sum(int(v.numel()) for p in self.params for v in p.values())
+        return sum(int(v.numel()) for v in tree_leaves(self.params))
 
     @classmethod
     def load(cls, path: str, device=None,
@@ -255,8 +274,8 @@ class MultiLayerNetwork:
             l2 = lc.l2 or 0.0
             if l1 == 0.0 and l2 == 0.0:
                 continue
-            for name, leaf in p.items():
-                if name in _REG_PARAM_NAMES:
+            for path, leaf in flatten_paths(p).items():
+                if path[-1] in _REG_PARAM_NAMES:
                     if l2:
                         total = total + 0.5 * l2 * torch.sum(leaf * leaf)
                     if l1:
@@ -288,17 +307,16 @@ class MultiLayerNetwork:
                     backprop_window: Optional[int] = None) -> torch.Tensor:
         """One optimizer iteration on this batch: loss and gradients, the
         updaters, the parameter step in place. Returns the loss."""
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in self.params]
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
+                          self.params)
         with torch.enable_grad():
             loss, new_states = self._loss(
                 leaves, self.states, x, labels, train=True,
                 step=self.iteration, mask=mask, label_mask=label_mask,
                 carry_state=carry_state, backprop_window=backprop_window)
-            flat = [v for p in leaves for v in p.values()]
-            flat_grads = iter(torch.autograd.grad(loss, flat,
-                                                  materialize_grads=True))
-        grads = [{k: next(flat_grads) for k in p} for p in leaves]
+            flat_grads = iter(torch.autograd.grad(
+                loss, tree_leaves(leaves), materialize_grads=True))
+        grads = tree_map(lambda _: next(flat_grads), leaves)
         updates, self.updater_state = self.updater.update(
             grads, self.updater_state, self.params, self.iteration)
         apply_updates(self.params, updates, self.conf.minimize)
@@ -324,7 +342,9 @@ class MultiLayerNetwork:
     def fit(self, features, labels, mask=None, label_mask=None):
         """One DataSet fit: ``conf.iterations`` optimizer iterations on this
         batch, or for a ``truncated_bptt`` conf fed [N, T, F] one per
-        window. Returns the last loss (a 0-d tensor on the device)."""
+        window; under a non-SGD ``optimization_algo``, one Solver run of
+        ``conf.iterations`` iterations. Returns the last loss (a 0-d
+        tensor on the device)."""
         if self.params is None:
             self.init()
         features, labels = self._as_input(features), self._as_input(labels)
@@ -334,10 +354,10 @@ class MultiLayerNetwork:
                 and features.dim() == 3):
             return self._fit_tbptt(features, labels, mask, label_mask)
         if self.conf.optimization_algo != "stochastic_gradient_descent":
-            raise NotImplementedError(
-                f"optimization_algo {self.conf.optimization_algo!r} needs "
-                "the Solver (line search, conjugate gradient, LBFGS), which "
-                "is not ported yet; use stochastic_gradient_descent")
+            from deeplearning4j_tpu_torch.optimize.solvers import Solver
+
+            Solver(self).optimize(features, labels, mask, label_mask)
+            return self._score
         features, labels, mask, label_mask = self._bucket_batch(
             features, labels, mask, label_mask)
         loss = None
@@ -351,9 +371,10 @@ class MultiLayerNetwork:
         the loss (the row-validity mask rides the label mask, attached
         even when no padding happened). Applies per
         ``dispatch.bucketing_mode``: by default only inside
-        ``fit_iterator``."""
+        ``fit_iterator``; never to a network with BatchNormalization."""
         mode = dispatch.bucketing_mode()
-        if mode == "off" or (mode == "auto" and not self._bucket_scope):
+        if (mode == "off" or (mode == "auto" and not self._bucket_scope)
+                or self._bucketing_blocked):
             return features, labels, mask, label_mask
         n = features.shape[0]
         target = dispatch.bucket_size(n)
@@ -433,17 +454,18 @@ class MultiLayerNetwork:
 
     def fit_iterator(self, iterator, num_epochs: int = 1,
                      fused_batches: int = 1) -> "MultiLayerNetwork":
-        """fit(DataSetIterator): every DataSet of every epoch through
-        ``fit``, inside bucketing's "auto" scope. ``fused_batches=K``
-        fuses K steps into one program in the JAX package, whose contract
-        is that this equals K serial fits; the port runs eagerly, so it
-        runs the K serial fits."""
+        """fit(DataSetIterator): a ``pretrain`` configuration first
+        pretrains layerwise over the iterator (``pretrain``); then every
+        DataSet of every epoch through ``fit``, inside bucketing's "auto"
+        scope. ``fused_batches=K`` fuses K steps into one program in the
+        JAX package, whose contract is that this equals K serial fits; the
+        port runs eagerly, so it runs the K serial fits."""
         if self.params is None:
             self.init()
         if self.conf.pretrain:
-            raise NotImplementedError(
-                "layerwise pretraining (conf.pretrain: the AutoEncoder and "
-                "RBM runtimes) is not ported yet")
+            self.pretrain(iterator)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
         self._bucket_scope = True
         try:
             for _ in range(num_epochs):
@@ -455,6 +477,64 @@ class MultiLayerNetwork:
         finally:
             self._bucket_scope = False
         return self
+
+    # -------------------------------------------------------------- pretrain
+    def pretrain(self, data, num_epochs: int = 1) -> None:
+        """Greedy layerwise pretraining of the AutoEncoder and RBM layers,
+        in order: each sees the batches (an iterator of DataSets, or one
+        array) through the layers before it in inference mode and its own
+        input preprocessor, and takes one step per batch with its own
+        ``LayerUpdater`` (a fresh state, its own iteration count): the
+        gradient of its reconstruction loss (AutoEncoder) or the CD-k
+        estimate (RBM). The draws of step j of layer i come from the
+        ``sample`` stream of ``(conf.seed, j, i)``."""
+        if self.params is None:
+            self.init()
+
+        def batches():
+            if hasattr(data, "__iter__") and not hasattr(data, "shape"):
+                for ds in data:
+                    yield self._as_input(ds.features)
+                if hasattr(data, "reset"):
+                    data.reset()
+            else:
+                yield self._as_input(data)
+
+        for i, layer in enumerate(self.layers):
+            if not isinstance(layer, (AutoEncoderImpl, RBMImpl)):
+                continue
+            lu = LayerUpdater(self.conf.layers[i], self.conf)
+            lu_state = lu.init(self.params[i])
+            it_count = 0
+            for _ in range(num_epochs):
+                for xb in batches():
+                    with torch.no_grad():
+                        batch_n = xb.shape[0]
+                        if i > 0:
+                            xb = self._forward(self.params, self.states, xb,
+                                               upto=i)[0][-1]
+                        xb = self._apply_preprocessor(i, xb, batch_n)
+                    gen = rng_mod.layer_generator(
+                        self.conf.seed, it_count, i, self.device,
+                        kind="sample")
+                    p = self.params[i]
+                    grads = self._pretrain_grads(layer, p, xb, gen)
+                    upd, lu_state = lu.update(grads, lu_state, p, it_count)
+                    apply_updates([p], [upd], True)
+                    it_count += 1
+
+    @staticmethod
+    def _pretrain_grads(layer, params, x, gen):
+        """One pretraining step's gradient for ``layer``'s params."""
+        if isinstance(layer, RBMImpl):
+            return layer.cd_grads(params, x, gen)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            loss = layer.pretrain_loss(leaves, x, gen)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        materialize_grads=True)
+        return dict(zip(leaves, grads))
 
     # ------------------------------------------------------------- inference
     def _as_input(self, x) -> torch.Tensor:
@@ -497,6 +577,21 @@ class MultiLayerNetwork:
                 mask=self._as_optional(mask),
                 label_mask=self._as_optional(label_mask))
         return float(loss)
+
+    def evaluate(self, iterator):
+        """Classification stats (``eval.Evaluation``) of ``output`` over
+        every DataSet of the iterator, label masks honoured."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        ev = Evaluation()
+        for ds in iterator:
+            out = self.output(ds.features)
+            ev.eval(_host(ds.labels), _host(out),
+                    mask=None if ds.labels_mask is None
+                    else _host(ds.labels_mask))
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
 
     # ------------------------------------------------- stateful rnn streaming
     def rnn_clear_previous_state(self) -> None:
@@ -590,28 +685,54 @@ class MultiLayerNetwork:
         self.listeners = list(listeners)
         return self
 
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of a copy of the configuration on the same device,
+        with copies (not shared tensors) of the params, states and updater
+        state, at the same iteration."""
+        import copy
+
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
+        if self.params is not None:
+            net._input_shape = self._input_shape
+            net.params = tree_map(torch.clone, self.params)
+            net.states = tree_map(torch.clone, self.states)
+            net.updater_state = tree_map(torch.clone, self.updater_state)
+            net.iteration = self.iteration
+        return net
+
+
+def _host(a) -> np.ndarray:
+    """A numpy copy of an array or a tensor on any device."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    return np.asarray(a)
+
 
 def _fill(template, loaded, what: str):
     """``loaded`` checked against the layout ``template`` implies: per
     layer the same keys (nested, for the updater state) and the same shape
     per leaf (for states, past the batch axis: a stream state carries the
-    batch it was last sized for)."""
+    batch it was last sized for). A node with no leaves (a parameterless
+    layer's ``{"v": {}}``) writes nothing to the npz, so it is taken from
+    the template."""
     skip = 1 if what == "state" else 0
 
     def check(want, got, where):
         if isinstance(want, dict):
-            if not isinstance(got, dict) or set(want) != set(got):
-                keys = sorted(got) if isinstance(got, dict) else got
+            keys = {k for k, v in want.items() if tree_leaves(v)}
+            if not isinstance(got, dict) or keys != set(got):
+                have = sorted(got) if isinstance(got, dict) else got
                 raise ValueError(
-                    f"checkpoint {what} of {where} has keys {keys}, the "
-                    f"configuration implies {sorted(want)}")
-            for k in want:
-                check(want[k], got[k], f"{where}[{k!r}]")
-        elif tuple(got.shape)[skip:] != tuple(want.shape)[skip:]:
+                    f"checkpoint {what} of {where} has keys {have}, the "
+                    f"configuration implies {sorted(keys)}")
+            return {k: check(v, got[k], f"{where}[{k!r}]") if k in keys
+                    else v for k, v in want.items()}
+        if tuple(got.shape)[skip:] != tuple(want.shape)[skip:]:
             raise ValueError(
                 f"checkpoint {what} of {where} has shape "
                 f"{tuple(got.shape)}, expected {tuple(want.shape)}")
+        return got
 
-    for i, (want, got) in enumerate(zip(template, loaded)):
-        check(want, got, f"layer {i}")
-    return loaded
+    return [check(want, got, f"layer {i}")
+            for i, (want, got) in enumerate(zip(template, loaded))]

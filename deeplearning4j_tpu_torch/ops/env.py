@@ -6,8 +6,8 @@ arena's dtype), the ``/predict`` batcher, shape bucketing, the remat
 policy (``ops/remat.py``) and bf16 loss-scaled training
 (``ops/lowprec.py``), and the serving planes: calibrated int8
 ``/predict``, the circuit breaker, the watchdog, drain, SLO classes and
-tenant quotas. The rest of the table waits for the slices that read
-them.
+tenant quotas; and the dataset directory (``datasets/fetchers.py``).
+The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
@@ -28,7 +28,7 @@ class KnobError(KeyError):
 class Knob:
     name: str
     default: str  # raw default, as the env string
-    kind: str     # int | float | bool | enum
+    kind: str     # int | float | bool | enum | str | path
     doc: str
 
 
@@ -114,6 +114,8 @@ _register("DL4J_TPU_SERVE_SLO_CLASSES", "", "str",
 _register("DL4J_TPU_SERVE_TENANT_QUOTAS", "", "str",
           "per-tenant token-bucket quotas 'name:rate_per_s[:burst],...'"
           " ('' = no tenant metering; unlisted tenants are unmetered)")
+_register("DL4J_TPU_DATA_DIR", "", "path",
+          "dataset cache dir; '' = ~/.deeplearning4j_tpu")
 
 
 def knob(name: str) -> Knob:

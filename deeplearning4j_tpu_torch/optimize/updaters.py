@@ -25,9 +25,41 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
+
 BIAS_PARAM_NAMES = ("b", "vb", "beta")
 
 _F = np.float32
+
+Path = Tuple[str, ...]
+
+
+def flatten_paths(tree, prefix: Path = ()) -> Dict[Path, torch.Tensor]:
+    """The leaves of a nest of dicts keyed by their paths, in order."""
+    out: Dict[Path, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_paths(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def unflatten_paths(flat: Dict[Path, torch.Tensor]) -> Dict[str, object]:
+    """Inverse of :func:`flatten_paths`."""
+    tree: Dict[str, object] = {}
+    for path, v in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = v
+    return tree
+
+
+def at_path(tree, path: Path):
+    for part in path:
+        tree = tree[part]
+    return tree
 
 
 def lr_at(conf, base_lr: float, iteration) -> np.float32:
@@ -115,7 +147,7 @@ class LayerUpdater:
         self.kind = (layer_conf.updater or "sgd").lower()
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, object]:
-        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        zeros = lambda: tree_map(torch.zeros_like, params)
         k = self.kind
         if k in ("sgd", "none"):
             state = {}
@@ -134,34 +166,39 @@ class LayerUpdater:
         if (getattr(self.net_conf, "lr_policy", None) or "none") == "score":
             # the event-driven 'score' policy's cumulative decay
             # (apply_lr_score_decay multiplies it)
-            dev = next(iter(params.values())).device if params else None
+            leaves = tree_leaves(params)
+            dev = leaves[0].device if leaves else None
             state["lr_scale"] = torch.ones((), dtype=torch.float32,
                                            device=dev)
         return state
 
-    def _lrs(self, names: List[str], iteration, scale) -> List[float]:
-        """Per-leaf learning rates (bias leaves get bias_learning_rate)."""
+    def _lrs(self, names: List[Path], iteration, scale) -> List[float]:
+        """Per-leaf learning rates (bias leaves, by the last name of their
+        path, get bias_learning_rate)."""
         lr = lr_at(self.net_conf, self.conf.learning_rate, iteration)
         bias_lr = lr_at(self.net_conf,
                         self.conf.bias_learning_rate
                         or self.conf.learning_rate, iteration)
         if scale is not None:
             lr, bias_lr = lr * scale, bias_lr * scale
-        return [float(bias_lr if k in BIAS_PARAM_NAMES else lr)
+        return [float(bias_lr if k[-1] in BIAS_PARAM_NAMES else lr)
                 for k in names]
 
     @torch.no_grad()
     def update(self, grads, state, params, iteration
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
-        """(updates, state): ``state`` is advanced in place and returned."""
+        """(updates, state): ``state`` is advanced in place and returned.
+        A layer's params may nest (the bidirectional LSTM's ``fwd`` and
+        ``bwd``): the rule runs over the leaves by path."""
         scale = _F(float(state["lr_scale"])) if "lr_scale" in state else None
-        grads = normalize_gradients(
-            grads, self.conf.gradient_normalization,
+        flat = flatten_paths(grads)
+        flat = normalize_gradients(
+            flat, self.conf.gradient_normalization,
             self.conf.gradient_normalization_threshold or 1.0)
-        names = list(grads)
-        g = [grads[k] for k in names]
+        names = list(flat)
+        g = [flat[k] for k in names]
         lrs = self._lrs(names, iteration, scale)
-        leaves = lambda key: [state[key][k] for k in names]
+        leaves = lambda key: [at_path(state[key], k) for k in names]
         eps = self.conf.epsilon or 1e-8
         k = self.kind
         if k == "sgd":
@@ -224,7 +261,7 @@ class LayerUpdater:
             torch._foreach_div_(upd, denom)
         else:
             raise ValueError(f"unknown updater {self.kind}")
-        return dict(zip(names, upd)), state
+        return unflatten_paths(dict(zip(names, upd))), state
 
 
 class MultiLayerUpdater:
@@ -256,9 +293,9 @@ def apply_updates(params_list, updates_list, minimize: bool = True):
     for p, u in zip(params_list, updates_list):
         if not u:
             continue
-        names = list(u)
-        dst = [p[k] for k in names]
-        src = [u[k] for k in names]
+        src = flatten_paths(u)
+        dst = [at_path(p, k) for k in src]
+        src = list(src.values())
         if minimize:
             torch._foreach_sub_(dst, src)
         else:

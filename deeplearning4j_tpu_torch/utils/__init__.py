@@ -1,1 +1,1 @@
-"""Checkpoint I/O of the port."""
+"""Checkpoint I/O and numerical gradient checks of the port."""

@@ -69,7 +69,12 @@ included; a quantized char-RNN on the card against the CPU at the
 per-code bar (one-step tie flips in at most 1e-4 of the head's input
 codes, the outputs within 1e-5 plus what the flips explain); and
 ``retire`` freeing at least the record's ``param_bytes`` of device
-memory.
+memory. The CNN path: LeNet-5's and AlexNet's ``output`` on the card
+within 1e-4 of the largest probability of the CPU's on the same weights;
+cuDNN and cuBLAS without TF32 after an entry point (the flags, and a
+3x3x256 convolution within 1e-5 of f64); the Embedding -> LSTM net's
+``fit`` through K1 and K2 once each, never their plain versions, within
+1e-4 of the CPU's step.
 """
 
 import numpy as np
@@ -1909,3 +1914,118 @@ def test_unload_frees_the_records_device_memory():
         assert before - after >= param_bytes, (before, after, param_bytes)
     finally:
         eng.stop()
+
+
+def _card_and_cpu_twins(build, dev, **kw):
+    """The same network on the card and on the CPU (the card's weights
+    copied over)."""
+    net = build(device=dev, **kw)
+    cpu = build(device="cpu", **kw)
+    cpu.params = tree_map(lambda a: a.cpu(), net.params)
+    cpu.states = tree_map(lambda a: a.cpu(), net.states)
+    return net, cpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which,n", [("lenet5", 64), ("alexnet", 2)])
+def test_cnn_output_on_card_matches_cpu(which, n):
+    """LeNet-5 (28x28) and AlexNet (227x227) ``output`` on the card
+    (cuDNN, TF32 off) against the same weights on the CPU, within 1e-4 of
+    the largest probability."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.alexnet import build_alexnet
+    from deeplearning4j_tpu_torch.models.lenet import build_lenet5
+
+    build = build_lenet5 if which == "lenet5" else build_alexnet
+    net, cpu = _card_and_cpu_twins(build, dev)
+    size = net._input_shape
+    x = np.random.default_rng(0).random((n,) + tuple(size)).astype(
+        np.float32)
+    got = net.output(x).cpu()
+    want = cpu.output(x)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cnn_path_runs_cudnn_without_tf32():
+    """After an entry point on the card, cuDNN and cuBLAS may not use
+    TF32, and a LeNet-5-sized convolution with a 3x3x256 reduction agrees
+    with f64 within 1e-5 of its largest entry (TF32's 10-bit mantissa
+    would leave ~1e-3)."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.lenet import build_lenet5
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    net = build_lenet5(device=dev)
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    from deeplearning4j_tpu_torch.nn.conf import ConvolutionLayer
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayerImpl,
+    )
+
+    layer = ConvolutionLayerImpl(ConvolutionLayer(
+        n_in=256, n_out=64, kernel_size=(3, 3), activation="identity"))
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(8, 12, 12, 256)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 256, 64)).astype(np.float32)
+    b = np.zeros(64, np.float32)
+    got = layer.preout({"W": _port(w, dev), "b": _port(b, dev)},
+                       _port(x, dev)).cpu().double()
+    want = layer.preout({"W": _port(w, "cpu", torch.float64),
+                         "b": _port(b, "cpu", torch.float64)},
+                        _port(x, "cpu", torch.float64))
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err < 1e-5, err
+    assert net.fit(np.zeros((4, 28, 28, 1), np.float32),
+                   np.eye(10, dtype=np.float32)[:4]).device.type == "cuda"
+
+
+def embedding_lstm_net(dev, vocab=80, width=200, t=100, seed=5):
+    """EmbeddingLayer(vocab -> width) -> GravesLSTM(width, tanh) ->
+    RnnOutputLayer(vocab), the char-RNN's widths."""
+    from deeplearning4j_tpu_torch.nn import conf as pconf
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+        ReshapePreProcessor,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (pconf.NeuralNetConfiguration.builder().seed(seed)
+            .learning_rate(0.01).updater("rmsprop").list()
+            .layer(0, pconf.EmbeddingLayer(n_in=vocab, n_out=width,
+                                           activation="identity"))
+            .layer(1, pconf.GravesLSTM(n_in=width, n_out=width,
+                                       activation="tanh"))
+            .layer(2, pconf.RnnOutputLayer(n_in=width, n_out=vocab,
+                                           activation="softmax",
+                                           loss_function="mcxent"))
+            .input_preprocessor(1, ReshapePreProcessor((t, width)))
+            .build())
+    return MultiLayerNetwork(conf, device=dev).init(input_shape=(t,))
+
+
+@pytest.mark.gpu
+def test_embedding_lstm_fit_on_card_goes_through_k1_and_k2():
+    """The Embedding -> LSTM net's fit on the card launches K1 and K2 once
+    each and never their plain versions; its first step agrees with the
+    same step on the CPU within 1e-4 of each param's largest entry."""
+    dev = _need_card()
+    net = embedding_lstm_net(dev, t=20)
+    cpu = embedding_lstm_net("cpu", t=20)
+    cpu.params = tree_map(lambda a: a.cpu(), net.params)
+    cpu.updater_state = cpu.updater.init(cpu.params)
+    rng = np.random.default_rng(2)
+    idx = rng.integers(0, 80, (8, 20))
+    y = np.eye(80, dtype=np.float32)[rng.integers(0, 80, (8, 20))]
+    counters = (port_lstm.lstm_scan, port_lstm.lstm_scan_bwd,
+                port_lstm.lstm_scan_plain, port_lstm.lstm_scan_bwd_plain)
+    for c in counters:
+        c.launches = 0
+    loss = net.fit(idx, y)
+    assert [c.launches for c in counters] == [1, 1, 0, 0]
+    want = cpu.fit(idx, y)
+    assert abs(float(loss) - float(want)) < 1e-4 * abs(float(want))
+    for got, ref in zip(tree_leaves(net.params), tree_leaves(cpu.params)):
+        assert (got.cpu() - ref).abs().max().item() \
+            <= 1e-4 * ref.abs().max().item()

@@ -3,8 +3,10 @@ the CPU.
 
   * Config DSL: a configuration the JAX package writes parses in the port
     and writes back to the identical JSON string, for the char-RNN and
-    for a conf that holds every layer class and preprocessor; the port's
-    own ``char_rnn_conf`` writes the JAX package's string.
+    for a conf that holds every layer class and preprocessor (a network
+    of it builds: every layer class has a runtime; a conf class with none
+    raises, naming it); the port's own ``char_rnn_conf`` writes the JAX
+    package's string.
   * Layers on the same params: dense, RNN output and GravesLSTM (tanh
     through the K1 wrapper, with a mask and with another activation
     through the per-step loop) against the JAX layers, f64 at 1e-10 and
@@ -124,15 +126,23 @@ class TestConfigRoundTrip:
                 == char_rnn_conf(12, lstm_size=16, seed=3).to_json())
 
     def test_unported_layers_raise_naming_the_layer(self):
+        """Every layer class of the JAX zoo has a runtime now (a network
+        of all of them builds); a conf class with none raises, naming
+        it."""
         conf = pconf.MultiLayerConfiguration.from_json(
             _every_layer_conf().to_json())
-        with pytest.raises(ValueError, match="ConvolutionLayer is not "
-                                             "ported yet"):
-            MultiLayerNetwork(conf, device="cpu")
-        for lc in conf.layers:
-            if type(lc) not in pfactory.FACTORY:
-                with pytest.raises(ValueError, match="not ported yet"):
-                    pfactory.create_layer(lc)
+        net = MultiLayerNetwork(conf, device="cpu")
+        assert [type(lc) for lc in conf.layers] == [
+            type(layer.conf) for layer in net.layers]
+        assert {type(lc) for lc in conf.layers} <= set(pfactory.FACTORY)
+
+        @dataclasses.dataclass
+        class Unmapped(pconf.DenseLayer):
+            pass
+
+        with pytest.raises(ValueError, match="no runtime for layer conf "
+                                             "Unmapped"):
+            pfactory.create_layer(Unmapped(n_in=2, n_out=2))
 
 
 # ---------------------------------------------------------------------------

@@ -132,6 +132,41 @@ class TestEntryPointsNeedACardOrCpu:
         finally:
             eng.stop()
 
+    def test_cnn_models_pretraining_and_solver(self, no_card):
+        """``build_lenet5``, the other CNN and pretraining builders, and a
+        network under the Solver raise with no card unless given the CPU;
+        on the CPU a LeNet-5 step and an LBFGS fit run there."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.models.alexnet import build_alexnet
+        from deeplearning4j_tpu_torch.models.dbn import (
+            build_dbn,
+            build_stacked_autoencoder,
+        )
+        from deeplearning4j_tpu_torch.models.lenet import build_lenet5
+        from deeplearning4j_tpu_torch.models.vgg import build_vgg16
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.optimize.solvers import Solver
+
+        for build in (build_lenet5, build_alexnet, build_vgg16, build_dbn,
+                      build_stacked_autoencoder):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+        conf = (pconf.NeuralNetConfiguration.builder()
+                .optimization_algo("lbfgs").list()
+                .layer(0, pconf.OutputLayer(n_in=3, n_out=2)).build())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Solver(MultiLayerNetwork(conf))
+        net = build_lenet5(device="cpu")
+        x = np.zeros((2, 28, 28, 1), np.float32)
+        y = np.eye(10, dtype=np.float32)[[1, 2]]
+        assert net.fit(x, y).device == torch.device("cpu")
+        solved = MultiLayerNetwork(conf, device="cpu").init()
+        Solver(solved).optimize(np.ones((2, 3), np.float32),
+                                np.eye(2, dtype=np.float32))
+        assert solved.params[0]["W"].device == torch.device("cpu")
+
     def test_decode_planes(self, no_card, monkeypatch):
         from deeplearning4j_tpu_torch.models.transformer import (
             TransformerConfig,
@@ -417,7 +452,7 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_QUANT_MAX_DELTA", "DL4J_TPU_SERVE_CONTINUOUS",
         "DL4J_TPU_SERVE_BREAKER_FAILS", "DL4J_TPU_SERVE_WATCHDOG_S",
         "DL4J_TPU_SERVE_DRAIN_S", "DL4J_TPU_SERVE_SLO_CLASSES",
-        "DL4J_TPU_SERVE_TENANT_QUOTAS"}
+        "DL4J_TPU_SERVE_TENANT_QUOTAS", "DL4J_TPU_DATA_DIR"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name

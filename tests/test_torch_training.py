@@ -31,7 +31,7 @@ held at 1e-5 abs (the same f32 math, summed in another order).
     against port, fit 4 == fit 2, save, load, fit 2, bit for bit, with
     dropout on.
   * ``CharRnn.fit_text``: the same losses as the JAX package's.
-  * What is not ported raises: the Solver, pretraining; remat trains.
+  * What once raised as not ported runs: the Solver, pretraining, remat.
 """
 
 import numpy as np
@@ -437,22 +437,44 @@ def test_char_rnn_fit_text_matches_jax():
 
 
 class TestNotPortedRaises:
+    """What once raised as not ported: the Solver and pretraining now run
+    (their equivalence with the JAX package is in
+    tests/test_torch_solvers.py and tests/test_torch_layer_zoo.py)."""
+
     def test_solver_algorithms(self):
         conf = (pconf.NeuralNetConfiguration.builder()
-                .optimization_algo("lbfgs").list()
+                .optimization_algo("lbfgs").iterations(3).list()
                 .layer(0, pL.OutputLayer(n_in=2, n_out=2)).build())
         net = MultiLayerNetwork(conf, device="cpu").init()
-        with pytest.raises(NotImplementedError, match="Solver"):
-            net.fit(np.zeros((2, 2), np.float32), np.eye(2, dtype=np.float32))
+        x = np.array([[1, 0], [0, 1]], np.float32)
+        y = np.eye(2, dtype=np.float32)
+        before = net.score(x, y)
+        loss = net.fit(x, y)
+        assert float(loss) < before and net.iteration >= 1
+        with pytest.raises(ValueError, match="SGD-family"):
+            net.fit_batches(x[None], y[None])
 
     def test_pretrain(self):
+        """A pretrain conf with no AutoEncoder or RBM pretrains nothing
+        and fits as before; one with an AutoEncoder moves its weights
+        before the fit."""
         conf = (pconf.NeuralNetConfiguration.builder().list()
                 .layer(0, pL.OutputLayer(n_in=2, n_out=2)).pretrain(True)
                 .build())
         net = MultiLayerNetwork(conf, device="cpu").init()
         it = ListDataSetIterator(np.zeros((2, 2)), np.eye(2), batch=2)
-        with pytest.raises(NotImplementedError, match="pretraining"):
-            net.fit_iterator(it)
+        net.fit_iterator(it)
+        assert net.iteration == 1
+        conf = (pconf.NeuralNetConfiguration.builder().seed(4).list()
+                .layer(0, pL.AutoEncoder(n_in=2, n_out=3,
+                                         activation="sigmoid"))
+                .layer(1, pL.OutputLayer(n_in=3, n_out=2)).pretrain(True)
+                .build())
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        w0 = net.params[0]["W"].clone()
+        net.pretrain(np.full((2, 2), 0.5, np.float32))
+        assert net.iteration == 0
+        assert not torch.equal(w0, net.params[0]["W"])
 
     def test_remat(self, monkeypatch):
         """Remat, once refused here, now trains: under DL4J_TPU_REMAT
