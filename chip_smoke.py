@@ -12,7 +12,10 @@ TransformerLM's training and top-k/top-p sampling, the BERT
 encoder's MLM pretraining, fine-tuning and embeddings, and the CNN and
 layer-zoo MultiLayerNetworks (LeNet-5's training, AlexNet, VGG16, the DBN
 and the stacked autoencoder's pretraining, the Solver, an Embedding-LSTM
-net through K1 and K2).
+net through K1 and K2), the ComputationGraph (ResNet-50 and GoogLeNet
+training, a seq2seq graph through K1 and K2, bf16 loss-scaled steps in
+both containers) and ``/embed`` (an MLP, a ResNet-50 graph record, BERT
+through K5, a word2vec table).
 
 Run from the repository root, with no arguments:
 
@@ -349,7 +352,43 @@ What it does, in order (any failure raises and exits non-zero):
    bidirectional LSTM, masked): one ``fit`` and ``output`` each, the card
    within 1e-4 of each layer's (params, states) and the output's largest
    entry of the CPU on the same weights;
-15. prints one ``{"kernels": [...]}`` line, the card line again, and last
+15. the ComputationGraph (``phase_graph``), strict f32: (a) ResNet-50 at
+   224, 1000 classes (``bench.py:271-330``: batch 128, Nesterovs lr
+   0.05): the first step at batch 2 against the CPU on the same weights
+   (loss, every vertex's params and BN state within 1e-4 of the vertex's
+   largest entry), then 10 steps: ms a step, images/s, the step's FLOPs
+   counted from the conf (``graph_train_flops``) and the f32 bound, peak
+   memory, a step's profile (convs, BN's reductions and elementwise
+   passes with the ReLUs and residual adds, GEMMs, the updater, host
+   gaps); (d) under ``DL4J_TPU_BF16=1`` 5 loss-scaled steps of LeNet-5
+   at batch 512 and of that ResNet-50 ((scale, good, skipped) after
+   each, ms beside the f32 step), then a step made non-finite by an inf
+   planted in the first conv's weight: params, states and updater state
+   bit-equal to before, the scale halved, one skip counted; (b) GoogLeNet
+   with its aux heads at 224, batch 64: ``output`` gives three heads, the
+   main first, the score is their three losses plus the l2 penalty, 3
+   steps: ms, images/s; (c) the seq2seq graph at the char-RNN's widths
+   (GravesLSTM(80 -> 200) encoder, LastTimeStep, DuplicateToTimeSeries
+   against the decoder input, Merge, GravesLSTM(280 -> 200) decoder,
+   RnnOutputLayer(80)) at 32 x 100: the first fit against the CPU, then
+   10 fits (K1 and K2 twice per fit, their plain versions never; the
+   loss must fall), one TBPTT-50 fit (K1 and K2 twice a window, the
+   decoder's h carried), ``rnn_time_step`` over the sequence against
+   ``output``'s last step within 1e-4;
+16. ``/embed`` (``phase_embed``) on one engine with no model: the
+   retrieval bench's MLP (``bench.py:3041-3048``) zipped and loaded
+   through ``POST /models``, 128 single-row calls (p50, p99), the
+   batcher against the direct call at 1, 5 and 8 rows within 1e-5,
+   ``record`` and ``batch`` over HTTP; ResNet-50 zipped and loaded as a
+   graph record (the default vertex, ``avgpool``: 2048 wide) against its
+   ``feed_forward`` within 1e-5, and ``/predict`` of it (the first
+   output); BERT-base zipped and loaded, token rows through K5 pooled by
+   mean (HTTP), cls and max (the engine's direct path) against the plain
+   attention within 1e-4, K5 once per layer per call and its plain
+   version never; the word2vec fit's table as a lookup record (rows
+   equal to syn0's); ``GET /models``'s ``embed`` report and the
+   ``retrieval_stats`` samples at ``/metrics``;
+17. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -423,6 +462,8 @@ from deeplearning4j_tpu_torch.models.lenet import (  # noqa: E402
     build_lenet5,
     lenet5_conf,
 )
+from deeplearning4j_tpu_torch.models.googlenet import build_googlenet  # noqa: E402
+from deeplearning4j_tpu_torch.models.resnet import build_resnet50  # noqa: E402
 from deeplearning4j_tpu_torch.models.vgg import build_vgg16  # noqa: E402
 from deeplearning4j_tpu_torch.nn import conf as nn_conf  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration  # noqa: E402
@@ -430,7 +471,9 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (  # noqa: E402
     CnnToFeedForwardPreProcessor,
     ReshapePreProcessor,
 )
+from deeplearning4j_tpu_torch.nn.conf import graph as graph_conf  # noqa: E402
 from deeplearning4j_tpu_torch.nn.conf import layers as L  # noqa: E402
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
 )
@@ -622,6 +665,19 @@ VGG_SIZE, VGG_BATCH, VGG_STEPS = 224, 32, 3
 PRE_BATCH, PRE_BATCHES, PRE_FINETUNE = 128, 8, 10
 SOLVER_ITERS, ZOO_FITS = 5, 10
 TOL_CARD_CPU = 1e-4  # of the largest entry: the card against the CPU, f32
+# the ComputationGraph phase: ResNet-50 at bench.py:271-330's leg (batch
+# 128 at 224, Nesterovs lr 0.05; strict f32 here), GoogLeNet with its aux
+# heads at batch 64, the seq2seq graph at the char-RNN's widths, and the
+# bf16 loss-scaled steps of LeNet-5 and ResNet-50
+RESNET_SIZE, RESNET_BATCH, RESNET_STEPS, RESNET_LR = 224, 128, 10, 0.05
+GOOG_SIZE, GOOG_BATCH, GOOG_STEPS = 224, 64, 3
+F32_NOISE_FACTOR = 4  # the card's f32 step against f64: x the CPU's error
+S2S_FITS, BF16_STEPS = 10, 5
+# /embed: the retrieval bench's MLP (bench.py:3041-3048: 16 -> 64 relu ->
+# 4) and its 128 single-row calls (phase 3); BERT's token rows
+EMBED_MLP, EMBED_CALLS = (16, 64, 4), 128
+EMBED_BERT_N, EMBED_BERT_T = 4, 128
+TOL_EMBED = 1e-5  # the batcher against the direct call, f32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -5138,6 +5194,580 @@ def phase_cnn_zoo(seed: int, dev):
     return counts, rep
 
 
+# ---------------------------------------------------------------------------
+# the ComputationGraph: ResNet-50, GoogLeNet, a seq2seq graph through K1/K2,
+# bf16 loss-scaled steps; then /embed
+# ---------------------------------------------------------------------------
+
+
+def graph_train_flops(net: ComputationGraph, batch: int) -> float:
+    """A training step's operations in a graph's convolutions and dense
+    products, from the configuration's shapes, vertex by vertex: 2 per
+    multiply-add, the forward and the backward's weight and input
+    gradients (no input gradient for a layer fed by a graph input)."""
+    vshape = {k: tuple(v) for k, v in net._input_shapes.items()}
+    macs = first = 0
+    for name in net.topo:
+        v = net.conf.vertices[name]
+        ins = net.conf.vertex_inputs[name]
+        in_shapes = [vshape[i] for i in ins]
+        if not isinstance(v, L.Layer):
+            vshape[name] = net._vertex_out_shape(v, name, in_shapes)
+            continue
+        shape = in_shapes[0]
+        pp = net.conf.input_preprocessors.get(name)
+        if pp is not None:
+            shape = pp.out_shape(shape)
+        n = 0
+        if isinstance(v, (L.ConvolutionLayer, L.SubsamplingLayer)):
+            h, w, c = shape
+            (kh, kw), (sh, sw), (ph, pw) = v.kernel_size, v.stride, v.padding
+            oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+            if isinstance(v, L.ConvolutionLayer):
+                n = oh * ow * v.n_out * kh * kw * c
+                c = v.n_out
+            shape = (oh, ow, c)
+        elif isinstance(v, (L.DenseLayer, L.OutputLayer)):
+            n = shape[-1] * v.n_out
+            shape = (v.n_out,)
+        vshape[name] = shape
+        macs += n
+        if any(i in net.conf.inputs for i in ins):
+            first += n
+    return 2.0 * batch * (3 * macs - first)
+
+
+def graph_cpu_twin(net: ComputationGraph, dtype=None) -> ComputationGraph:
+    """The same graph on the CPU: the card's params, states and updater
+    state copied over (cast to ``dtype`` when given)."""
+    cpu = ComputationGraph(copy.deepcopy(net.conf), device="cpu")
+    cpu._input_shapes = dict(net._input_shapes)
+    to_cpu = lambda t: lowprec.tree_map(
+        lambda a: a.to("cpu", dtype=dtype, copy=True), t)
+    cpu.params, cpu.states = to_cpu(net.params), to_cpu(net.states)
+    cpu.updater_state = to_cpu(net.updater_state)
+    cpu.iteration = net.iteration
+    return cpu
+
+
+def vertex_errs(got: dict, want: dict) -> dict:
+    """Each layer vertex's largest error relative to its largest entry
+    (a bias ahead of BN gets rounding noise only)."""
+    return {k: tree_rel_err(got[k], want[k]) for k in want}
+
+
+def vertex_rel_err(got: dict, want: dict) -> float:
+    """The largest of :func:`vertex_errs`."""
+    return max(vertex_errs(got, want).values(), default=0.0)
+
+
+def graph_group(name: str) -> str:
+    low = name.lower()
+    if "reduce" in low and "conv" not in low:
+        return "reductions (BN statistics, l2)"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise (BN, ReLU, residual adds, l2)"
+    return cnn_group(name)
+
+
+def graph_profile(fn, step_ms: float, n: int = 2) -> dict:
+    """One step's kernels by group (torch.profiler), and the host gaps."""
+    busy, rows = profile_ms(fn, n=n)
+    groups: dict = {}
+    for ms_, _, name in rows:
+        g = graph_group(name)
+        groups[g] = groups.get(g, 0.0) + ms_
+    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    groups["host gaps (wall - kernels)"] = step_ms - busy
+    print(f"  profile: {busy:.3f} ms of kernels a step ({busy / step_ms:.1%}"
+          f" of {step_ms:.3f} ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in groups.items()))
+    for ms_, calls, name in rows[:10]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    return dict(device_busy_ms=busy, groups=groups,
+                kernels=[dict(ms=r[0], calls=r[1], name=r[2][:120])
+                         for r in rows[:16]])
+
+
+def image_batch(seed: int, n: int, size: int, classes: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, size, size, 3), generator=gen, device=dev)
+    y = F.one_hot(torch.randint(0, classes, (n,), generator=gen,
+                                device=dev), classes).float()
+    return x, y
+
+
+def phase_resnet(seed: int, dev) -> dict:
+    print(f"== (a) ResNet-50 training at {RESNET_SIZE} x {RESNET_SIZE}, "
+          f"1000 classes, batch "
+          f"{RESNET_BATCH}, Nesterovs lr {RESNET_LR}, strict f32 "
+          f"(bench.py:271-330) ==")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net = build_resnet50(input_size=RESNET_SIZE, device=dev,
+                         learning_rate=RESNET_LR)
+    x2, y2 = image_batch(seed + 40, 2, RESNET_SIZE, 1000, "cpu")
+    cpu, cpu64 = graph_cpu_twin(net), graph_cpu_twin(net, torch.float64)
+    first = float(net.fit(x2.to(dev), y2.to(dev)))
+    want = float(cpu.fit(x2, y2))
+    want64 = float(cpu64.fit(x2.double(), y2.double()))
+    loss_err = abs(first - want) / abs(want)
+    # f32 gradients through 53 BN layers of an untrained ResNet at batch 2
+    # lose whole digits (the CPU's own f32 step lands percents of a
+    # vertex's largest entry from its f64 step): the card's step is held
+    # to the f64 step, its worst vertex within F32_NOISE_FACTOR times the
+    # CPU's worst (two f32 summation orders, each as far off; vertex by
+    # vertex the ratio is noise over a small denominator)
+    card_e = vertex_errs(net.params, cpu64.params)
+    cpu_e = vertex_errs(cpu.params, cpu64.params)
+    worst = max(card_e, key=card_e.get)
+    p_err = card_e[worst]
+    p_ok = p_err <= F32_NOISE_FACTOR * max(cpu_e.values()) + TOL_CARD_CPU
+    s_err = vertex_rel_err(net.states, cpu.states)
+    del cpu, cpu64
+    print(f"ResNet-50: {net.num_params()} parameters, "
+          f"{len(net.layer_names)} layer vertices; the first step at batch 2 "
+          f"on the card against the CPU: loss {first:.6f} vs {want:.6f} "
+          f"(f64 {want64:.6f}; rel {loss_err:.2e}); params against the f64 "
+          f"step: the card {p_err:.2e}, the CPU's f32 "
+          f"{max(cpu_e.values()):.2e} of each vertex's largest entry (the "
+          f"card's worst vertex {worst}: {card_e[worst]:.2e}, the CPU's there "
+          f"{cpu_e[worst]:.2e}; tol {F32_NOISE_FACTOR}x the CPU's worst); BN "
+          f"states {s_err:.2e} (tol {TOL_CARD_CPU})")
+    check(loss_err <= TOL_CARD_CPU and p_ok and s_err <= TOL_CARD_CPU,
+          "ResNet-50's first step on the card disagrees with the CPU's")
+    x, y = image_batch(seed + 41, RESNET_BATCH, RESNET_SIZE, 1000, dev)
+    losses = [float(net.fit(x, y))]  # warm at the batch
+    step_ms = wall_ms(lambda: losses.append(net.fit(x, y)), RESNET_STEPS)
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated() - held
+    flops = graph_train_flops(net, RESNET_BATCH)
+    rec = dict(params=net.num_params(), batch=RESNET_BATCH,
+               first_step_loss_rel_err=loss_err,
+               first_step_vertex_errs={k: (card_e[k], cpu_e[k])
+                                       for k in card_e},
+               first_step_param_err_vs_f64=p_err,
+               first_step_cpu_f32_err_vs_f64=max(cpu_e.values()),
+               first_step_state_err=s_err, step_ms=step_ms,
+               images_per_s=RESNET_BATCH / step_ms * 1e3, losses=losses,
+               peak_bytes=peak, gflop_per_step=flops / 1e9,
+               bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+               tflop_per_s=flops / step_ms / 1e9)
+    print(f"ResNet-50: {RESNET_STEPS} steps at batch {RESNET_BATCH}: "
+          f"{step_ms:.3f} ms a step, {rec['images_per_s']:.1f} images/s, "
+          f"{flops / 1e12:.3f} TFLOP a step from the conf "
+          f"({rec['tflop_per_s']:.2f} TFLOP/s; f32 bound "
+          f"{rec['bound_ms']:.3f} ms at {PEAK_F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s); losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; peak {peak / 2**30:.3f} GiB above what was held")
+    check(all(np.isfinite(losses)), "a ResNet-50 loss is not finite")
+    rec["profile"] = graph_profile(lambda: net.fit(x, y), step_ms)
+    return rec, net, (x, y)
+
+
+def phase_googlenet(seed: int, dev) -> dict:
+    print(f"== (b) GoogLeNet with its two auxiliary heads at {GOOG_SIZE}, "
+          f"1000 classes, batch {GOOG_BATCH}, {GOOG_STEPS} steps ==")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    net = build_googlenet(input_size=GOOG_SIZE, aux_heads=True, device=dev)
+    x, y = image_batch(seed + 42, GOOG_BATCH, GOOG_SIZE, 1000, dev)
+    labels = [y] * len(net.conf.outputs)
+    outs = net.output(x)
+    check([tuple(o.shape) for o in outs] == [(GOOG_BATCH, 1000)] * 3
+          and net.conf.outputs[0] == "out",
+          "GoogLeNet's output is not three heads with the main one first")
+    # the score is the three heads' mcxent summed, plus the l2 penalty
+    with torch.no_grad():
+        heads = [float(-(y * torch.log(o)).sum(-1).mean()) for o in outs]
+        penalty = float(net._regularization_penalty(net.params))
+    score = net.score(x, labels)
+    sum_err = abs(score - (sum(heads) + penalty)) / abs(score)
+    losses = [float(net.fit(x, labels))]
+    step_ms = wall_ms(lambda: losses.append(net.fit(x, labels)), GOOG_STEPS)
+    losses = [float(v) for v in losses]
+    flops = graph_train_flops(net, GOOG_BATCH)
+    rec = dict(params=net.num_params(), batch=GOOG_BATCH, step_ms=step_ms,
+               images_per_s=GOOG_BATCH / step_ms * 1e3, losses=losses,
+               head_losses=heads, penalty=penalty, score=score,
+               summed_rel_err=sum_err, gflop_per_step=flops / 1e9,
+               bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+    print(f"GoogLeNet: {rec['params']} parameters; output heads "
+          f"{net.conf.outputs}; score {score:.5f} = heads "
+          + " + ".join(f"{h:.5f}" for h in heads)
+          + f" + l2 {penalty:.5f} (rel {sum_err:.1e}); {step_ms:.3f} ms a "
+          f"step, {rec['images_per_s']:.1f} images/s, {flops / 1e9:.1f} "
+          f"GFLOP a step ({flops / step_ms / 1e9:.2f} TFLOP/s); losses "
+          + " ".join(f"{v:.4f}" for v in losses))
+    check(sum_err <= 1e-4, "GoogLeNet's score is not its heads' sum")
+    check(all(np.isfinite(losses)), "a GoogLeNet loss is not finite")
+    del net, x, y, labels, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq2seq_conf(seed: int, tbptt=None):
+    """The encoder-decoder graph at the char-RNN's widths (bench.py:206):
+    GravesLSTM(80 -> 200) encoder -> LastTimeStepVertex ->
+    DuplicateToTimeSeriesVertex against the decoder input -> MergeVertex
+    with it -> GravesLSTM(280 -> 200) decoder -> RnnOutputLayer(80)."""
+    gb = (NeuralNetConfiguration.builder().seed(seed).learning_rate(TRAIN_LR)
+          .updater("rmsprop").graph_builder().add_inputs("enc_in", "dec_in")
+          .add_layer("enc", L.GravesLSTM(n_in=VOCAB, n_out=LSTM_H,
+                                         activation="tanh"), "enc_in")
+          .add_vertex("last", graph_conf.LastTimeStepVertex(), "enc")
+          .add_vertex("dup", graph_conf.DuplicateToTimeSeriesVertex(
+              reference_input="dec_in"), "last")
+          .add_vertex("merge", graph_conf.MergeVertex(), "dup", "dec_in")
+          .add_layer("dec", L.GravesLSTM(n_in=LSTM_H + VOCAB, n_out=LSTM_H,
+                                         activation="tanh"), "merge")
+          .add_layer("out", L.RnnOutputLayer(n_in=LSTM_H, n_out=VOCAB,
+                                             activation="softmax",
+                                             loss_function="mcxent"), "dec")
+          .set_outputs("out"))
+    if tbptt:
+        gb = (gb.backprop_type("truncated_bptt").t_bptt_forward_length(tbptt)
+              .t_bptt_backward_length(tbptt))
+    return gb.build()
+
+
+S2S_SHAPES = {"enc_in": (-1, VOCAB), "dec_in": (-1, VOCAB)}
+K12 = (lstm_scan, lstm_scan_bwd, lstm_scan_plain, lstm_scan_bwd_plain)
+
+
+def phase_seq2seq(seed: int, dev):
+    print(f"== (c) the seq2seq graph: GravesLSTM({LSTM_H}) encoder -> "
+          f"LastTimeStep -> DuplicateToTimeSeries -> Merge -> "
+          f"GravesLSTM({LSTM_H}) decoder -> RnnOutputLayer({VOCAB}), "
+          f"{S2S_FITS} fits at {TRAIN_BATCH} x {SEQ}, one TBPTT-{TBPTT} fit, "
+          "rnn_time_step ==")
+    net = ComputationGraph(seq2seq_conf(seed), device=dev).init(S2S_SHAPES)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    ids = markov_tokens(seed + 50, (TRAIN_BATCH, 2 * SEQ + 1), VOCAB)
+    enc = torch.from_numpy(eye[ids[:, :SEQ]]).to(dev)
+    dec = torch.from_numpy(eye[ids[:, SEQ:2 * SEQ]]).to(dev)
+    y = torch.from_numpy(eye[ids[:, SEQ + 1:]]).to(dev)
+    cpu = graph_cpu_twin(net)
+    first = float(net.fit([enc, dec], [y]))
+    want = float(cpu.fit([enc.cpu(), dec.cpu()], [y.cpu()]))
+    loss_err = abs(first - want) / abs(want)
+    p_err = vertex_rel_err(net.params, cpu.params)
+    del cpu
+    print(f"seq2seq: {net.num_params()} parameters; the first fit on the "
+          f"card against the CPU: loss {first:.6f} vs {want:.6f} (rel "
+          f"{loss_err:.2e}), params {p_err:.2e} of each vertex's largest "
+          f"entry (tol {TOL_CARD_CPU})")
+    check(max(loss_err, p_err) <= TOL_CARD_CPU,
+          "the seq2seq graph's first fit on the card disagrees with the CPU")
+    for fn in K12:
+        fn.launches = 0
+    losses = []
+    fit_ms = wall_ms(lambda: losses.append(net.fit([enc, dec], [y])),
+                     S2S_FITS)
+    counts = {fn.__name__: fn.launches for fn in K12}
+    losses = [float(v) for v in losses]
+    print(f"seq2seq: {fit_ms:.3f} ms a fit, "
+          f"{TRAIN_BATCH * SEQ / fit_ms * 1e3:.0f} decoder tokens/s; losses "
+          + " ".join(f"{v:.4f}" for v in losses) + f"; launches {counts}")
+    check(counts["lstm_scan"] == counts["lstm_scan_bwd"] == 2 * S2S_FITS,
+          "K1 and K2 did not launch twice per seq2seq fit")
+    check(counts["lstm_scan_plain"] == counts["lstm_scan_bwd_plain"] == 0,
+          "a plain LSTM scan ran in the seq2seq fits")
+    check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < first,
+          "the seq2seq loss did not fall")
+    prof = graph_profile(lambda: net.fit([enc, dec], [y]), fit_ms, n=3)
+    tb = ComputationGraph(seq2seq_conf(seed, tbptt=TBPTT),
+                          device=dev).init(S2S_SHAPES)
+    tb.params = lowprec.tree_map(torch.clone, net.params)
+    tb.updater_state = tb.updater.init(tb.params)
+    for fn in K12:
+        fn.launches = 0
+    tb_loss = float(tb.fit([enc, dec], [y]))
+    tb_counts = {fn.__name__: fn.launches for fn in K12}
+    windows = -(-SEQ // TBPTT)
+    carried = float(tb.states["dec"]["h"].abs().max())
+    print(f"seq2seq TBPTT-{TBPTT}: {windows} windows, loss {tb_loss:.4f}, "
+          f"launches {tb_counts}; the decoder's carried h max |h| "
+          f"{carried:.4f}")
+    check(tb_counts["lstm_scan"] == tb_counts["lstm_scan_bwd"]
+          == 2 * windows and tb_counts["lstm_scan_plain"] == 0,
+          "the TBPTT fit did not run K1/K2 twice a window")
+    check(np.isfinite(tb_loss) and carried > 0, "the TBPTT fit failed")
+    del tb
+    (full,) = net.output(enc, dec)
+    net.rnn_clear_previous_state()
+    for fn in K12:
+        fn.launches = 0
+    (last,) = net.rnn_time_step(enc, dec)
+    step_counts = {fn.__name__: fn.launches for fn in K12}
+    rts_err = (last - full[:, -1]).abs().max().item()
+    print(f"rnn_time_step over the {SEQ} steps against output's last step: "
+          f"{rts_err:.2e} (tol {TOL_LSTM}); launches {step_counts}")
+    check(rts_err <= TOL_LSTM and step_counts["lstm_scan"] == 2
+          and step_counts["lstm_scan_plain"] == 0,
+          "rnn_time_step disagrees with output or missed K1")
+    counts = {k: counts[k] + tb_counts[k] + step_counts[k] for k in counts}
+    return counts, dict(first_step_loss_rel_err=loss_err,
+                        first_step_param_err=p_err, fit_ms=fit_ms,
+                        tokens_per_s=TRAIN_BATCH * SEQ / fit_ms * 1e3,
+                        losses=losses, launches=counts, tbptt_loss=tb_loss,
+                        rnn_time_step_err=rts_err, profile=prof)
+
+
+def bf16_steps(name: str, net, fit, poison) -> dict:
+    """``BF16_STEPS`` loss-scaled steps under ``DL4J_TPU_BF16=1`` (the
+    scale triple after each), then one step made non-finite by an inf
+    planted in a weight: params, states and updater state bit-equal to
+    before, the scale halved and one skip counted."""
+    with env_set(DL4J_TPU_BF16="1"):
+        fit()  # warm: cuDNN's bf16 picks
+        triples, ms = [], []
+        for _ in range(BF16_STEPS):
+            ms.append(wall_ms(fit, 1))
+            s = net.loss_scale
+            triples.append((s["scale"], s["good"], s["skipped"]))
+        before = net.loss_scale
+        poison()
+        keep = lowprec.tree_map(torch.clone, (net.params, net.states,
+                                              net.updater_state))
+        fit()
+        after = net.loss_scale
+        same = all(torch.equal(a, b) for a, b in zip(
+            lowprec.tree_leaves((net.params, net.states, net.updater_state)),
+            lowprec.tree_leaves(keep)))
+    step_ms = float(np.mean(ms))
+    print(f"{name} bf16: {step_ms:.3f} ms a step; (scale, good, skipped) "
+          f"after each: {triples}; the forced non-finite step: {before} -> "
+          f"{after}, params, states and updater state bit-equal: {same}")
+    check(same and after["skipped"] == before["skipped"] + 1
+          and after["scale"] == max(before["scale"] / 2, 1.0)
+          and net.dispatch_stats.loss_scale_skips == after["skipped"],
+          f"{name}'s forced non-finite bf16 step was not skipped")
+    return dict(step_ms=step_ms, triples=triples, forced_before=before,
+                forced_after=after)
+
+
+def phase_bf16(seed: int, dev, resnet, resnet_batch, resnet_f32_ms) -> dict:
+    print(f"== (d) bf16 loss-scaled training (DL4J_TPU_BF16=1): LeNet-5 at "
+          f"batch {LENET_BATCH} and ResNet-50 at batch {RESNET_BATCH}, "
+          f"{BF16_STEPS} steps each and one forced non-finite step ==")
+    lenet = build_lenet5(device=dev)
+    xl, yl, _ = load_mnist_info(train=True, num_examples=LENET_BATCH)
+    xl, yl = torch.from_numpy(xl).to(dev), torch.from_numpy(yl).to(dev)
+    fit_l = lambda: lenet.fit(xl, yl)
+    fit_l()
+    f32_ms = wall_ms(fit_l, BF16_STEPS)
+
+    def poison_l():
+        with torch.no_grad():
+            lenet.params[0]["W"][0, 0, 0, 0] = float("inf")
+
+    rep = {"lenet5": bf16_steps("LeNet-5", lenet, fit_l, poison_l)}
+    rep["lenet5"]["f32_step_ms"] = f32_ms
+    del lenet
+    x, y = resnet_batch
+
+    def poison_r():
+        with torch.no_grad():
+            resnet.params["stem_conv"]["W"][0, 0, 0, 0] = float("inf")
+
+    rep["resnet50"] = bf16_steps("ResNet-50", resnet,
+                                 lambda: resnet.fit(x, y), poison_r)
+    rep["resnet50"]["f32_step_ms"] = resnet_f32_ms
+    print(f"bf16 against f32 a step: LeNet-5 {rep['lenet5']['step_ms']:.3f} "
+          f"vs {f32_ms:.3f} ms; ResNet-50 {rep['resnet50']['step_ms']:.3f} "
+          f"vs {resnet_f32_ms:.3f} ms")
+    return rep
+
+
+def phase_graph(seed: int, dev):
+    """(K1/K2 launches of the seq2seq path, the report of (a)-(d))."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resnet, net, batch = phase_resnet(seed, dev)
+    rep = {"resnet50": resnet}
+    rep["bf16"] = phase_bf16(seed, dev, net, batch, resnet["step_ms"])
+    del net, batch
+    rep["googlenet"] = phase_googlenet(seed, dev)
+    counts, rep["seq2seq"] = phase_seq2seq(seed, dev)
+    rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rep["wall_s"] = time.perf_counter() - t0
+    print(f"the ComputationGraph phase: {rep['wall_s']:.1f} s")
+    return counts, rep
+
+
+def percentile(values, q: float) -> float:
+    values = sorted(values)
+    return values[min(len(values) - 1, int(len(values) * q))]
+
+
+def phase_embed(seed: int, dev, w2v_table):
+    """/embed through the engine: the retrieval bench's MLP (p50/p99 of
+    128 single-row calls, batcher against the direct call), ResNet-50 as
+    a graph record, BERT-base under mean, cls and max pooling through K5,
+    and the word2vec table as a lookup. (K5 launches, the report.)"""
+    print(f"== /embed: the MLP {EMBED_MLP} (bench.py:3041-3048), ResNet-50 "
+          f"(a graph record), BERT-base through K5 (mean, cls, max), the "
+          f"word2vec table; every model but the table loaded through POST "
+          f"/models from a zip ==")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep: dict = {}
+    eng = ServingEngine(device=dev).start()
+    tmp = tempfile.mkdtemp(prefix="embed_")
+    try:
+        # the MLP
+        mlp = MultiLayerNetwork(mlp_conf(EMBED_MLP, seed), device=dev).init()
+        path = os.path.join(tmp, "mlp.zip")
+        write_model(mlp, path)
+        del mlp
+        for action in ({"action": "load", "name": "mlp", "path": path,
+                        "input_shape": [EMBED_MLP[0]]},
+                       {"action": "serve", "name": "mlp"}):
+            code, _, body = _call(eng.url, "/models", action)
+            check(code == 200, f"POST /models {action['action']} mlp: {body}")
+        rng = np.random.default_rng(seed + 60)
+        xs = rng.normal(size=(EMBED_CALLS, EMBED_MLP[0])).astype(np.float32)
+        for i in range(4):
+            eng.embed(xs[i:i + 1])  # warm
+        lat = []
+        for i in range(EMBED_CALLS):
+            t1 = time.perf_counter()
+            eng.embed(xs[i:i + 1])
+            lat.append((time.perf_counter() - t1) * 1e3)
+        rec = eng.registry.get("mlp")
+        errs = []
+        for n in (1, 5, 8):
+            via = eng.embed(xs[:n])
+            direct = eng._direct_embed(rec, xs[:n], None, None)
+            errs.append(float(np.abs(via - direct).max()))
+        code, _, body = _call(eng.url, "/embed", {"batch": xs[:3].tolist()})
+        code1, _, body1 = _call(eng.url, "/embed",
+                                {"record": xs[0].tolist()})
+        b, b1 = json.loads(body), json.loads(body1)
+        rep["mlp"] = dict(p50_ms=percentile(lat, 0.5),
+                          p99_ms=percentile(lat, 0.99), calls=EMBED_CALLS,
+                          batcher_vs_direct_err=max(errs),
+                          http=[code, code1], dim=b.get("dim"))
+        print(f"MLP: {EMBED_CALLS} single-row embed calls p50 "
+              f"{rep['mlp']['p50_ms']:.3f} ms, p99 {rep['mlp']['p99_ms']:.3f}"
+              f" ms; batcher against the direct call at 1, 5, 8 rows: "
+              f"{max(errs):.2e} (tol {TOL_EMBED}); HTTP {code} "
+              f"{sorted(b)} dim {b.get('dim')}, {code1} {sorted(b1)}")
+        check(max(errs) <= TOL_EMBED and code == code1 == 200
+              and b["dim"] == EMBED_MLP[1] and "embeddings" in b
+              and "embedding" in b1, "/embed of the MLP failed")
+        # ResNet-50 as a graph record
+        res = build_resnet50(input_size=RESNET_SIZE, device=dev)
+        path = os.path.join(tmp, "resnet50.zip")
+        write_model(res, path)
+        del res
+        code, _, body = _call(eng.url, "/models", {
+            "action": "load", "name": "resnet", "path": path,
+            "input_shape": [RESNET_SIZE, RESNET_SIZE, 3]})
+        check(code == 200, f"POST /models load resnet: {body}")
+        rec = eng.registry.get("resnet")
+        imgs = rng.random((2, RESNET_SIZE, RESNET_SIZE, 3),
+                          dtype=np.float32)
+        got = eng.embed_for("resnet", None, imgs)
+        want = rec.model.feed_forward(imgs)["avgpool"].reshape(
+            2, -1).cpu().numpy()
+        probs = eng.predict_for("resnet", None, imgs)
+        r_err = float(np.abs(got - want).max())
+        rep["resnet50"] = dict(dim=int(got.shape[1]), err_vs_direct=r_err,
+                               predict_shape=list(probs.shape),
+                               predict_row_sums=probs.sum(1).tolist())
+        print(f"ResNet-50 record: embed dim {got.shape[1]} (vertex "
+              f"{rec.embed_adapter().layer!r}), against feed_forward "
+              f"{r_err:.2e}; /predict -> {list(probs.shape)}, row sums "
+              + " ".join(f"{v:.6f}" for v in probs.sum(1)))
+        check(got.shape == (2, 2048) and r_err <= TOL_EMBED
+              and probs.shape == (2, 1000)
+              and np.allclose(probs.sum(1), 1.0, atol=1e-5),
+              "/embed or /predict of the ResNet-50 graph record failed")
+        # BERT-base
+        cfg = bert_mod.BertConfig(**BERT_KW)
+        path = os.path.join(tmp, "bert.zip")
+        bert_mod.BertMLM(cfg, device=dev).save(path)
+        code, _, body = _call(eng.url, "/models", {"action": "load",
+                                                   "name": "bert",
+                                                   "path": path})
+        check(code == 200, f"POST /models load bert: {body}")
+        rec = eng.registry.get("bert")
+        ids = bert_tokens(seed + 61)[:EMBED_BERT_N, :EMBED_BERT_T].copy()
+        ids[0, EMBED_BERT_T // 2:] = 0  # a padded row
+        with plain_flash():
+            ref = rec.model.embed_tokens(ids)
+        pooled = {"mean": ref.mean(axis=1), "cls": ref[:, 0],
+                  "max": ref.max(axis=1)}
+        flash_attention_block.launches = 0
+        flash_attention_block_plain.launches = 0
+        code, _, body = _call(eng.url, "/embed", {"tokens": ids.tolist(),
+                                                  "model": "bert"})
+        b = json.loads(body)
+        errs = {"mean": float(np.abs(np.asarray(b["embeddings"])
+                                     - pooled["mean"]).max())}
+        for pool in ("cls", "max"):
+            out = eng._direct_embed(rec, ids, None, pool)
+            errs[pool] = float(np.abs(out - pooled[pool]).max())
+        k5 = {"flash_attention_block": flash_attention_block.launches,
+              "flash_attention_block_plain":
+                  flash_attention_block_plain.launches}
+        layers = cfg.n_layers
+        rep["bert"] = dict(dim=b.get("dim"), err_vs_plain=errs,
+                           launches=k5, rows=EMBED_BERT_N, t=EMBED_BERT_T)
+        print(f"BERT-base record: /embed {code} dim {b.get('dim')}; mean, "
+              f"cls and max against the plain attention: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {TOL_EXT_F32}); launches {k5}")
+        check(code == 200 and b["dim"] == cfg.d_model
+              and max(errs.values()) <= TOL_EXT_F32,
+              "/embed of BERT disagrees with the plain attention")
+        check(k5["flash_attention_block"] == 3 * layers
+              and k5["flash_attention_block_plain"] == 0,
+              "/embed of BERT did not run K5 once per layer per call")
+        # the word2vec table as a lookup
+        eng.registry.load("w2v", model=w2v_table)
+        wid = rng.integers(0, w2v_table.syn0.shape[0], 8)
+        code, _, body = _call(eng.url, "/embed", {
+            "tokens": [[int(i)] for i in wid], "model": "w2v"})
+        w = np.asarray(json.loads(body)["embeddings"], np.float32)
+        w_ok = code == 200 and np.array_equal(w, w2v_table.syn0[wid])
+        rep["word2vec"] = dict(dim=int(w.shape[1]), equal=bool(w_ok))
+        print(f"word2vec table: /embed {code} dim {w.shape[1]}, rows equal "
+              f"syn0's: {w_ok}")
+        check(w_ok, "/embed of the word2vec table is not its rows")
+        _, _, body = _call(eng.url, "/models")
+        report = json.loads(body)["embed"]
+        _, _, text = _call(eng.url, "/metrics",
+                           headers={"Accept": "text/plain"})
+        stats = eng.retrieval_stats.snapshot()
+        rep.update(embed_report=report, retrieval_stats=stats)
+        print(f"GET /models embed: {report}; retrieval_stats "
+              f"{ {k: stats[k] for k in ('embed_requests', 'embed_rows')} }")
+        check(report.get("mlp@v1") == {"kind": "feedforward",
+                                       "dim": EMBED_MLP[1]}
+              and report.get("resnet@v1") == {"kind": "feedforward",
+                                              "dim": 2048}
+              and report.get("bert@v1") == {"kind": "bert",
+                                            "dim": cfg.d_model}
+              and report.get("w2v@v1", {}).get("kind") == "lookup"
+              and "embed_requests" in text,
+              "embed_report or the retrieval ledger is wrong")
+    finally:
+        eng.stop(drain=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rep["wall_s"] = time.perf_counter() - t0
+    print(f"the /embed phase: {rep['wall_s']:.1f} s")
+    return k5, rep
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -5188,6 +5818,7 @@ def main(argv=None) -> int:
     w2v, chunk, word2vec = phase_word2vec(args.seed, dev)
     peak_w2v = torch.cuda.max_memory_allocated()
     merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
+    w2v_table = w2v.lookup_table  # /embed's lookup record
     del w2v, chunk
     import torch.distributed as dist
 
@@ -5214,8 +5845,12 @@ def main(argv=None) -> int:
     peak_bert = torch.cuda.max_memory_allocated()
     cnn_counts, cnn = phase_cnn_zoo(args.seed, dev)
     peak_cnn = cnn["peak_memory_bytes"]
+    graph_counts, graph = phase_graph(args.seed, dev)
+    peak_graph = graph["peak_memory_bytes"]
+    embed_counts, embed = phase_embed(args.seed, dev, w2v_table)
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
-               peak_bert, peak_cnn)
+               peak_bert, peak_cnn, peak_graph,
+               torch.cuda.max_memory_allocated())
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
@@ -5226,7 +5861,8 @@ def main(argv=None) -> int:
           f"{peak_rt / 2**30:.3f} GiB; MHA training, K5 and K7 timing "
           f"{peak_sp / 2**30:.3f} GiB; LM training "
           f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB; "
-          f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB); "
+          f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB; ComputationGraph "
+          f"{peak_graph / 2**30:.3f} GiB); "
           f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
@@ -5319,6 +5955,7 @@ def main(argv=None) -> int:
              "launches_char_rnn"]["lstm_scan"],
          "launches_train": train["launches"]["lstm_scan"],
          "launches_cnn_zoo": cnn_counts["lstm_scan"],
+         "launches_graph": graph_counts["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -5336,6 +5973,7 @@ def main(argv=None) -> int:
          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:396",
          "launches": train["launches"]["lstm_scan_bwd"],
          "launches_cnn_zoo": cnn_counts["lstm_scan_bwd"],
+         "launches_graph": graph_counts["lstm_scan_bwd"],
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -5374,6 +6012,7 @@ def main(argv=None) -> int:
          "launches_mha_train": mha_counts["flash_attention_block"],
          "launches_ring_train": rt_counts["flash_attention_block"],
          "launches_bert": bert_counts["flash_attention_block"],
+         "launches_embed": embed_counts["flash_attention_block"],
          "max_abs_err": max(errs["flash_attention_block"]["max_abs_err"],
                             k5_bert["max_err"]),
          "max_abs_err_lse": max(
@@ -5428,6 +6067,7 @@ def main(argv=None) -> int:
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,
                   "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
+                  "graph": graph, "embed": embed,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1,6 +1,7 @@
 """DataSet and the in-memory iterator (counterpart:
 ``deeplearning4j_tpu/datasets/iterator.py`` — ``DataSet`` :36,
-``DataSetIterator`` and ``ListDataSetIterator`` :193).
+``MultiDataSet`` :143-155, ``DataSetIterator`` and
+``ListDataSetIterator`` :193).
 
 A ``DataSet`` holds one minibatch (features, labels and their optional
 masks) as numpy arrays or tensors; ``ListDataSetIterator`` cuts an
@@ -13,7 +14,7 @@ a later slice.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, List, Optional
 
 import numpy as np
 
@@ -29,6 +30,20 @@ class DataSet:
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
+
+
+@dataclass
+class MultiDataSet:
+    """A multi-input, multi-output minibatch (reference org.nd4j
+    MultiDataSet, consumed by ``ComputationGraph.fit``)."""
+
+    features_list: List[Any]
+    labels_list: List[Any]
+    features_masks: Optional[List[Optional[Any]]] = None
+    labels_masks: Optional[List[Optional[Any]]] = None
+
+    def num_examples(self) -> int:
+        return int(np.asarray(self.features_list[0]).shape[0])
 
 
 class DataSetIterator:

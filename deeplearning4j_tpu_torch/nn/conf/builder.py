@@ -4,8 +4,8 @@
 ``NeuralNetConfiguration.builder()`` -> global setters -> ``.list()`` ->
 ``.layer(i, conf)`` ... ``.build()`` gives a MultiLayerConfiguration with
 every layer resolved against the global defaults, exactly as the JAX
-package builds it. The ComputationGraph builder (``graph_builder``) is not
-ported yet.
+package builds it; ``.graph_builder()`` (``builder.py:201-206``) gives the
+ComputationGraph's ``GraphBuilder`` (``nn/conf/graph.py``).
 """
 
 from __future__ import annotations
@@ -179,6 +179,13 @@ class Builder:
     # -- transition to the layer-stack builder ------------------------------
     def list(self) -> "ListBuilder":
         return ListBuilder(self)
+
+    def graph_builder(self):
+        """Transition to the DAG builder (reference
+        ComputationGraphConfiguration.GraphBuilder :569-605)."""
+        from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+
+        return GraphBuilder(self)
 
     def global_conf(self) -> Dict[str, Any]:
         g = dict(GLOBAL_DEFAULTS)

@@ -15,7 +15,10 @@ Semantics follow ``lax``: symmetric explicit padding, floor output sizes,
 max pooling padded with -inf at any padding (``F.max_pool2d`` refuses a
 padding past half the window: such a padding is applied by ``F.pad``
 first), average pooling dividing every window by ``kh * kw`` (padding
-included) and sum pooling as that sum. The JAX package's strict-mode
+included) and sum pooling as that sum. A bf16 (or f16) window sum is
+``lax.reduce_window``'s: the window's elements added in row-major order
+in the input's dtype, rounding at every add (``_window_sum``); wider
+dtypes take ``F.avg_pool2d``. The JAX package's strict-mode
 three-pass conv (``ops/precision.py``) is TPU arithmetic and does not
 carry over: on the card an f32 conv is f32.
 """
@@ -93,9 +96,31 @@ class SubsamplingLayerImpl(BaseLayerImpl):
             padding = (0, 0)
         if pt == "max":
             y = F.max_pool2d(z, kernel, stride, padding)
+        elif z.element_size() < 4:
+            y = _window_sum(z, kernel, stride, padding)
+            if pt != "sum":
+                y = y / float(kh * kw)
         else:
             # every window divided by kh * kw, padding included (avg), or
             # by nothing (sum)
             y = F.avg_pool2d(z, kernel, stride, padding,
                              divisor_override=kh * kw if pt != "sum" else 1)
         return _nhwc(y), state
+
+
+def _window_sum(z, kernel, stride, padding):
+    """NCHW window sums in ``z``'s dtype, one strided slice per window
+    offset added in row-major order (the order and the per-add rounding
+    of XLA's ``reduce_window`` on a narrow float)."""
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, padding
+    if ph or pw:
+        z = F.pad(z, (pw, pw, ph, ph))
+    oh = (z.shape[2] - kh) // sh + 1
+    ow = (z.shape[3] - kw) // sw + 1
+    y = None
+    for di in range(kh):
+        for dj in range(kw):
+            part = z[:, :, di:di + sh * (oh - 1) + 1:sh,
+                     dj:dj + sw * (ow - 1) + 1:sw]
+            y = part if y is None else y + part
+    return y

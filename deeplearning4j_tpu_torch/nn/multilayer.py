@@ -1,6 +1,7 @@
 """MultiLayerNetwork (counterpart: ``deeplearning4j_tpu/nn/multilayer.py``
 — ``init``, ``_forward``, ``_regularization_penalty`` :210, ``_loss``
-:233, the train step :278-327, ``fit`` :483 with ``_bucket_batch`` :517,
+:233, the train step :278-327, the bf16 loss-scaled step :344-411,
+``fit`` :483 with ``_bucket_batch`` :517,
 ``fit_batches``, the TBPTT window loop :769-839, ``fit_iterator`` :841,
 ``pretrain`` :926, ``output`` :1002, ``feed_forward``, ``score`` :1025,
 ``evaluate`` :1031, the streaming ``rnn_clear_previous_state`` /
@@ -20,7 +21,9 @@ A train step is eager: the forward (dropout from ``ops/rng`` streams of
 ``(conf.seed, iteration, layer)``), the loss with the l1/l2 penalty,
 ``torch.autograd.grad`` (the LSTM layers' scan goes through
 ``LstmScanFn``: K1 forward and K2 backward on the card), then the
-updaters and the parameter step in place. A ``truncated_bptt``
+updaters and the parameter step in place (``nn/common.train_iteration``;
+under ``DL4J_TPU_BF16`` the bf16 loss-scaled step, its scale in
+``loss_scale`` and ``training_state``). A ``truncated_bptt``
 configuration fed [N, T, F] runs one step per window of
 ``tbptt_fwd_length`` steps, carrying the recurrent state across windows as
 data. ``output`` pads a ragged batch to its bucket and slices the answer
@@ -46,8 +49,11 @@ import torch
 from deeplearning4j_tpu_torch.nn.common import (
     apply_layer,
     cast_loss_input,
+    LossScaled,
     decay_lr_scale_entry,
+    promote_to,
     tbptt_backprop_window,
+    train_iteration,
 )
 from deeplearning4j_tpu_torch.nn.conf import layers as conf_layers
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
@@ -88,10 +94,10 @@ Layers = List[Dict[str, torch.Tensor]]
 _REG_PARAM_NAMES = ("W", "U")
 
 
-def params_from_numpy(layers: Sequence[Dict[str, Any]], *,
-                      device=None) -> Layers:
+def params_from_numpy(layers, *, device=None):
     """The port's params (or states) from a JAX MultiLayerNetwork's list of
-    per-layer dicts (nested for the bidirectional LSTM) handed over as
+    per-layer dicts (nested for the bidirectional LSTM), or a JAX
+    ComputationGraph's dict of them keyed by vertex name, handed over as
     numpy arrays. Float values are carried as f32, bit for bit."""
     dev = resolve_device(device)
 
@@ -101,6 +107,8 @@ def params_from_numpy(layers: Sequence[Dict[str, Any]], *,
         a = np.ascontiguousarray(np.asarray(v, dtype=np.float32))
         return torch.from_numpy(a.copy()).to(dev)
 
+    if isinstance(layers, dict):
+        return node(layers)
     return [node(layer) for layer in layers]
 
 
@@ -120,7 +128,7 @@ def updater_state_from_numpy(layers: Sequence[Dict[str, Any]], *,
     return [node(layer) for layer in layers]
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(LossScaled):
     def __init__(self, conf: MultiLayerConfiguration, device=None) -> None:
         self.device = resolve_device(device)
         self.conf = conf
@@ -133,12 +141,18 @@ class MultiLayerNetwork:
         self.listeners: list = []
         self._score: Optional[torch.Tensor] = None  # last loss, on device
         self._input_shape: Optional[Tuple[int, ...]] = None
+        # each activation's shape past the batch axis (the input first),
+        # as init propagated it
+        self._act_shapes: List[Tuple[int, ...]] = []
         # True while fit_iterator drives fit(): bucketing's "auto" scope
         self._bucket_scope = False
         # padded rows would enter BN's batch statistics in training
         self._bucketing_blocked = any(
             isinstance(lc, conf_layers.BatchNormalization)
             for lc in conf.layers)
+        # the bf16 dynamic loss scale (DL4J_TPU_BF16), made at first use
+        self._loss_scale: Optional[Dict[str, torch.Tensor]] = None
+        self.dispatch_stats = dispatch.DispatchStats()
 
     # ------------------------------------------------------------------ init
     def _infer_input_shape(self) -> Tuple[int, ...]:
@@ -164,6 +178,7 @@ class MultiLayerNetwork:
         gen = torch.Generator(device=self.device).manual_seed(
             int(self.conf.seed))
         params, states = [], []
+        self._act_shapes = [shape]
         for i, layer in enumerate(self.layers):
             pp = self.conf.input_preprocessors.get(i)
             if pp is not None:
@@ -171,6 +186,7 @@ class MultiLayerNetwork:
             p, s, shape = layer.initialize(gen, shape)
             params.append(p)
             states.append(s)
+            self._act_shapes.append(tuple(shape))
         self.params = params
         self.states = states
         self.updater_state = self.updater.init(params)
@@ -192,10 +208,10 @@ class MultiLayerNetwork:
         resumes where it stopped."""
         from deeplearning4j_tpu_torch.utils.serialization import (
             npz_bytes_to_tree,
-            read_multi_layer_zip,
+            read_model_zip,
         )
 
-        z = read_multi_layer_zip(path)
+        z = read_model_zip(path, "MultiLayerNetwork")
         net = cls(MultiLayerConfiguration.from_json(z["conf"]),
                   device=device)
         ishape = z["meta"].get("input_shape")
@@ -299,30 +315,24 @@ class MultiLayerNetwork:
         last_in = out_impl._dropout_in(last_in, train,
                                        self._dropout_gen(last, train, step))
         lmask = label_mask if label_mask is not None else mask
-        loss = out_impl.loss(params[-1], last_in, labels, lmask)
+        loss = out_impl.loss(promote_to(params[-1], last_in), last_in,
+                             labels, lmask)
         return loss + self._regularization_penalty(params), new_states
 
     def _train_step(self, x, labels, mask, label_mask, *,
                     carry_state: bool = False,
                     backprop_window: Optional[int] = None) -> torch.Tensor:
         """One optimizer iteration on this batch: loss and gradients, the
-        updaters, the parameter step in place. Returns the loss."""
-        leaves = tree_map(lambda v: v.detach().requires_grad_(True),
-                          self.params)
-        with torch.enable_grad():
-            loss, new_states = self._loss(
-                leaves, self.states, x, labels, train=True,
+        updaters, the parameter step in place (loss-scaled in bf16 under
+        ``DL4J_TPU_BF16``). Returns the loss."""
+        def loss_fn(params, xx):
+            return self._loss(
+                params, self.states, xx, labels, train=True,
                 step=self.iteration, mask=mask, label_mask=label_mask,
                 carry_state=carry_state, backprop_window=backprop_window)
-            flat_grads = iter(torch.autograd.grad(
-                loss, tree_leaves(leaves), materialize_grads=True))
-        grads = tree_map(lambda _: next(flat_grads), leaves)
-        updates, self.updater_state = self.updater.update(
-            grads, self.updater_state, self.params, self.iteration)
-        apply_updates(self.params, updates, self.conf.minimize)
-        self.states = [{k: v.detach() for k, v in s.items()}
-                       for s in new_states]
-        return loss.detach()
+
+        loss, self.states = train_iteration(self, loss_fn, x)
+        return loss
 
     # ------------------------------------------------------------------- fit
     @property
@@ -667,19 +677,6 @@ class MultiLayerNetwork:
         self.updater_state = [decay_lr_scale_entry(s, rate)
                               for s in self.updater_state]
 
-    # ------------------------------------------------------------ resilience
-    def training_state(self) -> Dict[str, Any]:
-        """What exact resume needs beyond params, states and updater: the
-        iteration (every LR schedule and dropout stream folds it in; the
-        streams' base is ``conf.seed``, so no generator state is kept)."""
-        return {"iteration": int(self.iteration)}
-
-    def restore_training_state(self, st: Dict[str, Any]) -> None:
-        """Inverse of :meth:`training_state`; a JAX zip's ``rng`` key is
-        ignored (the port's streams derive from ``conf.seed``)."""
-        if st.get("iteration") is not None:
-            self.iteration = int(st["iteration"])
-
     # ------------------------------------------------------------- listeners
     def set_listeners(self, *listeners) -> "MultiLayerNetwork":
         self.listeners = list(listeners)
@@ -710,8 +707,9 @@ def _host(a) -> np.ndarray:
 
 
 def _fill(template, loaded, what: str):
-    """``loaded`` checked against the layout ``template`` implies: per
-    layer the same keys (nested, for the updater state) and the same shape
+    """``loaded`` checked against the layout ``template`` implies (a list
+    per layer, or a graph's dict per layer vertex): per layer the same
+    keys (nested, for the updater state) and the same shape
     per leaf (for states, past the batch axis: a stream state carries the
     batch it was last sized for). A node with no leaves (a parameterless
     layer's ``{"v": {}}``) writes nothing to the npz, so it is taken from
@@ -734,5 +732,8 @@ def _fill(template, loaded, what: str):
                 f"{tuple(got.shape)}, expected {tuple(want.shape)}")
         return got
 
+    if isinstance(template, dict):
+        return {k: check(want, loaded.get(k, {}), f"vertex {k!r}")
+                for k, want in template.items()}
     return [check(want, got, f"layer {i}")
             for i, (want, got) in enumerate(zip(template, loaded))]

@@ -1,7 +1,8 @@
 """Shape bucketing (counterpart: ``deeplearning4j_tpu/ops/dispatch.py``
 ``bucketing_mode`` :338, ``bucket_size`` :360, ``pad_axis0`` :378,
 ``inference_bucket`` :387, ``pad_rows`` :403 and ``row_validity_mask``
-:422; the decode half of ``DispatchStats`` :151).
+:422; the decode half of ``DispatchStats`` :151 and its
+``loss_scale_skips``).
 
 Admission prefill pads a prompt to a bucket width,
 ``MultiLayerNetwork.output`` pads a ragged batch to a bucket row count,
@@ -11,7 +12,8 @@ of shapes. Inference padding is safe: every op of the ported layers is
 row-independent. Donation, jit caches and the trace counters have no
 counterpart here: PyTorch runs eagerly and the port updates its
 single-owner buffers in place. ``DispatchStats`` keeps the decode
-pools' ledger: ticks dispatched and the tokens they committed.
+pools' ledger (ticks dispatched and the tokens they committed) and, for
+the containers, the bf16 steps skipped on non-finite gradients.
 """
 
 from __future__ import annotations
@@ -91,14 +93,18 @@ class DispatchStats:
     ``decode_ticks`` / ``decode_tokens``): device ticks dispatched (a
     k-step tick is one, a speculative round two: draft and verify) and
     the tokens they committed over every lane. ``tokens_per_dispatch``
-    is what the per-tick host cost divides by."""
+    is what the per-tick host cost divides by. ``loss_scale_skips`` is
+    a container's count of bf16 steps skipped (synced when its
+    ``loss_scale`` is read)."""
 
     def __init__(self) -> None:
         self.decode_ticks = 0
         self.decode_tokens = 0
+        self.loss_scale_skips = 0
 
     def snapshot(self) -> Dict[str, Any]:
         return {
+            "loss_scale_skips": self.loss_scale_skips,
             "decode_ticks": self.decode_ticks,
             "decode_tokens": self.decode_tokens,
             "tokens_per_dispatch": (

@@ -6,7 +6,8 @@ arena's dtype), the ``/predict`` batcher, shape bucketing, the remat
 policy (``ops/remat.py``) and bf16 loss-scaled training
 (``ops/lowprec.py``), and the serving planes: calibrated int8
 ``/predict``, the circuit breaker, the watchdog, drain, SLO classes and
-tenant quotas; and the dataset directory (``datasets/fetchers.py``).
+tenant quotas; ``/embed``'s layer and pooling (``retrieval/embed.py``);
+and the dataset directory (``datasets/fetchers.py``).
 The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
@@ -114,6 +115,13 @@ _register("DL4J_TPU_SERVE_SLO_CLASSES", "", "str",
 _register("DL4J_TPU_SERVE_TENANT_QUOTAS", "", "str",
           "per-tenant token-bucket quotas 'name:rate_per_s[:burst],...'"
           " ('' = no tenant metering; unlisted tenants are unmetered)")
+_register("DL4J_TPU_EMBED_LAYER", "", "int",
+          "feed-forward embedding layer: int index into the MLN "
+          "activations list ('' = -2, the last hidden layer); CG vertex "
+          "selection is per-adapter, not env-driven")
+_register("DL4J_TPU_EMBED_POOL", "mean", "str",
+          "sequence pooling for BertMLM /embed contextual embeddings "
+          "(mean | cls | max)")
 _register("DL4J_TPU_DATA_DIR", "", "path",
           "dataset cache dir; '' = ~/.deeplearning4j_tpu")
 

@@ -3,18 +3,18 @@
 the terminations ``EpsTermination``, ``Norm2Termination`` and
 ``ZeroDirection``, ``backtrack_line_search`` :90,
 ``line_gradient_descent`` :145, ``conjugate_gradient`` :173, ``lbfgs``
-:211 and ``Solver`` :286 with the MultiLayerNetwork oracle).
+:211 and ``Solver`` :286 with the MultiLayerNetwork oracle and the
+ComputationGraph's, ``_oracles_graph`` / ``optimize_graph`` :337-414).
 
 The optimizers are functions over one flat parameter vector and an
 oracle ``vg_fn(x) -> (score, grad)`` (with an optional ``value_only``
 attribute for the line search's probes), the same control flow as the
 JAX package's. The Solver flattens a network's params in the JAX
-package's ``ravel_pytree`` order (layers in order, each dict's keys
-sorted), evaluates the loss in inference mode (no dropout) on the
+package's ``ravel_pytree`` order (layers in order, a graph's vertices
+and each dict's keys sorted), evaluates the loss in inference mode (no dropout) on the
 minibatch, and takes the gradient with ``torch.autograd.grad``. Scores
 cross to the host as Python floats: every line-search decision is a host
-branch, as in the JAX package. The ComputationGraph oracle waits for the
-ComputationGraph.
+branch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -274,7 +274,9 @@ def ravel(tree) -> Tuple[torch.Tensor, Callable[[torch.Tensor], list]]:
     shapes = [(p, tuple(t.shape), t.numel()) for p, t in leaves]
 
     def unravel(v: torch.Tensor):
-        out = [dict() for _ in tree]
+        # a graph's params are a dict keyed by vertex name
+        out = ({k: {} for k in tree} if isinstance(tree, dict)
+               else [dict() for _ in tree])
         offset = 0
         for path, shape, n in shapes:
             node = out[path[0]]
@@ -349,6 +351,37 @@ class Solver:
             with torch.enable_grad():
                 val, _ = net._loss(unravel(p), net.states, x, y, train=False,
                                    mask=mask, label_mask=label_mask)
+                (grad,) = torch.autograd.grad(val, p)
+            return float(val.detach()), grad
+
+        vg.value_only = value
+        return self._run(vg, flat0.detach(), unravel, max_iterations)
+
+    def optimize_graph(self, inputs, labels, masks=None, label_masks=None,
+                       max_iterations: Optional[int] = None) -> float:
+        """The ComputationGraph path (``_oracles_graph`` and
+        ``optimize_graph``, :337-414): ``inputs`` a name-keyed dict of
+        tensors, ``labels`` a list; the graph takes the result's
+        params."""
+        net = self.net
+        if net.params is None:
+            net.init()
+        flat0, unravel = ravel(net.params)
+        masks = masks or {}
+
+        def value(p):
+            with torch.no_grad():
+                val, _ = net._loss(unravel(p), net.states, inputs, labels,
+                                   train=False, masks=masks,
+                                   label_masks=label_masks)
+            return float(val)
+
+        def vg(p):
+            p = p.detach().requires_grad_(True)
+            with torch.enable_grad():
+                val, _ = net._loss(unravel(p), net.states, inputs, labels,
+                                   train=False, masks=masks,
+                                   label_masks=label_masks)
                 (grad,) = torch.autograd.grad(val, p)
             return float(val.detach()), grad
 

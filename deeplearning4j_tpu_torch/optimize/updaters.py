@@ -289,7 +289,11 @@ class MultiLayerUpdater:
 
 @torch.no_grad()
 def apply_updates(params_list, updates_list, minimize: bool = True):
-    """params <- params - updates (+ when maximizing), in place."""
+    """params <- params - updates (+ when maximizing), in place. Lists of
+    per-layer dicts, or dicts of them keyed by vertex name."""
+    if isinstance(params_list, dict):
+        updates_list = [updates_list[k] for k in params_list]
+        params_list = list(params_list.values())
     for p, u in zip(params_list, updates_list):
         if not u:
             continue

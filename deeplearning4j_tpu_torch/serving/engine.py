@@ -2,9 +2,10 @@
 ``/predict`` batchers, ``/generate`` decoders and circuit breakers
 (counterpart: ``deeplearning4j_tpu/serving/engine.py``).
 
-It takes ``model=`` (a TransformerLM, a MultiLayerNetwork or a
-``QuantizedNet``) or ``model_path=`` (a checkpoint zip the JAX package
-or the port wrote, restored by its model class, with its
+It takes ``model=`` (a TransformerLM, a MultiLayerNetwork, a
+ComputationGraph or a ``QuantizedNet``) or ``model_path=`` (a checkpoint
+zip the JAX package or the port wrote, restored by its model class, with
+its
 ``normalizer.json`` and ``quant.json``) as the record "default", or
 nothing: records are then loaded at run time through ``POST /models``.
 Every record gets its own batcher, decoder and breaker, keyed by
@@ -32,7 +33,8 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   blocks, "shape", "dtype": "float32" | "bfloat16",
                   "block_tokens"}; bf16 blocks travel as raw 16-bit words.
   POST /prime     (:1122-1135) that payload -> {"adopted": n}.
-  POST /predict   (a MultiLayerNetwork; :995-1020) {"record": [...]} |
+  POST /predict   (a MultiLayerNetwork, or a ComputationGraph's first
+                  output; :995-1020) {"record": [...]} |
                   {"record_base64": "<le float32 bytes>"} -> {"output"},
                   {"batch": [[...], ...]} -> {"outputs"}; optional
                   "model", "version", "timeout_s". Rows are reshaped to
@@ -41,6 +43,21 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   400 and no breaker vote), then go through the record's
                   dynamic batcher, or one locked ``output`` call under
                   ``DL4J_TPU_SERVE_BATCH=0``.
+  POST /embed     (:1022-1047; ``embed_for`` :332-468) {"record": [...]}
+                  -> {"embedding", "dim"}; {"batch": [[...], ...]} or
+                  {"tokens": [[ids]] | [ids]} -> {"embeddings", "dim"};
+                  optional "layer" (an MLN activation index or a graph
+                  vertex name), "pool" (BERT: mean | cls | max), "model",
+                  "version", "timeout_s". Rows go through the record's
+                  adapter (``retrieval/embed.resolve_adapter``: a
+                  MultiLayerNetwork's or ComputationGraph's hidden
+                  activation, BERT's pooled ``embed_tokens`` through K5,
+                  a word2vec table's rows), padded up the bucket ladder
+                  with the pad rows sliced off, through the record's embed
+                  batcher (one per record, the first request's layer and
+                  pool, with the watchdog and breaker hooks) or one locked
+                  call under ``DL4J_TPU_SERVE_BATCH=0``; 400 with no
+                  record, batch or tokens.
   POST /models    {"action": "load", "name", "path", "input_shape"?} |
                   {"action": "warmup" | "serve" | "unload", "name",
                   "version"?, "max_batch"?, "gen_tokens"?} (:1172-1197).
@@ -50,14 +67,16 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   ``/health?ready=1`` adds "live": true and "ready"
                   (:1341-1355).
   GET  /models    {"models", "default", "kv": per-record decoder
-                  capacity, "lineage": the serve() swaps}
+                  capacity, "lineage": the serve() swaps, "embed": each
+                  record's adapter kind and dim, "indexes": {}}
   GET  /metrics   {"serving", "models", "health", "draining", "hbm":
                   resident bytes per record against the device's memory,
                   "kernels": launch counts of each kernel of the served
                   paths and of its plain version, and for the default LM
                   "decode" and "dispatch"}; with ``Accept: text/plain`` or
                   ``?format=prometheus`` the process registry's text
-                  exposition (``obs/registry.py``).
+                  exposition (``obs/registry.py``), the engine's
+                  ``retrieval_stats`` ledger among them.
 
 Statuses (``do_POST`` :962-993): 429 queue full; 503 with an integer
 Retry-After (ceil, at least 1) for an open breaker, a broken record or a
@@ -81,8 +100,10 @@ malformed spec raises ValueError there), ``_BREAKER_FAILS``,
 ``_WATCHDOG_S`` and ``_DRAIN_S``, and through the decoders
 ``DL4J_TPU_SERVE_TICK_K``, ``_SPEC_K`` and ``_KV_DTYPE``.
 
-Not ported yet: /embed, /search, shadow mirroring, the serving mesh and
-``DL4J_TPU_SERVE_ROLE``, the obs journal and trace spans.
+Not ported yet: /search (``register_index``, ``index_report``: the
+``indexes`` of ``/models`` and ``hbm_report`` stay empty), shadow
+mirroring, the serving mesh and ``DL4J_TPU_SERVE_ROLE``, the obs journal
+and trace spans.
 """
 
 from __future__ import annotations
@@ -103,14 +124,18 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.obs import registry as obs_registry
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops import memory as opsmem
 from deeplearning4j_tpu_torch.ops.device import resolve_device
+from deeplearning4j_tpu_torch.ops import dispatch
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_block,
+    flash_attention_block_plain,
     flash_attention_plain,
 )
 from deeplearning4j_tpu_torch.ops.lstm_scan import lstm_scan, lstm_scan_plain
@@ -139,6 +164,7 @@ from deeplearning4j_tpu_torch.serving.resilience import (
 )
 from deeplearning4j_tpu_torch.serving.slo import SLOClass, parse_slo_classes
 from deeplearning4j_tpu_torch.serving.speculate import SpeculativeDecoder
+from deeplearning4j_tpu_torch.retrieval.stats import RetrievalStats
 from deeplearning4j_tpu_torch.serving.telemetry import ServingStats
 from deeplearning4j_tpu_torch.streaming.conversion import (
     decode_record_base64,
@@ -150,7 +176,10 @@ GENERATE_KERNELS = {"flash_attention": (flash_attention,
                     "paged_attention": (paged_attention,
                                         paged_attention_plain)}
 PREDICT_KERNELS = {"lstm_scan": (lstm_scan, lstm_scan_plain)}
-SERVED_TYPES = (TransformerLM, MultiLayerNetwork, lowprec.QuantizedNet)
+EMBED_KERNELS = {"flash_attention_block": (flash_attention_block,
+                                           flash_attention_block_plain)}
+SERVED_TYPES = (TransformerLM, MultiLayerNetwork, ComputationGraph,
+                lowprec.QuantizedNet)
 _OFF = ("0", "off", "false", "no")
 
 
@@ -158,6 +187,14 @@ def kernel_counts(kernels) -> Dict[str, Dict[str, int]]:
     """Launch counts of each kernel wrapper and of its plain version."""
     return {name: {"launches": fn.launches, "plain_launches": plain.launches}
             for name, (fn, plain) in kernels.items()}
+
+
+def _first_output(out) -> np.ndarray:
+    """A model's ``output`` on the host: a graph's first output (its list
+    in ``conf.outputs`` order), a network's only one."""
+    if isinstance(out, (list, tuple)):
+        out = out[0]
+    return out.float().cpu().numpy()
 
 
 # the handoff's wire dtypes: (numpy word to carry the raw bytes, tensor
@@ -212,7 +249,8 @@ class ServingEngine:
             if not isinstance(model, SERVED_TYPES):
                 raise TypeError(
                     "the port's engine serves a TransformerLM, a "
-                    "MultiLayerNetwork or a QuantizedNet; got "
+                    "MultiLayerNetwork, a ComputationGraph or a "
+                    "QuantizedNet; got "
                     f"{type(model).__name__}")
             if model.device != self.device:
                 raise ValueError(f"the model lives on {model.device}, the "
@@ -252,6 +290,9 @@ class ServingEngine:
         # Prometheus scrape covers it, with a latency histogram
         metrics = obs_registry.default_registry()
         metrics.register_ledger(self, "serving_stats", self.stats)
+        self.retrieval_stats = RetrievalStats()
+        metrics.register_ledger(self, "retrieval_stats",
+                                self.retrieval_stats)
         self.stats.on_latency = lambda s: metrics.histogram(
             "dl4j_serving_latency_seconds", s)
         self.breaker_fails = int(breaker_fails if breaker_fails is not None
@@ -264,6 +305,7 @@ class ServingEngine:
         self.chaos = chaos
         self._breakers: Dict[str, CircuitBreaker] = {}
         self._batchers: Dict[str, DynamicBatcher] = {}
+        self._embed_batchers: Dict[str, DynamicBatcher] = {}
         self._decoders: Dict[str, Any] = {}
         self._no_decoder: set = set()  # records probed and found ineligible
         self._draining = False   # the admission gate
@@ -380,7 +422,7 @@ class ServingEngine:
         """The naive per-request path the batcher replaces: one locked
         ``output`` call per request."""
         with self._lock:
-            return rec.model.output(x).float().cpu().numpy()
+            return _first_output(rec.model.output(x))
 
     def _breaker_for(self, rec) -> CircuitBreaker:
         with self._engine_lock:
@@ -402,7 +444,7 @@ class ServingEngine:
                     if chaos is not None:
                         # per dispatch; an injected hang blocks here
                         chaos.on_infer()
-                    return _model.output(batch).float().cpu().numpy()
+                    return _first_output(_model.output(batch))
 
                 batcher = DynamicBatcher(
                     infer, max_batch=self.max_batch,
@@ -414,6 +456,93 @@ class ServingEngine:
                     on_wedged=self._wedged_hook(rec))
                 self._batchers[rec.key] = batcher
             return batcher
+
+    # -- /embed (retrieval/embed.py adapters) -------------------------------
+    def embed_for(self, name, version, x, timeout_s: Optional[float] = None,
+                  layer=None, pool: Optional[str] = None) -> np.ndarray:
+        """Rows -> embeddings [N, dim] through the (name, version)
+        record's adapter (``ModelRecord.embed_adapter``), behind the same
+        admission gate, dynamic batcher and bucket ladder as /predict."""
+        rec = self.registry.get(name, version)
+        breaker = self._admit(rec)
+        if rec.model is None:
+            raise KeyError(f"{rec.key} is unloaded")
+        x = np.asarray(x)
+        if not self.batching_enabled:
+            try:
+                out = self._direct_embed(rec, x, layer, pool)
+            except ClientRequestError:
+                raise  # the client's payload: no vote either way
+            except Exception as e:  # noqa: BLE001 — serving boundary
+                breaker.record_failure(f"{type(e).__name__}: {e}")
+                raise
+            breaker.record_success()
+        else:
+            out = self._embed_batcher_for(rec, layer, pool).predict(
+                x, timeout_s=timeout_s)
+        self.retrieval_stats.bump("embed_requests")
+        self.retrieval_stats.bump("embed_rows", int(x.shape[0]))
+        return out
+
+    def embed(self, x, timeout_s: Optional[float] = None) -> np.ndarray:
+        """The default record's :meth:`embed_for`."""
+        return self.embed_for(None, None, x, timeout_s=timeout_s)
+
+    def _embed_rows(self, rec, x: np.ndarray, layer, pool) -> np.ndarray:
+        """The one compute path of the direct call and the batcher's
+        dispatch: shape and normalize as /predict does, zero-pad up the
+        bucket ladder, encode, slice the pad rows off (every encoder is
+        row-independent)."""
+        adapter = rec.embed_adapter(layer=layer, pool=pool)
+        batch = self._shape_rows(rec, x)
+        n = int(batch.shape[0])
+        bucket = dispatch.bucket_size(n)
+        if bucket > n:
+            pad = np.zeros((bucket - n,) + batch.shape[1:], batch.dtype)
+            batch = np.concatenate([batch, pad])
+        return np.asarray(adapter(batch))[:n]
+
+    def _direct_embed(self, rec, x: np.ndarray, layer, pool) -> np.ndarray:
+        with self._lock:
+            return self._embed_rows(rec, x, layer, pool)
+
+    def _embed_batcher_for(self, rec, layer=None,
+                           pool: Optional[str] = None) -> DynamicBatcher:
+        """The record's embed batcher, made on its first request with that
+        request's layer and pool (the JAX engine keys it by record)."""
+        with self._engine_lock:
+            batcher = self._embed_batchers.get(rec.key)
+            if batcher is None:
+                chaos = self.chaos
+
+                def infer(batch, _rec=rec, _layer=layer, _pool=pool):
+                    if chaos is not None:
+                        chaos.on_infer()
+                    return self._embed_rows(_rec, np.asarray(batch),
+                                            _layer, _pool)
+
+                batcher = DynamicBatcher(
+                    infer, max_batch=self.max_batch,
+                    max_wait_ms=self.max_wait_ms,
+                    queue_capacity=self.queue_capacity,
+                    default_timeout_s=self.request_timeout_s,
+                    stats=self.stats, watchdog_s=self.watchdog_s,
+                    on_outcome=self._outcome_hook(rec),
+                    on_wedged=self._wedged_hook(rec))
+                self._embed_batchers[rec.key] = batcher
+            return batcher
+
+    def embed_report(self) -> Dict[str, Any]:
+        """/models: each live record's adapter kind and dim (no model
+        call: config fields and propagated shapes)."""
+        out: Dict[str, Any] = {}
+        for rec in self._live_records():
+            try:
+                adapter = rec.embed_adapter()
+            except TypeError:
+                continue  # no embedding surface on this model family
+            out[rec.key] = {"kind": adapter.kind, "dim": adapter.dim}
+        return out
 
     def _outcome_hook(self, rec):
         """A record's breaker, fed per dispatch by its batcher."""
@@ -719,8 +848,12 @@ class ServingEngine:
             out["dispatch"] = d.dispatch_stats.snapshot()
         kernels: Dict[str, Any] = {}
         for r in self._live_records():
-            kernels.update(GENERATE_KERNELS if isinstance(
-                r.model, TransformerLM) else PREDICT_KERNELS)
+            if isinstance(r.model, TransformerLM):
+                kernels.update(GENERATE_KERNELS)
+            elif hasattr(r.model, "embed_tokens"):  # BERT
+                kernels.update(EMBED_KERNELS)
+            elif hasattr(r.model, "output"):
+                kernels.update(PREDICT_KERNELS)
         out["kernels"] = kernel_counts(kernels)
         return out
 
@@ -780,14 +913,14 @@ class ServingEngine:
         rec = self.registry.get(name, version)
         with self._engine_lock:
             batcher = self._batchers.pop(rec.key, None)
+            embed_batcher = self._embed_batchers.pop(rec.key, None)
             decoder = self._decoders.pop(rec.key, None)
             self._no_decoder.discard(rec.key)
             self._breakers.pop(rec.key, None)
-        if batcher is not None:
-            batcher.stop()
-        if decoder is not None:
-            decoder.stop()
-        del batcher, decoder
+        for b in (batcher, embed_batcher, decoder):
+            if b is not None:
+                b.stop()
+        del batcher, embed_batcher, decoder
         self.registry.unload(rec.name, rec.version)
         gc.collect()  # cycles through thread targets and closures
 
@@ -846,7 +979,9 @@ class ServingEngine:
                         "models": engine.registry.describe(),
                         "default": default.key if default else None,
                         "kv": engine.kv_report(),
-                        "lineage": engine.registry.lineage()})
+                        "lineage": engine.registry.lineage(),
+                        "embed": engine.embed_report(),
+                        "indexes": {}})
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -856,6 +991,8 @@ class ServingEngine:
                         self._do_generate()
                     elif self.path == "/predict":
                         self._do_predict()
+                    elif self.path == "/embed":
+                        self._do_embed()
                     elif self.path == "/prefill":
                         self._do_prefill()
                     elif self.path == "/prime":
@@ -932,6 +1069,32 @@ class ServingEngine:
                     self._send(200, {"outputs": out.tolist()})
                 else:
                     self._send(200, {"output": out[0].tolist()})
+
+            def _do_embed(self):
+                payload = self._read_json()
+                if "record" in payload:
+                    x = np.asarray(payload["record"], np.float32)[None]
+                elif "batch" in payload:
+                    x = np.asarray(payload["batch"], np.float32)
+                elif "tokens" in payload:
+                    # token-id rows (BERT, a word2vec table) stay integral
+                    x = np.asarray(payload["tokens"])
+                    if x.ndim == 1:
+                        x = x[None]
+                else:
+                    self._send(400, {"error": "need record|batch|tokens"})
+                    return
+                timeout = payload.get("timeout_s")
+                out = engine.embed_for(
+                    payload.get("model"), payload.get("version"), x,
+                    timeout_s=(float(timeout) if timeout is not None
+                               else None),
+                    layer=payload.get("layer"), pool=payload.get("pool"))
+                many = "batch" in payload or "tokens" in payload
+                self._send(200, {
+                    "embeddings" if many else "embedding":
+                        out.tolist() if many else out[0].tolist(),
+                    "dim": int(out.shape[-1])})
 
             def _do_generate(self):
                 payload = self._read_json()
@@ -1039,7 +1202,8 @@ class ServingEngine:
         self.registry.seal()
         deadline = time.monotonic() + budget
         with self._engine_lock:
-            batchers = list(self._batchers.values())
+            batchers = (list(self._batchers.values())
+                        + list(self._embed_batchers.values()))
             decoders = list(self._decoders.values())
         ok = True
         for b in batchers:
@@ -1066,9 +1230,11 @@ class ServingEngine:
         if self._thread is not None:
             self._thread.join(timeout=5)
         with self._engine_lock:
-            batchers = list(self._batchers.values())
+            batchers = (list(self._batchers.values())
+                        + list(self._embed_batchers.values()))
             decoders = list(self._decoders.values())
             self._batchers.clear()
+            self._embed_batchers.clear()
             self._decoders.clear()
         for b in batchers:
             b.stop()

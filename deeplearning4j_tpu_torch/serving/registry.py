@@ -1,6 +1,7 @@
 """Model registry: named, versioned load -> warmup -> serve -> unload
 (counterpart: ``deeplearning4j_tpu/serving/registry.py`` —
-``bucket_ladder``, ``ModelRecord`` :55-163 and ``ModelRegistry``,
+``bucket_ladder``, ``ModelRecord`` :55-163 with ``embed_adapter``
+:118-135, and ``ModelRegistry``,
 ``_maybe_quantize`` and ``_delete_device_buffers`` :166-534).
 
   load    adopt a live model or restore a checkpoint zip (dispatching on
@@ -29,15 +30,13 @@ its error kept for ``/models``, re-raises, and never moves the default;
 drain) refuses load, warmup and serve from then on. Faults are injected
 by ``resilience/chaos.ServingChaos`` (``on_load``, ``on_warmup``). A
 record also hands out the self-drafts of speculative decoding
-(``draft_net``). Embed adapters wait for the retrieval slice.
+(``draft_net``) and the ``/embed`` adapters (``embed_adapter``).
 """
 
 from __future__ import annotations
 
-import json
 import threading
 import time
-import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,21 +53,13 @@ def bucket_ladder(max_batch: int) -> List[int]:
 
 
 def restore(path: str, *, device=None):
-    """The model a JAX-written checkpoint zip holds, by its recorded
-    ``model_class``: a TransformerLM or a MultiLayerNetwork (a zip with no
+    """The model a checkpoint zip holds, by its recorded ``model_class``
+    (``utils/serialization.restore``: a TransformerLM, BertMLM,
+    BertClassifier, ComputationGraph or MultiLayerNetwork; a zip with no
     recorded class is a MultiLayerNetwork, as in the JAX package)."""
-    with zipfile.ZipFile(path, "r") as z:
-        got = json.loads(z.read("metadata.json").decode()).get("model_class")
-    if got == "TransformerLM":
-        from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.utils.serialization import restore as _r
 
-        return TransformerLM.load(path, device=device)
-    if got in (None, "MultiLayerNetwork"):
-        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-
-        return MultiLayerNetwork.load(path, device=device)
-    raise ValueError(f"checkpoint model_class {got!r} at {path} is not "
-                     "ported yet")
+    return _r(path, device=device)
 
 
 class ModelRecord:
@@ -97,6 +88,7 @@ class ModelRecord:
         # the default this record replaced when serve() promoted it
         self.prior_default: Optional[str] = None
         self._drafts: Dict[str, Any] = {}  # self-drafts, per mode
+        self._embedders: Dict[Tuple[Any, Any], Any] = {}  # per (layer, pool)
 
     @property
     def key(self) -> str:
@@ -115,6 +107,26 @@ class ModelRecord:
             draft = self._drafts[mode] = lowprec.draft_lm(
                 self.model, mode, device=self.model.device)
         return draft
+
+    def embed_adapter(self, layer=None, pool: Optional[str] = None):
+        """The embedding encoder over this record's model
+        (``retrieval/embed.resolve_adapter``: an MLN's or graph's hidden
+        layer, BERT's pooled ``embed_tokens``, a word2vec table), made
+        once per (layer, pool). Making it never runs the model."""
+        if self.model is None:
+            raise ValueError(
+                f"record {self.key} has no model (state={self.state})")
+        key = (layer, pool)
+        adapter = self._embedders.get(key)
+        if adapter is None:
+            from deeplearning4j_tpu_torch.retrieval.embed import (
+                resolve_adapter,
+            )
+
+            adapter = self._embedders[key] = resolve_adapter(
+                self.model, layer=layer, pool=pool,
+                input_shape=self.input_shape)
+        return adapter
 
     def describe(self) -> Dict[str, Any]:
         out = {
@@ -252,7 +264,9 @@ class ModelRegistry:
             for b in ladder:
                 out = model.output(
                     np.broadcast_to(row, (b,) + row.shape).copy())
-                out.cpu()
+                # a graph answers a list, its outputs in order
+                for o in (out if isinstance(out, (list, tuple)) else [out]):
+                    o.cpu()
             if gen_tokens and hasattr(model, "generate"):
                 model.generate(np.zeros((1, 2), np.int32),
                                int(gen_tokens)).cpu()
@@ -343,6 +357,7 @@ class ModelRegistry:
                 self._default = None
             model, rec.model, rec.state = rec.model, None, "unloaded"
             drafts, rec._drafts = rec._drafts, {}
+            rec._embedders = {}
         for m in [model, *drafts.values()]:
             if m is not None:
                 _delete_device_buffers(m)

@@ -1,10 +1,9 @@
 """Numerical gradient checks (counterpart:
-``deeplearning4j_tpu/utils/gradient_check.py`` — ``check_gradients`` :23
-and ``check_network_gradients`` :85).
+``deeplearning4j_tpu/utils/gradient_check.py`` — ``check_gradients`` :23,
+``check_network_gradients`` :85 and ``check_graph_gradients`` :117-157).
 
 Central differences against autograd, per parameter entry, with a
-relative-error threshold, in f64. ``check_graph_gradients`` waits for the
-ComputationGraph.
+relative-error threshold, in f64.
 """
 
 from __future__ import annotations
@@ -89,6 +88,35 @@ def check_network_gradients(net, features, labels, mask=None,
     def loss(p):
         val, _ = net._loss(p, states, x, y, train=False, mask=mask,
                            label_mask=label_mask)
+        return val
+
+    return check_gradients(loss, net.params, epsilon=epsilon,
+                           max_rel_error=max_rel_error,
+                           max_params_per_leaf=max_params_per_leaf)
+
+
+def check_graph_gradients(net, features_list, labels_list, masks=None,
+                          label_masks=None, epsilon: float = 1e-6,
+                          max_rel_error: float = 1e-3,
+                          max_params_per_leaf: Optional[int] = None
+                          ) -> Tuple[bool, float]:
+    """Gradient-check a ComputationGraph's summed multi-output loss (with
+    the l1/l2 penalty) in inference mode, in f64."""
+    if net.params is None:
+        net.init()
+    as64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                     device=net.device)
+    inputs = {n: as64(f) for n, f in zip(net.conf.inputs, features_list)}
+    labels = [as64(l) for l in labels_list]
+    masks = {k: as64(m) for k, m in net._as_masks(masks).items()} or None
+    label_masks = (None if label_masks is None else
+                   [None if m is None else as64(m) for m in label_masks])
+    states = tree_map(lambda a: a.to(torch.float64)
+                      if a.is_floating_point() else a, net.states)
+
+    def loss(p):
+        val, _ = net._loss(p, states, inputs, labels, train=False,
+                           masks=masks, label_masks=label_masks)
         return val
 
     return check_gradients(loss, net.params, epsilon=epsilon,

@@ -2,7 +2,9 @@
 — ``write_model_parts`` :60 and ``_tree_to_npz_bytes`` :149 for
 MultiLayerNetwork zips, ``write_flagship_zip`` :175 and
 ``read_flagship_zip`` :197 for the TransformerLM, the zip half of
-``restore_multi_layer_network`` :300, the npz half of
+``restore_multi_layer_network`` :300 and ``restore_computation_graph``
+:326-345, ``ModelSerializer.restore``'s dispatch on ``model_class``
+:382-411, the npz half of
 ``_npz_bytes_into_tree``, and the optional sections of
 ``write_model_parts`` :60-98 with their readers ``read_normalizer`` and
 ``read_quant`` :110-147).
@@ -24,7 +26,9 @@ given, ``normalizer.json`` (a fitted ``etl/normalize`` normalizer) and
 names, so serving applies the statistics the model was trained under;
 :func:`write_flagship_zip` writes a TransformerLM zip (configuration,
 coefficients, updater) that the JAX package's ``TransformerLM.load``
-reads. The ComputationGraph zip waits for a later slice.
+reads. A ComputationGraph's zip is the same layout keyed by vertex name
+(``['name']['W']``), with the input shapes as a dict in the metadata.
+:func:`restore` reads any of these zips by its recorded model class.
 """
 
 from __future__ import annotations
@@ -82,20 +86,22 @@ def read_flagship_zip(path: str, expected_class: str
     return cfg, coeff, upd, meta
 
 
-def read_multi_layer_zip(path: str) -> Dict[str, Any]:
-    """The sections of a MultiLayerNetwork zip: ``conf`` (the JSON
-    string), ``coefficients``, ``state`` and ``updater`` (npz bytes, the
-    last two None when absent), ``meta`` and ``training_state`` (dicts,
-    the last empty when absent). A checkpoint of another model class is
-    refused loudly (a zip with no recorded class is taken as a
-    MultiLayerNetwork, as the JAX package's restore does)."""
+def read_model_zip(path: str, model_class: str = "MultiLayerNetwork"
+                   ) -> Dict[str, Any]:
+    """The sections of a MultiLayerNetwork or ComputationGraph zip:
+    ``conf`` (the JSON string), ``coefficients``, ``state`` and
+    ``updater`` (npz bytes, the last two None when absent), ``meta`` and
+    ``training_state`` (dicts, the last empty when absent). A checkpoint
+    of another model class is refused loudly (a zip with no recorded
+    class is taken as a MultiLayerNetwork, as the JAX package's restore
+    does)."""
     with zipfile.ZipFile(path, "r") as z:
         names = set(z.namelist())
         meta = json.loads(z.read("metadata.json").decode())
-        got = meta.get("model_class")
-        if got not in (None, "MultiLayerNetwork"):
+        got = meta.get("model_class") or "MultiLayerNetwork"
+        if got != model_class:
             raise ValueError(
-                f"checkpoint holds {got!r}, not MultiLayerNetwork")
+                f"checkpoint holds {got!r}, not {model_class}")
         opt = lambda name: z.read(name) if name in names else None
         ts = opt(TRAINING_STATE_ENTRY)
         return {"conf": z.read("configuration.json").decode(),
@@ -136,16 +142,20 @@ def tree_to_npz_bytes(tree) -> bytes:
 
 def write_model(net, path: str, save_updater: bool = True, *,
                 normalizer=None, quant=None) -> None:
-    """Write ``net`` (a MultiLayerNetwork of the port) as a zip that the
-    JAX package's ``ModelSerializer.restore_multi_layer_network`` and
-    :meth:`MultiLayerNetwork.load` read back, updater state and iteration
+    """Write ``net`` (a MultiLayerNetwork or ComputationGraph of the port)
+    as a zip that the JAX package's ``ModelSerializer.restore`` and the
+    port's :func:`restore` read back, updater state and training state
     included; ``normalizer`` (fitted) and ``quant`` (a ``QuantSpec``)
     add their sections."""
+    if hasattr(net, "_input_shapes"):  # a ComputationGraph
+        ishape = ({k: list(v) for k, v in net._input_shapes.items()}
+                  if net._input_shapes else None)
+    else:
+        ishape = list(net._input_shape) if net._input_shape else None
     meta = {"format_version": FORMAT_VERSION,
-            "model_class": "MultiLayerNetwork",
+            "model_class": type(net).__name__,
             "iteration": int(net.iteration),
-            "input_shape": (list(net._input_shape) if net._input_shape
-                            else None)}
+            "input_shape": ishape}
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("configuration.json", net.conf.to_json())
         z.writestr("coefficients.npz", tree_to_npz_bytes(net.params))
@@ -159,6 +169,44 @@ def write_model(net, path: str, save_updater: bool = True, *,
         if quant is not None:
             z.writestr(QUANT_ENTRY, quant.to_json())
         z.writestr("metadata.json", json.dumps(meta))
+
+
+def restore_computation_graph(path: str, load_updater: bool = True, *,
+                              device=None):
+    """A ComputationGraph zip of either package (``nn/graph.py``'s
+    ``ComputationGraph.load``)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    return ComputationGraph.load(path, device=device,
+                                 load_updater=load_updater)
+
+
+def restore(path: str, load_updater: bool = True, *, device=None):
+    """Any checkpoint zip, by the ``model_class`` its metadata records
+    (``ModelSerializer.restore``): TransformerLM, BertMLM,
+    BertClassifier, ComputationGraph, or MultiLayerNetwork (also a zip
+    with no recorded class). Another class raises."""
+    with zipfile.ZipFile(path, "r") as z:
+        got = json.loads(z.read("metadata.json").decode()).get("model_class")
+    if got == "TransformerLM":
+        from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+
+        return TransformerLM.load(path, device=device,
+                                  load_updater=load_updater)
+    if got in ("BertMLM", "BertClassifier"):
+        from deeplearning4j_tpu_torch.models import bert
+
+        return getattr(bert, got).load(path, device=device,
+                                       load_updater=load_updater)
+    if got == "ComputationGraph":
+        return restore_computation_graph(path, load_updater, device=device)
+    if got not in (None, "MultiLayerNetwork"):
+        raise ValueError(
+            f"unknown checkpoint model_class {got!r} at {path}")
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return MultiLayerNetwork.load(path, device=device,
+                                  load_updater=load_updater)
 
 
 def _read_section(path: str, entry: str) -> Optional[str]:

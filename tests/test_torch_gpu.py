@@ -75,6 +75,12 @@ cuDNN and cuBLAS without TF32 after an entry point (the flags, and a
 3x3x256 convolution within 1e-5 of f64); the Embedding -> LSTM net's
 ``fit`` through K1 and K2 once each, never their plain versions, within
 1e-4 of the CPU's step.
+The ComputationGraph: the seq2seq graph's fit launches K1 and K2
+twice each (one LSTM vertex each) and their plain versions never, and
+its first step agrees with the CPU's within 1e-4 of each vertex's
+largest entry; ResNet-50's first step at 224: the loss and BN's state
+at 1e-4, the params against the f64 step: the card's worst vertex
+within four times the CPU's own worst f32 vertex (see that test).
 """
 
 import numpy as np
@@ -2029,3 +2035,139 @@ def test_embedding_lstm_fit_on_card_goes_through_k1_and_k2():
     for got, ref in zip(tree_leaves(net.params), tree_leaves(cpu.params)):
         assert (got.cpu() - ref).abs().max().item() \
             <= 1e-4 * ref.abs().max().item()
+
+
+def seq2seq_graph(dev, vocab=80, hidden=200, seed=6, tbptt=None):
+    """The encoder-decoder ComputationGraph: GravesLSTM encoder ->
+    LastTimeStepVertex -> DuplicateToTimeSeriesVertex against the decoder
+    input -> MergeVertex with it -> GravesLSTM decoder ->
+    RnnOutputLayer(vocab)."""
+    from deeplearning4j_tpu_torch.nn import conf as pconf
+    from deeplearning4j_tpu_torch.nn.conf import graph as pgraph
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    gb = (pconf.NeuralNetConfiguration.builder().seed(seed)
+          .learning_rate(0.003).updater("rmsprop").graph_builder()
+          .add_inputs("enc_in", "dec_in")
+          .add_layer("enc", pconf.GravesLSTM(n_in=vocab, n_out=hidden,
+                                             activation="tanh"), "enc_in")
+          .add_vertex("last", pgraph.LastTimeStepVertex(), "enc")
+          .add_vertex("dup", pgraph.DuplicateToTimeSeriesVertex(
+              reference_input="dec_in"), "last")
+          .add_vertex("merge", pgraph.MergeVertex(), "dup", "dec_in")
+          .add_layer("dec", pconf.GravesLSTM(n_in=hidden + vocab,
+                                             n_out=hidden,
+                                             activation="tanh"), "merge")
+          .add_layer("out", pconf.RnnOutputLayer(
+              n_in=hidden, n_out=vocab, activation="softmax",
+              loss_function="mcxent"), "dec")
+          .set_outputs("out"))
+    if tbptt:
+        gb = (gb.backprop_type("truncated_bptt").t_bptt_forward_length(tbptt)
+              .t_bptt_backward_length(tbptt))
+    return ComputationGraph(gb.build(), device=dev).init(
+        {"enc_in": (-1, vocab), "dec_in": (-1, vocab)})
+
+
+def _graph_cpu_twin(net, build):
+    cpu = build("cpu")
+    cpu.params = tree_map(lambda a: a.to("cpu", copy=True), net.params)
+    cpu.states = tree_map(lambda a: a.to("cpu", copy=True), net.states)
+    cpu.updater_state = cpu.updater.init(cpu.params)
+    return cpu
+
+
+def _assert_vertices_close(net, cpu, rel=1e-4):
+    """Every layer vertex's params and states within ``rel`` of that
+    vertex's largest entry on the CPU (a bias ahead of BN gets only
+    rounding noise, so a leaf's own largest entry is no bar)."""
+    for name in net.params:
+        for tree_c, tree_p in ((net.params, cpu.params),
+                               (net.states, cpu.states)):
+            ref = tree_leaves(tree_p[name])
+            if not ref:
+                continue
+            top = max(r.abs().max().item() for r in ref if r.numel())
+            for got, want in zip(tree_leaves(tree_c[name]), ref):
+                if want.numel():
+                    err = (got.cpu() - want).abs().max().item()
+                    assert err <= rel * top, (name, err, top)
+
+
+@pytest.mark.gpu
+def test_seq2seq_graph_fit_on_card_goes_through_k1_and_k2():
+    """The seq2seq graph's fit on the card launches K1 and K2 once per
+    LSTM vertex (twice each per fit) and never their plain versions; the
+    first step agrees with the CPU's within 1e-4 of each vertex's largest
+    entry; a TBPTT fit carries h0/c0 through K1; ``rnn_time_step`` over
+    the whole sequence gives ``output``'s last step within 1e-4."""
+    dev = _need_card()
+    build = lambda d: seq2seq_graph(d, vocab=20, hidden=64)
+    net = build(dev)
+    cpu = _graph_cpu_twin(net, build)
+    rng = np.random.default_rng(3)
+    eye = np.eye(20, dtype=np.float32)
+    enc, dec, y = (eye[rng.integers(0, 20, (8, 24))] for _ in range(3))
+    counters = (port_lstm.lstm_scan, port_lstm.lstm_scan_bwd,
+                port_lstm.lstm_scan_plain, port_lstm.lstm_scan_bwd_plain)
+    for c in counters:
+        c.launches = 0
+    loss = net.fit([enc, dec], [y])
+    assert [c.launches for c in counters] == [2, 2, 0, 0]
+    want = cpu.fit([enc, dec], [y])
+    assert abs(float(loss) - float(want)) < 1e-4 * abs(float(want))
+    _assert_vertices_close(net, cpu)
+    (full,) = net.output(enc, dec)
+    net.rnn_clear_previous_state()
+    (last,) = net.rnn_time_step(enc, dec)
+    assert (last - full[:, -1]).abs().max().item() < 1e-4
+    tb = seq2seq_graph(dev, vocab=20, hidden=64, tbptt=12)
+    tb.params = tree_map(torch.clone, net.params)
+    for c in counters:
+        c.launches = 0
+    assert np.isfinite(float(tb.fit([enc, dec], [y])))
+    assert [c.launches for c in counters] == [4, 4, 0, 0]  # 2 windows
+
+
+@pytest.mark.gpu
+def test_resnet50_first_step_on_card_matches_cpu():
+    """ResNet-50 at 224 x 224, 1000 classes, batch 2, strict f32 (cuDNN,
+    TF32 off): the first step's loss within 1e-4 relative of the CPU's,
+    BN's state within 1e-4 of each vertex's largest entry, and the params
+    against the same step in f64 on the CPU: the card's worst vertex
+    (its error over its largest entry) within four times the CPU's own
+    worst f32 vertex (two f32 summation orders, each as far off):
+    f32 gradients through 53 BN layers of an untrained ResNet at batch 2
+    lose whole digits, on any device."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.resnet import build_resnet50
+
+    net = build_resnet50(device=dev)
+    build = lambda d: build_resnet50(device=d)
+    cpu = _graph_cpu_twin(net, build)
+    cpu64 = _graph_cpu_twin(net, build)
+    cpu64.params = tree_map(torch.Tensor.double, cpu64.params)
+    cpu64.states = tree_map(torch.Tensor.double, cpu64.states)
+    cpu64.updater_state = cpu64.updater.init(cpu64.params)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 2)]
+    loss = net.fit(x, y)
+    want = cpu.fit(x, y)
+    cpu64.fit(x.astype(np.float64), y.astype(np.float64))
+    assert abs(float(loss) - float(want)) < 1e-4 * abs(float(want))
+
+    def rel(got, ref):
+        ref = [r.double() for r in tree_leaves(ref) if r.numel()]
+        got = [g.cpu().double() for g in tree_leaves(got) if g.numel()]
+        if not ref:
+            return 0.0
+        top = max(r.abs().max().item() for r in ref)
+        return max((g - r).abs().max().item() for g, r in zip(got, ref)) / top
+
+    card = {n: rel(net.params[n], cpu64.params[n]) for n in net.params}
+    own = {n: rel(cpu.params[n], cpu64.params[n]) for n in net.params}
+    assert max(card.values()) <= 4 * max(own.values()) + 1e-4, (
+        max(card.items(), key=lambda kv: kv[1]), max(own.values()))
+    for name in net.states:
+        assert rel(net.states[name], cpu.states[name]) <= 1e-4, name

@@ -9,7 +9,9 @@
     sequence mode, ``BertMLM``, ``BertClassifier`` and their ``load``,
     ``PagedDecoder``, the decode planes (``ContinuousDecoder``,
     ``SpeculativeDecoder``, ``draft_lm``), ``MultiLayerNetwork`` and its
-    ``load`` (a MultiHeadAttention network too), ``ServingEngine`` (with
+    ``load`` (a MultiHeadAttention network too), ``ComputationGraph``,
+    ``build_resnet50``, ``build_googlenet`` and ``restore`` of a graph
+    zip, ``ServingEngine`` (with
     no model, and over a quantized zip), and
     the training
     ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
@@ -52,7 +54,14 @@ def test_every_module_imports_without_jax():
     assert {"deeplearning4j_tpu_torch.etl.normalize",
             "deeplearning4j_tpu_torch.etl.calibrate",
             "deeplearning4j_tpu_torch.obs.registry",
-            "deeplearning4j_tpu_torch.streaming.conversion"} <= set(mods)
+            "deeplearning4j_tpu_torch.streaming.conversion",
+            "deeplearning4j_tpu_torch.nn.conf.graph",
+            "deeplearning4j_tpu_torch.nn.graph",
+            "deeplearning4j_tpu_torch.models.resnet",
+            "deeplearning4j_tpu_torch.models.googlenet",
+            "deeplearning4j_tpu_torch.retrieval",
+            "deeplearning4j_tpu_torch.retrieval.embed",
+            "deeplearning4j_tpu_torch.retrieval.stats"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -452,7 +461,8 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_QUANT_MAX_DELTA", "DL4J_TPU_SERVE_CONTINUOUS",
         "DL4J_TPU_SERVE_BREAKER_FAILS", "DL4J_TPU_SERVE_WATCHDOG_S",
         "DL4J_TPU_SERVE_DRAIN_S", "DL4J_TPU_SERVE_SLO_CLASSES",
-        "DL4J_TPU_SERVE_TENANT_QUOTAS", "DL4J_TPU_DATA_DIR"}
+        "DL4J_TPU_SERVE_TENANT_QUOTAS", "DL4J_TPU_DATA_DIR",
+        "DL4J_TPU_EMBED_LAYER", "DL4J_TPU_EMBED_POOL"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -508,3 +518,44 @@ def test_kernel_sources_ship_and_build_flags():
         "flash_attention.cu", "flash_attention_ext.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+
+    def test_computation_graph_models_and_embed(self, no_card, tmp_path):
+        """The graph, its model builders and ``restore`` of a graph zip
+        raise with no card unless given the CPU; on the CPU a graph fits,
+        round-trips a zip and answers ``/embed``."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.models.googlenet import build_googlenet
+        from deeplearning4j_tpu_torch.models.resnet import build_resnet50
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            restore,
+            write_model,
+        )
+
+        conf = (pconf.NeuralNetConfiguration.builder().graph_builder()
+                .add_inputs("in")
+                .add_layer("d", pconf.DenseLayer(n_in=3, n_out=4), "in")
+                .add_layer("out", pconf.OutputLayer(n_in=4, n_out=2), "d")
+                .set_outputs("out").build())
+        for make in (lambda: ComputationGraph(conf), build_resnet50,
+                     build_googlenet):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        net = ComputationGraph(conf, device="cpu").init()
+        x = np.ones((2, 3), np.float32)
+        assert net.fit(x, np.eye(2, dtype=np.float32)).device \
+            == torch.device("cpu")
+        path = str(tmp_path / "g.zip")
+        write_model(net, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            restore(path)
+        back = restore(path, device="cpu")
+        assert back.params["d"]["W"].device == torch.device("cpu")
+        eng = ServingEngine(model=back, device="cpu")
+        try:
+            assert eng.embed(x).shape == (2, 4)
+        finally:
+            eng.stop()

@@ -403,6 +403,13 @@ def _scenario(eng, chaos, zip_path):
     for key in ("slow", "queued"):
         rec(key, *results[key])
     post("deadline", "/predict", {"record": row.tolist(), "timeout_s": 0})
+    # the expired request holds the one queue slot until the worker takes
+    # it off; "hang" must find the slot free (else it reads 429 and the
+    # hang lands on the next dispatch, "fresh-worker")
+    for _ in range(500):
+        if eng.stats.snapshot()["queue_depth"] == 0:
+            break
+        time.sleep(0.01)
     post("hang", "/predict", {"record": row.tolist()})
     get("health-wedged", "/health",
         keep=lambda b: b["health"])
