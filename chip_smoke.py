@@ -14,8 +14,11 @@ layer-zoo MultiLayerNetworks (LeNet-5's training, AlexNet, VGG16, the DBN
 and the stacked autoencoder's pretraining, the Solver, an Embedding-LSTM
 net through K1 and K2), the ComputationGraph (ResNet-50 and GoogLeNet
 training, a seq2seq graph through K1 and K2, bf16 loss-scaled steps in
-both containers) and ``/embed`` (an MLP, a ResNet-50 graph record, BERT
-through K5, a word2vec table).
+both containers), ``/embed`` (an MLP, a ResNet-50 graph record, BERT
+through K5, a word2vec table), ``/search`` (exact and IVF indexes over a
+1,000,000 x 768 arena, k-means, a StreamSource feed gated by a drift
+monitor, BERT passages through K5) and the serving path's trace spans,
+journal and exporter.
 
 Run from the repository root, with no arguments:
 
@@ -388,7 +391,41 @@ What it does, in order (any failure raises and exits non-zero):
    version never; the word2vec fit's table as a lookup record (rows
    equal to syn0's); ``GET /models``'s ``embed`` report and the
    ``retrieval_stats`` samples at ``/metrics``;
-17. prints one ``{"kernels": [...]}`` line, the card line again, and last
+17. the serving path under ``DL4J_TPU_OBS=1`` (``phase_obs``, run right
+   after the serving planes, with the journal in a temporary directory):
+   a 64-request ``/predict`` burst on the char-RNN (one ``serve.request``
+   span each, its request id in exactly one ``serve.batch`` span), the
+   serve burst's 16 ``/generate`` requests (one ``decode.paged`` span per
+   decode tick with ``lanes`` and ``tick_k``; the transcripts equal to the
+   burst's) and 64 searches; a ``MetricsExporter`` scrape listing
+   ``retrieval_stats``; ``/predict`` rows/s with obs off and on in three
+   interleaved pairs; K1, K4 and K6 launches equal with obs off and on
+   (one client: a batch per request); ``drain()`` leaving
+   ``serve.drain`` and ``serve.drain_complete`` in the journal file;
+18. ``/search`` (``phase_search``): ``VectorStore(768, kind="ivf")`` at its
+   default capacity (``ann_arena_rows``: 1,048,576 rows on an 80 GB
+   card), 1,000,000 rows around 1,000 centers at noise 0.05, made on the
+   card and upserted from there 65,536 at a time, ``publish()`` with the IVF defaults (1,000
+   clusters, nprobe 8, 25 iterations) and its seconds by stage (pack,
+   k-means++ seeding, Lloyd steps, assignment, member table),
+   ``report()`` and ``hbm_report``'s ``indexes`` beside the rise in
+   ``memory_allocated``; exact ids and scores of 16 queries against an
+   f64 scan of the host master (ids where the f64 scores at the rank are
+   1e-5 apart, scores within 1e-4); IVF recall@10 against the exact index
+   over 256 queries (>= 0.95); exact and IVF queries/s at B = 8 (median of
+   5 x 1,024 queries) with each batch's device ms and bound; 256
+   single-query ``POST /search`` calls (p50, p99); 2,048 passages of 128
+   tokens through ``/embed`` of BERT-base (loaded through ``POST
+   /models``; K5 12 launches a call, plain 0) into an exact store, every
+   passage's embedding at rank 1, 64 re-embedded over HTTP at rank 1; a
+   65,536-row IVF store searched by four HTTP clients while five
+   ``feed_once`` windows (4,096 upserts, 1,024 deletes) publish
+   generations 2-6 (no failed search, every answer inside one
+   generation's live set); a window shifted by 5 sigma vetoed by a
+   ``DriftMonitor`` on the corpus's moments (``feed_once`` and
+   ``publish`` refused, the generation unmoved, two
+   ``retrieval.publish_veto`` events in the journal);
+19. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -477,10 +514,32 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph  # noqa: E402
 from deeplearning4j_tpu_torch.nn.multilayer import (  # noqa: E402
     MultiLayerNetwork,
 )
+from deeplearning4j_tpu_torch.datasets.iterator import DataSet  # noqa: E402
+from deeplearning4j_tpu_torch.obs import journal as obs_journal  # noqa: E402
 from deeplearning4j_tpu_torch.obs import registry as obs_registry  # noqa: E402
+from deeplearning4j_tpu_torch.obs import trace as obs_trace  # noqa: E402
+from deeplearning4j_tpu_torch.obs import (  # noqa: E402
+    FlightRecorder,
+    MetricsExporter,
+)
+from deeplearning4j_tpu_torch.online import (  # noqa: E402
+    DriftMonitor,
+    StreamSource,
+)
+from deeplearning4j_tpu_torch.retrieval import (  # noqa: E402
+    PublishVetoed,
+    VectorStore,
+)
+from deeplearning4j_tpu_torch.retrieval.index import (  # noqa: E402
+    _exact_topk,
+    _ivf_topk,
+)
 from deeplearning4j_tpu_torch.ops import build  # noqa: E402
 from deeplearning4j_tpu_torch.ops import lowprec  # noqa: E402
-from deeplearning4j_tpu_torch.ops.memory import kv_arena_blocks  # noqa: E402
+from deeplearning4j_tpu_torch.ops.memory import (  # noqa: E402
+    ann_arena_rows,
+    kv_arena_blocks,
+)
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -678,6 +737,26 @@ S2S_FITS, BF16_STEPS = 10, 5
 EMBED_MLP, EMBED_CALLS = (16, 64, 4), 128
 EMBED_BERT_N, EMBED_BERT_T = 4, 128
 TOL_EMBED = 1e-5  # the batcher against the direct call, f32
+# /search: a 768-wide index (BERT-base's hidden size) of 1,000,000 rows
+# around 1,000 centers at noise 0.05 (bench.py:2994-3003's regime), at the
+# capacity the store sizes itself to on an 80 GB card (the 1 << 20 clamp
+# of ops/memory.ann_arena_rows), upserted 65,536 rows at a time
+SEARCH_DIM, SEARCH_ROWS, SEARCH_CENTERS, SEARCH_NOISE = 768, 1_000_000, \
+    1000, 0.05
+SEARCH_CAPACITY, SEARCH_BATCH = 1 << 20, 65_536
+# exact ids against an f64 host scan on 16 queries (compared where the
+# f64 scores at the rank are 1e-5 apart), IVF recall@10 on 256, queries/s
+# at B = 8 over 1,024 queries (median of 5), 256 HTTP calls
+SEARCH_K, SEARCH_B, SEARCH_REPS = 10, 8, 5
+SEARCH_ORACLE_Q, SEARCH_RECALL_Q, SEARCH_QPS_Q = 16, 256, 1024
+SEARCH_HTTP_CALLS, SEARCH_MARGIN, SEARCH_SCORE_TOL = 256, 1e-5, 1e-4
+# the BERT leg: 2,048 passages of 128 tokens, /embed calls of 64 rows, 64
+# queries
+SEARCH_PASSAGES, SEARCH_PASSAGE_T, SEARCH_EMBED_ROWS, SEARCH_BERT_Q = \
+    2048, 128, 64, 64
+# the swap under load: bench.py's 65,536 rows, 5 feed windows of 4,096
+# upserts and 1,024 deletes
+SWAP_ROWS, SWAP_WINDOWS, SWAP_UPSERTS, SWAP_DELETES = 65_536, 5, 4096, 1024
 
 
 def check(cond: bool, msg: str) -> None:
@@ -5768,6 +5847,635 @@ def phase_embed(seed: int, dev, w2v_table):
     return k5, rep
 
 
+def obs_journal_at(path: str):
+    """Turn the obs gate on with the journal at ``path``
+    (``DL4J_TPU_OBS_JOURNAL``): the process's journal is made anew there
+    and the tracer writes its spans into it, from a clear ring."""
+    os.environ["DL4J_TPU_OBS_JOURNAL"] = path
+    obs_journal._DEFAULT = None
+    jr = obs_journal.default_journal()
+    obs_trace.tracer().attach(journal=jr)
+    obs_trace.tracer().clear()
+    obs_trace.set_enabled(True)
+    return jr
+
+
+def clustered_rows(rng, centers, n: int, noise: float = SEARCH_NOISE):
+    """n rows around randomly picked centers (the JAX bench's regime,
+    ``bench.py:2994-3003``)."""
+    pick = rng.integers(0, centers.shape[0], n)
+    return (centers[pick] + noise * rng.standard_normal(
+        (n, centers.shape[1]), dtype=np.float32)).astype(np.float32)
+
+
+def f64_oracle(host_vecs, ids, q, k: int):
+    """Top-(k+1) ids and scores of cosine queries over the store's host
+    master rows, in f64 on the host, in blocks of rows."""
+    qn = q.astype(np.float64)
+    qn /= np.maximum(np.linalg.norm(qn, axis=1, keepdims=True), 1e-12)
+    scores = np.empty((q.shape[0], host_vecs.shape[0]), np.float64)
+    for i in range(0, host_vecs.shape[0], 1 << 17):
+        scores[:, i:i + (1 << 17)] = qn @ host_vecs[i:i + (1 << 17)].astype(
+            np.float64).T
+    top = np.argpartition(-scores, k, axis=1)[:, :k + 1]
+    top = np.take_along_axis(top, np.argsort(
+        -np.take_along_axis(scores, top, 1), axis=1, kind="stable"), 1)
+    return ids[top], np.take_along_axis(scores, top, 1)
+
+
+def margin_check(got_ids, got_scores, ref_ids, ref_scores, k: int,
+                 margin: float):
+    """(rows whose top-k set was comparable, rows whose set differed, max
+    |score - reference|, positions compared, positions that differed):
+    sets where the reference's k-th and (k+1)-th scores are ``margin``
+    apart, positions where a rank's score is ``margin`` from both
+    neighbours."""
+    rows = bad_rows = pos = bad_pos = 0
+    for r in range(ref_ids.shape[0]):
+        s = ref_scores[r]
+        if s[k - 1] - s[k] >= margin:
+            rows += 1
+            bad_rows += set(got_ids[r]) != set(ref_ids[r, :k])
+        for i in range(k):
+            lo = s[i - 1] - s[i] if i else np.inf
+            if min(lo, s[i] - s[i + 1]) >= margin:
+                pos += 1
+                bad_pos += got_ids[r, i] != ref_ids[r, i]
+    err = float(np.abs(got_scores - ref_scores[:, :k]).max())
+    return rows, bad_rows, err, pos, bad_pos
+
+
+def search_bounds(snap, b: int, nprobe: int):
+    """Least device time of one exact and one IVF search of ``b`` queries:
+    the exact scan reads every live row; the IVF probe reads the
+    centroids and gathers nprobe x cap_per candidate rows (and their
+    member ids) per query. f32 products at PEAK_F32_FLOPS."""
+    d = snap.dim
+    ex_bytes = snap.n * d * 4 + b * d * 4
+    ex = bound(ex_bytes, 2.0 * b * snap.n * d, PEAK_F32_FLOPS)
+    m = nprobe * snap.cap_per
+    k_c = int(snap.centroids.shape[0])
+    ivf_bytes = k_c * d * 4 + b * m * (d * 4 + 8) + b * d * 4
+    ivf = bound(ivf_bytes, 2.0 * b * (k_c + m) * d, PEAK_F32_FLOPS)
+    return (ex, ex_bytes), (ivf, ivf_bytes)
+
+
+def search_qps(search, q, b: int, k: int, reps: int = SEARCH_REPS) -> float:
+    """Median queries/s of ``search`` over ``q`` in batches of b (host
+    wall: upload, device work, read-back, id mapping)."""
+    search(q[:b], k=k)
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for i in range(0, q.shape[0], b):
+            search(q[i:i + b], k=k)
+        out.append(q.shape[0] / (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def phase_search(seed: int, dev, card: str):
+    """/search on the card: a 1,000,000 x 768 IVF store built and
+    published at its default capacity, exact ids against an f64 oracle,
+    IVF recall, queries/s, HTTP latency; the BERT leg through /embed
+    (K5); a generation swap under HTTP load fed by a StreamSource; the
+    drift veto."""
+    print(f"== /search: VectorStore({SEARCH_DIM}, kind='ivf') at its "
+          f"default capacity, {SEARCH_ROWS:,} rows of a clustered corpus "
+          f"({SEARCH_CENTERS} centers, noise {SEARCH_NOISE}); BERT-base "
+          f"passages through /embed; a swap under load; the drift veto "
+          f"[{card}] ==")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rep: dict = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="search_")
+    rng = np.random.default_rng(seed + 70)
+    eng = ServingEngine(device=dev).start()
+    try:
+        # -- the 1M store: build and publish ------------------------------
+        mem0 = torch.cuda.memory_allocated()
+        store = VectorStore(SEARCH_DIM, kind="ivf", name="ivf", device=dev)
+        rows_auto = ann_arena_rows(SEARCH_DIM, device=dev)
+        print(f"capacity {store.capacity:,} rows (ann_arena_rows on "
+              f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}"
+              f" GiB: {rows_auto:,}, clamp [1024, {1 << 20:,}])")
+        check(store.capacity == rows_auto == SEARCH_CAPACITY,
+              f"the store sized itself to {store.capacity} rows")
+        centers = rng.standard_normal((SEARCH_CENTERS, SEARCH_DIM),
+                                      dtype=np.float32)
+        # the corpus is made on the card, and each block upserted from
+        # there (normalized on the card, one copy down to the master)
+        gen = torch.Generator(device=dev).manual_seed(seed + 70)
+        centers_d = torch.from_numpy(centers).to(dev)
+        gen_s = up_s = 0.0
+        for lo in range(0, SEARCH_ROWS, SEARCH_BATCH):
+            t0 = time.perf_counter()
+            n = min(SEARCH_BATCH, SEARCH_ROWS - lo)
+            block = centers_d[torch.randint(
+                0, SEARCH_CENTERS, (n,), generator=gen, device=dev)] \
+                + SEARCH_NOISE * torch.randn(n, SEARCH_DIM, generator=gen,
+                                             device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            store.upsert(np.arange(lo, lo + n), block)
+            torch.cuda.synchronize()
+            gen_s += t1 - t0
+            up_s += time.perf_counter() - t1
+        del block, centers_d
+        t0 = time.perf_counter()
+        snap = store.publish()
+        torch.cuda.synchronize()
+        pub_s = time.perf_counter() - t0
+        lp = dict(store.last_publish)
+        slots = torch.from_numpy(np.concatenate([
+            np.arange(SEARCH_ROWS), np.full(snap.n_pad - SEARCH_ROWS,
+                                            store.capacity)])).to(dev)
+        pack_ms = device_ms(lambda: store._staging.index_select(0, slots),
+                            iters=3, warmup=1)
+        del slots
+        eng.register_index("ivf", store)
+        hbm = eng.hbm_report()["indexes"]["ivf"]
+        rise = torch.cuda.memory_allocated() - mem0
+        rep["build"] = dict(
+            capacity=store.capacity, rows=snap.n, n_pad=snap.n_pad,
+            corpus_gen_s=gen_s, upsert_s=up_s, publish_s=pub_s,
+            pack_device_ms=pack_ms, **lp, report=store.report(),
+            hbm_indexes_bytes=hbm, memory_allocated_rise=rise)
+        print(f"build: corpus made on the card {gen_s:.2f} s, "
+              f"{SEARCH_ROWS // SEARCH_BATCH + (SEARCH_ROWS % SEARCH_BATCH > 0)}"
+              f" upserts of {SEARCH_BATCH:,} {up_s:.2f} s; publish "
+              f"{pub_s:.2f} s = pack {lp['pack_s']:.3f} s (device "
+              f"{pack_ms:.2f} ms) + k-means++ seeding {lp['seed_s']:.2f} s "
+              f"+ {lp['iterations']} Lloyd steps {lp['lloyd_s']:.2f} s + "
+              f"assignment {lp['assign_s']:.3f} s + member table "
+              f"{lp['members_s']:.3f} s; {lp['clusters']} clusters, "
+              f"cap_per {lp['cap_per']}")
+        print(f"report {store.report()}")
+        print(f"hbm_report indexes: {hbm / 2**30:.3f} GiB (the staging "
+              f"arena); memory_allocated rose {rise / 2**30:.3f} GiB "
+              f"(staging + the packed generation + centroids and members)")
+        check(snap.n == SEARCH_ROWS and snap.centroids is not None
+              and lp["clusters"] == int(np.sqrt(SEARCH_ROWS))
+              and snap.n_pad == bucket_size(SEARCH_ROWS + 1),
+              "the 1M publish did not build the IVF index it should")
+        check(rise >= hbm, "the index holds less memory than its report")
+        # -- exact against the f64 oracle ---------------------------------
+        q16 = clustered_rows(rng, centers, SEARCH_ORACLE_Q)
+        ids, scores = store.search_exact(q16, k=SEARCH_K)
+        t0 = time.perf_counter()
+        ref_ids, ref_scores = f64_oracle(store._host_vecs[:SEARCH_ROWS],
+                                         store._ids[:SEARCH_ROWS], q16,
+                                         SEARCH_K)
+        oracle_s = time.perf_counter() - t0
+        rows_c, bad_rows, err, pos, bad_pos = margin_check(
+            ids, scores, ref_ids, ref_scores, SEARCH_K, SEARCH_MARGIN)
+        rep["exact_vs_f64"] = dict(queries=SEARCH_ORACLE_Q, k=SEARCH_K,
+                                   rows_compared=rows_c, rows_differ=bad_rows,
+                                   positions_compared=pos,
+                                   positions_differ=int(bad_pos),
+                                   max_abs_score_err=err, oracle_s=oracle_s)
+        print(f"exact vs the f64 host scan ({SEARCH_ORACLE_Q} queries, "
+              f"k={SEARCH_K}): top-k sets compared on {rows_c} rows (margin "
+              f">= {SEARCH_MARGIN}), {bad_rows} differ; {pos} ranks "
+              f"compared, {bad_pos} differ; max |score err| {err:.2e} "
+              f"(tol {SEARCH_SCORE_TOL})")
+        check(bad_rows == 0 and bad_pos == 0 and err <= SEARCH_SCORE_TOL
+              and pos > 0, "the exact index disagrees with the f64 oracle")
+        # -- IVF recall against the exact index ---------------------------
+        q256 = clustered_rows(rng, centers, SEARCH_RECALL_Q)
+        recall = store.probe_recall(q256, k=SEARCH_K)
+        rep["recall_at_10"] = recall
+        print(f"IVF recall@{SEARCH_K} against ExactIndex on the same "
+              f"snapshot over {SEARCH_RECALL_Q} queries: {recall:.4f} "
+              f"(nprobe {store._ivf._n_probe(lp['clusters'])}, bar 0.95)")
+        check(recall >= 0.95, f"IVF recall {recall} below 0.95")
+        # -- throughput at B = 8 ------------------------------------------
+        q1k = clustered_rows(rng, centers, SEARCH_QPS_Q)
+        nprobe = store._ivf._n_probe(lp["clusters"])
+        qd = torch.from_numpy(q1k[:SEARCH_B]).to(dev)
+        ex_ms = device_ms(lambda: _exact_topk(qd, snap.vecs, snap.n,
+                                              SEARCH_K, True), iters=20)
+        ivf_ms = device_ms(lambda: _ivf_topk(
+            qd, snap.vecs, snap.centroids, snap.members, SEARCH_K, nprobe,
+            True), iters=20)
+        (ex_b, ex_bytes), (ivf_b, ivf_bytes) = search_bounds(
+            snap, SEARCH_B, nprobe)
+        exact_qps = search_qps(store.search_exact, q1k, SEARCH_B, SEARCH_K)
+        ivf_qps = search_qps(store.search, q1k, SEARCH_B, SEARCH_K)
+        rep["throughput"] = dict(
+            batch=SEARCH_B, k=SEARCH_K, queries=SEARCH_QPS_Q,
+            reps=SEARCH_REPS, exact_qps=exact_qps, ivf_qps=ivf_qps,
+            exact_device_ms=ex_ms, ivf_device_ms=ivf_ms,
+            exact_bound_ms=ex_b[0], exact_bound_by=ex_b[1],
+            exact_bytes=ex_bytes, ivf_bound_ms=ivf_b[0],
+            ivf_bound_by=ivf_b[1], ivf_bytes=ivf_bytes, nprobe=nprobe,
+            cap_per=snap.cap_per)
+        print(f"B={SEARCH_B}, k={SEARCH_K}, median of {SEARCH_REPS} x "
+              f"{SEARCH_QPS_Q} queries: exact {exact_qps:.1f} q/s "
+              f"(device {ex_ms:.3f} ms a batch, bound {ex_b[0]:.3f} ms by "
+              f"{ex_b[1]}: {ex_bytes / 1e9:.3f} GB at 3.35 TB/s), IVF "
+              f"{ivf_qps:.1f} q/s (device {ivf_ms:.3f} ms a batch, bound "
+              f"{ivf_b[0]:.4f} ms by {ivf_b[1]}: {ivf_bytes / 1e6:.1f} MB "
+              f"of centroids and nprobe {nprobe} x cap_per {snap.cap_per} "
+              f"gathered rows a query)")
+        check(exact_qps > 0 and ivf_qps > 0, "no search throughput")
+        # -- POST /search latency -----------------------------------------
+        lat = []
+        for i in range(SEARCH_HTTP_CALLS):
+            t0 = time.perf_counter()
+            code, _, body = _call(eng.url, "/search", {
+                "index": "ivf", "query": q256[i % SEARCH_RECALL_Q].tolist(),
+                "k": SEARCH_K})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200, f"POST /search: {code} {body[:200]}")
+        b = json.loads(body)
+        rep["http"] = dict(calls=SEARCH_HTTP_CALLS,
+                           p50_ms=percentile(lat, 0.5),
+                           p99_ms=percentile(lat, 0.99))
+        print(f"POST /search: {SEARCH_HTTP_CALLS} single-query calls p50 "
+              f"{rep['http']['p50_ms']:.3f} ms, p99 "
+              f"{rep['http']['p99_ms']:.3f} ms; keys {sorted(b)}")
+        check(sorted(b) == ["ids", "scores"]
+              and len(b["ids"][0]) == SEARCH_K, "a malformed /search answer")
+        del snap, qd
+        eng.unregister_index("ivf")
+        del store
+        torch.cuda.empty_cache()
+        rep["bert"], k5 = search_bert_leg(eng, seed, dev, tmp)
+        rep["swap"], rep["drift"] = search_swap_leg(eng, seed, dev, tmp)
+        _, _, body = _call(eng.url, "/models")
+        rep["indexes"] = json.loads(body)["indexes"]
+        print(f"GET /models indexes: "
+              + "; ".join(f"{k}: rows {v['rows']}, generation "
+                          f"{v['generation']}, {v['kind']}"
+                          for k, v in rep["indexes"].items()))
+    finally:
+        obs_trace.set_enabled(None)
+        eng.stop(drain=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rep["wall_s"] = time.perf_counter() - t_phase
+    print(f"the /search phase: {rep['wall_s']:.1f} s")
+    return k5, rep
+
+
+def search_bert_leg(eng, seed: int, dev, tmp: str):
+    """2,048 passages through /embed of BERT-base (a zip loaded through
+    POST /models, mean pooling, K5 once per layer per call) into the store
+    ``bert``; 64 passages embedded again and searched over HTTP; every
+    passage's own embedding at rank 1."""
+    cfg = bert_mod.BertConfig(**BERT_KW)
+    path = os.path.join(tmp, "bert.zip")
+    bert_mod.BertMLM(cfg, device=dev).save(path)
+    code, _, body = _call(eng.url, "/models", {"action": "load",
+                                               "name": "bert",
+                                               "path": path})
+    check(code == 200, f"POST /models load bert: {body}")
+    ids = 1 + markov_tokens(seed + 71, (SEARCH_PASSAGES, SEARCH_PASSAGE_T),
+                            BERT_KW["vocab_size"] - 1)
+    flash_attention_block.launches = 0
+    flash_attention_block_plain.launches = 0
+    calls = 0
+    embs = []
+    t0 = time.perf_counter()
+    for lo in range(0, SEARCH_PASSAGES, SEARCH_EMBED_ROWS):
+        code, _, body = _call(eng.url, "/embed", {
+            "tokens": ids[lo:lo + SEARCH_EMBED_ROWS].tolist(),
+            "model": "bert", "pool": "mean"})
+        check(code == 200, f"/embed of passages: {code} {body[:200]}")
+        embs.append(np.asarray(json.loads(body)["embeddings"], np.float32))
+        calls += 1
+    embed_s = time.perf_counter() - t0
+    embs = np.concatenate(embs)
+    store = VectorStore(cfg.d_model, capacity=SEARCH_PASSAGES, kind="exact",
+                        name="bert", device=dev)
+    store.upsert(np.arange(SEARCH_PASSAGES), embs)
+    store.publish()
+    eng.register_index("bert", store)
+    own = np.concatenate([store.search(embs[i:i + 256], k=1)[0][:, 0]
+                          for i in range(0, SEARCH_PASSAGES, 256)])
+    pick = np.random.default_rng(seed + 72).choice(
+        SEARCH_PASSAGES, SEARCH_BERT_Q, replace=False)
+    code, _, body = _call(eng.url, "/embed", {
+        "tokens": ids[pick].tolist(), "model": "bert", "pool": "mean"})
+    check(code == 200, f"/embed of queries: {code} {body[:200]}")
+    calls += 1
+    qe = json.loads(body)["embeddings"]
+    code, _, body = _call(eng.url, "/search", {"index": "bert",
+                                               "queries": qe,
+                                               "k": SEARCH_K})
+    check(code == 200, f"/search bert: {code} {body[:200]}")
+    top1 = np.asarray(json.loads(body)["ids"])[:, 0]
+    k5 = {"flash_attention_block": flash_attention_block.launches,
+          "flash_attention_block_plain":
+              flash_attention_block_plain.launches}
+    rep = dict(passages=SEARCH_PASSAGES, tokens=SEARCH_PASSAGE_T,
+               embed_calls=calls, embed_s=embed_s,
+               own_rank1=int((own == np.arange(SEARCH_PASSAGES)).sum()),
+               http_rank1=int((top1 == pick).sum()), queries=SEARCH_BERT_Q,
+               launches=k5)
+    print(f"BERT leg: {SEARCH_PASSAGES} passages of {SEARCH_PASSAGE_T} "
+          f"tokens through /embed in {calls - 1} calls of "
+          f"{SEARCH_EMBED_ROWS} ({embed_s:.2f} s); own embedding at rank 1: "
+          f"{rep['own_rank1']}/{SEARCH_PASSAGES}; {SEARCH_BERT_Q} passages "
+          f"embedded again and searched over HTTP at rank 1: "
+          f"{rep['http_rank1']}/{SEARCH_BERT_Q}; launches {k5} over "
+          f"{calls} /embed calls")
+    check(rep["own_rank1"] == SEARCH_PASSAGES
+          and rep["http_rank1"] == SEARCH_BERT_Q,
+          "a passage's embedding did not come back at rank 1")
+    check(k5["flash_attention_block"] == cfg.n_layers * calls
+          and k5["flash_attention_block_plain"] == 0,
+          "/embed of BERT did not run K5 once per layer per call")
+    return rep, k5
+
+
+def search_swap_leg(eng, seed: int, dev, tmp: str):
+    """The bench's 65,536 x 768 store searched from four HTTP clients while
+    a StreamSource feed runs five windows (4,096 upserts, 1,024 deletes,
+    a publish each); then a window shifted by 5 sigma, vetoed by the
+    DriftMonitor on the corpus's moments."""
+    rng = np.random.default_rng(seed + 73)
+    centers = rng.standard_normal((int(np.sqrt(SWAP_ROWS)), SEARCH_DIM),
+                                  dtype=np.float32)
+    corpus = clustered_rows(rng, centers, SWAP_ROWS)
+    # room for every window's upserts and the shifted window's 1,024
+    store = VectorStore(SEARCH_DIM, capacity=SWAP_ROWS + SWAP_WINDOWS
+                        * SWAP_UPSERTS + 1024, kind="ivf", name="swap",
+                        device=dev)
+    store.upsert(np.arange(SWAP_ROWS), corpus)
+    store.publish()
+    eng.register_index("swap", store)
+    live = {1: set(store.snapshot.ids[:store.snapshot.n].tolist())}
+    q = clustered_rows(rng, centers, 64)
+    stop = threading.Event()
+    answers, failures = [], []
+
+    def client(c):
+        i = c
+        while not stop.is_set():
+            code, _, body = _call(eng.url, "/search", {
+                "index": "swap", "queries": q[i % 8 * 8:(i % 8 + 1) * 8]
+                .tolist(), "k": SEARCH_K})
+            if code != 200:
+                failures.append((code, body[:200]))
+            else:
+                answers.append(json.loads(body)["ids"])
+            i += 4
+
+    src = StreamSource(idle_s=0.05)
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    reports = []
+    t0 = time.perf_counter()
+    try:
+        for w in range(SWAP_WINDOWS):
+            base = SWAP_ROWS + w * SWAP_UPSERTS
+            fresh = clustered_rows(rng, centers, SWAP_UPSERTS)
+            for lo in range(0, SWAP_UPSERTS, 1024):
+                src.push(DataSet(fresh[lo:lo + 1024],
+                                 np.arange(base + lo, base + lo + 1024)))
+            src.push(("delete", np.arange(w * SWAP_DELETES,
+                                          (w + 1) * SWAP_DELETES)))
+            reports.append(store.feed_once(src))
+            snap = store.snapshot
+            live[snap.generation] = set(snap.ids[:snap.n].tolist())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    feed_s = time.perf_counter() - t0
+    stray = sum(1 for a in answers
+                if not any(set(x for row in a for x in row if x >= 0) <= s
+                           for s in live.values()))
+    gens = [1] + [r["generation"] for r in reports]
+    swap = dict(rows=SWAP_ROWS, windows=SWAP_WINDOWS,
+                upserts=SWAP_UPSERTS, deletes=SWAP_DELETES, feed_s=feed_s,
+                answers=len(answers), failed=len(failures),
+                answers_outside_a_generation=stray, generations=gens,
+                reports=reports)
+    print(f"swap under load: {len(answers)} HTTP searches from 4 clients "
+          f"across {SWAP_WINDOWS} feed windows ({SWAP_UPSERTS} upserts, "
+          f"{SWAP_DELETES} deletes, a publish each; {feed_s:.2f} s): "
+          f"{len(failures)} failed, {stray} answers outside one "
+          f"generation's live set; generations {gens}")
+    check(not failures and stray == 0 and answers
+          and gens == list(range(1, SWAP_WINDOWS + 2))
+          and all(r["upserted"] == SWAP_UPSERTS
+                  and r["deleted"] == SWAP_DELETES for r in reports),
+          f"the swap under load failed: {failures[:3]}")
+    # -- the drift veto ----------------------------------------------------
+    jr = obs_journal_at(os.path.join(tmp, "search_journal.jsonl"))
+    mean, std = corpus.mean(0), corpus.std(0)
+    drift = DriftMonitor((mean, std))
+    gen = store.generation
+    shifted = corpus[:1024] + 5.0 * std
+    src.push(DataSet(shifted, np.arange(900_000, 900_000 + 1024)))
+    report = store.feed_once(src, drift=drift)
+    try:
+        store.publish(drift=drift)
+        raised = False
+    except PublishVetoed:
+        raised = True
+    src.close()
+    obs_trace.set_enabled(None)
+    jr.flush(fsync=True)
+    vetoes = [e for e in FlightRecorder.load(jr.path)
+              if e["kind"] == "retrieval.publish_veto"]
+    stats = store.retrieval_stats.snapshot()
+    veto = dict(report=report, raised=raised, generation=store.generation,
+                max_z=drift.last_z, publish_vetoes=stats["publish_vetoes"],
+                journal_vetoes=len(vetoes))
+    print(f"drift veto: a window shifted by 5 sigma: feed_once vetoed "
+          f"{report['vetoed']} (max z {drift.last_z:.2f}), publish(drift=) "
+          f"raised PublishVetoed {raised}, generation {gen} -> "
+          f"{store.generation}, publish_vetoes {stats['publish_vetoes']}, "
+          f"{len(vetoes)} retrieval.publish_veto events in the journal")
+    check(report["vetoed"] and not report["published"] and raised
+          and store.generation == gen and stats["publish_vetoes"] == 2
+          and len(vetoes) == 2, "the drift veto did not hold")
+    return swap, veto
+
+
+def obs_predict_burst(url: str, reqs, clients: int = N_CLIENTS) -> float:
+    """The /predict requests over HTTP from ``clients`` threads; wall s."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        answers = list(ex.map(lambda x: _post(
+            url, {"batch": x.tolist()}, path="/predict"), reqs))
+    wall = time.perf_counter() - t0
+    check(all(s == 200 for s, _ in answers), "a /predict failed")
+    return wall
+
+
+def obs_launches(fn) -> dict:
+    """Each kernel's launches during ``fn()`` (K1 and K4, K6, and their
+    plain versions)."""
+    fns = (lstm_scan, lstm_scan_plain) + KERNELS
+    for f in fns:
+        f.launches = 0
+    fn()
+    return {f.__name__: f.launches for f in fns}
+
+
+def phase_obs(lm: TransformerLM, net: MultiLayerNetwork, burst_run,
+              seed: int, dev):
+    """The serving path traced and journaled (DL4J_TPU_OBS=1): a 64-request
+    /predict burst on the char-RNN (K1), the 16-request /generate burst
+    (K4, K6) and 64 searches; request spans, batch spans, decode-tick
+    spans; the drain in the journal; an exporter scrape; /predict rows/s
+    with obs on and off; launch counts equal with obs on and off."""
+    print("== obs: DL4J_TPU_OBS=1 over /predict (char-RNN, K1), /generate "
+          "(K4, K6) and /search; the journal in a temporary directory ==")
+    tmp = tempfile.mkdtemp(prefix="obs_")
+    reqs_gen, answers_gen = burst_run
+    rng = np.random.default_rng(seed + 80)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    reqs = [eye[rng.integers(0, VOCAB, (int(rng.integers(1, MAX_ROWS + 1)),
+                                        SEQ))] for _ in range(N_PREDICT)]
+    rep: dict = {}
+    jr = obs_journal_at(os.path.join(tmp, "journal.jsonl"))
+    tracer = obs_trace.tracer()
+    peng = ServingEngine(model=net, device=dev).start()
+    geng = ServingEngine(lm, device=dev).start()
+    try:
+        peng.registry.warmup(max_batch=peng.max_batch,
+                             sample_row=np.zeros((SEQ, VOCAB), np.float32))
+        obs_predict_burst(peng.url, reqs[:8])
+        tracer.clear()
+        # -- /predict: one request span each, its rid in one batch span ---
+        obs_predict_burst(peng.url, reqs)
+        rq = [s for s in tracer.spans("serve.request")]
+        batches = tracer.spans("serve.batch")
+        owner = {}
+        for b in batches:
+            for rid in b["attrs"]["request_ids"]:
+                owner[rid] = owner.get(rid, 0) + 1
+        rids = [s["attrs"]["rid"] for s in rq]
+        pred = dict(requests=len(rq), batches=len(batches),
+                    rids_in_one_batch=sum(owner.get(r) == 1 for r in rids))
+        print(f"/predict burst: {len(rq)} serve.request spans, "
+              f"{len(batches)} serve.batch spans, "
+              f"{pred['rids_in_one_batch']} request ids each in exactly "
+              f"one batch span's request_ids")
+        check(len(rq) == N_PREDICT and pred["rids_in_one_batch"] == N_PREDICT
+              and sum(b["attrs"]["rows"] for b in batches)
+              == sum(x.shape[0] for x in reqs),
+              "the /predict spans do not thread the request ids")
+        # -- /generate: request spans and a batch span per decode tick ----
+        d = geng.decoder
+        ticks0 = d.decode_ticks
+        tracer.clear()
+        toks, wall = burst(geng, reqs_gen)
+        equal = sum(a == b for a, b in zip(toks, answers_gen))
+        ticks = d.decode_ticks - ticks0
+        gspans = tracer.spans("serve.request")
+        tick_spans = [s for s in tracer.spans("serve.batch")
+                      if s["attrs"].get("kind") == "decode.paged"]
+        gen = dict(requests=len(gspans), ticks=ticks,
+                   tick_spans=len(tick_spans), wall_s=wall,
+                   equal_to_burst=equal)
+        print(f"/generate burst with obs on: {len(gspans)} serve.request "
+              f"spans (kind generate), {len(tick_spans)} decode.paged "
+              f"serve.batch spans for {ticks} ticks (lanes, tick_k on "
+              f"each); {gen['equal_to_burst']}/{len(toks)} transcripts "
+              f"equal to the burst without obs; {wall:.3f} s")
+        check(len(gspans) == len(reqs_gen)
+              and all(s["attrs"]["kind"] == "generate" for s in gspans)
+              and len(tick_spans) == ticks
+              and all("lanes" in s["attrs"] and "tick_k" in s["attrs"]
+                      for s in tick_spans)
+              and equal == len(reqs_gen),
+              "the /generate spans are wrong, or obs changed an answer")
+        # -- /search: 64 request spans -------------------------------------
+        store = VectorStore(SEARCH_DIM, capacity=4096, kind="exact",
+                            name="obs", device=dev)
+        vecs = rng.standard_normal((4096, SEARCH_DIM), dtype=np.float32)
+        store.upsert(np.arange(4096), vecs)
+        store.publish()
+        peng.register_index("default", store)
+        tracer.clear()
+        for i in range(64):
+            code, _, body = _call(peng.url, "/search",
+                                  {"query": vecs[i].tolist(), "k": 5})
+            check(code == 200 and json.loads(body)["ids"][0][0] == i,
+                  f"/search under obs: {code} {body[:200]}")
+        sspans = tracer.spans("serve.request")
+        print(f"/search: {len(sspans)} serve.request spans (kind search)")
+        check(len(sspans) == 64 and all(s["attrs"]["kind"] == "search"
+                                        for s in sspans),
+              "the /search spans are wrong")
+        # -- the exporter --------------------------------------------------
+        exp = MetricsExporter().start()
+        try:
+            _, _, text = _call(exp.url, "/metrics")
+        finally:
+            exp.stop()
+        ret = [ln for ln in text.splitlines()
+               if ln.startswith("dl4j_retrieval_search_requests")]
+        print(f"MetricsExporter scrape: {len(text.splitlines())} lines, "
+              f"retrieval_stats samples {ret[:2]}")
+        check(ret and any("dl4j_span_seconds" in ln
+                          for ln in text.splitlines()),
+              "the exporter scrape lacks retrieval_stats or span times")
+        # -- rows/s with obs on and off, interleaved -----------------------
+        rows = sum(x.shape[0] for x in reqs)
+        pairs = []
+        for _ in range(3):
+            obs_trace.set_enabled(False)
+            off = rows / obs_predict_burst(peng.url, reqs)
+            obs_trace.set_enabled(True)
+            on = rows / obs_predict_burst(peng.url, reqs)
+            pairs.append((off, on))
+        print("/predict rows/s (obs off, on), three interleaved pairs: "
+              + ", ".join(f"({a:.1f}, {b:.1f})" for a, b in pairs))
+        # -- launches with obs on and off: one client, one batch each ------
+        greedy = [r for r in reqs_gen if r["temperature"] == 0.0][:2]
+
+        def sequential():
+            for x in reqs[:16]:
+                _post(peng.url, {"batch": x.tolist()}, path="/predict")
+            for r in greedy:
+                _post(geng.url, r)
+
+        obs_trace.set_enabled(False)
+        c_off = obs_launches(sequential)
+        obs_trace.set_enabled(True)
+        c_on = obs_launches(sequential)
+        print(f"launches, obs off: {c_off}; obs on: {c_on}")
+        check(c_on == c_off and c_on["lstm_scan"] > 0
+              and c_on["paged_attention"] > 0
+              and c_on["flash_attention"] > 0
+              and c_on["lstm_scan_plain"] == 0
+              and c_on["paged_attention_plain"] == 0,
+              "launch counts differ with obs on and off")
+        # -- the drain in the journal --------------------------------------
+        ok = peng.drain(30.0)
+        events = FlightRecorder.load(jr.path)
+        kinds = [e["kind"] for e in events]
+        print(f"drain -> {ok}; the journal on disk ({jr.path}, fsync'd): "
+              f"{len(events)} events, serve.drain at "
+              f"{kinds.index('serve.drain') if 'serve.drain' in kinds else None},"
+              f" serve.drain_complete at "
+              f"{kinds.index('serve.drain_complete') if 'serve.drain_complete' in kinds else None}")
+        check(ok and "serve.drain" in kinds and "serve.drain_complete" in kinds
+              and kinds.index("serve.drain")
+              < kinds.index("serve.drain_complete"),
+              "the drain is not in the journal")
+        rep = dict(predict=pred, generate=gen, search_spans=len(sspans),
+                   exporter_retrieval_samples=len(ret),
+                   predict_rows_per_s_off_on=pairs, launches_off=c_off,
+                   launches_on=c_on, journal_events=len(events),
+                   journal_kinds=sorted(set(kinds)))
+    finally:
+        obs_trace.set_enabled(None)
+        peng.stop(drain=False)
+        geng.stop(drain=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rep
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -5810,6 +6518,7 @@ def main(argv=None) -> int:
     net, k1_launches, predict = phase_predict(args.seed, dev)
     merge(times, phase_times_predict(net, args.seed, dev))
     serving_planes = phase_serving_planes(lm, burst, args.seed, dev)
+    obs_rep = phase_obs(lm, net, burst, args.seed, dev)
     peak_serve = torch.cuda.max_memory_allocated()
     tnet, train = phase_train(args.seed, dev)
     merge(times, phase_times_train(tnet, args.seed, dev))
@@ -5848,8 +6557,12 @@ def main(argv=None) -> int:
     graph_counts, graph = phase_graph(args.seed, dev)
     peak_graph = graph["peak_memory_bytes"]
     embed_counts, embed = phase_embed(args.seed, dev, w2v_table)
+    del w2v_table
+    torch.cuda.reset_peak_memory_stats()
+    search_counts, search = phase_search(args.seed, dev, card)
+    peak_search = torch.cuda.max_memory_allocated()
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
-               peak_bert, peak_cnn, peak_graph,
+               peak_bert, peak_cnn, peak_graph, peak_search,
                torch.cuda.max_memory_allocated())
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
@@ -5862,7 +6575,8 @@ def main(argv=None) -> int:
           f"{peak_sp / 2**30:.3f} GiB; LM training "
           f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB; "
           f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB; ComputationGraph "
-          f"{peak_graph / 2**30:.3f} GiB); "
+          f"{peak_graph / 2**30:.3f} GiB; /search "
+          f"{peak_search / 2**30:.3f} GiB); "
           f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
@@ -6013,6 +6727,7 @@ def main(argv=None) -> int:
          "launches_ring_train": rt_counts["flash_attention_block"],
          "launches_bert": bert_counts["flash_attention_block"],
          "launches_embed": embed_counts["flash_attention_block"],
+         "launches_search": search_counts["flash_attention_block"],
          "max_abs_err": max(errs["flash_attention_block"]["max_abs_err"],
                             k5_bert["max_err"]),
          "max_abs_err_lse": max(
@@ -6067,7 +6782,8 @@ def main(argv=None) -> int:
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,
                   "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
-                  "graph": graph, "embed": embed,
+                  "graph": graph, "embed": embed, "search": search,
+                  "obs": obs_rep,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

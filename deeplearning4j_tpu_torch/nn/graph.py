@@ -144,6 +144,10 @@ class ComputationGraph(LossScaled):
             isinstance(v, conf_layers.BatchNormalization)
             for v in conf.vertices.values())
         self._bucket_scope = False  # True while fit_iterator drives fit()
+        # the ledgers join the metrics registry (JAX nn/graph.py :109-111)
+        from deeplearning4j_tpu_torch.obs.registry import register_net
+
+        register_net(self)
 
     # ------------------------------------------------------------------ init
     def _infer_input_shapes(self) -> Dict[str, Tuple[int, ...]]:

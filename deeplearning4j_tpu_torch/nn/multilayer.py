@@ -153,6 +153,11 @@ class MultiLayerNetwork(LossScaled):
         # the bf16 dynamic loss scale (DL4J_TPU_BF16), made at first use
         self._loss_scale: Optional[Dict[str, torch.Tensor]] = None
         self.dispatch_stats = dispatch.DispatchStats()
+        # every *_stats ledger above joins the metrics registry (JAX
+        # nn/multilayer.py :102-104): one Prometheus scrape covers them
+        from deeplearning4j_tpu_torch.obs.registry import register_net
+
+        register_net(self)
 
     # ------------------------------------------------------------------ init
     def _infer_input_shape(self) -> Tuple[int, ...]:

@@ -7,6 +7,11 @@ policy (``ops/remat.py``) and bf16 loss-scaled training
 (``ops/lowprec.py``), and the serving planes: calibrated int8
 ``/predict``, the circuit breaker, the watchdog, drain, SLO classes and
 tenant quotas; ``/embed``'s layer and pooling (``retrieval/embed.py``);
+``/search``'s arena rows, IVF clusters and probes (``retrieval/``); the
+observability plane (``obs/``: the span gate, the span ring, the
+journal's path, ring and flush interval, the exporter's port, and the
+process id that suffixes the journal's default path); the online feed
+(``online/``: the stream's watermark and idle window, the drift bar);
 and the dataset directory (``datasets/fetchers.py``).
 The rest of the table waits for the slices that read them.
 
@@ -122,6 +127,44 @@ _register("DL4J_TPU_EMBED_LAYER", "", "int",
 _register("DL4J_TPU_EMBED_POOL", "mean", "str",
           "sequence pooling for BertMLM /embed contextual embeddings "
           "(mean | cls | max)")
+_register("DL4J_TPU_ANN_ROWS", "0", "int",
+          "vector-index arena capacity in rows (0 = auto-size from the "
+          "device's memory via ops/memory.ann_arena_rows)")
+_register("DL4J_TPU_ANN_CLUSTERS", "0", "int",
+          "IVF coarse-quantizer cluster count (0 = auto ~= sqrt(rows))")
+_register("DL4J_TPU_ANN_NPROBE", "8", "int",
+          "IVF clusters probed per /search query (recall/qps dial; "
+          "measured recall@k vs the exact oracle rides "
+          "retrieval_stats.last_recall)")
+_register("DL4J_TPU_OBS", "0", "bool",
+          "span tracer master switch (default OFF; obs off => training "
+          "bit-exact)")
+_register("DL4J_TPU_OBS_SPANS", "4096", "int",
+          "span ring capacity per tracer")
+_register("DL4J_TPU_OBS_JOURNAL", "", "path",
+          "flight-recorder JSONL path; '' = .obs_journal[.pN].jsonl under "
+          "cwd (N = DL4J_TPU_PROCESS_ID)")
+_register("DL4J_TPU_OBS_JOURNAL_N", "4096", "int",
+          "flight-recorder event-ring cap")
+_register("DL4J_TPU_OBS_FLUSH_S", "5", "float",
+          "flight-recorder periodic flush interval (seconds)")
+_register("DL4J_TPU_OBS_PORT", "0", "int",
+          "standalone MetricsExporter HTTP port (0 = ephemeral)")
+_register("DL4J_TPU_PROCESS_ID", "", "int",
+          "this process's rank among cooperating processes; suffixes the "
+          "default obs journal path")
+_register("DL4J_TPU_ONLINE_WATERMARK", "64", "int",
+          "StreamSource backpressure high watermark: push() blocks while "
+          "this many batches sit undelivered")
+_register("DL4J_TPU_ONLINE_IDLE_S", "0.2", "float",
+          "idle window (seconds with no arrival) that ends a StreamSource "
+          "poll pass (0 = block until close)")
+_register("DL4J_TPU_ONLINE_DRIFT_Z", "3.0", "float",
+          "DriftMonitor alarm threshold: max per-column "
+          "|live_mean - base_mean| / base_std")
+_register("DL4J_TPU_ONLINE_DRIFT_MIN", "64", "int",
+          "minimum live rows before DriftMonitor.check() renders a "
+          "verdict")
 _register("DL4J_TPU_DATA_DIR", "", "path",
           "dataset cache dir; '' = ~/.deeplearning4j_tpu")
 

@@ -370,6 +370,11 @@ class QuantizedNet:
         # every tensor this wrapper reaches, so an unload drops them all
         self.params = {"base": net.params, "quant": quant}
         self.states = net.states
+        # its ledgers join the metrics registry (JAX ops/lowprec.py
+        # :327-329); it has none of its own yet
+        from deeplearning4j_tpu_torch.obs.registry import register_net
+
+        register_net(self)
 
     @property
     def _input_shape(self):

@@ -1,6 +1,7 @@
-"""Paged-KV arena sizing and a model's resident bytes (counterpart:
-``deeplearning4j_tpu/ops/memory.py`` ``kv_block_bytes`` :332,
-``kv_arena_blocks`` :355 and ``model_resident_bytes`` :430).
+"""Paged-KV and vector-index arena sizing and a model's resident bytes
+(counterpart: ``deeplearning4j_tpu/ops/memory.py`` ``kv_block_bytes``
+:332, ``kv_arena_blocks`` :355, ``ann_row_bytes`` :391,
+``ann_arena_rows`` :396 and ``model_resident_bytes`` :430).
 
 Same closed form as the JAX package, priced at the arena's dtype
 (``ops/lowprec.kv_dtype``: the model's compute dtype unless
@@ -8,7 +9,8 @@ Same closed form as the JAX package, priced at the arena's dtype
 model gets ~2x the blocks on the same budget). The budget is the device's own
 memory — ``torch.cuda.get_device_properties(dev).total_memory`` on the
 card, the host's physical memory on the CPU — instead of the JAX
-package's ``DL4J_TPU_HBM_GB`` knob. Preflight, remat sizing and the AOT
+package's ``DL4J_TPU_HBM_GB`` knob; the index arena is sized on the
+same budget. Preflight, remat sizing and the AOT
 memory ledger (``measure_memory``) wait for a later slice.
 """
 
@@ -116,3 +118,32 @@ def kv_arena_blocks(cfg, block_tokens: int, *, device=None,
     blocks = int(max(0.0, budget) * float(kv_fraction) / per_block)
     floor = cfg.max_len // int(block_tokens) + 1
     return max(floor, min(int(max_blocks), blocks))
+
+
+def ann_row_bytes(dim: int, dtype: torch.dtype = torch.float32) -> int:
+    """Device bytes of ONE index row: a [dim] vector in the arena dtype."""
+    return int(dim) * _itemsize(dtype)
+
+
+def ann_arena_rows(dim: int, *, device=None,
+                   budget_bytes: Optional[int] = None, params=None,
+                   ann_fraction: float = 0.25, max_rows: int = 1 << 20,
+                   min_rows: int = 1024,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """How many vector rows the retrieval arena can afford, the sizing
+    behind ``DL4J_TPU_ANN_ROWS=0`` (``retrieval/store.VectorStore``):
+    (budget - 2 x the encoder's parameter bytes) x ``ann_fraction`` over
+    three row copies (the staging arena, the published generation and the
+    one a publish packs beside it), clamped to [min_rows, max_rows].
+    ``budget_bytes`` defaults to the memory of ``device``. Closed form:
+    no device read."""
+    if budget_bytes is None:
+        if device is None:
+            raise ValueError("ann_arena_rows needs a device or a budget")
+        budget_bytes = device_memory_bytes(device)
+    budget = float(budget_bytes)
+    if params is not None:
+        budget -= 2.0 * tree_bytes(params)
+    per_row = 3 * ann_row_bytes(dim, dtype)
+    rows = int(max(0.0, budget) * float(ann_fraction) / per_row)
+    return max(int(min_rows), min(int(max_rows), rows))

@@ -1,7 +1,7 @@
-"""Embedding serving (counterpart: ``deeplearning4j_tpu/retrieval/``):
-the ``/embed`` adapters and the retrieval ledger. The vector store and
-its indexes behind ``/search`` (``index.py``, ``store.py``) wait for a
-later slice."""
+"""Embedding and retrieval serving (counterpart:
+``deeplearning4j_tpu/retrieval/``): the ``/embed`` adapters, the vector
+store with its exact and IVF indexes behind ``/search``, and the
+retrieval ledger."""
 
 from deeplearning4j_tpu_torch.retrieval.embed import (
     BertEmbedding,
@@ -9,12 +9,30 @@ from deeplearning4j_tpu_torch.retrieval.embed import (
     LookupEmbedding,
     resolve_adapter,
 )
+from deeplearning4j_tpu_torch.retrieval.index import (
+    ExactIndex,
+    IndexSnapshot,
+    IVFIndex,
+    measure_recall,
+)
 from deeplearning4j_tpu_torch.retrieval.stats import RetrievalStats
+from deeplearning4j_tpu_torch.retrieval.store import (
+    IndexFullError,
+    PublishVetoed,
+    VectorStore,
+)
 
 __all__ = [
     "BertEmbedding",
+    "ExactIndex",
     "FeedForwardEmbedding",
+    "IndexFullError",
+    "IndexSnapshot",
+    "IVFIndex",
     "LookupEmbedding",
+    "PublishVetoed",
     "RetrievalStats",
+    "VectorStore",
+    "measure_recall",
     "resolve_adapter",
 ]

@@ -5,8 +5,8 @@ One thread-safe counter surface for the embedding and vector-search
 plane, shaped like the other ledgers (``serving_stats``): plain counters
 behind a lock and ``snapshot()`` as the JSON-able read the metrics
 registry flattens into Prometheus samples. The port's engine bumps the
-embed counters per answered ``/embed``; the index, publish and search
-counters stay at zero until ``/search`` is ported.
+embed counters per answered ``/embed``; each ``VectorStore`` bumps its
+own ledger's mutation, publish, search and recall counters.
 """
 
 from __future__ import annotations

@@ -40,8 +40,9 @@ Failure semantics (the JAX batcher's :109-170 and :285-410):
                           trip the breaker on the watchdog's verdict.
 
 ``drain`` waits for the queue and the in-flight batch to empty; ``stop``
-fails whatever remains, the in-flight batch included. Tracing spans wait
-for a later slice.
+fails whatever remains, the in-flight batch included. Each dispatch runs
+inside a ``serve.batch`` span (``obs/trace.py``, under ``DL4J_TPU_OBS``)
+listing the engine's request ids of its members (JAX :459-462).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import dispatch
 from deeplearning4j_tpu_torch.serving.resilience import (
     InferenceWatchdog,
@@ -89,13 +91,17 @@ def _resolve(fut: Future, result=None, exception=None) -> bool:
 
 
 class _Request:
-    __slots__ = ("rows", "future", "deadline", "enqueued")
+    __slots__ = ("rows", "future", "deadline", "enqueued", "rid")
 
-    def __init__(self, rows: np.ndarray, deadline: float) -> None:
+    def __init__(self, rows: np.ndarray, deadline: float,
+                 rid: Optional[int] = None) -> None:
         self.rows = rows
         self.future: Future = Future()
         self.deadline = deadline
         self.enqueued = time.monotonic()
+        # the engine's observability request id: it rides the queue and
+        # surfaces in the serve.batch span of the dispatch it joins
+        self.rid = rid
 
 
 class DynamicBatcher:
@@ -146,17 +152,18 @@ class DynamicBatcher:
         return t
 
     # -- client side ------------------------------------------------------
-    def submit(self, rows, timeout_s: Optional[float] = None) -> Future:
+    def submit(self, rows, timeout_s: Optional[float] = None,
+               rid: Optional[int] = None) -> Future:
         """Enqueue ``rows`` ([k, ...]: one request may carry several rows)
         and return a Future of the [k, ...] outputs. Raises QueueFullError
-        at capacity."""
+        at capacity. ``rid`` is the engine's observability request id."""
         rows = np.asarray(rows)
         if rows.ndim < 1 or rows.shape[0] < 1:
             raise ValueError("submit() needs at least one row")
         self.stats.record_request()
         deadline = time.monotonic() + (timeout_s if timeout_s is not None
                                        else self.default_timeout_s)
-        req = _Request(rows, deadline)
+        req = _Request(rows, deadline, rid=rid)
         with self._cond:
             if not self._running:
                 raise RuntimeError("batcher is stopped")
@@ -182,10 +189,11 @@ class DynamicBatcher:
             self._cond.notify_all()
         return req.future
 
-    def predict(self, rows, timeout_s: Optional[float] = None) -> np.ndarray:
+    def predict(self, rows, timeout_s: Optional[float] = None,
+                rid: Optional[int] = None) -> np.ndarray:
         """submit() + wait; raises RequestTimeoutError past the deadline."""
         budget = timeout_s if timeout_s is not None else self.default_timeout_s
-        fut = self.submit(rows, timeout_s=budget)
+        fut = self.submit(rows, timeout_s=budget, rid=rid)
         try:
             return fut.result(timeout=budget + self.max_wait_s)
         except RequestTimeoutError:
@@ -375,7 +383,13 @@ class DynamicBatcher:
             token = (wd.arm({"gen": gen, "rows": n}) if wd is not None
                      else None)
             try:
-                out = np.asarray(self._infer(batch))
+                # the coalesced-batch span lists every member's request
+                # id; the infer fn's host read-back of the answer ends it
+                with obs_trace.span(
+                        "serve.batch", rows=int(n),
+                        padded_to=int(padded_to),
+                        request_ids=[r.rid for r in taken]):
+                    out = np.asarray(self._infer(batch))
             except Exception as e:  # noqa: BLE001 — serving boundary
                 live = wd.disarm(token) if wd is not None else True
                 if not live:

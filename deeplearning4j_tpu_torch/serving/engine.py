@@ -58,6 +58,13 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   pool, with the watchdog and breaker hooks) or one locked
                   call under ``DL4J_TPU_SERVE_BATCH=0``; 400 with no
                   record, batch or tokens.
+  POST /search    (:1049-1065; ``search`` :425-443) {"query": [...]} |
+                  {"queries": [[...], ...]}, "index"? ("default"), "k"?
+                  (10), "nprobe"? -> {"ids": [[...]], "scores": [[...]]}
+                  over a registered ``retrieval/store.VectorStore``'s
+                  current generation (``register_index``); ids -1 with
+                  scores -Infinity past the live rows; 400 without a
+                  query or for an unknown index, 503 while draining.
   POST /models    {"action": "load", "name", "path", "input_shape"?} |
                   {"action": "warmup" | "serve" | "unload", "name",
                   "version"?, "max_batch"?, "gen_tokens"?} (:1172-1197).
@@ -68,9 +75,11 @@ Routes (stdlib HTTP, JSON — the contracts of the JAX engine):
                   (:1341-1355).
   GET  /models    {"models", "default", "kv": per-record decoder
                   capacity, "lineage": the serve() swaps, "embed": each
-                  record's adapter kind and dim, "indexes": {}}
+                  record's adapter kind and dim, "indexes": each
+                  registered store's ``report()``}
   GET  /metrics   {"serving", "models", "health", "draining", "hbm":
-                  resident bytes per record against the device's memory,
+                  resident bytes per record and each index's arena
+                  against the device's memory,
                   "kernels": launch counts of each kernel of the served
                   paths and of its plain version, and for the default LM
                   "decode" and "dispatch"}; with ``Accept: text/plain`` or
@@ -100,16 +109,24 @@ malformed spec raises ValueError there), ``_BREAKER_FAILS``,
 ``_WATCHDOG_S`` and ``_DRAIN_S``, and through the decoders
 ``DL4J_TPU_SERVE_TICK_K``, ``_SPEC_K`` and ``_KV_DTYPE``.
 
-Not ported yet: /search (``register_index``, ``index_report``: the
-``indexes`` of ``/models`` and ``hbm_report`` stay empty), shadow
-mirroring, the serving mesh and ``DL4J_TPU_SERVE_ROLE``, the obs journal
-and trace spans.
+Observability (``obs/``, under ``DL4J_TPU_OBS``): every entry point
+(``predict_for``, ``embed_for``, ``search``, ``generate``,
+``generate_stream``, ``prefill_for``) opens a ``serve.request`` span with
+its request id ``rid``; the batchers' ``serve.batch`` spans list their
+members' rids, and each decode tick opens one too. The journal records
+``serve.health`` (breaker transitions), ``serve.wedged`` (flushed with
+fsync), ``serve.drain``, ``serve.drain_complete`` (flushed with fsync)
+and ``serve.preempt`` (a SIGTERM).
+
+Not ported yet: shadow mirroring, the serving mesh and
+``DL4J_TPU_SERVE_ROLE``.
 """
 
 from __future__ import annotations
 
 import base64
 import gc
+import itertools
 import json
 import math
 import queue as stdqueue
@@ -126,7 +143,9 @@ import torch
 from deeplearning4j_tpu_torch.models.transformer import TransformerLM
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.obs import journal as obs_journal
 from deeplearning4j_tpu_torch.obs import registry as obs_registry
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops import memory as opsmem
@@ -308,6 +327,8 @@ class ServingEngine:
         self._embed_batchers: Dict[str, DynamicBatcher] = {}
         self._decoders: Dict[str, Any] = {}
         self._no_decoder: set = set()  # records probed and found ineligible
+        self._indexes: Dict[str, Any] = {}  # name -> VectorStore
+        self._rid = itertools.count(1)  # observability request ids
         self._draining = False   # the admission gate
         self._drained = False    # a full drain() ran
         self._old_handlers: Dict[int, Any] = {}
@@ -380,15 +401,21 @@ class ServingEngine:
                 f"POST /predict needs a MultiLayerNetwork; {rec.key} is a "
                 "TransformerLM (POST /generate)")
         x = self._shape_rows(rec, np.asarray(x, np.float32))
-        if not self.batching_enabled:
-            try:
-                out = self._direct_output(rec, x)
-            except Exception as e:  # noqa: BLE001 — serving boundary
-                breaker.record_failure(f"{type(e).__name__}: {e}")
-                raise
-            breaker.record_success()
-            return out
-        return self._batcher_for(rec).predict(x, timeout_s=timeout_s)
+        rid = next(self._rid)
+        with obs_trace.span("serve.request", rid=rid, model=rec.key,
+                            rows=int(x.shape[0])):
+            if not self.batching_enabled:
+                try:
+                    out = self._direct_output(rec, x)
+                except Exception as e:  # noqa: BLE001 — serving boundary
+                    breaker.record_failure(f"{type(e).__name__}: {e}")
+                    raise
+                breaker.record_success()
+                return out
+            # the rid rides the batcher: the serve.batch span on its
+            # worker lists it, joining this request to its dispatch
+            return self._batcher_for(rec).predict(x, timeout_s=timeout_s,
+                                                  rid=rid)
 
     @staticmethod
     def _shape_rows(rec, x: np.ndarray) -> np.ndarray:
@@ -428,10 +455,18 @@ class ServingEngine:
         with self._engine_lock:
             breaker = self._breakers.get(rec.key)
             if breaker is None:
+
+                def on_transition(old, new, reason, _key=rec.key):
+                    # the health timeline rides the journal: when each
+                    # record broke or recovered, and why
+                    obs_journal.event("serve.health", model=_key,
+                                      old=old, new=new, reason=reason)
+
                 breaker = self._breakers[rec.key] = CircuitBreaker(
                     fails=self.breaker_fails,
                     cooldown_s=self.breaker_cooldown_s,
-                    key=rec.key, stats=self.stats)
+                    key=rec.key, stats=self.stats,
+                    on_transition=on_transition)
             return breaker
 
     def _batcher_for(self, rec) -> DynamicBatcher:
@@ -468,18 +503,21 @@ class ServingEngine:
         if rec.model is None:
             raise KeyError(f"{rec.key} is unloaded")
         x = np.asarray(x)
-        if not self.batching_enabled:
-            try:
-                out = self._direct_embed(rec, x, layer, pool)
-            except ClientRequestError:
-                raise  # the client's payload: no vote either way
-            except Exception as e:  # noqa: BLE001 — serving boundary
-                breaker.record_failure(f"{type(e).__name__}: {e}")
-                raise
-            breaker.record_success()
-        else:
-            out = self._embed_batcher_for(rec, layer, pool).predict(
-                x, timeout_s=timeout_s)
+        rid = next(self._rid)
+        with obs_trace.span("serve.request", rid=rid, model=rec.key,
+                            rows=int(x.shape[0]), kind="embed"):
+            if not self.batching_enabled:
+                try:
+                    out = self._direct_embed(rec, x, layer, pool)
+                except ClientRequestError:
+                    raise  # the client's payload: no vote either way
+                except Exception as e:  # noqa: BLE001 — serving boundary
+                    breaker.record_failure(f"{type(e).__name__}: {e}")
+                    raise
+                breaker.record_success()
+            else:
+                out = self._embed_batcher_for(rec, layer, pool).predict(
+                    x, timeout_s=timeout_s, rid=rid)
         self.retrieval_stats.bump("embed_requests")
         self.retrieval_stats.bump("embed_rows", int(x.shape[0]))
         return out
@@ -544,6 +582,46 @@ class ServingEngine:
             out[rec.key] = {"kind": adapter.kind, "dim": adapter.dim}
         return out
 
+    # -- /search (retrieval/store.py) ---------------------------------------
+    def register_index(self, name: str, store) -> None:
+        """Attach a ``retrieval/store.VectorStore`` behind /search."""
+        with self._engine_lock:
+            self._indexes[str(name)] = store
+
+    def unregister_index(self, name: str):
+        with self._engine_lock:
+            return self._indexes.pop(str(name), None)
+
+    def index(self, name: str):
+        store = self._indexes.get(str(name))
+        if store is None:
+            raise ClientRequestError(f"no index named {name!r}")
+        return store
+
+    def search(self, index_name, queries, k: int = 10,
+               nprobe: Optional[int] = None):
+        """Top-k (ids, scores) over a registered index's CURRENT published
+        generation, lock-free against publishes: a concurrent generation
+        swap fails no admitted search (the store's snapshot rule). A
+        draining engine refuses (503)."""
+        if self._draining:
+            self.stats.record_fast_fail()
+            raise DrainingError("engine is draining; admission closed")
+        store = self.index(index_name)
+        rid = next(self._rid)
+        q = np.asarray(queries, np.float32)
+        with obs_trace.span("serve.request", rid=rid, index=str(index_name),
+                            rows=int(q.shape[0]) if q.ndim > 1 else 1,
+                            kind="search"):
+            return store.search(q, k=k, nprobe=nprobe)
+
+    def index_report(self) -> Dict[str, Any]:
+        """/models: each index's capacity, rows and generation (the
+        stores' own host-side accounting)."""
+        with self._engine_lock:
+            stores = dict(self._indexes)
+        return {name: store.report() for name, store in stores.items()}
+
     def _outcome_hook(self, rec):
         """A record's breaker, fed per dispatch by its batcher."""
         def on_outcome(ok: bool, exc, _rec=rec):
@@ -559,9 +637,16 @@ class ServingEngine:
         return on_outcome
 
     def _wedged_hook(self, rec):
-        """The watchdog's verdict trips the record's breaker."""
+        """The watchdog's verdict trips the record's breaker and journals
+        the wedge, flushed with fsync: a hung device leaves a readable
+        timeline even if the process dies next."""
         def on_wedged(info, _rec=rec):
             self._breaker_for(_rec).trip(f"watchdog: {info['error']}")
+            obs_journal.event(
+                "serve.wedged", model=_rec.key, rows=int(info["rows"]),
+                failed_requests=int(info["failed_requests"]),
+                watchdog_s=float(info["watchdog_s"]))
+            obs_journal.flush(fsync=True)
         return on_wedged
 
     def _decoder_for(self, rec):
@@ -634,16 +719,20 @@ class ServingEngine:
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim == 1:
             tokens = tokens[None]
-        try:
-            out = self._generate_inner(rec, model, tokens, n_new,
-                                       temperature, seed, top_k, top_p, slo)
-        except (RequestTimeoutError, FutureTimeoutError,
-                ClientRequestError):
-            raise  # deadlines and payloads are no evidence of health
-        except Exception as e:  # noqa: BLE001 — serving boundary
-            breaker.record_failure(f"{type(e).__name__}: {e}")
-            raise
-        breaker.record_success()
+        rid = next(self._rid)
+        with obs_trace.span("serve.request", rid=rid, model=rec.key,
+                            rows=int(tokens.shape[0]), kind="generate"):
+            try:
+                out = self._generate_inner(rec, model, tokens, n_new,
+                                           temperature, seed, top_k, top_p,
+                                           slo)
+            except (RequestTimeoutError, FutureTimeoutError,
+                    ClientRequestError):
+                raise  # deadlines and payloads are no evidence of health
+            except Exception as e:  # noqa: BLE001 — serving boundary
+                breaker.record_failure(f"{type(e).__name__}: {e}")
+                raise
+            breaker.record_success()
         return out
 
     def _generate_inner(self, rec, model, tokens, n_new, temperature,
@@ -684,10 +773,13 @@ class ServingEngine:
                                 version=version)
             return iter(np.asarray(out).reshape(-1).tolist())
         breaker = self._admit(rec)
+        rid = next(self._rid)
         q: stdqueue.Queue = stdqueue.Queue()
-        fut = decoder.submit(prompt, int(n_new),
-                             temperature=float(temperature),
-                             seed=int(seed), slo=slo, on_token=q.put)
+        with obs_trace.span("serve.request", rid=rid, model=rec.key,
+                            rows=1, kind="generate_stream"):
+            fut = decoder.submit(prompt, int(n_new),
+                                 temperature=float(temperature),
+                                 seed=int(seed), slo=slo, on_token=q.put)
 
         def stream():
             while True:
@@ -733,14 +825,17 @@ class ServingEngine:
         breaker = self._admit(rec)
         decoder = self._paged_decoder(rec, "prefill")
         prompt = np.asarray(tokens, np.int32).reshape(-1)
-        try:
-            digests, kb, vb = decoder.export_prefix(prompt, int(n_new))
-        except ClientRequestError:
-            raise
-        except Exception as e:  # noqa: BLE001 — serving boundary
-            breaker.record_failure(f"{type(e).__name__}: {e}")
-            raise
-        breaker.record_success()
+        rid = next(self._rid)
+        with obs_trace.span("serve.request", rid=rid, model=rec.key,
+                            rows=1, kind="prefill"):
+            try:
+                digests, kb, vb = decoder.export_prefix(prompt, int(n_new))
+            except ClientRequestError:
+                raise
+            except Exception as e:  # noqa: BLE001 — serving boundary
+                breaker.record_failure(f"{type(e).__name__}: {e}")
+                raise
+            breaker.record_success()
         return digests, kb, vb, int(decoder.block_tokens)
 
     def prime_for(self, name, version, digests, k_blocks,
@@ -788,13 +883,15 @@ class ServingEngine:
         (``ops/memory.model_resident_bytes``) and every live decoder's KV
         arena (paged: n_blocks + the trash block; fixed slots: one max_len
         stripe a slot), summed per record name against the device's
-        memory. Shape arithmetic, no device read. Retrieval indexes are
-        not ported: ``indexes`` stays empty."""
+        memory, and every registered index's arena (``arena_bytes``: the
+        staging rows) under ``indexes``. Shape arithmetic, no device
+        read."""
         budget = opsmem.device_memory_bytes(self.device)
         models: Dict[str, Any] = {}
         used = 0
         with self._engine_lock:
             decoders = dict(self._decoders)
+            stores = dict(self._indexes)
         for rec in self._live_records():
             entry = {"param_bytes": opsmem.model_resident_bytes(rec.model),
                      "kv_bytes": 0}
@@ -812,9 +909,12 @@ class ServingEngine:
                                     {"param_bytes": 0, "kv_bytes": 0})
             agg["param_bytes"] += entry["param_bytes"]
             agg["kv_bytes"] += entry["kv_bytes"]
+        indexes = {name: int(store.report()["arena_bytes"])
+                   for name, store in stores.items()}
+        used += sum(indexes.values())
         return {"budget_bytes": budget, "used_bytes": used,
                 "utilization": used / budget if budget else None,
-                "models": models, "indexes": {}}
+                "models": models, "indexes": indexes}
 
     def metrics(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {"serving": self.stats.snapshot(),
@@ -981,7 +1081,7 @@ class ServingEngine:
                         "kv": engine.kv_report(),
                         "lineage": engine.registry.lineage(),
                         "embed": engine.embed_report(),
-                        "indexes": {}})
+                        "indexes": engine.index_report()})
                 else:
                     self._send(404, {"error": "not found"})
 
@@ -993,6 +1093,8 @@ class ServingEngine:
                         self._do_predict()
                     elif self.path == "/embed":
                         self._do_embed()
+                    elif self.path == "/search":
+                        self._do_search()
                     elif self.path == "/prefill":
                         self._do_prefill()
                     elif self.path == "/prime":
@@ -1095,6 +1197,25 @@ class ServingEngine:
                     "embeddings" if many else "embedding":
                         out.tolist() if many else out[0].tolist(),
                     "dim": int(out.shape[-1])})
+
+            def _do_search(self):
+                payload = self._read_json()
+                if "queries" in payload:
+                    q = np.asarray(payload["queries"], np.float32)
+                elif "query" in payload:
+                    q = np.asarray(payload["query"], np.float32)[None]
+                else:
+                    self._send(400, {"error": "need query|queries"})
+                    return
+                nprobe = payload.get("nprobe")
+                ids, scores = engine.search(
+                    payload.get("index", "default"), q,
+                    k=int(payload.get("k", 10)),
+                    nprobe=int(nprobe) if nprobe is not None else None)
+                # -inf scores (fewer live rows than k) travel as
+                # -Infinity, as json.dumps writes them
+                self._send(200, {"ids": ids.tolist(),
+                                 "scores": scores.tolist()})
 
             def _do_generate(self):
                 payload = self._read_json()
@@ -1200,6 +1321,7 @@ class ServingEngine:
         budget = float(timeout_s if timeout_s is not None else self.drain_s)
         self._draining = True
         self.registry.seal()
+        obs_journal.event("serve.drain", drain_s=budget)
         deadline = time.monotonic() + budget
         with self._engine_lock:
             batchers = (list(self._batchers.values())
@@ -1211,6 +1333,8 @@ class ServingEngine:
         for d in decoders:
             ok = d.drain(max(0.0, deadline - time.monotonic())) and ok
         self.stats.record_drain(ok)
+        obs_journal.event("serve.drain_complete", completed=ok)
+        obs_journal.flush(fsync=True)
         self._drained = True
         return ok
 
@@ -1256,11 +1380,16 @@ class ServingEngine:
             del self._old_handlers[sig]
 
     def _on_signal(self, signum, frame) -> None:
-        # close admission in the handler (one flag write); the drain runs
-        # on its own thread
+        # close admission in the handler (one flag write); the journal
+        # and the drain run on their own thread (the journal's lock may
+        # be held by the very frame this handler interrupted)
         self._draining = True
-        threading.Thread(target=self.stop, daemon=True,
-                         name="serve-drain").start()
+        threading.Thread(target=self._preempt_stop, args=(int(signum),),
+                         daemon=True, name="serve-drain").start()
+
+    def _preempt_stop(self, signum: int) -> None:
+        obs_journal.event("serve.preempt", signum=signum)
+        self.stop(drain=True)
 
     @property
     def draining(self) -> bool:

@@ -69,7 +69,9 @@ Decode planes (the JAX package's, carried over):
 
 ``chaos`` (``resilience/chaos.ServingChaos``) raises at an admission
 before its prefill (JAX ``paged.py:1148-1149``): the crash-eviction path
-then evicts that lane alone. Not ported yet: mesh hooks.
+then evicts that lane alone. Each tick runs inside a ``serve.batch``
+span (``kind="decode.paged"``, ``lanes``, ``tick_k``) under
+``DL4J_TPU_OBS``. Not ported yet: mesh hooks.
 """
 
 from __future__ import annotations
@@ -92,6 +94,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     check_dense,
     prefill_cache,
 )
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops import memory as opsmem
@@ -1067,10 +1070,15 @@ class PagedDecoder:
         # k steps, tokens [S, k]
         t0 = time.perf_counter()
         try:
-            _, nxt = self._tick_fn(k)(
-                self.lm.compute_params, self._arena, self._to_device(tok),
-                self._to_device(pos), self._to_device(tables), temps, gens)
-            nxt = nxt.cpu().numpy()
+            # the tick's serve.batch span (JAX paged.py:1227-1228); the
+            # tokens' read-back ends it
+            with obs_trace.span("serve.batch", kind="decode.paged",
+                                lanes=len(active), tick_k=k):
+                _, nxt = self._tick_fn(k)(
+                    self.lm.compute_params, self._arena,
+                    self._to_device(tok), self._to_device(pos),
+                    self._to_device(tables), temps, gens)
+                nxt = nxt.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — device boundary
             self._fail_active_lanes(e)
             return True

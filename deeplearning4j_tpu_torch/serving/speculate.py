@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.serving import decode
 from deeplearning4j_tpu_torch.serving import paged
@@ -173,16 +174,20 @@ class SpeculativeDecoder(PagedDecoder):
         self.peak_active = max(self.peak_active, len(active))
         t0 = time.perf_counter()
         try:
-            tok_d, pos_d = self._to_device(tok), self._to_device(pos)
-            _, dtoks = decode._tick_for(self._draft_cfg, k + 1)(
-                self._draft.compute_params, self._draft_cache, tok_d, pos_d,
-                self._zero_temps, self._no_gens)
-            toks = torch.cat([tok_d.long()[:, None], dtoks[:, :k]], dim=1)
-            _, greedy = _verify_for(self.cfg, k)(
-                self.lm.compute_params, self._arena, toks, pos_d,
-                self._to_device(tables))
-            dtoks = dtoks.cpu().numpy()            # [lanes, k+1]
-            greedy = greedy.cpu().numpy()          # [lanes, k+1]
+            # the round's serve.batch span (JAX speculate.py:232)
+            with obs_trace.span("serve.batch", kind="decode.spec",
+                                lanes=len(active), spec_k=k):
+                tok_d, pos_d = self._to_device(tok), self._to_device(pos)
+                _, dtoks = decode._tick_for(self._draft_cfg, k + 1)(
+                    self._draft.compute_params, self._draft_cache, tok_d,
+                    pos_d, self._zero_temps, self._no_gens)
+                toks = torch.cat([tok_d.long()[:, None], dtoks[:, :k]],
+                                 dim=1)
+                _, greedy = _verify_for(self.cfg, k)(
+                    self.lm.compute_params, self._arena, toks, pos_d,
+                    self._to_device(tables))
+                dtoks = dtoks.cpu().numpy()            # [lanes, k+1]
+                greedy = greedy.cpu().numpy()          # [lanes, k+1]
         except Exception as e:  # noqa: BLE001 — device boundary
             self._fail_active_lanes(e)
             return True

@@ -2171,3 +2171,122 @@ def test_resnet50_first_step_on_card_matches_cpu():
         max(card.items(), key=lambda kv: kv[1]), max(own.values()))
     for name in net.states:
         assert rel(net.states[name], cpu.states[name]) <= 1e-4, name
+
+
+def _search_corpus(seed, n, dim, clusters, spread=0.05):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(clusters, dim)).astype(np.float32)
+    pts = centers[rng.integers(0, clusters, n)] + spread * rng.normal(
+        size=(n, dim))
+    return pts.astype(np.float32), rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exact", "ivf"])
+def test_vector_store_on_card_matches_cpu(kind):
+    """/search's store on the card against the same store on the CPU:
+    the packed arena and ids equal, the IVF member table and centroids
+    of the same k-means (the same draws; centers within 1e-4), scores
+    within 1e-4 (TF32 off), ids equal where the CPU's k-th and (k+1)-th
+    scores are 1e-4 apart."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.retrieval import VectorStore
+
+    vecs, rng = _search_corpus(60, 4096, 64, 32)
+    kw = dict(capacity=8192, kind=kind, clusters=32, nprobe=4)
+    card = VectorStore(64, device=dev, **kw)
+    cpu = VectorStore(64, device="cpu", **kw)
+    for s in (card, cpu):
+        s.upsert(np.arange(4096), vecs)
+        s.delete(np.arange(0, 4096, 5))
+        s.publish()
+    assert torch.equal(card.snapshot.vecs.cpu(), cpu.snapshot.vecs)
+    np.testing.assert_array_equal(card.snapshot.ids, cpu.snapshot.ids)
+    if kind == "ivf":
+        assert torch.allclose(card.snapshot.centroids.cpu(),
+                              cpu.snapshot.centroids, atol=1e-4)
+        agree = (card.snapshot.members.cpu() == cpu.snapshot.members)
+        assert agree.float().mean() > 0.99
+    q = vecs[rng.integers(0, 4096, 64)] + 0.01 * rng.normal(size=(64, 64))
+    ids, scores = card.search(q, k=10)
+    ref_ids, ref_scores = cpu.search(q, k=11)
+    if kind == "ivf":  # the same tables: compare on the CPU's snapshot
+        ref_ids, ref_scores = cpu._ivf.search(
+            card.snapshot.__class__(
+                vecs=cpu.snapshot.vecs, ids=cpu.snapshot.ids,
+                n=cpu.snapshot.n, generation=1,
+                centroids=card.snapshot.centroids.cpu(),
+                members=card.snapshot.members.cpu()), q, k=11)
+    np.testing.assert_allclose(scores, ref_scores[:, :10], atol=1e-4)
+    for r in range(64):
+        if ref_scores[r, 9] - ref_scores[r, 10] >= 1e-4:
+            assert set(ids[r]) == set(ref_ids[r, :10]), r
+    assert card.probe_recall(q) >= 0.9
+
+
+@pytest.mark.gpu
+def test_kmeans_on_card_matches_cpu():
+    """The same k-means on the card and the CPU: the same k-means++ rows
+    (the draws read D^2 on the host), iterations equal, centers within
+    1e-4 and at least 99.9 % of assignments equal (f32 sums in another
+    order)."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+
+    x, _ = _search_corpus(61, 20000, 96, 40, spread=0.2)
+    card = KMeansClustering(40, max_iterations=25, seed=3, device=dev).fit(x)
+    cpu = KMeansClustering(40, max_iterations=25, seed=3,
+                           device="cpu").fit(x)
+    assert card.seed_rows == cpu.seed_rows
+    assert card.iterations_run == cpu.iterations_run
+    np.testing.assert_allclose(card.centers_, cpu.centers_, atol=1e-4)
+    assert (card.assignments_ == cpu.assignments_).mean() >= 0.999
+    assert card.device_assignments.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_publish_during_searches_on_card():
+    """Searches on the card from three threads while five publishes swap
+    the generation: none fails, every answer's ids lie in one published
+    generation's live set."""
+    import threading
+
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.retrieval import VectorStore
+
+    vecs, rng = _search_corpus(62, 9000, 32, 16)
+    store = VectorStore(32, capacity=10000, kind="ivf", clusters=16,
+                        nprobe=4, device=dev)
+    store.upsert(np.arange(4000), vecs[:4000])
+    store.publish()
+    live = {1: set(range(4000))}
+    q = vecs[rng.integers(0, 4000, 8)]
+    stop, errs, answers = threading.Event(), [], []
+
+    def searcher():
+        while not stop.is_set():
+            try:
+                answers.append(store.search(q, k=5)[0])
+            except Exception as e:  # noqa: BLE001 — the contract
+                errs.append(e)
+                return
+
+    threads = [threading.Thread(target=searcher) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        for g in range(5):
+            lo = 4000 + 1000 * g
+            store.upsert(np.arange(lo, lo + 1000), vecs[lo:lo + 1000])
+            store.delete(np.arange(g * 500, g * 500 + 500))
+            store.publish()
+            live[g + 2] = set(int(i) for i in store.snapshot.ids
+                              if i >= 0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert errs == [] and answers and store.generation == 6
+    for ids in answers:
+        got = set(int(i) for i in ids.ravel() if i >= 0)
+        assert any(got <= s for s in live.values())

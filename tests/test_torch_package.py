@@ -12,15 +12,17 @@
     ``load`` (a MultiHeadAttention network too), ``ComputationGraph``,
     ``build_resnet50``, ``build_googlenet`` and ``restore`` of a graph
     zip, ``ServingEngine`` (with
-    no model, and over a quantized zip), and
+    no model, and over a quantized zip), ``/search``'s ``VectorStore``
+    and ``KMeansClustering``, and
     the training
     ones: ``fit``, ``fit_iterator``, ``CharRnn.fit_text`` and
     ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
     and ``Word2Vec.from_arrays``) run on the card unless given
     ``device="cpu"``; with no card they raise instead of moving to the
-    CPU.
-  * Its knob table is a copy of the JAX table's serving entries (same
-    names, same defaults), and it builds its kernels from ``csrc/``.
+    CPU. ``MetricsExporter`` is host-only and serves with no card.
+  * Its knob table is a copy of the JAX table's entries the ported paths
+    read (same names, same defaults), and it builds its kernels from
+    ``csrc/``.
 """
 
 import ast
@@ -61,7 +63,19 @@ def test_every_module_imports_without_jax():
             "deeplearning4j_tpu_torch.models.googlenet",
             "deeplearning4j_tpu_torch.retrieval",
             "deeplearning4j_tpu_torch.retrieval.embed",
-            "deeplearning4j_tpu_torch.retrieval.stats"} <= set(mods)
+            "deeplearning4j_tpu_torch.retrieval.stats",
+            "deeplearning4j_tpu_torch.retrieval.index",
+            "deeplearning4j_tpu_torch.retrieval.store",
+            "deeplearning4j_tpu_torch.obs.trace",
+            "deeplearning4j_tpu_torch.obs.journal",
+            "deeplearning4j_tpu_torch.obs.exporter",
+            "deeplearning4j_tpu_torch.clustering",
+            "deeplearning4j_tpu_torch.clustering.cluster",
+            "deeplearning4j_tpu_torch.clustering.kmeans",
+            "deeplearning4j_tpu_torch.online",
+            "deeplearning4j_tpu_torch.online.stats",
+            "deeplearning4j_tpu_torch.online.drift",
+            "deeplearning4j_tpu_torch.online.stream"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -443,6 +457,83 @@ class TestEntryPointsNeedACardOrCpu:
         assert load_word2vec(path, device="cpu").device == \
             torch.device("cpu")
 
+    def test_computation_graph_models_and_embed(self, no_card, tmp_path):
+        """The graph, its model builders and ``restore`` of a graph zip
+        raise with no card unless given the CPU; on the CPU a graph fits,
+        round-trips a zip and answers ``/embed``."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.models.googlenet import build_googlenet
+        from deeplearning4j_tpu_torch.models.resnet import build_resnet50
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            restore,
+            write_model,
+        )
+
+        conf = (pconf.NeuralNetConfiguration.builder().graph_builder()
+                .add_inputs("in")
+                .add_layer("d", pconf.DenseLayer(n_in=3, n_out=4), "in")
+                .add_layer("out", pconf.OutputLayer(n_in=4, n_out=2), "d")
+                .set_outputs("out").build())
+        for make in (lambda: ComputationGraph(conf), build_resnet50,
+                     build_googlenet):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        net = ComputationGraph(conf, device="cpu").init()
+        x = np.ones((2, 3), np.float32)
+        assert net.fit(x, np.eye(2, dtype=np.float32)).device \
+            == torch.device("cpu")
+        path = str(tmp_path / "g.zip")
+        write_model(net, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            restore(path)
+        back = restore(path, device="cpu")
+        assert back.params["d"]["W"].device == torch.device("cpu")
+        eng = ServingEngine(model=back, device="cpu")
+        try:
+            assert eng.embed(x).shape == (2, 4)
+        finally:
+            eng.stop()
+
+    def test_search_entry_points(self, no_card):
+        """``VectorStore`` and ``KMeansClustering`` raise with no card
+        unless given the CPU, and run there; the ``MetricsExporter`` is
+        host-only and serves its four endpoints with no card."""
+        import json
+        import urllib.request
+
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.clustering import KMeansClustering
+        from deeplearning4j_tpu_torch.obs import MetricsExporter
+        from deeplearning4j_tpu_torch.retrieval import VectorStore
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            VectorStore(4, capacity=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            KMeansClustering(2)
+        store = VectorStore(4, capacity=8, kind="exact", device="cpu")
+        store.upsert([1, 2], np.eye(4, dtype=np.float32)[:2])
+        snap = store.publish()
+        assert snap.vecs.device == torch.device("cpu")
+        ids, _ = store.search(np.eye(4, dtype=np.float32)[:1], k=1)
+        assert ids[0][0] == 1
+        km = KMeansClustering(2, device="cpu").fit(np.eye(4)[:3])
+        assert km.device_centers.device == torch.device("cpu")
+        exp = MetricsExporter().start()
+        try:
+            for path in ("/metrics", "/metrics.json", "/journal", "/health"):
+                with urllib.request.urlopen(exp.url + path, timeout=10) as r:
+                    assert r.status == 200, path
+            with urllib.request.urlopen(exp.url + "/health",
+                                        timeout=10) as r:
+                assert json.loads(r.read()) == {"ok": True}
+        finally:
+            exp.stop()
+
 
 def test_knob_table_copies_the_jax_entries(monkeypatch):
     from deeplearning4j_tpu.ops import env as jenv
@@ -462,7 +553,14 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_SERVE_BREAKER_FAILS", "DL4J_TPU_SERVE_WATCHDOG_S",
         "DL4J_TPU_SERVE_DRAIN_S", "DL4J_TPU_SERVE_SLO_CLASSES",
         "DL4J_TPU_SERVE_TENANT_QUOTAS", "DL4J_TPU_DATA_DIR",
-        "DL4J_TPU_EMBED_LAYER", "DL4J_TPU_EMBED_POOL"}
+        "DL4J_TPU_EMBED_LAYER", "DL4J_TPU_EMBED_POOL",
+        # /search, the obs plane and the online feed
+        "DL4J_TPU_ANN_ROWS", "DL4J_TPU_ANN_CLUSTERS", "DL4J_TPU_ANN_NPROBE",
+        "DL4J_TPU_OBS", "DL4J_TPU_OBS_SPANS", "DL4J_TPU_OBS_JOURNAL",
+        "DL4J_TPU_OBS_JOURNAL_N", "DL4J_TPU_OBS_FLUSH_S",
+        "DL4J_TPU_OBS_PORT", "DL4J_TPU_PROCESS_ID",
+        "DL4J_TPU_ONLINE_WATERMARK", "DL4J_TPU_ONLINE_IDLE_S",
+        "DL4J_TPU_ONLINE_DRIFT_Z", "DL4J_TPU_ONLINE_DRIFT_MIN"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -518,44 +616,3 @@ def test_kernel_sources_ship_and_build_flags():
         "flash_attention.cu", "flash_attention_ext.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
-
-    def test_computation_graph_models_and_embed(self, no_card, tmp_path):
-        """The graph, its model builders and ``restore`` of a graph zip
-        raise with no card unless given the CPU; on the CPU a graph fits,
-        round-trips a zip and answers ``/embed``."""
-        import numpy as np
-
-        from deeplearning4j_tpu_torch.models.googlenet import build_googlenet
-        from deeplearning4j_tpu_torch.models.resnet import build_resnet50
-        from deeplearning4j_tpu_torch.nn import conf as pconf
-        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
-        from deeplearning4j_tpu_torch.utils.serialization import (
-            restore,
-            write_model,
-        )
-
-        conf = (pconf.NeuralNetConfiguration.builder().graph_builder()
-                .add_inputs("in")
-                .add_layer("d", pconf.DenseLayer(n_in=3, n_out=4), "in")
-                .add_layer("out", pconf.OutputLayer(n_in=4, n_out=2), "d")
-                .set_outputs("out").build())
-        for make in (lambda: ComputationGraph(conf), build_resnet50,
-                     build_googlenet):
-            with pytest.raises(RuntimeError, match="device='cpu'"):
-                make()
-        net = ComputationGraph(conf, device="cpu").init()
-        x = np.ones((2, 3), np.float32)
-        assert net.fit(x, np.eye(2, dtype=np.float32)).device \
-            == torch.device("cpu")
-        path = str(tmp_path / "g.zip")
-        write_model(net, path)
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            restore(path)
-        back = restore(path, device="cpu")
-        assert back.params["d"]["W"].device == torch.device("cpu")
-        eng = ServingEngine(model=back, device="cpu")
-        try:
-            assert eng.embed(x).shape == (2, 4)
-        finally:
-            eng.stop()
