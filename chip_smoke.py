@@ -17,8 +17,11 @@ training, a seq2seq graph through K1 and K2, bf16 loss-scaled steps in
 both containers), ``/embed`` (an MLP, a ResNet-50 graph record, BERT
 through K5, a word2vec table), ``/search`` (exact and IVF indexes over a
 1,000,000 x 768 arena, k-means, a StreamSource feed gated by a drift
-monitor, BERT passages through K5) and the serving path's trace spans,
-journal and exporter.
+monitor, BERT passages through K5), the serving path's trace spans,
+journal and exporter, and the training runtime (record readers, the
+input pipeline and its stager, the native host feed, ResilientTrainer
+with async checkpoints and exact resume through K1 and K2, early
+stopping).
 
 Run from the repository root, with no arguments:
 
@@ -425,7 +428,30 @@ What it does, in order (any failure raises and exits non-zero):
    ``DriftMonitor`` on the corpus's moments (``feed_once`` and
    ``publish`` refused, the generation unmoved, two
    ``retrieval.publish_veto`` events in the journal);
-19. prints one ``{"kernels": [...]}`` line, the card line again, and last
+19. the training runtime (``phase_runtime``), strict f32: (a) the
+   full-width char-RNN of 6 for 24 steps under ``ResilientTrainer``, fed
+   by ``InputPipeline(ListDataSetIterator(...))`` (2 workers, prefetch 4,
+   the stager's pinned copies on a side stream) with async checkpoints
+   every 4 steps (keep 2), in three child processes of this script with
+   one seed: uninterrupted; SIGTERM after step 10 with a transient error
+   before step 3 (retried once) and the step-10 checkpoint bit-flipped
+   (``Preempted``, exit 3); a re-run that skips the corrupt checkpoint,
+   resumes from step 8 and ends with params ``torch.equal`` and the loss
+   tail equal to the uninterrupted run's; K1 and K2 4 launches a step in
+   each child, the plain scans none; ms a step against the same fits on
+   tensors on the card, the stall fraction, a save's async and sync
+   stall, the checkpoint's MB, the seconds from the re-exec to the first
+   resumed step; (b) LeNet-5 at batch 512 under ``EarlyStoppingTrainer``
+   (MaxEpochs 3, ScoreImprovement patience 1, the held-out loss, a
+   ``CheckpointManagerSaver``) fed by ``InputPipeline.from_native`` over
+   the seeded MNIST stand-in written as idx files and read back with the
+   port's native ``read_idx`` (8,192 training rows, 1,024 held out): the
+   restored best model's score within 1e-6 of the best score, samples/s
+   against direct fits; (c) ``bench.py``'s input_pipeline leg (a naive
+   feed against ``InputPipeline.from_reader``, params ``torch.equal``
+   after one pass each, samples/s) and checkpoint_overhead leg (the
+   loop's stall per sync and async save, the checkpoint's MB);
+20. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -487,7 +513,18 @@ from deeplearning4j_tpu_torch.nlp.word2vec import (  # noqa: E402
     skipgram_batches,
     unigram_draw,
 )
-from deeplearning4j_tpu_torch.datasets.fetchers import load_mnist_info  # noqa: E402
+from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: E402
+    _synthetic_mnist,
+    load_mnist_info,
+)
+from deeplearning4j_tpu_torch.datasets.records import (  # noqa: E402
+    CSVRecordReader,
+    RecordReaderDataSetIterator,
+)
+from deeplearning4j_tpu_torch import earlystopping as es_mod  # noqa: E402
+from deeplearning4j_tpu_torch import native  # noqa: E402
+from deeplearning4j_tpu_torch import resilience as pres  # noqa: E402
+from deeplearning4j_tpu_torch.etl.pipeline import InputPipeline  # noqa: E402
 from deeplearning4j_tpu_torch.datasets.iterator import ListDataSetIterator  # noqa: E402
 from deeplearning4j_tpu_torch.models.alexnet import build_alexnet  # noqa: E402
 from deeplearning4j_tpu_torch.models.dbn import (  # noqa: E402
@@ -601,6 +638,7 @@ from deeplearning4j_tpu_torch.utils.serialization import (  # noqa: E402
     write_model,
 )
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
@@ -6476,6 +6514,572 @@ def phase_obs(lm: TransformerLM, net: MultiLayerNetwork, burst_run,
     return rep
 
 
+# ---------------------------------------------------------------------------
+# the training runtime (phase_runtime): record readers, the input pipeline
+# and its stager, the native host feed, ResilientTrainer, early stopping
+# ---------------------------------------------------------------------------
+
+RT_STEPS, RT_EVERY, RT_KEEP = 24, 4, 2   # (a): steps, cadence, retention
+RT_KILL, RT_TRANSIENT = 10, 3            # (a): SIGTERM after, error before
+RT_WORKERS, RT_PREFETCH = 2, 4
+ES_TRAIN, ES_HELD, ES_EPOCHS = 8192, 1024, 3     # (b)
+TOL_ES_SCORE = 1e-6
+IP_F, IP_C, IP_BATCH, IP_BATCHES = 96, 10, 256, 20  # (c) bench.py:2410
+CK_STEPS, CK_BATCH = 30, 256                        # (c) bench.py:2251
+RT_COUNTERS = (lstm_scan, lstm_scan_plain, lstm_scan_bwd, lstm_scan_bwd_plain)
+
+
+class _FirstStep(pres.ChaosMonkey):
+    """A monkey that injects nothing and notes the wall clock when the
+    first step of the run completes."""
+
+    def __init__(self, config=None):
+        super().__init__(config or pres.ChaosConfig())
+        self.first_step_at = None
+
+    def after_step(self, step: int) -> None:
+        if self.first_step_at is None:
+            self.first_step_at = time.time()
+        super().after_step(step)
+
+
+def runtime_data(seed: int):
+    """The char-RNN's 24 batches of 32 x 100 one-hot characters of the
+    seeded Markov text (``CharRnn.batches``' layout: each row a contiguous
+    stream), stacked in batch order ([768, 100, 80])."""
+    text = markov_text(seed, TRAIN_BATCH * SEQ * RT_STEPS + 1,
+                       [chr(32 + i) for i in range(VOCAB)])
+    ids = np.frombuffer(text.encode("ascii"), np.uint8).astype(np.int64) - 32
+    n = TRAIN_BATCH * SEQ * RT_STEPS
+    eye = np.eye(VOCAB, dtype=np.float32)
+    cut = lambda a: a.reshape(TRAIN_BATCH, RT_STEPS, SEQ).transpose(  # noqa: E731
+        1, 0, 2).reshape(-1, SEQ)
+    return eye[cut(ids[:n])], eye[cut(ids[1:n + 1])]
+
+
+def runtime_net(seed: int, dev) -> MultiLayerNetwork:
+    conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed,
+                         tbptt_length=TBPTT, learning_rate=TRAIN_LR)
+    return MultiLayerNetwork(conf, device=dev).init(input_shape=(1, VOCAB))
+
+
+def runtime_child(mode: str, seed: int, ckpt_dir: str, out: str,
+                  dev=None) -> int:
+    """One run of (a) in its own process: ``uninterrupted``, ``preempted``
+    (SIGTERM after step 10, a transient error before step 3 retried once,
+    the step-10 checkpoint bit-flipped) or ``resumed``. Writes its
+    losses, final params (torch.save), launch counts and times to
+    ``out``; exits 3 when preempted."""
+    dev = torch.device("cuda", 0) if dev is None else dev
+    x, y = runtime_data(seed)
+    rep = {"mode": mode}
+    if mode == "uninterrupted":
+        # first calls (cuBLAS, K1/K2 loads) outside the timed run
+        warm = runtime_net(seed, dev)
+        warm.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+        torch.cuda.synchronize()
+        del warm
+    net = runtime_net(seed, dev)
+    mgr = pres.CheckpointManager(ckpt_dir, every_steps=RT_EVERY,
+                                 keep_last=RT_KEEP, async_save=True)
+    if mode == "preempted":
+        monkey = pres.ChaosMonkey(pres.ChaosConfig(
+            kill_at_step=RT_KILL, kill_mode="sigterm",
+            transient_error_at_step=RT_TRANSIENT,
+            corrupt_checkpoint={"at_step": RT_KILL, "mode": "bitflip"}))
+        mgr.chaos = monkey
+    else:
+        monkey = _FirstStep()
+    trainer = pres.ResilientTrainer(net, mgr, chaos=monkey,
+                                    max_step_retries=1, device=dev)
+    pipe = InputPipeline(ListDataSetIterator(x, y, TRAIN_BATCH),
+                         workers=RT_WORKERS, prefetch=RT_PREFETCH,
+                         device=dev, shard=None)
+    for fn in RT_COUNTERS:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code = 0
+    try:
+        trainer.fit(pipe, num_epochs=1)
+    except pres.Preempted as e:
+        rep["preempted_at"] = e.step
+        code = 3
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep["launches"] = {fn.__name__: fn.launches for fn in RT_COUNTERS}
+    rep.update(losses=trainer.losses, step=trainer.step,
+               resumed_step=trainer.resumed_step, wall_s=wall,
+               resilience=dict(trainer.resilience_stats),
+               pipeline=pipe.pipeline_stats.snapshot(),
+               ckpt=dict(mgr.stats), chaos_log=monkey.log,
+               first_step_at=getattr(monkey, "first_step_at", None),
+               steps_run=len(trainer.losses),
+               threads=sorted(t.name for t in threading.enumerate()))
+    if mode == "uninterrupted":
+        rep["ms_per_step"] = wall / RT_STEPS * 1e3
+        rep.update(runtime_direct(seed, dev, x, y))
+        rep.update(runtime_breakdown(seed, dev, x, y))
+        rep.update(runtime_snapshots(net, dev))
+    mgr.close()
+    torch.save([t.detach().cpu() for t in lowprec.tree_leaves(net.params)],
+               out + ".params.pt")
+    with open(out, "w") as f:
+        json.dump(rep, f, default=str)
+    return code
+
+
+def runtime_direct(seed: int, dev, x, y) -> dict:
+    """The same 24 fits on tensors already on the card, from the same
+    initialization: with one sync at the end, and with ``float(loss)``
+    after every fit as the trainer reads it."""
+    xs = [torch.from_numpy(x[i:i + TRAIN_BATCH]).to(dev)
+          for i in range(0, len(x), TRAIN_BATCH)]
+    ys = [torch.from_numpy(y[i:i + TRAIN_BATCH]).to(dev)
+          for i in range(0, len(y), TRAIN_BATCH)]
+    out = {}
+    for key, sync in (("direct_ms_per_step", False),
+                      ("direct_float_ms_per_step", True)):
+        net = runtime_net(seed, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in zip(xs, ys):
+            loss = net.fit(a, b)
+            if sync:
+                float(loss)
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) / len(xs) * 1e3
+    return out
+
+
+def runtime_breakdown(seed: int, dev, x, y) -> dict:
+    """ms a step of the same 24 steps under ``ResilientTrainer`` with the
+    pipeline, the checkpoints or both taken away (a plain
+    ``ListDataSetIterator`` of host arrays; no manager)."""
+    out = {}
+    for key, piped, managed in (("trainer_plain_ms_per_step", False, False),
+                                ("trainer_pipeline_ms_per_step", True, False),
+                                ("trainer_ckpt_ms_per_step", False, True)):
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = (pres.CheckpointManager(tmp, every_steps=RT_EVERY,
+                                          keep_last=RT_KEEP)
+                   if managed else None)
+            it = ListDataSetIterator(x, y, TRAIN_BATCH)
+            if piped:
+                it = InputPipeline(it, workers=RT_WORKERS,
+                                   prefetch=RT_PREFETCH, device=dev,
+                                   shard=None)
+            trainer = pres.ResilientTrainer(runtime_net(seed, dev), mgr,
+                                            device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(it, num_epochs=1)
+            torch.cuda.synchronize()
+            out[key] = (time.perf_counter() - t0) / RT_STEPS * 1e3
+            if mgr is not None:
+                mgr.close()
+    return out
+
+
+def runtime_snapshots(net, dev) -> dict:
+    """One async save's stall (the host snapshot) and one sync save's
+    (snapshot, zip, fsync, commit), and the checkpoint's size."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for key, async_save in (("async_save_stall_ms", True),
+                                ("sync_save_stall_ms", False)):
+            mgr = pres.CheckpointManager(os.path.join(tmp, key),
+                                         async_save=async_save)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(net, step=1)
+            out[key] = (time.perf_counter() - t0) * 1e3
+            out[key.replace("stall", "snapshot")] = \
+                mgr.stats["last_snapshot_s"] * 1e3
+            mgr.flush()
+            mgr.close()
+            out["ckpt_mb"] = mgr.stats["bytes"] / 1e6
+        return out
+
+
+def run_runtime_child(mode: str, seed: int, ckpt_dir: str, tmp: str):
+    out = os.path.join(tmp, f"{mode}.json")
+    t_spawn = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--runtime-child", mode, "--runtime-dir", ckpt_dir, "--out", out],
+        capture_output=True, text=True, timeout=600)
+    want = 3 if mode == "preempted" else 0
+    if proc.returncode != want:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == want,
+          f"the {mode} child exited {proc.returncode}, not {want}")
+    with open(out) as f:
+        rep = json.load(f)
+    rep["params"] = torch.load(out + ".params.pt")
+    rep["spawned_at"] = t_spawn
+    return rep
+
+
+def phase_runtime_resilient(seed: int, tmp: str) -> dict:
+    print(f"== (a) the char-RNN under ResilientTrainer, fed by "
+          f"InputPipeline({RT_WORKERS} workers, prefetch {RT_PREFETCH}), "
+          f"async checkpoints every {RT_EVERY} steps, three child "
+          f"processes ==")
+    ckpt = os.path.join(tmp, "runtime_ckpt")
+    base = run_runtime_child("uninterrupted", seed,
+                             os.path.join(tmp, "runtime_base"), tmp)
+    kill = run_runtime_child("preempted", seed, ckpt, tmp)
+    mgr = pres.CheckpointManager(ckpt)
+    on_disk = [s for s, _ in mgr.checkpoints()]
+    intact = mgr.latest_intact()
+    res = run_runtime_child("resumed", seed, ckpt, tmp)
+    k = res["resumed_step"]
+    same_params = (len(base["params"]) == len(res["params"]) and all(
+        torch.equal(a, b) for a, b in zip(base["params"], res["params"])))
+    same_tail = res["losses"] == base["losses"][k:]
+    same_head = kill["losses"] == base["losses"][:len(kill["losses"])]
+    reexec_s = res["first_step_at"] - res["spawned_at"]
+    pipe = base["pipeline"]
+    print(f"uninterrupted: {base['step']} steps, {base['ms_per_step']:.2f} "
+          f"ms a step through the trainer and the pipeline; the same "
+          f"{RT_STEPS} fits on tensors on the card "
+          f"{base['direct_ms_per_step']:.2f} ms a step "
+          f"({base['direct_float_ms_per_step']:.2f} ms with float(loss) "
+          f"after each); the trainer with neither the pipeline nor the "
+          f"checkpoints {base['trainer_plain_ms_per_step']:.2f}, with the "
+          f"pipeline only {base['trainer_pipeline_ms_per_step']:.2f}, with "
+          f"the checkpoints only {base['trainer_ckpt_ms_per_step']:.2f}; "
+          f"stall_fraction {pipe['stall_fraction']}, "
+          f"consumer stall {pipe['stall_seconds']:.4f} s, producer stall "
+          f"{pipe['producer_stall_seconds']:.4f} s; {base['ckpt']['saves']} "
+          f"checkpoints ({base['ckpt']['skipped_busy']} skipped busy), "
+          f"async snapshot {base['ckpt']['snapshot_s'] / max(1, base['ckpt']['saves']) * 1e3:.2f} ms "
+          f"each in the run")
+    print(f"one save after the run: async stall "
+          f"{base['async_save_stall_ms']:.2f} ms (snapshot "
+          f"{base['async_save_snapshot_ms']:.2f} ms), sync stall "
+          f"{base['sync_save_stall_ms']:.2f} ms; a checkpoint is "
+          f"{base['ckpt_mb']:.3f} MB")
+    print(f"preempted: {kill['steps_run']} steps, Preempted at step "
+          f"{kill.get('preempted_at')}, retries "
+          f"{kill['resilience']['retries']}, chaos {kill['chaos_log']}; "
+          f"on disk {on_disk}, latest intact "
+          f"{None if intact is None else intact[1]['step']}")
+    print(f"resumed from step {k}: {res['steps_run']} steps, the first "
+          f"{reexec_s:.2f} s after the re-exec; params torch.equal to the "
+          f"uninterrupted run: {same_params}; losses after step {k} equal: "
+          f"{same_tail}")
+    launches = {m: r["launches"] for m, r in
+                (("uninterrupted", base), ("preempted", kill),
+                 ("resumed", res))}
+    print(f"K1/K2 launches: {launches}")
+    check(kill.get("preempted_at") == RT_KILL,
+          "the preempted child did not stop at the SIGTERM step")
+    check(kill["resilience"]["retries"] == 1
+          and kill["resilience"]["preemptions"] == 1,
+          "the transient error was not retried exactly once")
+    check((RT_KILL, "corrupt:bitflip") in [tuple(e) for e in
+                                           kill["chaos_log"]],
+          "the step-10 checkpoint was not corrupted")
+    check(on_disk == [8, 10] and intact is not None
+          and intact[1]["step"] == 8,
+          f"latest_intact did not skip the corrupt step-10 checkpoint "
+          f"({on_disk})")
+    check(k == 8 and res["step"] == RT_STEPS, "the resume did not start "
+          "from step 8 and finish")
+    check(same_params, "the resumed params differ from the uninterrupted "
+          "run's")
+    check(same_tail and same_head, "the losses differ from the "
+          "uninterrupted run's")
+    for m, r in (("uninterrupted", base), ("preempted", kill),
+                 ("resumed", res)):
+        n = r["steps_run"]
+        c = r["launches"]
+        check(c["lstm_scan"] == c["lstm_scan_bwd"] == 4 * n,
+              f"K1/K2 did not launch 4 times a step in the {m} child")
+        check(c["lstm_scan_plain"] == c["lstm_scan_bwd_plain"] == 0,
+              f"a plain LSTM scan ran in the {m} child")
+        check(not any(t.startswith("etl-") or t == "async-prefetch"
+                      for t in r["threads"]),
+              f"input threads outlived the {m} child's fit: {r['threads']}")
+    for r in (base, kill, res):
+        r.pop("params")
+    return {"uninterrupted": base, "preempted": kill, "resumed": res,
+            "on_disk_after_kill": on_disk, "resumed_from": k,
+            "reexec_to_first_step_s": reexec_s, "launches": launches}
+
+
+def write_idx(path: str, arr: np.ndarray) -> None:
+    """An idx file of ubyte data."""
+    with open(path, "wb") as f:
+        f.write(bytes([0, 0, 0x08, arr.ndim]))
+        for d in arr.shape:
+            f.write(int(d).to_bytes(4, "big"))
+        f.write(np.ascontiguousarray(arr, np.uint8).tobytes())
+
+
+def phase_runtime_early_stopping(seed: int, dev, tmp: str) -> dict:
+    print(f"== (b) LeNet-5 under EarlyStoppingTrainer, fed by the native "
+          f"host feed (InputPipeline.from_native), batch {LENET_BATCH}, "
+          f"{ES_TRAIN} training rows, {ES_HELD} held out ==")
+    imgs, lbls = _synthetic_mnist(ES_TRAIN + ES_HELD, seed)
+    paths = {}
+    sl_of = {"train": slice(0, ES_TRAIN), "held": slice(ES_TRAIN, None)}
+    for split, sl in sl_of.items():
+        paths[split] = (os.path.join(tmp, f"{split}-images-idx3-ubyte"),
+                        os.path.join(tmp, f"{split}-labels-idx1-ubyte"))
+        write_idx(paths[split][0], imgs[sl])
+        write_idx(paths[split][1], lbls[sl])
+    t0 = time.perf_counter()
+    raw = native.read_idx(paths["train"][0], normalize=False)
+    read_s = time.perf_counter() - t0
+    lib = native.loaded_path()
+    check(lib is not None and os.path.realpath(lib).startswith(
+        os.path.realpath(str(native.BUILD_DIR)) + os.sep),
+        f"the native library loaded is not the port's build ({lib})")
+    check(np.array_equal(raw, imgs[:ES_TRAIN].astype(np.float32)),
+          "read_idx did not give back the images written")
+    data = {}
+    for split in ("train", "held"):
+        x = native.read_idx(paths[split][0])
+        check(np.array_equal(x, native._read_idx_py(paths[split][0], True)),
+              "read_idx disagrees with its plain version")
+        lab = native.read_idx(paths[split][1], normalize=False)
+        check(np.array_equal(lab, lbls[sl_of[split]].astype(np.float32)),
+              "the labels read back differ")
+        data[split] = (x.reshape(-1, 28, 28, 1),
+                       np.eye(10, dtype=np.float32)[lab.astype(np.int64)])
+    print(f"native library {os.path.relpath(lib, REPO_ROOT)}; read_idx of "
+          f"{ES_TRAIN} images in {read_s * 1e3:.1f} ms, equal to what was "
+          f"written")
+    (xt, yt), (xh, yh) = data["train"], data["held"]
+    net = build_lenet5(device=dev)
+    pipe = InputPipeline.from_native(xt, yt, LENET_BATCH, epochs=1, seed=seed,
+                                     capacity=4, workers=RT_WORKERS,
+                                     prefetch=RT_PREFETCH, device=dev,
+                                     shard=None)
+    held = lambda: ListDataSetIterator(xh, yh, LENET_BATCH)  # noqa: E731
+    saver = es_mod.CheckpointManagerSaver(os.path.join(tmp, "es"),
+                                          keep_last=2)
+    cfg = (es_mod.EarlyStoppingConfiguration.builder()
+           .score_calculator(es_mod.DataSetLossCalculator(held()))
+           .epoch_termination_conditions(
+               es_mod.MaxEpochsTerminationCondition(ES_EPOCHS),
+               es_mod.ScoreImprovementEpochTerminationCondition(1))
+           .model_saver(saver).save_last_model(True).build())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = es_mod.EarlyStoppingTrainer(cfg, net, pipe, device=dev).fit()
+    es_s = time.perf_counter() - t0
+    best = saver.get_best_model()
+    best_again = es_mod.DataSetLossCalculator(held()).calculate_score(best)
+    scores = result.score_vs_epoch
+    print(f"early stopping: {result.termination_reason} "
+          f"({result.termination_details}) after {result.total_epochs} "
+          f"epochs in {es_s:.2f} s; held-out scores {scores}; best epoch "
+          f"{result.best_model_epoch}, score {result.best_model_score:.6f}; "
+          f"the restored best model scores {best_again:.6f} "
+          f"(tol {TOL_ES_SCORE})")
+    check(result.termination_reason == "epoch"
+          and 1 <= result.total_epochs <= ES_EPOCHS,
+          f"early stopping ended by {result.termination_reason}")
+    check(all(np.isfinite(list(scores.values()))), "a score is not finite")
+    check(result.best_model_score == min(scores.values())
+          and scores[result.best_model_epoch] == result.best_model_score,
+          "the best epoch is not the lowest score")
+    check(abs(best_again - result.best_model_score) <= TOL_ES_SCORE,
+          "the restored best model's score differs from the best score")
+    n_batches = ES_TRAIN // LENET_BATCH
+
+    def through_pipeline():
+        for ds in pipe:
+            net.fit(ds.features, ds.labels)
+
+    xs = [torch.from_numpy(xt[i:i + LENET_BATCH]).to(dev)
+          for i in range(0, ES_TRAIN, LENET_BATCH)]
+    ys = [torch.from_numpy(yt[i:i + LENET_BATCH]).to(dev)
+          for i in range(0, ES_TRAIN, LENET_BATCH)]
+
+    def direct():
+        for a, b in zip(xs, ys):
+            net.fit(a, b)
+
+    pipe_ms = wall_ms(through_pipeline, 1) / n_batches
+    direct_ms = wall_ms(direct, 1) / n_batches
+    pipe_ms2 = wall_ms(through_pipeline, 1) / n_batches
+    direct_ms2 = wall_ms(direct, 1) / n_batches
+    pipe_ms, direct_ms = min(pipe_ms, pipe_ms2), min(direct_ms, direct_ms2)
+    snap = pipe.pipeline_stats.snapshot()
+    print(f"samples/s through the native feed and the pipeline "
+          f"{LENET_BATCH / pipe_ms * 1e3:.1f} ({pipe_ms:.3f} ms a step), "
+          f"direct fit of tensors on the card "
+          f"{LENET_BATCH / direct_ms * 1e3:.1f} ({direct_ms:.3f} ms a "
+          f"step; the better of two passes each); stall_fraction over the "
+          f"pipeline's passes {snap['stall_fraction']}")
+    saver.manager.close()
+    return dict(scores=scores, best_epoch=result.best_model_epoch,
+                best_score=result.best_model_score,
+                restored_best_score=best_again,
+                termination=result.termination_details,
+                epochs=result.total_epochs, early_stopping_s=es_s,
+                native_library=os.path.relpath(lib, REPO_ROOT),
+                read_idx_ms=read_s * 1e3,
+                pipeline_samples_per_s=LENET_BATCH / pipe_ms * 1e3,
+                direct_samples_per_s=LENET_BATCH / direct_ms * 1e3,
+                pipeline_ms_per_step=pipe_ms, direct_ms_per_step=direct_ms,
+                pipeline_stats=snap)
+
+
+def ip_conf():
+    return (NeuralNetConfiguration.builder().seed(7).learning_rate(0.01)
+            .updater("adam").list()
+            .layer(0, L.DenseLayer(n_in=IP_F, n_out=32, activation="relu"))
+            .layer(1, L.OutputLayer(n_in=32, n_out=IP_C,
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+            .build())
+
+
+def phase_runtime_bench_legs(seed: int, dev, tmp: str) -> dict:
+    print(f"== (c) bench.py's input_pipeline leg ({IP_BATCH} x {IP_BATCHES} "
+          f"rows of {IP_F} features, NormalizerStandardize, MLP "
+          f"{IP_F}-32-{IP_C}) and checkpoint_overhead leg (MLP "
+          f"784-256-256-10, batch {CK_BATCH}) ==")
+    path = os.path.join(tmp, "data.csv")
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(IP_BATCH * IP_BATCHES):
+            f.write(",".join(f"{v:.6f}" for v in rng.standard_normal(IP_F))
+                    + f",{int(rng.integers(0, IP_C))}\n")
+    naive_it = lambda: RecordReaderDataSetIterator(  # noqa: E731
+        CSVRecordReader(path), IP_BATCH, label_index=IP_F,
+        num_possible_labels=IP_C)
+    norm = NormalizerStandardize().fit(naive_it())
+    nets = {m: MultiLayerNetwork(ip_conf(), device=dev).init()
+            for m in ("naive", "pipeline")}
+    stats = {}
+
+    def run(mode):
+        net = nets[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "naive":  # parse, assemble, normalize, fit: one thread
+            for ds in naive_it():
+                norm.transform(ds)
+                net.fit(ds.features, ds.labels)
+        else:
+            pipe = InputPipeline.from_reader(
+                CSVRecordReader(path), IP_BATCH, label_index=IP_F,
+                num_possible_labels=IP_C, normalizer=norm,
+                workers=RT_WORKERS, prefetch=RT_PREFETCH, device=dev,
+                shard=None)
+            for ds in pipe:
+                net.fit(ds.features, ds.labels)
+            stats.update(pipe.pipeline_stats.snapshot())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run("naive")
+    run("pipeline")
+    same = all(torch.equal(a, b) for a, b in zip(
+        lowprec.tree_leaves(nets["naive"].params),
+        lowprec.tree_leaves(nets["pipeline"].params)))
+    pairs = [(run("naive"), run("pipeline")) for _ in range(3)]
+    n_s, p_s = sorted(pairs, key=lambda r: r[0] / r[1])[1]
+    rows = IP_BATCH * IP_BATCHES
+    print(f"input pipeline: after one pass each from one initialization "
+          f"the params are torch.equal: {same}; naive feed "
+          f"{rows / n_s:.1f} samples/s, InputPipeline.from_reader "
+          f"{rows / p_s:.1f} samples/s (the median of 3 interleaved "
+          f"pairs); stall_fraction {stats['stall_fraction']}, producer "
+          f"stall {stats['producer_stall_seconds']} s")
+    check(same, "the pipeline's params differ from the naive feed's")
+
+    conf = (NeuralNetConfiguration.builder().seed(7).learning_rate(0.01)
+            .updater("adam").list()
+            .layer(0, L.DenseLayer(n_in=784, n_out=256, activation="relu"))
+            .layer(1, L.DenseLayer(n_in=256, n_out=256, activation="relu"))
+            .layer(2, L.OutputLayer(n_in=256, n_out=10,
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf, device=dev).init()
+    x = torch.from_numpy(rng.standard_normal((CK_BATCH, 784)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, CK_BATCH)]).to(dev)
+    net.fit(x, y)
+    cadence = max(1, CK_STEPS // 6)
+
+    def ck_run(m, where):
+        mgr = None
+        if m != "none":
+            mgr = pres.CheckpointManager(where, async_save=(m == "async"),
+                                         keep_last=2)
+        blocks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(1, CK_STEPS + 1):
+            net.fit(x, y)
+            if mgr is not None and s % cadence == 0:
+                tb = time.perf_counter()
+                mgr.save(net, step=s, block=(m == "sync"))
+                blocks.append(time.perf_counter() - tb)
+        if mgr is not None:
+            mgr.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(mgr.stats) if mgr is not None else {}
+        if mgr is not None:
+            mgr.close()
+        return wall, blocks, st
+
+    modes = ("none", "sync", "async")
+    for m in modes:
+        ck_run(m, os.path.join(tmp, f"ck_warm_{m}"))
+    reps = [{m: ck_run(m, os.path.join(tmp, f"ck_{r}_{m}")) for m in modes}
+            for r in range(3)]
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    wall = {m: med([r[m][0] for r in reps]) for m in modes}
+    block = {m: med([1e3 * sum(r[m][1]) / max(1, len(r[m][1]))
+                     for r in reps]) for m in ("sync", "async")}
+    st = reps[-1]["sync"][2]
+    ckpt_mb = st["bytes"] / max(1, st["saves"]) / 1e6
+    print(f"checkpoint overhead: a checkpoint is {ckpt_mb:.3f} MB; the loop "
+          f"stalls {block['sync']:.2f} ms per sync save and "
+          f"{block['async']:.2f} ms per async save (medians of 3 "
+          f"interleaved reps of {CK_STEPS} steps, a save every {cadence}); "
+          f"wall per step none/sync/async "
+          f"{wall['none'] / CK_STEPS * 1e3:.3f}/"
+          f"{wall['sync'] / CK_STEPS * 1e3:.3f}/"
+          f"{wall['async'] / CK_STEPS * 1e3:.3f} ms; async skipped busy "
+          f"{reps[-1]['async'][2].get('skipped_busy', 0)}")
+    return dict(input_pipeline=dict(
+        params_equal=same, naive_samples_per_s=rows / n_s,
+        pipeline_samples_per_s=rows / p_s, stats=stats),
+        checkpoint=dict(ckpt_mb=ckpt_mb, sync_stall_ms=block["sync"],
+                        async_stall_ms=block["async"],
+                        wall_ms_per_step={m: wall[m] / CK_STEPS * 1e3
+                                          for m in modes},
+                        writer_mb_per_s=st["bytes"] / 1e6
+                        / max(1e-9, st["write_s"])))
+
+
+def phase_runtime(seed: int, dev) -> dict:
+    print("== the training runtime: record readers, InputPipeline and its "
+          "stager, the native host feed, ResilientTrainer with async "
+          "checkpoints, early stopping (strict f32) ==")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"resilient": phase_runtime_resilient(seed, tmp),
+               "early_stopping": phase_runtime_early_stopping(seed, dev, tmp),
+               "bench_legs": phase_runtime_bench_legs(seed, dev, tmp)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"runtime phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -6488,11 +7092,20 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the report as JSON here")
+    # one run of the runtime phase's (a) in a child process (the phase
+    # starts three); writes its report to --out
+    ap.add_argument("--runtime-child", default=None,
+                    choices=("uninterrupted", "preempted", "resumed"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--runtime-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.runtime_child:
+        return runtime_child(args.runtime_child, args.seed,
+                             args.runtime_dir, args.out)
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6561,6 +7174,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     search_counts, search = phase_search(args.seed, dev, card)
     peak_search = torch.cuda.max_memory_allocated()
+    runtime = phase_runtime(args.seed, dev)
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
                peak_bert, peak_cnn, peak_graph, peak_search,
                torch.cuda.max_memory_allocated())
@@ -6670,6 +7284,8 @@ def main(argv=None) -> int:
          "launches_train": train["launches"]["lstm_scan"],
          "launches_cnn_zoo": cnn_counts["lstm_scan"],
          "launches_graph": graph_counts["lstm_scan"],
+         "launches_runtime": {m: c["lstm_scan"] for m, c in
+                              runtime["resilient"]["launches"].items()},
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -6688,6 +7304,8 @@ def main(argv=None) -> int:
          "launches": train["launches"]["lstm_scan_bwd"],
          "launches_cnn_zoo": cnn_counts["lstm_scan_bwd"],
          "launches_graph": graph_counts["lstm_scan_bwd"],
+         "launches_runtime": {m: c["lstm_scan_bwd"] for m, c in
+                              runtime["resilient"]["launches"].items()},
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -6783,7 +7401,7 @@ def main(argv=None) -> int:
                   "ring_train": ring_train, "mha_train": mha,
                   "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
                   "graph": graph, "embed": embed, "search": search,
-                  "obs": obs_rep,
+                  "obs": obs_rep, "runtime": runtime,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -626,6 +626,16 @@ class ComputationGraph(LossScaled):
         port runs eagerly, so it runs the K serial fits."""
         if self.params is None:
             self.init()
+        # DL4J_TPU_PIPELINE_WORKERS > 0 wraps a plain iterator in an input
+        # pipeline staging to this net's device; a staged iterator's
+        # telemetry is adopted as pipeline_stats and registered
+        from deeplearning4j_tpu_torch.etl.pipeline import maybe_wrap
+        from deeplearning4j_tpu_torch.obs.registry import register_net
+
+        iterator = maybe_wrap(iterator, device=self.device)
+        if getattr(iterator, "pipeline_stats", None) is not None:
+            self.pipeline_stats = iterator.pipeline_stats
+            register_net(self)
         self._bucket_scope = True
         try:
             for _ in range(num_epochs):

@@ -12,7 +12,13 @@ observability plane (``obs/``: the span gate, the span ring, the
 journal's path, ring and flush interval, the exporter's port, and the
 process id that suffixes the journal's default path); the online feed
 (``online/``: the stream's watermark and idle window, the drift bar);
-and the dataset directory (``datasets/fetchers.py``).
+the dataset directory (``datasets/fetchers.py``); and the training
+runtime: the input pipeline's workers and prefetch depth
+(``etl/pipeline.py``, ``datasets/iterator.AsyncDataSetIterator``), the
+checkpoint cadence, retention and async switch
+(``resilience/checkpoint.py``), and the process count that, with the
+process id, shards a pipeline and picks the process that writes
+checkpoints.
 The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
@@ -23,7 +29,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 
 class KnobError(KeyError):
@@ -167,6 +173,19 @@ _register("DL4J_TPU_ONLINE_DRIFT_MIN", "64", "int",
           "verdict")
 _register("DL4J_TPU_DATA_DIR", "", "path",
           "dataset cache dir; '' = ~/.deeplearning4j_tpu")
+_register("DL4J_TPU_CKPT_EVERY", "0", "int",
+          "checkpoint every N steps (0 = off)")
+_register("DL4J_TPU_CKPT_KEEP", "3", "int",
+          "keep-last-k checkpoints")
+_register("DL4J_TPU_CKPT_ASYNC", "1", "bool",
+          "0 = synchronous checkpoint writes")
+_register("DL4J_TPU_PIPELINE_WORKERS", "0", "int",
+          "InputPipeline worker threads (0 = off; >0 also opts "
+          "fit_iterator into auto-wrapping plain iterators)")
+_register("DL4J_TPU_PREFETCH", "2", "int",
+          "staged-batch queue depth (shared with AsyncDataSetIterator)")
+_register("DL4J_TPU_NUM_PROCESSES", "", "int",
+          "jax.distributed process count")
 
 
 def knob(name: str) -> Knob:
@@ -190,6 +209,26 @@ def get_int(name: str) -> int:
         return int(raw(name).strip())
     except ValueError:
         return int(knob(name).default)
+
+
+def get_int_or(name: str, default: int) -> int:
+    """Integer value when the knob is set, ``default`` when it is unset,
+    empty or garbage (the JAX table's ``get_int(name, default)``)."""
+    v = os.environ.get(name)
+    knob(name)
+    try:
+        return int(v.strip()) if v else default
+    except ValueError:
+        return default
+
+
+def get_opt_int(name: str) -> Optional[int]:
+    """Integer value of a knob whose table default is empty (the process
+    id and count): None when unset, empty or garbage."""
+    try:
+        return int(raw(name).strip())
+    except ValueError:
+        return None
 
 
 def get_float(name: str) -> float:

@@ -1,8 +1,21 @@
-"""Serving and speculative-decode chaos (counterpart:
-``deeplearning4j_tpu/resilience/chaos.py`` — ``InjectedServingFault``,
-``ServingChaosConfig`` and ``ServingChaos`` :265-397, ``SpecChaosConfig``
-:529 and ``SpecChaos`` :545). The training, fleet, low-precision and
-autoscale chaos of that module wait for a later slice.
+"""Deterministic fault injection (counterpart:
+``deeplearning4j_tpu/resilience/chaos.py`` — the training side:
+``InjectedKill`` and ``TransientDeviceError`` :46-54, ``ChaosConfig`` and
+``ChaosMonkey`` :55-148, ``LowPrecChaosConfig`` and ``LowPrecChaos``
+:482-528, ``truncate_file`` and ``bitflip_file`` :641-660; the serving
+side: ``InjectedServingFault``, ``ServingChaosConfig`` and
+``ServingChaos`` :265-397, ``SpecChaosConfig`` :529 and ``SpecChaos``
+:545). The fleet and autoscale chaos wait for the slices that port
+those planes.
+
+``ChaosMonkey`` injects the faults the training runtime claims to
+survive, at exact 1-based step counts: a kill after step k (an
+``InjectedKill`` raise, or a real SIGTERM to this process that the
+trainer answers with a checkpoint before it dies), a stall and a
+transient device error before step k, and a truncated or bit-flipped
+payload of the checkpoint committed for step k (the manager calls
+``on_checkpoint_written``). ``LowPrecChaos`` poisons the features of a
+step so a bf16 loss-scaled step halves its scale and skips.
 
 ``ServingChaos`` injects serving faults deterministically, keyed on
 1-based counts of engine-side events: batcher dispatches for the infer
@@ -20,12 +33,157 @@ stays byte-equal to target-only greedy decode.
 
 from __future__ import annotations
 
+import os
+import signal
 import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+
+class InjectedKill(RuntimeError):
+    """A chaos-injected hard crash (no cleanup, no goodbye checkpoint)."""
+
+
+class TransientDeviceError(RuntimeError):
+    """A chaos-injected transient accelerator failure (retryable)."""
+
+
+@dataclass
+class ChaosConfig:
+    """Declarative fault plan. Steps are 1-based counts of COMPLETED
+    trainer steps (kill_at_step=k dies after the k-th step's update has
+    been applied; stall/transient fire before the step runs)."""
+
+    kill_at_step: Optional[int] = None
+    kill_mode: str = "exception"  # "exception" | "sigterm"
+    stall_at_step: Optional[int] = None
+    stall_seconds: float = 0.0
+    transient_error_at_step: Optional[int] = None
+    transient_error_count: int = 1
+    # {"at_step": int, "mode": "truncate"|"bitflip"} applied to the
+    # checkpoint the manager just committed for that step
+    corrupt_checkpoint: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.kill_mode not in ("exception", "sigterm"):
+            raise ValueError(f"unknown kill_mode {self.kill_mode!r}")
+        if self.corrupt_checkpoint is not None:
+            mode = self.corrupt_checkpoint.get("mode", "truncate")
+            if mode not in ("truncate", "bitflip"):
+                raise ValueError(f"unknown corruption mode {mode!r}")
+
+
+class ChaosMonkey:
+    """Stateful executor of a :class:`ChaosConfig`, consulted by
+    ResilientTrainer (before/after each step) and CheckpointManager
+    (after each committed checkpoint). Deterministic: the same config
+    against the same step sequence injects the same faults."""
+
+    def __init__(self, config: ChaosConfig):
+        if isinstance(config, dict):
+            config = ChaosConfig(**config)
+        self.config = config
+        self._transient_left = int(config.transient_error_count)
+        self.log: list = []  # (step, fault) audit trail for tests
+
+    # ------------------------------------------------------------ step hooks
+    def before_step(self, step: int) -> None:
+        """`step` is the 1-based index of the step ABOUT to run."""
+        c = self.config
+        if c.stall_at_step is not None and step == c.stall_at_step:
+            self.log.append((step, "stall"))
+            time.sleep(c.stall_seconds)
+        if (c.transient_error_at_step is not None
+                and step == c.transient_error_at_step
+                and self._transient_left > 0):
+            self._transient_left -= 1
+            self.log.append((step, "transient_error"))
+            raise TransientDeviceError(
+                f"injected transient device error at step {step} "
+                f"({self._transient_left} more before recovery)")
+
+    def after_step(self, step: int) -> None:
+        """`step` is the 1-based count of COMPLETED steps."""
+        c = self.config
+        if c.kill_at_step is not None and step == c.kill_at_step:
+            self.log.append((step, f"kill:{c.kill_mode}"))
+            if c.kill_mode == "sigterm":
+                # a REAL signal, exactly like a preempting scheduler: the
+                # trainer's handler sets the flag and the loop performs
+                # checkpoint-before-death at the next boundary
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            raise InjectedKill(f"injected kill after step {step}")
+
+    # ------------------------------------------------- checkpoint corruption
+    def on_checkpoint_written(self, path: str, step: int) -> None:
+        """Called by CheckpointManager after committing `path` for `step`."""
+        c = self.config.corrupt_checkpoint
+        if c is None or int(c.get("at_step", -1)) != step:
+            return
+        target = os.path.join(path, "model.zip")
+        if not os.path.exists(target):  # sharded layout: hit any payload
+            for root, _, files in os.walk(path):
+                for f in files:
+                    if f != "MANIFEST.json":
+                        target = os.path.join(root, f)
+                        break
+        mode = c.get("mode", "truncate")
+        self.log.append((step, f"corrupt:{mode}"))
+        if mode == "truncate":
+            truncate_file(target, keep=int(c.get("keep_bytes", 16)))
+        else:
+            bitflip_file(target, offset=c.get("at_byte"))
+
+
+@dataclass
+class LowPrecChaosConfig:
+    """Declarative overflow plan for the bf16 loss-scaling contract
+    (ops/lowprec.py): poison the FEATURES of step ``overflow_at_step``
+    (1-based) so the backward pass produces non-finite grads and the
+    dynamic loss scale must halve-and-skip. Config-driven, never ambient
+    — the test loop calls :meth:`LowPrecChaos.poison` explicitly."""
+
+    overflow_at_step: Optional[int] = None
+    mode: str = "inf"  # "inf" | "nan"
+    count: int = 1     # consecutive poisoned steps from overflow_at_step
+
+    def __post_init__(self):
+        if self.mode not in ("inf", "nan"):
+            raise ValueError(f"unknown overflow mode {self.mode!r}")
+        if self.count < 1:
+            raise ValueError("count must be >= 1")
+
+
+class LowPrecChaos:
+    """Stateful executor of a :class:`LowPrecChaosConfig` (the ChaosMonkey
+    shape). Deterministic: poisons element [0, ...] of the feature batch
+    for the configured step window, leaves every other step untouched."""
+
+    def __init__(self, config: LowPrecChaosConfig):
+        if isinstance(config, dict):
+            config = LowPrecChaosConfig(**config)
+        self.config = config
+        self.log: list = []  # (step, fault) audit trail for tests
+
+    def poison(self, step: int, features):
+        """`step` is the 1-based index of the step about to run. Returns
+        the features to feed it (a poisoned COPY on fault steps — the
+        caller's array is never mutated)."""
+        c = self.config
+        if (c.overflow_at_step is None
+                or not (c.overflow_at_step <= step
+                        < c.overflow_at_step + c.count)):
+            return features
+        import numpy as np
+
+        bad = np.array(features, dtype=np.float32, copy=True)
+        bad.reshape(-1)[0] = np.inf if c.mode == "inf" else np.nan
+        self.log.append((step, f"overflow:{c.mode}"))
+        return bad
 
 
 class InjectedServingFault(RuntimeError):
@@ -172,3 +330,25 @@ class SpecChaos:
         bad[:] = (g + 1) % int(vocab_size)
         self.log.append((round_idx, "reject_all"))
         return bad
+
+
+def truncate_file(path: str, keep: int = 16) -> None:
+    """Write-then-truncate fault: keep only the first `keep` bytes (a
+    crash mid-write that an atomic rename would normally prevent —
+    simulates torn storage underneath the checkpoint)."""
+    with open(path, "r+b") as f:
+        f.truncate(keep)
+
+
+def bitflip_file(path: str, offset: Optional[int] = None) -> None:
+    """Flip one bit of `path` in place (silent media corruption). With no
+    offset the middle byte is flipped — deterministic, no RNG."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return
+    off = size // 2 if offset is None else int(offset) % size
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0x01]))

@@ -7,7 +7,9 @@ MultiLayerNetwork zips, ``write_flagship_zip`` :175 and
 :382-411, the npz half of
 ``_npz_bytes_into_tree``, and the optional sections of
 ``write_model_parts`` :60-98 with their readers ``read_normalizer`` and
-``read_quant`` :110-147).
+``read_quant`` :110-147, ``_jsonable_training_state`` :51,
+``write_model_parts`` :60, ``read_training_state`` :101, and
+``ModelSerializer`` with ``load_into`` :260).
 
 The JAX package writes a ModelSerializer-layout zip: ``configuration.json``,
 ``coefficients.npz``, ``metadata.json`` and, as the model has them,
@@ -29,6 +31,15 @@ coefficients, updater) that the JAX package's ``TransformerLM.load``
 reads. A ComputationGraph's zip is the same layout keyed by vertex name
 (``['name']['W']``), with the input shapes as a dict in the metadata.
 :func:`restore` reads any of these zips by its recorded model class.
+
+:func:`write_model_parts` is the one zip writer of both the live-net path
+(:func:`write_model`) and the checkpoint manager, which hands it host
+snapshots instead of the net (``resilience/checkpoint.py``).
+``ModelSerializer.load_into`` restores a zip into a live network built
+from the same configuration (the resume path of
+``resilience/trainer.py``): it refuses a zip of another class, keeps the
+net's device and the dtype of each of its leaves (an f64 net resumes in
+f64), and applies the training-state section.
 """
 
 from __future__ import annotations
@@ -131,6 +142,8 @@ def tree_to_npz_bytes(tree) -> bytes:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 visit(v, path + (i,))
+        elif isinstance(node, np.ndarray):
+            arrays[_keystr(path)] = node
         else:
             arrays[_keystr(path)] = node.detach().cpu().numpy()
 
@@ -140,6 +153,64 @@ def tree_to_npz_bytes(tree) -> bytes:
     return buf.getvalue()
 
 
+def _jsonable_training_state(ts: Dict[str, Any]) -> Dict[str, Any]:
+    """Training state with an array-valued ``rng`` key (a JAX zip's) as a
+    plain list, so the section stays JSON."""
+    out = dict(ts)
+    if out.get("rng") is not None:
+        out["rng"] = np.asarray(out["rng"]).astype(np.uint32).tolist()
+    return out
+
+
+def write_model_parts(path: str, *, model_class: str, conf_json: str,
+                      params, states=None, updater_state=None,
+                      meta: Optional[dict] = None,
+                      training_state: Optional[dict] = None,
+                      normalizer=None, quant=None,
+                      compression: int = zipfile.ZIP_DEFLATED) -> None:
+    """The zip writer every container checkpoint shares: the entries of
+    the JAX package's ``write_model_parts``, in its order. The trees hold
+    tensors or numpy arrays; ``compression`` lets the checkpoint manager
+    store uncompressed."""
+    meta = {"format_version": FORMAT_VERSION, "model_class": model_class,
+            **(meta or {})}
+    with zipfile.ZipFile(path, "w", compression) as z:
+        z.writestr("configuration.json", conf_json)
+        z.writestr("coefficients.npz", tree_to_npz_bytes(params))
+        if states is not None:
+            z.writestr("state.npz", tree_to_npz_bytes(states))
+        if updater_state is not None:
+            z.writestr("updater.npz", tree_to_npz_bytes(updater_state))
+        if training_state is not None:
+            z.writestr(TRAINING_STATE_ENTRY, json.dumps(
+                _jsonable_training_state(training_state)))
+        if normalizer is not None:
+            z.writestr(NORMALIZER_ENTRY, normalizer.to_json())
+        if quant is not None:
+            z.writestr(QUANT_ENTRY, quant.to_json())
+        z.writestr("metadata.json", json.dumps(meta))
+
+
+def read_training_state(path: str) -> Optional[Dict[str, Any]]:
+    """The exact-resume section of a zip, or None for a zip without
+    one."""
+    with zipfile.ZipFile(path, "r") as z:
+        if TRAINING_STATE_ENTRY not in z.namelist():
+            return None
+        return json.loads(z.read(TRAINING_STATE_ENTRY).decode())
+
+
+def container_meta(net) -> Dict[str, Any]:
+    """The metadata a container's zip records beyond the format and the
+    class: the iteration and the input shape (a dict for a graph)."""
+    if hasattr(net, "_input_shapes"):  # a ComputationGraph
+        ishape = ({k: list(v) for k, v in net._input_shapes.items()}
+                  if net._input_shapes else None)
+    else:
+        ishape = list(net._input_shape) if net._input_shape else None
+    return {"iteration": int(net.iteration), "input_shape": ishape}
+
+
 def write_model(net, path: str, save_updater: bool = True, *,
                 normalizer=None, quant=None) -> None:
     """Write ``net`` (a MultiLayerNetwork or ComputationGraph of the port)
@@ -147,28 +218,88 @@ def write_model(net, path: str, save_updater: bool = True, *,
     port's :func:`restore` read back, updater state and training state
     included; ``normalizer`` (fitted) and ``quant`` (a ``QuantSpec``)
     add their sections."""
-    if hasattr(net, "_input_shapes"):  # a ComputationGraph
-        ishape = ({k: list(v) for k, v in net._input_shapes.items()}
-                  if net._input_shapes else None)
-    else:
-        ishape = list(net._input_shape) if net._input_shape else None
-    meta = {"format_version": FORMAT_VERSION,
-            "model_class": type(net).__name__,
-            "iteration": int(net.iteration),
-            "input_shape": ishape}
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
-        z.writestr("configuration.json", net.conf.to_json())
-        z.writestr("coefficients.npz", tree_to_npz_bytes(net.params))
-        z.writestr("state.npz", tree_to_npz_bytes(net.states))
-        if save_updater:
-            z.writestr("updater.npz", tree_to_npz_bytes(net.updater_state))
-        z.writestr(TRAINING_STATE_ENTRY,
-                   json.dumps(net.training_state()))
-        if normalizer is not None:
-            z.writestr(NORMALIZER_ENTRY, normalizer.to_json())
-        if quant is not None:
-            z.writestr(QUANT_ENTRY, quant.to_json())
-        z.writestr("metadata.json", json.dumps(meta))
+    ModelSerializer.write_model(net, path, save_updater,
+                                normalizer=normalizer, quant=quant)
+
+
+def _into(template, data: bytes, what: str):
+    """An npz section read into the layout of a live net's tree: the keys
+    and shapes ``template`` implies (checked as ``load`` checks them),
+    each leaf a tensor of its template leaf's dtype and device."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.multilayer import _fill
+    from deeplearning4j_tpu_torch.ops.lowprec import tree_map
+
+    tree = npz_bytes_to_tree(data)
+    loaded = (tree if isinstance(template, dict)
+              else [tree.get(i, {}) for i in range(len(template))])
+    filled = _fill(template, loaded, what)
+
+    def leaf(t, v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.from_numpy(np.array(v)).to(device=t.device,
+                                                dtype=t.dtype)
+
+    return tree_map(leaf, template, filled)
+
+
+class ModelSerializer:
+    """The JAX package's ``ModelSerializer`` surface over this module's
+    functions, and ``load_into``."""
+
+    _container_meta = staticmethod(container_meta)
+
+    @staticmethod
+    def write_model(net, path: str, save_updater: bool = True,
+                    training_state: Optional[dict] = None, normalizer=None,
+                    quant=None) -> None:
+        """A container zip; ``training_state`` (the net's own when None)
+        may carry the step, epoch and iterator cursor too."""
+        write_model_parts(
+            path, model_class=type(net).__name__,
+            conf_json=net.conf.to_json(), params=net.params,
+            states=net.states,
+            updater_state=net.updater_state if save_updater else None,
+            meta=container_meta(net),
+            training_state=(net.training_state() if training_state is None
+                            else training_state),
+            normalizer=normalizer, quant=quant)
+
+    @staticmethod
+    def load_into(net, path: str, load_updater: bool = True
+                  ) -> Dict[str, Any]:
+        """Restore a zip into ``net`` (a MultiLayerNetwork or
+        ComputationGraph built from the same configuration): a zip of
+        another class raises; an uninitialized net is initialized from
+        the recorded input shape; params, states and (unless
+        ``load_updater`` is False) the updater state are read by key, a
+        layout mismatch raising; the iteration and the training-state
+        section are applied. Returns the training-state dict ({} for a
+        zip without one)."""
+        z = read_model_zip(path, type(net).__name__)
+        if net.params is None:
+            ishape = z["meta"].get("input_shape")
+            if isinstance(ishape, dict):
+                net.init({k: tuple(v) for k, v in ishape.items()})
+            else:
+                net.init(tuple(ishape) if ishape else None)
+        net.params = _into(net.params, z["coefficients"], "coefficients")
+        if z["state"] is not None:
+            net.states = _into(net.states, z["state"], "state")
+        if load_updater and z["updater"] is not None:
+            net.updater_state = _into(net.updater_state, z["updater"],
+                                      "updater")
+        net.iteration = int(z["meta"].get("iteration", 0))
+        ts = z["training_state"]
+        net.restore_training_state(ts)
+        return ts
+
+    @staticmethod
+    def restore(path: str, load_updater: bool = True, *, device=None):
+        """Any checkpoint zip, by its recorded class (:func:`restore`)."""
+        return restore(path, load_updater, device=device)
 
 
 def restore_computation_graph(path: str, load_updater: bool = True, *,

@@ -81,6 +81,12 @@ its first step agrees with the CPU's within 1e-4 of each vertex's
 largest entry; ResNet-50's first step at 224: the loss and BN's state
 at 1e-4, the params against the f64 step: the card's worst vertex
 within four times the CPU's own worst f32 vertex (see that test).
+The training runtime: a batch staged by the input pipeline's stager
+while a sleep kernel holds the consumer's stream equals the host batch,
+50 rounds with the caller's pinned batch overwritten right after
+``put``; the native feed through ``InputPipeline.from_native`` equals
+the plain version's batches; a small char-RNN killed at step 5 and
+resumed through the pipeline ends torch.equal to an uninterrupted run.
 """
 
 import numpy as np
@@ -2290,3 +2296,105 @@ def test_publish_during_searches_on_card():
     for ids in answers:
         got = set(int(i) for i in ids.ravel() if i >= 0)
         assert any(got <= s for s in live.values())
+
+
+# ------------------------------------------------------- the training runtime
+
+@pytest.mark.gpu
+def test_staged_batches_equal_the_host_batches_under_a_long_kernel():
+    """The stager's copies run on its side stream while a sleep kernel
+    holds the consumer's stream; the consumer waits on each batch's event.
+    The caller's pinned host batch is overwritten right after ``put``
+    (the stager copied it into its own pinned buffer first); 50 rounds."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.datasets.iterator import DataSet
+    from deeplearning4j_tpu_torch.etl.pipeline import Stager
+
+    stager = Stager(dev)
+    rng = np.random.default_rng(0)
+    for k in range(50):
+        f = torch.from_numpy(rng.standard_normal((256, 1024)).astype(
+            np.float32)).pin_memory()
+        y = torch.from_numpy(rng.integers(0, 9, (256,))).pin_memory()
+        want_f, want_y = f.clone(), y.clone()
+        torch.cuda._sleep(2_000_000)  # ~1 ms on the consumer's stream
+        staged = stager.put(DataSet(f, y))
+        f.fill_(-1.0)
+        y.fill_(-1)
+        ds = stager.take(staged)
+        got_f = ds.features * 1.0  # consumer-stream work on the batch
+        assert ds.features.device.type == "cuda"
+        assert torch.equal(got_f.cpu(), want_f), k
+        assert torch.equal(ds.labels.cpu(), want_y), k
+    stager.drain()
+    assert stager.batches == 50 and not stager._inflight
+
+
+@pytest.mark.gpu
+def test_the_native_feed_on_the_card_equals_the_plain_one():
+    dev = _need_card()
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.etl.pipeline import InputPipeline
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((1000, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 1000)]
+    pipe = InputPipeline.from_native(x, y, 128, epochs=2, seed=3,
+                                     workers=2, prefetch=4, device=dev,
+                                     shard=None)
+    got = [(ds.features.cpu(), ds.labels.cpu()) for ds in pipe]
+    want = list(native._iter_py(native.NativePrefetchIterator(
+        x, y, 128, epochs=2, seed=3)))
+    assert len(got) == len(want) == 14
+    for (a, b), (c, d) in zip(got, want):
+        assert np.array_equal(a.numpy(), c) and np.array_equal(b.numpy(), d)
+
+
+@pytest.mark.gpu
+def test_kill_and_resume_of_a_char_rnn_is_bit_equal_on_card(tmp_path):
+    """K1 and K2 give the same bits launch to launch, and the pipeline's
+    copies stay off the compute stream: a run killed at step 5 and
+    resumed from its step-4 checkpoint ends torch.equal to an
+    uninterrupted one."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.etl.pipeline import InputPipeline
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch import resilience as pres
+
+    v, n, t = 12, 8, 40
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, v, (48, t + 1))
+    x = np.eye(v, dtype=np.float32)[idx[:, :-1]]
+    y = np.eye(v, dtype=np.float32)[idx[:, 1:]]
+
+    def net():
+        conf = char_rnn_conf(v, lstm_size=32, num_layers=2, seed=5,
+                             tbptt_length=20, learning_rate=0.01)
+        return MultiLayerNetwork(conf, device=dev).init(input_shape=(1, v))
+
+    def feed():
+        return InputPipeline(ListDataSetIterator(x, y, n), workers=2,
+                             prefetch=3, device=dev, shard=None)
+
+    base = pres.ResilientTrainer(net(), device=dev)
+    base.fit(feed(), num_epochs=2)
+    mgr = pres.CheckpointManager(str(tmp_path), every_steps=4, keep_last=2)
+    killed = pres.ResilientTrainer(net(), mgr, device=dev,
+                                   chaos=pres.ChaosMonkey(
+                                       pres.ChaosConfig(kill_at_step=5)))
+    with pytest.raises(pres.InjectedKill):
+        killed.fit(feed(), num_epochs=2)
+    mgr.close()
+    mgr2 = pres.CheckpointManager(str(tmp_path), every_steps=4, keep_last=2)
+    resumed = pres.ResilientTrainer(net(), mgr2, device=dev)
+    resumed.fit(feed(), num_epochs=2)
+    mgr2.close()
+    assert resumed.resumed_step == 4 and resumed.step == base.step == 12
+    assert killed.losses[:4] + resumed.losses == base.losses
+    for a, b in zip(tree_leaves(base.net.params),
+                    tree_leaves(resumed.net.params)):
+        assert torch.equal(a, b)

@@ -75,7 +75,18 @@ def test_every_module_imports_without_jax():
             "deeplearning4j_tpu_torch.online",
             "deeplearning4j_tpu_torch.online.stats",
             "deeplearning4j_tpu_torch.online.drift",
-            "deeplearning4j_tpu_torch.online.stream"} <= set(mods)
+            "deeplearning4j_tpu_torch.online.stream",
+            # the training runtime
+            "deeplearning4j_tpu_torch.datasets.records",
+            "deeplearning4j_tpu_torch.native",
+            "deeplearning4j_tpu_torch.etl.schema",
+            "deeplearning4j_tpu_torch.etl.transforms",
+            "deeplearning4j_tpu_torch.etl.stats",
+            "deeplearning4j_tpu_torch.etl.pipeline",
+            "deeplearning4j_tpu_torch.resilience.checkpoint",
+            "deeplearning4j_tpu_torch.resilience.trainer",
+            "deeplearning4j_tpu_torch.earlystopping.trainer",
+            "deeplearning4j_tpu_torch.earlystopping.savers"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -323,6 +334,57 @@ class TestEntryPointsNeedACardOrCpu:
             np.asarray(jc.net.updater_state[0]["cache"]["W"]))
 
 
+    def test_training_runtime(self, no_card, tmp_path):
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.datasets.iterator import (
+            AsyncDataSetIterator,
+            ListDataSetIterator,
+        )
+        from deeplearning4j_tpu_torch.earlystopping import (
+            EarlyStoppingConfiguration,
+            EarlyStoppingTrainer,
+            MaxEpochsTerminationCondition,
+        )
+        from deeplearning4j_tpu_torch.etl.pipeline import InputPipeline
+        from deeplearning4j_tpu_torch.nn.conf import (
+            DenseLayer,
+            NeuralNetConfiguration,
+            OutputLayer,
+        )
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        from deeplearning4j_tpu_torch.resilience import (
+            CheckpointManager,
+            ResilientTrainer,
+        )
+
+        x = np.random.default_rng(0).standard_normal((8, 3)).astype(
+            np.float32)
+        y = np.eye(2, dtype=np.float32)[[0, 1] * 4]
+        it = lambda: ListDataSetIterator(x, y, 4)  # noqa: E731
+        for make in (lambda: InputPipeline(it()),
+                     lambda: InputPipeline.from_native(x, y, 4),
+                     lambda: AsyncDataSetIterator(it())):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        conf = (NeuralNetConfiguration.builder().seed(1).list()
+                .layer(0, DenseLayer(n_in=3, n_out=4))
+                .layer(1, OutputLayer(n_in=4, n_out=2)).build())
+        net = MultiLayerNetwork(conf, device="cpu").init()
+        es = EarlyStoppingConfiguration.builder().epoch_termination_conditions(
+            MaxEpochsTerminationCondition(1)).build()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ResilientTrainer(net)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            EarlyStoppingTrainer(es, net, it())
+        mgr = CheckpointManager(str(tmp_path / "ck"), every_steps=1)
+        tr = ResilientTrainer(net, mgr, device="cpu")
+        tr.fit(InputPipeline(it(), device="cpu", shard=None))
+        assert tr.step == 2 and len(mgr.checkpoints()) == 2
+        r = EarlyStoppingTrainer(es, net, AsyncDataSetIterator(
+            it(), device="cpu"), device="cpu").fit()
+        assert r.total_epochs == 1
+
     def test_ring_forward_and_attention_network(self, no_card, tmp_path):
         import numpy as np
 
@@ -560,7 +622,11 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_OBS_JOURNAL_N", "DL4J_TPU_OBS_FLUSH_S",
         "DL4J_TPU_OBS_PORT", "DL4J_TPU_PROCESS_ID",
         "DL4J_TPU_ONLINE_WATERMARK", "DL4J_TPU_ONLINE_IDLE_S",
-        "DL4J_TPU_ONLINE_DRIFT_Z", "DL4J_TPU_ONLINE_DRIFT_MIN"}
+        "DL4J_TPU_ONLINE_DRIFT_Z", "DL4J_TPU_ONLINE_DRIFT_MIN",
+        # the training runtime
+        "DL4J_TPU_CKPT_EVERY", "DL4J_TPU_CKPT_KEEP", "DL4J_TPU_CKPT_ASYNC",
+        "DL4J_TPU_PIPELINE_WORKERS", "DL4J_TPU_PREFETCH",
+        "DL4J_TPU_NUM_PROCESSES"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -600,6 +666,66 @@ def test_engine_reads_the_knobs(monkeypatch):
         assert eng.request_timeout_s == 60.0
     finally:
         eng.stop()
+
+
+RUNTIME_MODULES = {
+    "datasets/iterator.py": "deeplearning4j_tpu/datasets/iterator.py",
+    "datasets/records.py": "deeplearning4j_tpu/datasets/records.py",
+    "native/__init__.py": "deeplearning4j_tpu/native/__init__.py",
+    "etl/schema.py": "deeplearning4j_tpu/etl/schema.py",
+    "etl/transforms.py": "deeplearning4j_tpu/etl/transforms.py",
+    "etl/stats.py": "deeplearning4j_tpu/etl/stats.py",
+    "etl/pipeline.py": "deeplearning4j_tpu/etl/pipeline.py",
+    "utils/serialization.py": "deeplearning4j_tpu/utils/serialization.py",
+    "resilience/checkpoint.py": "deeplearning4j_tpu/resilience/checkpoint.py",
+    "resilience/chaos.py": "deeplearning4j_tpu/resilience/chaos.py",
+    "resilience/trainer.py": "deeplearning4j_tpu/resilience/trainer.py",
+    "earlystopping/__init__.py": "deeplearning4j_tpu/earlystopping/",
+    "earlystopping/config.py": "deeplearning4j_tpu/earlystopping/config.py",
+    "earlystopping/result.py": "deeplearning4j_tpu/earlystopping/result.py",
+    "earlystopping/scorecalc.py":
+        "deeplearning4j_tpu/earlystopping/scorecalc.py",
+    "earlystopping/terminations.py":
+        "deeplearning4j_tpu/earlystopping/terminations.py",
+    "earlystopping/savers.py": "deeplearning4j_tpu/earlystopping/savers.py",
+    "earlystopping/trainer.py": "deeplearning4j_tpu/earlystopping/trainer.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(RUNTIME_MODULES))
+def test_runtime_modules_name_their_counterpart(rel):
+    with open(os.path.join(PKG, rel), encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read()))
+    assert doc and "counterpart" in doc, rel
+    assert RUNTIME_MODULES[rel] in " ".join(doc.split()), rel
+    assert os.path.exists(os.path.join(REPO, RUNTIME_MODULES[rel]))
+
+
+def test_native_build_writes_only_under_build(tmp_path, monkeypatch):
+    from deeplearning4j_tpu_torch import native
+
+    assert native.BUILD_DIR == __import__("pathlib").Path(REPO) / "build" \
+        / "native"
+    assert native.SOURCE.read_bytes() == open(
+        os.path.join(REPO, "native", "src", "dl4j_tpu_native.cpp"),
+        "rb").read()
+
+    def listing():
+        out = {}
+        for d in ("native", os.path.join("deeplearning4j_tpu", "native"),
+                  os.path.join("deeplearning4j_tpu_torch", "native")):
+            for dp, _, fs in os.walk(os.path.join(REPO, d)):
+                for f in fs:
+                    p = os.path.join(dp, f)
+                    out[p] = os.stat(p).st_mtime_ns
+        return out
+
+    before = listing()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build" / "native")
+    lib = native.build()
+    assert lib.parent == tmp_path / "build" / "native" and lib.exists()
+    assert sorted(os.listdir(lib.parent)) == [lib.name]
+    assert listing() == before
 
 
 def test_kernel_sources_ship_and_build_flags():
