@@ -21,7 +21,9 @@ monitor, BERT passages through K5), the serving path's trace spans,
 journal and exporter, and the training runtime (record readers, the
 input pipeline and its stager, the native host feed, ResilientTrainer
 with async checkpoints and exact resume through K1 and K2, early
-stopping).
+stopping), and distributed training (an MoE TransformerLM through K4 and
+K7, Megatron and pipeline steps, ParallelWrapper, parameter averaging
+through K1 and K2, the sharded checkpoint) on world-1 NCCL groups.
 
 Run from the repository root, with no arguments:
 
@@ -451,7 +453,29 @@ What it does, in order (any failure raises and exits non-zero):
    feed against ``InputPipeline.from_reader``, params ``torch.equal``
    after one pass each, samples/s) and checkpoint_overhead leg (the
    loop's stall per sync and async save, the checkpoint's MB);
-20. prints one ``{"kernels": [...]}`` line, the card line again, and last
+20. distributed training on world-1 NCCL groups (``phase_distributed``):
+   (a) the bench transformer with 8 experts a layer (top 2, capacity
+   factor 1.25, aux 1e-2; bf16 compute, f32 masters; ~1.16 B params), 10
+   ``fit`` and ``fit_batches`` of 4 at 16 x 1024 (finite, falling loss;
+   K4 and K7 4 a step, plain 0; step ms, tokens/s, a profile, peak
+   memory, the share of token slots dropped by capacity and the aux
+   loss), then 32 tokens of ``generate`` with the KV cache (prefill
+   through K4, the no-drop MoE decode); (b) 2 layers of it in strict f32
+   at 8 x 1024: the ``data`` x ``model`` x ``expert`` (1 x 1 x 1) step
+   ``torch.equal`` to the plain step, the GPipe step at 4 microbatches
+   within 1e-4 of accumulation at 4, K4/K7 in both, each step's ms; (c)
+   one ``ParallelWrapper`` step of ResNet-50 at 224 x 128 on the world-1
+   ``'data'`` group ``torch.equal`` to ``net.fit`` (cuDNN deterministic
+   for the pair); ``ParameterAveragingTrainingMaster`` with 4 in-process
+   workers, frequency 5, 2 rounds on the char-RNN (K1/K2 4 a worker fit,
+   plain 0) ``torch.equal`` to four nets fitted on their rows with params
+   and RMSProp state averaged, samples/s against those fits;
+   ``DistributedEarlyStoppingTrainer`` with MaxEpochs(2);
+   ``DistributedEvaluator``'s merge equal to the serial evaluation; (d)
+   ``save_lm``/``restore_lm`` of (a)'s LM (logits ``torch.equal``) and a
+   ``CheckpointManager(backend="sharded")`` save and ``restore_latest``
+   of the char-RNN, MB and seconds of each;
+21. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -7080,6 +7104,436 @@ def phase_runtime(seed: int, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# distributed training (PR 19): MoE, Megatron, pipeline, data parallelism,
+# the sharded checkpoint, on world-1 NCCL groups
+# ---------------------------------------------------------------------------
+
+MOE_KW = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+              moe_aux_coef=1e-2)
+MOE_BATCH, MOE_FITS, MOE_MULTI, MOE_GEN = 16, 10, 4, 32
+MESH_LAYERS, MESH_BATCH, MESH_MICRO = 2, 8, 4
+TOL_PIPE = 1e-4  # the pipeline against accumulation: loss and params, abs
+AVG_WORKERS, AVG_FREQ, AVG_ROUNDS = 4, 5, 2
+PW_BATCH = 128
+
+
+def moe_cfg(seed: int, **kw) -> TransformerConfig:
+    """The bench transformer (``bench.py:356-367``) with 8 experts a
+    layer, top 2, capacity factor 1.25, aux coefficient 1e-2."""
+    return dataclasses.replace(lm_cfg(seed), **dict(MOE_KW, **kw))
+
+
+def moe_group(name: str) -> str:
+    """A profiler kernel's group in the MoE step."""
+    low = name.lower()
+    if "flash_fwd" in name:
+        return "K4 flash_fwd_tc<bf16>"
+    if "flash_bwd" in name:
+        return "K7 flash_bwd"
+    if "gemm" in low or "xmma" in low or "nvjet" in low or "cutlass" in low:
+        return "GEMMs (experts, projections, head)"
+    if any(s in low for s in ("index", "gather", "scatter", "cumsum",
+                              "argmax", "scan", "one_hot")):
+        return "routing, gather and scatter"
+    return "other kernels"
+
+
+def dist_moe(seed: int, dev):
+    """(a) The MoE TransformerLM at full width through K4/K7."""
+    cfg = moe_cfg(seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lm = TransformerLM(cfg, device=dev)
+    n_params = sum(x.numel() for x in lm_mod.tree_leaves(lm.params))
+    print(f"(a) MoE TransformerLM: d_model {cfg.d_model}, {cfg.n_layers} "
+          f"layers, {cfg.n_heads} heads, {cfg.moe_experts} experts of d_ff "
+          f"{cfg.d_ff} a layer, top {cfg.moe_top_k}, capacity factor "
+          f"{cfg.moe_capacity_factor}, aux {cfg.moe_aux_coef}, bf16 compute "
+          f"with f32 masters, {n_params} parameters; {MOE_FITS} fits then "
+          f"fit_batches of {MOE_MULTI} at {MOE_BATCH} x {LM_T}")
+    mk = lambda s, k=None: tuple(t[..., :MOE_BATCH, :] for t in  # noqa
+                                 lm_batch(s, dev, k))
+    batches = [mk(seed + 500 + i) for i in range(MOE_FITS)]
+    xs, ys = mk(seed + 600, MOE_MULTI)
+    kernels = (flash_attention, flash_bwd, flash_attention_plain,
+               flash_block_bwd)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(lm.fit(x, y)) for x, y in batches]
+    multi = [float(v) for v in lm.fit_batches(xs, ys)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    steps = MOE_FITS + MOE_MULTI
+    peak = torch.cuda.max_memory_allocated() - held
+    print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
+          + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi))
+    check(all(np.isfinite(losses + multi)), "an MoE loss is not finite")
+    check(np.mean(multi) < losses[0] and multi[-1] < losses[0],
+          "the MoE loss did not fall")
+    check(counts["flash_attention"] == counts["flash_bwd"]
+          == cfg.n_layers * steps,
+          f"K4 and K7 did not launch once per layer per MoE step: {counts}")
+    check(counts["flash_attention_plain"] == 0
+          and counts["flash_block_bwd"] == 0,
+          "a plain flash version ran in the MoE steps")
+    stats = {}
+    with torch.inference_mode():
+        _, aux = lm_mod.forward(lm.compute_params, batches[0][0], cfg,
+                                stats=stats)
+    drop = int(stats["dropped"]) / stats["slots"]
+    x, y = batches[0]
+    step_ms = time_ms(lambda: lm.fit(x, y), iters=3, warmup=1)
+    busy, rows = profile_ms(lambda: lm.fit(x, y), n=2)
+    adam_busy, _ = profile_ms(lambda: lm_mod._adam_update(
+        lm.params, lm.opt["m"], lm.opt,
+        torch.tensor(cfg.learning_rate, device=dev)), n=2)
+    groups = {}
+    for ms_, _, name in rows:
+        g = moe_group(name)
+        groups[g] = groups.get(g, 0.0) + ms_
+    groups["Adam (its kernels, profiled alone)"] = adam_busy
+    groups["other kernels"] = groups.get("other kernels", 0.0) - adam_busy
+    groups["host gaps (wall - kernels)"] = step_ms - busy
+    tok_s = MOE_BATCH * LM_T / step_ms * 1e3
+    print(f"MoE fit: {step_ms:.3f} ms per step, {tok_s:.0f} tokens/s; "
+          f"kernels {busy:.3f} ms ({busy / step_ms:.1%}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in groups.items()))
+    for ms_, calls, name in rows[:10]:
+        print(f"  {ms_:8.4f} ms  x{calls:<3d} {name[:100]}")
+    print(f"{steps} steps in {wall:.3f} s (first calls included); peak "
+          f"device memory {peak / 2**30:.3f} GiB above the earlier phases; "
+          f"token slots dropped by capacity {drop:.4%} "
+          f"({int(stats['dropped'])} of {stats['slots']}); aux loss "
+          f"{float(aux):.5f}")
+    prompt = mk(seed + 700)[0][:2, :64]
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = lm.generate(prompt, MOE_GEN, temperature=0.8, seed=seed,
+                      use_cache=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (2, MOE_GEN) and bool((out >= 0).all())
+          and bool((out < cfg.vocab_size).all()),
+          f"MoE generate gave {tuple(out.shape)} tokens out of range")
+    check(flash_attention.launches == cfg.n_layers
+          and flash_attention_plain.launches == 0,
+          "MoE generate's prefill did not run K4 once per layer")
+    print(f"MoE generate: 2 prompts of 64, {MOE_GEN} new tokens in "
+          f"{gen_s:.3f} s (prefill through K4, decode steps through the "
+          "no-drop MoE FFN)")
+    return lm, counts, {"steps": steps, "loss_per_fit": losses,
+                        "fit_batches_losses": multi, "wall_s": wall,
+                        "launches": counts, "step_ms": step_ms,
+                        "tokens_per_s": tok_s, "peak_memory_bytes": peak,
+                        "dropped_share": drop, "aux": float(aux),
+                        "generate_s": gen_s, "n_params": n_params,
+                        "profile": dict(device_busy_ms=busy, groups=groups)}
+
+
+def dist_mesh_steps(seed: int, dev):
+    """(b) Megatron (data x model x expert) and pipeline steps of the MoE
+    LM at full width and 2 layers, strict f32, on world-1 NCCL groups."""
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+
+    cfg = moe_cfg(seed, n_layers=MESH_LAYERS, dtype_policy="strict")
+    torch.cuda.empty_cache()
+    params = lm_mod.init_params(cfg, device=dev)
+    x, y = lm_batch(seed + 800, dev)
+    x, y = x[:MESH_BATCH], y[:MESH_BATCH]
+    kernels = (flash_attention, flash_bwd, flash_attention_plain,
+               flash_block_bwd)
+
+    def run(step, p):
+        for fn in kernels:
+            fn.launches = 0
+        out = step(p, lm_mod.init_opt_state(p), x, y)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        ms_ = time_ms(lambda: step(p, lm_mod.init_opt_state(p), x, y),
+                      iters=2, warmup=0)
+        return out, counts, ms_
+
+    mesh = device_mesh((1, 1, 1), ("data", "model", "expert"))
+    (p0, _, l0), c0, plain_ms = run(lm_mod.make_train_step(cfg), params)
+    (p1, _, l1), c1, mega_ms = run(lm_mod.make_train_step(cfg, mesh),
+                                   lm_mod.shard_params(params, cfg, mesh))
+    equal = torch.equal(l0, l1) and all(
+        torch.equal(a, b) for a, b in zip(lm_mod.tree_leaves(p0),
+                                          lm_mod.tree_leaves(p1)))
+    del p0, p1
+    pipe = device_mesh((1,), ("pipe",))
+    cfg_a = dataclasses.replace(cfg, accum_steps=MESH_MICRO)
+    (pa, _, la), ca, accum_ms = run(lm_mod.make_train_step(cfg_a), params)
+    (pp, _, lp), cp, pipe_ms = run(lm_mod.make_pipeline_train_step(
+        cfg, pipe, n_micro=MESH_MICRO), lm_mod.shard_params(params, cfg,
+                                                           pipe))
+    pipe_err = max([abs(float(la) - float(lp))] + [
+        (a - b).abs().max().item() for a, b in
+        zip(lm_mod.tree_leaves(pa), lm_mod.tree_leaves(pp))])
+    del pa, pp, params
+    print(f"(b) {MESH_LAYERS}-layer MoE LM, strict f32, batch {MESH_BATCH} "
+          f"x {LM_T}: plain step {plain_ms:.3f} ms; DP x TP x EP (1x1x1) "
+          f"step {mega_ms:.3f} ms, torch.equal to the plain step: {equal}; "
+          f"accumulation of {MESH_MICRO} {accum_ms:.3f} ms; GPipe of "
+          f"{MESH_MICRO} microbatches {pipe_ms:.3f} ms, largest |loss or "
+          f"param - accumulation's| {pipe_err:.3e}; launches plain {c0}, "
+          f"Megatron {c1}, pipeline {cp}")
+    check(equal, "the world-1 Megatron step is not torch.equal to the "
+          "plain step")
+    check(pipe_err <= TOL_PIPE, f"the pipeline step is {pipe_err:.3e} "
+          f"from accumulation (bar {TOL_PIPE})")
+    for name, c in (("Megatron", c1), ("pipeline", cp)):
+        check(c["flash_attention"] == c["flash_bwd"] == MESH_LAYERS
+              * (MESH_MICRO if name == "pipeline" else 1)
+              and c["flash_attention_plain"] == 0
+              and c["flash_block_bwd"] == 0,
+              f"K4/K7 did not launch in the {name} step: {c}")
+    return {"plain_ms": plain_ms, "megatron_ms": mega_ms,
+            "accum_ms": accum_ms, "pipeline_ms": pipe_ms,
+            "megatron_equal": equal, "pipeline_max_err": pipe_err,
+            "launches": {"plain": c0, "megatron": c1, "accum": ca,
+                         "pipeline": cp}}
+
+
+def avg_data(seed: int, dev):
+    """The char-RNN's rows for the averaging rounds: AVG_ROUNDS splits of
+    AVG_WORKERS x TRAIN_BATCH x AVG_FREQ sequences of SEQ one-hot
+    characters of the seeded Markov text."""
+    n = AVG_ROUNDS * AVG_WORKERS * TRAIN_BATCH * AVG_FREQ
+    text = markov_text(seed, n * SEQ + 1, [chr(32 + i) for i in
+                                           range(VOCAB)])
+    ids = np.frombuffer(text.encode("ascii"), np.uint8).astype(np.int64) - 32
+    eye = np.eye(VOCAB, dtype=np.float32)
+    x = eye[ids[:n * SEQ].reshape(n, SEQ)]
+    y = eye[ids[1:n * SEQ + 1].reshape(n, SEQ)]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def dist_data_parallel(seed: int, dev, data_group):
+    """(c) ParallelWrapper (ResNet-50), the averaging master, distributed
+    early stopping and the evaluator."""
+    from deeplearning4j_tpu_torch.earlystopping.distributed import (
+        DistributedEarlyStoppingTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel import training_master as ptm
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        ParallelWrapper,
+        average_trees,
+    )
+
+    torch.cuda.empty_cache()
+    x, y = image_batch(seed + 900, PW_BATCH, RESNET_SIZE, 1000, dev)
+    nets = [build_resnet50(input_size=RESNET_SIZE, device=dev,
+                           learning_rate=RESNET_LR) for _ in range(2)]
+    # the pair compared bit for bit runs cuDNN's deterministic algorithms
+    # (its default backward-filter ones may add in any order)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        l_serial = nets[0].fit(x, y)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        l_pw = ParallelWrapper(nets[1], group=data_group,
+                               device=dev).fit(x, y)
+        torch.cuda.synchronize()
+        pw_s = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    pw_equal = torch.equal(l_serial, l_pw) and all(
+        torch.equal(a, b) for a, b in zip(lm_mod.tree_leaves(nets[0].params),
+                                          lm_mod.tree_leaves(nets[1].params)))
+    del nets
+    print(f"(c) ParallelWrapper over the world-1 'data' group, ResNet-50 at "
+          f"{RESNET_SIZE}, batch {PW_BATCH}, cuDNN deterministic: "
+          f"{pw_s:.3f} s (net.fit {serial_s:.3f} s, first calls), "
+          f"torch.equal to net.fit: {pw_equal}")
+    check(pw_equal, "the ParallelWrapper step differs from net.fit")
+    torch.cuda.empty_cache()
+
+    ax, ay = avg_data(seed, dev)
+    conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed,
+                         tbptt_length=TBPTT, learning_rate=TRAIN_LR)
+    new_net = lambda: MultiLayerNetwork(conf, device=dev).init(  # noqa
+        input_shape=(1, VOCAB))
+    net, ref = new_net(), new_net()
+    master = ptm.ParameterAveragingTrainingMaster(
+        num_workers=AVG_WORKERS, batch_size_per_worker=TRAIN_BATCH,
+        averaging_frequency=AVG_FREQ, repartition=ptm.Repartition.NEVER,
+        collect_training_stats=True, device=dev)
+    kernels = (lstm_scan, lstm_scan_plain, lstm_scan_bwd,
+               lstm_scan_bwd_plain)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    master.execute_training(net, [DataSet(ax, ay)])
+    torch.cuda.synchronize()
+    avg_s = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    per_round = AVG_WORKERS * TRAIN_BATCH * AVG_FREQ
+    t0 = time.perf_counter()
+    for r in range(AVG_ROUNDS):
+        workers = []
+        for w in range(AVG_WORKERS):
+            wn = ref.clone()
+            for i in range(AVG_FREQ):
+                lo = r * per_round + i * AVG_WORKERS * TRAIN_BATCH \
+                    + w * TRAIN_BATCH
+                wn.fit(ax[lo:lo + TRAIN_BATCH], ay[lo:lo + TRAIN_BATCH])
+            workers.append(wn)
+        ref.params = average_trees([wn.params for wn in workers])
+        ref.updater_state = average_trees([wn.updater_state
+                                           for wn in workers])
+        ref.iteration = workers[0].iteration
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    avg_equal = all(torch.equal(a, b) for a, b in zip(
+        lm_mod.tree_leaves(net.params) + lm_mod.tree_leaves(
+            [u for u in net.updater_state]),
+        lm_mod.tree_leaves(ref.params) + lm_mod.tree_leaves(
+            [u for u in ref.updater_state]))
+        if torch.is_tensor(a))
+    fits = AVG_ROUNDS * AVG_WORKERS * AVG_FREQ
+    samples = AVG_ROUNDS * per_round
+    print(f"ParameterAveragingTrainingMaster: {AVG_WORKERS} in-process "
+          f"workers, frequency {AVG_FREQ}, {AVG_ROUNDS} rounds of "
+          f"{per_round} sequences of {SEQ} (char-RNN, 2 GravesLSTM x "
+          f"{LSTM_H}, TBPTT {TBPTT}, RMSProp): {samples / avg_s:.1f} "
+          f"samples/s against {samples / ref_s:.1f} for the explicit "
+          f"reference's serial fits; torch.equal to four nets fitted on "
+          f"their shards and averaged: {avg_equal}; launches {counts}")
+    check(avg_equal, "the averaging master differs from its explicit "
+          "reference")
+    check(counts["lstm_scan"] == counts["lstm_scan_bwd"] == 4 * fits
+          and counts["lstm_scan_plain"] == 0
+          and counts["lstm_scan_bwd_plain"] == 0,
+          f"K1/K2 did not launch 4 times per worker fit: {counts}")
+
+    es_net = new_net()
+    es_master = ptm.ParameterAveragingTrainingMaster(
+        num_workers=AVG_WORKERS, batch_size_per_worker=TRAIN_BATCH,
+        averaging_frequency=AVG_FREQ, device=dev)
+    es_cfg = es_mod.EarlyStoppingConfiguration(
+        epoch_terminations=[es_mod.MaxEpochsTerminationCondition(2)])
+    t0 = time.perf_counter()
+    res = DistributedEarlyStoppingTrainer(
+        es_cfg, es_master, es_net, [DataSet(ax, ay)], device=dev).fit()
+    es_s = time.perf_counter() - t0
+    print(f"DistributedEarlyStoppingTrainer, MaxEpochs(2): {res.total_epochs}"
+          f" epochs ({res.termination_reason}), best score "
+          f"{res.best_model_score:.5f}, {es_s:.1f} s")
+    check(res.total_epochs == 2 and res.best_model is not None,
+          "distributed early stopping did not run its 2 epochs")
+    data = [DataSet(ax[i:i + 64], ay[i:i + 64]) for i in range(0, 512, 64)]
+    merged = ptm.DistributedEvaluator(num_shards=4).evaluate(net, data)
+    serial = ptm.DistributedEvaluator(num_shards=1).evaluate(net, data)
+    print(f"DistributedEvaluator over 4 shards: accuracy "
+          f"{merged.accuracy():.5f}, serial {serial.accuracy():.5f}")
+    check(merged.accuracy() == serial.accuracy()
+          and merged.f1() == serial.f1(),
+          "the merged evaluation differs from the serial one")
+    return net, counts, {
+        "pw_equal": pw_equal, "pw_s": pw_s, "fit_s": serial_s,
+        "avg_equal": avg_equal, "avg_samples_per_s": samples / avg_s,
+        "serial_samples_per_s": samples / ref_s, "launches": counts,
+        "es_epochs": res.total_epochs, "es_s": es_s,
+        "eval_accuracy": merged.accuracy(),
+        "stats": master.get_training_stats().summary()}
+
+
+def dist_checkpoint(lm: TransformerLM, net: MultiLayerNetwork, seed: int,
+                    dev):
+    """(d) save_lm / restore_lm of the MoE LM, and one sharded
+    CheckpointManager save and restore_latest of the char-RNN."""
+    from deeplearning4j_tpu_torch.utils import sharded_checkpoint as sc
+
+    probe = lm_batch(seed + 950, dev)[0][:2, :256]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_lm")
+        t0 = time.perf_counter()
+        sc.save_lm(path, lm)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(path) for f in fs)
+        want = lm.logits(probe)
+        t0 = time.perf_counter()
+        back = sc.restore_lm(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = torch.equal(back.logits(probe), want)
+        del back
+        mgr = pres.CheckpointManager(os.path.join(tmp, "ck"),
+                                     backend="sharded", async_save=False)
+        t0 = time.perf_counter()
+        cpath = mgr.save(net, step=1)
+        msave_s = time.perf_counter() - t0
+        msize = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(cpath) for f in fs)
+        fresh = MultiLayerNetwork(net.conf, device=dev).init(
+            input_shape=(1, VOCAB))
+        t0 = time.perf_counter()
+        info = mgr.restore_latest(fresh)
+        mload_s = time.perf_counter() - t0
+        mgr.close()
+        msame = all(torch.equal(a, b) for a, b in zip(
+            lm_mod.tree_leaves(fresh.params), lm_mod.tree_leaves(net.params)))
+    print(f"(d) save_lm of the MoE LM: {size / 2**20:.1f} MB in "
+          f"{save_s:.2f} s, restore_lm {load_s:.2f} s, logits torch.equal: "
+          f"{same}; CheckpointManager(backend='sharded') of the char-RNN: "
+          f"{msize / 2**20:.1f} MB saved in {msave_s:.3f} s, restore_latest "
+          f"(step {info['step']}) in {mload_s:.3f} s, params equal: {msame}")
+    check(same, "the restored MoE LM's logits differ")
+    check(msame and info["step"] == 1, "the sharded manager's restore "
+          "differs")
+    return {"lm_mb": size / 2**20, "lm_save_s": save_s,
+            "lm_restore_s": load_s, "manager_mb": msize / 2**20,
+            "manager_save_s": msave_s, "manager_restore_s": mload_s}
+
+
+def phase_distributed(seed: int, dev):
+    """MoE, Megatron, the pipeline, the data-parallel trainers and the
+    sharded checkpoint on world-1 NCCL groups (module docstring)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+
+    print("== distributed training on world-1 NCCL groups ==")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_seq_group(os.path.join(tmp, "dist_store"), 0, 1,
+                       backend="nccl")
+        try:
+            lm, moe_counts, moe = dist_moe(seed, dev)
+            mesh = dist_mesh_steps(seed, dev)
+            data = device_mesh((1,), ("data",)).group("data")
+            net, lstm_counts, dp = dist_data_parallel(seed, dev, data)
+            ckpt = dist_checkpoint(lm, net, seed, dev)
+        finally:
+            dist.destroy_process_group()
+    del lm, net
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"distributed phase: {wall:.1f} s")
+    counts = {"flash_attention": moe_counts["flash_attention"],
+              "flash_bwd": moe_counts["flash_bwd"],
+              "lstm_scan": lstm_counts["lstm_scan"],
+              "lstm_scan_bwd": lstm_counts["lstm_scan_bwd"]}
+    return counts, {"moe": moe, "mesh_steps": mesh, "data_parallel": dp,
+                    "sharded_checkpoint": ckpt, "wall_s": wall}
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -7175,8 +7629,11 @@ def main(argv=None) -> int:
     search_counts, search = phase_search(args.seed, dev, card)
     peak_search = torch.cuda.max_memory_allocated()
     runtime = phase_runtime(args.seed, dev)
+    torch.cuda.reset_peak_memory_stats()
+    dist_counts, distributed = phase_distributed(args.seed, dev)
+    peak_dist = torch.cuda.max_memory_allocated()
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
-               peak_bert, peak_cnn, peak_graph, peak_search,
+               peak_bert, peak_cnn, peak_graph, peak_search, peak_dist,
                torch.cuda.max_memory_allocated())
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
@@ -7190,7 +7647,8 @@ def main(argv=None) -> int:
           f"{peak_lm / 2**30:.3f} GiB; BERT {peak_bert / 2**30:.3f} GiB; "
           f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB; ComputationGraph "
           f"{peak_graph / 2**30:.3f} GiB; /search "
-          f"{peak_search / 2**30:.3f} GiB); "
+          f"{peak_search / 2**30:.3f} GiB; distributed "
+          f"{peak_dist / 2**30:.3f} GiB); "
           f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
@@ -7224,6 +7682,7 @@ def main(argv=None) -> int:
          "launches_models_lifecycle": serving_planes["lifecycle"][
              "launches"]["flash_attention"],
          "launches_ulysses_train": uly_counts["flash_attention"],
+         "launches_distributed_moe": dist_counts["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
@@ -7286,6 +7745,7 @@ def main(argv=None) -> int:
          "launches_graph": graph_counts["lstm_scan"],
          "launches_runtime": {m: c["lstm_scan"] for m, c in
                               runtime["resilient"]["launches"].items()},
+         "launches_distributed_averaging": dist_counts["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -7306,6 +7766,7 @@ def main(argv=None) -> int:
          "launches_graph": graph_counts["lstm_scan_bwd"],
          "launches_runtime": {m: c["lstm_scan_bwd"] for m, c in
                               runtime["resilient"]["launches"].items()},
+         "launches_distributed_averaging": dist_counts["lstm_scan_bwd"],
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -7373,6 +7834,7 @@ def main(argv=None) -> int:
          "launches_ring_train": rt_counts["flash_bwd"],
          "launches_ulysses_train": uly_counts["flash_bwd"],
          "launches_bert": bert_counts["flash_bwd"],
+         "launches_distributed_moe": dist_counts["flash_bwd"],
          "max_abs_err": max(errs["flash_bwd"]["max_err"], k7_bert["max_err"],
                             *(c["max_err_vs_plain_chain"] for c in
                               ring_train["ring_backward"].values())),
@@ -7402,6 +7864,7 @@ def main(argv=None) -> int:
                   "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
                   "graph": graph, "embed": embed, "search": search,
                   "obs": obs_rep, "runtime": runtime,
+                  "distributed": distributed,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

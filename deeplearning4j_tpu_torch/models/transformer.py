@@ -2,54 +2,76 @@
 (counterpart: ``deeplearning4j_tpu/models/transformer.py``).
 
 Ported: ``TransformerConfig`` (same fields and defaults), ``init_params``
-(same distributions, a ``torch.Generator`` in place of ``jax.random``),
-``_ln``, ``_attention``, ``forward`` (:316), ``nll_loss`` (:381),
-``loss_fn``, ``prefill_cache`` (:756), ``decode_step`` (:808),
-``ring_forward`` (:695, the long-context forward with attention
-sequence-parallel over the ``'seq'`` group, ``parallel/sequence_parallel.py``),
-the training step (``init_opt_state`` :409, ``_clip_by_global_norm``,
-``_decay_mask``, ``_adam_update``, ``_validate_schedule``,
-``_scheduled_lr``, ``_build_step`` :540 with gradient accumulation and
-the bf16 loss-scaled branch of ``ops/lowprec.py``, ``make_train_step``
-:642, ``make_train_multi_step`` :669, ``_multi_from_step`` :1133) and
-the sequence-parallel training step (``make_ring_train_step`` :860,
-``_build_ring_step`` :880, ``_ring_step_shardings`` :907 as
-:func:`ring_step_block`, ``make_ring_train_multi_step`` :919: ring or
-Ulysses over the ``'seq'`` group, DP x SP over a ``parallel/mesh``
-``MeshGroups``) and ``TransformerLM`` (:1155: ``fit``, ``fit_batches``,
-``fit_iterator``, ``evaluate``, ``output``, ``save``/``load`` in the JAX
-zip layout, ``from_state``, ``generate`` with top-k/top-p and its two
-samplers, and the sequence mode ``_sequence_mode`` :1198 / ``_make_step``
-:1201: ``TransformerLM(cfg, group=...)``), plus :func:`params_from_numpy`
-for a JAX parameter tree handed over as numpy. Not ported yet: the
-pipeline mode, MoE (an MoE config raises) and ``measure_memory`` (an XLA
-AOT ledger; ``torch.cuda.max_memory_allocated`` stands in on the card).
+(same distributions, dense and MoE, a ``torch.Generator`` in place of
+``jax.random``), ``_ln``, ``_attention``, ``_dense_block_f32`` (as
+:func:`_block`), ``_moe_ffn`` :293, ``_moe_block`` :321, ``forward``
+:340 (MoE aux included), ``nll_loss`` :381, ``loss_fn`` :398,
+``ring_forward`` :695 (the long-context forward with attention
+sequence-parallel over the ``'seq'`` group, MoE routing over the whole
+sequence), ``prefill_cache`` :756, ``_moe_ffn_decode`` :796 and
+``decode_step`` :808, the training step (``init_opt_state`` :409,
+``_clip_by_global_norm``, ``_decay_mask``, ``_adam_update``,
+``_validate_schedule``, ``_scheduled_lr``, ``_build_step`` :540 with
+gradient accumulation, the grouped MoE objective and the bf16
+loss-scaled branch of ``ops/lowprec.py``, ``make_train_step`` :642 and
+``make_train_multi_step`` :669 with or without a ``data`` x ``model`` x
+``expert`` mesh, ``_multi_from_step`` :1133), the layout of a mesh's
+params (``param_specs`` :168, ``pipeline_param_shardings`` :1025 and
+``param_shardings_for_mesh`` :211 as :func:`param_specs_for_mesh`, with
+:func:`shard_params` and :func:`gather_params`), the sequence-parallel
+step (``make_ring_train_step`` :860, ``_build_ring_step`` :880,
+``_ring_step_shardings`` :907 as :func:`ring_step_block`,
+``make_ring_train_multi_step`` :919), the pipeline (``pipeline_forward``
+:941, ``make_pipeline_train_step`` :1054, ``_build_pipeline_step``
+:1074, ``make_pipeline_train_multi_step`` :1114) and ``TransformerLM``
+(:1155: ``fit``, ``fit_batches``, ``fit_iterator``, ``evaluate``,
+``output``, ``save``/``load`` in the JAX zip layout, ``from_state``,
+``generate`` with top-k/top-p and its two samplers, and the dispatch on
+the group's mesh :1158-1207), plus :func:`params_from_numpy` for a JAX
+parameter tree handed over as numpy. Not ported: ``measure_memory`` (an
+XLA AOT ledger; ``torch.cuda.max_memory_allocated`` stands in on the
+card).
 
-What GSPMD does for the JAX ring step is explicit here: each rank takes
-its [N / data, T / seq] block of the global batch, runs
-:func:`ring_forward` on it and differentiates its own mean NLL; the ring's
-and Ulysses' collectives carry the cotangents between the ranks of the
-``'seq'`` group, so each rank's gradient is that of the sum of its
-group's losses. The loss and every gradient leaf are then summed over
-the whole ``data x seq`` world and divided by its size (equal blocks: the
-mean of the ranks' means is the global mean, and the sum of the ranks'
-``pos`` slices is its gradient), and every rank runs the same clip and
-Adam on the same bits, so the params stay bit-equal on every rank.
+What GSPMD does for the JAX mesh steps is explicit here: each rank takes
+its share of the GLOBAL batch and runs the forward on its shards, with
+the collectives of ``parallel/mesh.py`` where GSPMD would put them.
+Sequence mode: each rank runs :func:`ring_forward` on its [N / data,
+T / seq] block; the ring's and Ulysses' collectives carry the cotangents
+between the ranks of the ``'seq'`` group; the loss and every gradient
+leaf are summed over the ``data x seq`` world and divided by its size.
+Megatron mode (:func:`make_train_step` with a mesh): a rank holds the
+column shards of ``Wq``/``Wk``/``Wv``/``W1`` (its heads and d_ff
+columns), the row shards of ``Wo``/``W2``, its d columns of ``embed``
+and its experts; ``copy_to`` and ``psum`` pair up around each block's
+two products and the tied head; the MoE routing gathers the ``'data'``
+ranks' counts so the slots are the global batch's; the loss and the
+gradients are averaged over ``'data'``. Pipeline mode: each rank holds
+its stage's layers and runs the GPipe schedule of
+``parallel/pipeline_parallel.py``. In every mode each rank runs the same
+clip and Adam on the same bits wherever it holds a replica, so the
+replicas stay bit-equal. The JAX package turns flash attention off under
+a mesh (its Pallas call does not partition under GSPMD); here every rank
+keeps ``FlashFn`` on its own heads.
 
 Parameters are a dict in the JAX layout: ``embed`` [V, d], ``pos``
 [max_len, d], ``lnf_g``/``lnf_b`` [d], and ``blocks`` whose leaves are
-stacked per layer as [L, ...]. Under ``dtype_policy="performance"`` the
-blocks compute in bf16: training casts each f32 master to bf16 at each
-use inside the autograd graph, as the JAX forward does, so gradients
-reach the masters in f32; inference reads one compute-dtype copy of the
-block weights (:func:`compute_params`, rebuilt after each optimizer
-step) — the cast gives the same values. ``embed``, ``pos`` and the final
-LN stay f32: the tied head is ``h @ embed.T`` after an f32 final LN (at
-least f32: f64 stays f64, the gradient-check mode of the tests).
+stacked per layer as [L, ...] (MoE: ``Wg`` [L, d, E], ``W1``
+[L, E, d, f], ``b1`` [L, E, f], ``W2`` [L, E, f, d], ``b2`` [L, E, d]).
+Under ``dtype_policy="performance"`` the blocks compute in bf16:
+training casts each f32 master to bf16 at each use inside the autograd
+graph, as the JAX forward does, so gradients reach the masters in f32;
+inference reads one compute-dtype copy of the block weights
+(:func:`compute_params`, rebuilt after each optimizer step) — the cast
+gives the same values. ``embed``, ``pos`` and the final LN stay f32: the
+tied head is ``h @ embed.T`` after an f32 final LN (at least f32: f64
+stays f64, the gradient-check mode of the tests).
 
 Attention with ``use_flash`` goes through ``ops/flash_attention.FlashFn``
 on both devices: K4 forward and K7 backward on the card, their plain
-versions (the same autograd function) on the CPU.
+versions (the same autograd function) on the CPU. The MoE FFN computes
+the JAX package's dispatch and combine by index
+(``parallel/expert_parallel.moe_ffn``); its expert products are
+``torch.bmm``.
 
 Steps are plain functions over the params dict, returning ``(params,
 opt, loss)``; every scalar of the schedule, Adam's bias correction and
@@ -75,13 +97,27 @@ from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
 from deeplearning4j_tpu_torch.ops.flash_attention import attention_auto
 from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.ops.remat import remat_wrap
-from deeplearning4j_tpu_torch.parallel.mesh import as_mesh
+from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPELINE_AXIS,
+    SEQUENCE_AXIS,
+    MeshGroups,
+    as_mesh,
+    copy_to,
+    gather_from,
+    group_size,
+    psum,
+)
 
 Params = Dict[str, Any]
 
 TOP_KEYS = ("embed", "pos", "lnf_g", "lnf_b")
 BLOCK_KEYS = ("ln1_g", "ln1_b", "Wq", "Wk", "Wv", "Wo", "ln2_g", "ln2_b",
               "W1", "b1", "W2", "b2")
+MOE_BLOCK_KEYS = BLOCK_KEYS[:8] + ("Wg",) + BLOCK_KEYS[8:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,10 +154,11 @@ class TransformerConfig:
                 else torch.float32)
 
 
-def check_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts:
-        raise ValueError("MoE transformers are not ported yet (capacity "
-                         "routing is batch-dependent; dense configs only)")
+def _validate_moe(cfg: TransformerConfig) -> None:
+    """An MoE config's top-k must name experts that exist."""
+    if cfg.moe_experts and not 1 <= cfg.moe_top_k <= cfg.moe_experts:
+        raise ValueError(f"MoE moe_top_k {cfg.moe_top_k} must be in "
+                         f"[1, moe_experts={cfg.moe_experts}]")
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +170,11 @@ def init_params(cfg: TransformerConfig, *, device=None) -> Params:
     """Random f32 params with the JAX package's distributions
     (``transformer.py:115-165``): xavier-normal q/k/v/W1, depth-scaled
     N(0, 0.02/sqrt(2L)) Wo/W2, N(0, 0.02) embed, N(0, 0.01) pos, unit LN
-    scales, zero biases. Drawn from a ``torch.Generator`` seeded with
-    ``cfg.seed`` on ``device``; the bits differ from ``jax.random``."""
-    check_dense(cfg)
+    scales, zero biases; with ``moe_experts`` E, a gate ``Wg`` [L, d, E]
+    and E experts a layer (``W1`` [L, E, d, f], ``W2`` [L, E, f, d], their
+    biases). Drawn from a ``torch.Generator`` seeded with ``cfg.seed`` on
+    ``device``; the bits differ from ``jax.random``."""
+    _validate_moe(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(cfg.seed))
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
@@ -159,9 +198,19 @@ def init_params(cfg: TransformerConfig, *, device=None) -> Params:
         "Wq": xavier((L, d, d)), "Wk": xavier((L, d, d)),
         "Wv": xavier((L, d, d)), "Wo": norm((L, d, d), depth),
         "ln2_g": ones((L, d)), "ln2_b": zeros((L, d)),
-        "W1": xavier((L, d, f)), "b1": zeros((L, f)),
-        "W2": norm((L, f, d), depth), "b2": zeros((L, d)),
     }
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        blocks.update({
+            "Wg": xavier((L, d, E)),
+            "W1": xavier((L, E, d, f)), "b1": zeros((L, E, f)),
+            "W2": norm((L, E, f, d), depth), "b2": zeros((L, E, d)),
+        })
+    else:
+        blocks.update({
+            "W1": xavier((L, d, f)), "b1": zeros((L, f)),
+            "W2": norm((L, f, d), depth), "b2": zeros((L, d)),
+        })
     return {
         "embed": norm((cfg.vocab_size, d), 0.02),
         "pos": norm((cfg.max_len, d), 0.01),
@@ -173,21 +222,23 @@ def init_params(cfg: TransformerConfig, *, device=None) -> Params:
 def params_from_numpy(tree: Params, *, device=None) -> Params:
     """The port's params from a JAX parameter tree handed over as numpy
     arrays in the JAX layout (top level ``embed``/``pos``/``lnf_g``/
-    ``lnf_b``, per-layer leaves stacked under ``blocks``). The f32 values
-    are carried bit for bit."""
+    ``lnf_b``, per-layer leaves stacked under ``blocks``, dense or MoE).
+    The f32 values are carried bit for bit."""
     dev = resolve_device(device)
     want = set(TOP_KEYS) | {"blocks"}
-    if set(tree) != want or set(tree["blocks"]) != set(BLOCK_KEYS):
+    got = set(tree.get("blocks", {}))
+    if set(tree) != want or got not in (set(BLOCK_KEYS), set(MOE_BLOCK_KEYS)):
         raise ValueError(
-            f"not a dense TransformerLM tree: top {sorted(tree)}, blocks "
-            f"{sorted(tree.get('blocks', {}))}")
+            f"not a dense TransformerLM tree nor an MoE one: top "
+            f"{sorted(tree)}, blocks {sorted(got)}")
 
     def leaf(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
         return torch.from_numpy(a.copy()).to(dev)
 
     out = {k: leaf(tree[k]) for k in TOP_KEYS}
-    out["blocks"] = {k: leaf(tree["blocks"][k]) for k in BLOCK_KEYS}
+    keys = MOE_BLOCK_KEYS if "Wg" in got else BLOCK_KEYS
+    out["blocks"] = {k: leaf(tree["blocks"][k]) for k in keys}
     return out
 
 
@@ -244,25 +295,98 @@ def _layers(blocks: Params):
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
-def _block(bp: Params, h, cfg: TransformerConfig, attend):
-    """One dense block in the compute dtype (the JAX package's
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """How one rank's share of a step is laid out (the JAX package's
+    GSPMD shardings, made explicit): ``model`` the Megatron group (heads,
+    d_ff and ``embed``'s d split over it), ``experts`` the expert shards
+    of the MoE FFN, ``route`` the ranks whose tokens share one MoE
+    routing (``'data'``/``'seq'``). Absent groups are None."""
+
+    model: object = None
+    experts: Optional[ep.ExpertGroups] = None
+    route: Optional[ep.RouteGroups] = None
+
+
+def _block(bp: Params, h, cfg: TransformerConfig, attend, ffn=None,
+           model=None):
+    """One block in the compute dtype (the JAX package's
     ``_dense_block_f32`` with the same cast discipline): pre-LN
-    attention, residual, pre-LN tanh-GELU MLP, residual. ``attend`` maps
-    (q, k, v) [N, T, d] to the attention output."""
+    attention, residual, pre-LN FFN, residual. ``attend`` maps (q, k, v)
+    [N, T, d_local] to the attention output; ``ffn`` maps the normed
+    input to the FFN's residual delta (default: the tanh-GELU MLP, or for
+    an MoE config the no-drop MoE of :func:`_moe_ffn_decode`). ``model``:
+    the Megatron group — the block's weights are this rank's column and
+    row shards, and the two sums after ``Wo`` and ``W2`` run over it."""
     cdt = cfg.compute_dtype
     c = lambda a: a.to(cdt)
-    x = _ln(h, c(bp["ln1_g"]), c(bp["ln1_b"]))
+    x = copy_to(_ln(h, c(bp["ln1_g"]), c(bp["ln1_b"])), model)
     q, k, v = x @ c(bp["Wq"]), x @ c(bp["Wk"]), x @ c(bp["Wv"])
-    h = h + attend(q, k, v) @ c(bp["Wo"])
+    h = h + psum(attend(q, k, v) @ c(bp["Wo"]), model)
     x = _ln(h, c(bp["ln2_g"]), c(bp["ln2_b"]))
+    if ffn is None and cfg.moe_experts:
+        ffn = lambda xx: _moe_ffn_decode(bp, xx, cfg)
+    if ffn is not None:
+        return h + ffn(x)
+    x = copy_to(x, model)
     # jax.nn.gelu defaults to the tanh approximation
     inner = F.gelu(x @ c(bp["W1"]) + c(bp["b1"]), approximate="tanh")
-    return h + inner @ c(bp["W2"]) + c(bp["b2"])
+    return h + psum(inner @ c(bp["W2"]), model) + c(bp["b2"])
 
 
-def _embed(params: Params, tokens, cfg: TransformerConfig, start: int = 0):
+def _moe_ffn(bp: Params, x, cfg: TransformerConfig, capacity: int = 0,
+             shards: Optional[Shards] = None, stats=None):
+    """The MoE FFN of one block (``transformer.py:293``): x [N, T, d]
+    (this rank's tokens) -> (y, aux). ``capacity`` 0 is the standard
+    ``int(factor * N * T * k / E)`` over the routed batch (every rank of
+    ``shards.route``); ``parallel/expert_parallel.moe_ffn`` routes by
+    index."""
+    n, t, d = x.shape
+    shards = shards or Shards()
+    route = shards.route
+    if not capacity:
+        n_all = n * (1 if route is None else group_size(route.data))
+        t_all = t * (1 if route is None else group_size(route.seq))
+        capacity = max(1, int(cfg.moe_capacity_factor * n_all * t_all
+                              * cfg.moe_top_k / cfg.moe_experts))
+    y, aux = ep.moe_ffn(x.reshape(n * t, d), bp, top_k_=cfg.moe_top_k,
+                        capacity=capacity, rows=n, route=route,
+                        shards=shards.experts, stats=stats)
+    return y.reshape(n, t, d), aux
+
+
+def _moe_ffn_decode(bp: Params, x, cfg: TransformerConfig):
+    """The MoE FFN of a decode step (``transformer.py:796``): the no-drop
+    capacity N * T (a streamed token competes only with its own step's),
+    so decode matches the batch forward wherever that drops nothing."""
+    n, t, _ = x.shape
+    return _moe_ffn(bp, x, cfg, capacity=n * t)[0]
+
+
+def _moe_block(bp: Params, h, cfg: TransformerConfig, attend,
+               shards: Optional[Shards] = None, stats=None,
+               capacity: int = 0):
+    """One block with the MoE FFN (``transformer.py:321``) -> (h, aux)."""
+    shards = shards or Shards()
+    cap = {}
+
+    def ffn(x):
+        y, cap["aux"] = _moe_ffn(bp, x, cfg, capacity=capacity,
+                                 shards=shards, stats=stats)
+        return y
+
+    h = _block(bp, h, cfg, attend, ffn=ffn, model=shards.model)
+    return h, cap["aux"]
+
+
+def _embed(params: Params, tokens, cfg: TransformerConfig, start: int = 0,
+           model=None):
+    """Token and position embeddings in the compute dtype; under
+    ``model`` each rank holds ``embed``'s d columns of its shard, and the
+    rows are gathered whole."""
     t = tokens.shape[1]
-    h = params["embed"][tokens.long()] + params["pos"][start:start + t][None]
+    e = gather_from(params["embed"][tokens.long()], model, dim=-1)
+    h = e + params["pos"][start:start + t][None]
     return h.to(cfg.compute_dtype)
 
 
@@ -276,28 +400,59 @@ def _final_ln(params: Params, h):
     return _ln(_at_least_f32(h), params["lnf_g"], params["lnf_b"])
 
 
-def _head(params: Params, h):
-    """The tied head on the final LN's output: h @ embed.T in h's dtype."""
-    return h @ params["embed"].to(h.dtype).T
+def _head(params: Params, h, model=None):
+    """The tied head on the final LN's output: h @ embed.T in h's dtype.
+    Under ``model`` a rank holds d/p columns of ``embed``: its logits are
+    a partial sum over its columns, summed over the group."""
+    if group_size(model) == 1:
+        return h @ params["embed"].to(h.dtype).T
+    import torch.distributed as tdist
+
+    dl = params["embed"].shape[1]
+    i = tdist.get_rank(model)
+    h = copy_to(h, model)[..., i * dl:(i + 1) * dl]
+    return psum(h @ params["embed"].to(h.dtype).T, model)
 
 
-def forward(params: Params, tokens, cfg: TransformerConfig
+def _local_heads(cfg: TransformerConfig, model) -> int:
+    p = group_size(model)
+    if cfg.n_heads % p:
+        raise ValueError(f"n_heads {cfg.n_heads} not divisible by "
+                         f"model-axis size {p}")
+    return cfg.n_heads // p
+
+
+def forward(params: Params, tokens, cfg: TransformerConfig,
+            shards: Optional[Shards] = None, stats=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [N, T] int -> (logits [N, T, V] f32, aux_loss 0): the JAX
-    ``forward`` for dense models (aux is the MoE load-balance loss). While
-    gradients are recorded each block runs under the remat policy
-    (``cfg.remat``, ``ops/remat.py``)."""
-    check_dense(cfg)
-    h = _embed(params, tokens, cfg)
-    attend = lambda q, k, v: _attention(q, k, v, cfg.n_heads,
+    """tokens [N, T] int -> (logits [N, T, V] f32, aux): the JAX
+    ``forward`` (:340); aux is the MoE load-balance loss averaged over
+    the layers (0 for dense models). While gradients are recorded each
+    block runs under the remat policy (``cfg.remat``, ``ops/remat.py``).
+    ``shards``: this rank's share of a Megatron / expert-parallel step
+    (``params`` then hold this rank's shards, :func:`shard_params`)."""
+    shards = shards or Shards()
+    model = shards.model
+    h = _embed(params, tokens, cfg, model=model)
+    heads = _local_heads(cfg, model)
+    attend = lambda q, k, v: _attention(q, k, v, heads,
                                         use_flash=cfg.use_flash)
-    block = (remat_wrap(_block, cfg.remat) if torch.is_grad_enabled()
-             else _block)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.moe_experts:
+        def body(bp, h):
+            return _moe_block(bp, h, cfg, attend, shards=shards,
+                              stats=stats)
+    else:
+        def body(bp, h):
+            return _block(bp, h, cfg, attend, model=model), None
+    block = (remat_wrap(body, cfg.remat) if torch.is_grad_enabled()
+             else body)
     for bp in _layers(params["blocks"]):
-        h = block(bp, h, cfg, attend)
-    logits = _at_least_f32(_head(params, _final_ln(params, h)))
-    return logits, torch.zeros((), dtype=torch.float32,
-                               device=logits.device)
+        h, a = block(bp, h)
+        if a is not None:
+            aux = aux + a
+    logits = _at_least_f32(_head(params, _final_ln(params, h), model))
+    return logits, aux / cfg.n_layers
 
 
 def nll_loss(logits, targets, mask=None):
@@ -314,13 +469,15 @@ def nll_loss(logits, targets, mask=None):
     return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
-def loss_fn(params: Params, tokens, targets, cfg: TransformerConfig):
-    logits, aux = forward(params, tokens, cfg)
+def loss_fn(params: Params, tokens, targets, cfg: TransformerConfig,
+            shards: Optional[Shards] = None):
+    logits, aux = forward(params, tokens, cfg, shards)
     return nll_loss(logits, targets) + cfg.moe_aux_coef * aux
 
 
 def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
-                 strategy: str = "ring") -> torch.Tensor:
+                 strategy: str = "ring", return_aux: bool = False,
+                 route: Optional[ep.RouteGroups] = None):
     """The forward with attention sequence-parallel over ``group``, for
     sequences sharded over ranks: ``tokens`` [N, T_local] is this rank's
     shard (rank r holds positions r * T_local ..), embedded with its own
@@ -328,14 +485,17 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
     attention (``strategy="ring"``: K/V shards rotate, each step through
     K5; ``"ulysses"``: two head <-> sequence all-to-alls around K4 over
     all T, heads divisible by the world size). Returns this rank's
-    logits [N, T_local, V] f32. Dense configs only. Differentiable across
-    the group (``parallel/sequence_parallel.py``)."""
+    logits [N, T_local, V] f32. Differentiable across the group
+    (``parallel/sequence_parallel.py``). MoE blocks route the tokens of
+    every rank of ``route`` as one batch (by default the ``'seq'`` group:
+    the whole sequence, as GSPMD routes the JAX ring step's global
+    array); ``return_aux`` also returns the load-balance loss (the SP
+    training objective, :753)."""
     from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
         ring_attention_sharded,
         ulysses_attention_sharded,
     )
 
-    check_dense(cfg)
     if strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
     sharded_att = (ring_attention_sharded if strategy == "ring"
@@ -349,9 +509,20 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
         return out.reshape(n, t, cfg.d_model)
 
     h = _embed(params, tokens, cfg, start=dist.get_rank(group) * t)
+    if route is None:
+        route = ep.RouteGroups(seq=group, seq_index=dist.get_rank(group))
+    shards = Shards(route=route)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for bp in _layers(params["blocks"]):
-        h = _block(bp, h, cfg, attend)
-    return _at_least_f32(_head(params, _final_ln(params, h)))
+        if cfg.moe_experts:
+            h, a = _moe_block(bp, h, cfg, attend, shards=shards)
+            aux = aux + a
+        else:
+            h = _block(bp, h, cfg, attend)
+    logits = _at_least_f32(_head(params, _final_ln(params, h)))
+    if return_aux:
+        return logits, aux / cfg.n_layers
+    return logits
 
 
 def prefill_cache(params: Params, tokens, cfg: TransformerConfig
@@ -359,8 +530,8 @@ def prefill_cache(params: Params, tokens, cfg: TransformerConfig
     """Run the prompt once: (cache, hidden). cache leaves are
     [L, N, max_len, H, hd] in the compute dtype, zero beyond the prompt
     (decode's position mask never reads them); hidden [N, T, d] is f32
-    after the final LN. Same block body and casts as :func:`forward`."""
-    check_dense(cfg)
+    after the final LN. Same block body and casts as :func:`forward`
+    (MoE blocks route the prompt with the standard capacity)."""
     n, t = tokens.shape
     hd = cfg.d_model // cfg.n_heads
     h = _embed(params, tokens, cfg)
@@ -373,7 +544,11 @@ def prefill_cache(params: Params, tokens, cfg: TransformerConfig
             vs[layer, :, :t] = v.reshape(n, t, cfg.n_heads, hd)
             return _attention(q, k, v, cfg.n_heads, use_flash=cfg.use_flash)
 
-        h = _block(_layer(params["blocks"], layer), h, cfg, attend)
+        bp = _layer(params["blocks"], layer)
+        if cfg.moe_experts:
+            h, _ = _moe_block(bp, h, cfg, attend)
+        else:
+            h = _block(bp, h, cfg, attend)
     return {"k": ks, "v": vs}, _final_ln(params, h)
 
 
@@ -384,8 +559,8 @@ def decode_step(params: Params, cache: Params, tok, pos: int,
     :func:`prefill_cache`, in place) and return (cache, logits [N, V] for
     position pos + 1). Attention reads the whole max_len cache under an
     ``arange <= pos`` mask, in f32, as a plain einsum (XLA's in the JAX
-    package). Same block body and casts as :func:`forward`."""
-    check_dense(cfg)
+    package). Same block body and casts as :func:`forward`; MoE blocks
+    route through :func:`_moe_ffn_decode` (no-drop capacity)."""
     n = tok.shape[0]
     hd = cfg.d_model // cfg.n_heads
     h = (params["embed"][tok.long()] + params["pos"][pos])[:, None, :]
@@ -533,17 +708,33 @@ def value_and_grad(loss_of, params: Params):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def _build_step(cfg: TransformerConfig):
+def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
     """The optimizer step of :func:`make_train_step`: loss and gradients
-    (a loop of ``accum_steps`` microbatches whose mean-of-means equals the
-    full batch's), the bf16 loss-scaled branch under ``DL4J_TPU_BF16``
-    (read here, and kept as the step's ``loss_scaled``: its opt dict must
-    come from ``init_opt_state(params, step.loss_scaled)``), Adam.
-    Validates the config loudly."""
-    check_dense(cfg)
+    (a loop of ``accum_steps`` microbatches: for dense configs their
+    mean-of-means is the full batch's, for MoE the grouped objective,
+    one routing group per microbatch), the bf16 loss-scaled branch under
+    ``DL4J_TPU_BF16`` (read here, and kept as the step's ``loss_scaled``:
+    its opt dict must come from ``init_opt_state(params, step.loss_scaled)``),
+    Adam. With ``mesh`` (``data`` x ``model`` x ``expert``) each rank
+    takes its rows of every microbatch, its params are its
+    :func:`shard_params` shards, and the loss and the gradients are
+    averaged over ``'data'``. Validates the config loudly."""
+    _validate_moe(cfg)
     _validate_schedule(cfg)
     accum_steps = cfg.accum_steps
     lp = lowprec.train_policy()
+    shards, data = None, None
+    if mesh is not None:
+        if mesh.has(SEQUENCE_AXIS) or mesh.has(PIPELINE_AXIS):
+            raise ValueError("make_train_step's mesh is data x model x "
+                             "expert (the ring and pipeline steps take "
+                             "'seq' and 'pipe')")
+        if lp and (mesh.size(MODEL_AXIS) > 1 or mesh.size(EXPERT_AXIS) > 1):
+            raise ValueError("DL4J_TPU_BF16 is not supported on the Megatron "
+                             "training path yet")
+        _reject_sharded_clip(cfg, mesh)
+        shards = mesh_shards(mesh)
+        data = mesh.group(DATA_AXIS)
 
     def step(params, opt, tokens, targets):
         if lp:
@@ -554,33 +745,36 @@ def _build_step(cfg: TransformerConfig):
             scale = ls["scale"]
 
             def grad_loss(p, x, y):
-                return loss_fn(lowprec.cast_tree(p), x, y,
-                               cfg).to(torch.float32) * scale
+                return loss_fn(lowprec.cast_tree(p), x, y, cfg,
+                               shards).to(torch.float32) * scale
         else:
             ls, base = None, opt
 
             def grad_loss(p, x, y):
-                return loss_fn(p, x, y, cfg)
+                return loss_fn(p, x, y, cfg, shards)
 
-        if accum_steps == 1:
-            loss, grads = value_and_grad(
-                lambda p: grad_loss(p, tokens, targets), params)
-        else:
-            b = tokens.shape[0]
-            if b % accum_steps != 0:
-                raise ValueError(
-                    f"batch {b} not divisible by accum_steps {accum_steps}")
-            mb = b // accum_steps
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tokens.device)
-            grads = tree_map(torch.zeros_like, params)
-            for i in range(accum_steps):
-                x, y = (a[i * mb:(i + 1) * mb] for a in (tokens, targets))
-                loss_i, grads_i = value_and_grad(
-                    lambda p: grad_loss(p, x, y), params)
-                grads = tree_map(lambda a, g: a + g / accum_steps, grads,
-                                 grads_i)
-                loss = loss + loss_i / accum_steps
+        b = tokens.shape[0]
+        if b % accum_steps != 0:
+            raise ValueError(
+                f"batch {b} not divisible by accum_steps {accum_steps}")
+        mb = b // accum_steps
+        loss, grads = None, None
+        for i in range(accum_steps):
+            x, y = (_data_rows(a[i * mb:(i + 1) * mb], mesh)
+                    for a in (tokens, targets))
+            loss_i, grads_i = value_and_grad(
+                lambda p: grad_loss(p, x, y), params)
+            if accum_steps == 1:
+                loss, grads = loss_i, grads_i
+                break
+            if grads is None:
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=tokens.device)
+                grads = tree_map(torch.zeros_like, params)
+            grads = tree_map(lambda a, g: a + g / accum_steps, grads,
+                             grads_i)
+            loss = loss + loss_i / accum_steps
+        loss, grads = _mean_over(data, loss, grads)
 
         if lp:
             loss = loss / scale  # report the unscaled loss
@@ -607,12 +801,21 @@ def _build_step(cfg: TransformerConfig):
     return step
 
 
-def make_train_step(cfg: TransformerConfig):
+def make_train_step(cfg: TransformerConfig,
+                    mesh: Optional[MeshGroups] = None):
     """``step(params, opt, tokens, targets) -> (params, opt, loss)``, one
-    optimizer step; ``cfg.accum_steps`` > 1 splits the batch into that
-    many microbatches whose gradients are averaged before one update (for
-    dense configs the full-batch step at 1/A the activation memory)."""
-    return _build_step(cfg)
+    optimizer step (``transformer.py:642``); ``cfg.accum_steps`` > 1
+    splits the batch into that many microbatches whose gradients are
+    averaged before one update (for dense configs the full-batch step at
+    1/A the activation memory). With ``mesh`` (a :class:`MeshGroups` of
+    ``data``, ``model``, ``expert`` axes) every rank passes the GLOBAL
+    batch and its own :func:`shard_params` shards: it runs its rows
+    (``'data'``), its heads, d_ff columns and ``embed`` columns
+    (``'model'``: two sums a block, one for the tied head) and its
+    experts (``'expert'``: the MoE routing over the whole microbatch, as
+    GSPMD routes it); the loss and gradients are averaged over
+    ``'data'``."""
+    return _build_step(cfg, mesh)
 
 
 def _multi_from_step(step):
@@ -628,10 +831,127 @@ def _multi_from_step(step):
     return multi
 
 
-def make_train_multi_step(cfg: TransformerConfig):
+def make_train_multi_step(cfg: TransformerConfig,
+                          mesh: Optional[MeshGroups] = None):
     """K optimizer steps over tokens/targets stacked [K, N, T]: the same
     results as K calls of :func:`make_train_step`'s step."""
-    return _multi_from_step(_build_step(cfg))
+    return _multi_from_step(_build_step(cfg, mesh))
+
+
+# ---------------------------------------------------------------------------
+# the layout of a mesh's params (param_specs, transformer.py:168)
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: TransformerConfig) -> Params:
+    """The Megatron layout (``transformer.py:168``): per leaf, one mesh
+    axis or None per dim (a ``PartitionSpec``). Column-parallel weights
+    split their output dim over ``'model'``, row-parallel their input
+    dim; MoE expert leaves also split the expert dim over ``'expert'``;
+    ``embed`` splits d over ``'model'``."""
+    col, row = (None, None, MODEL_AXIS), (None, MODEL_AXIS, None)
+    blocks = {"ln1_g": (), "ln1_b": (), "Wq": col, "Wk": col, "Wv": col,
+              "Wo": row, "ln2_g": (), "ln2_b": ()}
+    if cfg.moe_experts:
+        blocks.update({
+            "Wg": (),
+            "W1": (None, EXPERT_AXIS, None, MODEL_AXIS),
+            "b1": (None, EXPERT_AXIS, MODEL_AXIS),
+            "W2": (None, EXPERT_AXIS, MODEL_AXIS, None),
+            "b2": (None, EXPERT_AXIS, None),
+        })
+    else:
+        blocks.update({"W1": col, "b1": (None, MODEL_AXIS), "W2": row,
+                       "b2": ()})
+    return {"embed": (None, MODEL_AXIS), "pos": (), "lnf_g": (),
+            "lnf_b": (), "blocks": blocks}
+
+
+def pipeline_param_specs(cfg: TransformerConfig) -> Params:
+    """The pipeline layout (``pipeline_param_shardings`` :1025): every
+    block leaf split over ``'pipe'`` on its layer dim (stage s holds
+    layers [s L/S, (s+1) L/S)), the rest whole."""
+    keys = MOE_BLOCK_KEYS if cfg.moe_experts else BLOCK_KEYS
+    return {"embed": (), "pos": (), "lnf_g": (), "lnf_b": (),
+            "blocks": {k: (PIPELINE_AXIS,) for k in keys}}
+
+
+def param_specs_for_mesh(cfg: TransformerConfig, mesh) -> Params:
+    """THE rule for which slice of each leaf a rank holds
+    (``param_shardings_for_mesh`` :211): the pipeline layout when the
+    mesh has ``'pipe'``, Megatron when it has ``'model'`` or
+    ``'expert'``, every leaf whole otherwise (``'data'`` and ``'seq'``
+    meshes). Training, :func:`shard_params`, the sharded checkpoint's
+    save and restore all read it."""
+    if mesh is not None and mesh.has(PIPELINE_AXIS):
+        return pipeline_param_specs(cfg)
+    if mesh is not None and (mesh.has(MODEL_AXIS) or mesh.has(EXPERT_AXIS)):
+        return param_specs(cfg)
+    return {k: ({kk: () for kk in v} if isinstance(v, dict) else ())
+            for k, v in pipeline_param_specs(cfg).items()}
+
+
+def _spec_map(fn, tree, specs):
+    return {k: _spec_map(fn, v, specs[k]) if isinstance(v, dict)
+            else fn(v, specs[k]) for k, v in tree.items()}
+
+
+def shard_params(params: Params, cfg: TransformerConfig, mesh) -> Params:
+    """This rank's slice of every leaf of a whole params (or Adam moment)
+    tree under :func:`param_specs_for_mesh`."""
+    sizes = {a: mesh.size(a) for a in mesh.axis_names}
+    return _spec_map(lambda a, sp: ep.shard(a, sp, sizes, mesh.indices),
+                     params, param_specs_for_mesh(cfg, mesh))
+
+
+def gather_params(local: Params, cfg: TransformerConfig, mesh) -> Params:
+    """The whole tree from every rank's :func:`shard_params` slices (an
+    all-gather over each split dim's group; every rank must call)."""
+    import torch.distributed as tdist
+
+    def whole(a, spec):
+        for dim, axis in enumerate(spec):
+            g = mesh.group(axis) if axis is not None else None
+            if group_size(g) == 1:
+                continue
+            parts = [torch.empty_like(a) for _ in range(group_size(g))]
+            tdist.all_gather(parts, a.contiguous(), group=g)
+            a = torch.cat(parts, dim=dim)
+        return a
+
+    return _spec_map(whole, local, param_specs_for_mesh(cfg, mesh))
+
+
+def mesh_shards(mesh) -> Shards:
+    """The :class:`Shards` of this rank on a ``data`` x ``model`` x
+    ``expert`` mesh: the MoE routing spans ``'data'``."""
+    data = mesh.group(DATA_AXIS)
+    return Shards(
+        model=mesh.group(MODEL_AXIS),
+        experts=ep.ExpertGroups(expert=mesh.group(EXPERT_AXIS),
+                                expert_index=mesh.index(EXPERT_AXIS),
+                                model=mesh.group(MODEL_AXIS)),
+        route=(None if group_size(data) == 1 else ep.RouteGroups(
+            data=data, data_index=mesh.index(DATA_AXIS))))
+
+
+def _data_rows(batch, mesh):
+    """This rank's rows of ``batch`` [N, ...] (``P('data')``)."""
+    if mesh is None:
+        return batch
+    d, i = mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+    n = batch.shape[0]
+    if n % d:
+        raise ValueError(f"batch {n} not divisible by the data axis {d}")
+    return batch[i * (n // d):(i + 1) * (n // d)]
+
+
+def _reject_sharded_clip(cfg: TransformerConfig, mesh) -> None:
+    if cfg.clip_grad_norm and any(
+            mesh.size(a) > 1 for a in (MODEL_AXIS, EXPERT_AXIS,
+                                       PIPELINE_AXIS)):
+        raise ValueError("clip_grad_norm over sharded params is not "
+                         "supported yet (the global norm spans ranks)")
 
 
 # ---------------------------------------------------------------------------
@@ -640,8 +960,8 @@ def make_train_multi_step(cfg: TransformerConfig):
 
 
 def _reject_lowprec(path: str) -> None:
-    """bf16 loss scaling is refused on the sequence-parallel step, as the
-    JAX package refuses it there."""
+    """bf16 loss scaling is refused on the sequence-parallel and pipelined
+    steps, as the JAX package refuses it there."""
     if lowprec.train_policy():
         raise ValueError(
             f"DL4J_TPU_BF16 is not supported on the {path} training path "
@@ -654,7 +974,7 @@ def ring_step_block(batch, group):
     package's ``P('data', 'seq')`` token sharding, ``_ring_step_shardings``
     :907). ``group`` is the ``'seq'`` group or a ``MeshGroups``."""
     mesh = as_mesh(group)
-    d, s = mesh.shape
+    d, s = mesh.size(DATA_AXIS), mesh.size(SEQUENCE_AXIS)
     n, t = batch.shape[-2:]
     if n % d or t % s:
         raise ValueError(f"batch {n} x {t} does not split over a {d} x {s} "
@@ -667,8 +987,8 @@ def ring_step_block(batch, group):
 def _mean_over(group, loss, grads):
     """The loss and every gradient leaf summed over ``group`` and divided
     by its size, in the tree's order (the same collectives on every rank;
-    a world of 1 passes them through)."""
-    world = dist.get_world_size(group)
+    None or a world of 1 passes them through)."""
+    world = group_size(group)
     if world == 1:
         return loss, grads
     for x in [loss] + tree_leaves(grads):
@@ -684,16 +1004,21 @@ def _build_ring_step(cfg: TransformerConfig, group, strategy: str):
                          "training (shard 'data' for more batch instead)")
     _reject_lowprec("sequence-parallel")
     _validate_schedule(cfg)
-    check_dense(cfg)
+    _validate_moe(cfg)
     if strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
     mesh = as_mesh(group)
+    route = ep.RouteGroups(data=mesh.data, data_index=mesh.data_index,
+                           seq=mesh.seq, seq_index=mesh.seq_index)
+
+    def sp_loss(p, x, y):
+        logits, aux = ring_forward(p, x, cfg, mesh.seq, strategy,
+                                   return_aux=True, route=route)
+        return nll_loss(logits, y) + cfg.moe_aux_coef * aux
 
     def step(params, opt, tokens, targets):
         x, y = ring_step_block(tokens, mesh), ring_step_block(targets, mesh)
-        loss, grads = value_and_grad(
-            lambda p: nll_loss(ring_forward(p, x, cfg, mesh.seq, strategy),
-                               y), params)
+        loss, grads = value_and_grad(lambda p: sp_loss(p, x, y), params)
         loss, grads = _mean_over(mesh.world, loss, grads)
         lr = _scheduled_lr(cfg, opt["t"] + 1)
         params, opt = _adam_update(params, grads, opt, lr,
@@ -710,13 +1035,14 @@ def make_ring_train_step(cfg: TransformerConfig, group=None, *,
     """``step(params, opt, tokens, targets) -> (params, opt, loss)``, the
     long-context training step: the same objective as
     :func:`make_train_step` (the mean NLL of the GLOBAL batch, which every
-    rank passes and every rank gets back), with attention
-    sequence-parallel over the ``'seq'`` group (``strategy="ring"``: K5
-    each ring step forward, K7 backward with the lse cotangent;
-    ``"ulysses"``: all-to-alls around ``FlashFn``, K4 and K7) and, for a
-    ``MeshGroups``, the batch split over ``'data'``. Params stay
-    replicated, bit-equal on every rank. Refuses ``accum_steps != 1``,
-    ``DL4J_TPU_BF16``, a bad schedule and MoE."""
+    rank passes and every rank gets back, plus the MoE load-balance term
+    over the whole batch), with attention sequence-parallel over the
+    ``'seq'`` group (``strategy="ring"``: K5 each ring step forward, K7
+    backward with the lse cotangent; ``"ulysses"``: all-to-alls around
+    ``FlashFn``, K4 and K7) and, for a ``MeshGroups``, the batch split
+    over ``'data'``. Params stay replicated, bit-equal on every rank.
+    Refuses ``accum_steps != 1``, ``DL4J_TPU_BF16`` and a bad
+    schedule."""
     return _build_ring_step(cfg, group, strategy)
 
 
@@ -728,8 +1054,153 @@ def make_ring_train_multi_step(cfg: TransformerConfig, group=None, *,
 
 
 # ---------------------------------------------------------------------------
+# pipeline-parallel forward and training (transformer.py:941-1130)
+# ---------------------------------------------------------------------------
+
+
+def _micro_rows(batch, n_micro: int, mesh):
+    """[n_micro * mb, ...] -> this rank's rows of every microbatch
+    [n_micro, mb / data, ...] (JAX's ``P(None, 'data')`` on the
+    microbatch stack)."""
+    b = batch.shape[0]
+    if b % n_micro != 0:
+        raise ValueError(f"batch {b} not divisible by n_micro {n_micro}")
+    mb = b // n_micro
+    d = 1 if mesh is None else mesh.size(DATA_AXIS)
+    if mb % d != 0:
+        raise ValueError(
+            f"microbatch width {mb} not divisible by data-axis size {d} "
+            f"(global batch {b} / n_micro {n_micro})")
+    xm = batch.reshape((n_micro, mb) + tuple(batch.shape[1:]))
+    if d == 1:
+        return xm
+    i = mesh.index(DATA_AXIS)
+    return xm[:, i * (mb // d):(i + 1) * (mb // d)]
+
+
+def pipeline_forward(params: Params, tokens, cfg: TransformerConfig, mesh,
+                     *, n_micro: int, return_aux: bool = False,
+                     split_data: bool = True):
+    """The forward with the layer stack split over the mesh's ``'pipe'``
+    group (``transformer.py:941``, ``parallel/pipeline_parallel``'s GPipe
+    schedule): ``params["blocks"]`` holds this stage's layers, the
+    embedding and the tied head run on every rank. ``tokens`` is the
+    GLOBAL batch; with ``split_data`` each rank takes its ``'data'`` rows
+    of every microbatch (PP x DP). Returns this rank's logits [M * mb_l,
+    T, V] f32 in microbatch order (and the grouped MoE aux: every group
+    routes on its own, the mean over layers and groups)."""
+    from deeplearning4j_tpu_torch.parallel.pipeline_parallel import (
+        pipeline_apply_local,
+    )
+
+    s_count = mesh.size(PIPELINE_AXIS)
+    if cfg.n_layers % s_count != 0:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"{s_count} stages")
+    pipe = mesh.group(PIPELINE_AXIS)
+    xm = _micro_rows(tokens, n_micro, mesh if split_data else None)
+    m, mbl = xm.shape[:2]
+    h = copy_to(_embed(params, xm.reshape((m * mbl,) + tuple(xm.shape[2:])),
+                       cfg), pipe)
+    attend = lambda q, k, v: _attention(q, k, v, cfg.n_heads,
+                                        use_flash=cfg.use_flash)
+    moe = bool(cfg.moe_experts)
+
+    def stage_fn(sp, x):
+        aux = None
+        for bp in _layers(sp):
+            if moe:
+                x, a = _moe_block(bp, x, cfg, attend)
+                aux = a if aux is None else aux + a
+            else:
+                x = _block(bp, x, cfg, attend)
+        return x, aux
+
+    out, aux = pipeline_apply_local(
+        params["blocks"], h.reshape((m, mbl) + tuple(h.shape[1:])), pipe,
+        stage_fn=stage_fn, stage=mesh.index(PIPELINE_AXIS),
+        n_stages=s_count, with_aux=moe)
+    h = out.reshape((m * mbl,) + tuple(out.shape[2:]))
+    logits = _at_least_f32(_head(params, _final_ln(params, h)))
+    if not return_aux:
+        return logits
+    if moe:
+        aux = aux / (cfg.n_layers * n_micro)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
+
+
+def _build_pipeline_step(cfg: TransformerConfig, mesh, n_micro: int):
+    _reject_lowprec("pipelined")
+    _validate_schedule(cfg)
+    _validate_moe(cfg)
+    _reject_sharded_clip(cfg, mesh)
+    if cfg.accum_steps != 1:
+        raise ValueError(
+            "cfg.accum_steps must be 1 under pipelined training — n_micro "
+            "IS the microbatch/accumulation count (the GPipe schedule)")
+    if mesh.has(MODEL_AXIS) or mesh.has(EXPERT_AXIS) or mesh.has(
+            SEQUENCE_AXIS):
+        raise ValueError("the pipeline step's mesh is 'pipe' x 'data'")
+    data = mesh.group(DATA_AXIS)
+
+    def pp_loss(p, tokens, targets):
+        logits, aux = pipeline_forward(p, tokens, cfg, mesh, n_micro=n_micro,
+                                       return_aux=True)
+        y = _micro_rows(targets, n_micro, mesh)
+        return (nll_loss(logits, y.reshape((-1,) + tuple(y.shape[2:])))
+                + cfg.moe_aux_coef * aux)
+
+    def step(params, opt, tokens, targets):
+        loss, grads = value_and_grad(lambda p: pp_loss(p, tokens, targets),
+                                     params)
+        loss, grads = _mean_over(data, loss, grads)
+        lr = _scheduled_lr(cfg, opt["t"] + 1)
+        params, opt = _adam_update(params, grads, opt, lr,
+                                   weight_decay=cfg.weight_decay,
+                                   clip_grad_norm=cfg.clip_grad_norm)
+        return params, opt, loss
+
+    step.loss_scaled = False
+    return step
+
+
+def make_pipeline_train_step(cfg: TransformerConfig, mesh, *, n_micro: int):
+    """The pipelined training step (``transformer.py:1054``):
+    ``step(params, opt, tokens, targets)`` on the GLOBAL batch and this
+    rank's :func:`shard_params` (its stage's layers); GPipe forward, the
+    backward pipeline from autograd (one ``ring_shift`` a tick, in
+    reverse), Adam. The loss and gradients are averaged over ``'data'``
+    (PP x DP). For dense configs the serial step; for MoE the grouped
+    objective (group = microbatch x data slice), which is the serial one
+    at ``n_micro = 1`` and the ``accum_steps = n_micro`` one otherwise."""
+    return _build_pipeline_step(cfg, mesh, n_micro)
+
+
+def make_pipeline_train_multi_step(cfg: TransformerConfig, mesh, *,
+                                   n_micro: int):
+    """K pipelined steps over global batches stacked [K, N, T]."""
+    return _multi_from_step(_build_pipeline_step(cfg, mesh, n_micro))
+
+
+# ---------------------------------------------------------------------------
 # the model object
 # ---------------------------------------------------------------------------
+
+
+def _mode_of(group) -> str:
+    """``dense`` (no group), ``pipe``, ``seq`` (a plain group too) or
+    ``megatron``: the JAX package's dispatch order (:1188-1207)."""
+    if group is None:
+        return "dense"
+    if not isinstance(group, MeshGroups):
+        return "seq"
+    if group.has(PIPELINE_AXIS):
+        return "pipe"
+    if group.has(SEQUENCE_AXIS):
+        return "seq"
+    return "megatron"
 
 
 def _categorical(logits, gen: torch.Generator):
@@ -762,26 +1233,49 @@ class TransformerLM:
     inference reads, rebuilt after each optimizer step). Lives on
     ``device`` — the card unless the caller passes ``device="cpu"``.
 
-    With ``group`` (the ``'seq'`` process group, or a ``MeshGroups`` for
-    DP x SP) it trains in the sequence mode: every rank builds the same
+    With ``group`` it trains across ranks; every rank builds the same
     model and passes the same GLOBAL batch to :meth:`fit` and
-    :meth:`fit_batches`, each rank trains on its own block through the
-    ring step (:func:`make_ring_train_step`), and only the mesh's rank 0
-    writes in :meth:`save`."""
+    :meth:`fit_batches`, and only the mesh's rank 0 writes in
+    :meth:`save`. The mode follows the group, in the JAX package's order
+    (``_make_step`` :1201): a ``MeshGroups`` with ``'pipe'`` is the
+    pipeline mode (:func:`make_pipeline_train_step`,
+    ``cfg.pipeline_microbatches`` microbatches, PP x DP with
+    ``'data'``); one with ``'seq'``, or a plain process group, the
+    sequence mode (:func:`make_ring_train_step`); any other mesh
+    (``'data'``, ``'model'``, ``'expert'``) the Megatron mode
+    (:func:`make_train_step` with the mesh). In the pipeline and
+    Megatron modes ``params`` holds this rank's shards
+    (:func:`shard_params`: a whole tree passed in is sharded here, unless
+    ``sharded``); attention stays on ``FlashFn`` on each rank's heads."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
                  params: Optional[Params] = None,
-                 opt: Optional[Params] = None, group=None) -> None:
-        check_dense(cfg)
+                 opt: Optional[Params] = None, group=None,
+                 sharded: bool = False) -> None:
+        _validate_moe(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.group = group
-        self.params = (params if params is not None
-                       else init_params(cfg, device=self.device))
+        self.mode = _mode_of(group)
+        if params is None:
+            params = init_params(cfg, device=self.device)
+            sharded = False
+        if self.mode in ("pipe", "megatron") and not sharded:
+            params = shard_params(params, cfg, group)
+            if opt is not None:
+                opt = dict(opt, m=shard_params(opt["m"], cfg, group),
+                           v=shard_params(opt["v"], cfg, group))
+        self.params = params
         self._opt = opt
         self.iteration = 0 if opt is None else int(opt["t"])
-        self._step = (make_train_step(cfg) if group is None
-                      else make_ring_train_step(cfg, group))
+        if self.mode == "pipe":
+            self._step = make_pipeline_train_step(
+                cfg, group, n_micro=cfg.pipeline_microbatches)
+        elif self.mode == "seq":
+            self._step = make_ring_train_step(cfg, group)
+        else:
+            self._step = make_train_step(
+                cfg, group if self.mode == "megatron" else None)
         self._multi_step = _multi_from_step(self._step)
         self._compute: Optional[Params] = None
 
@@ -808,16 +1302,32 @@ class TransformerLM:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x, device=self.device)
 
-    def _sequence_mode(self) -> bool:
-        return self.group is not None
+    def _world(self):
+        return as_mesh(self.group).world
+
+    def _infer(self, params: Params, tokens) -> torch.Tensor:
+        """Logits of a whole batch on every rank, in any mode: the
+        Megatron mode's shards summed over their groups, the pipeline as
+        one microbatch."""
+        if self.mode == "megatron":
+            sh = mesh_shards(self.group)
+            return forward(params, tokens, self.cfg,
+                           Shards(model=sh.model, experts=sh.experts))[0]
+        if self.mode == "pipe":
+            return pipeline_forward(params, tokens, self.cfg, self.group,
+                                    n_micro=1, split_data=False)
+        return forward(params, tokens, self.cfg)[0]
 
     @classmethod
     def from_state(cls, cfg: TransformerConfig, params: Params,
                    opt: Optional[Params] = None, *,
-                   device=None, group=None) -> "TransformerLM":
+                   device=None, group=None,
+                   sharded: bool = False) -> "TransformerLM":
         """An LM around existing state, with no random init; the
-        iteration is ``opt["t"]``."""
-        return cls(cfg, device=device, params=params, opt=opt, group=group)
+        iteration is ``opt["t"]``. ``sharded``: the state is already this
+        rank's shards (the sharded checkpoint's restore)."""
+        return cls(cfg, device=device, params=params, opt=opt, group=group,
+                   sharded=sharded)
 
     @classmethod
     def load(cls, path: str, *, device=None, load_updater: bool = True,
@@ -837,8 +1347,12 @@ class TransformerLM:
         params = params_from_numpy(npz_bytes_to_tree(coeff), device=device)
         lm = cls(cfg, device=device, params=params, group=group)
         if load_updater and upd is not None:
-            lm.opt = _tree_like(init_opt_state(params, lm._step.loss_scaled),
-                                npz_bytes_to_tree(upd), params["embed"].device)
+            opt = _tree_like(init_opt_state(params, lm._step.loss_scaled),
+                             npz_bytes_to_tree(upd), params["embed"].device)
+            if lm.mode in ("pipe", "megatron"):
+                opt = dict(opt, m=shard_params(opt["m"], cfg, group),
+                           v=shard_params(opt["v"], cfg, group))
+            lm.opt = opt
             lm.iteration = int(lm.opt["t"])
         return lm
 
@@ -852,11 +1366,14 @@ class TransformerLM:
             write_flagship_zip,
         )
 
-        if self._sequence_mode() and dist.get_rank(
-                as_mesh(self.group).world) != 0:
+        params, opt = self.params, self.opt
+        if self.mode in ("pipe", "megatron"):  # every rank gathers
+            params = gather_params(params, self.cfg, self.group)
+            opt = dict(opt, m=gather_params(opt["m"], self.cfg, self.group),
+                       v=gather_params(opt["v"], self.cfg, self.group))
+        if self.group is not None and dist.get_rank(self._world()) != 0:
             return
-        write_flagship_zip(path, "TransformerLM", self.cfg, self.params,
-                           self.opt)
+        write_flagship_zip(path, "TransformerLM", self.cfg, params, opt)
 
     # -- training -----------------------------------------------------------
     def fit(self, tokens, targets) -> torch.Tensor:
@@ -919,8 +1436,8 @@ class TransformerLM:
                     m_arr = torch.as_tensor(np.asarray(m, np.float32),
                                             device=self.device)
                     counts.append(float(np.asarray(m).sum()))
-                logits, _ = forward(self.compute_params, x, self.cfg)
-                losses.append(nll_loss(logits, y, m_arr))
+                losses.append(nll_loss(self._infer(self.compute_params, x),
+                                       y, m_arr))
         if hasattr(iterator, "reset"):
             iterator.reset()
         if not losses:
@@ -936,8 +1453,7 @@ class TransformerLM:
     def logits(self, tokens) -> torch.Tensor:
         """tokens [N, T] -> logits [N, T, V] f32."""
         with torch.inference_mode():
-            return forward(self.compute_params, self._tokens(tokens),
-                           self.cfg)[0]
+            return self._infer(self.compute_params, self._tokens(tokens))
 
     def output(self, tokens) -> torch.Tensor:
         """The containers' inference surface: token ids in, logits out."""
@@ -1023,6 +1539,9 @@ class TransformerLM:
             raise ValueError(f"top_k {top_k} must be in [1, vocab_size]")
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p {top_p} must be in (0, 1]")
+        if self.mode in ("pipe", "megatron"):
+            raise ValueError("generate runs on one device: save the model "
+                             "and load it without a group")
         if use_cache is None:
             use_cache = not cfg.moe_experts
         with torch.inference_mode():

@@ -122,9 +122,11 @@ def promote_to(params, x: torch.Tensor):
 def train_iteration(net, loss_fn, inputs):
     """One optimizer iteration of ``net`` (a MultiLayerNetwork or a
     ComputationGraph): ``loss_fn(params, inputs) -> (loss, new states)``,
-    its gradients by autograd, ``net.updater`` and the parameter step in
-    place. Returns (the loss, the new states, detached). Under bf16
-    training see the module docstring; the loss returned is f32."""
+    its gradients by autograd (averaged by ``net._grad_reduce(loss,
+    grads)`` when a data-parallel wrapper sets it), ``net.updater`` and
+    the parameter step in place. Returns (the loss, the new states,
+    detached). Under bf16 training see the module docstring; the loss
+    returned is f32."""
     leaves = tree_map(lambda v: v.detach().requires_grad_(True), net.params)
     scaled = lowprec.train_policy()
     if scaled:
@@ -141,6 +143,9 @@ def train_iteration(net, loss_fn, inputs):
         flat = iter(torch.autograd.grad(target, tree_leaves(leaves),
                                         materialize_grads=True))
     grads = tree_map(lambda _: next(flat), leaves)
+    reduce = getattr(net, "_grad_reduce", None)
+    if reduce is not None:  # a data-parallel wrapper's average
+        loss, grads = reduce(loss, grads)
     new_states = tree_map(torch.Tensor.detach, new_states)
     if not scaled:
         updates, net.updater_state = net.updater.update(

@@ -321,8 +321,11 @@ class ComputationGraph(LossScaled):
         it draws nothing."""
         if not train or not (self.conf.vertices[name].dropout or 0.0) > 0:
             return None
-        return rng_mod.layer_generator(self.conf.seed, step,
-                                       self.topo.index(name), self.device)
+        w = getattr(self, "_worker", None)
+        seed = (self.conf.seed if w is None
+                else rng_mod.worker_seed(self.conf.seed, w))
+        return rng_mod.layer_generator(seed, step, self.topo.index(name),
+                                       self.device)
 
     def _forward(self, params, states, inputs: Dict[str, torch.Tensor], *,
                  train: bool = False, step: Optional[int] = None,

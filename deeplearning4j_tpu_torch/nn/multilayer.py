@@ -256,7 +256,15 @@ class MultiLayerNetwork(LossScaled):
         layer draws nothing."""
         if not train or not (self.conf.layers[i].dropout or 0.0) > 0:
             return None
-        return rng_mod.layer_generator(self.conf.seed, step, i, self.device)
+        return rng_mod.layer_generator(self._stream_seed(), step, i,
+                                       self.device)
+
+    def _stream_seed(self) -> int:
+        """The dropout streams' base: ``conf.seed``, or a parameter-
+        averaging worker's own (``_worker``, set by the trainer)."""
+        w = getattr(self, "_worker", None)
+        return (self.conf.seed if w is None
+                else rng_mod.worker_seed(self.conf.seed, w))
 
     def _forward(self, params, states, x, *, train: bool = False,
                  step: Optional[int] = None, mask=None,

@@ -184,6 +184,9 @@ _register("DL4J_TPU_PIPELINE_WORKERS", "0", "int",
           "fit_iterator into auto-wrapping plain iterators)")
 _register("DL4J_TPU_PREFETCH", "2", "int",
           "staged-batch queue depth (shared with AsyncDataSetIterator)")
+_register("DL4J_TPU_COORDINATOR", "", "str",
+          "jax.distributed coordinator address (host:port); unset = "
+          "single-process")
 _register("DL4J_TPU_NUM_PROCESSES", "", "int",
           "jax.distributed process count")
 

@@ -37,6 +37,12 @@ def stream_seed(seed: int, step: int, layer: int,
     return x >> 1
 
 
+def worker_seed(seed: int, worker: int) -> int:
+    """The base seed of parameter-averaging worker ``worker``'s streams:
+    each worker of a round draws its own dropout masks."""
+    return stream_seed(seed, worker, -1)
+
+
 def layer_generator(seed: int, step: int, layer: int, device,
                     kind: str = "dropout") -> torch.Generator:
     """A generator on ``device`` for layer ``layer``'s draws of ``kind``

@@ -1,7 +1,9 @@
-"""Sequence parallelism on ``torch.distributed`` (counterpart:
-``deeplearning4j_tpu/parallel/`` — only ``mesh.py``'s ``'data'`` and
-``'seq'`` axes and ``sequence_parallel.py`` are ported, for ring and
-Ulysses attention and the sequence-parallel training step with DP x SP;
-data, tensor, pipeline and expert parallelism on their own and the fleet
-wait for later slices).
+"""Distributed training on ``torch.distributed`` (counterpart:
+``deeplearning4j_tpu/parallel/``): ``mesh.py`` (named mesh axes as
+process groups and the differentiable collectives), ``sequence_parallel``
+(ring and Ulysses attention), ``expert_parallel``, ``tensor_parallel``,
+``pipeline_parallel``, ``data_parallel`` (``ParallelWrapper``,
+``ParameterAveragingTrainer``), ``training_master``, ``multihost`` and
+``stats``. The serving fleet (``fleet.py``, ``statetracker.py``) is not
+ported yet.
 """

@@ -18,9 +18,10 @@
     anchors, pruned after each commit.
 
 The directory layout, the manifest and the zip are the JAX package's, so
-each package's manager reads the other's checkpoints. The orbax
-``backend="sharded"`` waits for slice 12 (``torch.distributed``
-training) and raises. ``should_save(step)`` is the step cadence
+each package's manager reads the other's zip checkpoints.
+``backend="sharded"`` writes the trees through
+``utils/sharded_checkpoint`` (the port's own shard files, where the JAX
+package writes orbax; neither reads the other's). ``should_save(step)`` is the step cadence
 (``every_steps`` / ``DL4J_TPU_CKPT_EVERY``) or a wall-clock one
 (``every_seconds``); ``DL4J_TPU_CKPT_ASYNC=0`` makes saves synchronous.
 Only the primary process writes (:func:`is_primary`).
@@ -159,12 +160,7 @@ class CheckpointManager:
         primary: Optional[bool] = None,
         chaos=None,
     ):
-        if backend == "sharded":
-            raise NotImplementedError(
-                "backend='sharded' (the multi-chip layout of "
-                "utils/sharded_checkpoint.py) waits for slice 12, with "
-                "torch.distributed training")
-        if backend != "zip":
+        if backend not in ("zip", "sharded"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.directory = os.path.abspath(directory)
         self.every_steps = (envknob.get_int(ENV_EVERY) if every_steps is None
@@ -337,7 +333,9 @@ class CheckpointManager:
             os.makedirs(tmp)
             with obs_trace.span("ckpt.write", step=job.step,
                                 backend=self.backend):
-                files = self._write_zip_payload(tmp, job)
+                files = (self._write_zip_payload(tmp, job)
+                         if self.backend == "zip"
+                         else self._write_sharded_payload(tmp, job))
             manifest = {
                 "format": MANIFEST_FORMAT,
                 "backend": self.backend,
@@ -394,6 +392,36 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
         finally:
             job.done.set()
+
+    def _write_sharded_payload(self, tmp: str,
+                               job: _SaveJob) -> Dict[str, dict]:
+        """The sharded layout (``utils/sharded_checkpoint``): the trees as
+        one committed version under ``state``, the configuration, the
+        training state and the metadata as JSON; the manifest digests
+        every file."""
+        from deeplearning4j_tpu_torch.utils import sharded_checkpoint as sc
+        from deeplearning4j_tpu_torch.utils.serialization import (
+            _jsonable_training_state,
+        )
+
+        sc.save_pytree(os.path.join(tmp, "state"), {
+            "params": job.params, "states": job.states,
+            "updater": job.updater_state})
+        with open(os.path.join(tmp, "configuration.json"), "w") as f:
+            f.write(job.conf_json)
+        with open(os.path.join(tmp, "training_state.json"), "w") as f:
+            json.dump(_jsonable_training_state(job.training_state), f)
+        with open(os.path.join(tmp, "metadata.json"), "w") as f:
+            json.dump({"model_class": job.model_class,
+                       "format": "torch-shards", **job.meta}, f)
+        files = {}
+        for root, _, names in os.walk(tmp):
+            for name in names:
+                p = os.path.join(root, name)
+                fsync_file(p)
+                files[os.path.relpath(p, tmp)] = {
+                    "sha256": file_sha256(p), "bytes": os.path.getsize(p)}
+        return files
 
     def _write_zip_payload(self, tmp: str, job: _SaveJob) -> Dict[str, dict]:
         from deeplearning4j_tpu_torch.utils.serialization import (
@@ -496,15 +524,15 @@ class CheckpointManager:
         if not ok:
             raise CheckpointCorrupt(f"{path}: {reason}")
         manifest = self.read_manifest(path)
-        if manifest.get("backend", "zip") != "zip":
-            raise NotImplementedError(
-                f"{path} is a {manifest.get('backend')!r} checkpoint; the "
-                "sharded layout waits for slice 12")
-        from deeplearning4j_tpu_torch.utils.serialization import (
-            ModelSerializer,
-        )
+        if manifest.get("backend", "zip") == "zip":
+            from deeplearning4j_tpu_torch.utils.serialization import (
+                ModelSerializer,
+            )
 
-        ts = ModelSerializer.load_into(net, os.path.join(path, "model.zip"))
+            ts = ModelSerializer.load_into(net,
+                                           os.path.join(path, "model.zip"))
+        else:
+            ts = self._restore_sharded(path, net)
         return {
             "step": int(manifest.get("step", ts.get("step", 0) or 0)),
             "epoch": int(ts.get("epoch", manifest.get("epoch", 0)) or 0),
@@ -512,6 +540,22 @@ class CheckpointManager:
                                      manifest.get("iterator_state")),
             "path": path,
         }
+
+    def _restore_sharded(self, path: str, net) -> Dict[str, Any]:
+        from deeplearning4j_tpu_torch.utils import sharded_checkpoint as sc
+
+        if net.params is None:
+            net.init()
+        state = sc.restore_pytree(os.path.join(path, "state"), {
+            "params": net.params, "states": net.states,
+            "updater": net.updater_state}, device=net.device)
+        net.params = state["params"]
+        net.states = state["states"]
+        net.updater_state = state["updater"]
+        with open(os.path.join(path, "training_state.json")) as f:
+            ts = json.load(f)
+        net.restore_training_state(ts)
+        return ts
 
     def restore_latest(self, net) -> Optional[Dict[str, Any]]:
         """Restore the newest intact checkpoint into `net`; None when the

@@ -50,7 +50,6 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _block,
     _layer,
     _ln,
-    check_dense,
     prefill_cache,
 )
 from deeplearning4j_tpu_torch.ops import env as envknob
@@ -100,7 +99,6 @@ def decode_step_slots(params, cache, tok, pos, cfg: TransformerConfig):
     int -> (cache, logits [S, V] f32). Each slot's new K/V goes to
     ``cache[:, s, pos[s]]`` (in place) before its attention reads the
     stripe."""
-    check_dense(cfg)
     cdt = cfg.compute_dtype
     s = tok.shape[0]
     heads = cfg.n_heads
@@ -198,7 +196,6 @@ class ContinuousDecoder:
             raise ValueError(f"model lives on {lm.device}, decoder asked "
                              f"for {self.device}")
         cfg = lm.cfg
-        check_dense(cfg)
         self.lm = lm
         self.cfg = cfg
         self.slots = int(slots)

@@ -91,7 +91,6 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _block,
     _layer,
     _ln,
-    check_dense,
     prefill_cache,
 )
 from deeplearning4j_tpu_torch.obs import trace as obs_trace
@@ -122,7 +121,6 @@ def paged_decode_step(params, arena, tok, pos, tables,
     ``(tables[s, pos//bt], pos % bt)`` before its attention reads the
     window. Active lanes write distinct blocks by allocation invariant;
     inactive lanes all write trash block 0, never visible."""
-    check_dense(cfg)
     cdt = cfg.compute_dtype
     s = tok.shape[0]
     heads = cfg.n_heads
@@ -368,7 +366,6 @@ class PagedDecoder:
             raise ValueError(f"model lives on {lm.device}, decoder asked "
                              f"for {self.device}")
         cfg = lm.cfg
-        check_dense(cfg)
         self.lm = lm
         self.cfg = cfg
         # resilience/chaos.ServingChaos: a fault per admission (on_admit)

@@ -2398,3 +2398,133 @@ def test_kill_and_resume_of_a_char_rnn_is_bit_equal_on_card(tmp_path):
     for a, b in zip(tree_leaves(base.net.params),
                     tree_leaves(resumed.net.params)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_index_form_moe_on_card_matches_dense_chain(k):
+    """``moe_ffn`` (gather, ``torch.bmm`` experts, weighted sum in choice
+    order) against the dense einsum chain on the card, f32, at a
+    capacity that drops slots: outputs and gradients within 1e-4 of
+    each one's largest entry (at top 1 the gate's gradient is rounding
+    noise in both); two runs bit-equal."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.parallel import expert_parallel as pep
+
+    p = pep.init_moe_params(0, 256, 512, 8, device=dev)
+    x = torch.randn((4096, 256), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    cap = pep.capacity_of(1.0, 4096, k, 8)
+
+    def run(fn):
+        pp = {a: v.clone().requires_grad_() for a, v in p.items()}
+        xx = x.clone().requires_grad_()
+        y = fn(pp, xx)
+        g = torch.autograd.grad((y ** 2).sum(), [xx] + list(pp.values()))
+        return [y.detach()] + list(g)
+
+    got = run(lambda pp, xx: pep.moe_ffn(xx, pp, top_k_=k,
+                                         capacity=cap)[0])
+    again = run(lambda pp, xx: pep.moe_ffn(xx, pp, top_k_=k,
+                                           capacity=cap)[0])
+    want = run(lambda pp, xx: pep.moe_reference(pp, xx, top_k_=k,
+                                                capacity_factor=1.0))
+    names = ["y", "x"] + list(p)
+    for name, a, b, c in zip(names, got, want, again):
+        assert torch.equal(a, c), name
+        if k == 1 and name == "Wg":
+            # top 1 renormalizes its one gate to 1: Wg's gradient is 0
+            # but for rounding, in both, far below x's
+            bar = 1e-4 * got[1].abs().max().item()
+            assert max(a.abs().max().item(), b.abs().max().item()) <= bar
+            continue
+        scale = b.abs().max().item() or 1.0
+        assert (a - b).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_megatron_step_on_a_world1_nccl_group_equals_the_plain_step(
+        moe, tmp_path):
+    """A 2-layer LM's step on a data x model x expert mesh of world-1
+    NCCL groups is ``torch.equal`` to the plain step (loss and every
+    param), K4 and K7 once per layer in each."""
+    dev = _need_card()
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        device_mesh,
+        init_seq_group,
+    )
+
+    cfg = pt.TransformerConfig(vocab_size=256, d_model=256, n_layers=2,
+                               n_heads=4, d_ff=512, max_len=256, seed=3,
+                               **({"moe_experts": 4} if moe else {}))
+    params = pt.init_params(cfg, device=dev)
+    ids = np.random.default_rng(2).integers(0, 256, (4, 257))
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    k4, k7 = port_flash.flash_attention, port_flash.flash_bwd
+    group = init_seq_group(str(tmp_path / "store"), 0, 1, backend="nccl")
+    try:
+        mesh = device_mesh((1, 1, 1), ("data", "model", "expert"))
+        before = (k4.launches, k7.launches)
+        p1, _, l1 = pt.make_train_step(cfg, mesh)(
+            pt.shard_params(params, cfg, mesh), pt.init_opt_state(params),
+            x, y)
+        torch.cuda.synchronize()
+        ran = (k4.launches - before[0], k7.launches - before[1])
+    finally:
+        dist.destroy_process_group()
+    p0, _, l0 = pt.make_train_step(cfg)(params, pt.init_opt_state(params),
+                                        x, y)
+    assert ran == (cfg.n_layers, cfg.n_layers)
+    assert torch.equal(l0, l1)
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_averaging_master_in_process_workers_equal_explicit_reference():
+    """4 in-process workers of ``ParameterAveragingTrainingMaster`` (no
+    shuffle, frequency 2, one round) on an LSTM net: ``torch.equal`` to
+    four nets fitted on their rows with params and RMSProp state averaged
+    in worker order."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.datasets.iterator import DataSet
+    from deeplearning4j_tpu_torch.nn import conf as pconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import training_master as ptm
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        average_trees,
+    )
+
+    conf = (pconf.NeuralNetConfiguration.builder().seed(4)
+            .learning_rate(0.01).updater("rmsprop").list()
+            .layer(0, pconf.GravesLSTM(n_in=16, n_out=64, activation="tanh"))
+            .layer(1, pconf.RnnOutputLayer(n_in=64, n_out=16,
+                                           activation="softmax",
+                                           loss_function="mcxent"))
+            .build())
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 16, (64, 21))
+    eye = np.eye(16, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    net = MultiLayerNetwork(conf, device=dev).init()
+    ref = [MultiLayerNetwork(conf, device=dev).init() for _ in range(4)]
+    master = ptm.ParameterAveragingTrainingMaster(
+        num_workers=4, batch_size_per_worker=8, averaging_frequency=2,
+        repartition=ptm.Repartition.NEVER, device=dev)
+    master.execute_training(net, [DataSet(x, y)])
+    for w, r in enumerate(ref):
+        rows = lambda a, i: a[32 * i:32 * (i + 1)][8 * w:8 * (w + 1)]  # noqa
+        for i in range(2):
+            r.fit(rows(x, i), rows(y, i))
+    params = average_trees([r.params for r in ref])
+    upd = average_trees([r.updater_state for r in ref])
+    for a, b in zip(tree_leaves(net.params), tree_leaves(params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(net.updater_state), tree_leaves(upd)):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b)

@@ -626,7 +626,9 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         # the training runtime
         "DL4J_TPU_CKPT_EVERY", "DL4J_TPU_CKPT_KEEP", "DL4J_TPU_CKPT_ASYNC",
         "DL4J_TPU_PIPELINE_WORKERS", "DL4J_TPU_PREFETCH",
-        "DL4J_TPU_NUM_PROCESSES"}
+        "DL4J_TPU_NUM_PROCESSES",
+        # distributed training
+        "DL4J_TPU_COORDINATOR"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
@@ -742,3 +744,86 @@ def test_kernel_sources_ship_and_build_flags():
         "flash_attention.cu", "flash_attention_ext.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
+
+
+DISTRIBUTED_MODULES = {
+    "parallel/mesh.py": "deeplearning4j_tpu/parallel/mesh.py",
+    "parallel/multihost.py": "deeplearning4j_tpu/parallel/multihost.py",
+    "parallel/stats.py": "deeplearning4j_tpu/parallel/stats.py",
+    "parallel/expert_parallel.py":
+        "deeplearning4j_tpu/parallel/expert_parallel.py",
+    "parallel/tensor_parallel.py":
+        "deeplearning4j_tpu/parallel/tensor_parallel.py",
+    "parallel/pipeline_parallel.py":
+        "deeplearning4j_tpu/parallel/pipeline_parallel.py",
+    "parallel/data_parallel.py":
+        "deeplearning4j_tpu/parallel/data_parallel.py",
+    "parallel/training_master.py":
+        "deeplearning4j_tpu/parallel/training_master.py",
+    "earlystopping/distributed.py":
+        "deeplearning4j_tpu/earlystopping/distributed.py",
+    "utils/sharded_checkpoint.py":
+        "deeplearning4j_tpu/utils/sharded_checkpoint.py",
+    "models/transformer.py": "deeplearning4j_tpu/models/transformer.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(DISTRIBUTED_MODULES))
+def test_distributed_modules_name_their_counterpart(rel):
+    """The distributed-training modules (each imports neither jax nor the
+    JAX package: ``test_no_import_of_jax_or_the_jax_package``) name the
+    JAX module they port."""
+    with open(os.path.join(PKG, rel), encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read()))
+    assert doc and "counterpart" in doc, rel
+    assert DISTRIBUTED_MODULES[rel] in " ".join(doc.split()), rel
+    assert os.path.exists(os.path.join(REPO, DISTRIBUTED_MODULES[rel]))
+
+
+class TestDistributedEntryPointsNeedACardOrCpu:
+    @pytest.fixture
+    def no_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def _net(self):
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        conf = (pconf.NeuralNetConfiguration.builder().seed(1).list()
+                .layer(0, pconf.OutputLayer(n_in=4, n_out=3,
+                                            activation="softmax"))
+                .build())
+        return MultiLayerNetwork(conf, device="cpu").init()
+
+    def test_data_parallel_trainers_and_master(self, no_card):
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelWrapper,
+            ParameterAveragingTrainer,
+        )
+        from deeplearning4j_tpu_torch.parallel.training_master import (
+            ParameterAveragingTrainingMaster,
+        )
+
+        net = self._net()
+        for make in (lambda d: ParallelWrapper(net, num_devices=2, device=d),
+                     lambda d: ParameterAveragingTrainer(net, num_workers=2,
+                                                         device=d),
+                     lambda d: ParameterAveragingTrainingMaster(
+                         num_workers=2, device=d)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(None)
+            make("cpu")
+
+    def test_moe_transformer_lm(self, no_card):
+        from deeplearning4j_tpu_torch.models import transformer as pt
+
+        assert not hasattr(pt, "check_dense")
+        cfg = pt.TransformerConfig(vocab_size=16, d_model=16, n_layers=1,
+                                   n_heads=2, d_ff=32, max_len=32,
+                                   moe_experts=4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.TransformerLM(cfg)
+        lm = pt.TransformerLM(cfg, device="cpu")
+        assert lm.params["blocks"]["Wg"].shape == (1, 16, 4)
+        assert lm.logits(torch.zeros((1, 8), dtype=torch.long)).shape == \
+            (1, 8, 16)

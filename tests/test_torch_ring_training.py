@@ -34,7 +34,8 @@ side on the conftest's virtual CPU mesh of the same shape, at
     collectives against ``jax.vjp`` of the dense attention at 1e-5.
 
 In one process: the configurations the ring step refuses (``accum_steps``,
-``DL4J_TPU_BF16``, a bad schedule, MoE) raise ``ValueError``; and the
+``DL4J_TPU_BF16``, a bad schedule, an MoE top-k past its experts) raise
+``ValueError``; and the
 gradients through an in-process 4-shard ring of ``ring_flash_step`` (the
 chain ``chip_smoke.py`` drives on the card) equal the dense attention's
 in f64 at 1e-10, with the lse cotangent reaching K7's plain version.
@@ -424,7 +425,7 @@ def test_attention_gradients_through_the_collectives(run, name):
     ({"accum_steps": 2}, "accum_steps"),
     ({"lr_schedule": "cosine"}, "total_steps"),
     ({"lr_schedule": "linear"}, "lr_schedule"),
-    ({"moe_experts": 4}, "MoE"),
+    ({"moe_experts": 4, "moe_top_k": 5}, "MoE"),
 ], ids=["accum", "cosine_without_total", "unknown_schedule", "moe"])
 def test_ring_step_refuses(kw, match):
     cfg = pt.TransformerConfig(**dict(CFG_KW, **kw))

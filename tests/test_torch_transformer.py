@@ -102,8 +102,13 @@ class TestWeights:
         assert torch.equal(p["embed"], again["embed"])  # seeded
 
     def test_moe_is_refused(self):
+        """An MoE config builds; one whose top-k names more experts than
+        it has is refused."""
+        lm = pt.TransformerLM(pt.TransformerConfig(moe_experts=2),
+                              device="cpu")
+        assert lm.params["blocks"]["W1"].shape[1] == 2
         with pytest.raises(ValueError, match="MoE"):
-            pt.TransformerLM(pt.TransformerConfig(moe_experts=2),
+            pt.TransformerLM(pt.TransformerConfig(moe_experts=2, moe_top_k=3),
                              device="cpu")
 
 
