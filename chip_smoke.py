@@ -23,7 +23,12 @@ input pipeline and its stager, the native host feed, ResilientTrainer
 with async checkpoints and exact resume through K1 and K2, early
 stopping), and distributed training (an MoE TransformerLM through K4 and
 K7, Megatron and pipeline steps, ParallelWrapper, parameter averaging
-through K1 and K2, the sharded checkpoint) on world-1 NCCL groups.
+through K1 and K2, the sharded checkpoint) on world-1 NCCL groups, and
+the serving fleet (a FleetRouter over ServingEngine replicas through K4,
+K6 and K1, OS-process replicas, prefill/decode roles, the head-sharded
+tick through K6, autoscaling and placement, shadow promotion with the
+ContinuousTrainer through K1 and K2, the elastic averaging fleet, and
+Word2Vec on a data-parallel group through K3).
 
 Run from the repository root, with no arguments:
 
@@ -475,7 +480,37 @@ What it does, in order (any failure raises and exits non-zero):
    ``save_lm``/``restore_lm`` of (a)'s LM (logits ``torch.equal``) and a
    ``CheckpointManager(backend="sharded")`` save and ``restore_latest``
    of the char-RNN, MB and seconds of each;
-21. prints one ``{"kernels": [...]}`` line, the card line again, and last
+21. the serving fleet (``phase_fleet``), after the bench transformer is
+   built again: (a) a ``ServingFleet`` of 2 thread replicas of it (each
+   KV arena sized on ``KV_BUDGET``) with the char-RNN as a second record,
+   behind a ``FleetRouter``: the serve burst's 17 ``/generate`` requests
+   equal to one engine's transcripts, 64 ``/predict`` calls byte-equal to
+   one engine's (sequential) and within 1e-5 (8 clients); tokens/s and
+   rows/s through the router beside one engine's, the router's added p50
+   over 50 single-row calls; ``RouterChaos`` kills r0 after 8 proxied
+   calls of a 48-request burst: every request answered, the seconds from
+   the kill to the ejection, the replica respawned; K4, K6 and K1
+   launched, the plain versions never; (b) 2 OS-process replicas of the
+   char-RNN zip (``python -m deeplearning4j_tpu_torch.serving.fleet``):
+   answers byte-equal to (a)'s, SIGTERM (drain, goodbye) and SIGKILL
+   (expiry) timed; (c) a prefill-role and a decode-role replica: the
+   greedy requests equal to one engine's, the blocks and bytes handed
+   off; the width-2 head-sharded tick (16 heads a shard, K6 on each) at
+   64 lanes ``torch.equal`` to the dense tick; (d) a scripted ``/predict``
+   wave (``AutoscaleChaos``) scales a char-RNN fleet 1 -> 3 -> 1 under 3
+   clients with no failed request, the decisions replaying exactly;
+   ``pack_models`` places the bench LM and the char-RNN on the card's
+   memory; (e) ``ContinuousTrainer`` 3 rounds of 4 batches from a
+   ``StreamSource`` (K1/K2 4 a step), then ``ShadowPromoter`` mirrors at
+   fraction 0.5 (the primary's answers byte-equal with mirroring on and
+   off) and promotes the candidate zip under 4 clients with no failed
+   request; (f) ``ElasticParameterAveragingTrainer`` with 4 workers on
+   the char-RNN, a split killed in round 1 (reclaimed) and a worker
+   admitted at round 3, params ``torch.equal`` to the replay of that
+   membership sequence, K1/K2 4 a worker fit, samples/s; (g)
+   ``Word2Vec(num_workers=1)`` on a world-1 NCCL group ``torch.equal`` to
+   the plain fit, K3 once a batch;
+22. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
@@ -492,6 +527,7 @@ import dataclasses
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -7534,6 +7570,740 @@ def phase_distributed(seed: int, dev):
                     "sharded_checkpoint": ckpt, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet, autoscaling, the online plane and the elastic fleet
+# ---------------------------------------------------------------------------
+
+FLEET_HEARTBEAT_S = 1.0
+FLEET_PROBES = 50               # single-row /predict calls, direct and routed
+FLEET_KILL_AFTER, FLEET_CHAOS_REQS = 8, 48
+FLEET_COUNTERS = (flash_attention, flash_attention_plain, paged_attention,
+                  paged_attention_plain, lstm_scan, lstm_scan_plain,
+                  lstm_scan_bwd, lstm_scan_bwd_plain, sgns_step,
+                  sgns_step_plain)
+ONLINE_ROUNDS, ONLINE_BATCHES = 3, 4     # ContinuousTrainer: 4 batches a round
+ELASTIC_WORKERS, ELASTIC_ROUNDS, ELASTIC_ROWS = 4, 4, 48
+FLEET_W2V_SENTENCES = 1000      # the topic corpus's first sentences
+
+
+def fleet_counts():
+    return {fn.__name__: fn.launches for fn in FLEET_COUNTERS}
+
+
+def fleet_zero():
+    for fn in FLEET_COUNTERS:
+        fn.launches = 0
+
+
+def char_rows(seed: int, n: int):
+    """``n`` /predict payloads of 1-MAX_ROWS one-hot rows of SEQ steps."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return [eye[rng.integers(0, VOCAB, (int(rng.integers(1, MAX_ROWS + 1)),
+                                        SEQ))] for _ in range(n)]
+
+
+def predict_bodies(url: str, rows, model: str = "char", clients: int = 1):
+    """(raw answer bodies, wall s) of /predict calls naming ``model``;
+    every answer HTTP 200."""
+    t0 = time.perf_counter()
+    call = lambda x: _call(url, "/predict", {"batch": x.tolist(),
+                                             "model": model})
+    with ThreadPoolExecutor(clients) as ex:
+        answers = list(ex.map(call, rows))
+    wall = time.perf_counter() - t0
+    for status, _, body in answers:
+        check(status == 200, f"/predict HTTP {status}: {body[:200]}")
+    return [body for _, _, body in answers], wall
+
+
+def add_char_record(eng, net) -> None:
+    """The char-RNN as the record "char" beside the engine's default,
+    warmed over the bucket ladder."""
+    eng.registry.load("char", model=net)
+    eng.registry.warmup("char", max_batch=eng.max_batch,
+                        sample_row=np.zeros((SEQ, VOCAB), np.float32))
+
+
+def warm_lm(url: str, reqs, cfg) -> None:
+    """One short request per admission width (first-call costs out of the
+    timed bursts, as in ``phase_serve``)."""
+    first = {}
+    for r in reqs:
+        k = min(len(r["tokens"][0]), cfg.max_len - r["n_new"])
+        first.setdefault(min(max(bucket_size(k), k), cfg.max_len), r)
+    for r in first.values():
+        _post(url, dict(r, n_new=2, temperature=0.0))
+
+
+def wait_until(cond, timeout: float, what: str) -> float:
+    """Seconds until ``cond()`` held (raises past ``timeout``)."""
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout, f"timed out: {what}")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def fleet_threads(lm, net, reqs, seed: int, dev) -> dict:
+    """(a) two thread replicas of the bench LM (+ the char-RNN record)
+    behind a FleetRouter against one engine."""
+    from deeplearning4j_tpu_torch.resilience import (
+        RouterChaos,
+        RouterChaosConfig,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+
+    cfg = lm.cfg
+    nb = kv_arena_blocks(cfg, BT, budget_bytes=KV_BUDGET, params=lm.params)
+    rows = char_rows(seed + 20, N_PREDICT)
+    solo = ServingEngine(lm, kv_blocks=nb, device=dev).start()
+    try:
+        add_char_record(solo, net)
+        warm_lm(solo.url, reqs, cfg)
+        toks_solo, wall_solo = burst(solo, reqs)
+        seq_solo, _ = predict_bodies(solo.url, rows)
+        par_solo, pwall_solo = predict_bodies(solo.url, rows, clients=N_CLIENTS)
+        direct = [predict_bodies(solo.url, rows[i % 4:i % 4 + 1])[1]
+                  for i in range(FLEET_PROBES)]
+    finally:
+        solo.stop()
+    gen = sum(len(t) for t in toks_solo)
+    fleet = ServingFleet(model=lm, replicas=2, heartbeat_s=FLEET_HEARTBEAT_S,
+                         engine_kwargs={"kv_blocks": nb}, device=dev).start()
+    out = {"kv_blocks_per_replica": nb}
+    try:
+        for eng in fleet.engines().values():
+            add_char_record(eng, net)
+            warm_lm(eng.url, reqs, cfg)
+        wait_until(lambda: len(fleet.router.signals()["ready_replicas"]) == 2,
+                   60, "two ready replicas")
+        fleet_zero()
+        toks, wall = burst(fleet, reqs)
+        gen_counts = fleet_counts()
+        check(toks == toks_solo, "a /generate transcript through the router "
+              "differs from one engine's")
+        per_replica = {rid: eng.stats.snapshot()["generated_tokens"]
+                       for rid, eng in fleet.engines().items()}
+        print(f"(a) /generate: {len(toks)} transcripts through the router "
+              f"equal to one engine's; {gen / wall:.1f} tokens/s through "
+              f"the router beside {gen / wall_solo:.1f} on one engine; "
+              f"tokens by replica {per_replica}; launches {gen_counts}")
+        check(gen_counts["flash_attention"] > 0
+              and gen_counts["paged_attention"] > 0,
+              "K4 or K6 was not launched by the fleet's /generate")
+        check(gen_counts["flash_attention_plain"] == 0
+              and gen_counts["paged_attention_plain"] == 0,
+              "a plain attention ran in the fleet")
+        fleet_zero()
+        seq, _ = predict_bodies(fleet.url, rows)
+        check(seq == seq_solo, "a /predict answer through the router is not "
+              "byte-equal to one engine's")
+        par, pwall = predict_bodies(fleet.url, rows, clients=N_CLIENTS)
+        err = max(float(np.abs(np.asarray(json.loads(a)["outputs"])
+                               - np.asarray(json.loads(b)["outputs"])).max())
+                  for a, b in zip(par, par_solo))
+        check(err <= TOL_PREDICT, "a concurrent /predict answer through the "
+              "router disagrees with one engine's")
+        pred_counts = fleet_counts()
+        check(pred_counts["lstm_scan"] > 0 and
+              pred_counts["lstm_scan_plain"] == 0,
+              "K1 was not launched (or the plain scan ran) for /predict")
+        n_rows = sum(x.shape[0] for x in rows)
+        routed = [predict_bodies(fleet.url, rows[i % 4:i % 4 + 1])[1]
+                  for i in range(FLEET_PROBES)]
+        added = (percentile(routed, 0.5) - percentile(direct, 0.5)) * 1e3
+        print(f"(a) /predict: {N_PREDICT} sequential answers byte-equal to "
+              f"one engine's, {N_CLIENTS} clients within {err:.2e}; "
+              f"{n_rows / pwall:.1f} rows/s through the router beside "
+              f"{n_rows / pwall_solo:.1f} on one engine; the router adds "
+              f"{added:.3f} ms at p50 (single-row calls, "
+              f"{percentile(direct, 0.5) * 1e3:.3f} ms direct); launches "
+              f"{pred_counts}")
+        # RouterChaos: r0 killed hard after FLEET_KILL_AFTER proxied calls
+        chaos = RouterChaos(RouterChaosConfig(kill_replica={
+            "replica": "r0", "after_proxied": FLEET_KILL_AFTER}))
+        fleet.router.chaos = chaos
+        kill = {}
+
+        def watch():
+            while fleet._handles["r0"].alive:
+                time.sleep(0.002)
+            kill["t"] = time.monotonic()
+            while "r0" in fleet.router.signals()["ready_replicas"]:
+                time.sleep(0.002)
+            kill["ejected"] = time.monotonic()
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        chaos_rows = rows[:FLEET_CHAOS_REQS]
+        got, _ = predict_bodies(fleet.url, chaos_rows, clients=4)
+        watcher.join(timeout=30)
+        check("ejected" in kill, "the killed replica was never ejected")
+        err = max(float(np.abs(np.asarray(json.loads(a)["outputs"])
+                               - np.asarray(json.loads(b)["outputs"])).max())
+                  for a, b in zip(got, par_solo))
+        check(err <= TOL_PREDICT, "an answer across the kill disagrees")
+        snap = fleet.router.stats.snapshot()
+        t0 = time.monotonic()
+        fleet.restart_replica("r0")
+        add_char_record(fleet.engines()["r0"], net)
+        wait_until(lambda: "r0" in fleet.router.signals()["ready_replicas"],
+                   60, "the respawned replica ready")
+        respawn = time.monotonic() - t0
+        print(f"(a) RouterChaos killed r0 after {FLEET_KILL_AFTER} proxied "
+              f"calls: {len(got)} admitted /predict answered (HTTP 200, "
+              f"within {err:.2e}), {snap['retries']} retried, "
+              f"{snap['replica_failures']} replica failures; ejected "
+              f"{kill['ejected'] - kill['t']:.3f} s after the kill, "
+              f"respawned and ready in {respawn:.3f} s")
+        out.update(
+            generate={"requests": len(toks), "tokens": gen,
+                      "router_tokens_per_s": gen / wall,
+                      "engine_tokens_per_s": gen / wall_solo,
+                      "tokens_by_replica": per_replica,
+                      "launches": gen_counts},
+            predict={"requests": len(rows), "rows": n_rows,
+                     "router_rows_per_s": n_rows / pwall,
+                     "engine_rows_per_s": n_rows / pwall_solo,
+                     "router_added_p50_ms": added,
+                     "direct_p50_ms": percentile(direct, 0.5) * 1e3,
+                     "launches": pred_counts},
+            chaos={"answered": len(got), "retries": snap["retries"],
+                   "replica_failures": snap["replica_failures"],
+                   "kill_to_eject_s": kill["ejected"] - kill["t"],
+                   "respawn_s": respawn})
+    finally:
+        fleet.stop()
+    return out, toks_solo, seq_solo, rows, nb
+
+
+def fleet_processes(net, rows, seq_solo, tmp: str) -> dict:
+    """(b) two OS-process replicas of the char-RNN zip on the card."""
+    from deeplearning4j_tpu_torch.parallel.fleet import FileMembershipBoard
+    from deeplearning4j_tpu_torch.serving.router import (
+        FleetRouter,
+        read_replica_addr,
+    )
+
+    zip_path = os.path.join(tmp, "char_rnn.zip")
+    write_model(net, zip_path)
+    fleet_dir = os.path.join(tmp, "fleet")
+    os.makedirs(fleet_dir)
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    logs = {rid: os.path.join(tmp, f"replica-{rid}.log")
+            for rid in ("p0", "p1")}
+    procs = {rid: subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.serving.fleet",
+         "--fleet-dir", fleet_dir, "--replica-id", rid, "--model-path",
+         zip_path, "--heartbeat-s", str(FLEET_HEARTBEAT_S)],
+        env=env, cwd=REPO_ROOT, stdout=subprocess.DEVNULL,
+        stderr=open(logs[rid], "wb")) for rid in logs}
+    router = None
+    try:
+        for rid, p in procs.items():
+            def up(rid=rid, p=p):
+                if p.poll() is not None:
+                    with open(logs[rid], "rb") as f:
+                        tail = f.read().decode(errors="replace")[-600:]
+                    check(False, f"replica {rid} exited: {tail}")
+                url = read_replica_addr(fleet_dir, rid)
+                if url is None:
+                    return False
+                try:
+                    return _call(url, "/health")[0] == 200
+                except OSError:
+                    return False
+            wait_until(up, 180, f"replica {rid} up")
+        boot = time.monotonic() - t0
+        router = FleetRouter(board=FileMembershipBoard(
+            fleet_dir, heartbeat_timeout=FLEET_HEARTBEAT_S), poll_s=0.2)
+        router.start()
+        wait_until(lambda: len(router.signals()["ready_replicas"]) == 2, 30,
+                   "two process replicas routable")
+        got, _ = predict_bodies(router.url, rows, model="default")
+        check(got == seq_solo, "an OS-process replica's answer is not "
+              "byte-equal to the thread fleet's")
+        t0 = time.monotonic()
+        procs["p1"].send_signal(signal.SIGTERM)
+        check(procs["p1"].wait(timeout=60) == 0,
+              "the SIGTERM'd replica did not exit 0")
+        exit_s = time.monotonic() - t0
+        gone = wait_until(lambda: sorted(router.describe_replicas())
+                          == ["p0"], 30, "the goodbye seen by the router")
+        check(read_replica_addr(fleet_dir, "p1") is None,
+              "the goodbye left the address file")
+        check(router.stats.snapshot()["breaker_opens"] == 0,
+              "a goodbye voted a breaker")
+        check(router.proxy_predict(json.dumps(
+            {"batch": rows[0].tolist()}).encode())[0] == 200,
+            "the survivor did not answer")
+        t0 = time.monotonic()
+        procs["p0"].kill()
+        procs["p0"].wait(timeout=30)
+        expiry = wait_until(lambda: not router.describe_replicas(), 30,
+                            "the killed replica expired")
+        print(f"(b) 2 OS-process replicas (python -m "
+              f"deeplearning4j_tpu_torch.serving.fleet, the char-RNN zip) "
+              f"up in {boot:.3f} s; {len(rows)} answers byte-equal to (a)'s; "
+              f"SIGTERM: drained and exited in {exit_s:.3f} s, goodbye seen "
+              f"{gone:.3f} s later; SIGKILL: expired after "
+              f"{time.monotonic() - t0:.3f} s")
+        return {"boot_s": boot, "answers": len(got),
+                "sigterm_exit_s": exit_s, "goodbye_seen_s": gone,
+                "sigkill_expiry_s": expiry}
+    finally:
+        if router is not None:
+            router.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def fleet_disaggregated(lm, reqs, toks_solo, nb: int, seed: int, dev) -> dict:
+    """(c) a prefill-role and a decode-role replica; the width-2 tick."""
+    from deeplearning4j_tpu_torch.serving.mesh import (
+        concat_gather,
+        mesh_paged_decode_step,
+    )
+    from deeplearning4j_tpu_torch.serving.router import FleetRouter
+
+    greedy = [(r, t) for r, t in zip(reqs, toks_solo)
+              if r["temperature"] == 0.0]
+    pre = ServingEngine(lm, kv_blocks=nb, role="prefill", device=dev).start()
+    dec = ServingEngine(lm, kv_blocks=nb, role="decode", device=dev).start()
+    router = FleetRouter(replicas={
+        "p0": {"url": pre.url, "role": "prefill"},
+        "d0": {"url": dec.url, "role": "decode"}}).start()
+    try:
+        fleet_zero()
+        t0 = time.perf_counter()
+        for r, want in greedy:
+            status, body = _post(router.url, r)
+            check(status == 200 and _tokens(r, status, body) == want,
+                  "a disaggregated transcript differs from one engine's")
+        wall = time.perf_counter() - t0
+        snap, ds, ps = (router.stats.snapshot(), dec.stats.snapshot(),
+                        pre.stats.snapshot())
+        counts = fleet_counts()
+        check(snap["prefill_handoffs"] >= 1 and ds["prefix_imports"] >= 1,
+              "no prefix was handed from the prefill to the decode replica")
+        check(ps["generated_tokens"] == 0, "the prefill replica decoded")
+        block = 2 * lm.cfg.n_layers * BT * lm.cfg.d_model * \
+            torch.empty((), dtype=lm.cfg.compute_dtype).element_size()
+        moved = ds["prefix_imports"] * block
+        print(f"(c) {len(greedy)} greedy requests through a prefill + a "
+              f"decode replica equal to one engine's in {wall:.3f} s: "
+              f"{snap['prefill_handoffs']} handoffs, "
+              f"{ds['prefix_imports']} blocks ({moved / 2**20:.1f} MiB) "
+              f"adopted, {ds['prefix_hits']} prefix hits; launches {counts}")
+    finally:
+        router.stop()
+        pre.stop()
+        dec.stop()
+    # the width-2 head-sharded tick against the dense tick, one process
+    cfg = lm.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = cfg.max_len // BT
+    shape = (cfg.n_layers, LANES * m + 1, BT, cfg.n_heads,
+             cfg.d_model // cfg.n_heads)
+    arena = {n: (torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        cfg.compute_dtype) for n in ("k", "v")}
+    tables = (1 + torch.arange(LANES * m, device=dev, dtype=torch.int32)
+              ).reshape(LANES, m)
+    pos = torch.randint(0, cfg.max_len - 1, (LANES,), generator=g,
+                        device=dev, dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (LANES,), generator=g,
+                        device=dev, dtype=torch.int32)
+    hl = cfg.n_heads // 2
+    shards = [(i, {n: a[:, :, :, i * hl:(i + 1) * hl].contiguous()
+                   for n, a in arena.items()}) for i in range(2)]
+    with torch.inference_mode():
+        fleet_zero()
+        got = mesh_paged_decode_step(lm.compute_params, shards, tok, pos,
+                                     tables, cfg, 2, concat_gather)
+        mesh_k6 = paged_attention.launches
+        _, want = paged_decode_step(lm.compute_params, arena, tok, pos,
+                                    tables, cfg)
+        torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    written = all(torch.equal(s[n], arena[n][:, :, :, i * hl:(i + 1) * hl])
+                  for i, s in shards for n in ("k", "v"))
+    print(f"(c) the width-2 head-sharded tick ({hl} heads a shard, K6 on "
+          f"each: {mesh_k6} launches for {cfg.n_layers} layers) at "
+          f"{LANES} lanes: logits torch.equal to the dense tick's "
+          f"{equal}; the shards' writes equal the dense arena's {written}")
+    check(mesh_k6 == 2 * cfg.n_layers, "the sharded tick did not run K6 on "
+          "each shard of each layer")
+    check(paged_attention_plain.launches == 0,
+          "the plain paged attention ran in the sharded tick")
+    check(equal and written,
+          "the width-2 head-sharded tick differs from the dense tick")
+    del arena, shards
+    counts["paged_attention"] += mesh_k6
+    return {"greedy_requests": len(greedy), "wall_s": wall,
+            "handoffs": snap["prefill_handoffs"],
+            "blocks_adopted": ds["prefix_imports"], "bytes_adopted": moved,
+            "prefix_hits": ds["prefix_hits"], "launches": counts,
+            "sharded_tick": {"lanes": LANES, "heads_per_shard": hl,
+                             "k6_launches": mesh_k6,
+                             "logits_torch_equal": equal}}
+
+
+def fleet_autoscale(lm, net, seed: int, dev) -> dict:
+    """(d) a scripted /predict wave scales 1 -> 3 -> 1; placement."""
+    from deeplearning4j_tpu_torch.resilience import (
+        AutoscaleChaos,
+        AutoscaleChaosConfig,
+    )
+    from deeplearning4j_tpu_torch.serving.autoscale import (
+        FleetAutoscaler,
+        ScaleConfig,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+    from deeplearning4j_tpu_torch.serving.placement import (
+        model_footprint,
+        pack_models,
+    )
+
+    # 3 clients keep at most 3 requests queued: 2 a replica votes down
+    # whenever the scripted wave is not on
+    cfg = ScaleConfig(min_replicas=1, max_replicas=3, up_queue=10.0,
+                      up_shed=0, window=1, down_queue=2.0, cooldown=0)
+    fleet = ServingFleet(model=net, replicas=1, heartbeat_s=FLEET_HEARTBEAT_S,
+                         device=dev).start()
+    auto = FleetAutoscaler(fleet, config=cfg, chaos=AutoscaleChaos(
+        AutoscaleChaosConfig(load_wave={"at_tick": 0, "ticks": 2,
+                                        "queue_depth": 50})))
+    rows = char_rows(seed + 30, 16)
+    failures, answered = [], [0]
+    stop = threading.Event()
+
+    def hammer(i):
+        while not stop.is_set():
+            status, _, body = _call(fleet.url, "/predict",
+                                    {"batch": rows[i % 16].tolist()})
+            if status != 200:
+                failures.append((status, body[:200]))
+            answered[0] += 1
+            i += 3
+
+    threads = [threading.Thread(target=hammer, args=(i,)) for i in range(3)]
+    ready = lambda n: len(fleet.router.signals()["ready_replicas"]) == n
+    try:
+        wait_until(lambda: ready(1), 60, "the first replica ready")
+        fleet_zero()
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        sizes = [1]
+        for want in (2, 3):
+            d = auto.tick()
+            check(d["action"] == "up", f"the wave did not scale up: {d}")
+            wait_until(lambda: ready(want), 60, f"{want} ready replicas")
+            sizes.append(want)
+        while len(fleet.router.signals()["ready_replicas"]) > 1:
+            check(time.monotonic() - t0 < 90, "the fleet never scaled down")
+            d = auto.tick()
+            if d["action"] == "down":
+                wait_until(lambda: d["victim"] not in
+                           fleet.router.signals()["ready_replicas"], 30,
+                           "the victim gone")
+                sizes.append(len(fleet.router.signals()["ready_replicas"]))
+        wall = time.monotonic() - t0
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        fleet.stop()
+    counts = fleet_counts()
+    strip = [{k: v for k, v in d.items()
+              if k not in ("enacted", "enact_error")} for d in auto.decisions]
+    replay = FleetAutoscaler.replay(auto.signals_log, config=cfg)
+    stats = auto.stats.snapshot()
+    print(f"(d) a scripted /predict wave: replicas {sizes} over "
+          f"{len(auto.decisions)} ticks in {wall:.3f} s, {answered[0]} "
+          f"requests, {len(failures)} failed; decisions replay "
+          f"bit-exact {strip == replay}; launches {counts}")
+    check(not failures, f"a request failed across the scaling: "
+          f"{failures[:3]}")
+    check(strip == replay, "the decisions did not replay")
+    check(stats["scale_ups"] == 2 and stats["scale_downs"] == 2,
+          f"the wave did not scale 1 -> 3 -> 1: {stats}")
+    check(counts["lstm_scan"] > 0 and counts["lstm_scan_plain"] == 0,
+          "K1 was not launched (or the plain scan ran) across the scaling")
+    gb = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    fps = [model_footprint("bench_lm", lm, hbm_gb=gb),
+           model_footprint("char_rnn", net, hbm_gb=gb)]
+    plan = pack_models(fps, ["r0"], hbm_gb=gb)
+    print(f"(d) pack_models on the card's {gb:.1f} GiB: "
+          f"{plan.describe()['assignments']}, utilization "
+          f"{plan.describe()['utilization']}, unplaced {plan.unplaced}")
+    check(sorted(plan.assignments["r0"]) == ["bench_lm", "char_rnn"]
+          and not plan.unplaced, "the card's budget did not place both")
+    return {"replicas": sizes, "ticks": len(auto.decisions),
+            "requests": answered[0], "failed": len(failures),
+            "wall_s": wall, "stats": stats, "launches": counts,
+            "placement": plan.describe()}
+
+
+def online_conf(seed: int):
+    return char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed,
+                         tbptt_length=TBPTT, learning_rate=TRAIN_LR)
+
+
+def fleet_online(net, seed: int, dev, tmp: str) -> dict:
+    """(e) ContinuousTrainer rounds; ShadowPromoter mirroring + promote."""
+    from deeplearning4j_tpu_torch.online import (
+        ContinuousTrainer,
+        ShadowPromoter,
+    )
+
+    trainee = MultiLayerNetwork(online_conf(seed), device=dev).init(
+        input_shape=(1, VOCAB))
+    src = StreamSource(watermark=64, idle_s=0.2)
+    cand = os.path.join(tmp, "candidate.zip")
+    ct = ContinuousTrainer(trainee, src, workers=1, shard=None,
+                           handle_signals=False, candidate_path=cand,
+                           snapshot_rounds=1, device=dev)
+    batches = char_batches(seed + 40, ONLINE_ROUNDS * ONLINE_BATCHES + 1,
+                           TRAIN_BATCH)
+    fleet_zero()
+    t0 = time.perf_counter()
+    for r in range(ONLINE_ROUNDS):
+        for i in range(ONLINE_BATCHES):
+            b = batches[r * ONLINE_BATCHES + i]
+            src.push(DataSet(b, batches[r * ONLINE_BATCHES + i + 1]))
+        losses = ct.fit_round()
+        check(len(losses) == ONLINE_BATCHES and np.isfinite(losses).all(),
+              f"round {r + 1} fitted {len(losses)} batches")
+    wall = time.perf_counter() - t0
+    counts = fleet_counts()
+    steps = ct.step
+    print(f"(e) ContinuousTrainer: {ct.rounds_done} rounds, {steps} steps "
+          f"from a StreamSource in {wall:.3f} s (idle windows included); "
+          f"K1 {counts['lstm_scan'] / steps:.1f} and K2 "
+          f"{counts['lstm_scan_bwd'] / steps:.1f} a step; candidate "
+          f"snapshots {ct.snapshot()['snapshots']}")
+    check(ct.rounds_done == ONLINE_ROUNDS and
+          counts["lstm_scan"] == 4 * steps and
+          counts["lstm_scan_bwd"] == 4 * steps and
+          counts["lstm_scan_plain"] == counts["lstm_scan_bwd_plain"] == 0,
+          f"the trainer's rounds did not run K1/K2 4 a step: {counts}")
+    rows = char_rows(seed + 50, 24)
+    eng = ServingEngine(model=net, device=dev).start()
+    try:
+        off, _ = predict_bodies(eng.url, rows, model="default")
+        promoter = ShadowPromoter(eng, min_mirrored=4, fraction=0.5)
+        rec = promoter.stage("candidate", model_path=cand,
+                             max_batch=eng.max_batch,
+                             sample_row=np.zeros((SEQ, VOCAB), np.float32))
+        on, _ = predict_bodies(eng.url, rows, model="default")
+        check(on == off, "mirroring changed a primary answer")
+        check(promoter.mirror.wait_idle(30), "the mirror did not drain")
+        mirror = promoter.mirror.report()
+        stop, failures, answered = threading.Event(), [], [0]
+
+        def hammer(i):
+            while not stop.is_set():
+                status, _, body = _call(eng.url, "/predict",
+                                        {"batch": rows[i % 24].tolist()})
+                if status != 200:
+                    failures.append((status, body[:200]))
+                answered[0] += 1
+                i += 4
+
+        threads = [threading.Thread(target=hammer, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.1)
+        report = promoter.promote()
+        time.sleep(0.1)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        check(report["ok"] and eng.registry.default().key == rec.key,
+              f"the candidate was not promoted: {report}")
+        check(not failures, f"a request failed across the swap: "
+              f"{failures[:3]}")
+    finally:
+        eng.stop()
+    print(f"(e) ShadowPromoter at fraction 0.5: {mirror['mirrored']} of "
+          f"{len(rows)} answered requests mirrored ({mirror['skipped']} "
+          f"skipped), the primary's answers byte-equal with mirroring on "
+          f"and off; promoted with {answered[0]} requests in flight, none "
+          f"failed")
+    check(mirror["mirrored"] == len(rows) // 2,
+          "the 0.5 stride did not mirror every other request")
+    return {"rounds": ct.rounds_done, "steps": steps, "wall_s": wall,
+            "launches": counts, "mirror": mirror,
+            "promotion_requests": answered[0]}
+
+
+def elastic_run(seed: int, dev, chaos=None):
+    """4 in-process workers, frequency 1, ELASTIC_ROUNDS rounds; the worker
+    whose split dies in round 1 (chaos) or w3 (scripted) leaves after
+    round 1, and a fresh worker joins before round 3."""
+    from deeplearning4j_tpu_torch.parallel.fleet import (
+        ElasticParameterAveragingTrainer,
+    )
+
+    net = MultiLayerNetwork(online_conf(seed), device=dev).init(
+        input_shape=(1, VOCAB))
+    xs = char_batches(seed + 60, ELASTIC_ROUNDS + 1, ELASTIC_ROWS)
+    tr = ElasticParameterAveragingTrainer(
+        net, num_workers=ELASTIC_WORKERS, averaging_frequency=1,
+        heartbeat_s=FLEET_HEARTBEAT_S, chaos=chaos, device=dev)
+    sizes = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(ELASTIC_ROUNDS):
+            if r == 1 and chaos is None:
+                tr.evict_worker("w3")
+            if r == 2:
+                tr.admit_worker()
+            tr.fit(xs[r], xs[r + 1])
+            sizes.append(len(tr._last_live))
+    finally:
+        tr.close()
+    torch.cuda.synchronize()
+    return net, sizes, time.perf_counter() - t0, tr.resilience_stats
+
+
+def fleet_elastic(seed: int, dev) -> dict:
+    """(f) the elastic averaging fleet against the replay of its
+    membership sequence."""
+    from deeplearning4j_tpu_torch.resilience import (
+        FleetChaos,
+        FleetChaosConfig,
+    )
+
+    fleet_zero()
+    net_a, sizes_a, wall_a, stats_a = elastic_run(seed, dev, FleetChaos(
+        FleetChaosConfig(kill_split={"round": 1, "split": 3})))
+    counts = fleet_counts()
+    net_b, sizes_b, wall_b, _ = elastic_run(seed, dev)
+    equal = all(torch.equal(a[k], b[k]) for a, b in
+                zip(net_a.params, net_b.params) for k in a)
+    fits = sum(sizes_a)
+    samples = ELASTIC_ROUNDS * ELASTIC_ROWS
+    print(f"(f) elastic averaging: workers by round {sizes_a} (a split "
+          f"killed in round 1, reclaimed {stats_a['reclaims']} time(s); a "
+          f"worker admitted at round 3); params torch.equal to the replay "
+          f"of the membership sequence {equal}; K1 "
+          f"{counts['lstm_scan'] / fits:.1f} and K2 "
+          f"{counts['lstm_scan_bwd'] / fits:.1f} a worker fit; "
+          f"{samples / wall_b:.1f} samples/s (the replay; "
+          f"{samples / wall_a:.1f} with the reclaim's wait)")
+    check(sizes_a == sizes_b == [4, 3, 4, 4],
+          f"the membership sequence was {sizes_a} / {sizes_b}")
+    check(stats_a["reclaims"] >= 1, "the killed split was not reclaimed")
+    check(equal, "the elastic run differs from the replay of its "
+          "membership sequence")
+    check(counts["lstm_scan"] == 4 * fits and
+          counts["lstm_scan_bwd"] == 4 * fits and
+          counts["lstm_scan_plain"] == counts["lstm_scan_bwd_plain"] == 0,
+          f"K1/K2 were not launched 4 a worker fit: {counts}")
+    return {"workers_by_round": sizes_a, "reclaims": stats_a["reclaims"],
+            "params_torch_equal_replay": equal, "launches": counts,
+            "worker_fits": fits, "samples_per_s": samples / wall_b,
+            "samples_per_s_with_reclaim": samples / wall_a}
+
+
+def fleet_word2vec(seed: int, dev, tmp: str) -> dict:
+    """(g) Word2Vec with num_workers=1 on a world-1 NCCL group."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+
+    toks = topic_corpus(seed)[:FLEET_W2V_SENTENCES]
+    kw = dict(layer_size=W2V_D, window=W2V_WINDOW, negative=W2V_NEG,
+              batch_size=W2V_BATCH, min_word_frequency=W2V_MIN_COUNT,
+              seed=seed, device=dev)
+
+    def fits(group):
+        plain = Word2Vec(**kw).fit_tokens(toks)
+        fleet_zero()
+        dp = Word2Vec(num_workers=1, mesh=group, **kw).fit_tokens(toks)
+        return plain, dp, fleet_counts()
+
+    init_seq_group(os.path.join(tmp, "w2v_store"), 0, 1, backend="nccl")
+    try:
+        group = device_mesh((1,), ("data",)).group("data")
+        mode = "deterministic algorithms"
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    plain, dp, counts = fits(group)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+        except RuntimeError as e:
+            mode = f"default algorithms ({type(e).__name__} under " \
+                   f"deterministic ones)"
+            plain, dp, counts = fits(group)
+    finally:
+        dist.destroy_process_group()
+    names = ("syn0", "syn1", "syn1neg")
+    equal = all(np.array_equal(getattr(plain.lookup_table, n),
+                               getattr(dp.lookup_table, n)) for n in names)
+    nb = dp.fit_stats["batches"]
+    print(f"(g) Word2Vec(num_workers=1) on a world-1 NCCL group, "
+          f"{len(toks)} sentences, {nb} batches under {mode}: tables "
+          f"torch.equal to the plain fit {equal}; K3 {counts['sgns_step']} "
+          f"launches, plain {counts['sgns_step_plain']}")
+    check(dp.mesh is group, "the fit did not take the NCCL group")
+    check(counts["sgns_step"] == nb and counts["sgns_step_plain"] == 0,
+          "K3 was not launched once a batch")
+    check(equal, "the data-parallel fit differs from the plain fit")
+    return {"batches": nb, "launches": counts, "torch_equal": equal,
+            "mode": mode}
+
+
+def phase_fleet(cfg: TransformerConfig, net: MultiLayerNetwork, burst_reqs,
+                seed: int, dev):
+    """The serving fleet, autoscaling and placement, the sharded tick,
+    shadow promotion with the ContinuousTrainer, the elastic averaging
+    fleet and data-parallel Word2Vec (module docstring, 21)."""
+    print("== the serving fleet, the online plane and the elastic fleet ==")
+    t0 = time.perf_counter()
+    # the serve phase's 16 requests and its streamed one (through the
+    # router's streaming pass-through)
+    burst_reqs = list(burst_reqs) + [dict(burst_reqs[1], stream=True)]
+    lm = TransformerLM(cfg, device=dev)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        threads, toks_solo, seq_solo, rows, nb = fleet_threads(
+            lm, net, burst_reqs, seed, dev)
+        procs = fleet_processes(net, rows, seq_solo, tmp)
+        disagg = fleet_disaggregated(lm, burst_reqs, toks_solo, nb, seed,
+                                     dev)
+        scale = fleet_autoscale(lm, net, seed, dev)
+        del lm
+        torch.cuda.empty_cache()
+        online = fleet_online(net, seed, dev, tmp)
+        elastic = fleet_elastic(seed, dev)
+        w2v = fleet_word2vec(seed, dev, tmp)
+    for part in (threads["generate"]["launches"],
+                 threads["predict"]["launches"], disagg["launches"],
+                 scale["launches"], online["launches"], elastic["launches"],
+                 w2v["launches"]):
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+    wall = time.perf_counter() - t0
+    print(f"fleet phase: {wall:.1f} s; launches {counts}")
+    return counts, {"threads": threads, "processes": procs,
+                    "disaggregation": disagg, "autoscale": scale,
+                    "online": online, "elastic": elastic, "word2vec": w2v,
+                    "wall_s": wall}
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -7632,9 +8402,12 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     dist_counts, distributed = phase_distributed(args.seed, dev)
     peak_dist = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fl_counts, fleet = phase_fleet(cfg, net, burst[0], args.seed, dev)
+    peak_fleet = torch.cuda.max_memory_allocated()
     peak = max(peak_serve, peak_train, peak_w2v, peak_rt, peak_sp, peak_lm,
                peak_bert, peak_cnn, peak_graph, peak_search, peak_dist,
-               torch.cuda.max_memory_allocated())
+               peak_fleet, torch.cuda.max_memory_allocated())
     print(f"peak device memory allocated: {peak / 2**30:.3f} GiB (serving "
           f"phases {peak_serve / 2**30:.3f} GiB, char-RNN training phase "
           f"{peak_train / 2**30:.3f} GiB, the 30 fits "
@@ -7648,7 +8421,8 @@ def main(argv=None) -> int:
           f"CNN and layer zoo {peak_cnn / 2**30:.3f} GiB; ComputationGraph "
           f"{peak_graph / 2**30:.3f} GiB; /search "
           f"{peak_search / 2**30:.3f} GiB; distributed "
-          f"{peak_dist / 2**30:.3f} GiB); "
+          f"{peak_dist / 2**30:.3f} GiB; fleet {peak_fleet / 2**30:.3f} "
+          f"GiB); "
           f"whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     f4 = times["flash_attention"][max(FLASH_WIDTHS)]
@@ -7683,6 +8457,7 @@ def main(argv=None) -> int:
              "launches"]["flash_attention"],
          "launches_ulysses_train": uly_counts["flash_attention"],
          "launches_distributed_moe": dist_counts["flash_attention"],
+         "launches_fleet": fl_counts["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
@@ -7714,6 +8489,7 @@ def main(argv=None) -> int:
              "paged_attention"],
          "launches_models_lifecycle": serving_planes["lifecycle"][
              "launches"]["paged_attention"],
+         "launches_fleet": fl_counts["paged_attention"],
          "design": "context splits of 256 tokens (a grid axis) merged in "
                    "split order by a second kernel; 16-byte row reads, 8 "
                    "rounds of K and V in flight per warp"},
@@ -7746,6 +8522,7 @@ def main(argv=None) -> int:
          "launches_runtime": {m: c["lstm_scan"] for m, c in
                               runtime["resilient"]["launches"].items()},
          "launches_distributed_averaging": dist_counts["lstm_scan"],
+         "launches_fleet": fl_counts["lstm_scan"],
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -7767,6 +8544,7 @@ def main(argv=None) -> int:
          "launches_runtime": {m: c["lstm_scan_bwd"] for m, c in
                               runtime["resilient"]["launches"].items()},
          "launches_distributed_averaging": dist_counts["lstm_scan_bwd"],
+         "launches_fleet": fl_counts["lstm_scan_bwd"],
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -7782,6 +8560,7 @@ def main(argv=None) -> int:
          "source": "deeplearning4j_tpu_torch/csrc/sgns.cu",
          "replaces": "deeplearning4j_tpu/ops/pallas_sgns.py:159",
          "launches": word2vec["launches"]["sgns_step"],
+         "launches_fleet": fl_counts["sgns_step"],
          "max_abs_err": errs["sgns_step"]["max_err"],
          "max_err_is": "of the largest entry of each table's update",
          "tolerance": TOL_SGNS,
@@ -7864,7 +8643,7 @@ def main(argv=None) -> int:
                   "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
                   "graph": graph, "embed": embed, "search": search,
                   "obs": obs_rep, "runtime": runtime,
-                  "distributed": distributed,
+                  "distributed": distributed, "fleet": fleet,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -43,7 +43,14 @@ long-context forward:
   pretraining (``MultiLayerNetwork.pretrain``), the full-batch solvers
   (``optimize.solvers``), ``eval.evaluation``,
   ``utils.gradient_check`` and the MNIST fetcher
-  (``datasets.fetchers``).
+  (``datasets.fetchers``);
+* the serving fleet: ``serving.router.FleetRouter`` over
+  ``serving.fleet.ServingFleet`` replicas (threads, or processes started
+  by ``python -m deeplearning4j_tpu_torch.serving.fleet``), the
+  autoscaler and placement, the head-sharded tick
+  (``serving.mesh.MeshPagedDecoder``), shadow promotion and the
+  ``online.ContinuousTrainer``, and the elastic averaging fleet
+  (``parallel.fleet``, ``parallel.statetracker``).
 
 Their six TPU kernels are hand-written CUDA C++ for sm_90a under
 ``csrc/``: flash prefill (``ops/flash_attention.py``), paged decode

@@ -300,7 +300,7 @@ class InputPipeline(DataSetIterator):
                  _reader_cfg: Optional[dict] = None):
         self.source = source
         self.workers = max(1, workers if workers is not None
-                           else envknob.get_int_or(WORKERS_ENV, 2))
+                           else envknob.get_int(WORKERS_ENV, 2))
         self.prefetch = max(1, prefetch if prefetch is not None
                             else default_prefetch())
         self.normalizer = normalizer

@@ -618,19 +618,75 @@ def _named(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def _clip_by_global_norm(grads: Params, max_norm: float):
+def _clip_by_global_norm(grads: Params, max_norm: float, norm_of=None):
     """Global-norm clip over the whole tree through the port's shared
     gradient normalization (``optimize/updaters.normalize_gradients``,
-    ``clip_l2_per_layer``): (clipped grads, the norm before)."""
+    ``clip_l2_per_layer``): (clipped grads, the norm before). On a sharded
+    mesh ``norm_of(grads)`` gives the norm of the whole tree
+    (:func:`sharded_global_norm`) and the same scale applies."""
     from deeplearning4j_tpu_torch.optimize.updaters import (
         _global_norm,
         normalize_gradients,
     )
 
     flat = _named(grads)
-    clipped = normalize_gradients(flat, "clip_l2_per_layer", max_norm)
-    it = iter(clipped[k] for k in flat)
-    return tree_map(lambda _: next(it), grads), _global_norm(flat)
+    if norm_of is None:
+        clipped = normalize_gradients(flat, "clip_l2_per_layer", max_norm)
+        it = iter(clipped[k] for k in flat)
+        return tree_map(lambda _: next(it), grads), _global_norm(flat)
+    norm = norm_of(grads)
+    scale = torch.where(norm > max_norm, max_norm / (norm + 1e-12),
+                        torch.ones_like(norm))
+    return tree_map(lambda g: g * scale, grads), norm
+
+
+def sharded_global_norm(cfg: TransformerConfig, mesh):
+    """``norm_of(grads)``: the global L2 norm of a tree of this rank's
+    gradient shards, as GSPMD computes ``_global_norm`` over the whole
+    tree (JAX ``_adam_update`` :456 under a mesh). Each leaf's squared
+    sum is summed over the groups of the axes its
+    :func:`param_specs_for_mesh` entry splits it on; a replicated leaf
+    is counted once. One all-reduce per (set of split axes), in a fixed
+    order on every rank. None (the plain norm) on a mesh that splits no
+    leaf."""
+    if all(mesh.size(a) == 1 for a in (MODEL_AXIS, EXPERT_AXIS,
+                                       PIPELINE_AXIS)):
+        return None
+    specs = param_specs_for_mesh(cfg, mesh)
+
+    def norm_of(grads):
+        sums: Dict[tuple, list] = {}
+
+        def visit(g, spec):
+            axes = tuple(a for a in dict.fromkeys(spec)
+                         if a is not None and mesh.size(a) > 1)
+            sums.setdefault(axes, []).append(torch.sum(g * g))
+            return g
+
+        _spec_map(visit, grads, specs)
+        total = None
+        for axes in sorted(sums):
+            s = torch.stack(sums[axes]).sum()
+            for a in axes:
+                dist.all_reduce(s, group=mesh.group(a))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+
+    return norm_of
+
+
+def _finite_on_every_shard(finite, mesh):
+    """The bf16 step's finite flag agreed over the mesh's ``'model'`` and
+    ``'expert'`` groups (a MIN all-reduce): every rank of a shard group
+    skips, or takes, the same step, as GSPMD's one global check does."""
+    flag = None
+    for axis in (MODEL_AXIS, EXPERT_AXIS):
+        if mesh.size(axis) > 1:
+            if flag is None:
+                flag = finite.to(torch.int32).reshape(())
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN,
+                            group=mesh.group(axis))
+    return finite if flag is None else flag > 0
 
 
 def _decay_mask(params: Params) -> Params:
@@ -645,13 +701,15 @@ def _decay_mask(params: Params) -> Params:
 
 def _adam_update(params: Params, grads: Params, opt: Params, lr,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, clip_grad_norm: float = 0.0):
+                 weight_decay: float = 0.0, clip_grad_norm: float = 0.0,
+                 norm_of=None):
     """(new params, {"m", "v", "t"}): Adam, with decoupled weight decay on
-    the :func:`_decay_mask` leaves and a global-norm clip first. The bias
+    the :func:`_decay_mask` leaves and a global-norm clip first (the norm
+    from ``norm_of`` on a sharded mesh). The bias
     correction is computed in f32 from the step count as f32 (``lr`` a 0-d
     f32 tensor), as the JAX package computes it."""
     if clip_grad_norm:
-        grads, _ = _clip_by_global_norm(grads, clip_grad_norm)
+        grads, _ = _clip_by_global_norm(grads, clip_grad_norm, norm_of)
     t = opt["t"] + 1
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt["m"], grads)
     v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt["v"], grads)
@@ -723,16 +781,13 @@ def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
     _validate_schedule(cfg)
     accum_steps = cfg.accum_steps
     lp = lowprec.train_policy()
-    shards, data = None, None
+    shards, data, norm_of = None, None, None
     if mesh is not None:
         if mesh.has(SEQUENCE_AXIS) or mesh.has(PIPELINE_AXIS):
             raise ValueError("make_train_step's mesh is data x model x "
                              "expert (the ring and pipeline steps take "
                              "'seq' and 'pipe')")
-        if lp and (mesh.size(MODEL_AXIS) > 1 or mesh.size(EXPERT_AXIS) > 1):
-            raise ValueError("DL4J_TPU_BF16 is not supported on the Megatron "
-                             "training path yet")
-        _reject_sharded_clip(cfg, mesh)
+        norm_of = sharded_global_norm(cfg, mesh)
         shards = mesh_shards(mesh)
         data = mesh.group(DATA_AXIS)
 
@@ -780,10 +835,12 @@ def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
             loss = loss / scale  # report the unscaled loss
             grads = lowprec.unscale(grads, scale)
             finite = lowprec.finite_tree(grads)
+            if mesh is not None:
+                finite = _finite_on_every_shard(finite, mesh)
             lr = _scheduled_lr(cfg, base["t"] + 1)
             new_params, new_base = _adam_update(
                 params, grads, base, lr, weight_decay=cfg.weight_decay,
-                clip_grad_norm=cfg.clip_grad_norm)
+                clip_grad_norm=cfg.clip_grad_norm, norm_of=norm_of)
             params = lowprec.select_trees(finite, new_params, params)
             # 't' too: a skipped step moves neither the schedule nor the
             # bias correction
@@ -794,7 +851,8 @@ def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
         lr = _scheduled_lr(cfg, opt["t"] + 1)
         params, opt = _adam_update(params, grads, opt, lr,
                                    weight_decay=cfg.weight_decay,
-                                   clip_grad_norm=cfg.clip_grad_norm)
+                                   clip_grad_norm=cfg.clip_grad_norm,
+                                   norm_of=norm_of)
         return params, opt, loss
 
     step.loss_scaled = lp
@@ -944,14 +1002,6 @@ def _data_rows(batch, mesh):
     if n % d:
         raise ValueError(f"batch {n} not divisible by the data axis {d}")
     return batch[i * (n // d):(i + 1) * (n // d)]
-
-
-def _reject_sharded_clip(cfg: TransformerConfig, mesh) -> None:
-    if cfg.clip_grad_norm and any(
-            mesh.size(a) > 1 for a in (MODEL_AXIS, EXPERT_AXIS,
-                                       PIPELINE_AXIS)):
-        raise ValueError("clip_grad_norm over sharded params is not "
-                         "supported yet (the global norm spans ranks)")
 
 
 # ---------------------------------------------------------------------------
@@ -1135,7 +1185,7 @@ def _build_pipeline_step(cfg: TransformerConfig, mesh, n_micro: int):
     _reject_lowprec("pipelined")
     _validate_schedule(cfg)
     _validate_moe(cfg)
-    _reject_sharded_clip(cfg, mesh)
+    norm_of = sharded_global_norm(cfg, mesh)
     if cfg.accum_steps != 1:
         raise ValueError(
             "cfg.accum_steps must be 1 under pipelined training — n_micro "
@@ -1159,7 +1209,8 @@ def _build_pipeline_step(cfg: TransformerConfig, mesh, n_micro: int):
         lr = _scheduled_lr(cfg, opt["t"] + 1)
         params, opt = _adam_update(params, grads, opt, lr,
                                    weight_decay=cfg.weight_decay,
-                                   clip_grad_norm=cfg.clip_grad_norm)
+                                   clip_grad_norm=cfg.clip_grad_norm,
+                                   norm_of=norm_of)
         return params, opt, loss
 
     step.loss_scaled = False

@@ -267,6 +267,119 @@ def cbow_batches(tables, huffman, cens, ctxs, cmasks, plive, alphas) -> None:
                   C[cen], M[cen] * pl[:, None], alphas[j])
 
 
+# ---------------------------------------------------------------------------
+# data-parallel minibatches: each rank of the 'data' group takes its rows of
+# every batch and the ranks' updates meet as the whole batch's update
+# ---------------------------------------------------------------------------
+
+
+class DataShards:
+    """The ranks of a data-parallel fit (``Word2Vec(mesh=..., num_workers=
+    ...)``): rank r takes rows ``[r B/n, (r+1) B/n)`` of every minibatch
+    and runs the step on them (K3 for the negative-sampling half), then
+    :meth:`stage` makes every rank's tables the whole batch's update, as
+    JAX's GSPMD ``psum`` of the sharded scatters gives it.
+
+    The step's updates are ``index_add_``s of per-row sums scaled by
+    ``1 / sqrt(k)`` (``ops/sgns.mean_scale``: k counts the batch's live
+    hits of the row), so a rank's delta on a row is its own hits' sum
+    over sqrt(its own k). :meth:`stage` snapshots the rows the whole
+    batch touches, lets the rank run, multiplies each row's delta by
+    sqrt(max(own k, 1)), all-reduces it (SUM) together with k, and adds
+    the sum over sqrt(max(k, 1)) to the snapshot: the whole batch's
+    update up to the order of float sums."""
+
+    def __init__(self, group) -> None:
+        import torch.distributed as dist
+
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def rows(self, a):
+        per = a.shape[0] // self.world
+        return a[self.rank * per:(self.rank + 1) * per]
+
+    def stage(self, pieces, run) -> None:
+        """``pieces``: (table, the whole batch's row indices, this rank's
+        row indices, this rank's live weights of them) of every table the
+        stage ``run`` updates in place."""
+        import torch.distributed as dist
+
+        held = []
+        for table, full_idx, idx, live in pieces:
+            rows = torch.unique(full_idx.reshape(-1))
+            k = torch.zeros((table.shape[0],), dtype=torch.float32,
+                            device=table.device)
+            k.index_add_(0, idx.reshape(-1), live.reshape(-1).float())
+            held.append((table, rows, table[rows].clone(), k[rows]))
+        run()
+        for table, rows, snap, k in held:
+            own = torch.sqrt(torch.clamp_min(k, 1.0)).to(table.dtype)
+            pack = torch.cat([(table[rows] - snap) * own[:, None],
+                              k[:, None].to(table.dtype)], dim=1)
+            dist.all_reduce(pack, group=self.group)
+            total = torch.sqrt(torch.clamp_min(pack[:, -1], 1.0))
+            table[rows] = snap + pack[:, :-1] / total[:, None]
+
+
+def _hs_live(syn1, l1, points, mask):
+    """``_hs_path``'s live weights of the syn1 rows ``points``: the mask,
+    and |dot| < MAX_EXP on the tables as they stand."""
+    dot = torch.einsum("bd,bld->bl", l1, syn1[points])
+    return mask * (dot.abs() < MAX_EXP)
+
+
+def skipgram_step_shards(shards: DataShards, tables, huffman, cen, cx, pl,
+                         alpha, negatives=None, labels=None,
+                         ones=None) -> None:
+    """:func:`skipgram_step` of a whole minibatch over the ranks of
+    ``shards``: each runs HS, then the NS step (``sgns_step``: K3 on the
+    card) on its rows, and :meth:`DataShards.stage` meets the updates
+    after each half. ``labels``/``ones`` are sized for a rank's rows."""
+    syn0, syn1, syn1neg = tables
+    P, C, M = huffman
+    mask = M[cen] * pl[:, None]
+    r = shards.rows
+    cx_r, pts_r, mask_r = r(cx), r(P[cen]), r(mask)
+    shards.stage(
+        [(syn0, cx, cx_r, (mask_r.sum(dim=1) > 0).float()),
+         (syn1, P[cen], pts_r, _hs_live(syn1, syn0[cx_r], pts_r, mask_r))],
+        lambda: hs_body(syn0, syn1, cx_r, pts_r, r(C[cen]), mask_r, alpha))
+    if negatives is None:
+        return
+    tgt = torch.cat([cen[:, None], negatives], dim=1)
+    live = torch.cat([torch.ones_like(pl)[:, None],
+                      (negatives != cen[:, None]).to(syn0.dtype)],
+                     dim=1) * pl[:, None]
+    tgt_r, live_r = r(tgt), r(live)
+    shards.stage(
+        [(syn0, cx, cx_r, (live_r.sum(dim=1) > 0).float()),
+         (syn1neg, tgt, tgt_r, live_r)],
+        lambda: sgns_step(syn0, syn1neg, cx_r, tgt_r, labels, live_r,
+                          alpha))
+
+
+def cbow_step_shards(shards: DataShards, tables, huffman, cen, ctx, cmask,
+                     pl, alpha) -> None:
+    """:func:`cbow_body` of a whole minibatch over the ranks of
+    ``shards`` (HS only, one stage)."""
+    syn0, syn1 = tables
+    P, C, M = huffman
+    r = shards.rows
+    cmask = cmask * pl[:, None]
+    mask = M[cen] * pl[:, None]
+    ctx_r, cm_r, pts_r, mask_r = r(ctx), r(cmask), r(P[cen]), r(mask)
+    cvecs = syn0[ctx_r]
+    l1 = (cvecs * cm_r[..., None]).sum(dim=1) / torch.clamp_min(
+        cm_r.sum(dim=1, keepdim=True), 1.0)
+    shards.stage(
+        [(syn0, ctx, ctx_r, cm_r),
+         (syn1, P[cen], pts_r, _hs_live(syn1, l1, pts_r, mask_r))],
+        lambda: cbow_body(syn0, syn1, ctx_r, cm_r, pts_r, r(C[cen]),
+                          mask_r, alpha))
+
+
 def unigram_draw(table: torch.Tensor, negative: int, batch: int,
                  gen: torch.Generator) -> Draw:
     """Negatives from the device-resident unigram table: ``randint(0,
@@ -294,8 +407,15 @@ class Word2Vec:
     """Word2Vec with DL4J's options: layer_size, window,
     min_word_frequency, learning_rate / min_learning_rate, epochs,
     iterations, negative, sampling, seed, batch_size, use_cbow. Runs on
-    ``cuda`` unless ``device="cpu"``; ``mesh`` / ``num_workers`` (data
-    parallel training) are not ported yet."""
+    ``cuda`` unless ``device="cpu"``. Data-parallel training (JAX
+    :300-317): ``mesh`` is the ``'data'`` process group (or a
+    ``parallel/mesh.MeshGroups`` with a ``'data'`` axis), ``num_workers``
+    its size (alone: the default group, which must have that many ranks;
+    1 with no group is the serial fit). Every rank calls ``fit`` on the
+    same corpus; each minibatch's rows split over the ranks
+    (:class:`DataShards`) and every rank ends with the same tables, the
+    serial fit's up to the order of float sums. A group of one rank runs
+    the serial fit itself."""
 
     def __init__(
         self,
@@ -317,10 +437,6 @@ class Word2Vec:
         mesh=None,
         device=None,
     ):
-        if mesh is not None or num_workers is not None:
-            raise NotImplementedError(
-                "Word2Vec: data-parallel training (mesh / num_workers) is "
-                "not ported yet")
         self.device = resolve_device(device)
         self.layer_size = layer_size
         self.window = window
@@ -338,12 +454,45 @@ class Word2Vec:
         self.stop_words = set(stop_words)
         self.vocab: Optional[VocabCache] = None
         self.lookup_table: Optional[InMemoryLookupTable] = None
+        # data parallelism: the 'data' group's ranks split each batch
+        self.mesh = None
+        self._shards: Optional[DataShards] = None
+        if mesh is not None or num_workers is not None:
+            self.mesh = self._data_group(mesh, num_workers)
+            n = 1 if self.mesh is None else DataShards(self.mesh).world
+            if self.batch_size % n != 0:
+                raise ValueError(f"batch_size {self.batch_size} not "
+                                 f"divisible by {n} data-parallel ranks")
+            if n > 1:
+                self._shards = DataShards(self.mesh)
         # the last fit: examples (pairs, or CBOW windows) and minibatches
         # over all phases, host seconds of their assembly, and seconds of
         # the batch loop up to the tables' copy back (which waits for the
         # device); on the card also the skip-gram graphs captured, their
         # capture seconds (in the loop's) and their replays
         self.fit_stats: dict = {}
+
+    @staticmethod
+    def _data_group(mesh, num_workers: Optional[int]):
+        """The process group of the data-parallel ranks (None: one rank,
+        no collectives)."""
+        import torch.distributed as dist
+
+        if mesh is not None and hasattr(mesh, "group"):  # MeshGroups
+            mesh = mesh.group("data")
+        if mesh is None:
+            if not dist.is_initialized():
+                if int(num_workers) == 1:
+                    return None
+                raise ValueError(
+                    f"num_workers={num_workers} needs an initialised "
+                    "process group (one process per worker)")
+            mesh = dist.group.WORLD
+        world = dist.get_world_size(mesh)
+        if num_workers is not None and int(num_workers) != world:
+            raise ValueError(f"num_workers={num_workers} but the data "
+                             f"group has {world} ranks")
+        return mesh
 
     def config(self) -> dict:
         """The constructor arguments a saved model records."""
@@ -504,7 +653,11 @@ class Word2Vec:
             draw = unigram_draw(up(lt.table.astype(np.int64)), self.negative,
                                 B, gen)
         graphs = None
-        if dev.type == "cuda" and not self.use_cbow:
+        shards = self._shards
+        if shards is not None and use_neg:
+            consts = ns_constants(B // shards.world, self.negative,
+                                  syn0.dtype, dev)
+        if dev.type == "cuda" and not self.use_cbow and shards is None:
             graphs = SkipgramGraphs((syn0, syn1, syn1neg), huffman, B,
                                     self.negative if use_neg else 0, draw)
         n_phases = max(1, self.epochs * self.iterations)
@@ -538,6 +691,13 @@ class Word2Vec:
                 cen = torch.from_numpy(
                     ex[0].astype(np.int64).reshape(chunk, B))
                 pl = torch.from_numpy(plive.reshape(chunk, B))
+                if shards is not None:
+                    self._sharded_chunk(
+                        shards, (syn0, syn1, syn1neg), huffman, ex,
+                        cen.to(dev), pl.to(dev), alphas[s0:s1].to(dev),
+                        draw if use_neg else None, phase * nb + s0,
+                        consts if use_neg else (None, None))
+                    continue
                 if self.use_cbow:
                     cbow_batches(
                         (syn0, syn1), huffman, cen.to(dev),
@@ -569,6 +729,27 @@ class Word2Vec:
                          graph_replays=graphs.replays)
         self.fit_stats = stats
         return self
+
+    def _sharded_chunk(self, shards, tables, huffman, ex, cens, plive,
+                       alphas, draw, first_index, consts) -> None:
+        """A chunk of minibatches over the data-parallel ranks: each
+        batch's whole negatives drawn on every rank (the same stream),
+        its rows split by :class:`DataShards`."""
+        dev = self.device
+        chunk, b = cens.shape
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if self.use_cbow:
+            ctxs = up(ex[1].astype(np.int64).reshape(chunk, b, -1))
+            cms = up(ex[2].reshape(chunk, b, -1))
+            for j in range(chunk):
+                cbow_step_shards(shards, tables[:2], huffman, cens[j],
+                                 ctxs[j], cms[j], plive[j], alphas[j])
+            return
+        cxs = up(ex[1].astype(np.int64).reshape(chunk, b))
+        for j in range(chunk):
+            negatives = draw(first_index + j) if draw is not None else None
+            skipgram_step_shards(shards, tables, huffman, cens[j], cxs[j],
+                                 plive[j], alphas[j], negatives, *consts)
 
     def _alpha(self, phase, bi, n_phases, nb) -> float:
         progress = (phase * nb + bi) / max(1, n_phases * nb)

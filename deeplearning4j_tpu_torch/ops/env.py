@@ -18,7 +18,13 @@ runtime: the input pipeline's workers and prefetch depth
 checkpoint cadence, retention and async switch
 (``resilience/checkpoint.py``), and the process count that, with the
 process id, shards a pipeline and picks the process that writes
-checkpoints.
+checkpoints; the serving fleet (``serving/{router,fleet,autoscale,
+placement,mesh}.py``: replicas, the router's port and replica breakers,
+the autoscaler's bounds and votes, the per-card memory budget, the
+serving mesh and the replica's role), the elastic fleet
+(``parallel/fleet.py``: the spool directory, the heartbeat timeout and
+the membership floor) and the online plane's shadow mirror, promotion
+gate and snapshot cadence (``online/{promote,trainer}.py``).
 The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 class KnobError(KeyError):
@@ -42,13 +48,15 @@ class Knob:
     default: str  # raw default, as the env string
     kind: str     # int | float | bool | enum | str | path
     doc: str
+    choices: Optional[Tuple[str, ...]] = None  # an enum's values
 
 
 KNOBS: Dict[str, Knob] = {}
 
 
-def _register(name: str, default: str, kind: str, doc: str) -> None:
-    KNOBS[name] = Knob(name, default, kind, doc)
+def _register(name: str, default: str, kind: str, doc: str,
+              choices: Optional[Tuple[str, ...]] = None) -> None:
+    KNOBS[name] = Knob(name, default, kind, doc, choices)
 
 
 _register("DL4J_TPU_BUCKET_BATCHES", "", "enum",
@@ -190,6 +198,73 @@ _register("DL4J_TPU_COORDINATOR", "", "str",
 _register("DL4J_TPU_NUM_PROCESSES", "", "int",
           "jax.distributed process count")
 
+# the serving fleet, the elastic fleet and the online plane
+_register("DL4J_TPU_HBM_GB", "16", "float",
+          "per-chip HBM budget (GB) the transformer preflight/auto-fit "
+          "sizers fit against")
+_register("DL4J_TPU_SERVE_MESH", "0", "int",
+          "serving-mesh device count for the paged /generate plane: "
+          ">= 2 runs the decode tick TP-style under shard_map over that "
+          "many devices (attention heads + KV arena head-sharded, "
+          "serving/mesh.MeshPagedDecoder — byte-identical to the "
+          "single-device tick); 0/'' = single-device decoders")
+_register("DL4J_TPU_SERVE_ROLE", "", "enum",
+          "serving replica role for prefill/decode disaggregation: "
+          "prefill = own long-prompt prefill and export primed KV "
+          "blocks (/prefill), decode = own the latency-critical decode "
+          "tick, '' = both; published in the replica-<id>.addr JSON so "
+          "the FleetRouter routes /generate by role",
+          choices=("", "prefill", "decode"))
+_register("DL4J_TPU_SERVE_FLEET_REPLICAS", "2", "int",
+          "serving-fleet replica count (ServingFleet default)")
+_register("DL4J_TPU_SERVE_ROUTER_PORT", "0", "int",
+          "FleetRouter HTTP port (0 = ephemeral)")
+_register("DL4J_TPU_SERVE_REPLICA_FAILS", "3", "int",
+          "consecutive connect/5xx failures that eject a replica from "
+          "the router (0 disables replica breakers)")
+_register("DL4J_TPU_SERVE_SCALE_MIN", "1", "int",
+          "autoscaler floor: never scale the fleet below this many "
+          "replicas")
+_register("DL4J_TPU_SERVE_SCALE_MAX", "4", "int",
+          "autoscaler ceiling: never scale the fleet above this many "
+          "replicas")
+_register("DL4J_TPU_SERVE_SCALE_UP_QUEUE", "8", "float",
+          "scale-up pressure: mean queued requests per ready replica "
+          "at or above this votes up for the tick")
+_register("DL4J_TPU_SERVE_SCALE_UP_P99_FRAC", "0.8", "float",
+          "scale-up pressure: a class p99 at or above this fraction of "
+          "its SLO deadline votes up for the tick")
+_register("DL4J_TPU_SERVE_SCALE_UP_SHED", "1", "int",
+          "scale-up pressure: at least this many new router sheds "
+          "since the previous tick votes up (0 disables the shed vote)")
+_register("DL4J_TPU_SERVE_SCALE_WINDOW", "3", "int",
+          "consecutive ticks of one-sided pressure before the "
+          "autoscaler acts (the sustained-evidence window)")
+_register("DL4J_TPU_SERVE_SCALE_DOWN_QUEUE", "0", "float",
+          "scale-down pressure: mean queued requests per ready replica "
+          "at or below this (with zero sheds) votes down for the tick")
+_register("DL4J_TPU_SERVE_SCALE_COOLDOWN", "5", "int",
+          "ticks after any scale action before the next one (counted "
+          "in TICKS, not wall-clock, so decisions replay bit-exact)")
+_register("DL4J_TPU_FLEET_HEARTBEAT_S", "5.0", "float",
+          "elastic-fleet failure-detection heartbeat timeout (seconds)")
+_register("DL4J_TPU_FLEET_MIN_WORKERS", "1", "int",
+          "elastic-fleet round blocks below this live-membership size")
+_register("DL4J_TPU_FLEET_DIR", "", "path",
+          "default fleet spool/file-membership transport dir")
+_register("DL4J_TPU_ONLINE_SNAPSHOT_ROUNDS", "1", "int",
+          "candidate-snapshot cadence in fit rounds for "
+          "ContinuousTrainer.export_candidate paths (0 = off)")
+_register("DL4J_TPU_ONLINE_SHADOW_FRACTION", "1.0", "float",
+          "fraction of answered /predict traffic mirrored to the shadow "
+          "candidate (deterministic stride, not RNG)")
+_register("DL4J_TPU_ONLINE_SHADOW_MIN", "32", "int",
+          "minimum mirrored requests before ShadowPromoter.evaluate() "
+          "will pass a candidate")
+_register("DL4J_TPU_ONLINE_GATE_AGREE", "0.0", "float",
+          "promotion gate: minimum shadow-vs-primary argmax agreement "
+          "fraction (0 disables the agreement gate)")
+
 
 def knob(name: str) -> Knob:
     try:
@@ -206,23 +281,33 @@ def raw(name: str) -> str:
     return k.default if v is None or v == "" else v
 
 
-def get_int(name: str) -> int:
-    """Integer value; garbage falls back to the table default."""
+def get_int(name: str, default: Optional[int] = None) -> int:
+    """Integer value; garbage falls back to the table default. With
+    ``default``: that value when the knob is unset, empty or garbage
+    (the JAX table's ``get_int(name, default)``)."""
+    if default is not None:
+        v = os.environ.get(name)
+        knob(name)
+        try:
+            return int(v.strip()) if v else default
+        except ValueError:
+            return default
     try:
         return int(raw(name).strip())
     except ValueError:
         return int(knob(name).default)
 
 
-def get_int_or(name: str, default: int) -> int:
-    """Integer value when the knob is set, ``default`` when it is unset,
-    empty or garbage (the JAX table's ``get_int(name, default)``)."""
-    v = os.environ.get(name)
+def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The env string, else ``default`` (the JAX table's ``get_str``:
+    the table default only when no ``default`` is given)."""
     knob(name)
-    try:
-        return int(v.strip()) if v else default
-    except ValueError:
+    v = os.environ.get(name)
+    if v:
+        return v
+    if default is not None:
         return default
+    return knob(name).default or None
 
 
 def get_opt_int(name: str) -> Optional[int]:
@@ -234,8 +319,16 @@ def get_opt_int(name: str) -> Optional[int]:
         return None
 
 
-def get_float(name: str) -> float:
-    """Float value; garbage falls back to the table default."""
+def get_float(name: str, default: Optional[float] = None) -> float:
+    """Float value; garbage falls back to the table default (or to
+    ``default``, which also stands for an unset knob when given)."""
+    if default is not None:
+        v = os.environ.get(name, "").strip()
+        knob(name)
+        try:
+            return float(v) if v else default
+        except ValueError:
+            return default
     try:
         return float(raw(name).strip())
     except ValueError:

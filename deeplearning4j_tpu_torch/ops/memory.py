@@ -1,16 +1,18 @@
 """Paged-KV and vector-index arena sizing and a model's resident bytes
-(counterpart: ``deeplearning4j_tpu/ops/memory.py`` ``kv_block_bytes``
-:332, ``kv_arena_blocks`` :355, ``ann_row_bytes`` :391,
-``ann_arena_rows`` :396 and ``model_resident_bytes`` :430).
+(counterpart: ``deeplearning4j_tpu/ops/memory.py`` ``hbm_budget_gb`` :56,
+``kv_block_bytes`` :332 and ``kv_arena_blocks`` :355 with their
+``devices`` argument, ``ann_row_bytes`` :391, ``ann_arena_rows`` :396
+and ``model_resident_bytes`` :430).
 
 Same closed form as the JAX package, priced at the arena's dtype
 (``ops/lowprec.kv_dtype``: the model's compute dtype unless
 ``DL4J_TPU_SERVE_KV_DTYPE`` says otherwise, so a bf16 arena on an f32
-model gets ~2x the blocks on the same budget). The budget is the device's own
-memory — ``torch.cuda.get_device_properties(dev).total_memory`` on the
-card, the host's physical memory on the CPU — instead of the JAX
-package's ``DL4J_TPU_HBM_GB`` knob; the index arena is sized on the
-same budget. Preflight, remat sizing and the AOT
+model gets ~2x the blocks on the same budget). The budget is an explicit
+byte count, the ``DL4J_TPU_HBM_GB`` budget where the placement plane
+passes it (``hbm_budget_gb``), or else the device's own memory —
+``torch.cuda.get_device_properties(dev).total_memory`` on the card, the
+host's physical memory on the CPU; the index arena is sized the same
+way. Preflight, remat sizing and the AOT
 memory ledger (``measure_memory``) wait for a later slice.
 """
 
@@ -85,28 +87,47 @@ def model_resident_bytes(model) -> int:
     return total
 
 
+def hbm_budget_gb(default: float = 16.0) -> float:
+    """The per-card memory budget in GB the placement and fleet sizers
+    fit against: ``DL4J_TPU_HBM_GB``, else ``default`` (JAX :56)."""
+    from deeplearning4j_tpu_torch.ops import env as envknob
+
+    return float(envknob.get_float("DL4J_TPU_HBM_GB", default))
+
+
 def kv_block_bytes(cfg, block_tokens: int,
-                   dtype: Optional[torch.dtype] = None) -> int:
-    """Bytes of ONE paged KV block across all layers: K and V,
-    ``[n_layers, block_tokens, n_heads, head_dim]`` each, in the arena
-    dtype (``ops/lowprec.kv_dtype`` unless given)."""
+                   dtype: Optional[torch.dtype] = None,
+                   devices: int = 1) -> int:
+    """Bytes of ONE paged KV block across all layers on one shard: K and
+    V, ``[n_layers, block_tokens, n_heads / devices, head_dim]`` each, in
+    the arena dtype (``ops/lowprec.kv_dtype`` unless given). ``devices``
+    is the serving mesh's width (``serving/mesh.py`` head-shards the
+    arena; ceil for an off-grid count, as JAX :332 prices it)."""
     if dtype is None:
         from deeplearning4j_tpu_torch.ops import lowprec
 
         dtype = lowprec.kv_dtype(cfg)
+    devices = max(1, int(devices))
     hd = cfg.d_model // cfg.n_heads
-    return (2 * cfg.n_layers * int(block_tokens) * cfg.n_heads * hd
+    heads_local = -(-cfg.n_heads // devices)
+    return (2 * cfg.n_layers * int(block_tokens) * heads_local * hd
             * _itemsize(dtype))
 
 
 def kv_arena_blocks(cfg, block_tokens: int, *, device=None,
                     budget_bytes: Optional[int] = None, params=None,
                     kv_fraction: float = 0.5, max_blocks: int = 4096,
-                    dtype: Optional[torch.dtype] = None) -> int:
+                    dtype: Optional[torch.dtype] = None,
+                    hbm_gb: Optional[float] = None,
+                    devices: int = 1) -> int:
     """How many KV blocks the arena can afford: (budget - 2 x parameter
-    bytes) x ``kv_fraction`` / :func:`kv_block_bytes`, clamped to
-    [one max_len sequence + 1, ``max_blocks``]. ``budget_bytes``
-    defaults to the memory of ``device``."""
+    bytes) x ``kv_fraction`` / :func:`kv_block_bytes` at ``devices``
+    shards (the budget is per shard; the serving mesh replicates the
+    params), clamped to [one max_len sequence + 1, ``max_blocks``]. The
+    budget is ``budget_bytes``, else ``hbm_gb`` GB (the placement's
+    ``DL4J_TPU_HBM_GB``), else the memory of ``device``."""
+    if budget_bytes is None and hbm_gb is not None:
+        budget_bytes = float(hbm_gb) * 2.0 ** 30
     if budget_bytes is None:
         if device is None:
             raise ValueError("kv_arena_blocks needs a device or a budget")
@@ -114,7 +135,7 @@ def kv_arena_blocks(cfg, block_tokens: int, *, device=None,
     budget = float(budget_bytes)
     if params is not None:
         budget -= 2.0 * tree_bytes(params)
-    per_block = kv_block_bytes(cfg, block_tokens, dtype)
+    per_block = kv_block_bytes(cfg, block_tokens, dtype, devices)
     blocks = int(max(0.0, budget) * float(kv_fraction) / per_block)
     floor = cfg.max_len // int(block_tokens) + 1
     return max(floor, min(int(max_blocks), blocks))

@@ -4,8 +4,9 @@
 and truncated BPTT; ``stack_rounds`` and ``ParameterAveragingTrainer``
 :353, whose worker round, ``ParameterAveragingTrainer._local_round``,
 plays ``container_calls`` and ``local_round_scan`` :271-350 through the
-containers' own ``fit``, and whose per-worker dropout seeds play
-``round_step_rngs``).
+containers' own ``fit``; ``round_step_rngs`` :288 and ``local_round``, the
+elastic fleet's split of a round (``parallel/fleet.py``), whose splits
+share the round's steps' streams as JAX's share its keys).
 
 Two modes, as in the JAX package:
 
@@ -199,6 +200,38 @@ def stack_rounds(a, averaging_frequency: int):
         a = a[: gb * averaging_frequency].reshape(
             (averaging_frequency, gb) + tuple(a.shape[1:]))
     return a
+
+
+def round_step_rngs(net, averaging_frequency: int) -> np.ndarray:
+    """The round's step indices [freq] (JAX ``round_step_rngs`` :288,
+    whose threefry keys the port's streams replace): with ``conf.seed``
+    they fix every layer's dropout stream (``ops/rng.stream_seed``), so
+    every split of an elastic round draws the same masks whichever
+    worker runs it. The fleet ships them in the round state."""
+    return np.arange(net.iteration, net.iteration + averaging_frequency,
+                     dtype=np.int64)
+
+
+def local_round(net, start, xs, ys, ms, lms, steps):
+    """One split of an elastic averaging round (JAX ``local_round_scan``
+    :321 as ``parallel/fleet.py`` runs it bare): from the broadcast
+    ``start`` (params, states, updater state), one ``net.fit`` per
+    minibatch of the split's [freq, b, ...] stacks, minibatch i at step
+    ``steps[i]`` on the net's own streams. A pure function of (start,
+    split, steps): the executor's identity never enters. Leaves the
+    split's result on ``net``; returns (params, states, updater state,
+    the [freq] losses)."""
+    net.params, net.states, net.updater_state = _snapshot_of(start)
+    net._worker = None
+    if hasattr(net, "_reset_rnn_states"):
+        net._reset_rnn_states(_first(xs).shape[1])
+    losses = []
+    for i in range(len(steps)):
+        net.iteration = int(steps[i])
+        pick = lambda a: None if a is None else _rows(a, i)
+        losses.append(net.fit(pick(xs), pick(ys), pick(ms), pick(lms)))
+    return (net.params, net.states, net.updater_state,
+            torch.stack([torch.as_tensor(v) for v in losses]))
 
 
 def _state_is_stream(net, key) -> bool:

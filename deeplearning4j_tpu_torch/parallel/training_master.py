@@ -3,9 +3,10 @@
 ``Repartition``, ``balanced_splits`` :65, ``TrainingMaster`` :77,
 ``export_datasets`` :92, ``load_exported_datasets`` :142,
 ``ParameterAveragingTrainingMaster`` :187 with ``execute_training`` :302
-and ``execute_training_paths`` :351, ``DistributedEvaluator`` :429 and
-``SparkStyleNetwork`` :468; the elastic master :360-427 needs the fleet
-and is not ported).
+and ``execute_training_paths`` :351,
+``ElasticParameterAveragingTrainingMaster`` :360 over
+``parallel/fleet.py``, ``DistributedEvaluator`` :429 and
+``SparkStyleNetwork`` :468).
 
 The host half of the reference's Spark training: data splitting (each
 split is workers x batch x frequency examples, shuffled per call under
@@ -182,7 +183,7 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
         self.max_retries = max_retries
         self.rng_seed = rng_seed
         self.stats = TrainingStats() if collect_training_stats else None
-        self._trainer: Optional[ParameterAveragingTrainer] = None
+        self._trainer = None  # ParameterAveragingTrainer or the fleet
         self._trainer_net = None
         self._round = 0
 
@@ -335,6 +336,59 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
         SparkDl4jMultiLayer.fit(String path) :217): deserialize the
         exported DataSets, then run the same split/average loop."""
         self.execute_training(net, load_exported_datasets(path))
+
+
+class ElasticParameterAveragingTrainingMaster(ParameterAveragingTrainingMaster):
+    """The averaging master over the elastic fleet: the same
+    split/average control plane, each split one round of
+    ``parallel/fleet.ElasticParameterAveragingTrainer`` (workers join and
+    leave mid-run, every round re-forms over the live membership, a dead
+    member's in-flight work is reclaimed). ``num_workers`` sizes the
+    splits (workers x batch x freq examples) and the initial in-process
+    fleet. Pick the split divisible by every membership size the run may
+    pass through: an indivisible round raises."""
+
+    def __init__(self, *args, fleet_kwargs: Optional[dict] = None, **kw):
+        super().__init__(*args, **kw)
+        self.fleet_kwargs = dict(fleet_kwargs or {})
+
+    def execute_training(self, net, iterator) -> None:
+        from deeplearning4j_tpu_torch.parallel.fleet import (
+            ElasticParameterAveragingTrainer,
+        )
+
+        if self._trainer is None or self._trainer_net is not net:
+            if self._trainer is not None:
+                self._trainer.close()  # its workers must not outlive it
+            self._trainer = ElasticParameterAveragingTrainer(
+                net, num_workers=self.num_workers,
+                averaging_frequency=self.averaging_frequency,
+                save_updater=self.save_updater, device=self.device,
+                **self.fleet_kwargs)
+            self._trainer_net = net
+        # the parent's split/retry/stats loop drives self._trainer.fit
+        super().execute_training(net, iterator)
+
+    @property
+    def fleet(self):
+        """The live ElasticParameterAveragingTrainer (None before the
+        first execute_training): the membership surface."""
+        return self._trainer
+
+    def close(self) -> None:
+        """Stop the fleet this master spawned (worker threads, any
+        tracker server)."""
+        if self._trainer is not None:
+            self._trainer.close()
+            self._trainer = None
+            self._trainer_net = None
+
+    def __enter__(self) -> "ElasticParameterAveragingTrainingMaster":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
 
 
 class DistributedEvaluator:

@@ -2,16 +2,24 @@
 ``deeplearning4j_tpu/resilience/``): ``checkpoint`` (the async atomic
 ``CheckpointManager``), ``trainer`` (``ResilientTrainer``: preemption,
 restore-and-continue, retry) and ``chaos`` (the training, low-precision,
-serving and speculative-decode fault plans). The fleet and autoscale
-chaos wait for the slices that port those planes."""
+serving, speculative-decode, elastic-fleet, router and autoscaler fault
+plans)."""
 
 from deeplearning4j_tpu_torch.resilience.chaos import (  # noqa: F401
+    AutoscaleChaos,
+    AutoscaleChaosConfig,
     ChaosConfig,
     ChaosMonkey,
+    CoordinatorPartitioned,
+    FleetChaos,
+    FleetChaosConfig,
     InjectedKill,
     InjectedServingFault,
     LowPrecChaos,
     LowPrecChaosConfig,
+    ReplicaPartitioned,
+    RouterChaos,
+    RouterChaosConfig,
     ServingChaos,
     ServingChaosConfig,
     SpecChaos,

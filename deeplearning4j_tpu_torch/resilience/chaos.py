@@ -5,8 +5,18 @@
 :482-528, ``truncate_file`` and ``bitflip_file`` :641-660; the serving
 side: ``InjectedServingFault``, ``ServingChaosConfig`` and
 ``ServingChaos`` :265-397, ``SpecChaosConfig`` :529 and ``SpecChaos``
-:545). The fleet and autoscale chaos wait for the slices that port
-those planes.
+:545; the fleet's: ``CoordinatorPartitioned``, ``FleetChaosConfig`` and
+``FleetChaos`` :149-264, ``ReplicaPartitioned``, ``RouterChaosConfig``
+and ``RouterChaos`` :398-481, ``AutoscaleChaosConfig`` and
+``AutoscaleChaos`` :580-640).
+
+``FleetChaos`` kills a worker at a job poll or while it holds a split,
+stalls a split's heartbeats past the timeout (a zombie whose late
+completion must be fenced out) and partitions the coordinator's
+membership polls. ``RouterChaos`` decides a replica's hard kill after k
+proxied requests (the fleet's hook enacts it) and partitions the
+router's first k calls to a replica. ``AutoscaleChaos`` overlays the
+scraped ``/signals`` snapshot with a scripted load wave.
 
 ``ChaosMonkey`` injects the faults the training runtime claims to
 survive, at exact 1-based step counts: a kill after step k (an
@@ -330,6 +340,260 @@ class SpecChaos:
         bad[:] = (g + 1) % int(vocab_size)
         self.log.append((round_idx, "reject_all"))
         return bad
+
+
+# ---------------------------------------------------------------------------
+# the elastic fleet, the serving router and the autoscaler
+# ---------------------------------------------------------------------------
+
+
+class CoordinatorPartitioned(ConnectionError):
+    """A chaos-injected membership-plane partition: the coordinator's
+    poll of the membership authority fails (the Hazelcast split-brain /
+    ZooKeeper session-loss failure the reference inherits from its
+    cluster substrate)."""
+
+
+@dataclass
+class FleetChaosConfig:
+    """Declarative fleet fault plan. Rounds are 1-based averaging rounds;
+    faults key on the ROUND (and, where executor identity is racy, on the
+    SPLIT — whichever worker holds that split is the victim, which keeps
+    the fault deterministic under free-for-all job scheduling while the
+    round's numerics stay executor-independent by construction).
+
+      kill_worker       — {"worker": id, "in_round": r}: the worker dies
+                          at its first job poll of round r (holding its
+                          job, if it got one) — heartbeat expiry detects
+                          it, its split is reclaimed, the NEXT round
+                          re-forms over the survivors.
+      kill_split        — {"round": r, "split": s}: whoever takes split s
+                          of round r dies HOLDING it (guaranteed reclaim
+                          + re-execution path).
+      stall_heartbeat   — {"round": r, "split": s, "sleep_s": x}: the
+                          holder of split s goes silent for x seconds
+                          (> the heartbeat timeout) while still alive —
+                          the job is reclaimed and re-executed; the
+                          zombie's late completion must be FENCED out
+                          (StateTracker attempt fencing), after which the
+                          zombie re-registers (rejoin).
+      partition_coordinator — {"at_round": r, "polls": k}: the first k
+                          membership polls of round r raise
+                          :class:`CoordinatorPartitioned`; the
+                          coordinator must retry / fall back to the
+                          last-known membership instead of dying.
+    """
+
+    kill_worker: Optional[dict] = None
+    kill_split: Optional[dict] = None
+    stall_heartbeat: Optional[dict] = None
+    partition_coordinator: Optional[dict] = None
+
+
+class FleetChaos:
+    """Stateful executor of a :class:`FleetChaosConfig`, consulted by the
+    fleet coordinator (membership polls) and its workers (job polls /
+    job receipt). Deterministic: the same config against the same round
+    sequence injects the same faults exactly once each."""
+
+    def __init__(self, config: FleetChaosConfig):
+        if isinstance(config, dict):
+            config = FleetChaosConfig(**config)
+        self.config = config
+        c = config.partition_coordinator or {}
+        self._partition_polls_left = int(c.get("polls", 0))
+        self._killed_worker = False
+        self._killed_split = False
+        self._stalled = False
+        self.log: list = []  # (round, fault) audit trail for tests
+
+    def kill_on_poll(self, worker_id: str, rnd: int) -> bool:
+        """Worker-side, at each job poll: True -> the worker dies now."""
+        c = self.config.kill_worker
+        if (c is not None and not self._killed_worker
+                and worker_id == c["worker"] and rnd >= int(c["in_round"])):
+            self._killed_worker = True
+            self.log.append((rnd, f"kill_worker:{worker_id}"))
+            return True
+        return False
+
+    def kill_on_job(self, worker_id: str, rnd: int, split: int) -> bool:
+        """Worker-side, after TAKING a job: True -> die holding it."""
+        c = self.config.kill_split
+        if (c is not None and not self._killed_split
+                and rnd == int(c["round"]) and split == int(c["split"])):
+            self._killed_split = True
+            self.log.append((rnd, f"kill_split:{split}:{worker_id}"))
+            return True
+        return False
+
+    def stall_on_job(self, worker_id: str, rnd: int,
+                     split: int) -> Optional[float]:
+        """Worker-side, after taking a job: seconds to go silent for
+        (heartbeats suppressed by the silence itself), or None."""
+        c = self.config.stall_heartbeat
+        if (c is not None and not self._stalled
+                and rnd == int(c["round"]) and split == int(c["split"])):
+            self._stalled = True
+            self.log.append((rnd, f"stall_heartbeat:{split}:{worker_id}"))
+            return float(c.get("sleep_s", 1.0))
+        return None
+
+    def on_membership_poll(self, rnd: int) -> None:
+        """Coordinator-side, before each membership poll."""
+        c = self.config.partition_coordinator
+        if (c is not None and rnd == int(c.get("at_round", -1))
+                and self._partition_polls_left > 0):
+            self._partition_polls_left -= 1
+            self.log.append((rnd, "partition"))
+            raise CoordinatorPartitioned(
+                f"injected membership-plane partition at round {rnd} "
+                f"({self._partition_polls_left} polls left)")
+
+
+class ReplicaPartitioned(ConnectionError):
+    """A chaos-injected router->replica partition: the router's HTTP call
+    fails at connect time exactly as if the replica's port went away —
+    the replica-breaker vote path, without any process actually dying."""
+
+
+@dataclass
+class RouterChaosConfig:
+    """Declarative fleet-serving fault plan. Counts are 1-based over the
+    router-side event they key on — PROXIED requests for kill_replica
+    (deterministic under concurrency: the k-th request the router
+    completes, whichever replica served it), per-replica CALL attempts
+    for partition_replica.
+
+      kill_replica      — {"replica": id, "after_proxied": k}: once the
+                          router has completed k requests, replica `id`
+                          is killed HARD (no drain, no goodbye — the
+                          router's kill hook enacts it via
+                          ServingFleet.kill_replica). Heartbeat expiry
+                          and connect errors must between them detect
+                          the death; every already-admitted /predict
+                          must be answered by a survivor.
+      partition_replica — {"replica": id, "calls": k}: the first k
+                          router->replica calls addressed to `id` raise
+                          :class:`ReplicaPartitioned` before any bytes
+                          are sent; the breaker walks the replica to
+                          ejection, then half-open probes re-admit it
+                          once the partition heals (calls exhausted).
+    """
+
+    kill_replica: Optional[dict] = None
+    partition_replica: Optional[dict] = None
+
+
+class RouterChaos:
+    """Stateful executor of a :class:`RouterChaosConfig`, consulted by
+    the FleetRouter (per replica call and per completed proxy). The
+    router never owns replica processes, so :meth:`kill_due` only
+    RETURNS the victim id — the fleet's kill hook enacts it (the same
+    decide-vs-enact split as FleetChaos.kill_on_poll). Deterministic:
+    the same config against the same request sequence injects the same
+    faults exactly once each."""
+
+    def __init__(self, config: RouterChaosConfig):
+        if isinstance(config, dict):
+            config = RouterChaosConfig(**config)
+        self.config = config
+        c = config.partition_replica or {}
+        self._partition_calls_left = int(c.get("calls", 0))
+        self._killed = False
+        self._proxied = 0
+        self._lock = threading.Lock()
+        self.log: list = []  # (count, fault) audit trail for tests
+
+    def on_replica_call(self, replica_id: str) -> None:
+        """Router-side, before each HTTP call to `replica_id`."""
+        c = self.config.partition_replica
+        if c is None or replica_id != c.get("replica"):
+            return
+        with self._lock:
+            if self._partition_calls_left <= 0:
+                return
+            self._partition_calls_left -= 1
+            left = self._partition_calls_left
+            self.log.append((replica_id, "partition"))
+        raise ReplicaPartitioned(
+            f"injected router partition to {replica_id!r} "
+            f"({left} calls left)")
+
+    def kill_due(self) -> Optional[str]:
+        """Router-side, after each COMPLETED proxy: the replica id to
+        kill now, or None. Fires at most once."""
+        c = self.config.kill_replica
+        with self._lock:
+            self._proxied += 1
+            if (c is None or self._killed
+                    or self._proxied < int(c.get("after_proxied", 1))):
+                return None
+            self._killed = True
+            self.log.append((self._proxied, f"kill_replica:{c['replica']}"))
+            return str(c["replica"])
+
+
+@dataclass
+class AutoscaleChaosConfig:
+    """Declarative load-wave plan for the autoscaler's decision loop
+    (serving/autoscale.py): overlay the SCRAPED /signals snapshot for a
+    scripted tick window so scale decisions can be forced and replayed
+    without generating real traffic. The chaos corrupts the DECISION
+    INPUT only — the autoscaler still decides, and the fleet's
+    spawn/depart hooks still enact (decide-vs-enact). Config-driven,
+    never ambient.
+
+      load_wave — {"at_tick": t, "ticks": n, "queue_depth": q[,
+                  "sheds_per_tick": s]}: ticks t..t+n-1 (1-based) see
+                  total queue depth q (and, optionally, s new router
+                  sheds per tick) in place of the measured values;
+                  outside the window the snapshot passes untouched.
+    """
+
+    load_wave: Optional[dict] = None
+
+    def __post_init__(self):
+        c = self.load_wave
+        if c is None:
+            return
+        if int(c.get("ticks", 1)) < 1:
+            raise ValueError("load_wave ticks must be >= 1")
+        if "queue_depth" not in c:
+            raise ValueError("load_wave needs queue_depth")
+
+
+class AutoscaleChaos:
+    """Stateful executor of an :class:`AutoscaleChaosConfig` (the
+    LowPrecChaos shape): :meth:`on_signals` returns the snapshot to
+    decide on — an overlaid COPY on wave ticks, the caller's dict
+    untouched. Deterministic: the same config over the same tick
+    sequence overlays the same values, so a replay of the recorded
+    post-overlay signal log reproduces the decision list bit-exact."""
+
+    def __init__(self, config: AutoscaleChaosConfig):
+        if isinstance(config, dict):
+            config = AutoscaleChaosConfig(**config)
+        self.config = config
+        self.log: list = []  # (tick, fault) audit trail for tests
+
+    def on_signals(self, tick: int, signals: dict) -> dict:
+        """``tick`` is the 1-based autoscaler tick about to decide."""
+        c = self.config.load_wave
+        if c is None:
+            return signals
+        at = int(c.get("at_tick", 1))
+        if not (at <= tick < at + int(c.get("ticks", 1))):
+            return signals
+        out = dict(signals)
+        out["queue_depth"] = int(c["queue_depth"])
+        sheds = int(c.get("sheds_per_tick", 0))
+        if sheds:
+            # cumulative: the decision loop votes on per-tick DELTAS
+            out["shed_total"] = (int(signals.get("shed_total", 0))
+                                 + sheds * (tick - at + 1))
+        self.log.append((tick, f"load_wave:q={out['queue_depth']}"))
+        return out
 
 
 def truncate_file(path: str, keep: int = 16) -> None:

@@ -104,8 +104,9 @@ Constructor arguments take precedence; unset ones read the JAX engine's
 knobs through the port's copy of the table (``ops/env.py``):
 ``DL4J_TPU_SERVE_QUEUE_CAP``, ``_TIMEOUT_S``, ``_MAX_BATCH``,
 ``_MAX_WAIT_MS``, ``_BATCH``, ``_SLOTS``, ``_KV_BLOCK``, ``_KV_BLOCKS``,
-``_SPEC``, ``_CONTINUOUS``, ``_SLO_CLASSES`` (parsed at construction: a
-malformed spec raises ValueError there), ``_BREAKER_FAILS``,
+``_SPEC``, ``_CONTINUOUS``, ``_MESH``, ``_ROLE``, ``_SLO_CLASSES``
+(parsed at construction: a malformed spec raises ValueError there),
+``_BREAKER_FAILS``,
 ``_WATCHDOG_S`` and ``_DRAIN_S``, and through the decoders
 ``DL4J_TPU_SERVE_TICK_K``, ``_SPEC_K`` and ``_KV_DTYPE``.
 
@@ -118,8 +119,14 @@ members' rids, and each decode tick opens one too. The journal records
 fsync), ``serve.drain``, ``serve.drain_complete`` (flushed with fsync)
 and ``serve.preempt`` (a SIGTERM).
 
-Not ported yet: shadow mirroring, the serving mesh and
-``DL4J_TPU_SERVE_ROLE``.
+The serving fleet's hooks: ``role`` (``DL4J_TPU_SERVE_ROLE``: '',
+``prefill`` or ``decode``; a tagged replica's ``/health`` carries it and
+the router dispatches ``/generate`` by it), ``mesh_devices``
+(``DL4J_TPU_SERVE_MESH``: >= 2 builds the paged pool as
+``serving/mesh.MeshPagedDecoder``, whose build raises on a knob it cannot
+honour) and the shadow mirror (``attach_shadow``, ``detach_shadow``: the
+answered ``/predict`` rows and outputs offered to
+``online/promote.ShadowMirror``, JAX :302-330).
 """
 
 from __future__ import annotations
@@ -185,9 +192,6 @@ from deeplearning4j_tpu_torch.serving.slo import SLOClass, parse_slo_classes
 from deeplearning4j_tpu_torch.serving.speculate import SpeculativeDecoder
 from deeplearning4j_tpu_torch.retrieval.stats import RetrievalStats
 from deeplearning4j_tpu_torch.serving.telemetry import ServingStats
-from deeplearning4j_tpu_torch.streaming.conversion import (
-    decode_record_base64,
-)
 
 # the kernels of each served path: (wrapper, plain version)
 GENERATE_KERNELS = {"flash_attention": (flash_attention,
@@ -256,6 +260,8 @@ class ServingEngine:
                  slots: Optional[int] = None,
                  kv_block: Optional[int] = None,
                  kv_blocks: Optional[int] = None,
+                 mesh_devices: Optional[int] = None,
+                 role: Optional[str] = None,
                  slo_classes: Union[str, List[SLOClass], None] = None,
                  breaker_fails: Optional[int] = None,
                  breaker_cooldown_s: float = 2.0,
@@ -292,6 +298,21 @@ class ServingEngine:
         self.kv_blocks = int(
             kv_blocks if kv_blocks is not None
             else envknob.get_int("DL4J_TPU_SERVE_KV_BLOCKS"))
+        # the serving mesh (serving/mesh.py): >= 2 shards the paged
+        # decode tick's heads over that many shards; the decoder build
+        # gates incompatible knobs loudly (JAX engine.py:150-157)
+        self.mesh_devices = int(
+            mesh_devices if mesh_devices is not None
+            else envknob.get_int("DL4J_TPU_SERVE_MESH"))
+        # prefill/decode disaggregation role: routing metadata published
+        # with the replica's address (serving/fleet.py); the router
+        # enforces the split, the role declares intent (:158-167)
+        self.role = (role if role is not None
+                     else envknob.raw("DL4J_TPU_SERVE_ROLE")).strip().lower()
+        if self.role not in ("", "prefill", "decode"):
+            raise ValueError(
+                f"DL4J_TPU_SERVE_ROLE {self.role!r} must be '', "
+                "'prefill' or 'decode'")
         # a typo'd operator spec fails HERE, for every model kind, not
         # later as FIFO (JAX engine.py:169-172)
         if slo_classes is None:
@@ -334,6 +355,11 @@ class ServingEngine:
         self._old_handlers: Dict[int, Any] = {}
         self._lock = threading.Lock()  # direct /predict, lm.generate
         self._engine_lock = threading.Lock()  # batcher/decoder creation
+        # the shadow mirror (online/promote.ShadowMirror): when attached,
+        # a fraction of answered /predict traffic is offered to the
+        # candidate off-thread; offer() never raises, never blocks and
+        # never votes a breaker (JAX engine.py:219-223)
+        self._shadow = None
         self.registry = ModelRegistry(device=self.device, chaos=chaos,
                                       stats=self.stats)
         if model is not None or model_path is not None:
@@ -400,7 +426,8 @@ class ServingEngine:
             raise ClientRequestError(
                 f"POST /predict needs a MultiLayerNetwork; {rec.key} is a "
                 "TransformerLM (POST /generate)")
-        x = self._shape_rows(rec, np.asarray(x, np.float32))
+        raw = np.asarray(x, np.float32)  # what a shadow record reshapes
+        x = self._shape_rows(rec, raw)
         rid = next(self._rid)
         with obs_trace.span("serve.request", rid=rid, model=rec.key,
                             rows=int(x.shape[0])):
@@ -411,11 +438,30 @@ class ServingEngine:
                     breaker.record_failure(f"{type(e).__name__}: {e}")
                     raise
                 breaker.record_success()
+                self._offer_shadow(raw, out)
                 return out
             # the rid rides the batcher: the serve.batch span on its
             # worker lists it, joining this request to its dispatch
-            return self._batcher_for(rec).predict(x, timeout_s=timeout_s,
-                                                  rid=rid)
+            out = self._batcher_for(rec).predict(x, timeout_s=timeout_s,
+                                                 rid=rid)
+            self._offer_shadow(raw, out)
+            return out
+
+    def attach_shadow(self, mirror) -> None:
+        """Install a shadow mirror on the /predict answer path (one at a
+        time: promotion is a serialized operator action)."""
+        self._shadow = mirror
+
+    def detach_shadow(self, mirror=None) -> None:
+        """Remove the mirror (idempotent; a given ``mirror`` detaches only
+        itself, so a stale promoter cannot evict its successor)."""
+        if mirror is None or self._shadow is mirror:
+            self._shadow = None
+
+    def _offer_shadow(self, x, out) -> None:
+        shadow = self._shadow
+        if shadow is not None:
+            shadow.offer(x, out)
 
     @staticmethod
     def _shape_rows(rec, x: np.ndarray) -> np.ndarray:
@@ -667,6 +713,30 @@ class ServingEngine:
                 self._no_decoder.add(rec.key)
                 return None
             timeout = max(self.request_timeout_s, 300.0)
+            paged_kw = dict(
+                block_tokens=self.kv_block, n_blocks=self.kv_blocks or None,
+                min_lanes=self.slots, stats=self.stats,
+                default_timeout_s=timeout,
+                slo_classes=self.slo_classes or None,
+                queue_cap=self.queue_capacity, chaos=self.chaos,
+                device=self.device)
+            if self.mesh_devices >= 2:
+                # DL4J_TPU_SERVE_MESH: an incompatibility raises OUT of
+                # here (JAX :796-815): a caller who asked for the sharded
+                # tick is never served by the dense one
+                if self.kv_block <= 0:
+                    raise ValueError(
+                        "DL4J_TPU_SERVE_MESH requires the paged KV pool "
+                        "(DL4J_TPU_SERVE_KV_BLOCK > 0); the fixed-slot pool "
+                        "has no sharded arena")
+                from deeplearning4j_tpu_torch.serving.mesh import (
+                    MeshPagedDecoder,
+                )
+
+                decoder = MeshPagedDecoder(
+                    rec.model, devices=self.mesh_devices, **paged_kw)
+                self._decoders[rec.key] = decoder
+                return decoder
             try:
                 if self.kv_block <= 0:
                     decoder = ContinuousDecoder(
@@ -674,14 +744,6 @@ class ServingEngine:
                         default_timeout_s=timeout, chaos=self.chaos,
                         device=self.device)
                 else:
-                    paged_kw = dict(
-                        block_tokens=self.kv_block,
-                        n_blocks=self.kv_blocks or None,
-                        min_lanes=self.slots, stats=self.stats,
-                        default_timeout_s=timeout,
-                        slo_classes=self.slo_classes or None,
-                        queue_cap=self.queue_capacity, chaos=self.chaos,
-                        device=self.device)
                     spec = lowprec.spec_mode()
                     if spec:
                         decoder = SpeculativeDecoder(
@@ -897,9 +959,11 @@ class ServingEngine:
                      "kv_bytes": 0}
             decoder = decoders.get(rec.key)
             if isinstance(decoder, PagedDecoder):
+                # a mesh whose shards sit one a card holds 1/d of each
                 entry["kv_bytes"] = (decoder.n_blocks + 1) * \
                     opsmem.kv_block_bytes(decoder.cfg, decoder.block_tokens,
-                                          decoder.kv_dtype)
+                                          decoder.kv_dtype,
+                                          decoder.arena_devices)
             elif isinstance(decoder, ContinuousDecoder):
                 entry["kv_bytes"] = decoder.slots * opsmem.kv_block_bytes(
                     decoder.cfg, decoder.cfg.max_len,
@@ -993,6 +1057,9 @@ class ServingEngine:
             "health": health,
             "device": str(self.device),
         }
+        if self.role:
+            # only a role-tagged replica adds the key (JAX :1334-1338)
+            body["role"] = self.role
         return (200 if ok else 503), body
 
     def readiness(self):
@@ -1152,6 +1219,10 @@ class ServingEngine:
             def _do_predict(self):
                 payload = self._read_json()
                 if "record_base64" in payload:
+                    # imported here: streaming/ subclasses this engine
+                    from deeplearning4j_tpu_torch.streaming.conversion \
+                        import decode_record_base64
+
                     x = decode_record_base64(payload["record_base64"])[None]
                 elif "record" in payload:
                     x = np.asarray(payload["record"], np.float32)[None]

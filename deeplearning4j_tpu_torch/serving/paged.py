@@ -71,7 +71,11 @@ Decode planes (the JAX package's, carried over):
 before its prefill (JAX ``paged.py:1148-1149``): the crash-eviction path
 then evicts that lane alone. Each tick runs inside a ``serve.batch``
 span (``kind="decode.paged"``, ``lanes``, ``tick_k``) under
-``DL4J_TPU_OBS``. Not ported yet: mesh hooks.
+``DL4J_TPU_OBS``. The serving mesh (``serving/mesh.py``) subclasses this
+decoder through its hooks: the arena's allocation (``_new_arena``), the
+tick builder (``_tick_fn``), the admission (``_admit_prefill``) and the
+adoption of handed-off blocks (``_write_blocks``); the dense decoder
+computes what it computed before.
 """
 
 from __future__ import annotations
@@ -351,6 +355,10 @@ class PagedDecoder:
     the model's."""
 
     supports_streaming = True
+    # the serving mesh's width (``serving/mesh.py``), and how many devices
+    # the arena's head shards spread over (the sizing budget is per device)
+    mesh_devices = 1
+    arena_devices = 1
 
     def __init__(self, lm, *, block_tokens: int = 16,
                  n_blocks: Optional[int] = None,
@@ -381,7 +389,8 @@ class PagedDecoder:
         if n_blocks is None:
             n_blocks = opsmem.kv_arena_blocks(cfg, bt, device=self.device,
                                               params=lm.params,
-                                              dtype=self.kv_dtype)
+                                              dtype=self.kv_dtype,
+                                              devices=self.arena_devices)
         self.n_blocks = int(n_blocks)
         if self.n_blocks < self.table_width + 1:
             raise ValueError(
@@ -450,21 +459,29 @@ class PagedDecoder:
                                         name="paged-decoder")
         self._worker.start()
 
-    def _reset_arena(self) -> None:
-        """Fresh zeroed arena + allocator + prefix cache (construction and
-        the pool-wide failure path)."""
+    def _alloc_arena(self, heads: int):
+        """A zeroed {k, v} arena of ``heads`` heads: [L, n_blocks + 1,
+        block_tokens, heads, hd] each (a mesh shard holds its slice)."""
         cfg = self.cfg
         hd = cfg.d_model // cfg.n_heads
         shape = (cfg.n_layers, self.n_blocks + 1, self.block_tokens,
-                 cfg.n_heads, hd)
+                 heads, hd)
         # inference tensors: only the worker thread writes them, inside
         # torch.inference_mode()
         with torch.inference_mode():
-            self._arena = {
-                "k": torch.zeros(shape, dtype=self.kv_dtype,
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=self.kv_dtype,
-                                 device=self.device)}
+            return {"k": torch.zeros(shape, dtype=self.kv_dtype,
+                                     device=self.device),
+                    "v": torch.zeros(shape, dtype=self.kv_dtype,
+                                     device=self.device)}
+
+    def _new_arena(self):
+        """The decoder's arena (``serving/mesh.py``: its head shards)."""
+        return self._alloc_arena(self.cfg.n_heads)
+
+    def _reset_arena(self) -> None:
+        """Fresh zeroed arena + allocator + prefix cache (construction and
+        the pool-wide failure path)."""
+        self._arena = self._new_arena()
         self._blocks = BlockArena(self.n_blocks)
         self._prefix = PrefixCache(self._blocks)
         self.stats.set_kv_blocks(0, self.n_blocks)
@@ -488,7 +505,7 @@ class PagedDecoder:
             "tokens_in_use": tokens_in_use,
             "lanes": self.lanes,
             "prefix_blocks_cached": cached,
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh_devices,
         }
 
     # -- client side ------------------------------------------------------
@@ -878,11 +895,8 @@ class PagedDecoder:
                 fut.set_result(0)
                 return
             try:
-                ids = torch.tensor(fresh, dtype=torch.long,
-                                   device=self.device)
-                for name, b in (("k", kb), ("v", vb)):
-                    self._arena[name][:, ids] = \
-                        b[:, start:start + avail].to(self.device)
+                self._write_blocks(fresh, kb[:, start:start + avail],
+                                   vb[:, start:start + avail])
             except Exception as e:  # noqa: BLE001 — device boundary
                 # the fresh blocks were nobody's: give them back
                 with self._cond:
@@ -904,6 +918,13 @@ class PagedDecoder:
         except Exception as e:  # noqa: BLE001 — import isolation boundary
             if not fut.done():
                 fut.set_exception(e)
+
+    def _write_blocks(self, blocks: List[int], kb, vb) -> None:
+        """Adopted blocks' K/V ([L, n, bt, H, hd]) into arena blocks
+        ``blocks`` (worker thread)."""
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        for name, b in (("k", kb), ("v", vb)):
+            self._arena[name][:, ids] = b.to(self.device)
 
     # -- worker side ------------------------------------------------------
     def _run(self) -> None:

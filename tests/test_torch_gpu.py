@@ -87,6 +87,14 @@ while a sleep kernel holds the consumer's stream equals the host batch,
 ``put``; the native feed through ``InputPipeline.from_native`` equals
 the plain version's batches; a small char-RNN killed at step 5 and
 resumed through the pipeline ends torch.equal to an uninterrupted run.
+The serving fleet: the width-2 head-sharded tick (K6 on each shard, at
+contexts past K6's split boundary) ``torch.equal`` to the dense tick; a
+2-replica ``ServingFleet`` behind the router answering ``/generate``
+and ``/predict`` equal to one engine (K4, K6 and K1 launched, their
+plain versions never); the elastic averaging fleet on the card
+``torch.equal`` to the replay of its membership sequence through K1 and
+K2; Word2Vec with ``num_workers=1`` on a world-1 NCCL group equal to the
+plain fit with K3 once a batch.
 """
 
 import numpy as np
@@ -2528,3 +2536,203 @@ def test_averaging_master_in_process_workers_equal_explicit_reference():
     for a, b in zip(tree_leaves(net.updater_state), tree_leaves(upd)):
         if torch.is_tensor(a):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_head_sharded_tick_on_card_equals_the_dense_tick():
+    """The width-2 tick over a bf16 arena at contexts up to 1023 tokens
+    (K6's split path): logits and the written K/V ``torch.equal`` to the
+    dense tick's, K6 once per shard and layer."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.serving.mesh import mesh_paged_decode_step
+    from deeplearning4j_tpu_torch.serving.paged import paged_decode_step
+
+    cfg = pt.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                               n_heads=4, d_ff=512, max_len=1024, seed=1,
+                               dtype_policy="performance")
+    lm = pt.TransformerLM(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    lanes, bt = 8, 16
+    m = cfg.max_len // bt
+    shape = (cfg.n_layers, lanes * m + 1, bt, cfg.n_heads, 64)
+    arena = {n: torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for n in ("k", "v")}
+    tables = (1 + torch.arange(lanes * m, device=dev, dtype=torch.int32)
+              ).reshape(lanes, m)
+    pos = torch.tensor([0, 15, 16, 255, 256, 600, 1000, 1022],
+                       dtype=torch.int32, device=dev)
+    tok = torch.arange(lanes, dtype=torch.int32, device=dev)
+    shards = [(i, {n: a[:, :, :, 2 * i:2 * i + 2].contiguous()
+                   for n, a in arena.items()}) for i in range(2)]
+    with torch.inference_mode():
+        before = port_paged.paged_attention.launches
+        got = mesh_paged_decode_step(lm.compute_params, shards, tok, pos,
+                                     tables, cfg, 2)
+        ran = port_paged.paged_attention.launches - before
+        _, want = paged_decode_step(lm.compute_params, arena, tok, pos,
+                                    tables, cfg)
+    assert ran == 2 * cfg.n_layers
+    assert torch.equal(got, want)
+    for i, sh in shards:
+        for n in ("k", "v"):
+            assert torch.equal(sh[n], arena[n][:, :, :, 2 * i:2 * i + 2])
+
+
+@pytest.mark.gpu
+def test_serving_fleet_on_card_equals_one_engine():
+    """Two thread replicas of a small LM (with a char-RNN record) behind
+    the router: greedy and sampled ``/generate`` transcripts and
+    sequential ``/predict`` bodies equal to one engine's; K4, K6 and K1
+    launched, their plain versions never."""
+    dev = _need_card()
+    import json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+    from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+
+    lm = pt.TransformerLM(pt.TransformerConfig(
+        vocab_size=512, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+        max_len=256, seed=2, dtype_policy="performance"), device=dev)
+    net = MultiLayerNetwork(char_rnn_conf(16, lstm_size=32, num_layers=2,
+                                          seed=2), device=dev).init(
+        input_shape=(1, 16))
+    rng = np.random.default_rng(1)
+    gens = [{"tokens": [rng.integers(0, 512, int(n)).tolist()],
+             "n_new": 8, "temperature": t, "seed": i}
+            for i, (n, t) in enumerate([(5, 0.0), (40, 0.8), (130, 0.0),
+                                        (17, 0.8)])]
+    rows = [np.eye(16, dtype=np.float32)[rng.integers(0, 16, (k, 12))]
+            for k in (1, 3, 2)]
+
+    def post(url, path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+
+    def serve(url):
+        return ([post(url, "/generate", b) for b in gens],
+                [post(url, "/predict", {"batch": x.tolist(),
+                                        "model": "char"}) for x in rows])
+
+    def add_char(eng):
+        eng.registry.load("char", model=net)
+
+    solo = ServingEngine(lm, kv_blocks=64, device=dev).start()
+    try:
+        add_char(solo)
+        want = serve(solo.url)
+    finally:
+        solo.stop()
+    fleet = ServingFleet(model=lm, replicas=2, heartbeat_s=0.5,
+                         engine_kwargs={"kv_blocks": 64}, device=dev).start()
+    kernels = (port_flash.flash_attention, port_flash.flash_attention_plain,
+               port_paged.paged_attention, port_paged.paged_attention_plain,
+               port_lstm.lstm_scan, port_lstm.lstm_scan_plain)
+    try:
+        for eng in fleet.engines().values():
+            add_char(eng)
+        before = [k.launches for k in kernels]
+        got = serve(fleet.url)
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+    finally:
+        fleet.stop()
+    assert got == want
+    assert ran[0] > 0 and ran[2] > 0 and ran[4] > 0
+    assert ran[1] == ran[3] == ran[5] == 0
+
+
+@pytest.mark.gpu
+def test_elastic_fleet_on_card_equals_the_replay():
+    """3 in-process workers on a small LSTM net, a split killed in round 1
+    and a worker admitted at round 3: params ``torch.equal`` to the
+    scripted replay of that membership, K1 and K2 launched."""
+    dev = _need_card()
+    from deeplearning4j_tpu_torch.models.char_rnn import char_rnn_conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.fleet import (
+        ElasticParameterAveragingTrainer,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        FleetChaos,
+        FleetChaosConfig,
+    )
+
+    eye = np.eye(16, dtype=np.float32)
+    ids = np.random.default_rng(3).integers(0, 16, (4, 12, 21))
+    xs, ys = eye[ids[:, :, :-1]], eye[ids[:, :, 1:]]
+
+    def run(chaos):
+        net = MultiLayerNetwork(char_rnn_conf(16, lstm_size=32, num_layers=1,
+                                              seed=4), device=dev).init()
+        tr = ElasticParameterAveragingTrainer(
+            net, num_workers=3, averaging_frequency=1, heartbeat_s=0.5,
+            chaos=chaos, device=dev)
+        try:
+            for r in range(4):
+                if r == 1 and chaos is None:
+                    tr.evict_worker("w2")
+                if r == 2:
+                    tr.admit_worker()
+                tr.fit(xs[r], ys[r])
+        finally:
+            tr.close()
+        return net
+
+    k1, k2 = port_lstm.lstm_scan.launches, port_lstm.lstm_scan_bwd.launches
+    a = run(FleetChaos(FleetChaosConfig(kill_split={"round": 1,
+                                                    "split": 2})))
+    assert port_lstm.lstm_scan.launches > k1
+    assert port_lstm.lstm_scan_bwd.launches > k2
+    b = run(None)
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_word2vec_world1_data_group_equals_the_plain_fit(tmp_path):
+    """``Word2Vec(num_workers=1)`` on a world-1 NCCL group: the plain
+    fit's tables (both under deterministic algorithms), K3 once a
+    batch."""
+    dev = _need_card()
+    import warnings
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.parallel.mesh import (
+        device_mesh,
+        init_seq_group,
+    )
+
+    rng = np.random.default_rng(5)
+    toks = [[f"w{int(w)}" for w in rng.zipf(1.3, 30) if w < 200]
+            for _ in range(300)]
+    kw = dict(layer_size=32, negative=4, batch_size=256, seed=2,
+              device=dev)
+    init_seq_group(str(tmp_path / "store"), 0, 1, backend="nccl")
+    try:
+        group = device_mesh((1,), ("data",)).group("data")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                plain = Word2Vec(**kw).fit_tokens(toks)
+                before = port_sgns.sgns_step.launches
+                dp = Word2Vec(num_workers=1, mesh=group, **kw).fit_tokens(
+                    toks)
+                ran = port_sgns.sgns_step.launches - before
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        dist.destroy_process_group()
+    assert ran == dp.fit_stats["batches"]
+    for n in ("syn0", "syn1", "syn1neg"):
+        np.testing.assert_array_equal(getattr(dp.lookup_table, n),
+                                      getattr(plain.lookup_table, n))

@@ -52,6 +52,29 @@ LM_CASES = {
         ("ppxdp", PP_CFG, (2, 2), ("pipe", "data"), K_STEPS, 4, 8)],
 }
 SP_STEPS = K_STEPS
+# the sharded clip and bf16 cases: (case, config, mesh shape, axes,
+# n_micro or None); in f64 one Adam step from fresh state, with a clip
+# that binds (the gradients' norm is ~1e3 times it, so the update lands
+# where eps and the scaled gradient are of one size: a norm off by any
+# factor moves it)
+CLIP = 1e-5
+CLIP_CFG = LM_CFG
+CLIP_CASES = {
+    2: [("clip_tp2", CLIP_CFG, (1, 2, 1), ("data", "model", "expert"), None),
+        ("clip_ep2_moe", dict(CLIP_CFG, **MOE_FREE), (1, 1, 2),
+         ("data", "model", "expert"), None),
+        ("clip_pp2", CLIP_CFG, (2,), ("pipe",), 4)],
+    4: [("clip_dpxtp", CLIP_CFG, (2, 2), ("data", "model"), None),
+        ("clip_tpxep_moe", dict(CLIP_CFG, **MOE_FREE), (1, 2, 2),
+         ("data", "model", "expert"), None),
+        ("clip_pp4", dict(CLIP_CFG, n_layers=4), (4,), ("pipe",), 4)],
+}
+# bf16 loss scaling on a Megatron mesh: growth 2 from 8, BF16_CLEAN clean
+# steps, then one with an inf in embed[7, 0] (rank 0's d columns)
+BF16_CASES = {2: [("bf16_tp2", LM_CFG, (1, 2), ("data", "model"))],
+              4: [("bf16_tpxep_moe", dict(LM_CFG, **MOE_FREE), (1, 2, 2),
+                   ("data", "model", "expert"))]}
+BF16_CLEAN = 5
 AVG_CASES = (("freq1", 1, 1), ("freq3", 3, 2))  # (name, frequency, rounds)
 
 
@@ -222,6 +245,92 @@ def _lm_cases(out, world, tmp):
             out["restore_pp_to_tp/iteration"] = np.asarray(back.iteration)
 
 
+def _as_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _as_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _clip_cases(out, world, tmp):
+    """One f64 Adam step of each clip case: the port's compute dtype is
+    f64 inside (both forwards run in f64 here; the parent lifts JAX's)."""
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        npz_bytes_to_tree,
+    )
+
+    saved = pt.TransformerConfig.compute_dtype
+    pt.TransformerConfig.compute_dtype = property(lambda self: torch.float64)
+    try:
+        for name, kw, shape, axes, n_micro in CLIP_CASES[world]:
+            cfg = pt.TransformerConfig(**dict(kw, clip_grad_norm=CLIP))
+            with open(os.path.join(tmp, f"lm_{name}.npz"), "rb") as f:
+                whole = _as_torch(npz_bytes_to_tree(f.read()))  # f64 kept
+            mesh = device_mesh(shape, axes)
+            step = (pt.make_pipeline_train_step(cfg, mesh, n_micro=n_micro)
+                    if "pipe" in axes else pt.make_train_step(cfg, mesh))
+            params = pt.shard_params(whole, cfg, mesh)
+            xs, ys = lm_batches(kw, 8, 1, seed=6)
+            params, _, loss = step(params, pt.init_opt_state(params),
+                                   torch.from_numpy(xs[0]),
+                                   torch.from_numpy(ys[0]))
+            out[f"{name}/loss"] = np.asarray(float(loss))
+            for key, a in flat(pt.gather_params(params, cfg, mesh)).items():
+                out[f"{name}/p/{key}"] = a
+    finally:
+        pt.TransformerConfig.compute_dtype = saved
+
+
+def _bf16_cases(out, rank, world, tmp):
+    """BF16_CLEAN clean bf16 steps, then a poisoned one, on a Megatron
+    mesh: the (scale, good, skipped) state and the loss of each step;
+    and the finite flag's agreement when only rank 0 saw a non-finite
+    gradient."""
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.ops import lowprec as plow
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        npz_bytes_to_tree,
+    )
+
+    os.environ["DL4J_TPU_BF16"] = "1"
+    os.environ["DL4J_TPU_LOSS_SCALE"] = "8:2"
+    try:
+        for name, kw, shape, axes in BF16_CASES[world]:
+            cfg = pt.TransformerConfig(**kw)
+            with open(os.path.join(tmp, f"lm_{name}.npz"), "rb") as f:
+                whole = pt.params_from_numpy(npz_bytes_to_tree(f.read()),
+                                             device="cpu")
+            mesh = device_mesh(shape, axes)
+            step = pt.make_train_step(cfg, mesh)
+            assert step.loss_scaled
+            params = pt.shard_params(whole, cfg, mesh)
+            opt = pt.init_opt_state(params, True)
+            xs, ys = lm_batches(kw, 8, BF16_CLEAN + 1, seed=8)
+            states, losses = [], []
+            for i in range(BF16_CLEAN + 1):
+                if i == BF16_CLEAN and mesh.index("model") == 0:
+                    params = dict(params, embed=params["embed"].clone())
+                    params["embed"][7, 0] = float("inf")
+                before = params
+                params, opt, loss = step(params, opt,
+                                         torch.from_numpy(xs[i]),
+                                         torch.from_numpy(ys[i]))
+                states.append([float(opt[k]) for k in plow.OPT_SCALE_KEYS])
+                losses.append(float(loss))
+            out[f"{name}/states"] = np.asarray(states)
+            out[f"{name}/losses"] = np.asarray(losses)
+            out[f"{name}/t"] = np.asarray(int(opt["t"]))
+            out[f"{name}/kept"] = np.asarray(all(
+                torch.equal(params["blocks"][k], before["blocks"][k])
+                for k in ("Wq", "W1")))
+            out[f"{name}/agreed"] = np.asarray(bool(
+                pt._finite_on_every_shard(torch.tensor(rank != 0), mesh)))
+    finally:
+        del os.environ["DL4J_TPU_BF16"], os.environ["DL4J_TPU_LOSS_SCALE"]
+
+
 def _sp_moe(out, rank, world):
     from deeplearning4j_tpu_torch.models import transformer as pt
     from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
@@ -319,6 +428,8 @@ def worker(rank, world, tmp, t0, port):
             timeout=datetime.timedelta(seconds=60))
     _blocks(out, "blocks", rank, world, None)
     _lm_cases(out, world, tmp)
+    _clip_cases(out, world, tmp)
+    _bf16_cases(out, rank, world, tmp)
     if world == 2:
         _sp_moe(out, rank, world)
     else:
@@ -482,6 +593,129 @@ def _write_lm_inputs(world, tmp):
     return trees
 
 
+def _write_step0_inputs(world, tmp):
+    """The clip cases' params in f64 and the bf16 cases' in f32 (the
+    port's init, seeded), written for the workers."""
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        tree_to_npz_bytes,
+    )
+
+    trees = {}
+    cases = ([(c[0], c[1], np.float64) for c in CLIP_CASES[world]]
+             + [(c[0], c[1], np.float32) for c in BF16_CASES[world]])
+    for i, (name, kw, dt) in enumerate(cases):
+        torch.manual_seed(100 + i)
+        params = pt.init_params(pt.TransformerConfig(**kw), device="cpu")
+        tree = {k: ({kk: vv.numpy().astype(dt) for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.numpy().astype(dt))
+                for k, v in params.items()}
+        trees[name] = tree
+        with open(os.path.join(tmp, f"lm_{name}.npz"), "wb") as f:
+            f.write(tree_to_npz_bytes(tree))
+    return trees
+
+
+class _JaxF64:
+    """JAX's ``forward`` run with ``float32`` meaning ``float64`` (its
+    final-LN and logits casts) and its compute dtype f64, while inside
+    (``test_torch_transformer_train.py``'s ``f64`` fixture, undone on
+    exit)."""
+
+    def __enter__(self):
+        import types
+
+        import jax.numpy as jnp
+
+        from deeplearning4j_tpu.models import transformer as jtr
+
+        proxy = types.SimpleNamespace(**{n: getattr(jnp, n) for n in dir(jnp)
+                                         if not n.startswith("_")})
+        proxy.float32 = jnp.float64
+        self.saved = (jtr.forward, jtr.TransformerConfig.compute_dtype)
+        jtr.forward = types.FunctionType(
+            jtr.forward.__code__, dict(jtr.__dict__, jnp=proxy), "forward",
+            jtr.forward.__defaults__, jtr.forward.__closure__)
+        jtr.TransformerConfig.compute_dtype = property(
+            lambda self: jnp.float64)
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu.models import transformer as jtr
+
+        jtr.forward, jtr.TransformerConfig.compute_dtype = self.saved
+
+
+def _jax_step0(world, trees):
+    """JAX ``make_train_step(cfg, mesh)`` on the virtual mesh of each
+    clip case's shape in f64 (the pipe cases: JAX's serial step, which
+    its pipeline step equals for these dense configs, since JAX's
+    pipeline forward keeps f32 casts the lift does not reach), and on
+    each bf16 case's mesh in f32 under ``DL4J_TPU_BF16``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from deeplearning4j_tpu.models import transformer as jtr
+    from deeplearning4j_tpu.ops import lowprec as jlow
+
+    devs = np.array(jax.devices()[:world])
+    ref = {}
+    with _JaxF64():
+        for name, kw, shape, axes, _ in CLIP_CASES[world]:
+            cfg = jtr.TransformerConfig(**dict(kw, clip_grad_norm=CLIP))
+            params = jax.tree_util.tree_map(jnp.asarray, trees[name])
+            step = (jtr.make_train_step(cfg) if "pipe" in axes else
+                    jtr.make_train_step(cfg, Mesh(devs.reshape(shape), axes)))
+            xs, ys = (jnp.asarray(a, jnp.int32)
+                      for a in lm_batches(kw, 8, 1, seed=6))
+            p, _, loss = step(params, jtr.init_opt_state(params), xs[0],
+                              ys[0])
+            ref[f"{name}/loss"] = float(loss)
+            ref[f"{name}/p"] = flat(_np_tree(p))
+            free = jtr.TransformerConfig(**kw)  # the same step unclipped
+            q, _, _ = jtr.make_train_step(free)(
+                params, jtr.init_opt_state(params), xs[0], ys[0])
+            q = flat(_np_tree(q))
+            ref[f"{name}/clip_effect"] = max(
+                float(np.abs(v - q[k]).max())
+                for k, v in ref[f"{name}/p"].items())
+    saved = {k: os.environ.get(k) for k in ("DL4J_TPU_BF16",
+                                             "DL4J_TPU_LOSS_SCALE")}
+    os.environ.update(DL4J_TPU_BF16="1", DL4J_TPU_LOSS_SCALE="8:2")
+    try:
+        for name, kw, shape, axes in BF16_CASES[world]:
+            cfg = jtr.TransformerConfig(**kw)
+            mesh = Mesh(devs.reshape(shape), axes)
+            step = jtr.make_train_step(cfg, mesh)
+            tree = trees[name]
+            params = jax.tree_util.tree_map(jnp.asarray, tree)
+            opt = jtr.init_opt_state(params)
+            xs, ys = (jnp.asarray(a, jnp.int32)
+                      for a in lm_batches(kw, 8, BF16_CLEAN + 1, seed=8))
+            states, losses = [], []
+            for i in range(BF16_CLEAN + 1):
+                if i == BF16_CLEAN:
+                    poisoned = dict(_np_tree(params))
+                    poisoned["embed"] = poisoned["embed"].copy()
+                    poisoned["embed"][7, 0] = np.inf
+                    params = jax.tree_util.tree_map(jnp.asarray, poisoned)
+                params, opt, loss = step(params, opt, xs[i], ys[i])
+                states.append([float(np.asarray(opt[k]))
+                               for k in jlow.OPT_SCALE_KEYS])
+                losses.append(float(loss))
+            ref[f"{name}/states"] = np.asarray(states)
+            ref[f"{name}/losses"] = np.asarray(losses)
+            ref[f"{name}/t"] = int(np.asarray(opt["t"]))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ref
+
+
 def _jax_lm(world, serial_cache, trees):
     """JAX's serial step for each LM case (shared by the cases of one
     config; the accumulated step for the accumulation case) and, for the
@@ -607,11 +841,13 @@ def run_world(world, tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp(f"mesh{world}"))
     inp = _block_inputs(world, tmp)
     trees = _write_lm_inputs(world, tmp)
+    trees0 = _write_step0_inputs(world, tmp)
     init = _mlp_inputs(tmp) if world == 4 else None
     ctx = start(world, tmp)
     try:
         ref = _jax_blocks(world, inp)
         ref.update(_jax_lm(world, {}, trees))
+        ref.update(_jax_step0(world, trees0))
         if world == 4:
             ref.update(_jax_data_parallel(world, init))
     finally:
@@ -736,6 +972,42 @@ def check_replicas_bit_equal_on_every_rank(run, case):
                     (key, r)
                 n += 1
     assert n > 0
+
+
+def check_clip_on_sharded_mesh_matches_jax(run, case):
+    """One f64 step with a binding clip: loss and every param at the f64
+    bar on every rank. The clip moves the step's result by far more than
+    the bar (JAX's unclipped step against its clipped one), so a norm
+    that missed a shard would show."""
+    ranks, ref, _, _ = run
+    for r in ranks:
+        assert abs(float(r[f"{case}/loss"]) - ref[f"{case}/loss"]) <= F64_TOL
+        want = ref[f"{case}/p"]
+        keys = [k for k in r if k.startswith(f"{case}/p/")]
+        assert len(keys) == len(want)
+        for key in keys:
+            np.testing.assert_allclose(r[key], want[key.split("/p/")[1]],
+                                       rtol=0, atol=F64_TOL, err_msg=key)
+    assert ref[f"{case}/clip_effect"] > 1e4 * F64_TOL
+
+
+def check_bf16_on_megatron_mesh_follows_jax(run, case):
+    """The (scale, good, skipped) state step for step equal to JAX's, the
+    losses within 1e-3 (bf16 products in another order), the poisoned step
+    skipped on every rank (scale halved, t and the params kept), and a
+    flag that only rank 0 saw false agreed false on every rank."""
+    ranks, ref, _, _ = run
+    for r in ranks:
+        np.testing.assert_array_equal(r[f"{case}/states"],
+                                      ref[f"{case}/states"])
+        np.testing.assert_allclose(r[f"{case}/losses"][:BF16_CLEAN],
+                                   ref[f"{case}/losses"][:BF16_CLEAN],
+                                   rtol=0, atol=1e-3)
+        assert r[f"{case}/states"][-1][2] == 1
+        assert r[f"{case}/states"][-1][0] == r[f"{case}/states"][-2][0] / 2
+        assert int(r[f"{case}/t"]) == ref[f"{case}/t"] == BF16_CLEAN
+        assert bool(r[f"{case}/kept"])
+        assert not bool(r[f"{case}/agreed"])
 
 
 class _FakeMesh:

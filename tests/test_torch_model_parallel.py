@@ -145,3 +145,18 @@ def test_averaging_ranks_equal_jax_and_in_process_workers(run):
                       - ref["sync_freq3"][k]).max()
                for k in ref["sync_freq3"])
     assert diff > 1e-6
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ms.CLIP_CASES[4]])
+def test_clip_grad_norm_on_sharded_mesh_matches_jax(run, case):
+    """``clip_grad_norm`` on a sharded mesh is computed, not refused: the
+    global norm's squared sums meet over each split leaf's shard groups
+    (JAX ``make_train_step(cfg, mesh)``, f64, at 1e-10)."""
+    ms.check_clip_on_sharded_mesh_matches_jax(run, case)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ms.BF16_CASES[4]])
+def test_bf16_loss_scaling_on_megatron_mesh_follows_jax(run, case):
+    """``DL4J_TPU_BF16`` on a ``'model'``/``'expert'`` mesh is computed:
+    the finite flag agrees over the shard groups before the select."""
+    ms.check_bf16_on_megatron_mesh_follows_jax(run, case)

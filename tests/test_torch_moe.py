@@ -393,3 +393,18 @@ def test_multihost_env_contract_drives_the_spawn(run):
         assert r["multihost/info"].tolist() == [rank, 2]
         assert bool(r["multihost/primary"]) == (rank == 0)
         assert r["multihost/slice"].tolist() == [4 * rank, 4 * rank + 4]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ms.CLIP_CASES[2]])
+def test_clip_grad_norm_on_sharded_mesh_matches_jax(run, case):
+    """``clip_grad_norm`` on a sharded mesh is computed, not refused: the
+    global norm's squared sums meet over each split leaf's shard groups
+    (JAX ``make_train_step(cfg, mesh)``, f64, at 1e-10)."""
+    ms.check_clip_on_sharded_mesh_matches_jax(run, case)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ms.BF16_CASES[2]])
+def test_bf16_loss_scaling_on_megatron_mesh_follows_jax(run, case):
+    """``DL4J_TPU_BF16`` on a ``'model'``/``'expert'`` mesh is computed:
+    the finite flag agrees over the shard groups before the select."""
+    ms.check_bf16_on_megatron_mesh_follows_jax(run, case)

@@ -5,7 +5,10 @@
     ``sys.modules`` afterwards, and no ``import`` statement in the
     package, in ``chip_smoke.py`` or in the kernel timing scripts
     (``scripts/time_k*.py``) names either.
-  * Its entry points (``TransformerLM`` and its ``ring_forward`` and
+  * Its entry points (the serving fleet's and the online plane's too:
+    ``ServingFleet``, ``MeshPagedDecoder``, the elastic trainer and its
+    master, ``ContinuousTrainer``, ``ModelServer``, a data-parallel
+    ``Word2Vec``; ``TransformerLM`` and its ``ring_forward`` and
     sequence mode, ``BertMLM``, ``BertClassifier`` and their ``load``,
     ``PagedDecoder``, the decode planes (``ContinuousDecoder``,
     ``SpeculativeDecoder``, ``draft_lm``), ``MultiLayerNetwork`` and its
@@ -86,7 +89,19 @@ def test_every_module_imports_without_jax():
             "deeplearning4j_tpu_torch.resilience.checkpoint",
             "deeplearning4j_tpu_torch.resilience.trainer",
             "deeplearning4j_tpu_torch.earlystopping.trainer",
-            "deeplearning4j_tpu_torch.earlystopping.savers"} <= set(mods)
+            "deeplearning4j_tpu_torch.earlystopping.savers",
+            # the serving fleet and the online plane
+            "deeplearning4j_tpu_torch.parallel.statetracker",
+            "deeplearning4j_tpu_torch.parallel.fleet",
+            "deeplearning4j_tpu_torch.serving.router",
+            "deeplearning4j_tpu_torch.serving.fleet",
+            "deeplearning4j_tpu_torch.serving.placement",
+            "deeplearning4j_tpu_torch.serving.autoscale",
+            "deeplearning4j_tpu_torch.serving.mesh",
+            "deeplearning4j_tpu_torch.online.promote",
+            "deeplearning4j_tpu_torch.online.trainer",
+            "deeplearning4j_tpu_torch.streaming.pipeline",
+            "deeplearning4j_tpu_torch.streaming.serving"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -628,10 +643,23 @@ def test_knob_table_copies_the_jax_entries(monkeypatch):
         "DL4J_TPU_PIPELINE_WORKERS", "DL4J_TPU_PREFETCH",
         "DL4J_TPU_NUM_PROCESSES",
         # distributed training
-        "DL4J_TPU_COORDINATOR"}
+        "DL4J_TPU_COORDINATOR",
+        # the serving fleet, the elastic fleet and the online plane
+        "DL4J_TPU_HBM_GB", "DL4J_TPU_SERVE_MESH", "DL4J_TPU_SERVE_ROLE",
+        "DL4J_TPU_SERVE_FLEET_REPLICAS", "DL4J_TPU_SERVE_ROUTER_PORT",
+        "DL4J_TPU_SERVE_REPLICA_FAILS", "DL4J_TPU_SERVE_SCALE_MIN",
+        "DL4J_TPU_SERVE_SCALE_MAX", "DL4J_TPU_SERVE_SCALE_UP_QUEUE",
+        "DL4J_TPU_SERVE_SCALE_UP_P99_FRAC", "DL4J_TPU_SERVE_SCALE_UP_SHED",
+        "DL4J_TPU_SERVE_SCALE_WINDOW", "DL4J_TPU_SERVE_SCALE_DOWN_QUEUE",
+        "DL4J_TPU_SERVE_SCALE_COOLDOWN", "DL4J_TPU_FLEET_HEARTBEAT_S",
+        "DL4J_TPU_FLEET_MIN_WORKERS", "DL4J_TPU_FLEET_DIR",
+        "DL4J_TPU_ONLINE_SNAPSHOT_ROUNDS", "DL4J_TPU_ONLINE_SHADOW_FRACTION",
+        "DL4J_TPU_ONLINE_SHADOW_MIN", "DL4J_TPU_ONLINE_GATE_AGREE"}
     for name, k in penv.KNOBS.items():
         assert k.default == jenv.KNOBS[name].default, name
         assert k.kind == jenv.KNOBS[name].kind, name
+        if k.choices:
+            assert k.choices == jenv.KNOBS[name].choices, name
     monkeypatch.setenv("DL4J_TPU_SERVE_KV_BLOCK", "8")
     monkeypatch.setenv("DL4J_TPU_SERVE_TIMEOUT_S", "junk")
     assert penv.get_int("DL4J_TPU_SERVE_KV_BLOCK") == 8
@@ -827,3 +855,125 @@ class TestDistributedEntryPointsNeedACardOrCpu:
         assert lm.params["blocks"]["Wg"].shape == (1, 16, 4)
         assert lm.logits(torch.zeros((1, 8), dtype=torch.long)).shape == \
             (1, 8, 16)
+
+
+FLEET_MODULES = {
+    "parallel/statetracker.py": "deeplearning4j_tpu/parallel/statetracker.py",
+    "parallel/fleet.py": "deeplearning4j_tpu/parallel/fleet.py",
+    "serving/router.py": "deeplearning4j_tpu/serving/router.py",
+    "serving/fleet.py": "deeplearning4j_tpu/serving/fleet.py",
+    "serving/placement.py": "deeplearning4j_tpu/serving/placement.py",
+    "serving/autoscale.py": "deeplearning4j_tpu/serving/autoscale.py",
+    "serving/mesh.py": "deeplearning4j_tpu/serving/mesh.py",
+    "online/promote.py": "deeplearning4j_tpu/online/promote.py",
+    "online/trainer.py": "deeplearning4j_tpu/online/trainer.py",
+    "streaming/pipeline.py": "deeplearning4j_tpu/streaming/pipeline.py",
+    "streaming/serving.py": "deeplearning4j_tpu/streaming/serving.py",
+    "streaming/conversion.py": "deeplearning4j_tpu/streaming/conversion.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(FLEET_MODULES))
+def test_fleet_modules_name_their_counterpart(rel):
+    """The serving fleet's and the online plane's modules name the JAX
+    module they port (and import neither jax nor the JAX package:
+    ``test_no_import_of_jax_or_the_jax_package``)."""
+    with open(os.path.join(PKG, rel), encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read()))
+    assert doc and "counterpart" in doc, rel
+    assert FLEET_MODULES[rel] in " ".join(doc.split()), rel
+    assert os.path.exists(os.path.join(REPO, FLEET_MODULES[rel]))
+
+
+class TestFleetEntryPointsNeedACardOrCpu:
+    """``ServingFleet`` (and ``run_replica`` through its engine),
+    ``MeshPagedDecoder``, ``ElasticParameterAveragingTrainer`` and its
+    master, ``ContinuousTrainer``, ``ModelServer`` and a data-parallel
+    ``Word2Vec`` raise with no card unless given ``device="cpu"``. The
+    ``FleetRouter`` and the ``StateTracker`` never hold a tensor: they are
+    host-only and serve with no card, like the exporter."""
+
+    @pytest.fixture
+    def no_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def _net(self):
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        conf = (pconf.NeuralNetConfiguration.builder().seed(1).list()
+                .layer(0, pconf.OutputLayer(n_in=4, n_out=3,
+                                            activation="softmax"))
+                .build())
+        return MultiLayerNetwork(conf, device="cpu").init()
+
+    def test_serving_fleet_and_router(self, no_card, tmp_path):
+        from deeplearning4j_tpu_torch.serving.fleet import ServingFleet
+        from deeplearning4j_tpu_torch.serving.router import FleetRouter
+        from deeplearning4j_tpu_torch.streaming import ModelServer
+        from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+        net = self._net()
+        path = str(tmp_path / "m.zip")
+        write_model(net, path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServingFleet(model_path=path, replicas=1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ModelServer(model_path=path)
+        fleet = ServingFleet(model=net, replicas=1, heartbeat_s=0.5,
+                             device="cpu").start()
+        try:
+            assert fleet.engines()["r0"].device == torch.device("cpu")
+        finally:
+            fleet.stop()
+        router = FleetRouter(replicas={}).start()
+        router.stop()
+
+    def test_mesh_decoder(self, no_card):
+        from deeplearning4j_tpu_torch.models.transformer import (
+            TransformerConfig,
+            TransformerLM,
+        )
+        from deeplearning4j_tpu_torch.serving.mesh import MeshPagedDecoder
+
+        lm = TransformerLM(TransformerConfig(vocab_size=16, d_model=16,
+                                             n_layers=1, n_heads=2, d_ff=32,
+                                             max_len=32), device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MeshPagedDecoder(lm, devices=2, n_blocks=8, device="cuda")
+        d = MeshPagedDecoder(lm, devices=2, n_blocks=8, device="cpu")
+        d.stop()
+
+    def test_elastic_trainer_master_and_continuous_trainer(self, no_card):
+        from deeplearning4j_tpu_torch.online import (
+            ContinuousTrainer,
+            StreamSource,
+        )
+        from deeplearning4j_tpu_torch.parallel.fleet import (
+            ElasticParameterAveragingTrainer,
+        )
+        from deeplearning4j_tpu_torch.parallel.training_master import (
+            ElasticParameterAveragingTrainingMaster,
+        )
+
+        net = self._net()
+        for make in (
+                lambda d: ElasticParameterAveragingTrainer(
+                    net, num_workers=0, device=d),
+                lambda d: ElasticParameterAveragingTrainingMaster(
+                    num_workers=1, device=d),
+                lambda d: ContinuousTrainer(net, StreamSource(),
+                                            handle_signals=False,
+                                            device=d)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(None)
+            obj = make("cpu")
+            if hasattr(obj, "close"):
+                obj.close()
+
+    def test_data_parallel_word2vec(self, no_card):
+        from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Word2Vec(num_workers=1)
+        assert Word2Vec(num_workers=1, device="cpu").mesh is None

@@ -12,6 +12,11 @@
     and with subsampling; and in chunks with a shorter tail.
   * Port against port: one seed gives the same bits twice; ``fit`` on
     sentences equals ``fit_tokens`` on their tokens.
+  * Data parallelism (``num_workers`` / ``mesh``) in 2 and 4 ``gloo``
+    processes (one spawn per world size, ~15 s each): every rank's
+    tables against JAX's mesh fit (``num_workers`` on the conftest's
+    virtual devices, the JAX draws replayed) at 1e-5, HS plus negatives
+    and CBOW; a group of one rank ``torch.equal`` to the serial fit.
   * Files: ``save_word2vec`` / ``load_word2vec`` and the text format, in
     both directions across the packages (bit-equal tables, same
     vocabulary and Huffman paths); ``Word2Vec.from_arrays``.
@@ -277,8 +282,12 @@ class TestPortDeterminism:
         assert len(a.words_nearest_sum([w], [], 2)) == 2
 
     def test_mesh_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        """Data parallelism is ported (``TestDataParallel``); what stays
+        refused is a worker count with no process group to run it on,
+        and a batch the ranks cannot split."""
+        with pytest.raises(ValueError, match="initialised process group"):
             pw2v.Word2Vec(num_workers=2, device="cpu")
+        assert pw2v.Word2Vec(num_workers=1, device="cpu").mesh is None
 
 
 class TestFiles:
@@ -360,3 +369,134 @@ class TestFiles:
         assert p.config() == conf
         w = j.vocab.word_at_index(1)
         assert p.words_nearest(w, 5) == j.words_nearest(w, 5)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism across processes
+# ---------------------------------------------------------------------------
+
+# one epoch of 80 sentences in batches of 128: every batch is a few
+# collectives a table on each rank, and the spawn shares the machine with
+# the rest of the suite
+DP_CASES = {"hs+ns": dict(negative=3), "cbow": dict(use_cbow=True)}
+DP_KW = dict(layer_size=16, window=3, batch_size=128, seed=3)
+DP_SENTENCES = 80
+
+
+def _dp_worker(rank, world, tmp):
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=90))
+    alone = [dist.new_group([r]) for r in range(world)]
+    toks = corpus(3, n_sent=DP_SENTENCES)
+    out = {}
+    for name, kw in DP_CASES.items():
+        draw = None
+        if kw.get("negative"):
+            draw = w2v.replay_draw(torch.from_numpy(
+                np.load(os.path.join(tmp, f"negs_{name}.npy"))))
+        for tag, mk in (("dp", dict(num_workers=world)),
+                        ("one", dict(mesh=alone[rank], num_workers=1))):
+            m = w2v.Word2Vec(device="cpu", **DP_KW, **kw, **mk)
+            m.fit_tokens(toks, draw=draw)
+            for n in ("syn0", "syn1", "syn1neg"):
+                t = getattr(m.lookup_table, n)
+                if t is not None:
+                    out[f"{name}/{tag}/{n}"] = t
+    try:
+        w2v.Word2Vec(num_workers=world, batch_size=128 * world + 1,
+                     device="cpu")
+        out["refused"] = np.asarray(False)
+    except ValueError:
+        out["refused"] = np.asarray(True)
+    np.savez(os.path.join(tmp, f"w2v{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def dp_run(request, tmp_path_factory):
+    """(per-rank tables, JAX mesh tables, port serial tables)."""
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+
+    world = request.param
+    tmp = str(tmp_path_factory.mktemp(f"w2v_dp{world}"))
+    toks = corpus(3, n_sent=DP_SENTENCES)
+    serial = {}
+    for name, kw in DP_CASES.items():
+        p = pw2v.Word2Vec(device="cpu", **DP_KW, **kw)
+        p.build_vocab(toks)
+        draw, drawn = None, []
+        if kw.get("negative"):
+            jdraw = jax_replay_draw(p, DP_KW["seed"], DP_KW["batch_size"],
+                                    kw["negative"])
+
+            def draw(i, jdraw=jdraw, drawn=drawn):
+                drawn.append((i, jdraw(i)))
+                return drawn[-1][1]
+        p.fit_tokens(toks, draw=draw)
+        if drawn:  # by global batch index (phases may share indices)
+            negs = np.zeros((max(i for i, _ in drawn) + 1,)
+                            + tuple(drawn[0][1].shape), np.int64)
+            for i, x in drawn:
+                negs[i] = x.numpy()
+            np.save(os.path.join(tmp, f"negs_{name}.npy"), negs)
+        serial[name] = p.lookup_table
+    ctx = mp.start_processes(_dp_worker, args=(world, tmp), nprocs=world,
+                             join=False, start_method="spawn")
+    ref = {}
+    for name, kw in DP_CASES.items():
+        j = jw2v.Word2Vec(num_workers=world, **DP_KW, **kw)
+        j.fit_tokens(toks)
+        ref[name] = j.lookup_table
+    deadline = time.monotonic() + 150.0
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("the word2vec gloo spawn did not end in time")
+    ranks = [dict(np.load(os.path.join(tmp, f"w2v{r}.npz")))
+             for r in range(world)]
+    return ranks, ref, serial
+
+
+class TestDataParallel:
+    @pytest.mark.parametrize("name", list(DP_CASES))
+    def test_ranks_match_jax_mesh_fit(self, dp_run, name):
+        ranks, ref, _ = dp_run
+        names = ["syn0", "syn1"] + (["syn1neg"] if "ns" in name else [])
+        for r in ranks:
+            for n in names:
+                np.testing.assert_allclose(
+                    r[f"{name}/dp/{n}"], np.asarray(getattr(ref[name], n)),
+                    rtol=0, atol=TOL_FIT, err_msg=n)
+        for n in names:  # every rank holds the same tables
+            for r in ranks[1:]:
+                np.testing.assert_array_equal(r[f"{name}/dp/{n}"],
+                                              ranks[0][f"{name}/dp/{n}"])
+
+    @pytest.mark.parametrize("name", list(DP_CASES))
+    def test_group_of_one_equals_serial_fit(self, dp_run, name):
+        ranks, _, serial = dp_run
+        for r in ranks:
+            for n in ("syn0", "syn1", "syn1neg"):
+                want = getattr(serial[name], n)
+                if want is None:
+                    continue
+                assert torch.equal(torch.from_numpy(r[f"{name}/one/{n}"]),
+                                   torch.from_numpy(np.asarray(want)))
+
+    def test_indivisible_batch_raises(self, dp_run):
+        ranks, _, _ = dp_run
+        assert all(bool(r["refused"]) for r in ranks)
