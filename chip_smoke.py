@@ -513,6 +513,29 @@ What it does, in order (any failure raises and exits non-zero):
 22. prints one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
+Right after the word2vec phase, ``phase_embeddings`` drives the NLP,
+graph and t-SNE models on the word2vec corpus: (a) ParagraphVectors DBOW
+at the word2vec widths on all 10,000 sentences, each labelled
+``TOPIC_<t>`` (the word co-training's pairs/s and K3 once a co-training
+batch, the plain step never; the DBOW loop's pairs/s; ``infer_vector`` ms
+and the top-1 ``nearest_labels`` agreement on 200 held-out sentences
+against ``PV_AGREEMENT_CPU``); (b) DM on the first 2,000 sentences; (c)
+GloVe on the first 2,000 (pairs, the count's host seconds, pairs/s, a
+loss that falls every epoch); (d) DeepWalk on a seeded stochastic block
+model of 100 communities of 100 vertices (walk and pair host seconds,
+pairs/s, the community share of each of 500 vertices' 10 nearest
+against ``DW_COMMUNITY_CPU``); (e) exact t-SNE of the word2vec fit's
+5,000 most frequent words for 1,000 iterations (``_input_p`` host
+seconds, a step's device ms against its bound, the KL falling, peak
+memory); (f) one step of each device function (``dbow_step``,
+``dm_step``, ``infer_dbow_step``, ``glove_step``, ``hs_body``,
+``tsne_step``) on the card against the CPU within 1e-5 of each output's
+largest entry; (g) ``generate`` of the bench transformer in the Megatron
+mode on a world-1 NCCL group ``torch.equal`` to the model with no group
+(both samplers), its prefill through K4. To rehearse (a) and (d) on the
+CPU: ``python3 -c "import chip_smoke; chip_smoke.embeddings_rehearsal()"``
+(~75 s with ``OMP_NUM_THREADS=4``).
+
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
 ``output()`` and one ``fit`` down by kernel with ``torch.profiler``.
 ``--out PATH`` also writes the whole report as JSON.
@@ -8304,6 +8327,494 @@ def phase_fleet(cfg: TransformerConfig, net: MultiLayerNetwork, burst_reqs,
                     "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the NLP, graph and t-SNE models: ParagraphVectors (DBOW, DM), GloVe,
+# DeepWalk, exact t-SNE; generate on a Megatron group
+# ---------------------------------------------------------------------------
+
+# ParagraphVectors at the word2vec phase's widths on its corpus, each
+# sentence labelled TOPIC_<t> by its topic; 200 held-out sentences of the
+# same topics from default_rng(seed + 7)
+PV_HELD_OUT, PV_INFER_STEPS = 200, 10
+# top-1 nearest_labels agreement of the held-out sentences with their topic
+# after the same DBOW fit on the CPU (device="cpu", seed 0, the CPU
+# generator's negatives), from chip_smoke.embeddings_rehearsal: 5,857,208
+# co-training pairs in 2,860 batches, 1,000,000 DBOW pairs in 489
+PV_AGREEMENT_CPU = 1.0
+DM_SENTENCES = 2000
+# GloVe on the first 2,000 sentences (200 k tokens) at its DL4J window
+GLOVE_SENTENCES, GLOVE_D, GLOVE_WINDOW, GLOVE_BATCH, GLOVE_EPOCHS = \
+    2000, 128, 15, 4096, 5
+# DeepWalk on a stochastic block model: 100 communities of 100 vertices,
+# ~16 neighbours inside a vertex's community and ~2 outside
+SBM_COMMUNITIES, SBM_SIZE, SBM_DEG_IN, SBM_DEG_OUT = 100, 100, 16, 2
+DW_D, DW_WALK, DW_WINDOW, DW_QUERIES, DW_TOP = 128, 40, 5, 500, 10
+# the share of the top-10 vertices_nearest in the vertex's own community
+# after the same fit on the CPU, from chip_smoke.embeddings_rehearsal:
+# 89,822 edges, 3,800,000 pairs in 1,856 batches
+DW_COMMUNITY_CPU = 0.9588
+# exact t-SNE of the word2vec fit's 5,000 most frequent words' vectors
+TSNE_N, TSNE_ITERS = 5000, 1000
+TSNE_PASSES = 24  # N x N f32 reads and writes of tsne_step (no KL), counted
+TOL_EMB = 1e-5  # the card's step against the CPU's: of each output's largest
+GEN_NEW = 16
+EMB_COUNTERS = (sgns_step, sgns_step_plain, flash_attention,
+                flash_attention_plain)
+
+
+def emb_counts():
+    return {fn.__name__: fn.launches for fn in EMB_COUNTERS}
+
+
+def emb_zero():
+    for fn in EMB_COUNTERS:
+        fn.launches = 0
+
+
+def sentence_topics(corpus) -> np.ndarray:
+    """Each sentence's topic: the one most of its words belong to."""
+    return np.array([np.bincount([int(w[1:]) % W2V_TOPICS for w in s],
+                                 minlength=W2V_TOPICS).argmax()
+                     for s in corpus])
+
+
+def held_out_sentences(seed: int, n: int = PV_HELD_OUT):
+    """(sentences, topics): sentence i of topic i % W2V_TOPICS, W2V_SENT
+    words from the topic's Zipf distribution, or with probability
+    W2V_NOISE from a Zipf distribution over all words."""
+    rng = np.random.default_rng(seed + 7)
+    zipf = lambda m, k: np.minimum(np.searchsorted(
+        np.cumsum(1.0 / np.arange(1, m + 1)) / np.sum(
+            1.0 / np.arange(1, m + 1)), rng.random(k)), m - 1)
+    glob_word = rng.permutation(W2V_VOCAB)
+    out, topics = [], []
+    for i in range(n):
+        t = i % W2V_TOPICS
+        members = np.arange(t, W2V_VOCAB, W2V_TOPICS)
+        words = np.where(rng.random(W2V_SENT) < W2V_NOISE,
+                         glob_word[zipf(W2V_VOCAB, W2V_SENT)],
+                         members[zipf(len(members), W2V_SENT)])
+        out.append(" ".join(f"w{w}" for w in words))
+        topics.append(t)
+    return out, np.array(topics)
+
+
+def pv_model(seed: int, dev, dm: bool = False):
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors,
+    )
+
+    return ParagraphVectors(dm=dm, layer_size=W2V_D, window=W2V_WINDOW,
+                            negative=W2V_NEG, batch_size=W2V_BATCH, epochs=1,
+                            min_word_frequency=W2V_MIN_COUNT, seed=seed,
+                            device=dev)
+
+
+def emb_paragraph_vectors(corpus, seed: int, dev, dm: bool = False) -> dict:
+    """One ParagraphVectors fit (DBOW, or DM) on ``corpus``: the word
+    co-training's and the document loop's pairs/s, K3 launches against
+    the co-training's batches; for DBOW the held-out topic agreement and
+    infer_vector's ms."""
+    from deeplearning4j_tpu_torch.nlp.text import LabelledDocument
+
+    topics = sentence_topics(corpus)
+    docs = [LabelledDocument(" ".join(s), [f"TOPIC_{t}"])
+            for s, t in zip(corpus, topics)]
+    model = pv_model(seed, dev, dm)
+    emb_zero()
+    t0 = time.perf_counter()
+    model.fit_documents(docs)
+    fit_s = time.perf_counter() - t0
+    counts = emb_counts()
+    words, dst = model.fit_stats["words"], model.fit_stats["docs"]
+    rep = {"fit_s": fit_s, "launches": counts, "words": words, "docs": dst,
+           "cotrain_pairs_per_s": words["examples"] / words["loop_s"],
+           "doc_pairs_per_s": dst["examples"] / dst["loop_s"]}
+    name = "DM" if dm else "DBOW"
+    print(f"ParagraphVectors {name} on {len(docs)} sentences: vocabulary "
+          f"{model.vocab_size()}, {len(model.labels)} labels; word "
+          f"co-training {words['examples']} pairs in {words['batches']} "
+          f"batches, {rep['cotrain_pairs_per_s']:.0f} pairs/s (loop "
+          f"{words['loop_s']:.3f} s, assembly {words['assembly_s']:.3f} s); "
+          f"{name} {dst['examples']} examples in {dst['batches']} batches, "
+          f"{rep['doc_pairs_per_s']:.0f} examples/s (loop {dst['loop_s']:.3f}"
+          f" s, assembly {dst['assembly_s']:.3f} s); fit {fit_s:.2f} s; "
+          f"launches {counts}")
+    check(np.isfinite(model.doc_vectors).all(),
+          f"{name}: a document vector is not finite")
+    if dev.type == "cuda":  # on the CPU the plain versions count
+        check(counts["sgns_step"] == words["batches"]
+              and counts["sgns_step_plain"] == 0,
+              f"{name}: K3 did not run exactly once per co-training batch")
+    if dm:
+        return rep
+    texts, want = held_out_sentences(seed)
+    t0 = time.perf_counter()
+    vecs = [model.infer_vector(t, PV_INFER_STEPS) for t in texts]
+    rep["infer_ms"] = (time.perf_counter() - t0) * 1e3 / len(texts)
+    got = [model.nearest_labels(v, 1)[0] for v in vecs]
+    rep["agreement"] = float(np.mean([g == f"TOPIC_{t}"
+                                      for g, t in zip(got, want)]))
+    print(f"infer_vector ({PV_INFER_STEPS} steps, {model._INFER_PAD} words): "
+          f"{rep['infer_ms']:.3f} ms a sentence; top-1 nearest_labels "
+          f"agreement with the topic on {len(texts)} held-out sentences: "
+          f"{rep['agreement']:.4f} (chance {1 / W2V_TOPICS:.4f}, CPU "
+          f"rehearsal {PV_AGREEMENT_CPU})")
+    rep["model"] = model
+    return rep
+
+
+def sbm_graph(seed: int):
+    """(graph, community of each vertex): SBM_COMMUNITIES communities of
+    SBM_SIZE vertices; each pair inside a community an edge with
+    probability SBM_DEG_IN / (SBM_SIZE - 1), and n * SBM_DEG_OUT / 2
+    edges between uniform pairs of different communities."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed + 11)
+    n = SBM_COMMUNITIES * SBM_SIZE
+    comm = np.arange(n) // SBM_SIZE
+    g = Graph(n)
+    a, b = np.triu_indices(SBM_SIZE, 1)
+    for c in range(SBM_COMMUNITIES):
+        keep = rng.random(len(a)) < SBM_DEG_IN / (SBM_SIZE - 1)
+        for u, v in zip(a[keep] + c * SBM_SIZE, b[keep] + c * SBM_SIZE):
+            g.add_edge(int(u), int(v))
+    m = n * SBM_DEG_OUT // 2
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    for x, y in zip(u[comm[u] != comm[v]], v[comm[u] != comm[v]]):
+        g.add_edge(int(x), int(y))
+    return g, comm
+
+
+def emb_deepwalk(seed: int, dev) -> dict:
+    from deeplearning4j_tpu_torch.graph import DeepWalk, RandomWalkIterator
+
+    t0 = time.perf_counter()
+    g, comm = sbm_graph(seed)
+    graph_s = time.perf_counter() - t0
+    dw = DeepWalk(vector_size=DW_D, window_size=DW_WINDOW, seed=seed,
+                  device=dev).initialize(g)
+    t0 = time.perf_counter()
+    walks = list(RandomWalkIterator(g, DW_WALK, seed=seed))
+    walk_s = time.perf_counter() - t0
+    dw.fit_walks(walks)
+    st = dw.fit_stats
+    queries = np.arange(0, g.num_vertices(), g.num_vertices() // DW_QUERIES)
+    share = float(np.mean([comm[dw.vertices_nearest(int(q), DW_TOP)]
+                           == comm[q] for q in queries]))
+    deg = g.degrees()
+    rep = {"vertices": g.num_vertices(), "edges": int(deg.sum()) // 2,
+           "graph_s": graph_s, "walk_s": walk_s, "pairs": st["pairs"],
+           "batches": st["batches"], "pairs_s": st["pairs_s"],
+           "loop_s": st["loop_s"], "pairs_per_s": st["pairs"] / st["loop_s"],
+           "community_share": share}
+    print(f"DeepWalk on an SBM of {rep['vertices']} vertices, {rep['edges']}"
+          f" edges (mean degree {deg.mean():.2f}; graph {graph_s:.2f} s): "
+          f"walks {walk_s:.2f} s, pairs {st['pairs_s']:.2f} s (host); "
+          f"{st['pairs']} pairs in {st['batches']} batches, "
+          f"{rep['pairs_per_s']:.0f} pairs/s (loop {st['loop_s']:.3f} s); "
+          f"top-{DW_TOP} vertices_nearest in the own community over "
+          f"{len(queries)} vertices: {share:.4f} (chance "
+          f"{(SBM_SIZE - 1) / (g.num_vertices() - 1):.4f}, CPU rehearsal "
+          f"{DW_COMMUNITY_CPU})")
+    check(np.isfinite(dw.vertex_vectors).all(),
+          "DeepWalk: a vertex vector is not finite")
+    return rep
+
+
+def emb_glove(corpus, seed: int, dev) -> dict:
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+
+    glove = Glove(layer_size=GLOVE_D, window=GLOVE_WINDOW,
+                  batch_size=GLOVE_BATCH, epochs=GLOVE_EPOCHS, seed=seed,
+                  device=dev)
+    t0 = time.perf_counter()
+    glove.fit([" ".join(s) for s in corpus])
+    fit_s = time.perf_counter() - t0
+    st = glove.fit_stats
+    rep = dict(st, fit_s=fit_s, losses=glove.losses,
+               pairs_per_s=st["pairs"] * GLOVE_EPOCHS / st["loop_s"])
+    print(f"GloVe on {len(corpus)} sentences: vocabulary "
+          f"{glove.vocab.num_words()}, {st['pairs']} co-occurrence pairs "
+          f"(count {st['count_s']:.3f} s, host); {st['batches']} batches of "
+          f"{GLOVE_BATCH} over {GLOVE_EPOCHS} epochs, {rep['pairs_per_s']:.0f}"
+          f" pairs/s (loop {st['loop_s']:.3f} s); fit {fit_s:.2f} s; loss "
+          f"by epoch {[round(x, 6) for x in glove.losses]}")
+    check(np.isfinite(glove.W).all(), "GloVe: W is not finite")
+    check(all(b < a for a, b in zip(glove.losses, glove.losses[1:])),
+          "GloVe: the loss did not fall every epoch")
+    return rep
+
+
+def emb_tsne(w2v, seed: int, dev):
+    """Exact t-SNE of the TSNE_N most frequent words' vectors; returns the
+    report and P (on the card) for the step checks."""
+    from deeplearning4j_tpu_torch.plot import tsne as tsne_mod
+
+    x = np.asarray(w2v.lookup_table.syn0[:TSNE_N], np.float64)
+    ts = tsne_mod.Tsne(max_iter=TSNE_ITERS, seed=seed, device=dev)
+    spans, last = {}, {}
+    input_p = ts._input_p
+
+    def timed_input_p(a):
+        t0 = time.perf_counter()
+        out = input_p(a)
+        spans["input_p_s"] = time.perf_counter() - t0
+        return out
+
+    step = tsne_mod.tsne_step
+
+    def recorded_step(P, Y, vel, gains, momentum, lr, kl=False):
+        last.update(P=P, Y=Y, vel=vel, gains=gains)
+        return step(P, Y, vel, gains, momentum, lr, kl)
+
+    ts._input_p = timed_input_p
+    tsne_mod.tsne_step = recorded_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        y = ts.fit_transform(x)
+        fit_s = time.perf_counter() - t0
+    finally:
+        tsne_mod.tsne_step = step
+    peak = torch.cuda.max_memory_allocated() - held
+    P = last["P"]
+    ys = [last[k].clone() for k in ("Y", "vel", "gains")]
+    step_ms = device_ms(lambda: step(P, *[a.clone() for a in ys], 0.8,
+                                     200.0), iters=10)
+    n = P.shape[0]
+    bound_ms, bound_by = bound(n * n * 4.0, 20.0 * n * n, PEAK_F32_FLOPS)
+    code_ms = TSNE_PASSES * n * n * 4.0 / PEAK_BYTES_PER_S * 1e3
+    kl = ts.kl_history
+    rep = {"n": n, "dim": x.shape[1], "iters": TSNE_ITERS,
+           "input_p_s": spans["input_p_s"], "fit_s": fit_s,
+           "loop_ms_per_step": (fit_s - spans["input_p_s"]) * 1e3
+           / TSNE_ITERS, "step_ms": step_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "code_traffic_ms": code_ms,
+           "kl_first": kl[0], "kl_last": kl[-1], "kl_history": kl,
+           "peak_memory_bytes": peak}
+    print(f"exact t-SNE of the {n} most frequent words' {x.shape[1]}-wide "
+          f"vectors, {TSNE_ITERS} iterations: _input_p "
+          f"{spans['input_p_s']:.2f} s (host, f64); fit {fit_s:.2f} s, "
+          f"{rep['loop_ms_per_step']:.3f} ms a step of host wall; "
+          f"tsne_step {step_ms:.4f} ms (device time) against a bound of "
+          f"{bound_ms:.4f} ms ({bound_by}: one read of P) and "
+          f"{code_ms:.4f} ms for the code's {TSNE_PASSES} N x N f32 passes; "
+          f"KL {kl[0]:.4f} -> {kl[-1]:.4f}; device memory at its peak "
+          f"{peak / 2**20:.1f} MiB above the earlier phases'")
+    check(np.isfinite(y).all(), "t-SNE: Y is not finite")
+    # kl[0], kl[1] are of the exaggerated P (iterations 0 and 50 < 100)
+    check(kl[-1] < kl[min(2, len(kl) - 1)],
+          "t-SNE: the KL divergence did not fall after the exaggeration")
+    return rep, P
+
+
+EMB_STEPS = ("dbow_step", "dm_step", "infer_dbow_step", "glove_step",
+             "hs_body", "tsne_step")
+
+
+def emb_step_inputs(seed: int, P, v: int = W2V_VOCAB, b: int = W2V_BATCH,
+                    d: int = W2V_D) -> dict:
+    """Seeded f32 host inputs of the device steps: tables [v, d], a batch
+    of b rows (repeated rows, dead path entries, 7 padded pairs), paths
+    of 18, context windows of 2 x W2V_WINDOW; for tsne_step the
+    affinities ``P`` [N, N] and the fit's first Y ~ N(0, 1e-4). Not a
+    late Y: there some gradient entries are ~0, and the gains rule keys
+    on their signs, which two summation orders may flip."""
+    rng = np.random.default_rng(seed + 13)
+    l, nd, c = 18, W2V_TOPICS, 2 * W2V_WINDOW
+    f = lambda *sh: (rng.standard_normal(sh) * 0.1).astype(np.float32)
+    return {"syn0": f(v, d), "syn1": f(v, d), "docvecs": f(nd, d),
+            "doc_ids": rng.integers(0, nd, b), "cx": rng.integers(0, v, b),
+            "wj": rng.integers(0, v, b),
+            "points": rng.integers(0, v - 1, (b, l)),
+            "codes": rng.integers(0, 2, (b, l)).astype(np.float32),
+            "mask": (rng.random((b, l)) < 0.8).astype(np.float32),
+            "ctx": rng.integers(0, v, (b, c)),
+            "cmask": (rng.random((b, c)) < 0.7).astype(np.float32),
+            "hW": np.abs(f(v, d)) + 1e-8, "hb": np.abs(f(v)) + 1e-8,
+            "bias": f(v),
+            "logx": np.log(rng.random(b) * 20 + 1).astype(np.float32),
+            "fdiff": rng.random(b).astype(np.float32),
+            "live": (np.arange(b) < b - 7).astype(np.float32),
+            "P": np.asarray(P, np.float32),
+            "Y": np.random.default_rng(seed).normal(
+                0, 1e-4, (len(P), 2)).astype(np.float32)}
+
+
+def emb_run_step(name: str, inp: dict, dev) -> dict:
+    """One step of the device function ``name`` on ``dev`` from copies of
+    ``emb_step_inputs``; its outputs by name, on the host."""
+    from deeplearning4j_tpu_torch.graph.deepwalk import hs_body
+    from deeplearning4j_tpu_torch.nlp.glove import glove_step
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        dbow_step,
+        dm_step,
+        infer_dbow_step,
+    )
+    from deeplearning4j_tpu_torch.plot.tsne import tsne_step
+
+    t = {k: torch.tensor(a, device=dev) for k, a in inp.items()}
+    if name == "dbow_step":
+        dbow_step(t["docvecs"], t["syn1"], t["doc_ids"], t["points"],
+                  t["codes"], t["mask"], 0.025)
+        keys = ("docvecs", "syn1")
+    elif name == "dm_step":
+        dm_step(t["syn0"], t["syn1"], t["docvecs"], t["doc_ids"], t["ctx"],
+                t["cmask"], t["points"], t["codes"], t["mask"], 0.025)
+        keys = ("syn0", "syn1", "docvecs")
+    elif name == "infer_dbow_step":
+        t["vec"] = t["docvecs"][:1].clone()
+        infer_dbow_step(t["vec"], t["syn1"], t["points"][:64],
+                        t["codes"][:64], t["mask"][:64], 0.025)
+        keys = ("vec", "syn1")
+    elif name == "glove_step":
+        t["loss"] = glove_step(t["syn0"], t["bias"], t["hW"], t["hb"],
+                               t["cx"], t["wj"], t["logx"], t["fdiff"], 0.05,
+                               t["live"])
+        keys = ("syn0", "bias", "hW", "hb", "loss")
+    elif name == "hs_body":
+        hs_body(t["syn0"], t["syn1"], t["cx"], t["points"], t["codes"],
+                t["mask"] * t["live"][:, None], 0.025)
+        keys = ("syn0", "syn1")
+    else:
+        t["vel"], t["gains"] = torch.zeros_like(t["Y"]), torch.ones_like(
+            t["Y"])
+        t["kl"] = tsne_step(t["P"], t["Y"], t["vel"], t["gains"], 0.5, 200.0,
+                            kl=True)
+        keys = ("Y", "vel", "gains", "kl")
+    return {k: t[k].cpu().numpy() for k in keys}
+
+
+def emb_step_errors(name: str, inp: dict, dev) -> dict:
+    """max |card - CPU| / max |CPU| of each output of one step."""
+    card, cpu = emb_run_step(name, inp, dev), emb_run_step(
+        name, inp, torch.device("cpu"))
+    return {k: float(np.abs(card[k] - cpu[k]).max()
+                     / max(np.abs(cpu[k]).max(), 1e-30)) for k in cpu}
+
+
+def emb_step_checks(seed: int, dev, P) -> dict:
+    """One step of each device function on the card and on the CPU from
+    the same seeded f32 inputs: the embedding steps at (a)'s widths,
+    tsne_step on (e)'s P."""
+    inp = emb_step_inputs(seed, P.cpu().numpy())
+    errs = {name: emb_step_errors(name, inp, dev) for name in EMB_STEPS}
+    print("one step of each device function, card against CPU (max err / "
+          f"largest entry, tol {TOL_EMB}): "
+          + "; ".join(f"{n} " + ", ".join(f"{k} {e:.2e}"
+                                          for k, e in es.items())
+                      for n, es in errs.items()))
+    worst = max(e for es in errs.values() for e in es.values())
+    check(worst <= TOL_EMB, "a device step on the card disagrees with the "
+          "same step on the CPU")
+    return errs
+
+
+def emb_generate(cfg: TransformerConfig, seed: int, dev) -> dict:
+    """``generate`` of the bench transformer in the Megatron mode on a
+    world-1 NCCL group against the same model with no group: the cached
+    sampler both ways, and the group's default (the full-forward sampler)
+    against the full-forward sampler with no group."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+
+    prompt = np.random.default_rng(seed + 17).integers(
+        0, cfg.vocab_size, (2, 64))
+    kw = dict(temperature=1e-8, seed=seed)
+    emb_zero()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_seq_group(os.path.join(tmp, "gen_store"), 0, 1, backend="nccl")
+        try:
+            lm = TransformerLM(cfg, device=dev)
+            mesh_lm = TransformerLM(cfg, device=dev, params=lm.params,
+                                    group=device_mesh((1, 1),
+                                                      ("data", "model")))
+            check(mesh_lm.mode == "megatron", "the group LM is not Megatron")
+            t0 = time.perf_counter()
+            got = {"cache": mesh_lm.generate(prompt, GEN_NEW, use_cache=True,
+                                             **kw),
+                   "default": mesh_lm.generate(prompt, GEN_NEW, **kw)}
+            mesh_s = time.perf_counter() - t0
+            want = {"cache": lm.generate(prompt, GEN_NEW, use_cache=True,
+                                         **kw),
+                    "default": lm.generate(prompt, GEN_NEW, use_cache=False,
+                                           **kw)}
+        finally:
+            dist.destroy_process_group()
+    del lm, mesh_lm
+    torch.cuda.empty_cache()
+    same = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    counts = emb_counts()
+    print(f"generate in the Megatron mode on a world-1 NCCL group, {GEN_NEW} "
+          f"greedy tokens after 2 x 64: torch.equal to the model with no "
+          f"group {same} ({mesh_s:.2f} s for both samplers on the group); "
+          f"launches {counts}")
+    check(all(same.values()), "generate on a Megatron group differs from "
+          "the same model with no group")
+    check(counts["flash_attention"] > 0
+          and counts["flash_attention_plain"] == 0,
+          "generate's prefill did not run through K4")
+    return {"equal": same, "wall_s": mesh_s, "launches": counts}
+
+
+def phase_embeddings(seed: int, dev, w2v: Word2Vec, cfg: TransformerConfig):
+    """ParagraphVectors (DBOW, DM), GloVe, DeepWalk and exact t-SNE on the
+    card, one step of each device function against the CPU, and generate
+    on a Megatron group (module docstring)."""
+    print("== the NLP, graph and t-SNE models ==")
+    t_phase = time.perf_counter()
+    corpus = topic_corpus(seed)
+    dbow = emb_paragraph_vectors(corpus, seed, dev)
+    pv = dbow.pop("model")
+    check(dbow["agreement"] >= 10.0 / W2V_TOPICS,
+          "ParagraphVectors: the held-out agreement is not 10x chance")
+    check(dbow["agreement"] >= PV_AGREEMENT_CPU - 0.05,
+          "ParagraphVectors: the held-out agreement fell more than 0.05 "
+          "below the CPU rehearsal's")
+    k3 = dbow["launches"]["sgns_step"]
+    del pv
+    dm = emb_paragraph_vectors(corpus[:DM_SENTENCES], seed, dev, dm=True)
+    k3 += dm["launches"]["sgns_step"]
+    glove = emb_glove(corpus[:GLOVE_SENTENCES], seed, dev)
+    dw = emb_deepwalk(seed, dev)
+    check(dw["community_share"] >= 0.5,
+          "DeepWalk: less than half the nearest vertices share a community")
+    check(dw["community_share"] >= DW_COMMUNITY_CPU - 0.05,
+          "DeepWalk: the community share fell more than 0.05 below the CPU "
+          "rehearsal's")
+    tsne, P = emb_tsne(w2v, seed, dev)
+    steps = emb_step_checks(seed, dev, P)
+    del P
+    torch.cuda.empty_cache()
+    gen = emb_generate(cfg, seed, dev)
+    wall = time.perf_counter() - t_phase
+    print(f"NLP, graph and t-SNE phase: {wall:.1f} s")
+    return ({"sgns_step": k3, "flash_attention":
+             gen["launches"]["flash_attention"]},
+            {"paragraph_vectors_dbow": dbow, "paragraph_vectors_dm": dm,
+             "glove": glove, "deepwalk": dw, "tsne": tsne,
+             "step_errors": steps, "generate": gen, "wall_s": wall})
+
+
+def embeddings_rehearsal(seed: int = 0):
+    """(a) and (d) of the embeddings phase on the CPU: the sources of
+    PV_AGREEMENT_CPU and DW_COMMUNITY_CPU. Run as ``python3 -c "import
+    chip_smoke; chip_smoke.embeddings_rehearsal()"``."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    dbow = emb_paragraph_vectors(topic_corpus(seed), seed, cpu)
+    dw = emb_deepwalk(seed, cpu)
+    print(f"CPU rehearsal, seed {seed}, {time.perf_counter() - t0:.1f} s: "
+          f"ParagraphVectors agreement {dbow['agreement']!r}; DeepWalk "
+          f"community share {dw['community_share']!r}")
+    return dbow["agreement"], dw["community_share"]
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -8364,6 +8875,7 @@ def main(argv=None) -> int:
     w2v, chunk, word2vec = phase_word2vec(args.seed, dev)
     peak_w2v = torch.cuda.max_memory_allocated()
     merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
+    emb_launches, embeddings = phase_embeddings(args.seed, dev, w2v, cfg)
     w2v_table = w2v.lookup_table  # /embed's lookup record
     del w2v, chunk
     import torch.distributed as dist
@@ -8458,6 +8970,7 @@ def main(argv=None) -> int:
          "launches_ulysses_train": uly_counts["flash_attention"],
          "launches_distributed_moe": dist_counts["flash_attention"],
          "launches_fleet": fl_counts["flash_attention"],
+         "launches_embeddings": emb_launches["flash_attention"],
          "max_abs_err": k4_err, "max_abs_err_lse": k4_err_lse,
          "tolerance": TOL_FLASH_O,
          "ms": f4["ms"], "plain_ms": f4["plain_ms"],
@@ -8561,6 +9074,7 @@ def main(argv=None) -> int:
          "replaces": "deeplearning4j_tpu/ops/pallas_sgns.py:159",
          "launches": word2vec["launches"]["sgns_step"],
          "launches_fleet": fl_counts["sgns_step"],
+         "launches_embeddings": emb_launches["sgns_step"],
          "max_abs_err": errs["sgns_step"]["max_err"],
          "max_err_is": "of the largest entry of each table's update",
          "tolerance": TOL_SGNS,
@@ -8644,6 +9158,7 @@ def main(argv=None) -> int:
                   "graph": graph, "embed": embed, "search": search,
                   "obs": obs_rep, "runtime": runtime,
                   "distributed": distributed, "fleet": fleet,
+                  "embeddings": embeddings,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1540,13 +1540,13 @@ class TransformerLM:
             logits = torch.where(logits < thresh, neg, logits)
         return logits
 
-    def _sample_fn(self, buf, pos0: int, n_new: int, gen, temperature,
-                   top_k, top_p):
+    def _sample_fn(self, params, buf, pos0: int, n_new: int, gen,
+                   temperature, top_k, top_p):
         """The full-forward sampler: each token from a forward over the
         whole right-padded window (causal masking hides the padding)."""
         out = []
         for i in range(n_new):
-            logits, _ = forward(self.compute_params, buf, self.cfg)
+            logits, _ = forward(params, buf, self.cfg)
             pos = pos0 + i  # next write index; condition on pos - 1
             tempered = logits[:, pos - 1] / max(float(temperature), 1e-6)
             nxt = _categorical(self._filter_logits(tempered, top_k, top_p),
@@ -1555,11 +1555,10 @@ class TransformerLM:
             out.append(nxt)
         return torch.stack(out, dim=1)
 
-    def _sample_kv_fn(self, buf, pos0: int, n_new: int, gen, temperature,
-                      top_k, top_p):
+    def _sample_kv_fn(self, params, buf, pos0: int, n_new: int, gen,
+                      temperature, top_k, top_p):
         """The KV-cache sampler: prefill the window once, then one
         :func:`decode_step` per token (O(max_len) each)."""
-        params = self.compute_params
         cache, _ = prefill_cache(params, buf, self.cfg)
         tok = buf[:, pos0 - 1]
         out = []
@@ -1580,9 +1579,13 @@ class TransformerLM:
         [N, n_new] on the device. Prompt length + n_new must fit max_len;
         longer prompts keep their last (max_len - n_new) tokens, right-
         padded with zeros that causal masking hides. ``use_cache`` (the
-        default for dense models): prefill + :func:`decode_step`;
-        otherwise a full forward per token. The uniforms come from a
-        ``torch.Generator`` seeded with ``seed`` on the model's device."""
+        default for dense models with no group): prefill +
+        :func:`decode_step`; otherwise a full forward per token. The
+        uniforms come from a ``torch.Generator`` seeded with ``seed`` on
+        the model's device. In the Megatron and pipeline modes every rank
+        must call: each gathers the whole tree (:func:`gather_params`) and
+        samples from it as one device would, so every rank returns the
+        same tokens."""
         cfg = self.cfg
         if n_new >= cfg.max_len:
             raise ValueError(f"n_new {n_new} must be < max_len {cfg.max_len}")
@@ -1590,11 +1593,12 @@ class TransformerLM:
             raise ValueError(f"top_k {top_k} must be in [1, vocab_size]")
         if top_p is not None and not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p {top_p} must be in (0, 1]")
-        if self.mode in ("pipe", "megatron"):
-            raise ValueError("generate runs on one device: save the model "
-                             "and load it without a group")
-        if use_cache is None:
-            use_cache = not cfg.moe_experts
+        if use_cache is None:  # the full-forward sampler on a group
+            use_cache = self.group is None and not cfg.moe_experts
+        params = self.compute_params
+        if self.mode in ("pipe", "megatron"):  # every rank gathers
+            params = compute_params(
+                gather_params(self.params, cfg, self.group), cfg)
         with torch.inference_mode():
             prompt = self._tokens(prompt).long()
             t = prompt.shape[1]
@@ -1605,4 +1609,5 @@ class TransformerLM:
             buf[:, :keep] = prompt[:, t - keep:]
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
             fn = self._sample_kv_fn if use_cache else self._sample_fn
-            return fn(buf, keep, int(n_new), gen, temperature, top_k, top_p)
+            return fn(params, buf, keep, int(n_new), gen, temperature, top_k,
+                      top_p)

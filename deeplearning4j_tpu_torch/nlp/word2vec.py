@@ -106,7 +106,8 @@ def cbow_body(syn0, syn1, ctx_idx, ctx_mask, points, codes, mask, alpha):
 
 def ns_constants(batch: int, negative: int, dtype, device):
     """The NS step's labels [B, K+1] (1 in column 0, the centre word) and
-    the centre's liveness column [B, 1] of ones."""
+    the centre's liveness column [B, 1] of ones. The fit's are f32 whatever
+    the tables' dtype, as in the JAX package."""
     labels = torch.zeros((batch, negative + 1), dtype=dtype, device=device)
     labels[:, 0] = 1.0
     return labels, torch.ones((batch, 1), dtype=dtype, device=device)
@@ -126,7 +127,7 @@ def skipgram_step(tables, huffman, cen, cx, pl, alpha, negatives=None,
     hs_body(syn0, syn1, cx, P[cen], C[cen], M[cen] * pl[:, None], alpha)
     if negatives is not None:
         tgt = torch.cat([cen[:, None], negatives], dim=1)
-        live = torch.cat([ones, (negatives != cen[:, None]).to(syn0.dtype)],
+        live = torch.cat([ones, (negatives != cen[:, None]).float()],
                          dim=1) * pl[:, None]
         ns_step(syn0, syn1neg, cx, tgt, labels, live, alpha)
 
@@ -142,7 +143,8 @@ def skipgram_batches(tables, huffman, cens, cxs, plive, alphas, *,
     tables' device. Batch j draws its negatives with ``draw(first_index +
     j)`` -> [B, negative] words."""
     syn0 = tables[0]
-    consts = (ns_constants(cens.shape[1], negative, syn0.dtype, syn0.device)
+    consts = (ns_constants(cens.shape[1], negative, torch.float32,
+                           syn0.device)
               if negative > 0 else (None, None))
     for j in range(cens.shape[0]):
         negatives = draw(first_index + j) if negative > 0 else None
@@ -218,7 +220,7 @@ class SkipgramGraphs:
 
     def _chunk(self, cens, cxs, plive, alphas, index) -> None:
         syn0 = self.tables[0]
-        consts = (ns_constants(self.batch, self.negative, syn0.dtype,
+        consts = (ns_constants(self.batch, self.negative, torch.float32,
                                self.device)
                   if self.negative else (None, None))
         for j in range(cens.shape[0]):
@@ -250,7 +252,7 @@ class SkipgramGraphs:
                 reserve(dev, syn0.shape[0], d, b, self.negative + 1)
                 negatives = torch.zeros((b, self.negative), dtype=torch.int64,
                                         device=dev)
-                consts = ns_constants(b, self.negative, syn0.dtype, dev)
+                consts = ns_constants(b, self.negative, torch.float32, dev)
             skipgram_step(tables, huffman, rows, rows, dead, dead[0],
                           negatives, *consts, ns_step=lambda *args: None)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
@@ -350,7 +352,7 @@ def skipgram_step_shards(shards: DataShards, tables, huffman, cen, cx, pl,
         return
     tgt = torch.cat([cen[:, None], negatives], dim=1)
     live = torch.cat([torch.ones_like(pl)[:, None],
-                      (negatives != cen[:, None]).to(syn0.dtype)],
+                      (negatives != cen[:, None]).float()],
                      dim=1) * pl[:, None]
     tgt_r, live_r = r(tgt), r(live)
     shards.stage(
@@ -605,15 +607,10 @@ class Word2Vec:
         centers, ctx, cmask = [], [], []
         for seq, pos, live in self._windows(seqs, rng):
             keep = live.any(axis=1)
-            live, pos = live[keep], pos[keep]
-            slot = np.cumsum(live, axis=1) - 1
-            row = np.zeros((len(live), width), np.int32)
-            r, c = np.nonzero(live)
-            row[r, slot[r, c]] = seq[pos[r, c]]
+            row, m = packed_windows(seq, pos[keep], live[keep], width)
             centers.append(seq[keep])
             ctx.append(row)
-            cmask.append((np.arange(width)[None, :]
-                          < live.sum(axis=1)[:, None]).astype(np.float32))
+            cmask.append(m)
         if not centers:
             z = np.zeros((0, width), np.int32)
             return np.zeros((0,), np.int32), z, z.astype(np.float32)
@@ -656,7 +653,7 @@ class Word2Vec:
         shards = self._shards
         if shards is not None and use_neg:
             consts = ns_constants(B // shards.world, self.negative,
-                                  syn0.dtype, dev)
+                                  torch.float32, dev)
         if dev.type == "cuda" and not self.use_cbow and shards is None:
             graphs = SkipgramGraphs((syn0, syn1, syn1neg), huffman, B,
                                     self.negative if use_neg else 0, draw)
@@ -779,3 +776,24 @@ def _pad_rows(arr: np.ndarray, n: int) -> np.ndarray:
         return arr
     pad = np.zeros((n - len(arr),) + arr.shape[1:], arr.dtype)
     return np.concatenate([arr, pad], axis=0)
+
+
+def packed_windows(seq, pos, live, width: int):
+    """Each row's live context words ``seq[pos]`` packed left, in order,
+    into [n, width] int32, and the f32 mask of the filled slots."""
+    slot = np.cumsum(live, axis=1) - 1
+    row = np.zeros((len(live), width), np.int32)
+    r, c = np.nonzero(live)
+    row[r, slot[r, c]] = seq[pos[r, c]]
+    return row, (np.arange(width)[None, :]
+                 < live.sum(axis=1)[:, None]).astype(np.float32)
+
+
+def _pad_batch(arr: np.ndarray, batch: int) -> np.ndarray:
+    """Pad the leading axis to ``batch`` by repeating row 0 (the JAX
+    package's ``_pad_batch``: padded rows carry a zero mask)."""
+    n = len(arr)
+    if n == batch:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[:1], batch - n, axis=0)],
+                          axis=0)

@@ -76,6 +76,15 @@ BF16_CASES = {2: [("bf16_tp2", LM_CFG, (1, 2), ("data", "model"))],
                    ("data", "model", "expert"))]}
 BF16_CLEAN = 5
 AVG_CASES = (("freq1", 1, 1), ("freq3", 3, 2))  # (name, frequency, rounds)
+# generate on a mesh: (case, the LM case whose initial params it samples
+# from, mesh shape, axes); JAX's test_tp_mesh_kv_decode_equals_serial's
+# prompt, greedy at temperature 1e-8
+GEN_CASES = {2: [("gen_tp", "tp2", (1, 2), ("data", "model")),
+                 ("gen_pp", "pp2", (2,), ("pipe",))],
+             4: [("gen_tp", "tp4", (1, 4), ("data", "model")),
+                 ("gen_pp", "pp4", (4,), ("pipe",))]}
+GEN_PROMPT = [[5, 9, 2, 7], [1, 1, 3, 8]]
+GEN_NEW, GEN_TEMP, GEN_SEED = 8, 1e-8, 3
 
 
 def lm_batches(cfg, n, k, seed=0):
@@ -243,6 +252,40 @@ def _lm_cases(out, world, tmp):
             out["restore_pp_to_tp/logits"] = back.logits(
                 torch.from_numpy(xs[0][:2])).numpy()
             out["restore_pp_to_tp/iteration"] = np.asarray(back.iteration)
+
+
+def _generate_cases(out, world, tmp):
+    """Greedy ``generate`` in the Megatron and pipeline modes, with the
+    cache and with the group's default (the full-forward sampler, which
+    the recorder notes), and the same model with no group."""
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.parallel.mesh import device_mesh
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        npz_bytes_to_tree,
+    )
+
+    kw = dict(temperature=GEN_TEMP, seed=GEN_SEED)
+    prompt = np.asarray(GEN_PROMPT, np.int64)
+    for name, lm_case, shape, axes in GEN_CASES[world]:
+        cfg = pt.TransformerConfig(**next(
+            c[1] for c in LM_CASES[world] if c[0] == lm_case))
+        with open(os.path.join(tmp, f"lm_{lm_case}.npz"), "rb") as f:
+            whole = pt.params_from_numpy(npz_bytes_to_tree(f.read()),
+                                         device="cpu")
+        lm = pt.TransformerLM(cfg, device="cpu", params=whole,
+                              group=device_mesh(shape, axes))
+        samplers = []
+        for attr in ("_sample_fn", "_sample_kv_fn"):
+            fn = getattr(lm, attr)
+            setattr(lm, attr, lambda *a, fn=fn, attr=attr: (
+                samplers.append(attr), fn(*a))[1])
+        out[f"{name}/cache"] = lm.generate(prompt, GEN_NEW, use_cache=True,
+                                           **kw).numpy()
+        out[f"{name}/default"] = lm.generate(prompt, GEN_NEW, **kw).numpy()
+        out[f"{name}/samplers"] = np.asarray(samplers)
+        serial = pt.TransformerLM(cfg, device="cpu", params=whole)
+        out[f"{name}/serial"] = serial.generate(prompt, GEN_NEW,
+                                                **kw).numpy()
 
 
 def _as_torch(tree):
@@ -430,6 +473,7 @@ def worker(rank, world, tmp, t0, port):
     _lm_cases(out, world, tmp)
     _clip_cases(out, world, tmp)
     _bf16_cases(out, rank, world, tmp)
+    _generate_cases(out, world, tmp)
     if world == 2:
         _sp_moe(out, rank, world)
     else:
@@ -760,6 +804,47 @@ def _jax_lm(world, serial_cache, trees):
     return ref
 
 
+def _jax_generate(world, trees):
+    """JAX's greedy transcripts on a (1, world) ('data', 'model') mesh with
+    the cache and without (test_tp_mesh_kv_decode_equals_serial's
+    setting), and its serial model's, with the top-2 logit margins of
+    the serial transcript's steps."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from deeplearning4j_tpu.models import transformer as jtr
+
+    ref = {}
+    kw = dict(temperature=GEN_TEMP, seed=GEN_SEED)
+    prompt = jnp.asarray(GEN_PROMPT, jnp.int32)
+    for name, lm_case, shape, axes in GEN_CASES[world]:
+        cfg = jtr.TransformerConfig(**next(
+            c[1] for c in LM_CASES[world] if c[0] == lm_case))
+        params = jax.tree_util.tree_map(jnp.asarray, trees[lm_case])
+        serial = jtr.TransformerLM(cfg)
+        serial.params = params
+        full = np.asarray(serial.generate(prompt, GEN_NEW, use_cache=False,
+                                          **kw))
+        ref[f"{name}/jax_serial"] = full
+        seq = np.concatenate([np.asarray(GEN_PROMPT), full], axis=1)
+        logits = np.asarray(jtr.forward(params, jnp.asarray(seq[:, :-1]),
+                                        cfg)[0])[:, len(GEN_PROMPT[0]) - 1:]
+        top2 = np.sort(logits, axis=-1)[..., -2:]
+        ref[f"{name}/jax_margin"] = float((top2[..., 1] - top2[..., 0]).min())
+        if "model" in axes:
+            mesh = Mesh(np.array(jax.devices()[:world]).reshape(shape), axes)
+            tp = jtr.TransformerLM(cfg, mesh=mesh)
+            tp.params = jax.tree_util.tree_map(
+                jax.device_put, params, jtr.param_shardings_for_mesh(cfg,
+                                                                     mesh))
+            for cache in (True, False):
+                ref[f"{name}/jax_mesh_{'cache' if cache else 'full'}"] = \
+                    np.asarray(tp.generate(prompt, GEN_NEW, use_cache=cache,
+                                           **kw))
+    return ref
+
+
 def _serial(jtr, kw, params, xs, ys, cache):
     """JAX's serial steps of config ``kw`` on these batches, computed once
     per (config, batches)."""
@@ -848,6 +933,7 @@ def run_world(world, tmp_path_factory):
         ref = _jax_blocks(world, inp)
         ref.update(_jax_lm(world, {}, trees))
         ref.update(_jax_step0(world, trees0))
+        ref.update(_jax_generate(world, trees))
         if world == 4:
             ref.update(_jax_data_parallel(world, init))
     finally:
@@ -1008,6 +1094,32 @@ def check_bf16_on_megatron_mesh_follows_jax(run, case):
         assert int(r[f"{case}/t"]) == ref[f"{case}/t"] == BF16_CLEAN
         assert bool(r[f"{case}/kept"])
         assert not bool(r[f"{case}/agreed"])
+
+
+def check_generate_on_mesh_matches_jax(run, case):
+    """Every rank returns the same greedy transcript, with the cache and
+    with the group's default (the full-forward sampler, as JAX defaults
+    on a mesh); the Megatron transcripts equal JAX's on its (1, world)
+    ('data', 'model') mesh, with and without the cache, and the pipeline
+    ones the port's serial model's. JAX's serial transcript has no top-2
+    logit margin below 1e-4 (no tie that f32 sums could split)."""
+    ranks, ref, _, _ = run
+    assert ref[f"{case}/jax_margin"] > 1e-4
+    for r in ranks:
+        assert r[f"{case}/samplers"].tolist() == ["_sample_kv_fn",
+                                                  "_sample_fn"]
+        for key in ("cache", "default"):
+            np.testing.assert_array_equal(r[f"{case}/{key}"],
+                                          ranks[0][f"{case}/{key}"])
+            np.testing.assert_array_equal(r[f"{case}/{key}"],
+                                          r[f"{case}/serial"])
+    if case == "gen_tp":
+        np.testing.assert_array_equal(ranks[0]["gen_tp/cache"],
+                                      ref["gen_tp/jax_mesh_cache"])
+        np.testing.assert_array_equal(ranks[0]["gen_tp/default"],
+                                      ref["gen_tp/jax_mesh_full"])
+    np.testing.assert_array_equal(ranks[0][f"{case}/serial"],
+                                  ref[f"{case}/jax_serial"])
 
 
 class _FakeMesh:

@@ -160,3 +160,10 @@ def test_bf16_loss_scaling_on_megatron_mesh_follows_jax(run, case):
     """``DL4J_TPU_BF16`` on a ``'model'``/``'expert'`` mesh is computed:
     the finite flag agrees over the shard groups before the select."""
     ms.check_bf16_on_megatron_mesh_follows_jax(run, case)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ms.GEN_CASES[4]])
+def test_generate_on_mesh_matches_jax(run, case):
+    """``generate`` in the Megatron and pipeline modes: the same greedy
+    tokens on every rank, JAX's on its TP mesh, the serial model's."""
+    ms.check_generate_on_mesh_matches_jax(run, case)

@@ -14,7 +14,8 @@
     ``SpeculativeDecoder``, ``draft_lm``), ``MultiLayerNetwork`` and its
     ``load`` (a MultiHeadAttention network too), ``ComputationGraph``,
     ``build_resnet50``, ``build_googlenet`` and ``restore`` of a graph
-    zip, ``ServingEngine`` (with
+    zip, ``ParagraphVectors``, ``Glove``, ``DeepWalk`` and its ``load``,
+    exact ``Tsne``, ``ServingEngine`` (with
     no model, and over a quantized zip), ``/search``'s ``VectorStore``
     and ``KMeansClustering``, and
     the training
@@ -22,7 +23,8 @@
     ``load`` with the updater section; ``Word2Vec``, ``load_word2vec``
     and ``Word2Vec.from_arrays``) run on the card unless given
     ``device="cpu"``; with no card they raise instead of moving to the
-    CPU. ``MetricsExporter`` is host-only and serves with no card.
+    CPU. ``MetricsExporter``, Barnes-Hut t-SNE, the spatial trees and the
+    graph's walks are host-only and run with no card.
   * Its knob table is a copy of the JAX table's entries the ported paths
     read (same names, same defaults), and it builds its kernels from
     ``csrc/``.
@@ -101,7 +103,22 @@ def test_every_module_imports_without_jax():
             "deeplearning4j_tpu_torch.online.promote",
             "deeplearning4j_tpu_torch.online.trainer",
             "deeplearning4j_tpu_torch.streaming.pipeline",
-            "deeplearning4j_tpu_torch.streaming.serving"} <= set(mods)
+            "deeplearning4j_tpu_torch.streaming.serving",
+            # the NLP, graph and t-SNE models
+            "deeplearning4j_tpu_torch.nlp.paragraph_vectors",
+            "deeplearning4j_tpu_torch.nlp.glove",
+            "deeplearning4j_tpu_torch.graph",
+            "deeplearning4j_tpu_torch.graph.api",
+            "deeplearning4j_tpu_torch.graph.loaders",
+            "deeplearning4j_tpu_torch.graph.walks",
+            "deeplearning4j_tpu_torch.graph.deepwalk",
+            "deeplearning4j_tpu_torch.clustering.sptree",
+            "deeplearning4j_tpu_torch.clustering.vptree",
+            "deeplearning4j_tpu_torch.clustering.kdtree",
+            "deeplearning4j_tpu_torch.clustering.quadtree",
+            "deeplearning4j_tpu_torch.plot",
+            "deeplearning4j_tpu_torch.plot.tsne",
+            "deeplearning4j_tpu_torch.plot.filters"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -215,6 +232,44 @@ class TestEntryPointsNeedACardOrCpu:
         Solver(solved).optimize(np.ones((2, 3), np.float32),
                                 np.eye(2, dtype=np.float32))
         assert solved.params[0]["W"].device == torch.device("cpu")
+
+    def test_nlp_graph_and_tsne_models(self, no_card, tmp_path):
+        """ParagraphVectors, GloVe, DeepWalk (and its ``load``) and exact
+        t-SNE raise with no card unless given the CPU; Barnes-Hut t-SNE,
+        the trees, the graph and its walks are host code and take no
+        device."""
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.clustering import VPTree
+        from deeplearning4j_tpu_torch.graph import (
+            DeepWalk,
+            Graph,
+            RandomWalkIterator,
+        )
+        from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors
+        from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+
+        for make in (ParagraphVectors, Glove, DeepWalk, Tsne):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        g = Graph(4)
+        for a, b in ((0, 1), (1, 2), (2, 3), (3, 0)):
+            g.add_edge(a, b)
+        assert len(list(RandomWalkIterator(g, 3))) == 4
+        dw = DeepWalk(vector_size=4, window_size=1, device="cpu").fit(
+            g, walk_length=4)
+        dw.save(str(tmp_path / "dw"))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DeepWalk.load(str(tmp_path / "dw.npz"))
+        assert DeepWalk.load(str(tmp_path / "dw.npz"), device="cpu") \
+            .device == torch.device("cpu")
+        pv = ParagraphVectors(layer_size=4, negative=2, device="cpu")
+        pv.fit_labelled(["a b c a", "b c d"], ["x", "y"])
+        assert pv.doc_vectors.shape == (2, 4)
+        x = np.random.default_rng(0).standard_normal((12, 3))
+        assert BarnesHutTsne(perplexity=2.0, max_iter=3).fit_transform(
+            x).shape == (12, 2)
+        assert len(VPTree(x).knn(x[0], 3)) == 3
 
     def test_decode_planes(self, no_card, monkeypatch):
         from deeplearning4j_tpu_torch.models.transformer import (
