@@ -28,7 +28,10 @@ the serving fleet (a FleetRouter over ServingEngine replicas through K4,
 K6 and K1, OS-process replicas, prefill/decode roles, the head-sharded
 tick through K6, autoscaling and placement, shadow promotion with the
 ContinuousTrainer through K1 and K2, the elastic averaging fleet, and
-Word2Vec on a data-parallel group through K3).
+Word2Vec on a data-parallel group through K3), the NLP, graph and t-SNE
+models, and the tooling entry points (the CPU-against-card north-star
+harness, the CLI, the training UI and its listeners with a
+``torch.profiler`` trace, the host text tools).
 
 Run from the repository root, with no arguments:
 
@@ -535,6 +538,55 @@ mode on a world-1 NCCL group ``torch.equal`` to the model with no group
 (both samplers), its prefill through K4. To rehearse (a) and (d) on the
 CPU: ``python3 -c "import chip_smoke; chip_smoke.embeddings_rehearsal()"``
 (~75 s with ``OMP_NUM_THREADS=4``).
+
+Right after it, ``phase_tooling`` drives the tooling entry points on
+the card, reusing the word2vec fit: (a) the north star
+(``utils/equivalence.run_north_star(steps=100)``): LeNet-5 at batch 64 on
+the MNIST stand-in and the char-RNN (vocab 40, one layer of 64, TBPTT
+16, batch 16, seq 32), each trained once on the card's host CPU and once
+on the card from the same initial state; both final losses, the max
+absolute and relative deviation of the curves and the first step past
+1e-3. Each curve is held at a max relative deviation of 1e-3 or, where
+the CPU's own curve moves further when its start moves one ulp (three
+seeded runs from a start with every parameter ``nextafter``'d up or
+down), at twice the largest such spread: the char-RNN's RMSProp at lr 0.1
+turns a one-ulp change into 5-6 % of the loss by step 4 on the CPU
+alone, so no f32 implementation that sums in another order holds 1e-3
+there. The first step, a forward with no update yet, is held at 1e-5;
+K1 and K2 200 launches each in the card's char-RNN leg, the plain scans
+0; (b) the CLI: ``main(["train", ...], device=card)`` on a
+``--conf`` of the full-width char-RNN (``char_rnn_conf(80,
+lstm_size=200)``, two layers, TBPTT 50) and an ``.npz`` of 8 batches of
+32 x 100 one-hot Markov text (K1 and K2 4 a fit, the plain scans 0; the
+seconds and the final score); ``train``, ``test`` and ``predict`` of an
+MLP on an iris CSV from ``load_iris`` (accuracy >= 0.9), and the same
+``predict`` as a subprocess (``python -m deeplearning4j_tpu_torch.cli``)
+whose CSV is byte-equal to the in-process one; (c) the UI:
+``UiServer(device=card)`` on port 0; 8 fits of the full-width char-RNN
+under ``HistogramIterationListener(frequency=2)``,
+``FlowIterationListener(frequency=2)`` (both posting over HTTP),
+``PerformanceListener``, ``DispatchStatsListener`` and
+``XplaneTraceListener(start_iteration=2, num_iterations=3)``: the last
+histogram in ``GET /train/summary`` equal to ``numpy.histogram`` of the
+parameters copied off the card at that iteration, the Chrome trace naming
+K1's (``lstm_fwd_cluster``) and K2's kernels, ``link_stats``'s event in a
+``TrainingStats``, K1 and K2 4 a fit; 4 LeNet-5 fits under
+``ConvolutionalIterationListener`` (finite grids); ``POST /tsne/upload``
+of the word2vec fit's 1,000 most frequent words at perplexity 30,
+``torch.equal`` to ``Tsne(device=card)`` called directly; ``POST
+/word2vec/upload`` of 5,000 words and 100 ``/word2vec/nearest`` queries
+at k = 10, equal to a brute-force cosine (normalized Euclidean) top 10,
+ties aside, ms a query; (d) the host text tools on the word2vec corpus:
+``TextPipeline(num_partitions=8)`` gives the word2vec phase's vocab and
+Huffman codes word for word (its seconds beside the serial build's); a
+``TfidfVectorizer`` ``DataSet`` of the sentences of 10 topics trains a
+one-hidden-layer MLP on the card for 2 epochs, each step's loss within
+1e-3 relative of the same fit on the CPU; ``TreeParser`` parses 200
+sentences, one tree each; 10 ``InvertedIndex`` lookups equal a scan of
+the corpus; (e) ``launches_tooling`` in K1's and K2's entries of the
+kernels line. To rehearse (a) and (d) on the CPU: ``python3 -c "import
+chip_smoke; chip_smoke.tooling_rehearsal()"`` (~22 s with
+``OMP_NUM_THREADS=4``; both north-star legs on the CPU, deviation 0).
 
 Phase 7 also breaks a decode tick, a width-1024 prefill, a batch-64
 ``output()`` and one ``fit`` down by kernel with ``torch.profiler``.
@@ -8815,6 +8867,640 @@ def embeddings_rehearsal(seed: int = 0):
     return dbow["agreement"], dw["community_share"]
 
 
+# ---------------------------------------------------------------------------
+# the tooling entry points: the north-star harness, the CLI, the training
+# UI and its listeners, torch.profiler traces, and the host text tools
+# ---------------------------------------------------------------------------
+
+NS_STEPS = 100               # the north star's steps (BASELINE.json:5)
+TOL_NORTH_STAR = 1e-3        # max relative deviation, card against CPU
+# ...unless the CPU curve moves further from itself when its start moves
+# one ulp: RMSProp at lr 0.1 turns a 1e-7 change of the char-RNN's start
+# into 5-6 % of its loss within 5 steps on the CPU alone, and LeNet-5's
+# Nesterovs into 2e-3 by step 69 (this phase prints both). Then the bar
+# is NS_CHAOS_FACTOR times the largest of NS_CHAOS_RUNS such spreads.
+NS_CHAOS_RUNS, NS_CHAOS_FACTOR = 3, 2.0
+TOL_NS_FIRST = 1e-5          # the first step: a forward, no update yet
+CLI_BATCHES = 8              # the CLI's char-RNN npz: 8 batches of 32
+UI_FITS, UI_LENET_FITS = 8, 4
+UI_EVERY = 2                 # the UI listeners' frequency
+UI_TSNE_WORDS, UI_NN_WORDS, UI_NN_QUERIES, UI_NN_K = 1000, 5000, 100, 10
+K1_NAME, K2_NAMES = "lstm_fwd_cluster", ("lstm_bwd_gates", "lstm_bwd_sweep",
+                                         "lstm_bwd_du", "lstm_bwd_finish")
+TFIDF_TOPICS, TFIDF_HIDDEN, TFIDF_BATCH = 10, 64, 100
+TOL_TFIDF = 1e-3             # the TF-IDF MLP's losses, card against CPU
+PARSE_SENTENCES = 200
+INDEX_WORD_RANKS = (0, 1, 2, 5, 10, 100, 1000, 10_000, 50_000, 71_289)
+
+
+def lstm_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in RT_COUNTERS}
+
+
+def lstm_since(before: dict) -> dict:
+    now = lstm_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def full_char_rnn(seed: int, dev) -> MultiLayerNetwork:
+    """``phase_train``'s full-width char-RNN."""
+    conf = char_rnn_conf(VOCAB, lstm_size=LSTM_H, num_layers=2, seed=seed,
+                         tbptt_length=TBPTT, learning_rate=TRAIN_LR)
+    return MultiLayerNetwork(conf, device=dev).init(input_shape=(1, VOCAB))
+
+
+def char_ids(seed: int, rows: int, cols: int) -> np.ndarray:
+    """[rows, cols] character ids of one-step Markov text over VOCAB."""
+    chars = [chr(32 + i) for i in range(VOCAB)]
+    text = markov_text(seed, rows * cols, chars)
+    return (np.frombuffer(text.encode("ascii"), np.uint8).astype(np.int64)
+            - 32).reshape(rows, cols)
+
+
+def one_ulp_start(builder, seed: int):
+    """``builder`` with every parameter of its fresh net moved one ulp up
+    or down (a seeded coin per entry): the smallest change of the start
+    an f32 implementation can make."""
+    def build(device):
+        net = builder(device)
+        gen = torch.Generator().manual_seed(seed)
+
+        def kick(t):
+            up = torch.rand(t.shape, generator=gen) < 0.5
+            inf = torch.full_like(t, float("inf"))
+            return torch.nextafter(t, torch.where(up, inf, -inf))
+
+        net.params = lowprec.tree_map(kick, net.params)
+        return net
+
+    return build
+
+
+def first_past(rel: np.ndarray, bar: float):
+    over = np.flatnonzero(rel > bar)
+    return int(over[0]) if over.size else None
+
+
+def tool_north_star(dev) -> dict:
+    """(a): ``run_north_star`` on the card; K1/K2 counted over the card's
+    char-RNN leg alone (its builder snapshots the counters). Each curve's
+    bar is TOL_NORTH_STAR or NS_CHAOS_FACTOR times the CPU's own spread
+    under a one-ulp change of the start (NS_CHAOS_RUNS runs), whichever
+    is larger; the first step, a forward with no update yet, is held to
+    TOL_NS_FIRST."""
+    from deeplearning4j_tpu_torch.utils import equivalence as eq
+
+    marks = []
+    build = eq.char_builder
+
+    def char_builder(device):
+        if torch.device(device).type == "cuda":
+            marks.append(lstm_counts())
+        return build(device)
+
+    t0 = time.perf_counter()
+    eq.char_builder = char_builder
+    try:
+        res = eq.run_north_star(steps=NS_STEPS, device=dev)
+    finally:
+        eq.char_builder = build
+    wall = time.perf_counter() - t0
+    card_leg = lstm_since(marks[0]) if dev.type == "cuda" else None
+    legs = {"lenet5": (eq.lenet_builder, eq.mnist_batches(NS_STEPS)),
+            "char_rnn": (eq.char_builder, eq.char_batches(NS_STEPS))}
+    t0 = time.perf_counter()
+    for name, r in res.items():
+        builder, batches = legs[name]
+        cpu = np.asarray(r["curve_cpu"])
+        spread = []
+        for k in range(1, NS_CHAOS_RUNS + 1):
+            c = eq.loss_curve(one_ulp_start(builder, k), batches,
+                              device="cpu")
+            rel = np.abs(c - cpu) / np.abs(cpu)
+            spread.append({"max_rel_deviation": float(rel.max()),
+                           "first_step_over_1e-3": first_past(rel, 1e-3)})
+        rel_card = np.abs(np.asarray(r["curve_accel"]) - cpu) / np.abs(cpu)
+        r["cpu_one_ulp_spread"] = spread
+        r["bar"] = max(TOL_NORTH_STAR, NS_CHAOS_FACTOR * max(
+            x["max_rel_deviation"] for x in spread))
+        r["first_step_rel_deviation"] = float(rel_card[0])
+        print(f"north star {name}: {r['steps']} steps on "
+              f"{r['backend_cpu']} and {r['device_name']}; final loss "
+              f"{r['final_loss_cpu']!r} (CPU) and {r['final_loss_accel']!r} "
+              f"(card); max abs deviation {r['max_abs_deviation']!r}, max "
+              f"relative deviation {r['max_rel_deviation']!r}, first step "
+              f"past 1e-3 {r['first_step_over_1e-3']}; the CPU against "
+              f"itself from a start one ulp away: "
+              f"{[(x['max_rel_deviation'], x['first_step_over_1e-3']) for x in spread]}"
+              f" (max relative deviation, first step past 1e-3); bar "
+              f"{r['bar']!r}; the first step (no update yet) "
+              f"{r['first_step_rel_deviation']!r} (bar {TOL_NS_FIRST})")
+        print(f"  relative deviation, steps 0-9: "
+              f"{[float(f'{v:.3e}') for v in rel_card[:10]]}")
+        check(np.isfinite(r["curve_cpu"]).all()
+              and np.isfinite(r["curve_accel"]).all(),
+              f"north star {name}: a loss is not finite")
+        check(r["first_step_rel_deviation"] <= TOL_NS_FIRST,
+              f"north star {name}: the first step's loss is "
+              f"{r['first_step_rel_deviation']!r} off the CPU's")
+        check(r["max_rel_deviation"] <= r["bar"],
+              f"north star {name}: the curves part at step "
+              f"{r['first_step_over_1e-3']} (max relative deviation "
+              f"{r['max_rel_deviation']!r} > {r['bar']!r})")
+    spread_s = time.perf_counter() - t0
+    print(f"north star: both models, both legs, {wall:.1f} s; the one-ulp "
+          f"CPU runs {spread_s:.1f} s; K1/K2 over the card's char-RNN leg: "
+          f"{card_leg}")
+    if dev.type == "cuda":
+        want = NS_STEPS * 2  # 2 TBPTT windows of 16 a step, one layer
+        check(card_leg["lstm_scan"] == card_leg["lstm_scan_bwd"] == want,
+              f"north star: K1/K2 did not launch {want} times on the card")
+        check(card_leg["lstm_scan_plain"] == 0
+              and card_leg["lstm_scan_bwd_plain"] == 0,
+              "north star: a plain LSTM scan ran in the card's leg")
+    return {"results": res, "wall_s": wall, "spread_s": spread_s,
+            "launches": card_leg}
+
+
+def tool_cli(seed: int, dev, tmp: str) -> dict:
+    """(b): ``main(["train", ...])`` on the full-width char-RNN; train,
+    test and predict on an iris CSV; the same predict as a subprocess."""
+    import contextlib
+    import io
+    import re
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.datasets.fetchers import load_iris
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"cli {argv[0]} returned {rc}")
+        return buf.getvalue(), wall
+
+    conf_path = os.path.join(tmp, "char_rnn.json")
+    with open(conf_path, "w") as f:
+        f.write(full_char_rnn(seed, "cpu").conf.to_json())
+    ids = char_ids(seed + 11, CLI_BATCHES * TRAIN_BATCH, SEQ + 1)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    npz = os.path.join(tmp, "chars.npz")
+    np.savez(npz, features=eye[ids[:, :-1]], labels=eye[ids[:, 1:]])
+    zip_path = os.path.join(tmp, "char_rnn.zip")
+    before = lstm_counts()
+    out, train_s = run(["train", "--conf", conf_path, "--input", npz,
+                        "--output", zip_path, "--batch", str(TRAIN_BATCH)])
+    counts = lstm_since(before)
+    score = float(re.search(r"final score (\S+)\)", out).group(1))
+    print(out.strip())
+    trained = MultiLayerNetwork.load(zip_path, device=dev)
+    print(f"cli train, char-RNN ({VOCAB}, 2 x {LSTM_H}, TBPTT {TBPTT}) on "
+          f"{CLI_BATCHES} batches of {TRAIN_BATCH} x {SEQ}: {train_s:.2f} s "
+          f"(zip written); final score {score!r}; iteration "
+          f"{trained.iteration}; launches {counts}")
+    check(np.isfinite(score), "cli train: the final score is not finite")
+    check(trained.iteration == 2 * CLI_BATCHES,
+          "cli train: not two TBPTT windows a batch")
+    if dev.type == "cuda":
+        check(counts["lstm_scan"] == counts["lstm_scan_bwd"]
+              == 4 * CLI_BATCHES,
+              "cli train: K1/K2 did not launch 4 times a fit")
+        check(counts["lstm_scan_plain"] == 0
+              and counts["lstm_scan_bwd_plain"] == 0,
+              "cli train: a plain LSTM scan ran on the card")
+
+    x, y = load_iris(seed)
+    labels = y.argmax(1)
+    iris_csv = os.path.join(tmp, "iris.csv")
+    np.savetxt(iris_csv, np.column_stack([x, labels]), delimiter=",",
+               fmt="%.6f")
+    x_csv = os.path.join(tmp, "iris_x.csv")
+    np.savetxt(x_csv, x, delimiter=",", fmt="%.6f")
+    mlp = (NeuralNetConfiguration.builder().seed(seed).learning_rate(0.01)
+           .updater("adam").list()
+           .layer(0, L.DenseLayer(n_in=4, n_out=16, activation="tanh"))
+           .layer(1, L.OutputLayer(n_in=16, n_out=3, activation="softmax",
+                                   loss_function="mcxent"))
+           .build())
+    mlp_conf_path = os.path.join(tmp, "iris_mlp.json")
+    with open(mlp_conf_path, "w") as f:
+        f.write(mlp.to_json())
+    iris_zip = os.path.join(tmp, "iris.zip")
+    _, iris_train_s = run(["train", "--conf", mlp_conf_path, "--input",
+                           iris_csv, "--output", iris_zip, "--epochs", "30",
+                           "--batch", "16"])
+    test_out, _ = run(["test", "--model", iris_zip, "--input", iris_csv])
+    pred_in = os.path.join(tmp, "pred_in.csv")
+    _, predict_s = run(["predict", "--model", iris_zip, "--input", x_csv,
+                        "--output", pred_in])
+    # the command line runs on the card (it has no device flag): on a CPU
+    # rehearsal the subprocess leg is skipped
+    pred_sub = os.path.join(tmp, "pred_sub.csv")
+    with open(pred_in, "rb") as f:
+        a = f.read()
+    b, sub_s = a, None
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "predict",
+             "--model", iris_zip, "--input", x_csv, "--output", pred_sub],
+            cwd=REPO_ROOT, env=dict(os.environ, PYTHONPATH=REPO_ROOT),
+            capture_output=True, text=True, timeout=300)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"cli predict subprocess failed: {proc.stderr[-2000:]}")
+        with open(pred_sub, "rb") as f:
+            b = f.read()
+    acc = float((np.loadtxt(pred_in, delimiter=",").argmax(1)
+                 == labels).mean())
+    print(f"cli on iris ({len(x)} rows): train 30 epochs {iris_train_s:.2f}"
+          f" s, predict in process {predict_s:.3f} s, as a subprocess "
+          f"{sub_s} s; accuracy {acc!r}; subprocess CSV byte-equal: "
+          f"{a == b} ({len(a)} bytes)")
+    check("Accuracy" in test_out, "cli test printed no accuracy")
+    check(acc >= 0.9, "cli: the iris MLP is below 0.9 accuracy")
+    check(a == b, "cli: the subprocess predict CSV differs from the "
+          "in-process one")
+    return {"train_s": train_s, "final_score": score, "launches": counts,
+            "iris_train_s": iris_train_s, "predict_s": predict_s,
+            "subprocess_s": sub_s, "iris_accuracy": acc,
+            "predict_bytes": len(a)}
+
+
+class _ParamSnapshot:
+    """A listener keeping, every ``every`` iterations, a copy of the
+    params on their device (the histogram listener's input)."""
+
+    def __init__(self, every: int):
+        self.every = every
+        self.last = None
+
+    def iteration_done(self, model, iteration, score):
+        if iteration % self.every == 0:
+            self.last = (iteration, [{k: t.detach().clone()
+                                      for k, t in p.items()}
+                                     for p in model.params])
+
+
+def ui_training(seed: int, dev, url: str, tmp: str) -> dict:
+    """(c) first half: 8 char-RNN fits under the UI, performance, dispatch
+    and trace listeners; 4 LeNet-5 fits under the convolutional one."""
+    import logging
+
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        DispatchStatsListener,
+        PerformanceListener,
+    )
+    from deeplearning4j_tpu_torch.parallel.stats import TrainingStats
+    from deeplearning4j_tpu_torch.ui import (
+        ConvolutionalIterationListener,
+        FlowIterationListener,
+        HistogramIterationListener,
+    )
+    from deeplearning4j_tpu_torch.utils.profiling import XplaneTraceListener
+
+    net = full_char_rnn(seed, dev)
+    snap = _ParamSnapshot(UI_EVERY)
+    perf = PerformanceListener(frequency=UI_EVERY, batch_size=TRAIN_BATCH)
+    disp = DispatchStatsListener(frequency=UI_EVERY)
+    stats = TrainingStats()
+    trace = XplaneTraceListener(os.path.join(tmp, "trace"), start_iteration=2,
+                                num_iterations=3, stats=stats)
+    net.set_listeners(
+        HistogramIterationListener(frequency=UI_EVERY, server_url=url),
+        snap, FlowIterationListener(frequency=UI_EVERY, server_url=url),
+        perf, disp, trace)
+    perf_lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            if "iter/s" in record.getMessage():
+                perf_lines.append(record.getMessage())
+
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    grab, level = Grab(), log.level
+    log.addHandler(grab)
+    log.setLevel(logging.INFO)
+    ids = char_ids(seed + 12, TRAIN_BATCH, UI_FITS * SEQ + 1)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    before = lstm_counts()
+    try:
+        t0 = time.perf_counter()
+        for i in range(UI_FITS):
+            sl = slice(i * SEQ, (i + 1) * SEQ)
+            net.fit(eye[ids[:, sl]], eye[ids[:, 1:][:, sl]])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        log.removeHandler(grab)
+        log.setLevel(level)
+        trace.stop()
+    counts = lstm_since(before)
+    summary = _ok(_call(url, "/train/summary"), "GET /train/summary")
+    hist = summary["histogram"]
+    it, params = snap.last
+    names = [f"{i}_{k}" for i, p in enumerate(params) for k in p]
+    host = [t.cpu().numpy() for p in params for t in p.values()]
+    hist_equal = hist["iteration"] == it
+    for name, a in zip(names, host):
+        counts_np, edges = np.histogram(a.reshape(-1), bins=20)
+        h = hist["params"][name]
+        hist_equal &= (h["counts"] == counts_np.tolist()
+                       and h["lower"] == edges[:-1].tolist()
+                       and h["upper"] == edges[1:].tolist())
+    flow = summary["flow"]["layers"]
+    with open(trace.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1_in_trace = sum(K1_NAME in n for n in kernels)
+    k2_in_trace = sum(any(k in n for k in K2_NAMES) for n in kernels)
+    linked = [e.event_type for e in stats.events
+              if e.event_type.startswith("xplane_trace:")]
+    print(f"UI: {UI_FITS} char-RNN fits under the histogram, flow, "
+          f"performance, dispatch and trace listeners in {wall:.2f} s; "
+          f"launches {counts}; last histogram at iteration "
+          f"{hist['iteration']} equal to numpy.histogram of the params "
+          f"copied off the card then: {hist_equal}; flow "
+          f"{[l['layer_type'] for l in flow]}; dispatch snapshots at "
+          f"{[s['iteration'] for s in disp.snapshots]}; performance "
+          f"windows: {perf_lines}")
+    print(f"trace {os.path.basename(trace.path)} "
+          f"({os.path.getsize(trace.path)} bytes, iterations 2-5): "
+          f"{len(kernels)} kernel records, {k1_in_trace} of K1 "
+          f"({K1_NAME}) and {k2_in_trace} of K2 ({'/'.join(K2_NAMES)}); "
+          f"linked in TrainingStats: {linked}")
+    check(hist_equal, "UI: the histogram differs from numpy's")
+    check([l["layer_type"] for l in flow]
+          == ["GravesLSTM", "GravesLSTM", "RnnOutputLayer"],
+          "UI: the flow payload's layers")
+    check(len(disp.snapshots) == UI_FITS, "UI: dispatch snapshots")
+    check(linked, "UI: link_stats recorded no trace event")
+    if dev.type == "cuda":
+        check(counts["lstm_scan"] == counts["lstm_scan_bwd"] == 4 * UI_FITS
+              and counts["lstm_scan_plain"] == 0
+              and counts["lstm_scan_bwd_plain"] == 0,
+              "UI: K1/K2 did not launch 4 times a fit, or a plain scan ran")
+        check(k1_in_trace > 0 and k2_in_trace > 0,
+              "UI: the profiler trace does not name K1's and K2's kernels")
+
+    lenet = build_lenet5(device=dev, seed=seed)
+    conv = ConvolutionalIterationListener(frequency=1, server_url=url)
+    lenet.set_listeners(conv)
+    xs, ys, _ = load_mnist_info(train=True, num_examples=64 * UI_LENET_FITS)
+    t0 = time.perf_counter()
+    for i in range(UI_LENET_FITS):
+        sl = slice(i * 64, (i + 1) * 64)
+        conv.set_input(xs[sl])
+        lenet.fit(xs[sl], ys[sl])
+    lenet_s = time.perf_counter() - t0
+    grids = _ok(_call(url, "/train/summary"),
+                "GET /train/summary")["activations"]["grids"]
+    finite = all(np.isfinite(np.asarray(g)).all() for g in grids.values())
+    print(f"UI: {UI_LENET_FITS} LeNet-5 fits at batch 64 with the "
+          f"convolutional listener in {lenet_s:.2f} s: {len(grids)} "
+          f"activation grids, all finite: {finite}")
+    check(grids and finite, "UI: the convolutional payload")
+    return {"fits_s": wall, "launches": counts, "histogram_equal": hist_equal,
+            "trace_bytes": os.path.getsize(trace.path),
+            "trace_kernel_records": len(kernels), "k1_in_trace": k1_in_trace,
+            "k2_in_trace": k2_in_trace, "performance_windows": perf_lines,
+            "lenet_s": lenet_s, "activation_grids": len(grids)}
+
+
+def ui_explorers(seed: int, dev, url: str, w2v) -> dict:
+    """(c) second half: ``/tsne/upload`` against a direct ``Tsne``, and
+    ``/word2vec/nearest`` against a brute-force search."""
+    from deeplearning4j_tpu_torch.plot.tsne import Tsne
+
+    vocab, syn0 = w2v.vocab, w2v.lookup_table.syn0
+    words = [vocab.word_at_index(i) for i in range(UI_TSNE_WORDS)]
+    vecs = np.asarray(syn0[:UI_TSNE_WORDS], np.float32)
+    t0 = time.perf_counter()
+    got = _ok(_call(url, "/tsne/upload", {"words": words,
+                                          "vectors": vecs.tolist(),
+                                          "perplexity": 30.0}),
+              "POST /tsne/upload")
+    tsne_s = time.perf_counter() - t0
+    coords = _ok(_call(url, "/tsne/coords"), "GET /tsne/coords")
+    t0 = time.perf_counter()
+    direct = Tsne(n_components=2, perplexity=30.0, max_iter=300,
+                  device=dev).fit_transform(vecs)
+    direct_s = time.perf_counter() - t0
+    tsne_equal = coords["words"] == words and torch.equal(
+        torch.tensor(coords["coords"], dtype=torch.float64),
+        torch.from_numpy(np.asarray(direct, np.float64)))
+    print(f"UI: POST /tsne/upload of {UI_TSNE_WORDS} words at perplexity "
+          f"30: {got['points']} points in {tsne_s:.2f} s (HTTP and JSON "
+          f"included); a direct Tsne(device={dev.type}) {direct_s:.2f} s; "
+          f"coordinates torch.equal: {tsne_equal}")
+    check(tsne_equal, "UI: the t-SNE coordinates differ from a direct Tsne")
+
+    words = [vocab.word_at_index(i) for i in range(UI_NN_WORDS)]
+    vecs = np.asarray(syn0[:UI_NN_WORDS], np.float32)
+    t0 = time.perf_counter()
+    _ok(_call(url, "/word2vec/upload", {"words": words,
+                                        "vectors": vecs.tolist()}),
+        "POST /word2vec/upload")
+    upload_s = time.perf_counter() - t0
+    unit = vecs.astype(np.float64)
+    unit /= np.maximum(np.linalg.norm(unit, axis=1, keepdims=True), 1e-12)
+    queries = np.random.default_rng(seed).choice(UI_NN_WORDS, UI_NN_QUERIES,
+                                                 replace=False)
+    mismatch, t_query = 0, 0.0
+    for qi in queries:
+        t0 = time.perf_counter()
+        hits = _ok(_call(url, "/word2vec/nearest",
+                         {"word": words[qi], "k": UI_NN_K}),
+                   "POST /word2vec/nearest")["neighbors"]
+        t_query += time.perf_counter() - t0
+        d = np.linalg.norm(unit - unit[qi], axis=1)
+        d[qi] = np.inf
+        order = np.argsort(d, kind="stable")[:UI_NN_K]
+        want = [words[j] for j in order]
+        got_words = [h["word"] for h in hits]
+        if got_words != want:
+            # ties aside: every neighbour returned is as near as the
+            # brute force's k-th
+            kth = d[order[-1]]
+            near = [d[words.index(w)] for w in got_words]
+            if not (len(got_words) == UI_NN_K
+                    and max(near) <= kth * (1 + 1e-12)):
+                mismatch += 1
+    ms = t_query / UI_NN_QUERIES * 1e3
+    print(f"UI: POST /word2vec/upload of {UI_NN_WORDS} words "
+          f"({vecs.shape[1]}-wide, the VPTree built on the host) "
+          f"{upload_s:.2f} s; {UI_NN_QUERIES} /word2vec/nearest queries at "
+          f"k = {UI_NN_K}: {ms:.2f} ms a query over HTTP; {mismatch} differ "
+          f"from a brute-force cosine (normalized Euclidean) search")
+    check(mismatch == 0, "UI: /word2vec/nearest differs from brute force")
+    return {"tsne_s": tsne_s, "tsne_direct_s": direct_s,
+            "tsne_equal": tsne_equal, "nn_upload_s": upload_s,
+            "nn_ms_per_query": ms, "nn_mismatches": mismatch}
+
+
+def tool_text(seed: int, dev, w2v) -> dict:
+    """(d): the host text tools on the word2vec corpus."""
+    from deeplearning4j_tpu_torch.nlp.invertedindex import InvertedIndex
+    from deeplearning4j_tpu_torch.nlp.text_pipeline import TextPipeline
+    from deeplearning4j_tpu_torch.nlp.treeparser import TreeParser
+    from deeplearning4j_tpu_torch.nlp.vectorizers import TfidfVectorizer
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+
+    corpus = topic_corpus(seed)
+    texts = [" ".join(s) for s in corpus]
+    t0 = time.perf_counter()
+    tp = TextPipeline(min_word_frequency=W2V_MIN_COUNT,
+                      num_partitions=8).fit(texts)
+    tp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = VocabConstructor(W2V_MIN_COUNT).build(corpus)
+    serial_s = time.perf_counter() - t0
+    key = lambda v: [(w.word, w.count, w.index, list(w.codes),
+                      list(w.points)) for w in v.vocab_words()]
+    want = key(w2v.vocab)
+    same = key(tp.vocab) == want and key(serial) == want
+    print(f"TextPipeline(num_partitions=8) over {len(texts)} sentences "
+          f"({sum(map(len, corpus))} tokens): {tp.vocab.num_words()} words "
+          f"in {tp_s:.2f} s against the serial build's {serial_s:.2f} s; "
+          f"vocab and Huffman codes equal to the word2vec phase's, word "
+          f"for word and code for code: {same}")
+    check(same, "TextPipeline's vocab or codes differ from build_vocab's")
+
+    topics = sentence_topics(corpus)
+    pick = np.flatnonzero(topics < TFIDF_TOPICS)
+    sub = [texts[i] for i in pick]
+    t0 = time.perf_counter()
+    vec = TfidfVectorizer(min_word_frequency=2).fit(sub)
+    ds = vec.vectorize(sub, [f"topic_{topics[i]}" for i in pick])
+    vec_s = time.perf_counter() - t0
+    width = ds.features.shape[1]
+    conf = (NeuralNetConfiguration.builder().seed(seed).learning_rate(0.001)
+            .updater("adam").list()
+            .layer(0, L.DenseLayer(n_in=width, n_out=TFIDF_HIDDEN,
+                                   activation="tanh"))
+            .layer(1, L.OutputLayer(n_in=TFIDF_HIDDEN, n_out=TFIDF_TOPICS,
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+            .build())
+    cpu_net = MultiLayerNetwork(conf, device="cpu").init()
+    card_net = MultiLayerNetwork(copy.deepcopy(conf), device=dev).init()
+    to_dev = lambda t: lowprec.tree_map(lambda a: a.to(dev, copy=True), t)
+    card_net.params = to_dev(cpu_net.params)
+    card_net.states = to_dev(cpu_net.states)
+    card_net.updater_state = to_dev(cpu_net.updater_state)
+
+    def losses(net):
+        out = []
+        for _ in range(2):
+            for b in ListDataSetIterator(ds.features, ds.labels,
+                                         TFIDF_BATCH):
+                out.append(net.fit(b.features, b.labels))
+        return torch.stack(out).to("cpu", torch.float64).numpy()
+
+    t0 = time.perf_counter()
+    card_losses = losses(card_net)
+    card_s = time.perf_counter() - t0
+    cpu_losses = losses(cpu_net)
+    rel = float((np.abs(card_losses - cpu_losses)
+                 / np.abs(cpu_losses)).max())
+    print(f"TfidfVectorizer over the {len(sub)} sentences of "
+          f"{TFIDF_TOPICS} topics: {width} features ({vec_s:.2f} s); MLP "
+          f"{width}-{TFIDF_HIDDEN}-{TFIDF_TOPICS}, 2 epochs of "
+          f"{len(card_losses) // 2} steps on the card in {card_s:.2f} s; "
+          f"loss {float(card_losses[0])!r} -> {float(card_losses[-1])!r}; "
+          f"max relative "
+          f"deviation from the CPU fit {rel!r} (bar {TOL_TFIDF})")
+    check(np.isfinite(card_losses).all() and card_losses[-1] < card_losses[0],
+          "TF-IDF MLP: the loss did not fall")
+    check(rel <= TOL_TFIDF, "TF-IDF MLP: the card's losses left the CPU's")
+
+    parser = TreeParser()
+    t0 = time.perf_counter()
+    trees = [parser.get_trees(t) for t in texts[:PARSE_SENTENCES]]
+    parse_s = time.perf_counter() - t0
+    one_each = all(len(t) == 1 for t in trees)
+    yields = all(t[0].yield_() == corpus[i] for i, t in enumerate(trees))
+    print(f"TreeParser: {PARSE_SENTENCES} sentences of {W2V_SENT} words in "
+          f"{parse_s:.2f} s ({parse_s / PARSE_SENTENCES * 1e3:.1f} ms a "
+          f"sentence); one tree each: {one_each}; yields equal the "
+          f"sentences: {yields}")
+    check(one_each and yields, "TreeParser: not one tree per sentence")
+
+    t0 = time.perf_counter()
+    index = InvertedIndex()
+    for s in corpus:
+        index.add_words_to_doc(s)
+    index_s = time.perf_counter() - t0
+    sets = [set(s) for s in corpus]
+    probe = [w2v.vocab.word_at_index(r) for r in INDEX_WORD_RANKS]
+    t0 = time.perf_counter()
+    found = [index.documents(w) for w in probe]
+    lookup_ms = (time.perf_counter() - t0) / len(probe) * 1e3
+    scan_equal = all(f == [i for i, s in enumerate(sets) if w in s]
+                     for w, f in zip(probe, found))
+    print(f"InvertedIndex of {len(corpus)} sentences built in "
+          f"{index_s:.2f} s; {len(probe)} lookups ({lookup_ms:.3f} ms each, "
+          f"{[len(f) for f in found]} documents) equal to a scan: "
+          f"{scan_equal}")
+    check(scan_equal, "InvertedIndex lookups differ from a scan")
+    return {"text_pipeline_s": tp_s, "serial_vocab_s": serial_s,
+            "vocab_equal": same, "tfidf_features": width,
+            "tfidf_sentences": len(sub), "tfidf_card_s": card_s,
+            "tfidf_losses_card": card_losses.tolist(),
+            "tfidf_max_rel_dev": rel, "parse_s": parse_s,
+            "index_s": index_s, "index_lookup_ms": lookup_ms}
+
+
+def phase_tooling(seed: int, dev, w2v) -> tuple:
+    """The tooling entry points on the card (module docstring, after the
+    embeddings phase): (a) the north star, (b) the CLI, (c) the UI and
+    its listeners with a profiler trace, (d) the host text tools.
+    Returns (K1/K2 launches by part, the report)."""
+    print("== the tooling: north star, CLI, UI, profiler, text tools ==")
+    t_phase = time.perf_counter()
+    rep = {"north_star": tool_north_star(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rep["cli"] = tool_cli(seed, dev, tmp)
+        from deeplearning4j_tpu_torch.ui import UiServer
+
+        server = UiServer(port=0, device=dev).start()
+        try:
+            rep["ui"] = ui_training(seed, dev, server.url, tmp)
+            rep["ui"].update(ui_explorers(seed, dev, server.url, w2v))
+        finally:
+            server.stop()
+    rep["text"] = tool_text(seed, dev, w2v)
+    rep["wall_s"] = time.perf_counter() - t_phase
+    print(f"tooling phase: {rep['wall_s']:.1f} s")
+    launches = {part: rep[part]["launches"]
+                for part in ("north_star", "cli", "ui")}
+    return launches, rep
+
+
+def tooling_rehearsal(seed: int = 0):
+    """(a) and (d) of the tooling phase on the CPU: the north star's legs
+    both on the CPU (deviation exactly 0) and the text tools against a
+    vocab-only word2vec model. Run as ``python3 -c "import chip_smoke;
+    chip_smoke.tooling_rehearsal()"``."""
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    ns = tool_north_star(cpu)
+    for r in ns["results"].values():
+        check(r["max_abs_deviation"] == 0.0,
+              "CPU rehearsal: the north star is not deterministic")
+    w2v = w2v_model(seed, cpu)
+    w2v.build_vocab(topic_corpus(seed))
+    text = tool_text(seed, cpu, w2v)
+    print(f"CPU rehearsal of the tooling phase's (a) and (d), seed {seed}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ns, text
+
+
 def merge(times: dict, part: dict) -> None:
     """Fold one phase's timings into the report, key by key (several
     phases time a "main_path")."""
@@ -8876,6 +9562,7 @@ def main(argv=None) -> int:
     peak_w2v = torch.cuda.max_memory_allocated()
     merge(times, phase_times_word2vec(w2v, chunk, args.seed, dev))
     emb_launches, embeddings = phase_embeddings(args.seed, dev, w2v, cfg)
+    tool_launches, tooling = phase_tooling(args.seed, dev, w2v)
     w2v_table = w2v.lookup_table  # /embed's lookup record
     del w2v, chunk
     import torch.distributed as dist
@@ -9036,6 +9723,8 @@ def main(argv=None) -> int:
                               runtime["resilient"]["launches"].items()},
          "launches_distributed_averaging": dist_counts["lstm_scan"],
          "launches_fleet": fl_counts["lstm_scan"],
+         "launches_tooling": {part: c["lstm_scan"]
+                              for part, c in tool_launches.items()},
          "max_abs_err": errs["lstm_scan"]["max_abs_err"],
          "tolerance": TOL_LSTM,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -9058,6 +9747,8 @@ def main(argv=None) -> int:
                               runtime["resilient"]["launches"].items()},
          "launches_distributed_averaging": dist_counts["lstm_scan_bwd"],
          "launches_fleet": fl_counts["lstm_scan_bwd"],
+         "launches_tooling": {part: c["lstm_scan_bwd"]
+                              for part, c in tool_launches.items()},
          "max_abs_err": errs["lstm_scan_bwd"]["max_abs_err"],
          "max_err_checked": errs["lstm_scan_bwd"]["max_err"],
          "tolerance": TOL_LSTM_BWD,
@@ -9159,6 +9850,7 @@ def main(argv=None) -> int:
                   "obs": obs_rep, "runtime": runtime,
                   "distributed": distributed, "fleet": fleet,
                   "embeddings": embeddings,
+                  "tooling": tooling,
                   "times": times,
                   "peak_memory_bytes": peak}
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1,7 +1,7 @@
-"""Early stopping (counterpart: ``deeplearning4j_tpu/earlystopping/``,
-its modules but ``distributed.py``, which waits for slice 12): the
-configuration, the terminations, the score calculator, the savers and
-the trainer (reference BaseEarlyStoppingTrainer.java:82-160)."""
+"""Early stopping (counterpart: ``deeplearning4j_tpu/earlystopping/``):
+the configuration, the terminations, the score calculator, the savers,
+the trainer (reference BaseEarlyStoppingTrainer.java:82-160) and the
+distributed trainer (``distributed.py``)."""
 
 from deeplearning4j_tpu_torch.earlystopping.config import (  # noqa: F401
     EarlyStoppingConfiguration,

@@ -3,8 +3,10 @@
 iterators and labelled documents, vocabulary, Huffman codes, the lookup
 table, skip-gram (hierarchical softmax plus negative sampling through
 K3) and CBOW training, ParagraphVectors (DBOW and DM, co-training its
-words through Word2Vec), GloVe, and the word-vector files. The
-vectorizers and the part-of-speech tokenizer are not ported yet.
+words through Word2Vec), GloVe, the word-vector files, and the host
+text tools: the bag-of-words and TF-IDF vectorizers, the part-of-speech
+tokenizer, the tree parser, the inverted index, moving windows and the
+partitioned ``TextPipeline``.
 """
 
 from deeplearning4j_tpu_torch.nlp.glove import Glove
@@ -27,7 +29,12 @@ from deeplearning4j_tpu_torch.nlp.text import (
     LabelledDocument,
     LineSentenceIterator,
     NGramTokenizerFactory,
+    PosFilterTokenizerFactory,
     common_preprocessor,
+)
+from deeplearning4j_tpu_torch.nlp.vectorizers import (
+    BagOfWordsVectorizer,
+    TfidfVectorizer,
 )
 from deeplearning4j_tpu_torch.nlp.vocab import (
     VocabCache,
@@ -52,6 +59,9 @@ __all__ = [
     "LabelledDocument",
     "LineSentenceIterator",
     "NGramTokenizerFactory",
+    "PosFilterTokenizerFactory",
+    "BagOfWordsVectorizer",
+    "TfidfVectorizer",
     "common_preprocessor",
     "VocabCache",
     "VocabConstructor",

@@ -1,12 +1,13 @@
 """Tokenizers, sentence iterators and labelled documents of the port
 (counterpart: ``deeplearning4j_tpu/nlp/text.py`` — ``STOP_WORDS``,
 ``common_preprocessor``, ``Tokenizer``, ``DefaultTokenizerFactory``,
-``NGramTokenizerFactory``, the ``SentenceIterator`` family,
+``NGramTokenizerFactory``, ``PosFilterTokenizerFactory`` :117, the
+``SentenceIterator`` family,
 ``LabelledDocument`` and ``BasicLabelAwareIterator``).
 
 Host-side Python, the same rules as the JAX package's, so both packages
-split a corpus into the same tokens. ``PosFilterTokenizerFactory`` is not
-ported: it tags through ``nlp/treeparser.py``, which has no port yet.
+split a corpus into the same tokens. ``PosFilterTokenizerFactory`` tags
+through the port's ``nlp/treeparser.AveragedPerceptronTagger``.
 """
 
 from __future__ import annotations
@@ -94,6 +95,40 @@ class NGramTokenizerFactory:
                 out.extend(" ".join(unigrams[i:i + n])
                            for i in range(len(unigrams) - n + 1))
         return Tokenizer(out)
+
+    def tokenize(self, text: str) -> List[str]:
+        return self.create(text).get_tokens()
+
+
+class PosFilterTokenizerFactory:
+    """A part-of-speech filtering tokenizer: tokens whose tag (from
+    ``nlp/treeparser.AveragedPerceptronTagger``) is not in
+    ``allowed_tags`` become "NONE", so positions are kept, or are dropped
+    with ``drop=True``."""
+
+    PLACEHOLDER = "NONE"
+
+    def __init__(self, allowed_tags: Sequence[str], tagger=None,
+                 base: Optional[DefaultTokenizerFactory] = None,
+                 drop: bool = False):
+        from deeplearning4j_tpu_torch.nlp.treeparser import (
+            AveragedPerceptronTagger,
+        )
+
+        self.allowed = set(allowed_tags)
+        self.tagger = tagger or AveragedPerceptronTagger()
+        self.base = base or DefaultTokenizerFactory()
+        self.drop = drop
+
+    def create(self, text: str) -> Tokenizer:
+        words = self.base.tokenize(text)
+        tags = self.tagger.tag(words)
+        if self.drop:
+            kept = [w for w, t in zip(words, tags) if t in self.allowed]
+        else:
+            kept = [w if t in self.allowed else self.PLACEHOLDER
+                    for w, t in zip(words, tags)]
+        return Tokenizer(kept)
 
     def tokenize(self, text: str) -> List[str]:
         return self.create(text).get_tokens()

@@ -2,8 +2,9 @@
 ``deeplearning4j_tpu/nn/conf/multi_layer.py``).
 
 JSON is the model identity: ``to_json`` writes the JAX package's exact
-layout, and ``from_json`` reads what it writes. The YAML round trip is not
-ported (it needs a package beyond torch, numpy and the standard library).
+layout, and ``from_json`` reads what it writes. ``to_yaml`` and
+``from_yaml`` (JAX :143-152) write and read the same dict as YAML; they
+import PyYAML when called, as the graph configuration's do.
 """
 
 from __future__ import annotations
@@ -133,3 +134,16 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
+
+    # the YAML round trip: the same dict schema as the JSON; PyYAML is
+    # imported only here, as in the graph configuration
+    def to_yaml(self) -> str:
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))

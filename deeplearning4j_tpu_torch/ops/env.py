@@ -29,6 +29,8 @@ The rest of the table waits for the slices that read them.
 
 A read of a name that is not in this table raises, so a typo fails
 loudly instead of silently meaning "default" (the JAX table's rule).
+``knob_names``, ``is_registered`` and ``nonempty`` (JAX :371, :375 and
+:434) answer for the port's table.
 """
 
 from __future__ import annotations
@@ -272,6 +274,23 @@ def knob(name: str) -> Knob:
     except KeyError:
         raise KnobError(f"{name} is not a knob of the port's table "
                         "(deeplearning4j_tpu_torch/ops/env.py)") from None
+
+
+def knob_names() -> Tuple[str, ...]:
+    """The port's table, sorted (JAX :371)."""
+    return tuple(sorted(KNOBS))
+
+
+def is_registered(name: str) -> bool:
+    """Whether the port's table holds ``name`` (JAX :375)."""
+    return name in KNOBS
+
+
+def nonempty(name: str) -> bool:
+    """``bool(os.environ.get(name))`` for a registered knob: any
+    non-empty value, '0' included, is true (JAX :434)."""
+    knob(name)
+    return bool(os.environ.get(name))
 
 
 def raw(name: str) -> str:

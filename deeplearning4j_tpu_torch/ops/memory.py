@@ -12,14 +12,24 @@ byte count, the ``DL4J_TPU_HBM_GB`` budget where the placement plane
 passes it (``hbm_budget_gb``), or else the device's own memory —
 ``torch.cuda.get_device_properties(dev).total_memory`` on the card, the
 host's physical memory on the CPU; the index arena is sized the same
-way. Preflight, remat sizing and the AOT
-memory ledger (``measure_memory``) wait for a later slice.
+way.
+
+``transformer_preflight`` (JAX :158) and ``auto_fit_transformer`` (JAX
+:293) size one TransformerLM training step against the budget. Param,
+optimizer and gradient bytes are exact: the port's own ``init_params``
+and ``init_opt_state`` run under ``FakeTensorMode``, whose tensors are
+backed by the ``meta`` device, so nothing is allocated and the leaves'
+shapes and dtypes are those of a real init (the JAX package counts
+``jax.eval_shape``'s). Activations and logits are the JAX package's
+analytic count. The XLA AOT memory ledger (``measure_memory``,
+``MemoryStats``) is not ported: on the card
+``torch.cuda.max_memory_allocated`` measures a step's peak.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -168,3 +178,112 @@ def ann_arena_rows(dim: int, *, device=None,
     per_row = 3 * ann_row_bytes(dim, dtype)
     rows = int(max(0.0, budget) * float(ann_fraction) / per_row)
     return max(int(min_rows), min(int(max_rows), rows))
+
+
+def _abstract_state_bytes(cfg) -> Tuple[int, int]:
+    """(param bytes, optimizer-state bytes) of ``cfg``'s TransformerLM,
+    from an init under ``FakeTensorMode`` (meta-backed: no allocation)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_opt_state,
+        init_params,
+    )
+
+    with FakeTensorMode():
+        params = init_params(cfg, device="cpu")
+        # Adam's m, v and t, and under DL4J_TPU_BF16 the loss-scale state
+        opt = init_opt_state(params)
+        return tree_bytes(params), tree_bytes(opt)
+
+
+def transformer_preflight(cfg, batch: int, *, accum_steps: int = 1,
+                          remat: Optional[str] = None,
+                          hbm_gb: Optional[float] = None,
+                          ) -> Tuple[bool, Dict[str, Any]]:
+    """The memory estimate of one TransformerLM training step under a
+    remat policy and gradient-accumulation factor: (fits, report).
+
+    Params, optimizer state and gradients are exact. Activations are the
+    analytic per-layer residual count of the JAX package, scaled by the
+    remat rung: ``none`` keeps every layer's residuals (~6 [B,S,D] + 2
+    [B,S,F] buffers + the flash o/lse a layer); ``dots`` keeps each
+    layer's dot outputs (5 [B,S,D] + 1 [B,S,F]) plus one layer's full set
+    as the recompute peak; ``block`` keeps the [B,S,D] carry a layer plus
+    one full set. With ``accum_steps`` A > 1 activations and logits are
+    sized per microbatch (batch / A) and the gradient tree counts twice
+    (the accumulator and the microbatch's). Logits count [mb, S, V] f32
+    twice; the total carries 1.25x slack."""
+    from deeplearning4j_tpu_torch.ops import lowprec
+    from deeplearning4j_tpu_torch.ops.remat import remat_policy
+
+    policy = remat_policy(remat if remat is not None else cfg.remat)
+    if batch % accum_steps:
+        raise ValueError(f"batch {batch} not divisible by accum_steps "
+                         f"{accum_steps}")
+    budget_gb = hbm_budget_gb() if hbm_gb is None else float(hbm_gb)
+    seq = cfg.max_len
+    # bf16 residuals under the performance policy or bf16 training
+    bf16_acts = cfg.dtype_policy == "performance" or lowprec.train_policy()
+    ib = 2 if bf16_acts else 4
+    L = cfg.n_layers
+
+    param_b, opt_b = _abstract_state_bytes(cfg)
+    grad_b = param_b * (2 if accum_steps > 1 else 1)
+
+    mb = batch // accum_steps
+    bsd = mb * seq * cfg.d_model
+    ff = mb * seq * cfg.d_ff
+    layer_full = 6 * bsd + 2 * ff + bsd + 2 * mb * seq
+    if policy == "none":
+        act_b = L * layer_full * ib
+    elif policy == "dots":
+        act_b = (L * (5 * bsd + ff) + layer_full) * ib
+    else:  # block
+        act_b = (L * bsd + layer_full) * ib
+    logit_b = 2 * mb * seq * cfg.vocab_size * 4
+    total = (param_b + opt_b + grad_b + act_b + logit_b) * 1.25
+
+    report = {
+        "params_gb": round(param_b / 2**30, 2),
+        "opt_gb": round(opt_b / 2**30, 2),
+        "grads_gb": round(grad_b / 2**30, 2),
+        "activations_gb_est": round(act_b / 2**30, 2),
+        "logits_gb": round(logit_b / 2**30, 2),
+        "total_gb_est": round(total / 2**30, 2),
+        "hbm_gb": budget_gb,
+        "batch": batch,
+        "accum_steps": accum_steps,
+        "remat": policy,
+        "train_dtype": "bf16" if bf16_acts else "f32",
+        "estimate": "analytic",
+        "bytes": {"params": param_b, "opt": opt_b, "grads": grad_b,
+                  "activations": act_b, "logits": logit_b},
+    }
+    return total <= budget_gb * 2**30, report
+
+
+def auto_fit_transformer(cfg, *, batches=(32, 16, 8, 4),
+                         accum_steps=(1, 2, 4), policies=None,
+                         hbm_gb: Optional[float] = None,
+                         ) -> Optional[Dict[str, Any]]:
+    """The largest (batch, accum_steps, remat) whose preflight fits the
+    budget (``DL4J_TPU_HBM_GB`` unless given): the largest global batch
+    first, then accum_steps ascending, then the remat rungs weakest
+    first. {"batch", "accum_steps", "remat", "report"}, or None when
+    nothing fits."""
+    from deeplearning4j_tpu_torch.ops.remat import POLICIES
+
+    if policies is None:
+        policies = POLICIES
+    for b in sorted(set(batches), reverse=True):
+        for a in sorted(set(accum_steps)):
+            if b % a:
+                continue
+            for p in policies:
+                fits, rep = transformer_preflight(
+                    cfg, b, accum_steps=a, remat=p, hbm_gb=hbm_gb)
+                if fits:
+                    return {"batch": b, "accum_steps": a, "remat": p,
+                            "report": rep}
+    return None

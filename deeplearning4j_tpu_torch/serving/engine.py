@@ -384,6 +384,12 @@ class ServingEngine:
         return rec.model if rec is not None else None
 
     @property
+    def input_shape(self):
+        """The default record's input shape (JAX :246)."""
+        rec = self.registry.default()
+        return rec.input_shape if rec is not None else None
+
+    @property
     def decoder(self):
         """The default record's decode pool (None when it has none)."""
         rec = self.registry.default()

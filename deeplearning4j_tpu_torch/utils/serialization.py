@@ -9,7 +9,9 @@ MultiLayerNetwork zips, ``write_flagship_zip`` :175 and
 ``write_model_parts`` :60-98 with their readers ``read_normalizer`` and
 ``read_quant`` :110-147, ``_jsonable_training_state`` :51,
 ``write_model_parts`` :60, ``read_training_state`` :101, and
-``ModelSerializer`` with ``load_into`` :260).
+``ModelSerializer`` with ``load_into`` :260,
+``restore_multi_layer_network`` :300 and ``restore_computation_graph``
+:326).
 
 The JAX package writes a ModelSerializer-layout zip: ``configuration.json``,
 ``coefficients.npz``, ``metadata.json`` and, as the model has them,
@@ -300,6 +302,21 @@ class ModelSerializer:
     def restore(path: str, load_updater: bool = True, *, device=None):
         """Any checkpoint zip, by its recorded class (:func:`restore`)."""
         return restore(path, load_updater, device=device)
+
+    @staticmethod
+    def restore_multi_layer_network(path: str, load_updater: bool = True,
+                                    *, device=None):
+        """A MultiLayerNetwork zip of either package (JAX :300)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        return MultiLayerNetwork.load(path, device=device,
+                                      load_updater=load_updater)
+
+    @staticmethod
+    def restore_computation_graph(path: str, load_updater: bool = True, *,
+                                  device=None):
+        """A ComputationGraph zip of either package (JAX :326)."""
+        return restore_computation_graph(path, load_updater, device=device)
 
 
 def restore_computation_graph(path: str, load_updater: bool = True, *,

@@ -25,6 +25,16 @@
     ``device="cpu"``; with no card they raise instead of moving to the
     CPU. ``MetricsExporter``, Barnes-Hut t-SNE, the spatial trees and the
     graph's walks are host-only and run with no card.
+  * The tooling's entry points (``utils/equivalence``'s
+    ``compare_backends``, ``loss_curve`` and ``run_north_star``, the
+    CLI's ``main``, ``UiServer``) run on the card unless given
+    ``device="cpu"``; the UI's components and listeners, the profiler
+    hooks, the host text tools and the local datasets hold no device.
+    Each tooling module names its JAX counterpart, and every JAX module
+    has a port module of the same path but those the port leaves out on
+    purpose (``analysis/``, ``provision/``, ``ops/kernel_gate.py``,
+    ``ops/precision.py`` and the ``ops/pallas_*.py`` files, whose kernels
+    live under ``csrc/``).
   * Its knob table is a copy of the JAX table's entries the ported paths
     read (same names, same defaults), and it builds its kernels from
     ``csrc/``.
@@ -118,7 +128,23 @@ def test_every_module_imports_without_jax():
             "deeplearning4j_tpu_torch.clustering.quadtree",
             "deeplearning4j_tpu_torch.plot",
             "deeplearning4j_tpu_torch.plot.tsne",
-            "deeplearning4j_tpu_torch.plot.filters"} <= set(mods)
+            "deeplearning4j_tpu_torch.plot.filters",
+            # the tooling, the host text tools and the local datasets
+            "deeplearning4j_tpu_torch.cli",
+            "deeplearning4j_tpu_torch.ui",
+            "deeplearning4j_tpu_torch.ui.components",
+            "deeplearning4j_tpu_torch.ui.server",
+            "deeplearning4j_tpu_torch.ui.listeners",
+            "deeplearning4j_tpu_torch.utils.profiling",
+            "deeplearning4j_tpu_torch.utils.equivalence",
+            "deeplearning4j_tpu_torch.utils.disk_queue",
+            "deeplearning4j_tpu_torch.utils.moving_window",
+            "deeplearning4j_tpu_torch.nlp.treeparser",
+            "deeplearning4j_tpu_torch.nlp.vectorizers",
+            "deeplearning4j_tpu_torch.nlp.invertedindex",
+            "deeplearning4j_tpu_torch.nlp.movingwindow",
+            "deeplearning4j_tpu_torch.nlp.text_pipeline",
+            "deeplearning4j_tpu_torch.datasets.image"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -1032,3 +1058,116 @@ class TestFleetEntryPointsNeedACardOrCpu:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Word2Vec(num_workers=1)
         assert Word2Vec(num_workers=1, device="cpu").mesh is None
+
+
+TOOLING_MODULES = {
+    "cli.py": "deeplearning4j_tpu/cli.py",
+    "ui/__init__.py": "deeplearning4j_tpu/ui/",
+    "ui/components.py": "deeplearning4j_tpu/ui/components.py",
+    "ui/server.py": "deeplearning4j_tpu/ui/server.py",
+    "ui/listeners.py": "deeplearning4j_tpu/ui/listeners.py",
+    "optimize/listeners.py": "deeplearning4j_tpu/optimize/listeners.py",
+    "utils/profiling.py": "deeplearning4j_tpu/utils/profiling.py",
+    "utils/equivalence.py": "deeplearning4j_tpu/utils/equivalence.py",
+    "utils/disk_queue.py": "deeplearning4j_tpu/utils/disk_queue.py",
+    "utils/moving_window.py": "deeplearning4j_tpu/utils/moving_window.py",
+    "nlp/treeparser.py": "deeplearning4j_tpu/nlp/treeparser.py",
+    "nlp/vectorizers.py": "deeplearning4j_tpu/nlp/vectorizers.py",
+    "nlp/invertedindex.py": "deeplearning4j_tpu/nlp/invertedindex.py",
+    "nlp/movingwindow.py": "deeplearning4j_tpu/nlp/movingwindow.py",
+    "nlp/text_pipeline.py": "deeplearning4j_tpu/nlp/text_pipeline.py",
+    "nlp/text.py": "deeplearning4j_tpu/nlp/text.py",
+    "datasets/image.py": "deeplearning4j_tpu/datasets/image.py",
+    "datasets/fetchers.py": "deeplearning4j_tpu/datasets/fetchers.py",
+    "ops/dtypes.py": "deeplearning4j_tpu/ops/dtypes.py",
+    "ops/memory.py": "deeplearning4j_tpu/ops/memory.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(TOOLING_MODULES))
+def test_tooling_modules_name_their_counterpart(rel):
+    with open(os.path.join(PKG, rel), encoding="utf-8") as f:
+        doc = ast.get_docstring(ast.parse(f.read()))
+    assert doc and "counterpart" in doc, rel
+    assert TOOLING_MODULES[rel] in " ".join(doc.split()), rel
+    assert os.path.exists(os.path.join(REPO, TOOLING_MODULES[rel]))
+
+
+def test_every_jax_module_has_a_port_module_but_the_excluded():
+    def paths(root):
+        out = set()
+        for dirpath, _dirs, files in os.walk(root):
+            for fn in files:
+                if fn.endswith(".py") and fn != "__init__.py":
+                    out.add(os.path.relpath(os.path.join(dirpath, fn), root))
+        return out
+
+    missing = paths(os.path.join(REPO, "deeplearning4j_tpu")) - paths(PKG)
+    left = {m for m in missing
+            if not (m.startswith(("analysis" + os.sep, "provision" + os.sep))
+                    or m in (os.path.join("ops", "kernel_gate.py"),
+                             os.path.join("ops", "precision.py"))
+                    or (m.startswith(os.path.join("ops", "pallas_"))))}
+    assert not left, sorted(left)
+
+
+class TestToolingEntryPointsNeedACardOrCpu:
+    """The north-star harness, the CLI and the UI server raise with no
+    card unless given ``device="cpu"``; the components, the listeners, the
+    profiler hooks and the host text tools need no device."""
+
+    @pytest.fixture
+    def no_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def test_equivalence(self, no_card):
+        from deeplearning4j_tpu_torch.utils import equivalence as eq
+
+        batches = eq.char_batches(n_steps=1, batch=2, seq=4)
+        for call in (lambda d: eq.compare_backends(eq.char_builder, batches,
+                                                   device=d),
+                     lambda d: eq.loss_curve(eq.char_builder, batches,
+                                             device=d)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(None)
+            call("cpu")
+
+    def test_cli_and_ui_server(self, no_card, tmp_path):
+        from deeplearning4j_tpu_torch import cli
+        from deeplearning4j_tpu_torch.ui import UiServer
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            UiServer(port=0)
+        UiServer(port=0, device="cpu")._httpd.server_close()
+        np = pytest.importorskip("numpy")
+        x = np.random.default_rng(0).normal(size=(8, 4))
+        csv = tmp_path / "t.csv"
+        np.savetxt(csv, np.column_stack([x, np.arange(8) % 3]),
+                   delimiter=",")
+        from deeplearning4j_tpu_torch.nn import conf as pconf
+
+        conf = (pconf.NeuralNetConfiguration.builder().seed(1).list()
+                .layer(0, pconf.OutputLayer(n_in=4, n_out=3)).build())
+        (tmp_path / "c.json").write_text(conf.to_json())
+        argv = ["train", "--conf", str(tmp_path / "c.json"), "--input",
+                str(csv), "--output", str(tmp_path / "m.zip")]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
+        assert cli.main(argv, device="cpu") == 0
+
+    def test_host_tools_need_no_device(self, no_card, tmp_path):
+        from deeplearning4j_tpu_torch.nlp.text_pipeline import TextPipeline
+        from deeplearning4j_tpu_torch.nlp.treeparser import TreeParser
+        from deeplearning4j_tpu_torch.ui import (
+            HistogramIterationListener,
+            render_page,
+        )
+        from deeplearning4j_tpu_torch.utils.profiling import xplane_trace
+
+        assert TreeParser().get_trees("The dog runs.")
+        assert TextPipeline(num_partitions=2).fit(["a b", "b c"]).vocab
+        assert "<html" in render_page([]).lower()
+        HistogramIterationListener()
+        with xplane_trace(str(tmp_path / "t")) as t:
+            pass
+        assert t["path"]
