@@ -59,6 +59,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     params_from_numpy,  # noqa: F401 (the same tree layout as the LM's)
     value_and_grad,
 )
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
@@ -474,27 +475,43 @@ class BertMLM:
 
     def fit(self, tokens) -> float:
         """One masked-LM step on a [N, T] batch, the masking drawn anew
-        (dynamic masking); the loss."""
-        self.params, self.opt, loss = self._step(self.params, self.opt,
-                                                 *self._masked(tokens))
-        return float(loss)
+        (dynamic masking); the loss. The ``train.step`` span, on the
+        device too."""
+        with obs_trace.span("train.step", device=True, steps=1) as sp:
+            with obs_trace.span("train.prepare"):
+                batch = self._masked(tokens)
+            sp.set_attr("rows", int(batch[0].shape[0]))
+            sp.set_attr("tokens", int(batch[0].numel()))
+            self.params, self.opt, loss = self._step(self.params, self.opt,
+                                                     *batch)
+            with obs_trace.span("train.readback"):
+                return float(loss)
 
     def fit_batches(self, tokens_k) -> float:
         """K masked-LM steps on stacked batches [K, N, T], each masked from
         the stream :meth:`fit` draws from (K ``fit`` calls on the same
-        batches take the same steps); the last step's loss."""
-        tokens_k = np.asarray(tokens_k.cpu() if torch.is_tensor(tokens_k)
-                              else tokens_k)
-        if tokens_k.ndim != 3 or tokens_k.shape[0] == 0:
-            raise ValueError(
-                f"fit_batches expects stacked batches [K, N, T] with "
-                f"K >= 1, got shape {tokens_k.shape} (a single [N, T] "
-                "batch belongs in fit())")
-        drawn = [self._masked(b) for b in tokens_k]
-        self.params, self.opt, losses = self._multi(
-            self.params, self.opt,
-            *(torch.stack([d[i] for d in drawn]) for i in range(3)))
-        return float(losses[-1])
+        batches take the same steps); the last step's loss. One
+        ``train.step`` span of ``steps`` K."""
+        with obs_trace.span("train.step", device=True) as sp:
+            with obs_trace.span("train.prepare"):
+                tokens_k = np.asarray(tokens_k.cpu()
+                                      if torch.is_tensor(tokens_k)
+                                      else tokens_k)
+                if tokens_k.ndim != 3 or tokens_k.shape[0] == 0:
+                    raise ValueError(
+                        f"fit_batches expects stacked batches [K, N, T] "
+                        f"with K >= 1, got shape {tokens_k.shape} (a "
+                        "single [N, T] batch belongs in fit())")
+                drawn = [self._masked(b) for b in tokens_k]
+                stacks = [torch.stack([d[i] for d in drawn])
+                          for i in range(3)]
+            sp.set_attr("steps", int(tokens_k.shape[0]))
+            sp.set_attr("rows", int(tokens_k.shape[0] * tokens_k.shape[1]))
+            sp.set_attr("tokens", int(tokens_k.size))
+            self.params, self.opt, losses = self._multi(self.params,
+                                                        self.opt, *stacks)
+            with obs_trace.span("train.readback"):
+                return float(losses[-1])
 
     def logits(self, tokens) -> torch.Tensor:
         """MLM logits [N, T, V] on the device."""

@@ -91,6 +91,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
@@ -707,23 +708,28 @@ def _adam_update(params: Params, grads: Params, opt: Params, lr,
     the :func:`_decay_mask` leaves and a global-norm clip first (the norm
     from ``norm_of`` on a sharded mesh). The bias
     correction is computed in f32 from the step count as f32 (``lr`` a 0-d
-    f32 tensor), as the JAX package computes it."""
-    if clip_grad_norm:
-        grads, _ = _clip_by_global_norm(grads, clip_grad_norm, norm_of)
-    t = opt["t"] + 1
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt["m"], grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt["v"], grads)
-    tf = t.to(torch.float32)
-    corr = torch.sqrt(1 - torch.pow(b2, tf)) / (1 - torch.pow(b1, tf))
-    if weight_decay:
-        new = tree_map(
-            lambda p, m_, v_, d: p - lr * (
-                corr * m_ / (torch.sqrt(v_) + eps)
-                + (weight_decay * p if d else 0.0)),
-            params, m, v, _decay_mask(params))
-    else:
-        new = tree_map(lambda p, m_, v_: p - lr * corr * m_
-                       / (torch.sqrt(v_) + eps), params, m, v)
+    f32 tensor), as the JAX package computes it. The ``train.optimizer``
+    span, on the device too."""
+    with obs_trace.span("train.optimizer", device=True) as sp:
+        if sp is not obs_trace.NULL_SPAN:
+            sp.set_attr("leaves", len(tree_leaves(params)))
+        if clip_grad_norm:
+            grads, _ = _clip_by_global_norm(grads, clip_grad_norm, norm_of)
+        t = opt["t"] + 1
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt["v"],
+                     grads)
+        tf = t.to(torch.float32)
+        corr = torch.sqrt(1 - torch.pow(b2, tf)) / (1 - torch.pow(b1, tf))
+        if weight_decay:
+            new = tree_map(
+                lambda p, m_, v_, d: p - lr * (
+                    corr * m_ / (torch.sqrt(v_) + eps)
+                    + (weight_decay * p if d else 0.0)),
+                params, m, v, _decay_mask(params))
+        else:
+            new = tree_map(lambda p, m_, v_: p - lr * corr * m_
+                           / (torch.sqrt(v_) + eps), params, m, v)
     return new, {"m": m, "v": v, "t": t}
 
 
@@ -755,13 +761,18 @@ def _scheduled_lr(cfg: TransformerConfig, t) -> torch.Tensor:
 
 def value_and_grad(loss_of, params: Params):
     """(loss, grads): ``loss_of(params)`` and its gradient for every leaf,
-    the tree's layout (``jax.value_and_grad`` for a params dict)."""
+    the tree's layout (``jax.value_and_grad`` for a params dict). The
+    ``train.forward`` and ``train.backward`` spans, on the device too
+    (the backward's exit event is recorded once ``grad`` has returned,
+    behind every backward kernel on the forward's stream)."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        loss = loss_of(live)
-        grads = torch.autograd.grad(loss, leaves)
+        with obs_trace.span("train.forward", device=True):
+            loss = loss_of(live)
+        with obs_trace.span("train.backward", device=True):
+            grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -1431,22 +1442,35 @@ class TransformerLM:
         """One optimizer step on tokens/targets [N, T]; the loss (a 0-d
         device tensor: reading it waits for the card). In the sequence
         mode the global batch: this rank trains on its block, and the
-        loss is the global batch's."""
-        params, opt, loss = self._step(self.params, self.opt,
-                                       self._tokens(tokens),
-                                       self._tokens(targets))
-        self._set_state(params, opt)
-        self.iteration += 1
+        loss is the global batch's. The ``train.step`` span, on the
+        device too."""
+        with obs_trace.span("train.step", device=True, steps=1) as sp:
+            with obs_trace.span("train.prepare"):
+                tokens, targets = self._tokens(tokens), self._tokens(targets)
+            sp.set_attr("rows", int(tokens.shape[0]))
+            sp.set_attr("tokens", int(tokens.numel()))
+            params, opt, loss = self._step(self.params, self.opt, tokens,
+                                           targets)
+            self._set_state(params, opt)
+            self.iteration += 1
         return loss
 
     def fit_batches(self, tokens_k, targets_k) -> torch.Tensor:
         """K optimizer steps on tokens/targets stacked [K, N, T]; the K
-        losses. The same as K :meth:`fit` calls."""
-        tokens_k, targets_k = self._tokens(tokens_k), self._tokens(targets_k)
-        params, opt, losses = self._multi_step(self.params, self.opt,
-                                               tokens_k, targets_k)
-        self._set_state(params, opt)
-        self.iteration += int(tokens_k.shape[0])
+        losses. The same as K :meth:`fit` calls, under one ``train.step``
+        span of ``steps`` K."""
+        with obs_trace.span("train.step", device=True) as sp:
+            with obs_trace.span("train.prepare"):
+                tokens_k = self._tokens(tokens_k)
+                targets_k = self._tokens(targets_k)
+            k = int(tokens_k.shape[0])
+            sp.set_attr("steps", k)
+            sp.set_attr("rows", k * int(tokens_k.shape[1]))
+            sp.set_attr("tokens", int(tokens_k.numel()))
+            params, opt, losses = self._multi_step(self.params, self.opt,
+                                                   tokens_k, targets_k)
+            self._set_state(params, opt)
+            self.iteration += k
         return losses
 
     def fit_iterator(self, iterator, num_epochs: int = 1,

@@ -3,12 +3,20 @@ metrics registry, the flight-recorder journal and Prometheus export.
 
 The ledgers (``serving_stats``, ``retrieval_stats``, each container's
 ``dispatch_stats``) register into ONE :class:`MetricsRegistry`; a
-default-off span tracer (``DL4J_TPU_OBS``) threads request ids from
-``serve.request`` through ``serve.batch``; a bounded journal keeps the
+default-off span tracer threads request ids from ``serve.request``
+through ``serve.batch`` and splits a training step into ``train.step``,
+``train.prepare``, ``train.forward``, ``train.backward``,
+``train.optimizer`` and ``train.readback``; a bounded journal keeps the
 last events on disk; the engine's ``/metrics`` and the standalone
 :class:`MetricsExporter` serve the text exposition.
 
-Everything here is host-side and stdlib-only: no device syncs.
+Spans are live under ``DL4J_TPU_OBS`` or while a ``torch.profiler``
+records (only the first feeds the journal). A live span is also a
+``record_function`` annotation in the profiler's trace, on the clock of
+the kernels it encloses; the training spans marked ``device`` time
+themselves on the card with two CUDA events each, read back into
+``device_s`` by ``Event.query()`` once they have completed. No span
+synchronizes the device (``obs/trace.py``).
 """
 
 from deeplearning4j_tpu_torch.obs.exporter import MetricsExporter
@@ -30,6 +38,7 @@ from deeplearning4j_tpu_torch.obs.trace import (
     record_span,
     set_enabled,
     span,
+    spans_live,
     tracer,
 )
 
@@ -48,5 +57,6 @@ __all__ = [
     "register_net",
     "set_enabled",
     "span",
+    "spans_live",
     "tracer",
 ]

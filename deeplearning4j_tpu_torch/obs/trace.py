@@ -1,5 +1,6 @@
-"""Structured span tracer: the default-off timeline of the serving path
-(counterpart: ``deeplearning4j_tpu/obs/trace.py``, all of it).
+"""Structured span tracer: the default-off timeline of the serving and
+training paths (counterpart: ``deeplearning4j_tpu/obs/trace.py``, all of
+it, plus the profiler gate, the annotations and the device times below).
 
 A Dapper-style span tracer over the seams the port instruments:
 
@@ -10,20 +11,50 @@ A Dapper-style span tracer over the seams the port instruments:
                    (its member ``request_ids``) and one per decode tick
                    (``kind`` "decode.paged" with ``lanes`` and ``tick_k``,
                    or "decode.spec" with ``spec_k``)
+  fleet.*, etl.*,  the router, the elastic fleet, the input pipeline and
+  ckpt.*           the checkpoint writer
+  train.step       one per ``fit`` / ``fit_batches`` of ``TransformerLM``
+                   and ``BertMLM`` (``steps``, ``rows``, ``tokens``: the
+                   batch's positions, pad included), on the device too
+  train.prepare    the step's input conversion: ``TransformerLM._tokens``,
+                   ``BertMLM``'s host masking and copies to the card
+  train.forward    ``value_and_grad``'s loss, on the device too
+  train.backward   ``value_and_grad``'s ``torch.autograd.grad``, on the
+                   device too
+  train.optimizer  ``_adam_update``, the clip included (``leaves``), on
+                   the device too
+  train.readback   ``BertMLM``'s read of the loss
 
-Spans are HOST-SIDE events only: a span around a kernel launch measures
-the host's side of it, never the device. No span calls
-``torch.cuda.synchronize()`` (a per-dispatch sync would serialize the
-very pipeline this tracer observes); the serving paths' own read-backs
-(``.cpu()`` of the answer) already end the spans that wrap them. Timing
-uses the monotonic clock (``time.perf_counter``); ids are process-local
+The ``train.*`` spans below ``train.step`` sit in the shared step code,
+so every caller of ``value_and_grad`` and ``_adam_update`` (the MoE,
+Megatron, ring and pipeline steps, BERT's classifier) records them too.
+
+Gate, read at every call: a span is live while ``DL4J_TPU_OBS`` is on or
+while a ``torch.profiler`` records in this process
+(``torch.autograd.profiler._is_profiler_enabled``); :func:`set_enabled`
+forces it either way. Off, :func:`span` returns a shared null context —
+one flag read, one env read and one branch per call site: no Span, no
+``record_function``, no CUDA event — so a fit or a ``/predict`` gives
+the same bits with obs on and off (``tests/test_torch_obs.py``,
+``tests/test_torch_train_spans.py``). Only ``DL4J_TPU_OBS`` feeds the
+journal: a session where only the profiler records writes no file.
+
+Each live span also opens ``torch.profiler.record_function(name)``: in a
+profiler's trace it is a ``user_annotation`` event on the profiler's own
+clock, beside the operators and kernels it encloses (and a
+``gpu_user_annotation`` extent on the stream's row). A span opened with
+``device=True`` records a CUDA timing event on the current stream when
+it is entered and one when it exits (where CUDA is initialised and the
+stream is not being captured into a graph; the events come from a small
+pool); its ``device_s`` is the time between them, ``None`` until both
+have completed. The host times on ``time.perf_counter``.
+
+No span synchronizes. A device time is filled in by ``Event.query()``
+when a later span finishes and when :meth:`Tracer.spans` is read, and
+observed then into ``dl4j_span_device_seconds``, beside the host
+``dl4j_span_seconds``; the serving paths' own read-backs (``.cpu()`` of
+the answer) end the spans that wrap them. Ids are process-local
 integers.
-
-Gate: ``DL4J_TPU_OBS`` (default OFF), read at every call. Disabled,
-:func:`span` returns a shared null context — one env lookup and one
-branch per call site, no Span objects, no ring writes — so a fit or a
-``/predict`` gives the same bits with obs on and off
-(``tests/test_torch_obs.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +65,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _profiler
+
 from deeplearning4j_tpu_torch.ops import env as envknob
 
 ENV_OBS = "DL4J_TPU_OBS"
@@ -42,32 +76,42 @@ ENV_SPANS = "DL4J_TPU_OBS_SPANS"
 _ON = ("1", "on", "true", "yes")
 
 # programmatic override (tests and the chip smoke toggle without relying
-# on env mutation ordering): None = defer to the env
+# on env mutation ordering): None = defer to the env and the profiler
 _forced: Optional[bool] = None
 
 
 def obs_enabled() -> bool:
-    """The observability gate, read at CALL time (per span) so a single
-    process can measure with and without it honestly."""
+    """The observability gate (``DL4J_TPU_OBS``: the journal, events,
+    spans), read at CALL time (per span) so a single process can measure
+    with and without it honestly."""
     if _forced is not None:
         return _forced
     return envknob.raw(ENV_OBS).strip().lower() in _ON
 
 
+def spans_live() -> bool:
+    """The span gate: :func:`obs_enabled`, or a ``torch.profiler``
+    recording in this process."""
+    return (_forced is None and _profiler._is_profiler_enabled) \
+        or obs_enabled()
+
+
 def set_enabled(value: Optional[bool]) -> None:
-    """Force the gate on/off programmatically; ``None`` restores the env
-    decision."""
+    """Force the gate on/off programmatically, the profiler's half too;
+    ``None`` restores the env and profiler decision."""
     global _forced
     _forced = value
 
 
 class Span:
     """One timed operation: name, id, parent id, monotonic start/end,
-    free-form attributes. Mutable only through :meth:`set_attr` while
-    open; finished spans live in the tracer ring as plain dicts."""
+    free-form attributes, and the device time of a ``device=True`` span
+    once its events have completed. Mutable only through
+    :meth:`set_attr` while open; finished spans live in the tracer ring
+    as plain dicts."""
 
     __slots__ = ("name", "span_id", "parent_id", "start", "end", "attrs",
-                 "wall")
+                 "wall", "device_s")
 
     def __init__(self, name: str, span_id: int, parent_id: Optional[int],
                  attrs: Dict[str, Any]):
@@ -78,6 +122,7 @@ class Span:
         self.wall = time.time()  # correlation with external logs only
         self.start = time.perf_counter()
         self.end: Optional[float] = None
+        self.device_s: Optional[float] = None
 
     def set_attr(self, key: str, value: Any) -> None:
         self.attrs[key] = value
@@ -133,37 +178,57 @@ class _SpanCtx:
     """Context manager for one live span; pushes/pops the thread-local
     parent stack so nested spans parent automatically (a span opened
     inside the batcher worker's ``serve.batch`` span on that same thread
-    becomes its child)."""
+    becomes its child), opens the span's ``record_function`` and, for a
+    device span, records its two CUDA events."""
 
-    __slots__ = ("_tracer", "_span")
+    __slots__ = ("_tracer", "_span", "_device", "_annotation", "_start")
 
-    def __init__(self, tracer: "Tracer", span: Span):
+    def __init__(self, tracer: "Tracer", span: Span, device: bool):
         self._tracer = tracer
         self._span = span
+        self._device = device
+        self._annotation = None
+        self._start = None
 
     def __enter__(self) -> Span:
-        self._tracer._stack().append(self._span)
-        return self._span
+        sp = self._span
+        self._tracer._stack().append(sp)
+        self._annotation = _profiler.record_function(sp.name)
+        self._annotation.__enter__()
+        if self._device:
+            self._start = self._tracer._record_event()
+        sp.start = time.perf_counter()
+        return sp
 
     def __exit__(self, exc_type, exc, tb):
         sp = self._span
+        end = (self._tracer._record_event() if self._start is not None
+               else None)
         sp.end = time.perf_counter()
         if exc_type is not None:
             sp.attrs["error"] = exc_type.__name__
         stack = self._tracer._stack()
         if stack and stack[-1] is sp:
             stack.pop()
-        self._tracer._finish(sp)
+        try:
+            self._tracer._finish(sp, self._start, end)
+        finally:
+            # the tracer's own work stays under the span's annotation
+            self._annotation.__exit__(exc_type, exc, tb)
         return False
 
 
 class Tracer:
     """Span factory + bounded ring of finished spans.
 
-    Finished spans fan out to the flight-recorder journal (obs/journal)
-    and a duration histogram in the metrics registry (obs/registry) —
-    one instrumentation point, three read surfaces (ring for tests and
-    debugging, journal for post-mortem timelines, histogram for export).
+    Finished spans fan out to the flight-recorder journal (obs/journal,
+    under ``DL4J_TPU_OBS`` only) and duration histograms in the metrics
+    registry (obs/registry): ``dl4j_span_seconds`` at the finish,
+    ``dl4j_span_device_seconds`` once a device span's events have
+    completed — one instrumentation point, three read surfaces (ring for
+    tests, debugging and the benchmark's readers, journal for post-mortem
+    timelines, histograms for export). The journal keeps a span as it
+    finished, before its device time is known.
     """
 
     def __init__(self, capacity: Optional[int] = None, *,
@@ -176,6 +241,11 @@ class Tracer:
         self._ids = itertools.count(1)
         self._registry = registry
         self._journal = journal
+        # device spans whose events have not completed, in finish order:
+        # (Span, its ring dict, start event, end event)
+        self._pending: deque = deque()
+        # idle timing events by device index
+        self._event_pool: Dict[int, List[Any]] = {}
 
     # -- wiring (lazy: obs/__init__ connects the default singletons) ------
     def attach(self, *, registry=None, journal=None) -> None:
@@ -192,9 +262,11 @@ class Tracer:
         return stack
 
     # -- recording --------------------------------------------------------
-    def span(self, name: str, **attrs) -> _SpanCtx:
-        parent = self._stack()[-1].span_id if self._stack() else None
-        return _SpanCtx(self, Span(name, next(self._ids), parent, attrs))
+    def span(self, name: str, device: bool = False, **attrs) -> _SpanCtx:
+        stack = self._stack()
+        parent = stack[-1].span_id if stack else None
+        return _SpanCtx(self, Span(name, next(self._ids), parent, attrs),
+                        device)
 
     def record_span(self, name: str, seconds: float, **attrs) -> None:
         """A completed span recorded after the fact — for waits measured
@@ -206,25 +278,66 @@ class Tracer:
         sp.end = sp.start + float(seconds)
         self._finish(sp)
 
-    def current_span(self) -> Optional[Span]:
-        stack = self._stack()
-        return stack[-1] if stack else None
+    def _record_event(self):
+        """A timing event from the pool recorded on the current stream,
+        or None where CUDA is not initialised or the stream is being
+        captured into a graph."""
+        if (not torch.cuda.is_initialized()
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        dev = torch.cuda.current_device()
+        with self._lock:
+            pool = self._event_pool.setdefault(dev, [])
+            ev = pool.pop() if pool else None
+        if ev is None:
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return (dev, ev)
 
-    def _finish(self, sp: Span) -> None:
+    def _finish(self, sp: Span, start=None, end=None) -> None:
+        """Ring, journal, histogram; a device span (``start`` and ``end``
+        its ``(device, event)`` pairs) waits in ``_pending``."""
         d = sp.to_dict()
         with self._lock:
             self._ring.append(d)
+            if end is not None:
+                d["device_s"] = None
+                self._pending.append((sp, d, start, end))
         journal = self._journal
-        if journal is not None:
+        if journal is not None and obs_enabled():
             # light-path append: the span dict is already timestamped
             journal.append(dict(d, kind="span"))
         registry = self._registry
         if registry is not None and sp.end is not None:
             registry.histogram("dl4j_span_seconds", sp.end - sp.start,
                                span=sp.name)
+        self._resolve()
+
+    def _resolve(self) -> None:
+        """Fill in the device time of every pending span whose events
+        have completed, oldest first, without waiting: stops at the first
+        whose end event has not (the events of one stream complete in the
+        order they were recorded)."""
+        done = []
+        with self._lock:
+            while self._pending:
+                sp, d, (dev, start), (_, end) = self._pending[0]
+                if not end.query():
+                    break
+                self._pending.popleft()
+                sp.device_s = d["device_s"] = (
+                    start.elapsed_time(end) * 1e-3)
+                self._event_pool.setdefault(dev, []).extend((start, end))
+                done.append(sp)
+        registry = self._registry
+        if registry is not None:
+            for sp in done:
+                registry.histogram("dl4j_span_device_seconds", sp.device_s,
+                                   span=sp.name)
 
     # -- reading ----------------------------------------------------------
     def spans(self, name: Optional[str] = None) -> List[Dict[str, Any]]:
+        self._resolve()
         with self._lock:
             out = list(self._ring)
         if name is not None:
@@ -257,17 +370,20 @@ def tracer() -> Tracer:
     return _TRACER
 
 
-def span(name: str, **attrs):
+def span(name: str, device: bool = False, **attrs):
     """THE instrumentation entry point: a context manager yielding a Span
-    when obs is enabled, the shared null context otherwise. The disabled
-    path is one env read + one branch — cheap enough for the per-dispatch
-    hot path this plane instruments."""
-    if not obs_enabled():
+    while :func:`spans_live`, the shared null context otherwise. The
+    disabled path is one flag read, one env read and a branch — cheap
+    enough for the per-dispatch and per-step hot paths this plane
+    instruments. ``device=True`` also times the span on the card."""
+    if not spans_live():
         return _NULL_CTX
-    return tracer().span(name, **attrs)
+    return tracer().span(name, device, **attrs)
 
 
 def record_span(name: str, seconds: float, **attrs) -> None:
-    """Gated after-the-fact span recording (see Tracer.record_span)."""
+    """Gated after-the-fact span recording (see Tracer.record_span): a
+    span recorded after the fact has no annotation in a profiler's
+    trace, so only ``DL4J_TPU_OBS`` records it."""
     if obs_enabled():
         tracer().record_span(name, seconds, **attrs)

@@ -1,0 +1,10 @@
+"""forward_ms.train — layer: model step. The device milliseconds per
+step of the port's ``train.forward`` spans (``value_and_grad``'s loss,
+timed by two CUDA events) under the traced slice's ``train.step`` spans
+(``perfbench/spans.py``). Moves ``train_tokens_per_s``."""
+
+from perfbench import spans
+
+
+def read(run):
+    return spans.read(run, "train.forward", "device_s")
