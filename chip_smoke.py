@@ -41,10 +41,11 @@ What it does, in order (any failure raises and exits non-zero):
 
 1. prints the card (``nvidia-smi`` name and power limit, and
    ``torch.cuda.get_device_name``); with no CUDA device it exits 2;
-2. builds the seven kernels from ``deeplearning4j_tpu_torch/csrc/`` with
+2. builds the eight kernels from ``deeplearning4j_tpu_torch/csrc/`` with
    ``nvcc`` (one process per library, started together; K4 and K5 are one
    library over ``csrc/flash_fwd.cuh``; K7, the flash backward, is
-   ``csrc/flash_bwd.cu``), prints each function's ptxas
+   ``csrc/flash_bwd.cu``; K8, the tied head's f32 products, is
+   ``csrc/f32_gemm.cu``), prints each function's ptxas
    register and spill line, and checks with ``cuobjdump -sass`` that the
    K4/K5 library holds tensor-core ``HGMMA`` (bf16), TF32 ``HMMA`` (f32:
    3xTF32) and ``cp.async`` ``LDGSTS`` instructions, and that both LSTM
@@ -53,7 +54,8 @@ What it does, in order (any failure raises and exits non-zero):
    stores of the per-step exchange (``STAS``), and K2 TF32 ``HMMA`` (its
    gate and dU products: 3xTF32), and that every K7 kernel holds
    ``LDGSTS`` and, in bf16, ``HGMMA`` (``wgmma``), in f32 TF32 ``HMMA``
-   (3xTF32 on ``mma.sync``); then builds the K4/K5 library's variant
+   (3xTF32 on ``mma.sync``), and both K8 GEMM kernels TF32 ``HGMMA``
+   (3xTF32 on ``wgmma``); then builds the K4/K5 library's variant
    with one bf16 P in P.V (``-DFLASH_P_SPLIT=0``), which is timed and
    read against the shipped split-P kernel and never runs on a path;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -114,7 +116,23 @@ What it does, in order (any failure raises and exits non-zero):
    masked (its gradients exactly 0), and ragged Tq=300 x Tk=420 at D in
    {16, 32, 128}: within 1e-2 of the largest entry of each gradient in
    bf16 and 1e-4 in f32, two launches bit-equal, masked keys' dK and dV
-   exactly 0;
+   exactly 0; then K8 (``phase_k8``) at the six products of the two
+   benchmark cells' tied heads (GPT-2-medium: 16384 x 1024 rows against
+   a vocabulary of 50,257; BERT-base: 16384 x 768 against 30,522;
+   forward, dh, dembed): within 1e-4 of the largest entry of the f64
+   product, no more than twice torch's f32 matmul's error and a tenth of
+   one TF32 product's, two launches bit-equal; each product's device time
+   beside its plain version, ``torch.mm`` (TF32 off) and its bound at
+   165 TFLOP/s; the whole head forward and backward both ways, with three
+   K8 launches and no decline; and a sweep over 64-16384 rows of h that
+   reports where K8's head starts to beat torch's (the shape rule's
+   threshold, ``ops/f32_gemm.MIN_ROWS``). On each later path whose head
+   K8 serves (the LM's, BERT's, the ring's and Ulysses' training steps
+   and forwards, the MoE LM's steps, the Megatron, accumulation and
+   pipeline steps) the head's counters are zeroed before the path and
+   checked after it (``k8_path``): three K8 products a training step
+   (one a microbatch where the step accumulates), one a forward, none
+   declined;
 4. serves the full-width transformer the repo benchmarks (d_model 2048,
    4 layers, 32 heads, d_ff 8192, vocab 8192, max_len 1024, bf16, flash
    on; random weights from ``--seed``) through ``ServingEngine``: 16 HTTP
@@ -713,6 +731,7 @@ from deeplearning4j_tpu_torch.ops.memory import (  # noqa: E402
     kv_arena_blocks,
 )
 from deeplearning4j_tpu_torch.ops.dispatch import bucket_size  # noqa: E402
+from deeplearning4j_tpu_torch.ops import f32_gemm as k8_mod  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from deeplearning4j_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
@@ -982,7 +1001,7 @@ def phase_build():
     print("== build (nvcc -gencode arch=compute_90a,code=sm_90a) ==")
     for res in build.build(["flash_attention", "paged_attention",
                             "lstm_scan", "lstm_scan_bwd", "sgns",
-                            "flash_bwd"]):
+                            "flash_bwd", "f32_gemm"]):
         print(f"built {res.name}: {res.seconds:.1f} s -> "
               f"{os.path.relpath(res.path)}")
         fn = None
@@ -1035,6 +1054,18 @@ def phase_build():
           "without TF32 mma (HMMA ... TF32), or one without cp.async "
           "(LDGSTS), in its SASS")
     sass["flash_bwd"] = found
+    # K8: both GEMM kernels (K-major and M-major A) multiply by TF32
+    # wgmma (HGMMA ... TF32)
+    gemm = [t for n, t in build.sass_functions(build.sass("f32_gemm"))
+            .items() if "f32_gemm_kernel" in n]
+    found = {"kernels": len(gemm), "with_HGMMA_TF32": sum(
+        any("HGMMA" in ln and "TF32" in ln for ln in t.splitlines())
+        for t in gemm)}
+    print("  cuobjdump -sass f32_gemm: " + ", ".join(
+        f"{op} {c}" for op, c in found.items()))
+    check(found["kernels"] == 2 and found["with_HGMMA_TF32"] == 2,
+          "f32_gemm: a GEMM kernel without TF32 wgmma (HGMMA ... TF32)")
+    sass["f32_gemm"] = found
     (res,) = build.build(["flash_attention"], ONE_P)
     print(f"built flash_attention {' '.join(ONE_P)}: {res.seconds:.1f} s")
     return sass
@@ -3125,9 +3156,11 @@ def phase_ring(seed: int, dev, group):
     with torch.inference_mode():
         for fn in kernels:
             fn.launches = 0
+        k8_reset()
         ring = ring_forward(cp, toks, cfg, group)
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in kernels}
+        k8_path("ring_forward", 1)
         ref = forward(cp, toks, cfg)[0]
         torch.cuda.synchronize()
         err = (ring - ref).abs().max().item()
@@ -3160,9 +3193,11 @@ def phase_ring(seed: int, dev, group):
                          warmup=1)
         for fn in kernels:
             fn.launches = 0
+        k8_reset()
         uly = ring_forward(cp, toks, cfg, group, strategy="ulysses")
         torch.cuda.synchronize()
         uly_counts = {fn.__name__: fn.launches for fn in kernels}
+        k8_path("ulysses_forward", 1)
         err_u = (uly - ref).abs().max().item()
         uly_ms = time_ms(lambda: ring_forward(cp, toks, cfg, group,
                                               strategy="ulysses"),
@@ -3368,6 +3403,7 @@ def phase_ring_train(seed: int, dev, group):
                flash_block_bwd)
     for fn in kernels:
         fn.launches = 0
+    k8_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [float(lm.fit(x, y)) for x, y in batches]
@@ -3376,6 +3412,7 @@ def phase_ring_train(seed: int, dev, group):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     steps = RT_FITS + RT_MULTI
+    counts["tied_head"] = k8_path("ring_train", 3 * steps)["launches"]
     print("ring loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
           + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi)
           + f"; {steps} steps in {wall:.3f} s (first calls included); "
@@ -3397,11 +3434,14 @@ def phase_ring_train(seed: int, dev, group):
     up, uo = lm.params, lm.opt
     for fn in kernels:
         fn.launches = 0
+    k8_reset()
     uly_losses = []
     for i in range(RT_ULYSSES):
         up, uo, loss = uly(up, uo, *ring_batch(seed + 200 + i, dev))
         uly_losses.append(float(loss))
     uly_counts = {fn.__name__: fn.launches for fn in kernels}
+    uly_counts["tied_head"] = k8_path("ulysses_train",
+                                      3 * RT_ULYSSES)["launches"]
     print("ulysses loss per step: " + " ".join(f"{v:.4f}" for v in
                                                uly_losses)
           + f"; launches {uly_counts}")
@@ -3823,6 +3863,188 @@ def phase_times_bwd(seed: int, dev):
 
 
 # ---------------------------------------------------------------------------
+# K8: the tied head's f32 products by 3xTF32
+# ---------------------------------------------------------------------------
+
+# (name, rows of h, d, V): the heads of the two training cells
+K8_HEADS = (("gpt2-medium", 16384, 1024, 50257),
+            ("bert-base", 16384, 768, 30522))
+K8_SWEEP_ROWS = (64, 128, 256, 512, 1024, 1536, 2048, 3072, 4096, 8192, 16384)
+TOL_K8 = 1e-4  # of the largest entry, against the f64 product
+
+
+# path -> K8's launches and declines there (k8_reset, then k8_path)
+K8_PATHS: dict = {}
+
+
+def k8_reset():
+    """Zero the tied head's counters before a path's run."""
+    k8_mod.tied_head.launches = 0
+    k8_mod.tied_head.declined = 0
+
+
+def k8_path(name: str, want: int) -> dict:
+    """Check and record K8 on one path since :func:`k8_reset`: ``want``
+    launches of the head's products (3 a training step: 1 forward, 2
+    backward; 1 a forward), none declined."""
+    got = {"launches": k8_mod.tied_head.launches,
+           "declined": k8_mod.tied_head.declined, "want": want}
+    K8_PATHS[name] = got
+    print(f"K8 on {name}: {got['launches']} head products (want {want}), "
+          f"{got['declined']} declined")
+    check(got["launches"] == want and got["declined"] == 0,
+          f"K8 on {name}: {got}")
+    return got
+
+
+def k8_operands(product: str, m: int, d: int, v: int, seed: int, dev):
+    """(A, B) of one of the head's products as its autograd gives them:
+    h [m, d] @ E^T, dh = G @ E, dE = G^T @ h (G [m, v] contiguous)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if product == "forward":
+        h = torch.randn((m, d), generator=g, device=dev)
+        return h, (torch.randn((v, d), generator=g, device=dev) * 0.02).T
+    gg = torch.randn((m, v), generator=g, device=dev) * 1e-4
+    if product == "dh":
+        return gg, torch.randn((v, d), generator=g, device=dev) * 0.02
+    return gg.T, torch.randn((m, d), generator=g, device=dev)
+
+
+def k8_head_ms(m: int, d: int, v: int, seed: int, dev, through_k8: bool):
+    """Device ms of the tied head's forward and backward at m rows: through
+    K8 (``TiedHeadFn``, G padded once for both backward products) or
+    through torch's f32 matmul under autograd."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((m, d), generator=g, device=dev, requires_grad=True)
+    e = (torch.randn((v, d), generator=g, device=dev) * 0.02
+         ).requires_grad_(True)
+    cot = torch.randn((m, v), generator=g, device=dev) * 1e-4
+    fn = (k8_mod.TiedHeadFn.apply if through_k8
+          else lambda a, b: a @ b.T)
+
+    def step():
+        torch.autograd.grad(fn(h, e), (h, e), cot)
+    return device_ms(step, iters=3, warmup=1)
+
+
+def phase_k8(seed: int, dev):
+    """K8 at the six products of the two cells' heads: the error against
+    the f64 product beside torch's f32 matmul's (TF32 off) and one TF32
+    product's; device ms of the wrapper (pack and any row padding
+    included), of the plain version (one cuBLAS f32 call on the card) and
+    of ``torch.mm`` as the library yardstick, against the bound at
+    165 TFLOP/s; the whole head (forward and backward) both ways with
+    K8's launches and declines; and the sweep over rows that sets the
+    shape rule's threshold (``ops/f32_gemm.MIN_ROWS``)."""
+    print("== K8: the tied head's f32 products by 3xTF32 (wgmma), against "
+          "f64, torch's f32 matmul and the 165 TFLOP/s bound ==")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    res = {"products": {}, "heads": {}, "sweep": {}}
+    try:
+        for name, m, d, v in K8_HEADS:
+            for product in ("forward", "dh", "dembed"):
+                a, b = k8_operands(product, m, d, v, seed, dev)
+                flops = 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+                ref = a.double() @ b.double()
+                scale = ref.abs().max().item()
+                got = k8_mod.f32_gemm(a, b)
+                again = k8_mod.f32_gemm(a, b)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                lib = torch.mm(a, b)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                tf32 = torch.mm(a, b)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                err = {k: (x.double() - ref).abs().max().item() / scale
+                       for k, x in (("k8", got), ("torch_f32", lib),
+                                    ("tf32", tf32))}
+                del ref, got, lib, tf32
+                r = dict(shape=f"{tuple(a.shape)} @ {tuple(b.shape)}",
+                         max_err=err["k8"], max_err_torch_f32=err["torch_f32"],
+                         max_err_tf32=err["tf32"],
+                         bit_equal=bool(torch.equal(again,
+                                                    k8_mod.f32_gemm(a, b))),
+                         ms=device_ms(lambda: k8_mod.f32_gemm(a, b), iters=5,
+                                      warmup=2),
+                         plain_ms=device_ms(
+                             lambda: k8_mod.f32_gemm_plain(a, b), iters=3,
+                             warmup=1),
+                         library_ms=device_ms(lambda: torch.mm(a, b),
+                                              iters=3, warmup=1),
+                         bound_ms=flops / PEAK_F32_TC_FLOPS * 1e3)
+                r["tflops"] = flops / r["ms"] / 1e9
+                res["products"][f"{name}.{product}"] = r
+                print(f"K8 {name} {product} {r['shape']}: {r['ms']:.3f} ms "
+                      f"({r['tflops']:.1f} TFLOP/s, "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound "
+                      f"{r['bound_ms']:.3f}), plain {r['plain_ms']:.3f}, "
+                      f"torch.mm {r['library_ms']:.3f}; err {err['k8']:.2e} "
+                      f"(torch f32 {err['torch_f32']:.2e}, TF32 "
+                      f"{err['tf32']:.2e}); two launches bit-equal "
+                      f"{r['bit_equal']}")
+                check(err["k8"] <= TOL_K8 and err["k8"] <= 2 * err["torch_f32"]
+                      and 10 * err["k8"] <= err["tf32"] and r["bit_equal"],
+                      f"K8 {name} {product}: error {err} or bits")
+                del a, b, again
+                torch.cuda.empty_cache()
+            # one head forward and backward under the profiler: K8's
+            # launches and declines, and no cuBLAS f32 GEMM among its
+            # kernels
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            before = (k8_mod.tied_head.launches, k8_mod.tied_head.declined)
+            h = torch.randn((m, d), device=dev, requires_grad=True)
+            e = torch.randn((v, d), device=dev, requires_grad=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.autograd.grad(k8_mod.tied_head(h, e).sum(), (h, e))
+                torch.cuda.synchronize()
+            counts = (k8_mod.tied_head.launches - before[0],
+                      k8_mod.tied_head.declined - before[1])
+            kernels = sorted({ev.name for ev in prof.events()
+                              if ev.device_type == DeviceType.CUDA})
+            f32_blas = [n for n in kernels if "sgemm" in n or "xmma" in n
+                        or "gemm_f32" in n]
+            check(counts == (3, 0) and not f32_blas, f"K8 {name} head: "
+                  f"launches, declines {counts}; cuBLAS f32 {f32_blas}")
+            del h, e
+            head = dict(ms=k8_head_ms(m, d, v, seed, dev, True),
+                        library_ms=k8_head_ms(m, d, v, seed, dev, False),
+                        bound_ms=3 * 2.0 * m * d * v / PEAK_F32_TC_FLOPS * 1e3,
+                        launches=counts[0], declined=counts[1],
+                        kernels=kernels)
+            res["heads"][name] = head
+            print(f"K8 {name} head, forward and backward: {head['ms']:.3f} "
+                  f"ms (torch f32 {head['library_ms']:.3f}, bound "
+                  f"{head['bound_ms']:.3f}); {counts[0]} K8 launches, "
+                  f"{counts[1]} declined; kernels: {', '.join(kernels)}")
+            torch.cuda.empty_cache()
+        # the threshold: the fewest rows from which K8's head is faster at
+        # every size swept, over both heads
+        for name, _, d, v in K8_HEADS:
+            row = {}
+            for m in K8_SWEEP_ROWS:
+                row[m] = (k8_head_ms(m, d, v, seed, dev, True),
+                          k8_head_ms(m, d, v, seed, dev, False))
+                torch.cuda.empty_cache()
+            wins = [m for m in K8_SWEEP_ROWS
+                    if all(row[x][0] < row[x][1] for x in K8_SWEEP_ROWS
+                           if x >= m)]
+            res["sweep"][name] = {"rows": {str(m): {"k8_ms": a, "torch_ms": b}
+                                           for m, (a, b) in row.items()},
+                                  "k8_from_rows": wins[0] if wins else None}
+            print(f"K8 {name} sweep (rows: K8 / torch f32 ms): " + ", ".join(
+                f"{m}: {a:.3f}/{b:.3f}" for m, (a, b) in row.items()))
+        froms = [r["k8_from_rows"] for r in res["sweep"].values()]
+        res["threshold_rows"] = (None if None in froms else max(froms))
+        res["min_rows"] = k8_mod.MIN_ROWS
+        print(f"K8 shape rule: K8 wins from {res['threshold_rows']} rows "
+              f"(ops/f32_gemm.MIN_ROWS = {k8_mod.MIN_ROWS})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the LM's training and sampling
 # ---------------------------------------------------------------------------
 
@@ -3881,6 +4103,7 @@ def phase_lm_train(seed: int, dev):
                flash_block_bwd)
     for fn in kernels:
         fn.launches = 0
+    k8_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [float(lm.fit(x, y)) for x, y in batches]
@@ -3889,6 +4112,7 @@ def phase_lm_train(seed: int, dev):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     steps = LM_FITS + LM_MULTI
+    counts["tied_head"] = k8_path("lm_train", 3 * steps)["launches"]
     peak_abs = torch.cuda.max_memory_allocated()
     peak = peak_abs - held
     print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
@@ -4208,6 +4432,7 @@ def phase_bert(seed: int, dev):
                flash_block_bwd)
     for fn in kernels:
         fn.launches = 0
+    k8_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [mlm.fit(b) for b in batches]
@@ -4216,6 +4441,7 @@ def phase_bert(seed: int, dev):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     steps = BERT_FITS + BERT_MULTI
+    counts["tied_head"] = k8_path("bert_mlm", 3 * steps)["launches"]
     after = train_loss()
     print("MLM loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
           + f"; fit_batches' last: {last:.4f}; {steps} steps in {wall:.3f} "
@@ -7273,6 +7499,7 @@ def dist_moe(seed: int, dev):
                flash_block_bwd)
     for fn in kernels:
         fn.launches = 0
+    k8_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [float(lm.fit(x, y)) for x, y in batches]
@@ -7281,6 +7508,7 @@ def dist_moe(seed: int, dev):
     wall = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in kernels}
     steps = MOE_FITS + MOE_MULTI
+    counts["tied_head"] = k8_path("moe_train", 3 * steps)["launches"]
     peak = torch.cuda.max_memory_allocated() - held
     print("loss per fit: " + " ".join(f"{v:.4f}" for v in losses)
           + "; fit_batches: " + " ".join(f"{v:.4f}" for v in multi))
@@ -7361,30 +7589,38 @@ def dist_mesh_steps(seed: int, dev):
     kernels = (flash_attention, flash_bwd, flash_attention_plain,
                flash_block_bwd)
 
-    def run(step, p):
+    def run(step, p, path, k8_want):
         for fn in kernels:
             fn.launches = 0
+        k8_reset()
         out = step(p, lm_mod.init_opt_state(p), x, y)
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in kernels}
+        counts["tied_head"] = k8_path(path, k8_want)["launches"]
         ms_ = time_ms(lambda: step(p, lm_mod.init_opt_state(p), x, y),
                       iters=2, warmup=0)
         return out, counts, ms_
 
     mesh = device_mesh((1, 1, 1), ("data", "model", "expert"))
-    (p0, _, l0), c0, plain_ms = run(lm_mod.make_train_step(cfg), params)
+    # the head's three products a step, on each microbatch where the step
+    # accumulates; the world-1 model group keeps the head on K8
+    (p0, _, l0), c0, plain_ms = run(lm_mod.make_train_step(cfg), params,
+                                    "mesh_plain_step", 3)
     (p1, _, l1), c1, mega_ms = run(lm_mod.make_train_step(cfg, mesh),
-                                   lm_mod.shard_params(params, cfg, mesh))
+                                   lm_mod.shard_params(params, cfg, mesh),
+                                   "megatron_step", 3)
     equal = torch.equal(l0, l1) and all(
         torch.equal(a, b) for a, b in zip(lm_mod.tree_leaves(p0),
                                           lm_mod.tree_leaves(p1)))
     del p0, p1
     pipe = device_mesh((1,), ("pipe",))
     cfg_a = dataclasses.replace(cfg, accum_steps=MESH_MICRO)
-    (pa, _, la), ca, accum_ms = run(lm_mod.make_train_step(cfg_a), params)
+    (pa, _, la), ca, accum_ms = run(lm_mod.make_train_step(cfg_a), params,
+                                    "accumulation_step", 3 * MESH_MICRO)
     (pp, _, lp), cp, pipe_ms = run(lm_mod.make_pipeline_train_step(
         cfg, pipe, n_micro=MESH_MICRO), lm_mod.shard_params(params, cfg,
-                                                           pipe))
+                                                           pipe),
+        "pipeline_step", 3)
     pipe_err = max([abs(float(la) - float(lp))] + [
         (a - b).abs().max().item() for a, b in
         zip(lm_mod.tree_leaves(pa), lm_mod.tree_leaves(pp))])
@@ -9540,6 +9776,7 @@ def main(argv=None) -> int:
         errs.update(phase_kernels_sgns(args.seed, dev))
         errs.update(phase_kernels_ext(args.seed, dev))
         errs.update(phase_kernels_bwd(args.seed, dev))
+    k8 = phase_k8(args.seed, dev)
     cfg = TransformerConfig(vocab_size=8192, d_model=2048, n_layers=4,
                             n_heads=32, d_ff=8192, max_len=1024,
                             dtype_policy="performance", use_flash=True,
@@ -9837,6 +10074,24 @@ def main(argv=None) -> int:
                    "P recomputed in both; bf16 wgmma (P and dS from the "
                    "accumulators), f32 3xTF32 mma.sync m16n8k8; a 2-stage "
                    "cp.async ring; hidden tiles skipped"},
+        {"name": "f32_gemm", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/f32_gemm.cu",
+         "replaces": "none: the tied head's product, which the JAX package "
+                     "left to XLA (models/transformer.py _head, bert.py "
+                     "mlm_logits)",
+         "launches_per_path": dict(K8_PATHS),
+         "max_abs_err": max(r["max_err"] for r in k8["products"].values()),
+         "max_err_is": "of the largest entry, against the f64 product",
+         "tolerance": TOL_K8, "products": k8["products"],
+         "heads": k8["heads"], "sweep": k8["sweep"],
+         "threshold_rows": k8["threshold_rows"],
+         "min_rows": k8["min_rows"], "sass": sass["f32_gemm"],
+         "design": "3xTF32 on wgmma m64n128k8, A split in registers, B "
+                   "packed (hi, lo, swizzled K-major) by a pre-pass and "
+                   "bulk-copied; A by 16-byte cp.async from rows padded to "
+                   "16 bytes; a 4-stage mbarrier ring, two producer warps, "
+                   "two consumer warpgroups, persistent CTAs; each 32 of k "
+                   "summed on the tensor cores from zero, then in f32"},
     ]
     if args.out:
         report = {"card": card, "kind": kind, "kernels": kernels,

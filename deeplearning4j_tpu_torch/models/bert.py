@@ -63,6 +63,7 @@ from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
+from deeplearning4j_tpu_torch.ops.f32_gemm import tied_head
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     attention_auto,
     key_keep,
@@ -194,8 +195,9 @@ def encode(params: Params, tokens, cfg: BertConfig, key_mask=None):
 
 
 def mlm_logits(params: Params, tokens, cfg: BertConfig, key_mask=None):
-    """[N, T, V] through the tied embedding head."""
-    return encode(params, tokens, cfg, key_mask) @ params["embed"].T
+    """[N, T, V] through the tied embedding head (``ops/f32_gemm
+    .tied_head``: K8 on the card for f32 and enough rows)."""
+    return tied_head(encode(params, tokens, cfg, key_mask), params["embed"])
 
 
 def mlm_loss(params: Params, tokens, targets, weights, cfg: BertConfig):

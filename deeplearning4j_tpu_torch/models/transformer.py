@@ -95,6 +95,7 @@ from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
+from deeplearning4j_tpu_torch.ops.f32_gemm import tied_head
 from deeplearning4j_tpu_torch.ops.flash_attention import attention_auto
 from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.ops.remat import remat_wrap
@@ -402,11 +403,13 @@ def _final_ln(params: Params, h):
 
 
 def _head(params: Params, h, model=None):
-    """The tied head on the final LN's output: h @ embed.T in h's dtype.
-    Under ``model`` a rank holds d/p columns of ``embed``: its logits are
-    a partial sum over its columns, summed over the group."""
+    """The tied head on the final LN's output: h @ embed.T in h's dtype,
+    through ``ops/f32_gemm.tied_head`` (K8 on the card for an f32 h of
+    enough rows). Under ``model`` a rank holds d/p columns of ``embed``:
+    its logits are a partial sum over its columns, summed over the
+    group."""
     if group_size(model) == 1:
-        return h @ params["embed"].to(h.dtype).T
+        return tied_head(h, params["embed"].to(h.dtype))
     import torch.distributed as tdist
 
     dl = params["embed"].shape[1]
