@@ -333,7 +333,14 @@ What it does, in order (any failure raises and exits non-zero):
    its profile (K4, K7, GEMMs, Adam, other kernels, host gaps) and the
    phase's peak device memory; and one dense step's ms and peak memory
    by default, under ``DL4J_TPU_REMAT=dots``, ``=block`` and under
-   ``DL4J_TPU_BF16=1``;
+   ``DL4J_TPU_BF16=1``; then (``phase_mellum``) windowed K4 and K7 at a
+   Mellum 2 sliding layer (N 2, T 8192, H 32, D 128, window 1024, bf16)
+   against their plain versions (O 2e-2, lse 1e-3, each gradient 1e-2 of
+   its largest entry), timed beside ``scaled_dot_product_attention`` with
+   the window as a boolean mask, and one ``fit`` step of a 4-layer Mellum
+   2 at published widths with every counter zeroed before it: K4 8
+   launches (6 windowed), K7 4 (3), no plain attention version, K8 3 head
+   products and none declined, rows routed and none dropped;
 13. trains the BERT encoder at BERT-base widths (google-research/bert
    ``uncased_L-12_H-768_A-12``: vocab 30522, d_model 768, 12 layers, 12
    heads, d_ff 3072, max_len 512; pad 0, [MASK] 103; the repo's pre-LN
@@ -2899,7 +2906,7 @@ def k5_one_p(q, k, v):
     lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
     rc = lib.flash_attention_ext_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
-        lse.data_ptr(), n, tq, tk, h, d, *strides, 0, 1, q.device.index,
+        lse.data_ptr(), n, tq, tk, h, d, *strides, 0, 0, 1, q.device.index,
         flash_mod._stream(q.device))
     build.check(lib, rc, "flash_attention_block (one bf16 P)")
     return o, lse
@@ -4390,6 +4397,140 @@ def bert_kernel_times(batch, seed: int, dev):
               f"pairs), {gflop / ms:.1f} TFLOP/s")
     res["flash_attention_block"]["max_err_lse"] = el
     return res
+
+
+MELLUM_ATTN = (2, 8192, 32, 128, 1024)  # N, T, H, D, window: a sliding layer
+
+
+def window_mask(t: int, w: int, dev):
+    """[T, T] bool: key j visible to query i iff i - w < j <= i."""
+    i = torch.arange(t, device=dev)
+    return (i[None] <= i[:, None]) & (i[:, None] - i[None] < w)
+
+
+def phase_window_kernels(seed: int, dev) -> dict:
+    """Windowed K4 and K7 at the shape a Mellum 2 sliding layer gives
+    them (N 2, T 8192, H 32, D 128, window 1024, bf16) against their plain
+    versions on the same card inputs: O within 2e-2, lse within 1e-3, each
+    gradient within 1e-2 of its largest entry (the plain forward in head
+    blocks of 8, each a 4.3 GB score matrix). Then device ms a call of
+    each kernel and of ``scaled_dot_product_attention`` with the window
+    as a boolean mask, forward and backward."""
+    n, t, h, d, w = MELLUM_ATTN
+    print(f"== windowed K4/K7 at a Mellum sliding layer (N={n} T={t} H={h} "
+          f"D={d} W={w}, bf16) ==")
+    g = torch.Generator(device=dev).manual_seed(seed % 2**63)
+    q, k, v, cot = (torch.randn((n, t, h, d), generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=True, window=w)
+    err_o = err_lse = 0.0
+    for h0 in range(0, h, 8):
+        ro, rlse = flash_attention_plain(q[:, :, h0:h0 + 8], k[:, :, h0:h0 + 8],
+                                         v[:, :, h0:h0 + 8], causal=True,
+                                         window=w)
+        err_o = max(err_o, (o[:, :, h0:h0 + 8].float() - ro.float())
+                    .abs().max().item())
+        err_lse = max(err_lse, (lse[:, h0:h0 + 8] - rlse).abs().max().item())
+        del ro, rlse
+    got = flash_bwd(q, k, v, None, 0, o, lse, cot, window=w)
+    want = flash_block_bwd(q, k, v, None, 0, o, lse, cot, window=w)
+    err_g = [(a.float() - b.float()).abs().max().item()
+             / b.float().abs().max().item() for a, b in zip(got, want)]
+    del got, want
+    res = {"shape": f"N={n} T={t} H={h} D={d} W={w} bf16 causal",
+           "o_err": err_o, "lse_err": err_lse, "grad_err_of_largest": err_g}
+    print(f"windowed K4: O err {err_o:.3e} (2e-2), lse err {err_lse:.3e} "
+          f"(1e-3); K7: dq, dk, dv err {', '.join(f'{e:.3e}' for e in err_g)}"
+          " of each one's largest entry (1e-2)")
+    check(err_o < 2e-2 and err_lse < 1e-3,
+          "windowed K4 differs from its plain version")
+    check(all(e < 1e-2 for e in err_g),
+          "windowed K7 differs from its plain version")
+    torch.cuda.empty_cache()
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = window_mask(t, w, dev)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    res["k4_ms"] = device_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                     window=w), iters=10)
+    res["k7_ms"] = device_ms(lambda: flash_bwd(q, k, v, None, 0, o, lse, cot,
+                                               window=w), iters=10)
+    try:
+        with torch.no_grad():
+            res["sdpa_fwd_ms"] = device_ms(sdpa, iters=10)
+        out = sdpa()
+        gs = cot.transpose(1, 2).contiguous()
+        res["sdpa_bwd_ms"] = device_ms(
+            lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                        retain_graph=True), iters=5)
+        del out
+    except torch.cuda.OutOfMemoryError as e:
+        res["sdpa_error"] = f"out of memory: {e}"[:200]
+    print(f"device ms a call: K4 {res['k4_ms']:.4f}, SDPA with the window "
+          f"as a boolean mask {res.get('sdpa_fwd_ms')}; K7 "
+          f"{res['k7_ms']:.4f}, SDPA's backward {res.get('sdpa_bwd_ms')}"
+          + (f"; {res['sdpa_error']}" if "sdpa_error" in res else ""))
+    del q, k, v, cot, qs, ks, vs, o, lse, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mellum(seed: int, dev) -> dict:
+    """The windowed kernels against their plain versions
+    (:func:`phase_window_kernels`), then one training step of a Mellum 2
+    block at its published widths (4 layers in the 3 : 1 sliding : full
+    pattern, 2 x 2048 tokens, the whole vocabulary, 8 held experts of 64)
+    through ``TransformerLM.fit``, every counter zeroed just before it:
+    K4 twice a layer (the forward and the block checkpoint's recompute),
+    windowed on the sliding layers, K7 once a layer; no plain attention
+    version; K8 three head products (the untied head's 4,096 rows), none
+    declined; the expert layer's rows, none dropped."""
+    window = phase_window_kernels(seed, dev)
+    print("== one Mellum 2 step: windowed K4/K7, the held experts ==")
+    from perfbench import programs_moe, weights_mellum
+
+    with open(os.path.join(REPO_ROOT, "perfbench", "configs",
+                           "mellum2-12b-ep8.json")) as f:
+        model = dict(json.load(f)["model"])
+    kinds = model["layer_types"][:4]
+    model.update(n_layers=4, layer_types=kinds, max_len=2048)
+    lm = programs_moe.mellum_lm(model, seed, dev,
+                                weights_mellum.make(model, seed, dev))
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, model["vocab_size"], (2, 2049), generator=g)
+    ids = ids.to(dev)
+    kernels = (flash_attention, flash_attention_plain, flash_bwd,
+               flash_block_bwd, flash_attention_block,
+               flash_attention_block_plain)
+    for fn in kernels:
+        fn.launches = fn.windowed = 0
+    k8_reset()
+    routed0 = programs_moe.routed_rows()
+    loss = float(lm.fit(ids[:, :-1], ids[:, 1:]))
+    torch.cuda.synchronize()
+    counts = {fn.__name__: {"launches": fn.launches,
+                            "windowed": fn.windowed} for fn in kernels}
+    counts["tied_head"] = k8_path("mellum_train", 3)["launches"]
+    sliding = sum(k == "sliding_attention" for k in kinds)
+    rep = {"loss": loss, "launches": counts, "sliding_layers": sliding,
+           "routed_rows": programs_moe.routed_rows() - routed0,
+           "dropped_rows": programs_moe.dropped_rows(),
+           "window_kernels": window}
+    print(f"Mellum step: loss {loss:.4f}, {rep}")
+    check(np.isfinite(loss), "the Mellum step's loss is not finite")
+    check(counts["flash_attention"] == {"launches": 8,
+                                        "windowed": 2 * sliding},
+          "K4 did not launch twice a layer, windowed on the sliding ones")
+    check(counts["flash_bwd"] == {"launches": 4, "windowed": sliding},
+          "K7 did not launch once a layer, windowed on the sliding ones")
+    check(all(counts[fn.__name__] == {"launches": 0, "windowed": 0}
+              for fn in kernels[1:2] + kernels[3:]),
+          "a plain attention version or K5 ran in the Mellum step")
+    check(rep["routed_rows"] > 0 and rep["dropped_rows"] == 0,
+          "the held experts computed no row, or a row was dropped")
+    del lm
+    torch.cuda.empty_cache()
+    return rep
 
 
 def phase_bert(seed: int, dev):
@@ -9823,6 +9964,7 @@ def main(argv=None) -> int:
     _, lm_counts, lm_train = phase_lm_train(args.seed, dev)
     peak_lm = max(lm_train["peak_abs_bytes"],
                   torch.cuda.max_memory_allocated())
+    mellum = phase_mellum(args.seed, dev)
     bert_counts, bert_times, bert = phase_bert(args.seed, dev)
     peak_bert = torch.cuda.max_memory_allocated()
     cnn_counts, cnn = phase_cnn_zoo(args.seed, dev)
@@ -10100,7 +10242,8 @@ def main(argv=None) -> int:
                   "predict": predict, "train": train,
                   "word2vec": word2vec, "ring": ring,
                   "ring_train": ring_train, "mha_train": mha,
-                  "lm_train": lm_train, "bert": bert, "cnn_zoo": cnn,
+                  "lm_train": lm_train, "mellum": mellum, "bert": bert,
+                  "cnn_zoo": cnn,
                   "graph": graph, "embed": embed, "search": search,
                   "obs": obs_rep, "runtime": runtime,
                   "distributed": distributed, "fleet": fleet,

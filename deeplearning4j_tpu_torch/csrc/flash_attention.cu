@@ -17,7 +17,9 @@
 // every prefill bucket width (96, 192, ...) runs through it — the TPU
 // kernel needed T % 128 == 0 and the JAX package fell back to dense XLA
 // below that. This is K5's launch with no key bias and offset 0 (causal)
-// or T (full), so K4 and K5 give the same bits on the same inputs.
+// or T (full), so K4 and K5 give the same bits on the same inputs. A
+// window win > 0 (causal only) hides keys with qi - ki >= win: a
+// sliding-window layer; 0 is none.
 
 // csrc/flash_attention_ext.cu
 extern "C" int flash_attention_ext_fwd(
@@ -25,7 +27,7 @@ extern "C" int flash_attention_ext_fwd(
     void* lse, int N, int Tq, int Tk, int H, int D, long long q_sn,
     long long q_st, long long q_sh, long long k_sn, long long k_st,
     long long k_sh, long long v_sn, long long v_st, long long v_sh, int off,
-    int dtype, int device, void* stream);
+    int win, int dtype, int device, void* stream);
 
 // dtype codes: 0 = float32, 1 = bfloat16. o must be a contiguous
 // [N,T,H,D] buffer of q's dtype, lse a contiguous [N,H,T] float32 one.
@@ -35,10 +37,10 @@ extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int N,
     int T_len, int H, int D, long long q_sn, long long q_st, long long q_sh,
     long long k_sn, long long k_st, long long k_sh, long long v_sn,
-    long long v_st, long long v_sh, int causal, int dtype, int device,
-    void* stream) {
+    long long v_st, long long v_sh, int causal, int win, int dtype,
+    int device, void* stream) {
   return flash_attention_ext_fwd(q, k, v, nullptr, o, lse, N, T_len, T_len,
                                  H, D, q_sn, q_st, q_sh, k_sn, k_st, k_sh,
-                                 v_sn, v_st, v_sh, causal ? 0 : T_len, dtype,
-                                 device, stream);
+                                 v_sn, v_st, v_sh, causal ? 0 : T_len, win,
+                                 dtype, device, stream);
 }

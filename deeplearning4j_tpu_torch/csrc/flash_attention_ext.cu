@@ -15,7 +15,10 @@
 // -inf masks it; shared by the heads) and a host integer off. Key ki is
 // visible to query qi iff qi + off >= ki: off = 0 is causal, off >= Tk
 // shows every key, off <= -Tq hides every key (a ring step whose K/V
-// shard lies wholly in the future). Outputs O [N,Tq,H,D] in q's dtype and
+// shard lies wholly in the future). A window win > 0 also hides key ki
+// from query qi where qi + off - ki >= win (a sliding-window layer); win
+// = 0 is none, and launches the kernels compiled without the test.
+// Outputs O [N,Tq,H,D] in q's dtype and
 // lse [N,H,Tq] f32; a row with no visible key gives O = 0 and lse = -inf
 // exactly. Any Tq and Tk (the TPU kernel needed both % 128).
 
@@ -24,7 +27,8 @@
 // dtype codes: 0 = float32, 1 = bfloat16. kb is a contiguous [N,Tk]
 // float32 bias or null (no bias). o must be a contiguous [N,Tq,H,D]
 // buffer of q's dtype, lse a contiguous [N,H,Tq] float32 one. off must
-// lie in [-Tq, Tk] (the caller clamps it: the function does not change).
+// lie in [-Tq, Tk] (the caller clamps it: the function does not change);
+// win >= 0.
 // Returns the CUDA error of the launch (0 = success); an unsupported head
 // size or dtype returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_ext_fwd(
@@ -32,13 +36,14 @@ extern "C" int flash_attention_ext_fwd(
     void* lse, int N, int Tq, int Tk, int H, int D, long long q_sn,
     long long q_st, long long q_sh, long long k_sn, long long k_st,
     long long k_sh, long long v_sn, long long v_st, long long v_sh, int off,
-    int dtype, int device, void* stream) {
+    int win, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (N == 0 || H == 0 || Tq == 0) return 0;
-  if (off < -Tq || off > Tk) return static_cast<int>(cudaErrorInvalidValue);
+  if (off < -Tq || off > Tk || win < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const flash::Params a{q, k, v, static_cast<const float*>(kb), o,
-                        static_cast<float*>(lse), N, Tq, Tk, H, off,
+                        static_cast<float*>(lse), N, Tq, Tk, H, off, win,
                         flash::Strides{q_sn, q_st, q_sh},
                         flash::Strides{k_sn, k_st, k_sh},
                         flash::Strides{v_sn, v_st, v_sh}};

@@ -12,7 +12,8 @@
 // dtype, contiguous, 16-byte aligned), lse [N,H,Tq] f32 from the forward,
 // an optional lse cotangent glse [N,H,Tq] f32, an optional additive key
 // bias kb [N,Tk] f32 (0 keeps, -inf masks) and a host integer off in
-// [-Tq, Tk] (key ki is visible to query qi iff qi + off >= ki). With
+// [-Tq, Tk] (key ki is visible to query qi iff qi + off >= ki, and, with
+// a window win > 0, qi + off - ki < win). With
 // s = q.k / sqrt(D) + kb:
 //   Dvec = rowsum(dO * O) - glse,   P = exp(s - lse) (0 where hidden),
 //   dV = P^T dO,   dS = P * (dO V^T - Dvec) / sqrt(D),
@@ -74,6 +75,11 @@
 //    diagonal tile and the ragged ends run the per-element test; the bias
 //    is added everywhere (exp2(-inf) = 0). The heaviest tiles launch
 //    first: the latest q tiles (dQ pass), the earliest key tiles (dK/dV).
+//  * a window is a template parameter, as in the forward: with none the
+//    passes compile to the code above. With one, a q tile starts at the
+//    first key tile its first row's window reaches (dQ), a key tile stops
+//    at the last q tile that sees its last key (dK/dV), and only tiles the
+//    window cuts for some row of a group test each element.
 //  * probabilities in log2 units (scores scaled by log2(e) / sqrt(D),
 //    lse and the bias by log2(e)), exp2 on the SFU, as in the forward.
 
@@ -106,6 +112,7 @@ struct Params {
   void* dv;
   float* dvec;  // [N,H,Tq] workspace: rowsum(dO * O) - glse
   int N, Tq, Tk, H, off;
+  int win;           // 0: no window; else qi + off - ki >= win is hidden
   float scale;       // 1 / sqrt(D)
   float scale_log2;  // log2(e) / sqrt(D)
 };
@@ -323,7 +330,7 @@ constexpr int min_blocks() {
 // the dQ pass: a CTA per (n*h, q tile of NT / 2 rows); writes Dvec
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int NT>
+template <typename T, int D, int NT, bool WIN>
 __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
     flash_bwd_dq(const Params p) {
   using SH = Shape<T, D, NT>;
@@ -367,26 +374,33 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
   const int n_kt = k_end > 0 ? (k_end + KB - 1) / KB : 0;
   const int k_end_g =
       q0g < p.Tq ? min(p.Tk, min(q0g + G - 1, p.Tq - 1) + p.off + 1) : 0;
+  // the window: the first key tile the tile's first row reaches; keys
+  // before k_beg_g are outside every row's window of the group, from
+  // k_open_g on inside every row's
+  const int kt0 = WIN ? max(0, q0 + p.off - p.win + 1) / KB : 0;
+  const int k_beg_g = WIN ? q0g + p.off - p.win + 1 : 0;
+  const int k_open_g = WIN ? q0g + G + p.off - p.win : 0;
 
-  // K, V and the bias of key tile j into ring stage j % S
+  // K, V and the bias of key tile j into ring stage (j - kt0) % S
   auto load_kv = [&](int j) {
-    const uint32_t st = j % S * SH::kTile;
+    const uint32_t ss = (j - kt0) % S;
+    const uint32_t st = ss * SH::kTile;
     load_tile<D, KB, NT>(gsm + SH::kX + st, ssm + SH::kX + st, kbase, hd,
                          j * KB, p.Tk, true, tid);
     load_tile<D, KB, NT>(gsm + SH::kY + st, ssm + SH::kY + st, vbase, hd,
                          j * KB, p.Tk, true, tid);
     if (bias != nullptr && tid < KB) {
       const int ki = j * KB + tid;
-      cp_async4(ssm + SH::kF + (j % S * KB + tid) * 4,
+      cp_async4(ssm + SH::kF + (ss * KB + tid) * 4,
                 bias + (ki < p.Tk ? ki : 0), ki < p.Tk);
     }
   };
-  if (n_kt > 0) {
+  if (n_kt > kt0) {
     load_tile<D, R, NT>(gsm + SH::kA, ssm + SH::kA, qb, hd, q0, p.Tq, true,
                         tid);
     load_tile<D, R, NT>(gsm + SH::kB, ssm + SH::kB, gb, hd, q0, p.Tq, true,
                         tid);
-    load_kv(0);
+    load_kv(kt0);
   }
   cp_async_commit();
   row_terms<T, D, R, NT>(p, n, h, q0, sL, sD);
@@ -401,9 +415,9 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * KB;
-    const uint32_t stage = kt % S;
+    const uint32_t stage = (kt - kt0) % S;
     // tile kt has landed for every thread, and every group is done with
     // tile kt - 1, whose stage the next copy fills
     cp_async_wait<0>();
@@ -412,6 +426,7 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
     if (kt + 1 < n_kt) load_kv(kt + 1);
     cp_async_commit();
     if (k0 >= k_end_g) continue;  // no row of this group sees the tile
+    if (WIN && k0 + KB <= k_beg_g) continue;  // outside every window
     const float* sb = sBias + stage * KB;
     if (bias != nullptr) {
       // a key tile the bias masks whole adds nothing; every warp reads
@@ -451,7 +466,8 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
 
     // P, then dS, in the accumulators; the per-element test only where
     // some key of the tile is hidden from some row of the group or past Tk
-    const bool open = k0 + KB <= p.Tk && k0 + KB - 1 <= q0g + p.off;
+    const bool open = k0 + KB <= p.Tk && k0 + KB - 1 <= q0g + p.off &&
+                      (!WIN || k0 >= k_open_g);
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
@@ -460,7 +476,9 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
                      bias != nullptr ? fmaf(sb[c], kLog2e, -lr[r]) : -lr[r]);
       if (!open) {
         const int ki = k0 + c;
-        if (ki >= p.Tk || row0 + 8 * r + p.off < ki) x = -INFINITY;
+        const int qo = row0 + 8 * r + p.off;
+        if (ki >= p.Tk || qo < ki || (WIN && qo - ki >= p.win))
+          x = -INFINITY;
       }
       s[i] = ex2(x);
     }
@@ -496,7 +514,7 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, false>()))
 // the dK/dV pass: a CTA per (n*h, key tile of NT / 2 keys); reads Dvec
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, int NT>
+template <typename T, int D, int NT, bool WIN>
 __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
     flash_bwd_dkdv(const Params p) {
   using SH = Shape<T, D, NT>;
@@ -551,7 +569,10 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
   // rows before q_begin see none of the CTA's keys
   const int q_begin = max(0, k0 - p.off);
   const int qt0 = q_begin / KB;
-  const int n_qt = q_begin < p.Tq ? (p.Tq + KB - 1) / KB - qt0 : 0;
+  // rows from q_end on see none of them through the window
+  const int q_end =
+      WIN ? min(p.Tq, min(k0 + R, p.Tk) - 1 - p.off + p.win) : p.Tq;
+  const int n_qt = q_begin < q_end ? (q_end + KB - 1) / KB - qt0 : 0;
   // keys that every row misses or the bias masks: dK = dV = 0, nothing
   // loaded
   if (!__syncthreads_or(live_g && n_qt > 0)) {
@@ -595,6 +616,8 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
     cp_async_commit();
     // a group whose keys are all masked, or that no row of the tile sees
     if (!live_g || q0t + KB - 1 + p.off < k0g) continue;
+    // a group whose last key is outside the window of the tile's first row
+    if (WIN && q0t + p.off - (k0g + G - 1) >= p.win) continue;
     const uint32_t xs = SH::kX + stage * SH::kTile;  // Q
     const uint32_t ys = SH::kY + stage * SH::kTile;  // dO
     const float* lq = sLq + stage * KB;
@@ -625,7 +648,8 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
     // P^T in the accumulator; the per-element test only on the diagonal
     // and the ragged ends
     const bool open = k0g + G <= p.Tk && q0t + KB <= p.Tq &&
-                      q0t + p.off >= k0g + G - 1;
+                      q0t + p.off >= k0g + G - 1 &&
+                      (!WIN || q0t + KB - 1 + p.off - k0g < p.win);
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
@@ -633,7 +657,9 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
       float x = fmaf(st[i], p.scale_log2, bk[r] - lse_log2(lq[c]));
       if (!open) {
         const int ki = key0 + 8 * r, qi = q0t + c;
-        if (ki >= p.Tk || qi >= p.Tq || qi + p.off < ki) x = -INFINITY;
+        if (ki >= p.Tk || qi >= p.Tq || qi + p.off < ki ||
+            (WIN && qi + p.off - ki >= p.win))
+          x = -INFINITY;
       }
       st[i] = ex2(x);
     }
@@ -690,14 +716,14 @@ __global__ void __launch_bounds__(NT, (min_blocks<T, D, NT, true>()))
 // ---------------------------------------------------------------------------
 
 // one pass at NT threads a CTA over `len` rows (q rows or keys)
-template <typename T, int D, int NT, bool DKDV>
+template <typename T, int D, int NT, bool DKDV, bool WIN>
 cudaError_t launch_pass(const Params& p, int len, int device,
                         cudaStream_t stream) {
   using SH = Shape<T, D, NT>;
   const int bytes = static_cast<int>(SH::kBytes) + 1024;  // + alignment
   void (*kernel)(const Params);
-  if constexpr (DKDV) kernel = flash_bwd_dkdv<T, D, NT>;
-  else kernel = flash_bwd_dq<T, D, NT>;
+  if constexpr (DKDV) kernel = flash_bwd_dkdv<T, D, NT, WIN>;
+  else kernel = flash_bwd_dq<T, D, NT, WIN>;
   static bool done[64] = {};
   cudaError_t err = set_smem(kernel, bytes, device, done);
   if (err != cudaSuccess) return err;
@@ -709,26 +735,33 @@ cudaError_t launch_pass(const Params& p, int len, int device,
 // 128-row CTAs where the sequence has the rows, else 64; bf16 dK/dV
 // always 64 keys a CTA (one warpgroup: three CTAs an SM fit where two
 // warpgroups' 128 keys fit one)
-template <typename T, int D, bool DKDV>
+template <typename T, int D, bool DKDV, bool WIN>
 cudaError_t launch_rows(const Params& p, int len, int device,
                         cudaStream_t stream) {
   if constexpr (DKDV && !std::is_same<T, float>::value)
-    return launch_pass<T, D, 128, DKDV>(p, len, device, stream);
+    return launch_pass<T, D, 128, DKDV, WIN>(p, len, device, stream);
   else
-    return len > 64 ? launch_pass<T, D, 256, DKDV>(p, len, device, stream)
-                    : launch_pass<T, D, 128, DKDV>(p, len, device, stream);
+    return len > 64
+               ? launch_pass<T, D, 256, DKDV, WIN>(p, len, device, stream)
+               : launch_pass<T, D, 128, DKDV, WIN>(p, len, device, stream);
+}
+
+template <typename T, int D, bool WIN>
+cudaError_t launch_win(const Params& p, int device, cudaStream_t stream) {
+  // the dQ pass first: it writes Dvec, which the dK/dV pass reads
+  if (p.Tq > 0) {
+    const cudaError_t err =
+        launch_rows<T, D, false, WIN>(p, p.Tq, device, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (p.Tk == 0) return cudaSuccess;
+  return launch_rows<T, D, true, WIN>(p, p.Tk, device, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
-  // the dQ pass first: it writes Dvec, which the dK/dV pass reads
-  if (p.Tq > 0) {
-    const cudaError_t err =
-        launch_rows<T, D, false>(p, p.Tq, device, stream);
-    if (err != cudaSuccess) return err;
-  }
-  if (p.Tk == 0) return cudaSuccess;
-  return launch_rows<T, D, true>(p, p.Tk, device, stream);
+  return p.win > 0 ? launch_win<T, D, true>(p, device, stream)
+                   : launch_win<T, D, false>(p, device, stream);
 }
 
 template <typename T>
@@ -751,27 +784,28 @@ cudaError_t launch_d(const Params& p, int D, int device,
 // their [N,T,H,D] shapes and 16-byte aligned; dq, dk, dv contiguous
 // buffers of their shapes in the same dtype; lse, glse (or null), dvec
 // contiguous [N,H,Tq] f32; kb a contiguous [N,Tk] f32 bias or null; off in
-// [-Tq, Tk] (the caller clamps it). Two launches, dQ then dK/dV, on
-// `stream`. Returns the CUDA error of the launches (0 = success); an
-// unsupported head size or dtype returns cudaErrorInvalidValue without
-// launching.
+// [-Tq, Tk] (the caller clamps it); win >= 0 (0: no window). Two
+// launches, dQ then dK/dV, on `stream`. Returns the CUDA error of the
+// launches (0 = success); an unsupported head size or dtype returns
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* lse, const void* glse, const void* kb,
     void* dq, void* dk, void* dv, void* dvec, int N, int Tq, int Tk, int H,
-    int D, int off, int dtype, int device, void* stream) {
+    int D, int off, int win, int dtype, int device, void* stream) {
   using flash::bwd::launch_d;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (N == 0 || H == 0 || (Tq == 0 && Tk == 0)) return 0;
-  if (off < -Tq || off > Tk) return static_cast<int>(cudaErrorInvalidValue);
+  if (off < -Tq || off > Tk || win < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   flash::bwd::Params p{q, k, v, o, g,
                        static_cast<const float*>(lse),
                        static_cast<const float*>(glse),
                        static_cast<const float*>(kb), dq, dk, dv,
-                       static_cast<float*>(dvec), N, Tq, Tk, H, off, scale,
-                       scale * flash::tc::kLog2e};
+                       static_cast<float*>(dvec), N, Tq, Tk, H, off, win,
+                       scale, scale * flash::tc::kLog2e};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) err = launch_d<float>(p, D, device, s);
   else if (dtype == 1) err = launch_d<__nv_bfloat16>(p, D, device, s);

@@ -12,11 +12,12 @@
 // strides (the D axis contiguous), an optional additive key bias kb
 // [N,Tk] f32 shared by the heads (0 keeps a key, -inf masks it) and a host
 // integer off in [-Tq, Tk]: key ki is visible to query qi iff qi + off >=
-// ki. Scores q.k / sqrt(D) + kb, online softmax in f32. Outputs O
-// [N,Tq,H,D] in q's dtype and lse [N,H,Tq] f32. A row with no visible key
-// gives O = 0 and lse = -inf exactly (the ring combiner weighs a block by
-// exp(lse - max lse), so -inf must weigh nothing). Ragged Tq and Tk are
-// masked here.
+// ki, and, with a window win > 0, qi + off - ki < win (a sliding window:
+// each row sees its last win keys). Scores q.k / sqrt(D) + kb, online
+// softmax in f32. Outputs O [N,Tq,H,D] in q's dtype and lse [N,H,Tq]
+// f32. A row with no visible key gives O = 0 and lse = -inf exactly (the
+// ring combiner weighs a block by exp(lse - max lse), so -inf must weigh
+// nothing). Ragged Tq and Tk are masked here.
 //
 // What bounds it on the H100: at the ring's local shape (T=4096, H=8,
 // D=64, causal) and the masked layer's (T=2048) the products, ~1000 flops
@@ -65,6 +66,12 @@
 //    of its rows can see, and a q tile with no visible key writes O = 0,
 //    lse = -inf without loading K or V. q tiles are launched latest
 //    (heaviest under a causal offset) first.
+//  * a window is a template parameter: a launch with none compiles to the
+//    code above, with no window test anywhere. With one, a q tile starts
+//    at the first key tile its first row's window reaches, and only the
+//    tiles the window cuts for some row of a warpgroup test each element,
+//    so a sliding layer multiplies about T * (win + 64) pairs a head, not
+//    T^2 / 2.
 //  * the softmax works in log2 units (scores scaled by log2(e) / sqrt(D),
 //    exp2), keeps per-thread partial row sums and reduces them once at
 //    the end.
@@ -106,6 +113,7 @@ struct Params {
   void* o;
   float* lse;
   int N, Tq, Tk, H, off;
+  int win;  // 0: no window; else keys with qi + off - ki >= win are hidden
   Strides sq, sk, sv;
 };
 
@@ -137,8 +145,9 @@ struct Smem {
 // One q tile of 64 * NWG rows of head (n, h): NWG consumer warpgroups of
 // 64 rows each share the K/V ring. aligned: bit 0/1/2 when q/k/v may be
 // copied 16 bytes at a time. T is the element type (bf16: wgmma; f32:
-// 3xTF32 mma.sync); masking, the softmax and the ring are shared.
-template <typename T, int D, int NWG>
+// 3xTF32 mma.sync); masking, the softmax and the ring are shared. WIN:
+// p.win > 0 (a sliding window), else p.win is never read.
+template <typename T, int D, int NWG, bool WIN>
 __device__ __forceinline__ void attend(const Params& p, const int n,
                                        const int h, const int q0,
                                        const int aligned,
@@ -162,10 +171,16 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
   const int q_last = min(q0 + BQ, p.Tq) - 1;
   const int k_end = min(p.Tk, q_last + p.off + 1);   // exclusive; may be <= 0
   const int n_kt = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
+  // the first key tile the window of the tile's first row reaches
+  const int kt0 = WIN ? max(0, q0 + p.off - p.win + 1) / kBlockK : 0;
   // this warpgroup's rows and the keys they can see
   const int q0w = q0 + 64 * wg;
   const int k_end_w =
       q0w < p.Tq ? min(p.Tk, min(q0w + 63, p.Tq - 1) + p.off + 1) : 0;
+  // keys before k_beg_w are outside every row's window of the warpgroup;
+  // from k_open_w on, inside every row's
+  const int k_beg_w = WIN ? q0w + p.off - p.win + 1 : 0;
+  const int k_open_w = WIN ? q0w + 64 + p.off - p.win : 0;
   const int row0 = q0w + warp * 16 + (lane >> 2);    // rows row0, row0 + 8
 
   const T* qb = static_cast<const T*>(p.q) + n * p.sq.n + h * p.sq.h;
@@ -179,26 +194,26 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
 
-  // K and V of key tile j into ring stage j % S (one commit group)
+  // K and V of key tile j into ring stage (j - kt0) % S (one commit group)
   auto load_kv = [&](int j) {
-    const uint32_t st = j % S * SM::kTile;
+    const uint32_t st = (j - kt0) % S * SM::kTile;
     load_tile<D, kBlockK, NT>(gsm + SM::kK + st, ssm + SM::kK + st, kbase,
                               p.sk.t, j * kBlockK, p.Tk, aligned & 2, tid);
     load_tile<D, kBlockK, NT>(gsm + SM::kV + st, ssm + SM::kV + st, vbase,
                               p.sv.t, j * kBlockK, p.Tk, aligned & 4, tid);
   };
-  if (n_kt > 0) {
+  if (n_kt > kt0) {
     load_tile<D, BQ, NT>(gsm + SM::kQ, ssm + SM::kQ, qb, p.sq.t, q0, p.Tq,
                          aligned & 1, tid);
 #pragma unroll
-    for (int j = 0; j < S - 1; ++j) {  // tiles 0 .. S-2 in flight
-      if (j < n_kt) load_kv(j);
+    for (int j = 0; j < S - 1; ++j) {  // tiles kt0 .. kt0+S-2 in flight
+      if (kt0 + j < n_kt) load_kv(kt0 + j);
       cp_async_commit();
     }
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
-    const uint32_t stage = kt % S;
+    const uint32_t stage = (kt - kt0) % S;
     // a key tile whose every key the bias masks adds nothing to any row
     // (every p is 0 and the rescale is by 2^0): its bias is read here,
     // under the barrier's wait, and the tile is skipped below (a length
@@ -218,6 +233,7 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
     if (kt + S - 1 < n_kt) load_kv(kt + S - 1);
     cp_async_commit();
     if (k0 >= k_end_w) continue;  // no row of this warpgroup sees the tile
+    if (WIN && k0 + kBlockK <= k_beg_w) continue;  // outside every window
     // every warp of the CTA reads the same keys, so the vote is the same
     // in the four warps of a warpgroup
     if (!__any_sync(0xffffffffu, live)) continue;
@@ -255,7 +271,8 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
     // scores in log2 units; the per-element test only where some key of
     // the tile is hidden from some row of the warpgroup, or biased
     const bool open = bias == nullptr && k0 + kBlockK <= p.Tk &&
-                      k0 + kBlockK - 1 <= q0w + p.off;
+                      k0 + kBlockK - 1 <= q0w + p.off &&
+                      (!WIN || k0 >= k_open_w);
     if (open) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) s[i] *= scale_log2;
@@ -272,7 +289,8 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
       for (int i = 0; i < NS; ++i) {
         const int kj = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
         const int qi = row0 + 8 * ((i >> 1) & 1);
-        s[i] = kj < p.Tk && qi + p.off >= kj
+        s[i] = kj < p.Tk && qi + p.off >= kj &&
+                       (!WIN || qi + p.off - kj < p.win)
                    ? fmaf(s[i], scale_log2, bb[2 * (i >> 2) + (i & 1)])
                    : -INFINITY;
       }
@@ -386,14 +404,14 @@ __device__ __forceinline__ void attend(const Params& p, const int n,
 
 // One CTA per (n*h, q tile); the latest q tiles (the heaviest under a
 // causal offset) are launched first.
-template <typename T, int D, int NWG>
+template <typename T, int D, int NWG, bool WIN>
 __global__ void __launch_bounds__(NWG * 128, D <= 64 ? 2 : 1)
     flash_fwd_tc(const Params p, const int aligned, const float scale_log2) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
-  attend<T, D, NWG>(p, blockIdx.x / p.H, blockIdx.x % p.H,
+  attend<T, D, NWG, WIN>(p, blockIdx.x / p.H, blockIdx.x % p.H,
                     (gridDim.y - 1 - blockIdx.y) * Smem<T, D, NWG>::kBlockQ,
                     aligned, scale_log2, smem_raw + pad, raw + pad);
 }
@@ -406,29 +424,35 @@ int aligned16(const void* ptr, const Strides& s) {
          s.t % e == 0 && s.h % e == 0;
 }
 
-template <typename T, int D, int NWG>
+template <typename T, int D, int NWG, bool WIN>
 cudaError_t launch(const Params& a, int device, cudaStream_t stream) {
   using SM = Smem<T, D, NWG>;
   const int bytes = static_cast<int>(SM::kBytes) + 1024;  // + alignment
   static bool done[64] = {};
   const cudaError_t err =
-      set_smem(flash_fwd_tc<T, D, NWG>, bytes, device, done);
+      set_smem(flash_fwd_tc<T, D, NWG, WIN>, bytes, device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.N * a.H, (a.Tq + SM::kBlockQ - 1) / SM::kBlockQ);
   const int aligned = aligned16<T>(a.q, a.sq) |
                       aligned16<T>(a.k, a.sk) << 1 |
                       aligned16<T>(a.v, a.sv) << 2;
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_fwd_tc<T, D, NWG><<<grid, NWG * 128, bytes, stream>>>(a, aligned,
-                                                              scale_log2);
+  flash_fwd_tc<T, D, NWG, WIN><<<grid, NWG * 128, bytes, stream>>>(
+      a, aligned, scale_log2);
   return cudaSuccess;
+}
+
+template <typename T, int D, bool WIN>
+cudaError_t launch_win(const Params& a, int device, cudaStream_t stream) {
+  // two consumer warpgroups (a 128-row q tile) where Tq has the rows
+  return a.Tq > 64 ? launch<T, D, 2, WIN>(a, device, stream)
+                   : launch<T, D, 1, WIN>(a, device, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_rows(const Params& a, int device, cudaStream_t stream) {
-  // two consumer warpgroups (a 128-row q tile) where Tq has the rows
-  return a.Tq > 64 ? launch<T, D, 2>(a, device, stream)
-                   : launch<T, D, 1>(a, device, stream);
+  return a.win > 0 ? launch_win<T, D, true>(a, device, stream)
+                   : launch_win<T, D, false>(a, device, stream);
 }
 
 template <typename T>

@@ -73,15 +73,29 @@ the JAX package's dispatch and combine by index
 (``parallel/expert_parallel.moe_ffn``); its expert products are
 ``torch.bmm``.
 
+An :class:`ExtendedConfig` is the Mellum 2 block, which the JAX package
+does not have (GQA, RoPE with YaRN on full layers, sliding-window layers
+through a windowed K4/K7, RMSNorm, an untied f32 head, SwiGLU experts of
+which this device holds a share, routed with no capacity): it sends
+:func:`forward` to :func:`_forward_extended`, whose docstrings hold the
+equations. Training and inference on one device take it; the decode,
+serving, sequence-parallel, Megatron and pipeline paths refuse it
+(:func:`refuse_extended`).
+
 Steps are plain functions over the params dict, returning ``(params,
 opt, loss)``; every scalar of the schedule, Adam's bias correction and
 the loss scale stays a 0-d tensor on the device, so a step never waits
 for the host. The multi step is a Python loop over K. A step returns new
-param and moment tensors (it updates nothing its caller passed in).
+param and moment tensors (it updates nothing its caller passed in),
+except where a second copy of the optimizer's state would not fit on the
+device: then Adam writes into the tensors it is given
+(:func:`_adam_in_place`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -96,7 +110,10 @@ from deeplearning4j_tpu_torch.ops import lowprec
 from deeplearning4j_tpu_torch.ops.device import resolve_device
 from deeplearning4j_tpu_torch.ops.dtypes import softmax_dtype
 from deeplearning4j_tpu_torch.ops.f32_gemm import tied_head
-from deeplearning4j_tpu_torch.ops.flash_attention import attention_auto
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    attention_auto,
+    flash_attention_plain,
+)
 from deeplearning4j_tpu_torch.ops.lowprec import tree_leaves, tree_map
 from deeplearning4j_tpu_torch.ops.remat import remat_wrap
 from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
@@ -156,11 +173,90 @@ class TransformerConfig:
                 else torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExtendedConfig(TransformerConfig):
+    """A :class:`TransformerConfig` (the JAX package's fields) of the
+    Mellum 2 block, which :func:`_forward_extended` runs: pre-RMSNorm,
+    RoPE on q and k (YaRN on the full layers with ``rope_yarn``), GQA,
+    sliding-window and full layers, SwiGLU experts of which this device
+    holds a share, routed with no capacity, and an untied f32 head. The
+    fields below are its options; every ``ExtendedConfig`` takes that
+    path, and a :class:`TransformerConfig` never does."""
+
+    head_dim: int = 0          # 0: d_model // n_heads
+    n_kv_heads: int = 0        # 0: n_heads; fewer: GQA
+    norm_eps: float = 1e-6     # the RMSNorm eps (rms_norm_eps)
+    rope_theta: float = 0.0    # the rotation's base: must be set (> 0)
+    # YaRN on the full layers: (factor, original positions, beta_fast,
+    # beta_slow, attention_factor); () the default rotation everywhere
+    rope_yarn: Tuple[float, ...] = ()
+    # per layer "full_attention" or "sliding_attention"; () all full
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    moe_experts_held: int = 0  # of moe_experts, held here (0: all)
+    moe_expert_offset: int = 0  # the first expert held here
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def experts_held(self) -> int:
+        return self.moe_experts_held or self.moe_experts
+
+
 def _validate_moe(cfg: TransformerConfig) -> None:
-    """An MoE config's top-k must name experts that exist."""
+    """An MoE config's top-k must name experts that exist; an
+    :class:`ExtendedConfig` must make a model (:func:`_validate_extended`)."""
     if cfg.moe_experts and not 1 <= cfg.moe_top_k <= cfg.moe_experts:
         raise ValueError(f"MoE moe_top_k {cfg.moe_top_k} must be in "
                          f"[1, moe_experts={cfg.moe_experts}]")
+    _validate_extended(cfg)
+
+
+FULL, SLIDING = "full_attention", "sliding_attention"
+
+
+def refuse_extended(cfg: TransformerConfig, what: str) -> None:
+    """Raise where ``what`` (an entry point that computes the
+    GPT-2-style block only: decoding, serving, the sequence-parallel,
+    Megatron and pipeline steps) is handed an :class:`ExtendedConfig`."""
+    if isinstance(cfg, ExtendedConfig):
+        raise ValueError(f"{what} does not support the options of an "
+                         "ExtendedConfig (TransformerLM.fit, evaluate and "
+                         "logits on one device do)")
+
+
+def _validate_extended(cfg: TransformerConfig) -> None:
+    if not isinstance(cfg, ExtendedConfig):
+        return
+    heads, kv = cfg.n_heads, cfg.kv_heads
+    if heads % kv:
+        raise ValueError(f"n_heads {heads} not a multiple of n_kv_heads {kv}")
+    kinds = cfg.layer_types or (FULL,) * cfg.n_layers
+    if len(kinds) != cfg.n_layers or set(kinds) - {FULL, SLIDING}:
+        raise ValueError(f"layer_types must name {cfg.n_layers} layers of "
+                         f"{FULL!r} or {SLIDING!r}")
+    if SLIDING in kinds and cfg.sliding_window <= 0:
+        raise ValueError("sliding layers need sliding_window > 0")
+    if cfg.rope_theta <= 0:
+        raise ValueError("an ExtendedConfig rotates q and k: rope_theta > 0")
+    if cfg.rope_yarn and len(cfg.rope_yarn) != 5:
+        raise ValueError("rope_yarn is (factor, original positions, "
+                         "beta_fast, beta_slow, attention_factor)")
+    if not cfg.moe_experts:
+        raise ValueError("an ExtendedConfig's FFN is its experts: "
+                         "moe_experts > 0")
+    if not (0 <= cfg.moe_expert_offset and cfg.moe_expert_offset
+            + cfg.experts_held <= cfg.moe_experts):
+        raise ValueError(
+            f"experts {cfg.moe_expert_offset}.."
+            f"{cfg.moe_expert_offset + cfg.experts_held - 1} held of "
+            f"{cfg.moe_experts}")
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +276,8 @@ def init_params(cfg: TransformerConfig, *, device=None) -> Params:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(cfg.seed))
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    if isinstance(cfg, ExtendedConfig):
+        return _init_extended(cfg, gen, dev)
 
     def norm(shape, scale):
         return torch.randn(shape, generator=gen, device=dev,
@@ -221,6 +319,40 @@ def init_params(cfg: TransformerConfig, *, device=None) -> Params:
     }
 
 
+def _init_extended(cfg: ExtendedConfig, gen, dev) -> Params:
+    """The params of an :class:`ExtendedConfig`, the same distributions
+    as :func:`init_params`: xavier-normal q/k/v, the router ``Wr`` and the
+    experts' gate|up ``W1``; N(0, 0.02/sqrt(2L)) ``Wo`` and ``W2``;
+    N(0, 0.02) ``embed`` and ``lm_head``; unit RMSNorm scales. ``Wq``
+    [L, d, H hd], ``Wk``/``Wv`` [L, d, H_kv hd], ``Wo`` [L, H hd, d],
+    ``Wr`` [L, d, E], ``W1`` [L, E_h, d, 2 d_ff], ``W2`` [L, E_h, d_ff,
+    d], ``lm_head`` [V, d]; no biases, no ``pos``."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.head_size, cfg.kv_heads * cfg.head_size
+    E, Eh = cfg.moe_experts, cfg.experts_held
+
+    def norm(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) * float(scale)
+
+    def xavier(shape):
+        return norm(shape, math.sqrt(2.0 / (shape[-2] + shape[-1])))
+
+    def ones(shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    depth = 0.02 / math.sqrt(2 * L)
+    blocks = {"ln1_g": ones((L, d)),
+              "Wq": xavier((L, d, qd)), "Wk": xavier((L, d, kvd)),
+              "Wv": xavier((L, d, kvd)), "Wo": norm((L, qd, d), depth),
+              "ln2_g": ones((L, d)),
+              "Wr": xavier((L, d, E)), "W1": xavier((L, Eh, d, 2 * f)),
+              "W2": norm((L, Eh, f, d), depth)}
+    return {"embed": norm((cfg.vocab_size, d), 0.02),
+            "lm_head": norm((cfg.vocab_size, d), 0.02),
+            "lnf_g": ones((d,)), "blocks": blocks}
+
+
 def params_from_numpy(tree: Params, *, device=None) -> Params:
     """The port's params from a JAX parameter tree handed over as numpy
     arrays in the JAX layout (top level ``embed``/``pos``/``lnf_g``/
@@ -249,7 +381,7 @@ def compute_params(params: Params, cfg: TransformerConfig) -> Params:
     (one copy, made here; the same tensors under ``strict``), ``embed``,
     ``pos`` and the final LN in f32."""
     cdt = cfg.compute_dtype
-    out = {k: params[k] for k in TOP_KEYS}
+    out = {k: v for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: v.to(cdt) for k, v in params["blocks"].items()}
     return out
 
@@ -435,6 +567,10 @@ def forward(params: Params, tokens, cfg: TransformerConfig,
     block runs under the remat policy (``cfg.remat``, ``ops/remat.py``).
     ``shards``: this rank's share of a Megatron / expert-parallel step
     (``params`` then hold this rank's shards, :func:`shard_params`)."""
+    if isinstance(cfg, ExtendedConfig):
+        if shards is not None and shards != Shards():
+            refuse_extended(cfg, "the Megatron / expert-parallel forward")
+        return _forward_extended(params, tokens, cfg)
     shards = shards or Shards()
     model = shards.model
     h = _embed(params, tokens, cfg, model=model)
@@ -456,6 +592,210 @@ def forward(params: Params, tokens, cfg: TransformerConfig,
         if a is not None:
             aux = aux + a
     logits = _at_least_f32(_head(params, _final_ln(params, h), model))
+    return logits, aux / cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the extended block: GQA, RoPE / YaRN, sliding windows, RMSNorm, SwiGLU
+# experts held here, an untied head
+# ---------------------------------------------------------------------------
+
+
+def rope_inv_freq(cfg: TransformerConfig, kind: str) -> torch.Tensor:
+    """The inverse frequencies [hd/2] (f64) of a layer of ``kind``: the
+    default rotation ``theta^(-2i/hd)`` (``rope_theta``), or on full
+    layers with ``rope_yarn`` = (s, L0, b_fast, b_slow, m) YaRN's blend
+    (HF ``_compute_yarn_parameters``): with
+    ``dim(r) = hd ln(L0 / (2 pi r)) / (2 ln theta)``, lo =
+    floor(dim(b_fast)) and hi = ceil(dim(b_slow)) clamped to [0, hd-1],
+    ramp_i = clamp((i - lo) / (hi - lo), 0, 1), and
+    ``inv_i = f_i / s * ramp_i + f_i * (1 - ramp_i)`` over the default
+    f_i: extrapolated (unchanged) below lo, interpolated by 1/s above hi.
+    Its cos and sin are scaled by m (``attention_factor``)."""
+    hd, theta = cfg.head_size, float(cfg.rope_theta)
+    base = theta ** (-torch.arange(0, hd, 2, dtype=torch.float64) / hd)
+    if kind != FULL or not cfg.rope_yarn:
+        return base
+    factor, orig, fast, slow, _ = (float(x) for x in cfg.rope_yarn)
+
+    def dim(rot):
+        return hd * math.log(orig / (rot * 2 * math.pi)) / (2 * math.log(theta))
+
+    lo = max(math.floor(dim(fast)), 0)
+    hi = min(math.ceil(dim(slow)), hd - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = torch.clamp((torch.arange(hd // 2, dtype=torch.float64) - lo)
+                       / (hi - lo), 0.0, 1.0)
+    return base / factor * ramp + base * (1.0 - ramp)
+
+
+def rope_tables(cfg: TransformerConfig, kind: str, t: int, device):
+    """(cos, sin) [T, hd] f64 of positions 0..T-1 for a layer of
+    ``kind``: angles pos * inv_freq, each half of hd repeated
+    (rotate-half), times YaRN's ``attention_factor`` on full YaRN
+    layers."""
+    inv = rope_inv_freq(cfg, kind).to(device)
+    ang = torch.arange(t, dtype=torch.float64, device=device)[:, None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    scale = (float(cfg.rope_yarn[4]) if kind == FULL and cfg.rope_yarn
+             else 1.0)
+    return ang.cos() * scale, ang.sin() * scale
+
+
+def _rotate(x, cos, sin):
+    """RoPE (rotate-half) on x [N, T, H, hd]: x cos + rot(x) sin with
+    rot(x) = (-x2, x1) over the halves, in at least f32 (the tables
+    rounded to it), back to x's dtype."""
+    xf = _at_least_f32(x)
+    cos, sin = cos.to(xf.dtype)[:, None], sin.to(xf.dtype)[:, None]
+    half = x.shape[-1] // 2
+    rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
+
+
+def _rms_norm(x, g, eps: float):
+    """RMSNorm: x * rsqrt(mean(x^2) + eps), in at least f32, back to x's
+    dtype, times g (``rms_norm_eps``; no bias)."""
+    xf = _at_least_f32(x)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return y.to(x.dtype) * g
+
+
+def _moe_span(cfg: TransformerConfig):
+    """The ``train.moe`` span of an expert layer's forward (router
+    through combine), on the device too; none in a checkpoint's recompute
+    (the backward's thread, under no ``train.step``)."""
+    if ep.in_backward():
+        return contextlib.nullcontext(obs_trace.NULL_SPAN)
+    return obs_trace.span("train.moe", device=True,
+                          experts_held=cfg.experts_held)
+
+
+class _HeldRows:
+    """The expert layer's counters on the port's registry, read from the
+    card without a wait: ``moe.routed_rows`` (rows the held experts
+    computed), ``moe.dropped_rows`` (0: nothing is dropped) and the gauge
+    ``moe.max_expert_rows`` (the most rows one held expert took in one
+    call since the process started). Each forward call's rows per held
+    expert, and their sum, are copied into pinned host memory behind the
+    layer's work; the registry takes them once the copy has landed, at a
+    later call or at :func:`expert_counters`, which waits for it."""
+
+    def __init__(self):
+        self.pending = collections.deque()
+        self.max_rows = 0.0
+
+    def add(self, rows: torch.Tensor) -> torch.Tensor:
+        """Queue one call's ``rows`` [E_h] -> their sum: off the CPU a
+        host tensor that holds it once the copy has landed."""
+        counts = torch.cat([rows, rows.sum()[None]])
+        done = None
+        if counts.is_cuda:
+            host = torch.empty(counts.shape, dtype=counts.dtype,
+                               pin_memory=True)
+            host.copy_(counts, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            counts = host
+        self.pending.append((done, counts))
+        self.take(wait=False)
+        return counts[-1] if done is not None else int(counts[-1])
+
+    def take(self, wait: bool) -> None:
+        from deeplearning4j_tpu_torch.obs.registry import default_registry
+
+        reg = default_registry()
+        while self.pending:
+            done, counts = self.pending[0]
+            if done is not None:
+                if wait:
+                    done.synchronize()
+                elif not done.query():
+                    return
+            self.pending.popleft()
+            vals = counts.tolist()
+            reg.counter("moe.routed_rows", float(vals[-1]))
+            reg.counter("moe.dropped_rows", 0.0)
+            self.max_rows = max(self.max_rows, float(max(vals[:-1])))
+            reg.gauge("moe.max_expert_rows", self.max_rows)
+
+
+_HELD_ROWS = _HeldRows()
+
+
+def expert_counters() -> None:
+    """Bring the held-expert layer's counters on the port's registry up
+    to date (:class:`_HeldRows`): waits for the copies of the calls not
+    yet taken, and so for the card's work before them."""
+    _HELD_ROWS.take(wait=True)
+
+
+def _ffn_extended(bp: Params, x, cfg: ExtendedConfig):
+    """The block's expert layer on the normed x [N, T, d] -> (delta,
+    aux): SwiGLU experts held here (``parallel/expert_parallel.
+    moe_ffn_held``), under ``train.moe`` with its counters."""
+    n, t, d = x.shape
+    with _moe_span(cfg) as sp:
+        y, aux, rows = ep.moe_ffn_held(
+            x.reshape(n * t, d), bp["Wr"], bp["W1"], bp["W2"],
+            top_k_=cfg.moe_top_k, expert_offset=cfg.moe_expert_offset)
+        if not ep.in_backward():
+            sp.set_attr("rows_routed", _HELD_ROWS.add(rows))
+    return y.reshape(n, t, d), aux
+
+
+def _block_extended(bp: Params, h, cfg: ExtendedConfig, kind: str, rope):
+    """One block of an :class:`ExtendedConfig`, in the compute dtype ->
+    (h, aux): x = RMSNorm(h) with ``ln1_g``; q = x Wq [T, H, hd], k = x Wk
+    and v = x Wv [T, H_kv, hd] (``num_key_value_heads``), RoPE on q and k
+    (``rope``: this layer kind's (cos, sin)); K and V
+    repeated to the H query heads (head i reads K/V head i // (H/H_kv);
+    autograd sums each group back); causal softmax(q k / sqrt(hd)) v,
+    keys with i - j >= ``sliding_window`` hidden on sliding layers
+    (``attention_auto``: K4 and K7 on the card); h += o Wo; h +=
+    experts(RMSNorm(h) with ``ln2_g``) (:func:`_ffn_extended`)."""
+    n, t, _ = h.shape
+    c = lambda a: a.to(cfg.compute_dtype)
+    heads, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_size
+    x = _rms_norm(h, c(bp["ln1_g"]), cfg.norm_eps)
+    q = (x @ c(bp["Wq"])).view(n, t, heads, hd)
+    k = (x @ c(bp["Wk"])).view(n, t, kv, hd)
+    v = (x @ c(bp["Wv"])).view(n, t, kv, hd)
+    q, k = _rotate(q, *rope), _rotate(k, *rope)
+    if kv != heads:
+        k = k.repeat_interleave(heads // kv, dim=2)
+        v = v.repeat_interleave(heads // kv, dim=2)
+    window = cfg.sliding_window if kind == SLIDING else 0
+    if cfg.use_flash:
+        o = attention_auto(q, k, v, causal=True, window=window)
+    else:
+        o = flash_attention_plain(q, k, v, causal=True, window=window)[0]
+    h = h + o.reshape(n, t, heads * hd) @ c(bp["Wo"])
+    y, aux = _ffn_extended(bp, _rms_norm(h, c(bp["ln2_g"]), cfg.norm_eps),
+                           cfg)
+    return h + y, aux
+
+
+def _forward_extended(params: Params, tokens, cfg: ExtendedConfig):
+    """:func:`forward` of an :class:`ExtendedConfig` -> (logits [N, T, V]
+    f32, aux): the token embedding in the compute dtype, every block under
+    the remat policy while gradients are recorded, the final RMSNorm
+    (``lnf_g``) in at least f32, the untied head ``h @ lm_head.T`` through
+    ``ops/f32_gemm.tied_head``; aux the mean over the layers."""
+    h = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    kinds = cfg.layer_types or (FULL,) * cfg.n_layers
+    ropes = {kind: rope_tables(cfg, kind, tokens.shape[1], h.device)
+             for kind in set(kinds)}
+    block = (remat_wrap(_block_extended, cfg.remat)
+             if torch.is_grad_enabled() else _block_extended)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for bp, kind in zip(_layers(params["blocks"]), kinds):
+        h, a = block(bp, h, cfg, kind, ropes[kind])
+        aux = aux + a
+    h = _rms_norm(_at_least_f32(h), params["lnf_g"], cfg.norm_eps)
+    head = params["lm_head"]
+    logits = _at_least_f32(tied_head(h, head.to(h.dtype)))
     return logits, aux / cfg.n_layers
 
 
@@ -500,6 +840,7 @@ def ring_forward(params: Params, tokens, cfg: TransformerConfig, group,
         ulysses_attention_sharded,
     )
 
+    refuse_extended(cfg, "ring_forward")
     if strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
     sharded_att = (ring_attention_sharded if strategy == "ring"
@@ -536,6 +877,7 @@ def prefill_cache(params: Params, tokens, cfg: TransformerConfig
     (decode's position mask never reads them); hidden [N, T, d] is f32
     after the final LN. Same block body and casts as :func:`forward`
     (MoE blocks route the prompt with the standard capacity)."""
+    refuse_extended(cfg, "prefill_cache")
     n, t = tokens.shape
     hd = cfg.d_model // cfg.n_heads
     h = _embed(params, tokens, cfg)
@@ -565,6 +907,7 @@ def decode_step(params: Params, cache: Params, tok, pos: int,
     ``arange <= pos`` mask, in f32, as a plain einsum (XLA's in the JAX
     package). Same block body and casts as :func:`forward`; MoE blocks
     route through :func:`_moe_ffn_decode` (no-drop capacity)."""
+    refuse_extended(cfg, "decode_step")
     n = tok.shape[0]
     hd = cfg.d_model // cfg.n_heads
     h = (params["embed"][tok.long()] + params["pos"][pos])[:, None, :]
@@ -706,34 +1049,60 @@ def _decay_mask(params: Params) -> Params:
 def _adam_update(params: Params, grads: Params, opt: Params, lr,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, clip_grad_norm: float = 0.0,
-                 norm_of=None):
+                 norm_of=None, in_place: bool = False):
     """(new params, {"m", "v", "t"}): Adam, with decoupled weight decay on
     the :func:`_decay_mask` leaves and a global-norm clip first (the norm
     from ``norm_of`` on a sharded mesh). The bias
     correction is computed in f32 from the step count as f32 (``lr`` a 0-d
-    f32 tensor), as the JAX package computes it. The ``train.optimizer``
-    span, on the device too."""
+    f32 tensor), as the JAX package computes it. Leaf by leaf:
+    m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g g, p -= lr (corr m /
+    (sqrt(v) + eps) + wd p). ``in_place`` writes each leaf's last sum
+    into the params and moments it is given (:func:`_adam_in_place`)
+    rather than into new tensors: the same operations, so the same bits.
+    The ``train.optimizer`` span, on the device too."""
     with obs_trace.span("train.optimizer", device=True) as sp:
         if sp is not obs_trace.NULL_SPAN:
             sp.set_attr("leaves", len(tree_leaves(params)))
         if clip_grad_norm:
             grads, _ = _clip_by_global_norm(grads, clip_grad_norm, norm_of)
         t = opt["t"] + 1
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, opt["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, opt["v"],
-                     grads)
         tf = t.to(torch.float32)
         corr = torch.sqrt(1 - torch.pow(b2, tf)) / (1 - torch.pow(b1, tf))
-        if weight_decay:
-            new = tree_map(
-                lambda p, m_, v_, d: p - lr * (
-                    corr * m_ / (torch.sqrt(v_) + eps)
-                    + (weight_decay * p if d else 0.0)),
-                params, m, v, _decay_mask(params))
-        else:
-            new = tree_map(lambda p, m_, v_: p - lr * corr * m_
-                           / (torch.sqrt(v_) + eps), params, m, v)
-    return new, {"m": m, "v": v, "t": t}
+
+        def into(x):
+            return {"out": x} if in_place else {}
+
+        new, m, v = [], [], []
+        for p, m_, v_, g, d in zip(
+                tree_leaves(params), tree_leaves(opt["m"]),
+                tree_leaves(opt["v"]), tree_leaves(grads),
+                tree_leaves(_decay_mask(params))):
+            m.append(torch.add(b1 * m_, (1 - b1) * g, **into(m_)))
+            v.append(torch.add(b2 * v_, (1 - b2) * g * g, **into(v_)))
+            if weight_decay:
+                upd = lr * (corr * m[-1] / (torch.sqrt(v[-1]) + eps)
+                            + (weight_decay * p if d else 0.0))
+            else:
+                upd = lr * corr * m[-1] / (torch.sqrt(v[-1]) + eps)
+            new.append(torch.sub(p, upd, **into(p)))
+        like = lambda leaves: tree_map(lambda _: next(leaves), params)
+    return like(iter(new)), {"m": like(iter(m)), "v": like(iter(v)), "t": t}
+
+
+def _adam_in_place(params: Params) -> bool:
+    """Where Adam writes (:func:`_adam_update`'s ``in_place``), the one
+    rule: into the tensors it is given when the functional step's seven
+    copies of the parameters (params, m and v old and new, and the
+    gradients) would pass half the device's memory, as at 2.44 B f32
+    parameters (68 GB of an 80 GB card, where the functional step ran out
+    of memory or remapped it every step); as new tensors otherwise, and
+    always off a CUDA device."""
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
+    if dev.type != "cuda":
+        return False
+    size = sum(x.numel() * x.element_size() for x in leaves)
+    return 7 * size > torch.cuda.get_device_properties(dev).total_memory / 2
 
 
 def _validate_schedule(cfg: TransformerConfig) -> None:
@@ -797,6 +1166,7 @@ def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
     lp = lowprec.train_policy()
     shards, data, norm_of = None, None, None
     if mesh is not None:
+        refuse_extended(cfg, "make_train_step on a mesh")
         if mesh.has(SEQUENCE_AXIS) or mesh.has(PIPELINE_AXIS):
             raise ValueError("make_train_step's mesh is data x model x "
                              "expert (the ring and pipeline steps take "
@@ -866,7 +1236,8 @@ def _build_step(cfg: TransformerConfig, mesh: Optional[MeshGroups] = None):
         params, opt = _adam_update(params, grads, opt, lr,
                                    weight_decay=cfg.weight_decay,
                                    clip_grad_norm=cfg.clip_grad_norm,
-                                   norm_of=norm_of)
+                                   norm_of=norm_of,
+                                   in_place=_adam_in_place(params))
         return params, opt, loss
 
     step.loss_scaled = lp
@@ -1051,18 +1422,26 @@ def ring_step_block(batch, group):
 def _mean_over(group, loss, grads):
     """The loss and every gradient leaf summed over ``group`` and divided
     by its size, in the tree's order (the same collectives on every rank;
-    None or a world of 1 passes them through)."""
+    None or a world of 1 passes them through). The collectives are the
+    ``train.allreduce`` span, on the device too (``leaves``, ``bytes``)."""
     world = group_size(group)
     if world == 1:
         return loss, grads
-    for x in [loss] + tree_leaves(grads):
-        dist.all_reduce(x, group=group)
+    parts = [loss] + tree_leaves(grads)
+    with obs_trace.span("train.allreduce", device=True) as sp:
+        if sp is not obs_trace.NULL_SPAN:
+            sp.set_attr("leaves", len(parts))
+            sp.set_attr("bytes", sum(x.numel() * x.element_size()
+                                     for x in parts))
+        for x in parts:
+            dist.all_reduce(x, group=group)
     return loss / world, tree_map(lambda g: g / world, grads)
 
 
 def _build_ring_step(cfg: TransformerConfig, group, strategy: str):
     """The optimizer step of :func:`make_ring_train_step`; every
     sequence-parallel factory validates here."""
+    refuse_extended(cfg, "the sequence-parallel step")
     if cfg.accum_steps != 1:
         raise ValueError("cfg.accum_steps must be 1 under sequence-parallel "
                          "training (shard 'data' for more batch instead)")
@@ -1157,6 +1536,7 @@ def pipeline_forward(params: Params, tokens, cfg: TransformerConfig, mesh,
         pipeline_apply_local,
     )
 
+    refuse_extended(cfg, "pipeline_forward")
     s_count = mesh.size(PIPELINE_AXIS)
     if cfg.n_layers % s_count != 0:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
@@ -1196,6 +1576,7 @@ def pipeline_forward(params: Params, tokens, cfg: TransformerConfig, mesh,
 
 
 def _build_pipeline_step(cfg: TransformerConfig, mesh, n_micro: int):
+    refuse_extended(cfg, "the pipeline step")
     _reject_lowprec("pipelined")
     _validate_schedule(cfg)
     _validate_moe(cfg)
@@ -1614,6 +1995,7 @@ class TransformerLM:
         samples from it as one device would, so every rank returns the
         same tokens."""
         cfg = self.cfg
+        refuse_extended(cfg, "generate")
         if n_new >= cfg.max_len:
             raise ValueError(f"n_new {n_new} must be < max_len {cfg.max_len}")
         if top_k is not None and not 1 <= top_k <= cfg.vocab_size:

@@ -23,6 +23,12 @@ A Dapper-style span tracer over the seams the port instruments:
                    device too
   train.optimizer  ``_adam_update``, the clip included (``leaves``), on
                    the device too
+  train.allreduce  the mean of the loss and the gradients over a
+                   ``'data'`` (or sequence, pipeline) group after the
+                   backward (``leaves``, ``bytes``), on the device too
+  train.moe        one expert layer's forward of the held-expert MoE
+                   (``experts_held``, ``rows_routed``), on the device too;
+                   none in an activation checkpoint's recompute
   train.readback   ``BertMLM``'s read of the loss
 
 The ``train.*`` spans below ``train.step`` sit in the shared step code,
@@ -47,7 +53,11 @@ clock, beside the operators and kernels it encloses (and a
 it is entered and one when it exits (where CUDA is initialised and the
 stream is not being captured into a graph; the events come from a small
 pool); its ``device_s`` is the time between them, ``None`` until both
-have completed. The host times on ``time.perf_counter``.
+have completed. The host times on ``time.perf_counter``. An attribute
+of a device span may be a host tensor that a copy on the span's stream
+fills (``non_blocking``, into pinned memory, inside the span): it reads
+as ``None`` until the span's end event has completed and as its number
+(or list) from then on.
 
 No span synchronizes. A device time is filled in by ``Event.query()``
 when a later span finishes and when :meth:`Tracer.spans` is read, and
@@ -298,11 +308,15 @@ class Tracer:
         """Ring, journal, histogram; a device span (``start`` and ``end``
         its ``(device, event)`` pairs) waits in ``_pending``."""
         d = sp.to_dict()
+        filled = {k: v for k, v in d["attrs"].items()
+                  if isinstance(v, torch.Tensor)}
+        if filled:  # read once the device has filled them (_resolve)
+            d["attrs"].update(dict.fromkeys(filled))
         with self._lock:
             self._ring.append(d)
             if end is not None:
                 d["device_s"] = None
-                self._pending.append((sp, d, start, end))
+                self._pending.append((sp, d, start, end, filled))
         journal = self._journal
         if journal is not None and obs_enabled():
             # light-path append: the span dict is already timestamped
@@ -321,12 +335,13 @@ class Tracer:
         done = []
         with self._lock:
             while self._pending:
-                sp, d, (dev, start), (_, end) = self._pending[0]
+                sp, d, (dev, start), (_, end), filled = self._pending[0]
                 if not end.query():
                     break
                 self._pending.popleft()
                 sp.device_s = d["device_s"] = (
                     start.elapsed_time(end) * 1e-3)
+                d["attrs"].update({k: v.tolist() for k, v in filled.items()})
                 self._event_pool.setdefault(dev, []).extend((start, end))
                 done.append(sp)
         registry = self._registry

@@ -17,6 +17,13 @@ v through their strides, so nothing folds heads. What lives here:
   from Tk (a ring step attends a local Q shard to a rotating K/V shard). A
   row with no visible key gives O = 0 and lse = -inf. Its plain version
   is :func:`flash_attention_block_plain`.
+* A sliding window, on K4, K5, K7 and their plain versions (``window``):
+  with ``window`` W > 0, key ``ki`` is also hidden from query ``qi`` where
+  ``qi + offset - ki >= W``, so a causal row sees its last W keys (a
+  sliding-window layer). 0 is none; a window that hides no key of the
+  call is none too (:func:`effective_window`), so it gives the same bits.
+  On the card the window is a template parameter of the kernels: a launch
+  with none runs the code compiled without the test.
 * K7, :func:`flash_bwd` (``csrc/flash_bwd.cu``), the backward of both:
   dq, dk and dv from q, k, v, o, lse and the cotangents (with the lse
   cotangent, a key bias and an offset, as K5's). In the JAX package that
@@ -38,7 +45,8 @@ v through their strides, so nothing folds heads. What lives here:
 Each wrapper sends a CPU tensor to its plain version and a CUDA tensor to
 its kernel, or raises: no fallback on the card. A launch counter sits on
 each wrapper and each plain version (``.launches``; K7's wrapper counts
-one per call, which launches its two passes).
+one per call, which launches its two passes), and beside it ``.windowed``,
+the calls with a window.
 
 Not carried over: the JAX package keeps K5 off (``kernel_gate
 .measured_win``) until a TPU measurement proves it; no TPU number carries
@@ -82,30 +90,46 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                            _I, _I, _I, _P],
+                            _I, _I, _I, _I, _P],
     "flash_attention_ext_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _I, _I, _I, _P]}
-# K7's library: q k v o g lse glse kb dq dk dv dvec, N Tq Tk H D off dtype
-# device, stream
-BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 8 + [_P]}
+                                _I, _I, _I, _I, _P]}
+# K7's library: q k v o g lse glse kb dq dk dv dvec, N Tq Tk H D off win
+# dtype device, stream
+BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_P]}
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = False):
+def effective_window(window: int, tq: int, offset: int) -> int:
+    """The window a call computes with: ``window`` where it hides some key
+    from some row (rows 0..tq-1, offset ``offset``: the farthest key a row
+    sees is ``tq - 1 + offset`` back), else 0. Negative windows raise."""
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0 (0: none)")
+    return window if 0 < window <= tq - 1 + offset else 0
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = False,
+                          window: int = 0):
     """q, k, v [N, T, H, D] -> (o [N, T, H, D] in q's dtype, lse [N, H, T]):
     scores scaled by 1/sqrt(D) in at least f32 (f64 stays f64), causal
-    mask, softmax, p @ v. The same function as the kernel, materialising
-    the scores."""
+    mask (and the ``window``: key ki hidden from query qi where qi - ki >=
+    window, the offset T when not causal), softmax, p @ v. The same
+    function as the kernel, materialising the scores."""
     flash_attention_plain.launches += 1
     n, t, h, d = q.shape
+    off = 0 if causal else t
+    window = effective_window(window, t, off)
+    if window:
+        flash_attention_plain.windowed += 1
     dt = softmax_dtype(q.dtype)
     qf = q.to(dt).permute(0, 2, 1, 3) * (1.0 / (d ** 0.5))
     kf = k.to(dt).permute(0, 2, 1, 3)
     vf = v.to(dt).permute(0, 2, 1, 3)
     s = qf @ kf.transpose(-1, -2)                       # [N, H, T, T]
-    if causal:
-        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
+    if causal or window:
+        s = s.masked_fill(~_visible(t, 0, t, off, q.device, window),
+                          float("-inf"))
     lse = torch.logsumexp(s, dim=-1)                    # [N, H, T]
     p = torch.softmax(s, dim=-1)
     o = (p @ vf).permute(0, 2, 1, 3).to(q.dtype)
@@ -113,6 +137,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = False):
 
 
 flash_attention_plain.launches = 0
+flash_attention_plain.windowed = 0
 
 
 def _lib():
@@ -152,31 +177,36 @@ def _stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def flash_attention(q, k, v, *, causal: bool = False):
+def flash_attention(q, k, v, *, causal: bool = False, window: int = 0):
     """q, k, v [N, T, H, D] -> (o [N, T, H, D] in q's dtype, lse [N, H, T]
-    f32). CPU tensors: :func:`flash_attention_plain`. CUDA tensors: the
-    hand-written kernel, or an exception."""
+    f32), with an optional sliding ``window``. CPU tensors:
+    :func:`flash_attention_plain`. CUDA tensors: the hand-written kernel,
+    or an exception."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     (n, h, d), strides = _check_inputs("flash_attention", q, k, v,
                                        same_t=True)
     t = q.shape[1]
     dev = q.device
+    window = effective_window(window, t, 0 if causal else t)
     o = torch.empty((n, t, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((n, h, t), dtype=torch.float32, device=dev)
     lib = _lib()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, t, h, d, *strides, int(bool(causal)),
+        lse.data_ptr(), n, t, h, d, *strides, int(bool(causal)), window,
         _DTYPE_CODE[q.dtype], dev.index, _stream(dev))
     build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
+    if window:
+        flash_attention.windowed += 1
     return o, lse
 
 
 flash_attention.launches = 0
+flash_attention.windowed = 0
 
 
 # ---------------------------------------------------------------------------
@@ -197,23 +227,32 @@ def key_bias(key_mask, dtype=torch.float32):
     return torch.where(keep, zero, torch.full_like(zero, float("-inf")))
 
 
-def _visible(tq: int, k0: int, k1: int, offset: int, device):
-    """[Tq, k1 - k0] bool: qi + offset >= ki for keys k0..k1-1."""
+def _visible(tq: int, k0: int, k1: int, offset: int, device,
+             window: int = 0):
+    """[Tq, k1 - k0] bool: qi + offset >= ki for keys k0..k1-1, and
+    qi + offset - ki < window where ``window`` > 0."""
     qi = torch.arange(tq, device=device)[:, None]
     ki = torch.arange(k0, k1, device=device)[None, :]
-    return qi + offset >= ki
+    seen = qi + offset >= ki
+    if window:
+        seen &= qi + offset - ki < window
+    return seen
 
 
-def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None):
+def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None,
+                                window: int = 0):
     """q [N, Tq, H, D], k, v [N, Tk, H, D], key_mask [N, Tk] 0/1 or None ->
     (o [N, Tq, H, D] in q's dtype, lse [N, H, Tq]). A dense masked softmax
     in at least f32 (f64 stays f64): scores q.k / sqrt(D) plus the key
-    bias, keys with qi + offset < ki hidden; a row with no visible key
-    gives O = 0 and lse = -inf. The same function as K5, materialising
-    the scores."""
+    bias, keys with qi + offset < ki (or, with a ``window``, qi + offset -
+    ki >= window) hidden; a row with no visible key gives O = 0 and lse =
+    -inf. The same function as K5, materialising the scores."""
     flash_attention_block_plain.launches += 1
     n, tq, h, d = q.shape
     tk = k.shape[1]
+    window = effective_window(window, tq, int(offset))
+    if window:
+        flash_attention_block_plain.windowed += 1
     dt = softmax_dtype(q.dtype)
     qf = q.to(dt).permute(0, 2, 1, 3) * (1.0 / (d ** 0.5))
     kf = k.to(dt).permute(0, 2, 1, 3)
@@ -221,7 +260,7 @@ def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None):
     s = qf @ kf.transpose(-1, -2)                       # [N, H, Tq, Tk]
     if key_mask is not None:
         s = s + key_bias(key_mask, dt)[:, None, None, :]
-    s = s.masked_fill(~_visible(tq, 0, tk, int(offset), q.device),
+    s = s.masked_fill(~_visible(tq, 0, tk, int(offset), q.device, window),
                       float("-inf"))
     lse = torch.logsumexp(s, dim=-1)                    # -inf: none visible
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
@@ -231,16 +270,19 @@ def flash_attention_block_plain(q, k, v, *, offset: int, key_mask=None):
 
 
 flash_attention_block_plain.launches = 0
+flash_attention_block_plain.windowed = 0
 
 
-def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
+def flash_attention_block(q, k, v, *, offset: int, key_mask=None,
+                          window: int = 0):
     """q [N, Tq, H, D], k, v [N, Tk, H, D], key_mask [N, Tk] 0/1 or None,
-    offset a host integer -> (o [N, Tq, H, D] in q's dtype, lse [N, H, Tq]
-    f32). CPU tensors: :func:`flash_attention_block_plain`. CUDA tensors:
-    the hand-written kernel K5, or an exception."""
+    offset a host integer, an optional sliding ``window`` -> (o [N, Tq, H,
+    D] in q's dtype, lse [N, H, Tq] f32). CPU tensors:
+    :func:`flash_attention_block_plain`. CUDA tensors: the hand-written
+    kernel K5, or an exception."""
     if q.device.type == "cpu":
         return flash_attention_block_plain(q, k, v, offset=offset,
-                                           key_mask=key_mask)
+                                           key_mask=key_mask, window=window)
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_block: unsupported device {q.device}")
@@ -257,20 +299,24 @@ def flash_attention_block(q, k, v, *, offset: int, key_mask=None):
         kb = key_bias(key_mask).contiguous()
     # offsets past either end give the same function as the ends
     off = max(-tq, min(tk, int(offset)))
+    window = effective_window(window, tq, off)
     o = torch.empty((n, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
     lib = _lib()
     rc = lib.flash_attention_ext_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kb is None else kb.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), n, tq, tk, h, d, *strides, off,
+        lse.data_ptr(), n, tq, tk, h, d, *strides, off, window,
         _DTYPE_CODE[q.dtype], q.device.index, _stream(q.device))
     build.check(lib, rc, "flash_attention_block")
     flash_attention_block.launches += 1
+    if window:
+        flash_attention_block.windowed += 1
     return o, lse
 
 
 flash_attention_block.launches = 0
+flash_attention_block.windowed = 0
 
 
 # ---------------------------------------------------------------------------
@@ -278,17 +324,22 @@ flash_attention_block.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
+def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None,
+                    window: int = 0):
     """(dq, dk, dv) of ``(o, lse) = flash_attention_block(q, k, v, ...)``
     for the cotangents g [N, Tq, H, D] and g_lse [N, H, Tq] (or None), by
     the JAX package's ``_flash_ext_bwd``: probabilities recomputed per
     tile of ``BWD_BLOCK_K`` keys from the saved lse, never the [Tq, Tk]
     score matrix; dS = P * (dP - D + g_lse) / sqrt(D). Math in at least
     f32; gradients in the inputs' dtypes. Masked and invisible keys have
-    P = 0, hence zero dK and dV. K7's plain version."""
+    P = 0 (the ``window``'s too), hence zero dK and dV. K7's plain
+    version."""
     flash_block_bwd.launches += 1
     n, tq, h, d = q.shape
     tk = k.shape[1]
+    window = effective_window(window, tq, int(offset))
+    if window:
+        flash_block_bwd.windowed += 1
     dt = softmax_dtype(q.dtype)
     scale = 1.0 / math.sqrt(d)
     heads = lambda a: a.to(dt).permute(0, 2, 1, 3)      # [N, H, T, D]
@@ -308,8 +359,8 @@ def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
         s = (qf @ ks.transpose(-1, -2)) * scale         # [N, H, Tq, b]
         if kb is not None:
             s = s + kb[:, None, None, k0:k1]
-        s = s.masked_fill(~_visible(tq, k0, k1, int(offset), q.device),
-                          float("-inf"))
+        s = s.masked_fill(~_visible(tq, k0, k1, int(offset), q.device,
+                                    window), float("-inf"))
         p = torch.exp(s - lse_safe[..., None])          # hidden -> 0
         dv[:, :, k0:k1] = p.transpose(-1, -2) @ gf
         ds = p * (gf @ vs.transpose(-1, -2) - dvec[..., None]) * scale
@@ -320,6 +371,7 @@ def flash_block_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
 
 
 flash_block_bwd.launches = 0
+flash_block_bwd.windowed = 0
 
 
 def _aligned(x):
@@ -329,13 +381,18 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def flash_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
+def flash_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None,
+              window: int = 0):
     """(dq, dk, dv) of ``(o, lse) = flash_attention_block(q, k, v,
-    offset=offset, key_mask=key_mask)`` (K4's with no mask and offset 0 or
-    T) for the cotangents g [N, Tq, H, D] and g_lse [N, H, Tq] or None.
-    CPU tensors: :func:`flash_block_bwd`. CUDA tensors: the hand-written
-    kernel K7, or an exception. Gradients in the inputs' dtype."""
+    offset=offset, key_mask=key_mask, window=window)`` (K4's with no mask
+    and offset 0 or T) for the cotangents g [N, Tq, H, D] and g_lse [N, H,
+    Tq] or None. CPU tensors: :func:`flash_block_bwd`. CUDA tensors: the
+    hand-written kernel K7, or an exception. Gradients in the inputs'
+    dtype."""
     if q.device.type == "cpu":
+        if window:
+            return flash_block_bwd(q, k, v, key_mask, offset, o, lse, g,
+                                   g_lse, window=window)
         return flash_block_bwd(q, k, v, key_mask, offset, o, lse, g, g_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
@@ -365,6 +422,7 @@ def flash_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
     if g_lse is not None:
         g_lse = g_lse.float().contiguous()
     off = max(-tq, min(tk, int(offset)))
+    window = effective_window(window, tq, off)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     dvec = torch.empty((n, h, tq), dtype=torch.float32, device=q.device)
     lib = build.load("flash_bwd", BWD_SIGNATURES)
@@ -373,22 +431,26 @@ def flash_bwd(q, k, v, key_mask, offset: int, o, lse, g, g_lse=None):
         g.data_ptr(), lse.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(),
         None if kb is None else kb.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dvec.data_ptr(), n, tq, tk, h, d, off,
+        dv.data_ptr(), dvec.data_ptr(), n, tq, tk, h, d, off, window,
         _DTYPE_CODE[q.dtype], q.device.index, _stream(q.device))
     build.check(lib, rc, "flash_bwd")
     flash_bwd.launches += 1
+    if window:
+        flash_bwd.windowed += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.windowed = 0
 
 
 @torch.library.custom_op("dl4j_tpu_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              causal: bool, window: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's wrapper as one operator: a selective checkpoint sees it as one
     op and can keep its outputs (``ops/remat.saved_ops``)."""
-    return flash_attention(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 class FlashBlockFn(torch.autograd.Function):
@@ -414,23 +476,27 @@ class FlashBlockFn(torch.autograd.Function):
 
 
 class FlashFn(torch.autograd.Function):
-    """``o = FlashFn.apply(q, k, v, causal)``: K4 (its plain version on the
-    CPU) forward, K7 (:func:`flash_block_bwd` on the CPU) backward, as the
-    JAX package's ``_flash_bwd``: no key bias, offset 0 (causal) or T
-    (full), no lse cotangent."""
+    """``o = FlashFn.apply(q, k, v, causal[, window])``: K4 (its plain
+    version on the CPU) forward, K7 (:func:`flash_block_bwd` on the CPU)
+    backward, as the JAX package's ``_flash_bwd``: no key bias, offset 0
+    (causal) or T (full), no lse cotangent; an optional sliding window
+    (0: none)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = torch.ops.dl4j_tpu_torch.flash_attention(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, window=0):
+        o, lse = torch.ops.dl4j_tpu_torch.flash_attention(q, k, v, causal,
+                                                          int(window))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.offset = 0 if causal else k.shape[1]
+        ctx.window = int(window)
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, None, ctx.offset, o, lse, g)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_bwd(q, k, v, None, ctx.offset, o, lse, g,
+                               window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -447,10 +513,17 @@ def flash_attention_masked(q, k, v, key_mask, *, causal: bool = False):
     return o
 
 
-def attention_auto(q, k, v, *, causal: bool = False, key_mask=None):
+def attention_auto(q, k, v, *, causal: bool = False, key_mask=None,
+                   window: int = 0):
     """q, k, v [N, T, H, D] -> [N, T, H, D]. A key mask ([N, T] 0/1) goes
-    to K5 (:func:`flash_attention_masked`), no mask to K4 (:class:`FlashFn`);
-    the CPU runs their plain versions through the same functions."""
+    to K5 (:func:`flash_attention_masked`), no mask to K4 (:class:`FlashFn`,
+    with the sliding ``window`` if any); the CPU runs their plain versions
+    through the same functions."""
     if key_mask is not None:
+        if window:
+            raise ValueError("attention_auto: a window with a key mask is "
+                             "not supported")
         return flash_attention_masked(q, k, v, key_mask, causal=causal)
+    if window:
+        return FlashFn.apply(q, k, v, causal, int(window))
     return FlashFn.apply(q, k, v, causal)

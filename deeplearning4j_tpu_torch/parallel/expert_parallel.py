@@ -34,6 +34,14 @@ tokens themselves are spread over ``'data'`` or ``'seq'`` ranks
 statistics are those of the whole global batch in the JAX package's
 token order, as GSPMD computes them: each rank gathers the others'
 per-row counts (integers) and sums the gate means over the groups.
+
+The dropless layer (:func:`moe_ffn_held`) is the Mellum 2 / Qwen-style
+expert layer of one rank of an expert-parallel group: the router's
+softmax over all E experts in f32, the top k, their weights renormalised
+over the k, no capacity; the layer is told which experts it holds
+(``W1``'s leading dim from ``expert_offset``) and computes only their
+part of the result, SwiGLU experts without biases. On one device it has
+no exchange: what absent experts would add is absent.
 """
 
 from __future__ import annotations
@@ -336,6 +344,106 @@ def moe_ffn(x: torch.Tensor, bp: Params, *, top_k_: int, capacity: int,
     frac = totals[0].to(gates.dtype) / n_all
     aux = n_experts * torch.sum(frac * (p_sum / n_all))
     return y, aux
+
+
+def in_backward() -> bool:
+    """Whether this call runs inside a backward pass (an activation
+    checkpoint's recompute): counters and spans are taken once, in the
+    forward."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def grouped_products(a: torch.Tensor, b: torch.Tensor,
+                     ends: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` [M, K] in groups times their group's ``b`` [G, K, N]
+    -> [M, N]: group e is rows ``ends[e-1]:ends[e]`` (``ends`` [G] the
+    groups' cumulative ends, on a's device); rows past ``ends[-1]`` are
+    left unspecified. A bf16 product on a card of compute capability 9
+    or more is one grouped GEMM that reads the ends on the card
+    (``torch._grouped_mm``: no wait for the host); any other is
+    :func:`grouped_products_plain`."""
+    if (a.is_cuda and a.dtype == torch.bfloat16
+            and torch.cuda.get_device_capability(a.device)[0] >= 9):
+        return torch._grouped_mm(a, b, offs=ends.to(torch.int32))
+    return grouped_products_plain(a, b, ends)
+
+
+def grouped_products_plain(a: torch.Tensor, b: torch.Tensor,
+                           ends: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_products` as one product a group, the ends read on
+    the host; rows past the last end zero."""
+    parts, start = [], 0
+    for e, end in enumerate(ends.tolist()):
+        parts.append(a[start:end] @ b[e])
+        start = end
+    parts.append(a.new_zeros((a.shape[0] - start, b.shape[-1])))
+    return torch.cat(parts)
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``ids``, on its device without
+    a read-back (``torch.bincount`` reads the largest id on the host)."""
+    return (ids.reshape(-1, 1) == torch.arange(n, device=ids.device)).sum(0)
+
+
+def moe_ffn_held(x: torch.Tensor, Wr: torch.Tensor, W1: torch.Tensor,
+                 W2: torch.Tensor, *, top_k_: int, expert_offset: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dropless expert layer on tokens x [T, d] -> (y [T, d] in x's
+    dtype, aux, rows): ``Wr`` [d, E] the whole router, ``W1`` [E_h, d, 2f]
+    (each held expert's gate columns, then its up columns) and ``W2``
+    [E_h, f, d] the E_h experts held from ``expert_offset``; ``rows``
+    [E_h] (on x's device) the rows each held expert computed.
+
+    - logits = x Wr in at least f32 (``moe`` router), gates = softmax over
+      all E; the top k (ties to the lower index) and their weights
+      w = g / sum of the k (``norm_topk_prob``); nothing is dropped.
+    - each held expert e computes ``(silu(x Wg_e) * (x Wu_e)) Wd_e`` for
+      the rows routed to it, in x's dtype; y is the sum over each token's
+      choices among the held experts of w (rounded to x's dtype) times
+      that, accumulated in at least f32.
+    - aux, the Switch load-balance term over all E: E * sum_e f_e P_e (f_e
+      the share of tokens whose first choice is e, P_e the mean gate).
+
+    Nothing is read back to the host, and every shape is fixed by T, k
+    and the widths: the T k (token, choice) pairs are sorted by held
+    expert, the others last, into T k rows, gathered by index
+    (:class:`_Dispatch`, whose backward gathers too), the experts run as
+    :func:`grouped_products` over the held rows, each token's k rows are
+    gathered back (the pairs of experts held elsewhere read a zero row)
+    and summed weighted by one batched product [1, k] x [k, d]. No float
+    sum depends on the order of atomic adds."""
+    t, d = x.shape
+    k = top_k_
+    acc = softmax_dtype(x.dtype)
+    gates = torch.softmax(x.to(acc) @ Wr.to(acc), dim=-1)
+    n_experts = gates.shape[-1]
+    topv, topi = top_k(gates, k)
+    topv = topv / topv.sum(-1, keepdim=True)
+    held = W1.shape[0]
+    mine = (topi >= expert_offset) & (topi < expert_offset + held)
+    expert = torch.where(mine, topi - expert_offset, held).reshape(-1)
+    n = t * k
+    order = torch.argsort(expert, stable=True)              # row -> pair
+    rows = _counts(expert, held)
+    computed = torch.arange(n, device=x.device) < rows.sum()
+    pair = torch.where(computed, order, n)                  # n: none
+    back = torch.full((n + 1,), n, dtype=torch.long, device=x.device)
+    back[pair] = torch.arange(n, device=x.device)           # pair -> row
+    back = back[:n].view(t, k)
+    token = torch.where(computed, order // k, t)            # t: zero row
+    xin = _Dispatch.apply(x, token, back)                   # [n, d]
+    f = W2.shape[1]
+    ends = torch.cumsum(rows, 0)
+    gu = grouped_products(xin, W1.to(x.dtype), ends)
+    out = grouped_products(F.silu(gu[:, :f]) * gu[:, f:], W2.to(x.dtype),
+                           ends)
+    picked = _Dispatch.apply(out, back.view(n), pair.view(n, 1))
+    w = torch.where(mine, topv, torch.zeros_like(topv)).to(x.dtype)
+    y = torch.bmm(w.view(t, 1, k), picked.view(t, k, d)).view(t, d)
+    first = _counts(topi[:, 0], n_experts).to(gates.dtype)
+    aux = n_experts * torch.sum(first / t * gates.mean(0))
+    return y, aux, rows
 
 
 # ---------------------------------------------------------------------------

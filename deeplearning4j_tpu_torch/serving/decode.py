@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _layer,
     _ln,
     prefill_cache,
+    refuse_extended,
 )
 from deeplearning4j_tpu_torch.ops import env as envknob
 from deeplearning4j_tpu_torch.ops.device import resolve_device
@@ -99,6 +100,7 @@ def decode_step_slots(params, cache, tok, pos, cfg: TransformerConfig):
     int -> (cache, logits [S, V] f32). Each slot's new K/V goes to
     ``cache[:, s, pos[s]]`` (in place) before its attention reads the
     stripe."""
+    refuse_extended(cfg, "decode_step_slots")
     cdt = cfg.compute_dtype
     s = tok.shape[0]
     heads = cfg.n_heads

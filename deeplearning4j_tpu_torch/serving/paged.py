@@ -96,6 +96,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _layer,
     _ln,
     prefill_cache,
+    refuse_extended,
 )
 from deeplearning4j_tpu_torch.obs import trace as obs_trace
 from deeplearning4j_tpu_torch.ops import env as envknob
@@ -125,6 +126,7 @@ def paged_decode_step(params, arena, tok, pos, tables,
     ``(tables[s, pos//bt], pos % bt)`` before its attention reads the
     window. Active lanes write distinct blocks by allocation invariant;
     inactive lanes all write trash block 0, never visible."""
+    refuse_extended(cfg, "the paged serving tick")
     cdt = cfg.compute_dtype
     s = tok.shape[0]
     heads = cfg.n_heads
@@ -374,6 +376,7 @@ class PagedDecoder:
             raise ValueError(f"model lives on {lm.device}, decoder asked "
                              f"for {self.device}")
         cfg = lm.cfg
+        refuse_extended(cfg, "PagedDecoder")
         self.lm = lm
         self.cfg = cfg
         # resilience/chaos.ServingChaos: a fault per admission (on_admit)

@@ -320,6 +320,22 @@ def test_device_time_resolves_by_query_and_reuses_events(fake_cuda):
                for s in tr.spans("again"))
 
 
+def test_an_attribute_the_device_fills_reads_once_the_span_resolves(
+        fake_cuda):
+    """A host tensor given as an attribute (a copy on the span's stream
+    fills it) reads None until the span's end event has completed, then
+    its number; the journal-free ring holds no tensor."""
+    tr = obs.Tracer(capacity=8)
+    host = torch.zeros((), dtype=torch.int64)
+    with tr.span("filled", device=True, kept=3) as sp:
+        sp.set_attr("rows", host)
+        host.fill_(7)  # the copy, before the span's end event
+    first = tr.spans()[0]
+    assert first["attrs"] == {"kept": 3, "rows": None}
+    fake_cuda.reached = fake_cuda.clock
+    assert tr.spans()[0]["attrs"] == {"kept": 3, "rows": 7}
+
+
 def test_no_events_inside_a_graph_capture(fake_cuda, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
